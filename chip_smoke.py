@@ -1,0 +1,618 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port on one NVIDIA card.
+
+    python3 chip_smoke.py [--seed N]
+
+Run from the repository root on a machine with a CUDA card, the CUDA
+toolkit (nvcc) and PyTorch built for CUDA.  Phases, each of which raises
+on failure:
+
+1. card   - name and power limit, from nvidia-smi;
+2. build  - compile every kernel of the serving path from ``src/repro_torch/
+            csrc`` (all nvcc processes at once);
+3. kernels- each kernel against its plain PyTorch version on the card at
+            full-width LLaVA-1.5-7B shapes (H = Kh = 32, D = 128, page 16,
+            w = 4096), in f32 and bf16, plus a window case, a GQA case and
+            empty-mask rows; times kernel, plain version and one PyTorch
+            library call with CUDA events, and computes each kernel's bound;
+4. model  - the port's runner on the card against the same runner on the
+            CPU (plain versions) on reduced LLaVA: logits per step;
+5. serve  - full-width, 32-layer LLaVA-1.5-7B with random bf16 weights
+            through ``repro_torch.engine.api.Engine`` on E/P/D instances:
+            four image+text greedy requests and one seeded sampled request;
+            every kernel's launch counter must rise on this run;
+6. report - one JSON line of kernels, then the final status line.
+
+Exits non-zero (and prints no status line) without a card or outside the
+repository.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SRC = ROOT / "src"
+
+PEAK_BYTES = 3.35e12                                  # H100 SXM HBM3, B/s
+PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12}     # FLOP/s, dense
+# kernel vs plain, max abs error.  f32 differs in summation order only.
+# bf16 rounds each output to 8 bits: decode outputs average 600+ keys and
+# stay small (measured error 4.9e-4 on H100), while the first rows of a
+# prefill chunk see one to a few keys and keep values near 4, where one
+# rounding is 1.6e-2 (measured 7.8e-3).  The cache write copies exactly.
+TOL = {"paged_attention": {"float32": 1e-4, "bfloat16": 4e-3},
+       "paged_prefill_attention": {"float32": 1e-4, "bfloat16": 2e-2},
+       "cache_write": {"float32": 0.0, "bfloat16": 0.0}}
+H, KH, D, PAGE, W = 32, 32, 128, 16, 4096             # llava-1.5-7b widths
+
+
+def log(obj):
+    print(json.dumps(obj) if isinstance(obj, dict) else obj, flush=True)
+
+
+# ---------------------------------------------------------------------------
+# timing and bounds
+# ---------------------------------------------------------------------------
+def time_ms(fn, reps: int = 10, rounds: int = 5) -> float:
+    """Median over ``rounds`` of the mean time of ``reps`` back-to-back
+    calls, from CUDA events (after a warm-up call)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(rounds):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        b.synchronize()
+        out.append(a.elapsed_time(b) / reps)
+    return statistics.median(out)
+
+
+def bound(nbytes: float, flops: float, dtype: str) -> tuple:
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = flops / PEAK_OPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def dname(dtype) -> str:
+    return str(dtype).split(".")[-1]
+
+
+def distinct_kv_rows(tables, n_keys) -> int:
+    """Distinct (page, row) pairs behind the keys at positions < n_keys[b]
+    of each lane: the bytes an attention call must read.  Padded table
+    entries all name the one scratch page, which is read once."""
+    t = tables.tolist()
+    return len({(t[b][p // PAGE], p % PAGE)
+                for b, n in enumerate(n_keys) for p in range(n)})
+
+
+# ---------------------------------------------------------------------------
+# phase 3: kernels against their plain versions
+# ---------------------------------------------------------------------------
+def paged_case(gen, dev, dtype, *, lens, n_pages_total, Kh=KH):
+    """Random K/V pages (last page = scratch) and block tables: request b
+    owns ceil(lens[b] / PAGE) distinct pages, padded lanes (lens None) and
+    the tail of every row point at scratch."""
+    import numpy as np
+    import torch
+    from repro_torch.engine.runner import bucket_pow2
+    scratch = n_pages_total - 1
+    max_pages = bucket_pow2(max(-(-(n or 1) // PAGE) for n in lens))
+    kp = torch.randn((n_pages_total, PAGE, Kh, D), generator=gen,
+                     device=dev).to(dtype)
+    vp = torch.randn((n_pages_total, PAGE, Kh, D), generator=gen,
+                     device=dev).to(dtype)
+    tables = np.full((len(lens), max_pages), scratch, np.int32)
+    free = list(np.random.default_rng(len(lens)).permutation(scratch))
+    for b, n in enumerate(lens):
+        for j in range(-(-(n or 0) // PAGE)):
+            tables[b, j] = free.pop()
+    return kp, vp, torch.from_numpy(tables).to(dev), max_pages
+
+
+def check(name, dtype, got, want, rows=None):
+    import torch
+    g, w = got.float(), want.float()
+    if not torch.isfinite(g).all():
+        raise AssertionError(f"{name}: non-finite kernel output")
+    if rows is not None:
+        g, w = g[rows], w[rows]
+    err = (g - w).abs().max().item()
+    tol = TOL[name.split("/")[0]][dname(dtype)]
+    log({"check": name, "dtype": dname(dtype), "max_abs_err": err,
+         "tol": tol})
+    if not err <= tol:
+        raise AssertionError(f"{name} {dname(dtype)}: max abs err {err} > "
+                             f"{tol}")
+    return err
+
+
+def decode_cases(gen, dev, results):
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.paged_attention.ops import paged_attention
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+    cases = [("b4", [600, 633, 700, None], KH, 0),
+             ("b8", [600, 615, 631, 648, 656, 671, 689, 700], KH, 0),
+             ("b4-window256", [600, 633, 700, None], KH, 256),
+             ("b4-gqa-kh8", [600, 633, 700, None], 8, 0)]
+    errs = []
+    for tag, lens, kh, window in cases:
+        dtypes = (torch.float32, torch.bfloat16) if window == 0 and kh == KH \
+            else (torch.float32,)
+        for dtype in dtypes:
+            kp, vp, tables, P = paged_case(gen, dev, dtype, lens=lens,
+                                           n_pages_total=400, Kh=kh)
+            B = len(lens)
+            q = torch.randn((B, H, D), generator=gen, device=dev).to(dtype)
+            lengths = torch.tensor([n or 1 for n in lens], dtype=torch.int32,
+                                   device=dev)
+            got = paged_attention(q, kp, vp, tables, lengths, window=window)
+            want = paged_attention_ref(q, kp, vp, tables, lengths,
+                                       window=window)
+            err = check(f"paged_attention/{tag}", dtype, got, want)
+            if dtype == torch.bfloat16:
+                errs.append(err)
+            if tag == "b8" and dtype == torch.bfloat16:
+                # yardstick: SDPA on the same keys, pre-gathered contiguous
+                S = P * PAGE
+                k = kp[tables.long()].reshape(B, S, kh, D).transpose(1, 2)
+                v = vp[tables.long()].reshape(B, S, kh, D).transpose(1, 2)
+                mask = (torch.arange(S, device=dev)[None]
+                        < lengths[:, None])[:, None, None, :]
+                qq = q[:, :, None, :]
+                isz = q.element_size()
+                nkeys = sum(lengths.tolist())
+                rows_kv = distinct_kv_rows(tables, lengths.tolist())
+                b_ms, b_by = bound(
+                    2 * q.numel() * isz + 2 * rows_kv * kh * D * isz
+                    + tables.numel() * 4 + B * 4,
+                    4 * nkeys * H * D, dname(dtype))
+                results["paged_attention"] = {
+                    "shape": f"B={B} H={H} Kh={kh} D={D} page={PAGE} "
+                             f"ctx 600-700 {dname(dtype)}",
+                    "ms": time_ms(lambda: paged_attention(
+                        q, kp, vp, tables, lengths)),
+                    "plain_ms": time_ms(lambda: paged_attention_ref(
+                        q, kp, vp, tables, lengths)),
+                    "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                        qq, k, v, attn_mask=mask)),
+                    "bound_ms": b_ms, "bound_by": b_by}
+    results.setdefault("paged_attention", {})["max_abs_err"] = max(errs)
+
+
+def prefill_cases(gen, dev, results):
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.paged_attention.ops import paged_prefill_attention
+    from repro_torch.kernels.paged_attention.ref import \
+        paged_prefill_attention_ref
+    # (tag, ctx per lane (None = padded lane), C, valid rows, Kh, window)
+    cases = [("text-c32", [600, 620, 650, None], 32, 32, KH, 0),
+             ("media-c1024", [0], 1024, 576, KH, 0),
+             ("text-c32-window128", [600, 620, 650, 1200], 32, 32, KH, 128),
+             ("text-c32-gqa-kh8", [600, 620, 650, None], 32, 32, 8, 0)]
+    errs = []
+    for tag, ctx, C, n_valid, kh, window in cases:
+        dtypes = (torch.float32, torch.bfloat16) if window == 0 and kh == KH \
+            else (torch.float32,)
+        for dtype in dtypes:
+            # lane 3 of the window case sits past its table: every row's
+            # window is empty there, which must still come out finite
+            lens = [None if c is None or c >= 1000 else c + n_valid
+                    for c in ctx]
+            kp, vp, tables, P = paged_case(gen, dev, dtype, lens=lens,
+                                           n_pages_total=400, Kh=kh)
+            B = len(ctx)
+            q = torch.randn((B, C, H, D), generator=gen, device=dev).to(dtype)
+            ctx_t = torch.tensor([c or 0 for c in ctx], dtype=torch.int32,
+                                 device=dev)
+            got = paged_prefill_attention(q, kp, vp, tables, ctx_t,
+                                          window=window)
+            want = paged_prefill_attention_ref(q, kp, vp, tables, ctx_t,
+                                               window=window)
+            rows = slice(0, 3) if "window" in tag else None
+            err = check(f"paged_prefill_attention/{tag}", dtype, got, want,
+                        rows)
+            if dtype == torch.bfloat16:
+                errs.append(err)
+            if tag == "media-c1024" and dtype == torch.bfloat16:
+                S = tables.shape[1] * PAGE
+                k = kp[tables.long()].reshape(B, S, kh, D).transpose(1, 2)
+                v = vp[tables.long()].reshape(B, S, kh, D).transpose(1, 2)
+                qpos = ctx_t[:, None] + torch.arange(C, device=dev)
+                mask = (torch.arange(S, device=dev)[None, None]
+                        <= qpos[:, :, None])[:, None]
+                qq = q.transpose(1, 2)
+                isz = q.element_size()
+                # bytes: distinct K/V rows (the padded rows' keys all sit
+                # on scratch); operations: every row of the padded chunk
+                rows_kv = distinct_kv_rows(
+                    tables, [min(c + C, S) for c in ctx_t.tolist()])
+                pairs = sum(min(c + i + 1, S) for c in ctx_t.tolist()
+                            for i in range(C))
+                b_ms, b_by = bound(
+                    2 * q.numel() * isz + 2 * rows_kv * kh * D * isz
+                    + tables.numel() * 4 + B * 4,
+                    4 * pairs * H * D, dname(dtype))
+                results["paged_prefill_attention"] = {
+                    "shape": f"B={B} C={C} ({n_valid} valid) H={H} Kh={kh} "
+                             f"D={D} ctx 0 {dname(dtype)}",
+                    "ms": time_ms(lambda: paged_prefill_attention(
+                        q, kp, vp, tables, ctx_t)),
+                    "plain_ms": time_ms(lambda: paged_prefill_attention_ref(
+                        q, kp, vp, tables, ctx_t)),
+                    "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                        qq, k, v, attn_mask=mask)),
+                    "bound_ms": b_ms, "bound_by": b_by}
+            if tag == "text-c32" and dtype == torch.bfloat16:
+                log({"timing": "paged_prefill_attention/text-c32-bf16",
+                     "ms": time_ms(lambda: paged_prefill_attention(
+                         q, kp, vp, tables, ctx_t))})
+    results.setdefault("paged_prefill_attention", {})["max_abs_err"] = \
+        max(errs)
+
+
+def cache_write_cases(gen, dev, results):
+    """Writes into the full KV pool of one instance with the server's
+    default kv_blocks=512: 2 x 32 x 513 x 16 x 4096 elements, past 2^31,
+    at the last layer (offsets beyond 2^31 elements)."""
+    import torch
+    from repro_torch.kernels.cache_write.ops import paged_chunk_write
+    from repro_torch.kernels.cache_write.ref import cache_write_ref
+    T, L, NB, bs = 2, 32, 512, PAGE
+    errs = []
+    for pool_dtype, row_dtype, NBx in ((torch.bfloat16, torch.bfloat16, NB),
+                                       (torch.bfloat16, torch.float32, NB),
+                                       (torch.float32, torch.float32, 64)):
+        pool = torch.randn((T, L, NBx + 1, bs, W), generator=gen,
+                           device=dev).to(pool_dtype)
+        if pool_dtype == torch.bfloat16 and pool.numel() <= 2 ** 31:
+            raise AssertionError("the pool must exceed 2^31 elements")
+        for tag, B, C, n in (("decode-b8", 8, 1, 1),
+                             ("prefill-c1024", 1, 1024, 576)):
+            layer = L - 1
+            perm = torch.randperm(NBx * bs, generator=gen, device=dev)
+            slots = torch.full((B, C), NBx * bs, dtype=torch.int32,
+                               device=dev)
+            slots[:, :n] = perm[:B * n].view(B, n).to(torch.int32)
+            rows = torch.randn((T, B, C, W), generator=gen,
+                               device=dev).to(row_dtype)
+            got = pool.clone()
+            paged_chunk_write(got, layer, rows, slots)
+            plane = (torch.arange(T, device=dev) * L + layer) * \
+                ((NBx + 1) * bs)
+            slot_vec = (plane[:, None] + slots.reshape(-1)[None].long()) \
+                .reshape(-1)
+            flat = pool.view(-1, bs, W)
+            cache_write_ref(flat, rows.reshape(-1, W), slot_vec)
+            err = check(f"cache_write/{tag}/rows-{dname(row_dtype)}",
+                        pool_dtype, got[:, :, :NBx], pool[:, :, :NBx])
+            errs.append(err)
+            if tag == "prefill-c1024" and pool_dtype == row_dtype \
+                    == torch.bfloat16:
+                rows2 = rows.reshape(-1, W)
+                isz = rows.element_size()
+                # each distinct destination row (the padded positions all
+                # land on one scratch row) is read once and written once
+                n_dst = T * torch.unique(slots).numel()
+                b_ms, b_by = bound(2 * n_dst * W * isz + slots.numel() * 4,
+                                   0.0, dname(pool_dtype))
+                results["cache_write"] = {
+                    "shape": f"T=2 B=1 C=1024 w={W} into a {NBx + 1}-block "
+                             f"pool {dname(pool_dtype)}",
+                    "ms": time_ms(lambda: paged_chunk_write(
+                        got, layer, rows, slots)),
+                    "plain_ms": time_ms(lambda: cache_write_ref(
+                        flat, rows2, slot_vec)),
+                    "library_ms": time_ms(lambda: flat.view(-1, W).index_copy_(
+                        0, slot_vec, rows2)),
+                    "bound_ms": b_ms, "bound_by": b_by}
+            if tag == "decode-b8" and pool_dtype == row_dtype \
+                    == torch.bfloat16:
+                log({"timing": "cache_write/decode-b8-bf16",
+                     "ms": time_ms(lambda: paged_chunk_write(
+                         got, layer, rows, slots))})
+            del got
+        del pool, flat
+        torch.cuda.empty_cache()
+    results.setdefault("cache_write", {})["max_abs_err"] = max(errs)
+
+
+# ---------------------------------------------------------------------------
+# phase 4: the runner on the card against the runner on the CPU
+# ---------------------------------------------------------------------------
+def model_check(seed: int):
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.engine import runner as R
+    from repro_torch.models import model as M
+    cfg = get_config("llava-1.5-7b").reduced()
+    params = M.init_params(cfg, torch.Generator().manual_seed(seed))
+    runners = {}
+    for dev in ("cpu", "cuda"):
+        p = params if dev == "cpu" else M.init_params(
+            cfg, torch.Generator().manual_seed(seed)).to(dev)
+        runners[dev] = R.ModelRunner(cfg, p, R.RunnerCaches(
+            cfg, kv_blocks=32, img_blocks=4, device=dev), device=dev)
+    rng = np.random.default_rng(seed)
+    worst = 0.0
+
+    def compare(outs):
+        nonlocal worst
+        want, got = outs["cpu"], outs["cuda"]
+        rel = float(np.abs(got - want).max() / (np.abs(want).max() + 1e-9))
+        worst = max(worst, rel)
+        if not rel < 2e-4:
+            raise AssertionError(f"model check: logits off by {rel} (rel)")
+        return want
+
+    toks = []
+    for rid in range(3):
+        prompt = rng.integers(0, cfg.vocab_size, 6 + 3 * rid).astype(np.int32)
+        media = (rng.standard_normal((cfg.media_tokens, cfg.d_model))
+                 * 0.1).astype(np.float32)
+        outs = {}
+        for dev, r in runners.items():
+            r.encode([(rid, media)])
+            r.prefill_chunk(rid, None, use_media=True)
+            outs[dev] = r.prefill_chunk(rid, prompt)
+        toks.append(int(np.argmax(compare(outs))))
+    toks = np.asarray(toks)
+    for _ in range(4):
+        outs = {dev: r.decode([0, 1, 2], toks) for dev, r in runners.items()}
+        toks = np.argmax(compare(outs), -1)
+    log({"model_check": "reduced llava-1.5-7b f32, runner on cuda vs cpu",
+         "steps": 3 + 4, "max_rel_logit_err": worst, "tol": 2e-4})
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the main path
+# ---------------------------------------------------------------------------
+def _time_calls(owner, name: str, acc: dict):
+    """Accumulate wall seconds and calls of ``owner.name`` into acc[name].
+    The runner's methods return host numpy, so their wall time covers the
+    device work they started."""
+    fn = getattr(owner, name)
+    acc[name] = {"s": 0.0, "calls": 0}
+
+    def timed(*a, **k):
+        t = time.perf_counter()
+        try:
+            return fn(*a, **k)
+        finally:
+            acc[name]["s"] += time.perf_counter() - t
+            acc[name]["calls"] += 1
+    setattr(owner, name, timed)
+
+
+def profile_decode(runner, rids, toks, card: str, steps: int = 3):
+    """Device time by kernel over a few steady decode steps (torch.profiler
+    with CUDA activity), and the device's busy share of their wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            runner.decode(rids, toks)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    rows = []                    # device-side kernel events only: the
+    for e in prof.key_averages():  # host ops above them carry the same time
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        dev_us = e.self_device_time_total
+        if dev_us > 0:
+            rows.append((dev_us, e.key, e.count))
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows)
+    log({"decode_profile": f"B={len(rids)}, {steps} steady steps",
+         "card": card, "wall_ms_per_step": wall_us / steps / 1e3,
+         "device_ms_per_step": busy / steps / 1e3,
+         "device_busy_share": busy / wall_us if wall_us else None,
+         "top": [{"kernel": k[:80], "ms_per_step": us / steps / 1e3,
+                  "calls_per_step": n / steps}
+                 for us, k, n in rows[:12]]})
+
+
+def serve(seed: int, card: str):
+    import numpy as np
+    import torch
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_config
+    from repro_torch.core.request import SamplingParams
+    from repro_torch.core.simulator import DisaggConfig
+    from repro_torch.engine import paged_cache, runner, server
+    from repro_torch.engine.api import Engine
+    from repro_torch.models import model as M
+    cfg = get_config("llava-1.5-7b")
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(device="cuda")
+                           .manual_seed(seed), dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    n_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    eng = Engine(cfg, params, DisaggConfig({"E": 1, "P": 1, "D": 1}),
+                 kv_blocks=256, img_blocks=8, device="cuda")
+    log({"setup": "llava-1.5-7b full width, 32 layers, random bf16 weights",
+         "weight_bytes": n_bytes, "setup_s": time.perf_counter() - t0})
+    rng = np.random.default_rng(seed)
+    reqs = []
+    for i in range(5):
+        media = (rng.standard_normal((cfg.media_tokens, cfg.d_model))
+                 * 0.1).astype(np.float32)
+        prompt = rng.integers(0, cfg.vocab_size, 32).astype(np.int32)
+        sp = SamplingParams(max_tokens=16) if i < 4 else SamplingParams(
+            temperature=0.8, top_k=50, top_p=0.95, seed=seed, max_tokens=16)
+        reqs.append((prompt, media, sp))
+
+    # where the wall time goes: runner stages, migrations, and within the
+    # migrations the transfer checksums
+    split: dict = {}
+    for name in ("encode", "prefill_chunks", "decode"):
+        _time_calls(runner.ModelRunner, name, split)
+    _time_calls(server.R, "migrate", split)
+    _time_calls(paged_cache, "payload_checksum", split)
+
+    K.reset_launches()
+    t0 = time.perf_counter()
+    streams = [eng.generate(p, media=m, sampling=sp) for p, m, sp in reqs]
+    outs = [s.tokens() for s in streams]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(K.launches)
+
+    for (p, m, sp), toks in zip(reqs, outs):
+        if len(toks) != sp.max_tokens:
+            raise AssertionError(f"request produced {len(toks)} tokens, "
+                                 f"expected {sp.max_tokens}")
+        if not all(0 <= t < cfg.vocab_size for t in toks):
+            raise AssertionError(f"out-of-vocabulary token in {toks}")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"kernel {name} never launched on the "
+                                 f"main path")
+    srv = eng.server
+    if srv.n_migrations < 2 * len(reqs):
+        raise AssertionError(f"only {srv.n_migrations} migrations")
+    for inst in srv.instances:
+        if inst.running or inst.waiting or inst.caches.states.store:
+            raise AssertionError(f"instance {inst.iid} still holds work")
+        for c in (inst.caches.kv, inst.caches.img):
+            if c.tables or c.allocator.n_free != c.allocator.num_blocks:
+                raise AssertionError(f"instance {inst.iid}: pool not "
+                                     f"reclaimed")
+    rs = [eng.result(s.rid).req for s in streams]
+    ttft = [r.ttft() for r in rs]
+    tpot = [t for r in rs for t in r.tpots()]
+    t_first = min(r.first_token_time for r in rs)
+    t_last = max(r.finish_time for r in rs)
+    n_dec = sum(len(r.tpots()) for r in rs)
+    log({"main_path": "Engine E1+P1+D1, llava-1.5-7b bf16, 5 requests x "
+                      "(576 image tokens + 32 prompt tokens), 16 new tokens",
+         "card": card, "wall_s": wall, "ttft_s": ttft,
+         "ttft_mean_s": statistics.mean(ttft),
+         "tpot_mean_s": statistics.mean(tpot),
+         "tpot_p90_s": sorted(tpot)[int(0.9 * (len(tpot) - 1))],
+         "decode_tok_per_s": n_dec / (t_last - t_first),
+         "migrations": srv.n_migrations, "migrated_bytes": srv.migrated_bytes,
+         "launches": launches, "wall_split": split,
+         "greedy_tokens_req0": outs[0]})
+
+    # steady decode steps on the decode instance, outside the scheduler:
+    # the floor under TPOT at the main path's context length
+    d = next(i for i in srv.instances if i.role_name == "D")
+    ctx = cfg.media_tokens + 32
+    steady = {}
+    for B in (1, 4):
+        rids = list(range(10_000, 10_000 + B))
+        for rid in rids:
+            d.caches.kv.append(rid, torch.zeros(
+                (2, cfg.num_layers, ctx, cfg.num_kv_heads * cfg.head_dim),
+                dtype=torch.bfloat16, device="cuda"))
+        toks = np.zeros(B, np.int32)
+        for _ in range(2):
+            d.runner.decode(rids, toks)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(8):
+            d.runner.decode(rids, toks)
+        steady[f"B={B}"] = (time.perf_counter() - t0) / 8 * 1e3
+        if B == 4:
+            profile_decode(d.runner, rids, toks, card)
+        for rid in rids:
+            d.caches.release(rid)
+    log({"steady_decode_ms_per_step": steady, "context": ctx,
+         "card": card})
+    return launches
+
+
+# ---------------------------------------------------------------------------
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+    if not (SRC / "repro_torch" / "csrc").is_dir():
+        print("chip_smoke.py: run it from a checkout of the repository "
+              "(src/repro_torch not found)", file=sys.stderr)
+        return 1
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke.py: needs a CUDA card; torch.cuda.is_available() "
+              "is False", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(SRC))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    print(card, flush=True)
+    log({"phase": "card", "torch": torch.__version__,
+         "cuda": torch.version.cuda, "nvidia_smi": card})
+
+    from repro_torch.kernels import _build
+    t0 = time.perf_counter()
+    logs = _build.build_all()
+    for name, text in logs.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"ptxas {name}: {line.strip()}")
+    log({"phase": "build", "built": sorted(logs), "s": time.perf_counter() - t0})
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(args.seed)
+    results: dict = {}
+    decode_cases(gen, dev, results)
+    prefill_cases(gen, dev, results)
+    cache_write_cases(gen, dev, results)
+    torch.cuda.empty_cache()
+    for name, r in results.items():
+        log({"kernel": name, "card": card, **r})
+    log({"phase": "kernels", "s": time.perf_counter() - t0})
+
+    model_check(args.seed)
+    launches = serve(args.seed, card)
+
+    src = {"cache_write": ("src/repro_torch/csrc/cache_write.cu",
+                           "src/repro/kernels/cache_write/kernel.py:25"),
+           "paged_attention": ("src/repro_torch/csrc/paged_attention.cu",
+                               "src/repro/kernels/paged_attention/kernel.py:78"),
+           "paged_prefill_attention": (
+               "src/repro_torch/csrc/paged_attention.cu",
+               "src/repro/kernels/paged_attention/kernel.py:162")}
+    kernels = []
+    for name, (source, replaces) in src.items():
+        r = results[name]
+        kernels.append({"name": name, "route": "cuda", "source": source,
+                        "replaces": replaces, "launches": launches[name],
+                        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                        "bound_by": r["bound_by"],
+                        "library_ms": r["library_ms"], "shape": r["shape"]})
+    log({"total_s": time.perf_counter() - t_start, "card": card})
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,360 @@
+"""ModelRunner: stage execution on PyTorch over device-resident paged caches.
+
+Executes the three HydraInfer stages on actual model weights:
+
+  encode             : modality frontend -> image-token cache (paged, block 576)
+  prefill_chunks     : ONE batched chunked-prefill step for every request's
+                       chunk this iteration (paged KV; DESIGN.md §12)
+  decode             : batched one-token step over heterogeneous contexts
+  joint_encode_decode: encode then decode, one after the other on one
+                       stream (the paper's two CUDA streams are later work)
+
+Block storage stays on the device; each step reads pages + block tables
+through the paged-attention kernels and appends the new token — or the
+whole prefill chunk — in place through the fused cache-write kernel.  Only
+small control tensors (block tables, lengths, slots) go to the device and
+only sampled token ids (or logits, when asked for) come back each step.
+Batch size, chunk length and page count are bucketed to powers of two as
+in the JAX package, so both packages see identical control tensors.
+
+The JAX package's dense host-cache fallback (``RunnerCaches(device=False)``)
+is not ported: here ``device`` always names the torch device.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs.base import ModelConfig
+from repro_torch.engine.paged_cache import (DevicePagedCache, PagedCacheSpec,
+                                            StateStore, migrate_request)
+from repro_torch.models import model as M
+
+KV_BLOCK = 16        # paper §5.1
+IMG_BLOCK = 576      # paper §5.1 (one LLaVA-1.5 image)
+
+
+def bucket_pow2(n: int) -> int:
+    """Smallest power of two >= n (shape bucketing)."""
+    return 1 << max(0, n - 1).bit_length()
+
+
+class RunnerCaches:
+    """Per-instance cache pool: paged KV + paged image cache + state store,
+    all sharing the unified transfer interface (paper §4.5).  ``mla`` is
+    always None in this slice (MLA is not ported yet)."""
+
+    def __init__(self, cfg: ModelConfig, *, kv_blocks: int = 512,
+                 img_blocks: int = 16, dtype=torch.float32, device="cuda",
+                 sharing: bool = False):
+        M.check_supported(cfg)
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.sharing = sharing
+        self.attn_layers = list(range(cfg.num_layers))
+        self.mla_layers: list = []
+        self.kv = DevicePagedCache(PagedCacheSpec(
+            n_tensors=2, n_layers=cfg.num_layers, block_size=KV_BLOCK,
+            width=cfg.num_kv_heads * cfg.head_dim, num_blocks=kv_blocks,
+            dtype=dtype), sharing=sharing, device=self.device)
+        self.mla = self.img = None
+        stores = [self.kv]
+        if cfg.frontend != "none":
+            # one image per block so a repeated image shares exactly its
+            # own pages (media_tokens when set, the LLaVA default otherwise)
+            self.img = DevicePagedCache(PagedCacheSpec(
+                n_tensors=1, n_layers=1,
+                block_size=cfg.media_tokens or IMG_BLOCK,
+                width=cfg.d_model, num_blocks=img_blocks, dtype=dtype),
+                sharing=sharing, device=self.device)
+            stores.append(self.img)
+        self.states = StateStore()
+        stores.append(self.states)
+        self.stores = stores
+
+    def release(self, rid: int):
+        """THE release path for every retire/abort/migrate-source site: with
+        sharing enabled this drops *references* — a block survives while any
+        other request's table still points at it."""
+        for s in self.stores:
+            s.free(rid)
+
+    def kv_tokens_free(self) -> int:
+        return self.kv.available_blocks * self.kv.spec.block_size
+
+    def kv_tokens_total(self) -> int:
+        """Whole-pool KV capacity in tokens: the admission check's
+        can-this-request-EVER-fit bound (DESIGN.md §15)."""
+        return self.kv.spec.num_blocks * self.kv.spec.block_size
+
+    def live_rids(self) -> set:
+        """Every rid holding any state on this instance's stores — the set
+        an instance quarantine must release (DESIGN.md §15)."""
+        rids: set = set()
+        for s in self.stores:
+            if isinstance(s, StateStore):
+                rids.update(s.store.keys())
+            else:
+                rids.update(s.tables.keys())
+        return rids
+
+
+def migrate(rid: int, src: RunnerCaches, dst: RunnerCaches, *,
+            fault=None, timeout=None) -> int:
+    return migrate_request(rid, src.stores, dst.stores, fault=fault,
+                           timeout=timeout)
+
+
+class ModelRunner:
+    def __init__(self, cfg: ModelConfig, params, caches: RunnerCaches, *,
+                 device="cuda"):
+        self.device = resolve_device(device)
+        if caches.device != self.device or params.device != self.device:
+            raise ValueError(
+                f"runner on {self.device} but caches on {caches.device} and "
+                f"params on {params.device}")
+        M.check_supported(cfg)
+        self.cfg = cfg
+        self.params = params
+        self.caches = caches
+        self._state = M.empty_state(cfg)
+
+    def _dev(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    @staticmethod
+    def _host(x: torch.Tensor) -> np.ndarray:
+        return x.float().cpu().numpy() if x.is_floating_point() \
+            else x.cpu().numpy()
+
+    # ------------------------------------------------------------------
+    # sampling control prep
+    # ------------------------------------------------------------------
+    @staticmethod
+    def _all_greedy(sample, idxs=None) -> bool:
+        if sample is None:
+            return False
+        t = np.asarray(sample["temp"])
+        return not np.any((t if idxs is None else t[idxs]) > 0)
+
+    def _sample_ctl(self, sample, B_pad: int, idxs=None):
+        """Pad/select host sample arrays (see ``M.sample_from_logits``) into
+        the step's control subtree.  Padded lanes get temp=0 (greedy over
+        garbage logits, discarded on the host).  Seeds and steps stay on
+        the host: they only seed the per-lane generators."""
+        out = {}
+        for name, dt in (("temp", np.float32), ("top_k", np.int32),
+                         ("top_p", np.float32), ("seed", np.int64),
+                         ("step", np.int64)):
+            v = np.asarray(sample[name]).astype(dt)
+            if idxs is not None:
+                v = v[idxs]
+            pad = B_pad - v.shape[0]
+            if pad:
+                v = np.concatenate([v, np.zeros(pad, dt)])
+            out[name] = v if name in ("seed", "step") else self._dev(v)
+        return out
+
+    def _finish(self, out, B: int, greedy: bool) -> np.ndarray:
+        """Host copy of the step's first B lanes: token ids when sampling
+        (greedy batches take a plain on-device argmax), else logits."""
+        if greedy:
+            out = torch.argmax(out, dim=-1).to(torch.int32)
+        return self._host(out[:B])
+
+    # ------------------------------------------------------------------
+    # encode stage
+    # ------------------------------------------------------------------
+    @torch.inference_mode()
+    def encode(self, items):
+        """items: [(rid, media [n_media, d_model])] -> image cache entries.
+
+        One item per media element, so a multi-image request contributes
+        several items (same rid) that batch alongside everyone else's.
+        Mixed media shapes batch per shape group, but the results commit in
+        the original item order, so a request's images always land in its
+        image cache in submission order.
+        """
+        if not items:
+            return
+        groups: dict[tuple, list] = {}          # shape -> item indices
+        for i, (_, m) in enumerate(items):
+            groups.setdefault(tuple(m.shape), []).append(i)
+        embs: list = [None] * len(items)
+        for idxs in groups.values():
+            grp = [items[i] for i in idxs]
+            emb = M.encode_media(self.cfg, self.params, self._media_batch(grp))
+            for i, e in zip(idxs, emb):
+                embs[i] = e
+        for (rid, _), e in zip(items, embs):
+            self.caches.img.append(rid, e[None, None])  # [1, 1, T, d]
+
+    def _media_batch(self, items):
+        """Stack media on the device, padding the batch to a power of two
+        (shape bucket)."""
+        media = torch.stack([torch.as_tensor(m) for _, m in items])
+        media = media.to(self.device)
+        pad = bucket_pow2(media.shape[0]) - media.shape[0]
+        if pad:
+            media = torch.cat([media, media.new_zeros((pad,)
+                                                      + media.shape[1:])])
+        return media
+
+    # ------------------------------------------------------------------
+    # prefill (batched, device-resident paged path, DESIGN.md §12)
+    # ------------------------------------------------------------------
+    def prefill_chunk(self, rid: int, tokens: Optional[np.ndarray], *,
+                      use_media: bool = False):
+        """Run one chunk for one request; returns last-token logits [V]."""
+        return self.prefill_chunks([(rid, tokens, use_media)])[0]
+
+    def _ctx_len(self, rid: int) -> int:
+        return self.caches.kv.lengths.get(rid, 0)
+
+    @torch.inference_mode()
+    def prefill_chunks(self, items, sample=None):
+        """One prefill chunk for a batch of requests.  items: [(rid,
+        tokens | None, use_media)].  Returns last-token logits
+        [len(items), V] (np) in input order — or, when ``sample`` carries
+        per-item sampling controls, the sampled next-token ids
+        [len(items)] (np int32; only meaningful for items whose prefill
+        completes this chunk).
+
+        ONE ``prefill_chunk_paged`` call per pow2 chunk-length bucket (so a
+        whole-image media chunk doesn't pad every short text chunk up to
+        its length), batch-padded to a power of two.
+        """
+        out = np.zeros((len(items),) if sample is not None
+                       else (len(items), self.cfg.vocab_size),
+                       np.int32 if sample is not None else np.float32)
+        groups: dict[int, list] = {}
+        for idx, (rid, toks, um) in enumerate(items):
+            n = (0 if toks is None else len(toks)) + \
+                (self.caches.img.lengths.get(rid, 0) if um else 0)
+            groups.setdefault(bucket_pow2(max(n, 1)), []).append(
+                (idx, rid, toks, um, n))
+        for C_pad, grp in sorted(groups.items()):
+            res = self._prefill_group(grp, C_pad, sample=sample)
+            for (idx, *_), lg in zip(grp, res):
+                out[idx] = lg
+        return out
+
+    def _prefill_group(self, grp, C_pad: int, sample=None):
+        """Run one equal-bucket group: [(idx, rid, tokens, use_media,
+        n_new)] -> last-token logits [len(grp), V] (np), or sampled token
+        ids [len(grp)] when ``sample`` is given."""
+        B = len(grp)
+        B_pad = bucket_pow2(B)
+        rids = [g[1] for g in grp]
+        n_new = [g[4] for g in grp]
+        ctx = [self._ctx_len(r) for r in rids]
+        tokens = np.zeros((B_pad, C_pad), np.int32)
+        mask = np.zeros((B_pad, C_pad), bool)
+        img_slots = None
+        for b, (_, rid, toks, um, n) in enumerate(grp):
+            off = 0
+            if um:
+                m = self.caches.img.lengths.get(rid, 0)
+                if img_slots is None:
+                    img_slots = np.full((B_pad, C_pad), -1, np.int32)
+                img_slots[b, :m] = self.caches.img.row_slots(rid, 0, m)
+                off = m
+            if toks is not None:
+                tokens[b, off:off + len(toks)] = toks
+            mask[b, :n] = True
+        last = np.zeros(B_pad, np.int32)
+        last[:B] = np.maximum(np.asarray(n_new, np.int32) - 1, 0)
+        lens_arr = np.zeros(B_pad, np.int32)
+        lens_arr[:B] = ctx
+        cache = self.caches.kv
+        bs = cache.spec.block_size
+        pages = max(-(-(c + n) // bs) for c, n in zip(ctx, n_new))
+        tables, slots = cache.prepare_prefill(rids, n_new, B_pad, C_pad,
+                                              bucket_pow2(pages))
+        ctl = {"kv": {"tables": self._dev(tables), "slots": self._dev(slots)}}
+        if img_slots is not None:
+            # media positions read the device image cache in the step
+            ctl["img"] = {"slots": self._dev(img_slots),
+                          "pages": self.caches.img.data}
+        ctl["mask"] = self._dev(mask)
+        ctl["last"] = self._dev(last)
+        idxs = np.asarray([g[0] for g in grp])
+        greedy = self._all_greedy(sample, idxs)
+        if sample is not None and not greedy:
+            ctl["sample"] = self._sample_ctl(sample, B_pad, idxs=idxs)
+        logits, _, _ = M.prefill_chunk_paged(
+            self.cfg, self.params, {"kv": cache.data}, ctl, self._state,
+            self._dev(lens_arr), self._dev(tokens))
+        res = self._finish(logits, B, greedy)
+        cache.commit_prefill(rids, n_new)
+        for b, (_, rid, toks, um, n) in enumerate(grp):
+            st = self.caches.states.get(rid) or {}
+            st["ctx_len"] = ctx[b] + n
+            self.caches.states.put(rid, st)
+        return res
+
+    # ------------------------------------------------------------------
+    # decode (device-resident paged path, DESIGN.md §11)
+    # ------------------------------------------------------------------
+    def _prepare_paged(self, rids):
+        """Host-side per-step control prep: one-token block headroom, padded
+        block tables / slot mappings / lengths.  All tiny int32 arrays — the
+        bulk cache never crosses the host boundary."""
+        B = len(rids)
+        B_pad = bucket_pow2(B)
+        lens = [self._ctx_len(r) for r in rids]
+        lens_arr = np.zeros(B_pad, np.int32)
+        lens_arr[:B] = lens
+        cache = self.caches.kv
+        bs = cache.spec.block_size
+        pages = max(-(-(n + 1) // bs) for n in lens)
+        tables, slots = cache.prepare_decode(rids, B_pad, bucket_pow2(pages))
+        ctl = {"kv": {"tables": self._dev(tables), "slots": self._dev(slots)}}
+        return ctl, self._dev(lens_arr), lens
+
+    def _commit_paged(self, rids, lens):
+        """Block tables/lengths advance by the one token the step wrote."""
+        self.caches.kv.commit_decode(rids)
+        for b, rid in enumerate(rids):
+            st = self.caches.states.get(rid) or {}
+            st["ctx_len"] = lens[b] + 1
+            self.caches.states.put(rid, st)
+
+    @torch.inference_mode()
+    def decode(self, rids, tokens: np.ndarray, sample=None):
+        """One decode step for a batch.  tokens: [B].  Returns logits [B, V],
+        or sampled next-token ids [B] (np int32) when ``sample`` carries
+        per-request sampling controls (see ``M.sample_from_logits``)."""
+        ctl, lens_arr, lens = self._prepare_paged(rids)
+        B_pad = lens_arr.shape[0]
+        greedy = self._all_greedy(sample)
+        if sample is not None and not greedy:
+            ctl["sample"] = self._sample_ctl(sample, B_pad)
+        tok = np.zeros((B_pad, 1), np.int32)
+        tok[:len(rids), 0] = tokens
+        out, _, _ = M.decode_step_paged(
+            self.cfg, self.params, {"kv": self.caches.kv.data}, ctl,
+            self._state, lens_arr, self._dev(tok))
+        res = self._finish(out, len(rids), greedy)
+        self._commit_paged(rids, lens)
+        return res
+
+    # ------------------------------------------------------------------
+    # encode + decode in one scheduler iteration (paper §3.1 / Fig 4)
+    # ------------------------------------------------------------------
+    def joint_encode_decode(self, enc_items, rids, tokens, sample=None):
+        """Encode a media batch AND decode a token batch in one scheduler
+        iteration.  The paper overlaps the two on separate CUDA streams;
+        this slice runs them one after the other on the current stream.
+
+        Returns the decode logits [len(rids), V] (np) — or the sampled
+        next-token ids [len(rids)] when ``sample`` is given — or None when
+        there was no decode work.  The embeddings land in the image cache
+        and never cross the host boundary."""
+        self.encode(enc_items)
+        if not rids:
+            return None
+        return self.decode(rids, tokens, sample)

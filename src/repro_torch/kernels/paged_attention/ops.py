@@ -1,0 +1,94 @@
+"""Wrappers for paged attention (decode + chunked prefill).
+
+Replace ``repro/kernels/paged_attention/kernel.py::paged_attention_tpu`` and
+``paged_prefill_attention_tpu``.  Both launch ``csrc/paged_attention.cu``:
+one block per (request, KV head, tile of chunk rows) walks the request's
+pages in a loop, staging one page of K/V in shared memory and carrying an
+online softmax in f32.  Decode is bound by the bytes of the cached K/V it
+reads once per step; prefill over long chunks by the score/value products,
+which this first version runs on CUDA cores (tensor cores come later).
+"""
+from __future__ import annotations
+
+import ctypes as ct
+
+import torch
+
+from repro_torch import kernels as K
+from repro_torch.kernels import _build
+from repro_torch.kernels.paged_attention.ref import (
+    paged_attention_ref, paged_prefill_attention_ref)
+
+_P, _I = ct.c_void_p, ct.c_int
+_DECODE_ARGS = [_P] * 6 + [_I] * 8 + [_P]     # ... dtype B H Kh D page P window
+_PREFILL_ARGS = [_P] * 6 + [_I] * 9 + [_P]    # ... dtype B C H Kh D page P window
+
+
+def _check(q, k_pages, v_pages, block_tables, lens, q_ndim: int):
+    K.require(q.ndim == q_ndim and k_pages.ndim == 4,
+              f"q {tuple(q.shape)} / pages {tuple(k_pages.shape)} rank")
+    B, H, D = q.shape[0], q.shape[-2], q.shape[-1]
+    n_pages, page, Kh, Dk = k_pages.shape
+    K.require(q.dtype in K.DTYPE_CODES,
+              f"paged attention takes f32/bf16, got {q.dtype}")
+    K.require(k_pages.dtype == v_pages.dtype == q.dtype,
+              "q and the K/V pages must share one type")
+    K.require(v_pages.shape == k_pages.shape and Dk == D,
+              f"pages {tuple(k_pages.shape)}/{tuple(v_pages.shape)} do not "
+              f"match q {tuple(q.shape)}")
+    K.require(H % Kh == 0, f"{H} query heads over {Kh} KV heads")
+    K.require(block_tables.dtype == lens.dtype == torch.int32,
+              "block tables and lengths must be int32")
+    K.require(block_tables.ndim == 2 and block_tables.shape[0] == B
+              and lens.shape == (B,), "block tables / lengths shape")
+    K.require(all(t.is_contiguous() for t in
+                  (q, k_pages, v_pages, block_tables, lens)),
+              "paged attention needs contiguous inputs")
+    K.require(len({t.device for t in (q, k_pages, v_pages, block_tables,
+                                      lens)}) == 1,
+              "paged attention inputs must share one device")
+    return B, H, Kh, D, page, block_tables.shape[1]
+
+
+def paged_attention(q, k_pages, v_pages, block_tables, lengths, *,
+                    window: int = 0):
+    """Decode: q [B, H, D] against pages [n_pages, page, Kh, D] through
+    block_tables [B, max_pages]; lengths [B] tokens valid (the new one
+    included).  Returns [B, H, D] in q's type."""
+    if K.on_cpu(q, k_pages, v_pages, block_tables, lengths):
+        return paged_attention_ref(q, k_pages, v_pages, block_tables, lengths,
+                                   window=window)
+    B, H, Kh, D, page, P = _check(q, k_pages, v_pages, block_tables, lengths,
+                                  3)
+    out = torch.empty_like(q)
+    fn = _build.function("paged_attention", "paged_attention", _DECODE_ARGS)
+    err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+             block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
+             K.DTYPE_CODES[q.dtype], B, H, Kh, D, page, P, int(window),
+             K.stream_ptr(q))
+    K.check_launch(err, "paged_attention")
+    K.launches["paged_attention"] += 1
+    return out
+
+
+def paged_prefill_attention(q, k_pages, v_pages, block_tables, ctx_lens, *,
+                            window: int = 0):
+    """Chunk queries [B, C, H, D] against pages, chunk-causal (query c sits
+    at absolute position ``ctx_lens[b] + c``; the chunk's K/V rows must
+    already be written into the pages).  Returns [B, C, H, D]."""
+    if K.on_cpu(q, k_pages, v_pages, block_tables, ctx_lens):
+        return paged_prefill_attention_ref(q, k_pages, v_pages, block_tables,
+                                           ctx_lens, window=window)
+    B, H, Kh, D, page, P = _check(q, k_pages, v_pages, block_tables,
+                                  ctx_lens, 4)
+    C = q.shape[1]
+    out = torch.empty_like(q)
+    fn = _build.function("paged_attention", "paged_prefill_attention",
+                         _PREFILL_ARGS)
+    err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+             block_tables.data_ptr(), ctx_lens.data_ptr(), out.data_ptr(),
+             K.DTYPE_CODES[q.dtype], B, C, H, Kh, D, page, P, int(window),
+             K.stream_ptr(q))
+    K.check_launch(err, "paged_prefill_attention")
+    K.launches["paged_prefill_attention"] += 1
+    return out

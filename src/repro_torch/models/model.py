@@ -1,0 +1,295 @@
+"""The decoder's serving path over device-resident paged caches.
+
+The PyTorch counterpart of the paged serving steps of
+``repro.models.model``: ``init_params``, ``encode_media``,
+``decode_step_paged``, ``prefill_chunk_paged`` and ``sample_from_logits``,
+with the same arguments and control tensors so the tests can feed both
+packages identical inputs.  Pools are updated in place by the cache-write
+kernel (the JAX package donates them instead); the functions still return
+them so the call shapes match.
+
+This slice covers dense attention + MLP layers (``ATTN_MLP``) with an
+optional vision frontend: the LLaVA family the paper evaluates.  Other
+layer kinds and frontends raise ``NotImplementedError`` (ROADMAP, queue 1:
+other families).  The JAX package's dense ``forward``/``decode_step``/
+``prefill_chunk`` paths are not ported (ROADMAP, queue 1: dense
+fallbacks).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ATTN_MLP, ModelConfig
+from repro_torch.kernels.cache_write.ops import (paged_chunk_write,
+                                                 paged_token_write)
+from repro_torch.kernels.paged_attention.ops import (paged_attention,
+                                                     paged_prefill_attention)
+from repro_torch.models import layers
+from repro_torch.models.layers import rmsnorm
+from repro_torch.params import ParamTree
+
+
+def check_supported(cfg: ModelConfig):
+    """Raise for what this slice of the port does not cover yet."""
+    other = sorted(set(cfg.layer_kinds()) - {ATTN_MLP})
+    if other:
+        raise NotImplementedError(
+            f"{cfg.name}: layer kinds {other} are not ported yet "
+            f"(ROADMAP queue 1: other families)")
+    if cfg.frontend not in ("none", "vision") or cfg.cross_attention:
+        raise NotImplementedError(
+            f"{cfg.name}: frontend {cfg.frontend!r} / cross-attention is not "
+            f"ported yet (ROADMAP queue 1: other families, whisper)")
+    if not cfg.rope_theta:
+        raise NotImplementedError(
+            f"{cfg.name}: sinusoidal positions are not ported yet "
+            f"(ROADMAP queue 1: other families, whisper)")
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+def init_params(cfg: ModelConfig, gen: torch.Generator,
+                dtype=torch.float32) -> ParamTree:
+    """Random weights drawn from ``gen`` on its device, in the JAX
+    package's tree and layout (norm scales zero-initialised in f32).  The
+    draws differ from ``jax.random``; parity tests convert the JAX tree
+    with :func:`repro_torch.params.params_from_numpy` instead."""
+    check_supported(cfg)
+    d, H, Kh, Dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    dev = gen.device
+
+    def zeros(n):
+        return torch.zeros((n,), dtype=torch.float32, device=dev)
+
+    def dense(shape, scale=None):
+        return layers.dense_init(gen, shape, dtype, scale)
+
+    tree = {"embed": dense((cfg.vocab_size, d), scale=0.02),
+            "final_norm": zeros(d), "layers": []}
+    for _ in range(cfg.num_layers):
+        p = {"norm1": zeros(d), "wq": dense((d, H * Dh)),
+             "wk": dense((d, Kh * Dh)), "wv": dense((d, Kh * Dh)),
+             "wo": dense((H * Dh, d)), "norm2": zeros(d)}
+        if cfg.act != "gelu_mlp":
+            p["w_gate"] = dense((d, cfg.d_ff))
+        p["w_up"] = dense((d, cfg.d_ff))
+        p["w_down"] = dense((cfg.d_ff, d))
+        tree["layers"].append(p)
+    if not cfg.tie_embeddings:
+        tree["lm_head"] = dense((d, cfg.vocab_size), scale=0.02)
+    if cfg.frontend == "vision":
+        tree["media_proj_w1"] = dense((d, 2 * d))
+        tree["media_proj_w2"] = dense((2 * d, d))
+    return ParamTree(tree)
+
+
+# ---------------------------------------------------------------------------
+# encode stage / logits
+# ---------------------------------------------------------------------------
+def encode_media(cfg, params, media):
+    """The encode-stage computation: the vision projector."""
+    if cfg.frontend == "vision":
+        w1 = params.media_proj_w1
+        h = torch.nn.functional.gelu(media.to(w1.dtype) @ w1,
+                                     approximate="tanh")
+        return h @ params.media_proj_w2
+    check_supported(cfg)
+    return media
+
+
+def _logits(cfg, params, h):
+    h = rmsnorm(h, params.final_norm, cfg.norm_eps)
+    w = params.embed.T if cfg.tie_embeddings else params.lm_head
+    return h @ w
+
+
+# ---------------------------------------------------------------------------
+# on-device sampling (DESIGN.md §13)
+# ---------------------------------------------------------------------------
+def gumbel_noise(seed, step, V: int, device) -> torch.Tensor:
+    """[B, V] Gumbel noise, lane b drawn from a generator seeded with
+    (seed[b], step[b]): a pure function of the request seed and the token
+    index, whatever the batch.  The bits differ from ``jax.random``'s."""
+    out = torch.empty((len(seed), V), dtype=torch.float32, device=device)
+    tiny = torch.finfo(torch.float32).tiny
+    for b, (s, t) in enumerate(zip(seed, step)):
+        g = torch.Generator(device=device)
+        g.manual_seed((int(s) & 0xFFFFFFFF) << 32 | (int(t) & 0xFFFFFFFF))
+        u = torch.rand((V,), generator=g, device=device).clamp_(min=tiny)
+        out[b] = -torch.log(-torch.log(u))
+    return out
+
+
+def sample_from_logits(logits, sample, noise=None):
+    """Batched categorical sampling with per-lane controls.
+
+    ``sample``: {"temp": [B] f32, "top_k": [B] i32 (<=0 disables),
+    "top_p": [B] f32, "seed": [B], "step": [B]}.  The seeds and steps may
+    be host arrays; they only seed :func:`gumbel_noise`.  ``noise`` [B, V]
+    replaces that draw (the tests feed both packages the same noise).
+    Lanes with ``temp <= 0`` return the plain argmax (the first maximum,
+    as ``jnp.argmax``).
+    """
+    temp = sample["temp"]
+    greedy = torch.argmax(logits, dim=-1).to(torch.int32)
+    lg = logits.float()
+    V = lg.shape[-1]
+    lg = lg / torch.where(temp > 0, temp, torch.ones_like(temp))[:, None]
+    # top-k: drop logits below each lane's k-th largest (k <= 0 disables)
+    k = sample["top_k"]
+    k_eff = torch.clamp(torch.where(k > 0, k, torch.full_like(k, V)), 1, V)
+    srt = torch.sort(lg, dim=-1, descending=True).values
+    kth = srt.gather(-1, (k_eff - 1).long()[:, None])
+    lg = lg.masked_fill(lg < kth, float("-inf"))
+    # top-p (nucleus): keep the smallest prefix of the descending
+    # distribution whose mass reaches p; ties at the boundary stay in
+    p = torch.clamp(sample["top_p"], min=1e-6)
+    probs = torch.softmax(lg, dim=-1)
+    srt_p = torch.sort(probs, dim=-1, descending=True).values
+    keep = (torch.cumsum(srt_p, dim=-1) - srt_p) < p[:, None]
+    pmin = torch.where(keep, srt_p, torch.full_like(srt_p, float("inf")))
+    pmin = pmin.min(dim=-1).values
+    lg = torch.where(probs >= pmin[:, None], lg,
+                     torch.full_like(lg, float("-inf")))
+    if noise is None:
+        noise = gumbel_noise(sample["seed"], sample["step"], V, lg.device)
+    sampled = torch.argmax(lg + noise, dim=-1).to(torch.int32)
+    return torch.where(temp <= 0, greedy, sampled)
+
+
+# ---------------------------------------------------------------------------
+# decode over device-resident paged caches (DESIGN.md §11)
+# ---------------------------------------------------------------------------
+def _qkv(p, x, cfg, pos):
+    """Projected, rotated q [B, S, H, Dh] and k/v [B, S, Kh, Dh]."""
+    B, S, _ = x.shape
+    H, Kh, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q = (x @ p.wq).view(B, S, H, Dh)
+    k = (x @ p.wk).view(B, S, Kh, Dh)
+    v = (x @ p.wv).view(B, S, Kh, Dh)
+    q = layers.rope(q, pos, cfg.rope_theta)
+    k = layers.rope(k, pos, cfg.rope_theta)
+    return q, k, v
+
+
+def _pages(data, layer, cfg):
+    NB, bs = data.shape[2], data.shape[3]
+    shape = (NB, bs, cfg.num_kv_heads, cfg.head_dim)
+    return data[0, layer].view(shape), data[1, layer].view(shape)
+
+
+def _attn_decode_paged(p, x, cfg, data, layer, tables, slots, lens, lengths,
+                       window):
+    """Dense-attention decode step against the paged KV store: append the
+    new token's K/V via the fused cache write, then attend through the
+    paged-attention kernel over pages + block tables.  ``lengths`` is
+    ``lens + 1`` (the cached tokens plus the new one)."""
+    B = x.shape[0]
+    Kh, Dh = cfg.num_kv_heads, cfg.head_dim
+    q, k, v = _qkv(p, x, cfg, layers.lengths_vector(lens, B)[:, None])
+    rows = torch.stack([k.reshape(B, Kh * Dh), v.reshape(B, Kh * Dh)])
+    paged_token_write(data, layer, rows, slots)
+    k_pages, v_pages = _pages(data, layer, cfg)
+    o = paged_attention(q[:, 0].to(k_pages.dtype), k_pages, v_pages, tables,
+                        lengths, window=window)
+    return o.reshape(B, 1, -1).to(x.dtype) @ p.wo
+
+
+def decode_step_paged(cfg: ModelConfig, params, data, ctl, state, lens,
+                      token):
+    """One decode step reading/writing device-resident paged caches in place.
+
+    ``data``: {"kv": [2, L, num_blocks+1, bs, width]} page pool, written in
+    place.  ``ctl``: {"kv": {"tables": [B, P] int32, "slots": [B] int32
+    within-plane row slot of the token being appended}, "sample": optional
+    controls of :func:`sample_from_logits`}.  ``state``: {"layers": [...]}
+    non-paged per-layer state (empty for the layers of this slice).
+    ``lens``: [B] int32 tokens already cached; ``token``: [B, 1].
+
+    Returns (logits [B, V] — or sampled ids [B] with ``ctl["sample"]`` —,
+    {"kv": data}, state).
+    """
+    h = params.embed[token.long()]
+    kv, pool = ctl["kv"], data["kv"]
+    lengths = lens + 1
+    for i in range(cfg.num_layers):
+        p = params.layers[i]
+        window = cfg.sliding_window if cfg.is_local_layer(i) else 0
+        h = h + _attn_decode_paged(
+            p, rmsnorm(h, p.norm1, cfg.norm_eps), cfg, pool, i,
+            kv["tables"], kv["slots"], lens, lengths, window)
+        h = h + layers.mlp(p, rmsnorm(h, p.norm2, cfg.norm_eps), cfg.act)
+    logits = _logits(cfg, params, h[:, 0])
+    out = logits if ctl.get("sample") is None \
+        else sample_from_logits(logits, ctl["sample"])
+    return out, {"kv": pool}, state
+
+
+# ---------------------------------------------------------------------------
+# batched chunked prefill over device-resident paged caches (DESIGN.md §12)
+# ---------------------------------------------------------------------------
+def _attn_chunk_paged(p, x, cfg, data, layer, tables, slots, ctx_lens,
+                      window):
+    """Chunked-prefill dense attention against the paged KV store: write the
+    chunk's K/V rows with one fused launch, then attend the chunk's queries
+    through the chunked paged-attention kernel (chunk-causal over pages)."""
+    B, C, _ = x.shape
+    Kh, Dh = cfg.num_kv_heads, cfg.head_dim
+    pos = ctx_lens[:, None] + torch.arange(C, device=x.device,
+                                           dtype=ctx_lens.dtype)
+    q, k, v = _qkv(p, x, cfg, pos)
+    rows = torch.stack([k.reshape(B, C, Kh * Dh), v.reshape(B, C, Kh * Dh)])
+    paged_chunk_write(data, layer, rows, slots)
+    k_pages, v_pages = _pages(data, layer, cfg)
+    o = paged_prefill_attention(q.to(k_pages.dtype), k_pages, v_pages,
+                                tables, ctx_lens, window=window)
+    return o.reshape(B, C, -1).to(x.dtype) @ p.wo
+
+
+def prefill_chunk_paged(cfg: ModelConfig, params, data, ctl, state, ctx_lens,
+                        tokens):
+    """One batched prefill chunk reading/writing device paged caches in place.
+
+    ``data``: {"kv": [2, L, NB+1, bs, w]} page pool.  ``ctl``: {"kv":
+    {"tables": [B, P] int32, "slots": [B, C] int32 within-plane row slots of
+    the chunk tokens (padded positions point at scratch)}, "img": {"slots":
+    [B, C] int32 image-cache row per media position or -1, "pages": image
+    page pool} (optional), "mask": [B, C] bool valid chunk positions,
+    "last": [B] int32 index of each request's last valid position,
+    "sample": optional}.  ``ctx_lens``: [B] int32 tokens already cached;
+    ``tokens``: [B, C] int32 (0 at media positions — media embeddings are
+    read straight off the image-cache pages).
+
+    Returns (last-token logits [B, V] — or sampled ids [B] —, {"kv": data},
+    state).
+    """
+    B, C = tokens.shape
+    h = params.embed[tokens.long()]
+    img = ctl.get("img")
+    if img is not None:
+        # media positions read their embedding rows off the image-cache
+        # pages on device (no host gather of media embeddings)
+        img_flat = img["pages"][0, 0].reshape(-1, img["pages"].shape[-1])
+        islots = img["slots"]
+        media_h = img_flat[islots.clamp(min=0).long()]
+        h = torch.where((islots >= 0)[..., None], media_h.to(h.dtype), h)
+    kv, pool = ctl["kv"], data["kv"]
+    for i in range(cfg.num_layers):
+        p = params.layers[i]
+        window = cfg.sliding_window if cfg.is_local_layer(i) else 0
+        h = h + _attn_chunk_paged(
+            p, rmsnorm(h, p.norm1, cfg.norm_eps), cfg, pool, i,
+            kv["tables"], kv["slots"], ctx_lens, window)
+        h = h + layers.mlp(p, rmsnorm(h, p.norm2, cfg.norm_eps), cfg.act)
+    h_last = h[torch.arange(B, device=h.device), ctl["last"].long()]
+    logits = _logits(cfg, params, h_last)
+    if ctl.get("sample") is not None:
+        logits = sample_from_logits(logits, ctl["sample"])
+    return logits, {"kv": pool}, state
+
+
+def empty_state(cfg: ModelConfig) -> dict:
+    """The non-paged per-layer state of this slice's layers: none."""
+    return {"layers": [{} for _ in range(cfg.num_layers)]}
+

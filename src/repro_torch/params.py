@@ -1,0 +1,56 @@
+"""Model parameters as an ``nn.Module`` tree.
+
+The attribute names follow the JAX package's param tree (``embed``,
+``final_norm``, ``lm_head``, ``media_proj_w1``/``w2``, ``layers[i].{norm1,
+wq, wk, wv, wo, norm2, w_gate, w_up, w_down}``), and every weight keeps the
+JAX layout ([in, out], applied as ``x @ w``), so a tree converted from
+``repro.models.model.init_params`` computes exactly what the JAX model
+computes.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch import resolve_device
+
+
+class ParamTree(nn.Module):
+    """One node of the parameter tree: tensors become frozen
+    ``nn.Parameter``s, dicts child nodes, lists ``nn.ModuleList``s."""
+
+    def __init__(self, tree: dict):
+        super().__init__()
+        for name, v in tree.items():
+            if isinstance(v, dict):
+                setattr(self, name, ParamTree(v))
+            elif isinstance(v, (list, tuple)):
+                setattr(self, name, nn.ModuleList(ParamTree(x) for x in v))
+            else:
+                self.register_parameter(
+                    name, nn.Parameter(v, requires_grad=False))
+
+    @property
+    def device(self) -> torch.device:
+        return next(self.parameters()).device
+
+
+def params_from_numpy(tree: dict, device="cuda", dtype=None) -> ParamTree:
+    """The JAX param tree, with numpy arrays as leaves (``np.asarray`` of
+    each jax array), as the port's module on ``device``.  ``dtype`` casts
+    the weight matrices; 1-D norm scales stay f32, as the JAX package keeps
+    them."""
+    dev = resolve_device(device)
+
+    def conv(x):
+        if isinstance(x, dict):
+            return {k: conv(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return [conv(v) for v in x]
+        t = torch.from_numpy(np.array(x, copy=True))
+        if dtype is not None and t.is_floating_point() and t.ndim >= 2:
+            t = t.to(dtype)
+        return t.to(dev)
+
+    return ParamTree(conv(tree))

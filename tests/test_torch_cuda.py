@@ -1,0 +1,103 @@
+"""The CUDA kernels against their plain PyTorch versions on the card, at
+small and odd shapes (GQA, windows, chunks that are not a multiple of the
+kernel's row tile, widths that rule out 16-byte copies).  Skipped without
+a card; on the machine with one: ``PYTHONPATH=src python -m pytest
+tests/test_torch_cuda.py``.
+
+Tolerances: f32 1e-4 absolute (summation order only), bf16 2e-2 absolute
+(one bf16 rounding of outputs near 1); the cache write is exact.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import kernels as K
+from repro_torch.kernels.cache_write import ops as tcw
+from repro_torch.kernels.cache_write.ref import cache_write_ref
+from repro_torch.kernels.paged_attention import ops as tpa
+from repro_torch.kernels.paged_attention.ref import (
+    paged_attention_ref, paged_prefill_attention_ref)
+
+TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card (the CUDA kernels have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _pages(gen, dev, *, lens, Kh, D, page=16, n_pages=64, max_pages=8,
+           dtype=torch.float32):
+    scratch = n_pages - 1
+    kp = torch.randn((n_pages, page, Kh, D), generator=gen).to(dev, dtype)
+    vp = torch.randn((n_pages, page, Kh, D), generator=gen).to(dev, dtype)
+    tables = np.full((len(lens), max_pages), scratch, np.int32)
+    order = list(np.random.default_rng(0).permutation(scratch))
+    for b, n in enumerate(lens):
+        for j in range(-(-n // page)):
+            tables[b, j] = order.pop()
+    return kp, vp, torch.from_numpy(tables).to(dev)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("H,Kh,D,window", [(4, 4, 64, 0), (8, 2, 64, 0),
+                                           (4, 4, 128, 20), (6, 3, 32, 7)])
+def test_decode_kernel_matches_plain(cuda, dtype, H, Kh, D, window):
+    gen = torch.Generator().manual_seed(H * 100 + D + window)
+    lens = [1, 17, 40, 100]
+    kp, vp, tables = _pages(gen, cuda, lens=lens, Kh=Kh, D=D, dtype=dtype)
+    q = torch.randn((len(lens), H, D), generator=gen).to(cuda, dtype)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    before = K.launches["paged_attention"]
+    got = tpa.paged_attention(q, kp, vp, tables, lengths, window=window)
+    want = paged_attention_ref(q, kp, vp, tables, lengths, window=window)
+    torch.cuda.synchronize()
+    assert K.launches["paged_attention"] == before + 1
+    assert torch.isfinite(got.float()).all()
+    assert (got.float() - want.float()).abs().max().item() <= TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("H,Kh,C,window", [(4, 4, 37, 0), (8, 2, 21, 0),
+                                           (4, 4, 50, 24), (6, 3, 1, 0)])
+def test_prefill_kernel_matches_plain(cuda, dtype, H, Kh, C, window):
+    gen = torch.Generator().manual_seed(H * 100 + C + window)
+    D = 64
+    ctx = [0, 13, 60]
+    kp, vp, tables = _pages(gen, cuda, lens=[c + C for c in ctx], Kh=Kh, D=D,
+                            dtype=dtype)
+    q = torch.randn((len(ctx), C, H, D), generator=gen).to(cuda, dtype)
+    ctx_t = torch.tensor(ctx, dtype=torch.int32, device=cuda)
+    got = tpa.paged_prefill_attention(q, kp, vp, tables, ctx_t, window=window)
+    want = paged_prefill_attention_ref(q, kp, vp, tables, ctx_t,
+                                       window=window)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    assert (got.float() - want.float()).abs().max().item() <= TOL[dtype]
+
+
+@pytest.mark.parametrize("src,dst,w", [
+    (torch.float32, torch.float32, 64), (torch.bfloat16, torch.bfloat16, 64),
+    (torch.float32, torch.bfloat16, 64), (torch.float32, torch.float32, 37)])
+def test_cache_write_kernel_matches_plain(cuda, src, dst, w):
+    gen = torch.Generator().manual_seed(w)
+    T, L, NB, bs, B, C, layer = 2, 3, 10, 4, 3, 5, 2
+    data = torch.randn((T, L, NB + 1, bs, w), generator=gen).to(cuda, dst)
+    rows = torch.randn((T, B, C, w), generator=gen).to(cuda, src)
+    slots = torch.from_numpy(np.random.default_rng(w).permutation(NB * bs)
+                             [:B * C].reshape(B, C).astype(np.int32))
+    slots = slots.to(cuda)
+    got = tcw.paged_chunk_write(data.clone(), layer, rows, slots)
+    want = data.clone()
+    plane = (torch.arange(T, device=cuda) * L + layer) * ((NB + 1) * bs)
+    cache_write_ref(want.view(-1, bs, w), rows.reshape(-1, w),
+                    (plane[:, None] + slots.reshape(-1)[None].long())
+                    .reshape(-1))
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
