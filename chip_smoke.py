@@ -8,19 +8,32 @@ toolkit (nvcc) and PyTorch built for CUDA.  Phases, each of which raises
 on failure:
 
 1. card   - name and power limit, from nvidia-smi;
-2. build  - compile every kernel of the serving path from ``src/repro_torch/
+2. build  - compile every kernel of the serving paths from ``src/repro_torch/
             csrc`` (all nvcc processes at once);
-3. kernels- each kernel against its plain PyTorch version on the card at
-            full-width LLaVA-1.5-7B shapes (H = Kh = 32, D = 128, page 16,
-            w = 4096), in f32 and bf16, plus a window case, a GQA case and
-            empty-mask rows; times kernel, plain version and one PyTorch
-            library call with CUDA events, and computes each kernel's bound;
+3. kernels- each kernel against its plain PyTorch version on the card: the
+            attention and cache-write kernels at full-width LLaVA-1.5-7B
+            shapes (H = Kh = 32, D = 128, page 16, w = 4096), in f32 and
+            bf16, plus a window case, a GQA case and empty-mask rows; the
+            selective scan at falcon-mamba-7b widths (d = 8192, N = 16):
+            prefill B = 1 and 4 at S = 512 from a nonzero state, decode
+            B = 4 and 8, f32 and bf16, and a tail of dt = 0 that must leave
+            the state unchanged; times kernel, plain version and one
+            PyTorch library call (where there is one) with CUDA events, and
+            computes each kernel's bound;
 4. model  - the port's runner on the card against the same runner on the
-            CPU (plain versions) on reduced LLaVA: logits per step;
-5. serve  - full-width, 32-layer LLaVA-1.5-7B with random bf16 weights
-            through ``repro_torch.engine.api.Engine`` on E/P/D instances:
-            four image+text greedy requests and one seeded sampled request;
-            every kernel's launch counter must rise on this run;
+            CPU (plain versions) on reduced LLaVA and on reduced
+            falcon-mamba (batched chunks of different lengths): logits per
+            step;
+5. serve  - two main paths through ``repro_torch.engine.api.Engine``, each
+            with the launch counters set to 0 just before it and read just
+            after: full-width, 32-layer LLaVA-1.5-7B with random bf16
+            weights on E/P/D instances (four image+text greedy requests and
+            one seeded sampled request; every attention and cache-write
+            kernel must launch), then, with LLaVA's memory freed,
+            full-width 64-layer falcon-mamba-7b on P/D instances (four
+            greedy text requests of 200-600 tokens and one seeded sampled
+            one; the scan must launch, each request's recurrent state must
+            migrate P -> D);
 6. report - one JSON line of kernels, then the final status line.
 
 Exits non-zero (and prints no status line) without a card or outside the
@@ -29,6 +42,8 @@ repository.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import gc
 import json
 import statistics
 import subprocess
@@ -46,10 +61,14 @@ PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12}     # FLOP/s, dense
 # stay small (measured error 4.9e-4 on H100), while the first rows of a
 # prefill chunk see one to a few keys and keep values near 4, where one
 # rounding is 1.6e-2 (measured 7.8e-3).  The cache write copies exactly.
+# The selective scan computes in f32 from the same inputs on both sides and
+# returns f32, so bf16 inputs keep the f32 bar.
 TOL = {"paged_attention": {"float32": 1e-4, "bfloat16": 4e-3},
        "paged_prefill_attention": {"float32": 1e-4, "bfloat16": 2e-2},
-       "cache_write": {"float32": 0.0, "bfloat16": 0.0}}
+       "cache_write": {"float32": 0.0, "bfloat16": 0.0},
+       "selective_scan": {"float32": 1e-4, "bfloat16": 1e-4}}
 H, KH, D, PAGE, W = 32, 32, 128, 16, 4096             # llava-1.5-7b widths
+D_INNER, N_STATE = 8192, 16                           # falcon-mamba-7b widths
 
 
 def log(obj):
@@ -82,6 +101,20 @@ def bound(nbytes: float, flops: float, dtype: str) -> tuple:
     t_bytes = nbytes / PEAK_BYTES * 1e3
     t_ops = flops / PEAK_OPS[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def exp_rate() -> float:
+    """Exponentials per second the card's special-function units give: 16
+    results per clock per SM on sm_90 (the CUDA C++ Programming Guide's
+    table of arithmetic-instruction throughput) at the card's maximum SM
+    clock, as nvidia-smi reports it."""
+    import torch
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return sms * 16 * mhz * 1e6
 
 
 def dname(dtype) -> str:
@@ -330,6 +363,73 @@ def cache_write_cases(gen, dev, results):
     results.setdefault("cache_write", {})["max_abs_err"] = max(errs)
 
 
+def scan_inputs(gen, dev, B, S, dtype, d=D_INNER, N=N_STATE):
+    """dt = 0.1 |z|, x, B, C ~ z; A = -|z| f32; a nonzero f32 state h0."""
+    import torch
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+    return ((rnd(B, S, d).abs() * 0.1).to(dtype), rnd(B, S, d).to(dtype),
+            -rnd(d, N).abs(), rnd(B, S, N).to(dtype), rnd(B, S, N).to(dtype),
+            rnd(B, d, N))
+
+
+def scan_bound(B, S, isz, rate, d=D_INNER, N=N_STATE) -> tuple:
+    """The least time of one scan call: each input read once (dt, x, B, C
+    in their type; A and h0 in f32), y and h written once in f32; against
+    the B*S*d*N exponentials over the special-function units and about 5
+    f32 operations per (step, channel, state) over the f32 peak."""
+    nbytes = (2 * B * S * d + 2 * B * S * N) * isz + d * N * 4 \
+        + 2 * B * d * N * 4 + B * S * d * 4
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = max(B * S * d * N / rate,
+                5 * B * S * d * N / PEAK_OPS["float32"]) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def scan_cases(gen, dev, results, rate):
+    import torch
+    from repro_torch.kernels.selective_scan.ops import selective_scan
+    from repro_torch.kernels.selective_scan.ref import selective_scan_ref
+    errs = []
+    for tag, B, S in (("prefill-b1-s512", 1, 512), ("prefill-b4-s512", 4, 512),
+                      ("decode-b4", 4, 1), ("decode-b8", 8, 1)):
+        for dtype in (torch.float32, torch.bfloat16):
+            ins = scan_inputs(gen, dev, B, S, dtype)
+            y, h = selective_scan(*ins)
+            y_ref, h_ref = selective_scan_ref(*ins)
+            errs += [check(f"selective_scan/{tag}/y", dtype, y, y_ref),
+                     check(f"selective_scan/{tag}/h", dtype, h, h_ref)]
+            b_ms, b_by = scan_bound(B, S, ins[0].element_size(), rate)
+            row = {"shape": f"B={B} S={S} d={D_INNER} N={N_STATE} "
+                            f"{dname(dtype)} inputs, f32 state",
+                   "ms": time_ms(lambda: selective_scan(*ins)),
+                   "plain_ms": time_ms(lambda: selective_scan_ref(*ins),
+                                       reps=2, rounds=3),
+                   "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+            if tag == "prefill-b1-s512" and dtype == torch.bfloat16:
+                results["selective_scan"] = row
+            else:
+                log({"timing": f"selective_scan/{tag}-{dname(dtype)}", **row})
+            del ins, y, h, y_ref, h_ref
+    # a tail of dt = 0 (what the prefill mask makes of padded positions)
+    # must leave the state exactly as the valid head left it
+    dt, x, A, Bm, Cm, h0 = scan_inputs(gen, dev, 2, 512, torch.float32)
+    n = 384
+    _, h_head = selective_scan(dt[:, :n].contiguous(), x[:, :n].contiguous(),
+                               A, Bm[:, :n].contiguous(),
+                               Cm[:, :n].contiguous(), h0)
+    dt[:, n:] = 0
+    y, h = selective_scan(dt, x, A, Bm, Cm, h0)
+    y_ref, h_ref = selective_scan_ref(dt, x, A, Bm, Cm, h0)
+    errs += [check("selective_scan/zero-dt-tail/y", dt.dtype, y, y_ref),
+             check("selective_scan/zero-dt-tail/h", dt.dtype, h, h_ref)]
+    if not torch.equal(h, h_head):
+        raise AssertionError("selective_scan: dt = 0 changed the state")
+    log({"check": "selective_scan/zero-dt-tail", "state_unchanged": True})
+    results["selective_scan"]["max_abs_err"] = max(errs)
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the runner on the card against the runner on the CPU
 # ---------------------------------------------------------------------------
@@ -378,27 +478,127 @@ def model_check(seed: int):
          "steps": 3 + 4, "max_rel_logit_err": worst, "tol": 2e-4})
 
 
+def mamba_model_check(seed: int):
+    """Reduced falcon-mamba: a batched first chunk of three prompts of
+    different lengths (padded lanes freeze their state), a second chunk
+    for two of them, then four decode steps, on the card and on the CPU."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.engine import runner as R
+    from repro_torch.models import model as M
+    cfg = get_config("falcon-mamba-7b").reduced()
+    runners = {}
+    for dev in ("cpu", "cuda"):
+        p = M.init_params(cfg, torch.Generator().manual_seed(seed)).to(dev)
+        runners[dev] = R.ModelRunner(cfg, p, R.RunnerCaches(cfg, device=dev),
+                                     device=dev)
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (13, 6, 9)]
+    worst, steps = 0.0, 0
+
+    def compare(fn):
+        nonlocal worst, steps
+        want, got = fn(runners["cpu"]), fn(runners["cuda"])
+        rel = float(np.abs(got - want).max() / (np.abs(want).max() + 1e-9))
+        worst, steps = max(worst, rel), steps + 1
+        if not rel < 2e-4:
+            raise AssertionError(f"mamba model check: logits off by {rel}")
+        return want
+
+    first = compare(lambda r: r.prefill_chunks([(0, prompts[0][:8], False),
+                                                (1, prompts[1], False),
+                                                (2, prompts[2][:5], False)]))
+    last = compare(lambda r: r.prefill_chunks([(0, prompts[0][8:], False),
+                                               (2, prompts[2][5:], False)]))
+    toks = np.argmax(np.stack([last[0], first[1], last[1]]), -1)
+    for _ in range(4):
+        toks = np.argmax(compare(lambda r: r.decode([0, 1, 2], toks)), -1)
+    log({"model_check": "reduced falcon-mamba-7b f32, runner on cuda vs cpu",
+         "steps": steps, "max_rel_logit_err": worst, "tol": 2e-4})
+
+
 # ---------------------------------------------------------------------------
 # phase 5: the main path
 # ---------------------------------------------------------------------------
-def _time_calls(owner, name: str, acc: dict):
-    """Accumulate wall seconds and calls of ``owner.name`` into acc[name].
-    The runner's methods return host numpy, so their wall time covers the
-    device work they started."""
-    fn = getattr(owner, name)
-    acc[name] = {"s": 0.0, "calls": 0}
+@contextlib.contextmanager
+def timed_calls(targets):
+    """Accumulate wall seconds and calls of each ``owner.name`` in
+    ``targets`` into the yielded {name: {"s", "calls"}}; the originals come
+    back on exit.  The runner's methods return host numpy, so their wall
+    time covers the device work they started."""
+    acc, saved = {}, []
+    for owner, name in targets:
+        fn = getattr(owner, name)
+        saved.append((owner, name, fn))
+        acc[name] = rec = {"s": 0.0, "calls": 0}
 
-    def timed(*a, **k):
-        t = time.perf_counter()
-        try:
-            return fn(*a, **k)
-        finally:
-            acc[name]["s"] += time.perf_counter() - t
-            acc[name]["calls"] += 1
-    setattr(owner, name, timed)
+        def timed(*a, _fn=fn, _rec=rec, **k):
+            t = time.perf_counter()
+            try:
+                return _fn(*a, **k)
+            finally:
+                _rec["s"] += time.perf_counter() - t
+                _rec["calls"] += 1
+        setattr(owner, name, timed)
+    try:
+        yield acc
+    finally:
+        for owner, name, fn in saved:
+            setattr(owner, name, fn)
 
 
-def profile_decode(runner, rids, toks, card: str, steps: int = 3):
+def wall_split_targets():
+    """Where a main path's wall time goes: runner stages, migrations, and
+    within the migrations the transfer checksums."""
+    from repro_torch.engine import paged_cache, runner, server
+    return [(runner.ModelRunner, n) for n in ("encode", "prefill_chunks",
+                                              "decode")] + \
+        [(server.R, "migrate"), (paged_cache, "payload_checksum")]
+
+
+def run_requests(eng, reqs, vocab: int):
+    """Drive the requests through the Engine's streams; check each returns
+    its tokens from the vocabulary.  Returns (token lists, wall s)."""
+    import torch
+    t0 = time.perf_counter()
+    streams = [eng.generate(p, media=m, sampling=sp) for p, m, sp in reqs]
+    outs = [s.tokens() for s in streams]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for (_, _, sp), toks in zip(reqs, outs):
+        if len(toks) != sp.max_tokens:
+            raise AssertionError(f"request produced {len(toks)} tokens, "
+                                 f"expected {sp.max_tokens}")
+        if not all(0 <= t < vocab for t in toks):
+            raise AssertionError(f"out-of-vocabulary token in {toks}")
+    return [eng.result(s.rid).req for s in streams], outs, wall
+
+
+def request_metrics(rs) -> dict:
+    ttft = [r.ttft() for r in rs]
+    tpot = [t for r in rs for t in r.tpots()]
+    t_first = min(r.first_token_time for r in rs)
+    t_last = max(r.finish_time for r in rs)
+    return {"ttft_s": ttft, "ttft_mean_s": statistics.mean(ttft),
+            "tpot_mean_s": statistics.mean(tpot),
+            "tpot_p90_s": sorted(tpot)[int(0.9 * (len(tpot) - 1))],
+            "decode_tok_per_s": len(tpot) / (t_last - t_first)}
+
+
+def check_reclaimed(srv):
+    for inst in srv.instances:
+        if inst.running or inst.waiting or inst.caches.states.store:
+            raise AssertionError(f"instance {inst.iid} still holds work")
+        for c in (inst.caches.kv, inst.caches.img):
+            if c is not None and (c.tables or c.allocator.n_free
+                                  != c.allocator.num_blocks):
+                raise AssertionError(f"instance {inst.iid}: pool not "
+                                     f"reclaimed")
+
+
+def profile_decode(runner, rids, toks, card: str, tag: str, steps: int = 3):
     """Device time by kernel over a few steady decode steps (torch.profiler
     with CUDA activity), and the device's busy share of their wall time."""
     import torch
@@ -421,7 +621,7 @@ def profile_decode(runner, rids, toks, card: str, steps: int = 3):
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
     log({"decode_profile": f"B={len(rids)}, {steps} steady steps",
-         "card": card, "wall_ms_per_step": wall_us / steps / 1e3,
+         "path": tag, "card": card, "wall_ms_per_step": wall_us / steps / 1e3,
          "device_ms_per_step": busy / steps / 1e3,
          "device_busy_share": busy / wall_us if wall_us else None,
          "top": [{"kernel": k[:80], "ms_per_step": us / steps / 1e3,
@@ -429,14 +629,40 @@ def profile_decode(runner, rids, toks, card: str, steps: int = 3):
                  for us, k, n in rows[:12]]})
 
 
+def steady_decode(d, add, release, card: str, tag: str):
+    """Decode steps on the decode instance outside the scheduler, at B = 1
+    and 4: the floor under TPOT.  ``add(rid)`` gives a request its cached
+    context, ``release(rid)`` frees it."""
+    import numpy as np
+    import torch
+    steady = {}
+    for B in (1, 4):
+        rids = list(range(10_000, 10_000 + B))
+        for rid in rids:
+            add(rid)
+        toks = np.zeros(B, np.int32)
+        for _ in range(2):
+            d.runner.decode(rids, toks)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(8):
+            d.runner.decode(rids, toks)
+        steady[f"B={B}"] = (time.perf_counter() - t0) / 8 * 1e3
+        if B == 4:
+            profile_decode(d.runner, rids, toks, card, tag)
+        for rid in rids:
+            release(rid)
+    log({"steady_decode_ms_per_step": steady, "path": tag, "card": card})
+
+
 def serve(seed: int, card: str):
+    """LLaVA-1.5-7B, E1+P1+D1; returns the launch counts of its run."""
     import numpy as np
     import torch
     from repro_torch import kernels as K
     from repro_torch.configs import get_config
     from repro_torch.core.request import SamplingParams
     from repro_torch.core.simulator import DisaggConfig
-    from repro_torch.engine import paged_cache, runner, server
     from repro_torch.engine.api import Engine
     from repro_torch.models import model as M
     cfg = get_config("llava-1.5-7b")
@@ -459,84 +685,115 @@ def serve(seed: int, card: str):
             temperature=0.8, top_k=50, top_p=0.95, seed=seed, max_tokens=16)
         reqs.append((prompt, media, sp))
 
-    # where the wall time goes: runner stages, migrations, and within the
-    # migrations the transfer checksums
-    split: dict = {}
-    for name in ("encode", "prefill_chunks", "decode"):
-        _time_calls(runner.ModelRunner, name, split)
-    _time_calls(server.R, "migrate", split)
-    _time_calls(paged_cache, "payload_checksum", split)
-
-    K.reset_launches()
-    t0 = time.perf_counter()
-    streams = [eng.generate(p, media=m, sampling=sp) for p, m, sp in reqs]
-    outs = [s.tokens() for s in streams]
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = dict(K.launches)
-
-    for (p, m, sp), toks in zip(reqs, outs):
-        if len(toks) != sp.max_tokens:
-            raise AssertionError(f"request produced {len(toks)} tokens, "
-                                 f"expected {sp.max_tokens}")
-        if not all(0 <= t < cfg.vocab_size for t in toks):
-            raise AssertionError(f"out-of-vocabulary token in {toks}")
-    for name, n in launches.items():
-        if n <= 0:
+    with timed_calls(wall_split_targets()) as split:
+        K.reset_launches()
+        rs, outs, wall = run_requests(eng, reqs, cfg.vocab_size)
+        launches = dict(K.launches)
+    for name in ("cache_write", "paged_attention", "paged_prefill_attention"):
+        if launches[name] <= 0:
             raise AssertionError(f"kernel {name} never launched on the "
-                                 f"main path")
+                                 f"llava main path")
     srv = eng.server
     if srv.n_migrations < 2 * len(reqs):
         raise AssertionError(f"only {srv.n_migrations} migrations")
-    for inst in srv.instances:
-        if inst.running or inst.waiting or inst.caches.states.store:
-            raise AssertionError(f"instance {inst.iid} still holds work")
-        for c in (inst.caches.kv, inst.caches.img):
-            if c.tables or c.allocator.n_free != c.allocator.num_blocks:
-                raise AssertionError(f"instance {inst.iid}: pool not "
-                                     f"reclaimed")
-    rs = [eng.result(s.rid).req for s in streams]
-    ttft = [r.ttft() for r in rs]
-    tpot = [t for r in rs for t in r.tpots()]
-    t_first = min(r.first_token_time for r in rs)
-    t_last = max(r.finish_time for r in rs)
-    n_dec = sum(len(r.tpots()) for r in rs)
+    check_reclaimed(srv)
     log({"main_path": "Engine E1+P1+D1, llava-1.5-7b bf16, 5 requests x "
                       "(576 image tokens + 32 prompt tokens), 16 new tokens",
-         "card": card, "wall_s": wall, "ttft_s": ttft,
-         "ttft_mean_s": statistics.mean(ttft),
-         "tpot_mean_s": statistics.mean(tpot),
-         "tpot_p90_s": sorted(tpot)[int(0.9 * (len(tpot) - 1))],
-         "decode_tok_per_s": n_dec / (t_last - t_first),
+         "card": card, "wall_s": wall, **request_metrics(rs),
          "migrations": srv.n_migrations, "migrated_bytes": srv.migrated_bytes,
          "launches": launches, "wall_split": split,
          "greedy_tokens_req0": outs[0]})
 
-    # steady decode steps on the decode instance, outside the scheduler:
-    # the floor under TPOT at the main path's context length
     d = next(i for i in srv.instances if i.role_name == "D")
     ctx = cfg.media_tokens + 32
-    steady = {}
-    for B in (1, 4):
-        rids = list(range(10_000, 10_000 + B))
-        for rid in rids:
-            d.caches.kv.append(rid, torch.zeros(
-                (2, cfg.num_layers, ctx, cfg.num_kv_heads * cfg.head_dim),
-                dtype=torch.bfloat16, device="cuda"))
-        toks = np.zeros(B, np.int32)
-        for _ in range(2):
-            d.runner.decode(rids, toks)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(8):
-            d.runner.decode(rids, toks)
-        steady[f"B={B}"] = (time.perf_counter() - t0) / 8 * 1e3
-        if B == 4:
-            profile_decode(d.runner, rids, toks, card)
-        for rid in rids:
-            d.caches.release(rid)
-    log({"steady_decode_ms_per_step": steady, "context": ctx,
-         "card": card})
+    steady_decode(d, lambda rid: d.caches.kv.append(rid, torch.zeros(
+        (2, cfg.num_layers, ctx, cfg.num_kv_heads * cfg.head_dim),
+        dtype=torch.bfloat16, device="cuda")), d.caches.release, card,
+        f"llava-1.5-7b, context {ctx}")
+    return launches
+
+
+def serve_mamba(seed: int, card: str):
+    """falcon-mamba-7b, P1+D1; returns the launch counts of its run."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_config
+    from repro_torch.core.budgets import Budgets
+    from repro_torch.core.request import SamplingParams
+    from repro_torch.core.simulator import DisaggConfig
+    from repro_torch.engine.api import Engine
+    from repro_torch.models import mamba
+    from repro_torch.models import model as M
+    cfg = get_config("falcon-mamba-7b")
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(device="cuda")
+                           .manual_seed(seed), dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    n_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    # prefill chunks of up to 512 tokens per iteration
+    eng = Engine(cfg, params, DisaggConfig({"P": 1, "D": 1}),
+                 budgets=Budgets(512, 4), device="cuda")
+    log({"setup": "falcon-mamba-7b full width, 64 layers, random bf16 "
+                  "weights", "weight_bytes": n_bytes,
+         "params": sum(p.numel() for p in params.parameters()),
+         "setup_s": time.perf_counter() - t0})
+    rng = np.random.default_rng(seed)
+    reqs = []
+    for i in range(5):
+        prompt = rng.integers(0, cfg.vocab_size,
+                              int(rng.integers(200, 601))).astype(np.int32)
+        sp = SamplingParams(max_tokens=16) if i < 4 else SamplingParams(
+            temperature=0.8, top_k=50, top_p=0.95, seed=seed, max_tokens=16)
+        reqs.append((prompt, None, sp))
+
+    scan_shapes: dict = {}
+    scan = mamba.selective_scan
+
+    def recording_scan(dt, *a):
+        key = f"B={dt.shape[0]} S={dt.shape[1]}"
+        scan_shapes[key] = scan_shapes.get(key, 0) + 1
+        return scan(dt, *a)
+
+    with timed_calls(wall_split_targets()) as split:
+        mamba.selective_scan = recording_scan
+        try:
+            K.reset_launches()
+            rs, outs, wall = run_requests(eng, reqs, cfg.vocab_size)
+            launches = dict(K.launches)
+        finally:
+            mamba.selective_scan = scan
+    if launches["selective_scan"] <= 0:
+        raise AssertionError("the selective scan never launched on the "
+                             "falcon-mamba main path")
+    srv = eng.server
+    shapes = mamba.mamba1_cache_shape(cfg, 1)
+    state_bytes = cfg.num_layers * (4 * int(np.prod(shapes["state"]))
+                                    + 2 * int(np.prod(shapes["conv"])))
+    if srv.n_migrations < len(reqs) or \
+            srv.migrated_bytes != srv.n_migrations * state_bytes:
+        raise AssertionError(f"{srv.n_migrations} migrations moved "
+                             f"{srv.migrated_bytes} bytes; expected >= "
+                             f"{len(reqs)} of {state_bytes} each")
+    check_reclaimed(srv)
+    log({"main_path": "Engine P1+D1, falcon-mamba-7b bf16 (f32 state), 5 "
+                      "text requests of 200-600 prompt tokens, 16 new "
+                      "tokens, token budget 512",
+         "card": card, "wall_s": wall, **request_metrics(rs),
+         "prompt_tokens": [len(p) for p, _, _ in reqs],
+         "migrations": srv.n_migrations, "migrated_bytes": srv.migrated_bytes,
+         "state_bytes_per_request": state_bytes, "launches": launches,
+         "scan_calls_by_shape": scan_shapes, "wall_split": split,
+         "greedy_tokens_req0": outs[0]})
+
+    d = next(i for i in srv.instances if i.role_name == "D")
+    zero = M.empty_state(cfg, dtype=torch.bfloat16, device="cuda")
+
+    def add(rid):
+        st = {f"mamba{i}": e for i, e in enumerate(zero["layers"])}
+        d.caches.states.put(rid, {"ctx_len": 400, **st})
+    steady_decode(d, add, d.caches.release, card,
+                  "falcon-mamba-7b, context 400")
     return launches
 
 
@@ -582,13 +839,19 @@ def main() -> int:
     decode_cases(gen, dev, results)
     prefill_cases(gen, dev, results)
     cache_write_cases(gen, dev, results)
+    scan_cases(gen, dev, results, exp_rate())
     torch.cuda.empty_cache()
     for name, r in results.items():
         log({"kernel": name, "card": card, **r})
     log({"phase": "kernels", "s": time.perf_counter() - t0})
 
     model_check(args.seed)
+    mamba_model_check(args.seed)
     launches = serve(args.seed, card)
+    gc.collect()                      # LLaVA's weights and pools go first
+    torch.cuda.empty_cache()
+    launches["selective_scan"] = serve_mamba(args.seed,
+                                             card)["selective_scan"]
 
     src = {"cache_write": ("src/repro_torch/csrc/cache_write.cu",
                            "src/repro/kernels/cache_write/kernel.py:25"),
@@ -596,7 +859,9 @@ def main() -> int:
                                "src/repro/kernels/paged_attention/kernel.py:78"),
            "paged_prefill_attention": (
                "src/repro_torch/csrc/paged_attention.cu",
-               "src/repro/kernels/paged_attention/kernel.py:162")}
+               "src/repro/kernels/paged_attention/kernel.py:162"),
+           "selective_scan": ("src/repro_torch/csrc/selective_scan.cu",
+                              "src/repro/kernels/selective_scan/kernel.py:51")}
     kernels = []
     for name, (source, replaces) in src.items():
         r = results[name]

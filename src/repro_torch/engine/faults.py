@@ -23,8 +23,9 @@ can depend on it:
                            stranded request re-dispatchable with bit-exact
                            greedy/seeded continuation
   payload_checksum         end-to-end checksum over a transfer payload
-                           (numpy / jnp arrays or nested dict trees), how
-                           corrupted transfers are *detected*
+                           (numpy arrays, torch tensors on any device, or
+                           nested dict trees), how corrupted transfers are
+                           *detected*
 
 Injection is deterministic by construction: a plan is a sorted set of
 (iteration, kind, instance) events, and ``FaultPlan.random`` derives one
@@ -38,6 +39,7 @@ from dataclasses import dataclass, field
 from typing import Optional
 
 import numpy as np
+import torch
 
 # fault kinds
 CRASH = "crash"          # instance dies: all device state lost
@@ -215,13 +217,25 @@ class FaultPlan:
 # ---------------------------------------------------------------------------
 # transfer checksums (corruption *detection*; injection lives in the plan)
 # ---------------------------------------------------------------------------
+def _tensor_bytes(t: torch.Tensor) -> np.ndarray:
+    """Host copy of a tensor's bits (bf16 as its int16 bit patterns: numpy
+    has no bf16)."""
+    t = t.detach().contiguous()
+    if t.dtype == torch.bfloat16:
+        t = t.view(torch.int16)
+    return t.cpu().numpy()
+
+
 def _walk_arrays(payload, visit):
-    """Deterministic traversal of a transfer payload: arrays directly, dict
-    trees in sorted key order, scalars by repr."""
+    """Deterministic traversal of a transfer payload: arrays and tensors
+    directly, dict trees in sorted key order, scalars by repr."""
     if isinstance(payload, dict):
         for k in sorted(payload, key=str):
             visit(str(k).encode())
             _walk_arrays(payload[k], visit)
+    elif isinstance(payload, torch.Tensor):
+        visit(str((tuple(payload.shape), str(payload.dtype))).encode())
+        visit(_tensor_bytes(payload).tobytes())
     elif hasattr(payload, "shape"):
         a = np.ascontiguousarray(np.asarray(payload))
         visit(str((a.shape, a.dtype.str)).encode())
@@ -240,7 +254,8 @@ def payload_checksum(payload) -> bytes:
 def corrupt_payload(payload):
     """Return a bit-flipped copy of ``payload`` (the simulated wire
     corruption a checksum must catch).  Dict trees corrupt their first
-    array leaf; empty payloads come back unchanged."""
+    array leaf; empty payloads come back unchanged.  A tensor's copy stays
+    on its device."""
     if isinstance(payload, dict):
         for k in sorted(payload, key=str):
             flipped = corrupt_payload(payload[k])
@@ -248,6 +263,12 @@ def corrupt_payload(payload):
                 out = dict(payload)
                 out[k] = flipped
                 return out
+        return payload
+    if isinstance(payload, torch.Tensor):
+        t = payload.detach().clone().contiguous()
+        if t.numel():
+            t.view(-1).view(torch.uint8)[0] ^= 0xFF
+            return t
         return payload
     if hasattr(payload, "shape"):
         a = np.array(np.asarray(payload), copy=True)

@@ -523,7 +523,9 @@ class DevicePagedCache(PagedCacheBase):
 
 class StateStore:
     """Fixed-size per-request state (SSM state/conv, MLA rope cache, cross-KV)
-    with the same export/import surface as PagedCache."""
+    with the same export/import surface as PagedCache.  Leaves are host
+    numpy arrays or torch tensors (the Mamba state stays on its device);
+    a transfer hands them over as they are, checksummed."""
 
     def __init__(self):
         self.store: dict[int, dict] = {}

@@ -14,6 +14,9 @@ through the paged-attention kernels and appends the new token — or the
 whole prefill chunk — in place through the fused cache-write kernel.  Only
 small control tensors (block tables, lengths, slots) go to the device and
 only sampled token ids (or logits, when asked for) come back each step.
+Mamba-1 layers keep no paged cache: each request's recurrent state and conv
+prefix (``mamba{i}`` entries of the state store, device tensors, the state
+in f32) are batched into the step and scattered back per lane after it.
 Batch size, chunk length and page count are bucketed to powers of two as
 in the JAX package, so both packages see identical control tensors.
 
@@ -28,7 +31,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ATTN_MLP, MAMBA1, ModelConfig
 from repro_torch.engine.paged_cache import (DevicePagedCache, PagedCacheSpec,
                                             StateStore, migrate_request)
 from repro_torch.models import model as M
@@ -42,10 +45,16 @@ def bucket_pow2(n: int) -> int:
     return 1 << max(0, n - 1).bit_length()
 
 
+def _seq_layers(cfg: ModelConfig) -> list:
+    """Ids of the layers with a sequence-like paged KV cache."""
+    return [i for i, k in enumerate(cfg.layer_kinds()) if k == ATTN_MLP]
+
+
 class RunnerCaches:
     """Per-instance cache pool: paged KV + paged image cache + state store,
-    all sharing the unified transfer interface (paper §4.5).  ``mla`` is
-    always None in this slice (MLA is not ported yet)."""
+    all sharing the unified transfer interface (paper §4.5).  ``kv`` is
+    None for attention-free models; ``mla`` is always None in this slice
+    (MLA is not ported yet)."""
 
     def __init__(self, cfg: ModelConfig, *, kv_blocks: int = 512,
                  img_blocks: int = 16, dtype=torch.float32, device="cuda",
@@ -53,15 +62,25 @@ class RunnerCaches:
         M.check_supported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.dtype = dtype
         self.sharing = sharing
-        self.attn_layers = list(range(cfg.num_layers))
+        self.attn_layers = _seq_layers(cfg)
         self.mla_layers: list = []
-        self.kv = DevicePagedCache(PagedCacheSpec(
-            n_tensors=2, n_layers=cfg.num_layers, block_size=KV_BLOCK,
-            width=cfg.num_kv_heads * cfg.head_dim, num_blocks=kv_blocks,
-            dtype=dtype), sharing=sharing, device=self.device)
-        self.mla = self.img = None
-        stores = [self.kv]
+        # Prefix sharing of the KV cache is unsound for models with
+        # recurrent layers: their state at a prefix boundary is not paged or
+        # snapshotted, so an adopted KV prefix would pair with a zero state.
+        # The image cache (pure content, position-free) still shares.
+        self.has_recurrent = MAMBA1 in cfg.layer_kinds()
+        stores = []
+        self.kv = self.mla = self.img = None
+        if self.attn_layers:
+            self.kv = DevicePagedCache(PagedCacheSpec(
+                n_tensors=2, n_layers=len(self.attn_layers),
+                block_size=KV_BLOCK, width=cfg.num_kv_heads * cfg.head_dim,
+                num_blocks=kv_blocks, dtype=dtype),
+                sharing=sharing and not self.has_recurrent,
+                device=self.device)
+            stores.append(self.kv)
         if cfg.frontend != "none":
             # one image per block so a repeated image shares exactly its
             # own pages (media_tokens when set, the LLaVA default otherwise)
@@ -83,11 +102,15 @@ class RunnerCaches:
             s.free(rid)
 
     def kv_tokens_free(self) -> int:
+        if self.kv is None:
+            return 1 << 30       # SSM-only: no token-proportional cache
         return self.kv.available_blocks * self.kv.spec.block_size
 
     def kv_tokens_total(self) -> int:
         """Whole-pool KV capacity in tokens: the admission check's
         can-this-request-EVER-fit bound (DESIGN.md §15)."""
+        if self.kv is None:
+            return 1 << 30
         return self.kv.spec.num_blocks * self.kv.spec.block_size
 
     def live_rids(self) -> set:
@@ -120,7 +143,10 @@ class ModelRunner:
         self.cfg = cfg
         self.params = params
         self.caches = caches
-        self._state = M.empty_state(cfg)
+        # one zero lane: the state of a request's first prefill chunk and of
+        # padded lanes
+        self._zero = M.empty_state(cfg, dtype=caches.dtype,
+                                   device=self.device)
 
     def _dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
@@ -212,7 +238,40 @@ class ModelRunner:
         return self.prefill_chunks([(rid, tokens, use_media)])[0]
 
     def _ctx_len(self, rid: int) -> int:
-        return self.caches.kv.lengths.get(rid, 0)
+        if self.caches.kv is not None:
+            return self.caches.kv.lengths.get(rid, 0)
+        st = self.caches.states.get(rid) or {}
+        return int(st.get("ctx_len", 0))
+
+    def _batched_state(self, rids, B_pad: int, *, fresh: bool = False):
+        """Batch each request's per-layer Mamba state/conv into the step's
+        [B_pad, ...] state; padded lanes get zeros.  ``fresh``: a request
+        with no state yet (its first prefill chunk) starts from zeros; in
+        decode every request must have one."""
+        sts = [self.caches.states.get(r) or {} for r in rids]
+        out = []
+        for i, zero in enumerate(self._zero["layers"]):
+            if not zero:
+                out.append({})
+                continue
+            per = [st[f"mamba{i}"] if not fresh or f"mamba{i}" in st
+                   else zero for st in sts]
+            per += [zero] * (B_pad - len(rids))
+            out.append({n: torch.cat([e[n] for e in per])
+                        for n in ("state", "conv")})
+        return {"layers": out}
+
+    def _commit_states(self, rids, new_state, ctx_lens):
+        """Scatter each lane's new Mamba state/conv back to its request and
+        record its context length."""
+        for b, rid in enumerate(rids):
+            st = self.caches.states.get(rid) or {}
+            for i, e in enumerate(new_state["layers"]):
+                if e:
+                    st[f"mamba{i}"] = {"state": e["state"][b:b + 1],
+                                       "conv": e["conv"][b:b + 1]}
+            st["ctx_len"] = ctx_lens[b]
+            self.caches.states.put(rid, st)
 
     @torch.inference_mode()
     def prefill_chunks(self, items, sample=None):
@@ -270,11 +329,15 @@ class ModelRunner:
         lens_arr = np.zeros(B_pad, np.int32)
         lens_arr[:B] = ctx
         cache = self.caches.kv
-        bs = cache.spec.block_size
-        pages = max(-(-(c + n) // bs) for c, n in zip(ctx, n_new))
-        tables, slots = cache.prepare_prefill(rids, n_new, B_pad, C_pad,
-                                              bucket_pow2(pages))
-        ctl = {"kv": {"tables": self._dev(tables), "slots": self._dev(slots)}}
+        data, ctl = {}, {}
+        if cache is not None:
+            bs = cache.spec.block_size
+            pages = max(-(-(c + n) // bs) for c, n in zip(ctx, n_new))
+            tables, slots = cache.prepare_prefill(rids, n_new, B_pad, C_pad,
+                                                  bucket_pow2(pages))
+            data["kv"] = cache.data
+            ctl["kv"] = {"tables": self._dev(tables),
+                         "slots": self._dev(slots)}
         if img_slots is not None:
             # media positions read the device image cache in the step
             ctl["img"] = {"slots": self._dev(img_slots),
@@ -285,15 +348,15 @@ class ModelRunner:
         greedy = self._all_greedy(sample, idxs)
         if sample is not None and not greedy:
             ctl["sample"] = self._sample_ctl(sample, B_pad, idxs=idxs)
-        logits, _, _ = M.prefill_chunk_paged(
-            self.cfg, self.params, {"kv": cache.data}, ctl, self._state,
-            self._dev(lens_arr), self._dev(tokens))
+        state = self._batched_state(rids, B_pad, fresh=True)
+        logits, _, new_state = M.prefill_chunk_paged(
+            self.cfg, self.params, data, ctl, state, self._dev(lens_arr),
+            self._dev(tokens))
         res = self._finish(logits, B, greedy)
-        cache.commit_prefill(rids, n_new)
-        for b, (_, rid, toks, um, n) in enumerate(grp):
-            st = self.caches.states.get(rid) or {}
-            st["ctx_len"] = ctx[b] + n
-            self.caches.states.put(rid, st)
+        if cache is not None:
+            cache.commit_prefill(rids, n_new)
+        self._commit_states(rids, new_state,
+                            [c + n for c, n in zip(ctx, n_new)])
         return res
 
     # ------------------------------------------------------------------
@@ -309,37 +372,41 @@ class ModelRunner:
         lens_arr = np.zeros(B_pad, np.int32)
         lens_arr[:B] = lens
         cache = self.caches.kv
-        bs = cache.spec.block_size
-        pages = max(-(-(n + 1) // bs) for n in lens)
-        tables, slots = cache.prepare_decode(rids, B_pad, bucket_pow2(pages))
-        ctl = {"kv": {"tables": self._dev(tables), "slots": self._dev(slots)}}
-        return ctl, self._dev(lens_arr), lens
+        data, ctl = {}, {}
+        if cache is not None:
+            bs = cache.spec.block_size
+            pages = max(-(-(n + 1) // bs) for n in lens)
+            tables, slots = cache.prepare_decode(rids, B_pad,
+                                                 bucket_pow2(pages))
+            data["kv"] = cache.data
+            ctl["kv"] = {"tables": self._dev(tables),
+                         "slots": self._dev(slots)}
+        return data, ctl, self._dev(lens_arr), lens
 
-    def _commit_paged(self, rids, lens):
-        """Block tables/lengths advance by the one token the step wrote."""
-        self.caches.kv.commit_decode(rids)
-        for b, rid in enumerate(rids):
-            st = self.caches.states.get(rid) or {}
-            st["ctx_len"] = lens[b] + 1
-            self.caches.states.put(rid, st)
+    def _commit_paged(self, rids, new_state, lens):
+        """Block tables/lengths advance by the one token the step wrote;
+        each lane's new Mamba state goes back to its request."""
+        if self.caches.kv is not None:
+            self.caches.kv.commit_decode(rids)
+        self._commit_states(rids, new_state, [n + 1 for n in lens])
 
     @torch.inference_mode()
     def decode(self, rids, tokens: np.ndarray, sample=None):
         """One decode step for a batch.  tokens: [B].  Returns logits [B, V],
         or sampled next-token ids [B] (np int32) when ``sample`` carries
         per-request sampling controls (see ``M.sample_from_logits``)."""
-        ctl, lens_arr, lens = self._prepare_paged(rids)
+        data, ctl, lens_arr, lens = self._prepare_paged(rids)
         B_pad = lens_arr.shape[0]
         greedy = self._all_greedy(sample)
         if sample is not None and not greedy:
             ctl["sample"] = self._sample_ctl(sample, B_pad)
         tok = np.zeros((B_pad, 1), np.int32)
         tok[:len(rids), 0] = tokens
-        out, _, _ = M.decode_step_paged(
-            self.cfg, self.params, {"kv": self.caches.kv.data}, ctl,
-            self._state, lens_arr, self._dev(tok))
+        out, _, new_state = M.decode_step_paged(
+            self.cfg, self.params, data, ctl,
+            self._batched_state(rids, B_pad), lens_arr, self._dev(tok))
         res = self._finish(out, len(rids), greedy)
-        self._commit_paged(rids, lens)
+        self._commit_paged(rids, new_state, lens)
         return res
 
     # ------------------------------------------------------------------

@@ -8,34 +8,41 @@ packages identical inputs.  Pools are updated in place by the cache-write
 kernel (the JAX package donates them instead); the functions still return
 them so the call shapes match.
 
-This slice covers dense attention + MLP layers (``ATTN_MLP``) with an
-optional vision frontend: the LLaVA family the paper evaluates.  Other
-layer kinds and frontends raise ``NotImplementedError`` (ROADMAP, queue 1:
-other families).  The JAX package's dense ``forward``/``decode_step``/
-``prefill_chunk`` paths are not ported (ROADMAP, queue 1: dense
-fallbacks).
+Two families are covered: dense attention + MLP layers (``ATTN_MLP``)
+with an optional vision frontend, the LLaVA family the paper evaluates;
+and attention-free Mamba-1 models (``MAMBA1``, falcon-mamba), whose
+per-request recurrent state travels in the step's ``state`` argument.
+Other layer kinds and frontends raise ``NotImplementedError`` (ROADMAP,
+queue 1: other families).  The JAX package's dense ``forward``/
+``decode_step``/``prefill_chunk`` paths are not ported (ROADMAP, queue 1:
+dense fallbacks).
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.configs.base import ATTN_MLP, ModelConfig
+from repro_torch.configs.base import ATTN_MLP, MAMBA1, ModelConfig
 from repro_torch.kernels.cache_write.ops import (paged_chunk_write,
                                                  paged_token_write)
 from repro_torch.kernels.paged_attention.ops import (paged_attention,
                                                      paged_prefill_attention)
-from repro_torch.models import layers
+from repro_torch.models import layers, mamba
 from repro_torch.models.layers import rmsnorm
 from repro_torch.params import ParamTree
 
 
 def check_supported(cfg: ModelConfig):
     """Raise for what this slice of the port does not cover yet."""
-    other = sorted(set(cfg.layer_kinds()) - {ATTN_MLP})
+    kinds = set(cfg.layer_kinds())
+    other = sorted(kinds - {ATTN_MLP, MAMBA1})
     if other:
         raise NotImplementedError(
             f"{cfg.name}: layer kinds {other} are not ported yet "
             f"(ROADMAP queue 1: other families)")
+    if MAMBA1 in kinds and cfg.frontend != "none":
+        raise NotImplementedError(
+            f"{cfg.name}: Mamba-1 with a {cfg.frontend!r} frontend is not "
+            f"ported yet (ROADMAP queue 1: other families)")
     if cfg.frontend not in ("none", "vision") or cfg.cross_attention:
         raise NotImplementedError(
             f"{cfg.name}: frontend {cfg.frontend!r} / cross-attention is not "
@@ -67,7 +74,10 @@ def init_params(cfg: ModelConfig, gen: torch.Generator,
 
     tree = {"embed": dense((cfg.vocab_size, d), scale=0.02),
             "final_norm": zeros(d), "layers": []}
-    for _ in range(cfg.num_layers):
+    for kind in cfg.layer_kinds():
+        if kind == MAMBA1:
+            tree["layers"].append(mamba.init_mamba1(gen, cfg, dtype))
+            continue
         p = {"norm1": zeros(d), "wq": dense((d, H * Dh)),
              "wk": dense((d, Kh * Dh)), "wv": dense((d, Kh * Dh)),
              "wo": dense((H * Dh, d)), "norm2": zeros(d)}
@@ -200,30 +210,48 @@ def decode_step_paged(cfg: ModelConfig, params, data, ctl, state, lens,
                       token):
     """One decode step reading/writing device-resident paged caches in place.
 
-    ``data``: {"kv": [2, L, num_blocks+1, bs, width]} page pool, written in
-    place.  ``ctl``: {"kv": {"tables": [B, P] int32, "slots": [B] int32
-    within-plane row slot of the token being appended}, "sample": optional
-    controls of :func:`sample_from_logits`}.  ``state``: {"layers": [...]}
-    non-paged per-layer state (empty for the layers of this slice).
-    ``lens``: [B] int32 tokens already cached; ``token``: [B, 1].
+    ``data``: {"kv": [2, L_attn, num_blocks+1, bs, width]} page pool,
+    written in place (absent for attention-free models).  ``ctl``: {"kv":
+    {"tables": [B, P] int32, "slots": [B] int32 within-plane row slot of the
+    token being appended} (with the pool), "sample": optional controls of
+    :func:`sample_from_logits`}.  ``state``: {"layers": [...]} batched
+    per-layer non-paged state (see :func:`empty_state`): Mamba-1 layers
+    carry {"state", "conv"}, attention layers nothing.  ``lens``: [B] int32
+    tokens already cached; ``token``: [B, 1].
 
     Returns (logits [B, V] — or sampled ids [B] with ``ctl["sample"]`` —,
-    {"kv": data}, state).
+    {"kv": data} (empty without a pool), {"layers": new per-layer state}).
     """
     h = params.embed[token.long()]
-    kv, pool = ctl["kv"], data["kv"]
+    kv, pool = ctl.get("kv"), data.get("kv")
     lengths = lens + 1
-    for i in range(cfg.num_layers):
+    new_state = []
+    aj = 0                       # running index into the attention planes
+    for i, kind in enumerate(cfg.layer_kinds()):
         p = params.layers[i]
+        if kind == MAMBA1:
+            ent = state["layers"][i]
+            y, (st, conv) = mamba.mamba1_decode(
+                p, rmsnorm(h, p.norm, cfg.norm_eps), cfg, ent["state"],
+                ent["conv"])
+            h = h + y
+            new_state.append({"state": st, "conv": conv})
+            continue
         window = cfg.sliding_window if cfg.is_local_layer(i) else 0
         h = h + _attn_decode_paged(
-            p, rmsnorm(h, p.norm1, cfg.norm_eps), cfg, pool, i,
+            p, rmsnorm(h, p.norm1, cfg.norm_eps), cfg, pool, aj,
             kv["tables"], kv["slots"], lens, lengths, window)
+        aj += 1
         h = h + layers.mlp(p, rmsnorm(h, p.norm2, cfg.norm_eps), cfg.act)
+        new_state.append({})
     logits = _logits(cfg, params, h[:, 0])
     out = logits if ctl.get("sample") is None \
         else sample_from_logits(logits, ctl["sample"])
-    return out, {"kv": pool}, state
+    return out, _paged(pool), {"layers": new_state}
+
+
+def _paged(pool) -> dict:
+    return {} if pool is None else {"kv": pool}
 
 
 # ---------------------------------------------------------------------------
@@ -251,18 +279,23 @@ def prefill_chunk_paged(cfg: ModelConfig, params, data, ctl, state, ctx_lens,
                         tokens):
     """One batched prefill chunk reading/writing device paged caches in place.
 
-    ``data``: {"kv": [2, L, NB+1, bs, w]} page pool.  ``ctl``: {"kv":
-    {"tables": [B, P] int32, "slots": [B, C] int32 within-plane row slots of
-    the chunk tokens (padded positions point at scratch)}, "img": {"slots":
-    [B, C] int32 image-cache row per media position or -1, "pages": image
-    page pool} (optional), "mask": [B, C] bool valid chunk positions,
-    "last": [B] int32 index of each request's last valid position,
-    "sample": optional}.  ``ctx_lens``: [B] int32 tokens already cached;
+    ``data``: {"kv": [2, L_attn, NB+1, bs, w]} page pool (absent for
+    attention-free models).  ``ctl``: {"kv": {"tables": [B, P] int32,
+    "slots": [B, C] int32 within-plane row slots of the chunk tokens (padded
+    positions point at scratch)} (with the pool), "img": {"slots": [B, C]
+    int32 image-cache row per media position or -1, "pages": image page
+    pool} (optional), "mask": [B, C] bool valid chunk positions, "last": [B]
+    int32 index of each request's last valid position, "sample":
+    optional}.  ``state``: {"layers": [...]} batched per-layer Mamba-1
+    state/conv (zeros for a request's first chunk; see
+    :func:`empty_state`).  ``ctx_lens``: [B] int32 tokens already cached;
     ``tokens``: [B, C] int32 (0 at media positions — media embeddings are
     read straight off the image-cache pages).
 
-    Returns (last-token logits [B, V] — or sampled ids [B] —, {"kv": data},
-    state).
+    Returns (last-token logits [B, V] — or sampled ids [B] —, {"kv": data}
+    (empty without a pool), {"layers": new per-layer state}).  Padded
+    positions freeze the Mamba recurrence (``mask``), so each lane's new
+    state is that of its valid tokens alone.
     """
     B, C = tokens.shape
     h = params.embed[tokens.long()]
@@ -274,22 +307,48 @@ def prefill_chunk_paged(cfg: ModelConfig, params, data, ctl, state, ctx_lens,
         islots = img["slots"]
         media_h = img_flat[islots.clamp(min=0).long()]
         h = torch.where((islots >= 0)[..., None], media_h.to(h.dtype), h)
-    kv, pool = ctl["kv"], data["kv"]
-    for i in range(cfg.num_layers):
+    kv, pool = ctl.get("kv"), data.get("kv")
+    mask = ctl["mask"]
+    new_state = []
+    aj = 0                       # running index into the attention planes
+    for i, kind in enumerate(cfg.layer_kinds()):
         p = params.layers[i]
+        if kind == MAMBA1:
+            ent = state["layers"][i]
+            y, (st, conv) = mamba.mamba1_seq(
+                p, rmsnorm(h, p.norm, cfg.norm_eps), cfg, ent["state"],
+                ent["conv"], mask=mask)
+            h = h + y
+            new_state.append({"state": st, "conv": conv})
+            continue
         window = cfg.sliding_window if cfg.is_local_layer(i) else 0
         h = h + _attn_chunk_paged(
-            p, rmsnorm(h, p.norm1, cfg.norm_eps), cfg, pool, i,
+            p, rmsnorm(h, p.norm1, cfg.norm_eps), cfg, pool, aj,
             kv["tables"], kv["slots"], ctx_lens, window)
+        aj += 1
         h = h + layers.mlp(p, rmsnorm(h, p.norm2, cfg.norm_eps), cfg.act)
+        new_state.append({})
     h_last = h[torch.arange(B, device=h.device), ctl["last"].long()]
     logits = _logits(cfg, params, h_last)
     if ctl.get("sample") is not None:
         logits = sample_from_logits(logits, ctl["sample"])
-    return logits, {"kv": pool}, state
+    return logits, _paged(pool), {"layers": new_state}
 
 
-def empty_state(cfg: ModelConfig) -> dict:
-    """The non-paged per-layer state of this slice's layers: none."""
-    return {"layers": [{} for _ in range(cfg.num_layers)]}
-
+def empty_state(cfg: ModelConfig, *, dtype=torch.float32,
+                device="cpu") -> dict:
+    """The non-paged per-layer state of one new request, zero: Mamba-1
+    layers carry {"state": [1, d_inner, N] f32, "conv": [1, K-1, d_inner]
+    in ``dtype`` (the weights' type)}; attention layers carry nothing.  The
+    steps take it batched: one such lane per request, concatenated."""
+    out = []
+    for kind in cfg.layer_kinds():
+        ent = {}
+        if kind == MAMBA1:
+            shapes = mamba.mamba1_cache_shape(cfg, 1)
+            ent = {"state": torch.zeros(shapes["state"], dtype=torch.float32,
+                                        device=device),
+                   "conv": torch.zeros(shapes["conv"], dtype=dtype,
+                                       device=device)}
+        out.append(ent)
+    return {"layers": out}

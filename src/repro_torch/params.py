@@ -1,9 +1,11 @@
 """Model parameters as an ``nn.Module`` tree.
 
 The attribute names follow the JAX package's param tree (``embed``,
-``final_norm``, ``lm_head``, ``media_proj_w1``/``w2``, ``layers[i].{norm1,
-wq, wk, wv, wo, norm2, w_gate, w_up, w_down}``), and every weight keeps the
-JAX layout ([in, out], applied as ``x @ w``), so a tree converted from
+``final_norm``, ``lm_head``, ``media_proj_w1``/``w2``, attention layers'
+``layers[i].{norm1, wq, wk, wv, wo, norm2, w_gate, w_up, w_down}``, Mamba-1
+layers' ``layers[i].{norm, in_proj, conv_w, conv_b, x_proj, dt_proj,
+dt_bias, A_log, D, out_proj}``), and every weight keeps the JAX layout
+([in, out], applied as ``x @ w``), so a tree converted from
 ``repro.models.model.init_params`` computes exactly what the JAX model
 computes.
 """
@@ -14,6 +16,10 @@ import torch
 from torch import nn
 
 from repro_torch import resolve_device
+
+# leaves the JAX package keeps in f32 whatever the weights' type
+F32_LEAVES = frozenset({"final_norm", "norm", "norm1", "norm2", "dt_bias",
+                        "A_log", "D"})
 
 
 class ParamTree(nn.Module):
@@ -39,17 +45,18 @@ class ParamTree(nn.Module):
 def params_from_numpy(tree: dict, device="cuda", dtype=None) -> ParamTree:
     """The JAX param tree, with numpy arrays as leaves (``np.asarray`` of
     each jax array), as the port's module on ``device``.  ``dtype`` casts
-    the weight matrices; 1-D norm scales stay f32, as the JAX package keeps
-    them."""
+    the weights; the leaves in ``F32_LEAVES`` (norm scales and the Mamba
+    ``dt_bias``/``A_log``/``D``) stay f32, as the JAX package keeps them."""
     dev = resolve_device(device)
 
-    def conv(x):
+    def conv(x, name=None):
         if isinstance(x, dict):
-            return {k: conv(v) for k, v in x.items()}
+            return {k: conv(v, k) for k, v in x.items()}
         if isinstance(x, (list, tuple)):
             return [conv(v) for v in x]
         t = torch.from_numpy(np.array(x, copy=True))
-        if dtype is not None and t.is_floating_point() and t.ndim >= 2:
+        if dtype is not None and t.is_floating_point() \
+                and name not in F32_LEAVES:
             t = t.to(dtype)
         return t.to(dev)
 

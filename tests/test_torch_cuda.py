@@ -5,7 +5,9 @@ a card; on the machine with one: ``PYTHONPATH=src python -m pytest
 tests/test_torch_cuda.py``.
 
 Tolerances: f32 1e-4 absolute (summation order only), bf16 2e-2 absolute
-(one bf16 rounding of outputs near 1); the cache write is exact.
+(one bf16 rounding of outputs near 1); the cache write is exact.  The
+selective scan computes in f32 from the same inputs on both sides and
+returns f32, so bf16 inputs keep the f32 bar of 1e-4.
 """
 import numpy as np
 import pytest
@@ -17,6 +19,8 @@ from repro_torch.kernels.cache_write.ref import cache_write_ref
 from repro_torch.kernels.paged_attention import ops as tpa
 from repro_torch.kernels.paged_attention.ref import (
     paged_attention_ref, paged_prefill_attention_ref)
+from repro_torch.kernels.selective_scan import ops as tss
+from repro_torch.kernels.selective_scan.ref import selective_scan_ref
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
@@ -101,3 +105,47 @@ def test_cache_write_kernel_matches_plain(cuda, src, dst, w):
                     .reshape(-1))
     torch.cuda.synchronize()
     assert torch.equal(got, want)
+
+
+def _scan_inputs(gen, dev, B, S, d, N, dtype):
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen)
+    dt = (rnd(B, S, d).abs() * 0.1).to(dev, dtype)
+    A = -rnd(d, N).abs().to(dev)
+    return (dt, rnd(B, S, d).to(dev, dtype), A, rnd(B, S, N).to(dev, dtype),
+            rnd(B, S, N).to(dev, dtype), rnd(B, d, N).to(dev))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,S,d,N,with_h0", [
+    (1, 37, 100, 16, True), (3, 70, 64, 8, False), (4, 1, 257, 16, True),
+    (2, 33, 64, 4, True)])
+def test_selective_scan_kernel_matches_plain(cuda, dtype, B, S, d, N,
+                                             with_h0):
+    gen = torch.Generator().manual_seed(B * 1000 + S + d + N)
+    dt, x, A, Bm, Cm, h0 = _scan_inputs(gen, cuda, B, S, d, N, dtype)
+    h0 = h0 if with_h0 else None
+    before = K.launches["selective_scan"]
+    y, h = tss.selective_scan(dt, x, A, Bm, Cm, h0)
+    y_ref, h_ref = selective_scan_ref(dt, x, A, Bm, Cm, h0)
+    torch.cuda.synchronize()
+    assert K.launches["selective_scan"] == before + 1
+    assert y.dtype == h.dtype == torch.float32
+    assert torch.isfinite(y).all() and torch.isfinite(h).all()
+    assert (y - y_ref).abs().max().item() <= 1e-4
+    assert (h - h_ref).abs().max().item() <= 1e-4
+
+
+def test_selective_scan_kernel_zero_dt_freezes_state(cuda):
+    gen = torch.Generator().manual_seed(5)
+    dt, x, A, Bm, Cm, h0 = _scan_inputs(gen, cuda, 2, 80, 130, 16,
+                                        torch.float32)
+    _, h_head = tss.selective_scan(dt[:, :45].contiguous(),
+                                   x[:, :45].contiguous(), A,
+                                   Bm[:, :45].contiguous(),
+                                   Cm[:, :45].contiguous(), h0)
+    dt[:, 45:] = 0
+    _, h = tss.selective_scan(dt, x, A, Bm, Cm, h0)
+    torch.cuda.synchronize()
+    assert torch.equal(h, h_head)

@@ -16,6 +16,7 @@ from repro_torch.engine.api import Engine
 from repro_torch.engine.paged_cache import DevicePagedCache, PagedCacheSpec
 from repro_torch.kernels.cache_write import ops as tcw
 from repro_torch.kernels.paged_attention import ops as tpa
+from repro_torch.kernels.selective_scan import ops as tss
 from repro_torch.models import model as M
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -82,18 +83,23 @@ def _boom(*a, **k):  # pragma: no cover - only hit on regression
 
 
 @pytest.mark.parametrize("wrapper", ["cache_write", "paged_attention",
-                                     "paged_prefill_attention"])
+                                     "paged_prefill_attention",
+                                     "selective_scan"])
 def test_wrapper_never_falls_back_to_plain_version(no_card, monkeypatch,
                                                    wrapper):
     monkeypatch.setattr(tcw, "cache_write_ref", _boom)
     monkeypatch.setattr(tpa, "paged_attention_ref", _boom)
     monkeypatch.setattr(tpa, "paged_prefill_attention_ref", _boom)
+    monkeypatch.setattr(tss, "selective_scan_ref", _boom)
     pages, tables, lens = _fake_cuda(8, 4, 2, 8), _fake_cuda(1, 2), \
         _fake_cuda(1)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         if wrapper == "cache_write":
             tcw.paged_chunk_write(_fake_cuda(2, 1, 8, 4, 16), 0,
                                   _fake_cuda(2, 1, 1, 16), _fake_cuda(1, 1))
+        elif wrapper == "selective_scan":
+            seq, bc = _fake_cuda(1, 3, 8), _fake_cuda(1, 3, 4)
+            tss.selective_scan(seq, seq, _fake_cuda(8, 4), bc, bc)
         elif wrapper == "paged_attention":
             tpa.paged_attention(_fake_cuda(1, 2, 8), pages, pages, tables,
                                 lens)

@@ -71,7 +71,7 @@ def test_init_params_matches_jax_tree_shapes(llava):
         assert str(flat[k].dtype).split(".")[-1] == str(a.dtype), k
 
 
-@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "falcon-mamba-7b",
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "zamba2-7b",
                                   "whisper-small", "granite-moe-1b-a400m"])
 def test_unported_families_raise(arch):
     cfg = get_config(arch).reduced()
