@@ -17,23 +17,34 @@ on failure:
             selective scan at falcon-mamba-7b widths (d = 8192, N = 16):
             prefill B = 1 and 4 at S = 512 from a nonzero state, decode
             B = 4 and 8, f32 and bf16, and a tail of dt = 0 that must leave
-            the state unchanged; times kernel, plain version and one
+            the state unchanged; flash attention at whisper-small shapes
+            (H = 12, D = 64, 1500 frames: encoder self-attention at B = 1
+            and 4, cross-attention of a 64-row chunk at B = 4 and of a
+            decode row at B = 8) and causal GQA at H = 32, Kh = 8, D = 128,
+            S = 1024 (plain, window 256, and a 256-row chunk after 768
+            cached keys), f32 and bf16; times kernel, plain version and one
             PyTorch library call (where there is one) with CUDA events, and
             computes each kernel's bound;
 4. model  - the port's runner on the card against the same runner on the
-            CPU (plain versions) on reduced LLaVA and on reduced
-            falcon-mamba (batched chunks of different lengths): logits per
-            step;
-5. serve  - two main paths through ``repro_torch.engine.api.Engine``, each
-            with the launch counters set to 0 just before it and read just
-            after: full-width, 32-layer LLaVA-1.5-7B with random bf16
+            CPU (plain versions) on reduced LLaVA, reduced falcon-mamba
+            (batched chunks of different lengths) and reduced whisper-small
+            (encoder output, batched chunks, decode over cross K/V): logits
+            per step;
+5. serve  - three main paths through ``repro_torch.engine.api.Engine``,
+            each with the launch counters set to 0 just before it and read
+            just after: full-width, 32-layer LLaVA-1.5-7B with random bf16
             weights on E/P/D instances (four image+text greedy requests and
             one seeded sampled request; every attention and cache-write
-            kernel must launch), then, with LLaVA's memory freed,
+            kernel must launch); then, with LLaVA's memory freed,
             full-width 64-layer falcon-mamba-7b on P/D instances (four
             greedy text requests of 200-600 tokens and one seeded sampled
             one; the scan must launch, each request's recurrent state must
-            migrate P -> D);
+            migrate P -> D); then full-width whisper-small on E/P/D
+            instances (five requests of one 1500x768 frame-embedding clip
+            and 8-48 prompt tokens, same sampling mix; flash attention must
+            launch in encode, prefill and decode, each request's encoder
+            output and cross K/V must migrate P -> D, and the embedding
+            cache must hold a host copy of every encoder output);
 6. report - one JSON line of kernels, then the final status line.
 
 Exits non-zero (and prints no status line) without a card or outside the
@@ -63,12 +74,19 @@ PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12}     # FLOP/s, dense
 # rounding is 1.6e-2 (measured 7.8e-3).  The cache write copies exactly.
 # The selective scan computes in f32 from the same inputs on both sides and
 # returns f32, so bf16 inputs keep the f32 bar.
+# Flash attention: f32 in summation order only; bf16 rounds each output
+# once (values near 1 after averaging few keys round by up to 2^-8 ~ 4e-3,
+# and the first causal rows see a single key, where outputs keep |v| up to
+# ~4): the prefill bar of 2e-2.
 TOL = {"paged_attention": {"float32": 1e-4, "bfloat16": 4e-3},
        "paged_prefill_attention": {"float32": 1e-4, "bfloat16": 2e-2},
        "cache_write": {"float32": 0.0, "bfloat16": 0.0},
-       "selective_scan": {"float32": 1e-4, "bfloat16": 1e-4}}
+       "selective_scan": {"float32": 1e-4, "bfloat16": 1e-4},
+       "flash_attention": {"float32": 1e-4, "bfloat16": 2e-2}}
 H, KH, D, PAGE, W = 32, 32, 128, 16, 4096             # llava-1.5-7b widths
 D_INNER, N_STATE = 8192, 16                           # falcon-mamba-7b widths
+WH, WD, WT = 12, 64, 1500                             # whisper-small heads,
+#                                                       head dim, frames
 
 
 def log(obj):
@@ -430,6 +448,80 @@ def scan_cases(gen, dev, results, rate):
     results["selective_scan"]["max_abs_err"] = max(errs)
 
 
+def flash_cases(gen, dev, results, rate):
+    """Flash attention at whisper-small's shapes (encoder self-attention,
+    cross-attention of a prefill chunk and of a decode step, all over the
+    1500 audio frames) and at the TPU kernel's other features: causal GQA,
+    a 256-key window, a chunk after a cached prefix (kv_offset)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    # (tag, B, H, Kh, Sq, Sk, D, causal, window, kv_offset)
+    cases = [("enc-self-b1", 1, WH, WH, WT, WT, WD, False, 0, 0),
+             ("enc-self-b4", 4, WH, WH, WT, WT, WD, False, 0, 0),
+             ("cross-prefill-b4-c64", 4, WH, WH, 64, WT, WD, False, 0, 0),
+             ("cross-decode-b8", 8, WH, WH, 1, WT, WD, False, 0, 0),
+             ("causal-gqa-s1024", 1, 32, 8, 1024, 1024, 128, True, 0, 0),
+             ("causal-gqa-window256", 1, 32, 8, 1024, 1024, 128, True, 256,
+              0),
+             ("causal-gqa-offset768", 2, 32, 8, 256, 1024, 128, True, 0,
+              768)]
+    errs = []
+    for tag, B, Hq, Kh, Sq, Sk, Dh, causal, window, off in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            q = torch.randn((B, Hq, Sq, Dh), generator=gen,
+                            device=dev).to(dtype)
+            k = torch.randn((B, Kh, Sk, Dh), generator=gen,
+                            device=dev).to(dtype)
+            v = torch.randn((B, Kh, Sk, Dh), generator=gen,
+                            device=dev).to(dtype)
+            kw = dict(causal=causal, window=window, kv_offset=off)
+            got = flash_attention(q, k, v, **kw)
+            want = flash_attention_ref(q, k, v, **kw)
+            err = check(f"flash_attention/{tag}", dtype, got, want)
+            errs.append(err)
+            if dtype != torch.bfloat16:
+                continue
+            # the (query, key) pairs this mask lets through
+            qpos = off + torch.arange(Sq, device=dev)[:, None]
+            kpos = torch.arange(Sk, device=dev)[None, :]
+            mask = torch.ones((Sq, Sk), dtype=torch.bool, device=dev)
+            if causal:
+                mask &= kpos <= qpos
+            if window:
+                mask &= kpos > qpos - window
+            pairs = int(mask.sum()) * B * Hq
+            isz = q.element_size()
+            nbytes = 2 * (q.numel() + k.numel()) * isz
+            t_bytes = nbytes / PEAK_BYTES * 1e3
+            t_ops = max(4 * pairs * Dh / PEAK_OPS["bfloat16"],
+                        pairs / rate) * 1e3
+            # one PyTorch call on the same tensors: plain causal when the
+            # mask is the square triangle, else the boolean mask
+            sdpa_kw = {"enable_gqa": Kh != Hq}
+            if causal and not window and not off and Sq == Sk:
+                sdpa_kw["is_causal"] = True
+            elif causal or window:
+                sdpa_kw["attn_mask"] = mask
+            row = {"shape": f"B={B} H={Hq} Kh={Kh} Sq={Sq} Sk={Sk} D={Dh} "
+                            f"causal={int(causal)} window={window} "
+                            f"kv_offset={off} bf16",
+                   "ms": time_ms(lambda: flash_attention(q, k, v, **kw)),
+                   "plain_ms": time_ms(lambda: flash_attention_ref(
+                       q, k, v, **kw), reps=3, rounds=3),
+                   "library_ms": time_ms(
+                       lambda: F.scaled_dot_product_attention(
+                           q, k, v, **sdpa_kw)),
+                   "bound_ms": max(t_bytes, t_ops),
+                   "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+            if tag == "enc-self-b4":
+                results["flash_attention"] = row
+            log({"timing": f"flash_attention/{tag}", **row})
+            del q, k, v, got, want
+    results["flash_attention"]["max_abs_err"] = max(errs)
+
+
 # ---------------------------------------------------------------------------
 # phase 4: the runner on the card against the runner on the CPU
 # ---------------------------------------------------------------------------
@@ -519,28 +611,81 @@ def mamba_model_check(seed: int):
          "steps": steps, "max_rel_logit_err": worst, "tol": 2e-4})
 
 
+def whisper_model_check(seed: int):
+    """Reduced whisper-small: the audio encoder on three clips, a batched
+    first prompt chunk of three lengths cross-attending each lane's own
+    encoder output, a second chunk for two of them, then four decode steps
+    over the cross K/V, on the card and on the CPU."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.engine import runner as R
+    from repro_torch.models import model as M
+    cfg = get_config("whisper-small").reduced()
+    runners = {}
+    for dev in ("cpu", "cuda"):
+        p = M.init_params(cfg, torch.Generator().manual_seed(seed)).to(dev)
+        runners[dev] = R.ModelRunner(cfg, p, R.RunnerCaches(
+            cfg, kv_blocks=32, img_blocks=4, device=dev), device=dev)
+    rng = np.random.default_rng(seed)
+    clips = [(rng.standard_normal((cfg.media_tokens, cfg.d_model))
+              * 0.1).astype(np.float32) for _ in range(3)]
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (13, 6, 9)]
+    worst, steps = 0.0, 0
+
+    def compare(fn):
+        nonlocal worst, steps
+        want, got = fn(runners["cpu"]), fn(runners["cuda"])
+        rel = float(np.abs(got - want).max() / (np.abs(want).max() + 1e-9))
+        worst, steps = max(worst, rel), steps + 1
+        if not rel < 2e-4:
+            raise AssertionError(f"whisper model check: off by {rel}")
+        return want
+
+    for r in runners.values():
+        r.encode([(i, c) for i, c in enumerate(clips)])
+    compare(lambda r: np.concatenate([
+        r.caches.states.get(i)["enc_out"].cpu().numpy() for i in range(3)]))
+    first = compare(lambda r: r.prefill_chunks([(0, prompts[0][:8], False),
+                                                (1, prompts[1], False),
+                                                (2, prompts[2][:5], False)]))
+    last = compare(lambda r: r.prefill_chunks([(0, prompts[0][8:], False),
+                                               (2, prompts[2][5:], False)]))
+    toks = np.argmax(np.stack([last[0], first[1], last[1]]), -1)
+    for _ in range(4):
+        toks = np.argmax(compare(lambda r: r.decode([0, 1, 2], toks)), -1)
+    log({"model_check": "reduced whisper-small f32, runner on cuda vs cpu "
+                        "(encoder output, then logits)",
+         "steps": steps, "max_rel_err": worst, "tol": 2e-4})
+
+
 # ---------------------------------------------------------------------------
 # phase 5: the main path
 # ---------------------------------------------------------------------------
 @contextlib.contextmanager
 def timed_calls(targets):
-    """Accumulate wall seconds and calls of each ``owner.name`` in
-    ``targets`` into the yielded {name: {"s", "calls"}}; the originals come
-    back on exit.  The runner's methods return host numpy, so their wall
-    time covers the device work they started."""
+    """Accumulate wall seconds, calls and flash-attention launches of each
+    ``owner.name`` in ``targets`` into the yielded {name: {"s", "calls",
+    "flash_launches"}}; the originals come back on exit.  The runner's
+    methods return host numpy, so their wall time covers the device work
+    they started."""
+    from repro_torch import kernels as K
     acc, saved = {}, []
     for owner, name in targets:
         fn = getattr(owner, name)
         saved.append((owner, name, fn))
-        acc[name] = rec = {"s": 0.0, "calls": 0}
+        acc[name] = rec = {"s": 0.0, "calls": 0, "flash_launches": 0}
 
         def timed(*a, _fn=fn, _rec=rec, **k):
             t = time.perf_counter()
+            n = K.launches["flash_attention"]
             try:
                 return _fn(*a, **k)
             finally:
                 _rec["s"] += time.perf_counter() - t
                 _rec["calls"] += 1
+                _rec["flash_launches"] += K.launches["flash_attention"] - n
         setattr(owner, name, timed)
     try:
         yield acc
@@ -588,12 +733,16 @@ def request_metrics(rs) -> dict:
 
 
 def check_reclaimed(srv):
+    """Every pool back: blocks free, or (with prefix caching) parked
+    unreferenced in the evictable pool, still indexed for later hits."""
     for inst in srv.instances:
         if inst.running or inst.waiting or inst.caches.states.store:
             raise AssertionError(f"instance {inst.iid} still holds work")
         for c in (inst.caches.kv, inst.caches.img):
-            if c is not None and (c.tables or c.allocator.n_free
-                                  != c.allocator.num_blocks):
+            if c is not None and (
+                    c.tables or any(c.refcount)
+                    or c.allocator.n_free + len(c.evictable)
+                    != c.allocator.num_blocks):
                 raise AssertionError(f"instance {inst.iid}: pool not "
                                      f"reclaimed")
 
@@ -797,6 +946,99 @@ def serve_mamba(seed: int, card: str):
     return launches
 
 
+def serve_whisper(seed: int, card: str):
+    """whisper-small, E1+P1+D1; returns the launch counts of its run."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_config
+    from repro_torch.core.request import SamplingParams
+    from repro_torch.core.simulator import DisaggConfig
+    from repro_torch.engine.api import Engine
+    from repro_torch.models import model as M
+    cfg = get_config("whisper-small")
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(device="cuda")
+                           .manual_seed(seed), dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    n_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    # prefix_cache: after each encode the server publishes the encoder
+    # output to its embedding cache (a host copy of a device bf16 tensor)
+    eng = Engine(cfg, params, DisaggConfig({"E": 1, "P": 1, "D": 1}),
+                 prefix_cache=True, device="cuda")
+    log({"setup": "whisper-small full width, 12 encoder + 12 decoder "
+                  "layers, random bf16 weights", "weight_bytes": n_bytes,
+         "params": sum(p.numel() for p in params.parameters()),
+         "setup_s": time.perf_counter() - t0})
+    rng = np.random.default_rng(seed)
+    reqs = []
+    for i in range(5):
+        clip = (rng.standard_normal((cfg.media_tokens, cfg.d_model))
+                * 0.1).astype(np.float32)
+        prompt = rng.integers(0, cfg.vocab_size,
+                              int(rng.integers(8, 49))).astype(np.int32)
+        sp = SamplingParams(max_tokens=16) if i < 4 else SamplingParams(
+            temperature=0.8, top_k=50, top_p=0.95, seed=seed, max_tokens=16)
+        reqs.append((prompt, clip, sp))
+
+    with timed_calls(wall_split_targets()) as split:
+        K.reset_launches()
+        rs, outs, wall = run_requests(eng, reqs, cfg.vocab_size)
+        launches = dict(K.launches)
+    for name in ("cache_write", "paged_attention", "paged_prefill_attention",
+                 "flash_attention"):
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} never launched on the "
+                                 f"whisper main path")
+    for stage in ("encode", "prefill_chunks", "decode"):
+        if split[stage]["flash_launches"] <= 0:
+            raise AssertionError(f"no flash-attention launch in {stage}")
+    srv = eng.server
+    row = cfg.media_tokens * cfg.d_model * 2          # one [T, d] bf16 row
+    cross_bytes = (1 + 2 * cfg.num_layers) * row      # enc_out + xk/xv
+    if srv.n_migrations != 2 * len(reqs) or \
+            srv.migrated_bytes < len(reqs) * (row + cross_bytes):
+        raise AssertionError(f"{srv.n_migrations} migrations moved "
+                             f"{srv.migrated_bytes} bytes; expected "
+                             f"{2 * len(reqs)} of >= {row + cross_bytes} "
+                             f"per request")
+    cached = list(srv.embed_cache.store.values())
+    if len(cached) != len(reqs) or any(
+            e.dtype != np.float32 or e.shape != (cfg.media_tokens,
+                                                 cfg.d_model)
+            for e in cached):
+        raise AssertionError("the embedding cache did not take a host f32 "
+                             "copy of every encoder output")
+    check_reclaimed(srv)
+    log({"main_path": "Engine E1+P1+D1, whisper-small bf16, 5 requests x "
+                      "(one 1500x768 clip + 8-48 prompt tokens), 16 new "
+                      "tokens",
+         "card": card, "wall_s": wall, **request_metrics(rs),
+         "prompt_tokens": [len(p) for p, _, _ in reqs],
+         "migrations": srv.n_migrations, "migrated_bytes": srv.migrated_bytes,
+         "migrated_bytes_per_request": srv.migrated_bytes / len(reqs),
+         "cross_state_bytes_per_request": cross_bytes,
+         "launches": launches, "wall_split": split,
+         "greedy_tokens_req0": outs[0]})
+
+    d = next(i for i in srv.instances if i.role_name == "D")
+    kvd = cfg.num_kv_heads * cfg.head_dim
+    zero = torch.zeros((1, cfg.media_tokens, kvd), dtype=torch.bfloat16,
+                       device="cuda")
+    ctx = 40
+
+    def add(rid):
+        d.caches.kv.append(rid, torch.zeros(
+            (2, cfg.num_layers, ctx, kvd), dtype=torch.bfloat16,
+            device="cuda"))
+        st = {f"{n}{i}": zero for i in range(cfg.num_layers)
+              for n in ("xk", "xv")}
+        d.caches.states.put(rid, {"ctx_len": ctx, **st})
+    steady_decode(d, add, d.caches.release, card,
+                  f"whisper-small, context {ctx} + 1500 frames")
+    return launches
+
+
 # ---------------------------------------------------------------------------
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -839,7 +1081,10 @@ def main() -> int:
     decode_cases(gen, dev, results)
     prefill_cases(gen, dev, results)
     cache_write_cases(gen, dev, results)
-    scan_cases(gen, dev, results, exp_rate())
+    rate = exp_rate()
+    scan_cases(gen, dev, results, rate)
+    torch.cuda.empty_cache()
+    flash_cases(gen, dev, results, rate)
     torch.cuda.empty_cache()
     for name, r in results.items():
         log({"kernel": name, "card": card, **r})
@@ -847,11 +1092,16 @@ def main() -> int:
 
     model_check(args.seed)
     mamba_model_check(args.seed)
+    whisper_model_check(args.seed)
     launches = serve(args.seed, card)
     gc.collect()                      # LLaVA's weights and pools go first
     torch.cuda.empty_cache()
     launches["selective_scan"] = serve_mamba(args.seed,
                                              card)["selective_scan"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches["flash_attention"] = serve_whisper(args.seed,
+                                                card)["flash_attention"]
 
     src = {"cache_write": ("src/repro_torch/csrc/cache_write.cu",
                            "src/repro/kernels/cache_write/kernel.py:25"),
@@ -861,7 +1111,9 @@ def main() -> int:
                "src/repro_torch/csrc/paged_attention.cu",
                "src/repro/kernels/paged_attention/kernel.py:162"),
            "selective_scan": ("src/repro_torch/csrc/selective_scan.cu",
-                              "src/repro/kernels/selective_scan/kernel.py:51")}
+                              "src/repro/kernels/selective_scan/kernel.py:51"),
+           "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                               "src/repro/kernels/flash_attention/kernel.py:65")}
     kernels = []
     for name, (source, replaces) in src.items():
         r = results[name]

@@ -2,7 +2,9 @@
 
 Executes the three HydraInfer stages on actual model weights:
 
-  encode             : modality frontend -> image-token cache (paged, block 576)
+  encode             : modality frontend -> image-token cache (paged, block
+                       576), or for cross-attention models (whisper) the
+                       audio encoder -> ``enc_out`` in the state store
   prefill_chunks     : ONE batched chunked-prefill step for every request's
                        chunk this iteration (paged KV; DESIGN.md §12)
   decode             : batched one-token step over heterogeneous contexts
@@ -17,6 +19,10 @@ only sampled token ids (or logits, when asked for) come back each step.
 Mamba-1 layers keep no paged cache: each request's recurrent state and conv
 prefix (``mamba{i}`` entries of the state store, device tensors, the state
 in f32) are batched into the step and scattered back per lane after it.
+Cross-attention models keep each request's encoder output (``enc_out``)
+and, after prefill, each layer's cross K/V (``xk{i}``/``xv{i}``) there
+too, as device tensors in the pool's type: prefill batches ``enc_out``,
+decode batches the cross K/V.
 Batch size, chunk length and page count are bucketed to powers of two as
 in the JAX package, so both packages see identical control tensors.
 
@@ -144,7 +150,7 @@ class ModelRunner:
         self.params = params
         self.caches = caches
         # one zero lane: the state of a request's first prefill chunk and of
-        # padded lanes
+        # padded lanes (and the cross K/V of a lane that has none)
         self._zero = M.empty_state(cfg, dtype=caches.dtype,
                                    device=self.device)
 
@@ -216,7 +222,21 @@ class ModelRunner:
             for i, e in zip(idxs, emb):
                 embs[i] = e
         for (rid, _), e in zip(items, embs):
-            self.caches.img.append(rid, e[None, None])  # [1, 1, T, d]
+            if self.cfg.cross_attention:
+                self._store_enc_out(rid, e)
+            else:
+                self.caches.img.append(rid, e[None, None])  # [1, 1, T, d]
+
+    def _store_enc_out(self, rid: int, e: torch.Tensor):
+        """Cross-attention models keep the encoder output [1, T, d] in the
+        state store; a later clip of the same request lands after the
+        earlier ones."""
+        st = self.caches.states.get(rid) or {}
+        e = e[None].to(self.caches.dtype)
+        if "enc_out" in st:
+            e = torch.cat([st["enc_out"], e], dim=1)
+        st["enc_out"] = e
+        self.caches.states.put(rid, st)
 
     def _media_batch(self, items):
         """Stack media on the device, padding the batch to a power of two
@@ -244,32 +264,55 @@ class ModelRunner:
         return int(st.get("ctx_len", 0))
 
     def _batched_state(self, rids, B_pad: int, *, fresh: bool = False):
-        """Batch each request's per-layer Mamba state/conv into the step's
-        [B_pad, ...] state; padded lanes get zeros.  ``fresh``: a request
-        with no state yet (its first prefill chunk) starts from zeros; in
-        decode every request must have one."""
+        """Batch each request's non-paged state into the step's [B_pad, ...]
+        state; padded lanes get zeros.
+
+        Mamba-1 layers take each request's state/conv; ``fresh`` (prefill):
+        a request with none yet (its first chunk) starts from zeros, while
+        in decode every request must have one.  Cross-attention models take
+        each lane's ``enc_out`` in prefill and each layer's cross K/V in
+        decode, probed per lane: a lane without them, the first one
+        included, gets zero rows and no other lane loses its own."""
         sts = [self.caches.states.get(r) or {} for r in rids]
+        pad = B_pad - len(rids)
+
+        def stack(per, zero):
+            ref = next((e for e in per if e is not None), zero)
+            if (ref.shape, ref.dtype) != (zero.shape, zero.dtype):
+                zero = torch.zeros_like(ref)    # several clips per request
+            return torch.cat([zero if e is None else e for e in per]
+                             + [zero] * pad)
+
         out = []
         for i, zero in enumerate(self._zero["layers"]):
-            if not zero:
+            if "state" in zero:                         # Mamba-1
+                per = [st[f"mamba{i}"] if not fresh or f"mamba{i}" in st
+                       else zero for st in sts] + [zero] * pad
+                out.append({n: torch.cat([e[n] for e in per])
+                            for n in ("state", "conv")})
+            elif "xk" in zero and not fresh:            # cross K/V
+                out.append({n: stack([st.get(f"{n}{i}") for st in sts],
+                                     zero[n]) for n in ("xk", "xv")})
+            else:
                 out.append({})
-                continue
-            per = [st[f"mamba{i}"] if not fresh or f"mamba{i}" in st
-                   else zero for st in sts]
-            per += [zero] * (B_pad - len(rids))
-            out.append({n: torch.cat([e[n] for e in per])
-                        for n in ("state", "conv")})
-        return {"layers": out}
+        tree = {"layers": out}
+        if fresh and "enc_out" in self._zero:
+            tree["enc_out"] = stack([st.get("enc_out") for st in sts],
+                                    self._zero["enc_out"])
+        return tree
 
     def _commit_states(self, rids, new_state, ctx_lens):
-        """Scatter each lane's new Mamba state/conv back to its request and
-        record its context length."""
+        """Scatter each lane's new Mamba state/conv, and after prefill its
+        cross K/V, back to its request and record its context length."""
         for b, rid in enumerate(rids):
             st = self.caches.states.get(rid) or {}
             for i, e in enumerate(new_state["layers"]):
-                if e:
+                if "state" in e:
                     st[f"mamba{i}"] = {"state": e["state"][b:b + 1],
                                        "conv": e["conv"][b:b + 1]}
+                elif "xk" in e:
+                    st[f"xk{i}"] = e["xk"][b:b + 1].to(self.caches.dtype)
+                    st[f"xv{i}"] = e["xv"][b:b + 1].to(self.caches.dtype)
             st["ctx_len"] = ctx_lens[b]
             self.caches.states.put(rid, st)
 
@@ -420,7 +463,8 @@ class ModelRunner:
         Returns the decode logits [len(rids), V] (np) — or the sampled
         next-token ids [len(rids)] when ``sample`` is given — or None when
         there was no decode work.  The embeddings land in the image cache
-        and never cross the host boundary."""
+        (or, for cross-attention models, the state store) and never cross
+        the host boundary."""
         self.encode(enc_items)
         if not rids:
             return None

@@ -36,6 +36,7 @@ from dataclasses import dataclass, field, replace as dataclasses_replace
 from typing import Optional
 
 import numpy as np
+import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
@@ -426,9 +427,11 @@ class HydraServer:
             if len(it.media_hashes) != 1:
                 return
             st = inst.caches.states.get(r.rid) or {}
-            enc = st.get("enc_out")
+            enc = st.get("enc_out")            # device [1, T, d]
             if enc is not None:
-                self.embed_cache.put(it.media_hashes[0], np.asarray(enc))
+                # host f32 copy (exact for bf16; the install casts back)
+                self.embed_cache.put(it.media_hashes[0],
+                                     enc[0].float().cpu().numpy())
             return
         # host f32 copy (exact for bf16 pools; the install casts back)
         emb = inst.caches.img.gather(r.rid)[0, 0].float().cpu().numpy()
@@ -446,9 +449,11 @@ class HydraServer:
         r = it.req
         if self.cfg.cross_attention:
             st = inst.caches.states.get(r.rid) or {}
-            e = it.cached_media[0] if len(it.cached_media) == 1 else \
-                np.concatenate([np.asarray(c) for c in it.cached_media], 0)
-            st["enc_out"] = np.asarray(e)
+            e = np.concatenate([np.asarray(c) for c in it.cached_media], 0)
+            # a device tensor in the pool's type, as the encode stage
+            # leaves it (see ModelRunner._store_enc_out)
+            st["enc_out"] = torch.from_numpy(e)[None].to(
+                device=inst.caches.device, dtype=inst.caches.dtype)
             inst.caches.states.put(r.rid, st)
         else:
             img = inst.caches.img

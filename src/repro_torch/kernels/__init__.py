@@ -4,6 +4,8 @@ TPU kernel of the JAX package:
   cache_write      - the fused KV/image-cache row write (paper §4.5)
   paged_attention  - decode and chunked-prefill attention over paged KV
   selective_scan   - the Mamba-1 recurrence (falcon-mamba prefill and decode)
+  flash_attention  - full-sequence attention over contiguous K/V (whisper's
+                     audio encoder and cross-attention)
 
 Each subpackage: ``ref.py`` (plain PyTorch version, also the CPU path) and
 ``ops.py`` (the wrapper).  The CUDA sources live in ``repro_torch/csrc``
@@ -18,7 +20,8 @@ from __future__ import annotations
 import torch
 
 launches = {"cache_write": 0, "paged_attention": 0,
-            "paged_prefill_attention": 0, "selective_scan": 0}
+            "paged_prefill_attention": 0, "selective_scan": 0,
+            "flash_attention": 0}
 
 
 def reset_launches():

@@ -1,9 +1,12 @@
-"""Shared layer primitives: norms, activations, RoPE, MLPs, init.
+"""Shared layer primitives: norms, activations, positions, full-sequence
+attention, MLPs, init.
 
 Plain functions on tensors, matching ``repro.models.layers`` op for op:
 the norm scale is ``(1 + w)``, the GELU is the tanh approximation, and
 RoPE is rotate-half on split halves (not interleaved).  KV rows are kept
 flattened as ``[..., kv_heads*head_dim]`` like the JAX package.
+``blockwise_attention`` goes through ``kernels.flash_attention.ops`` (the
+hand-written CUDA kernel on the card, its plain version on the CPU).
 """
 from __future__ import annotations
 
@@ -12,6 +15,8 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+from repro_torch.kernels.flash_attention.ops import flash_attention
 
 
 # ---------------------------------------------------------------------------
@@ -47,10 +52,43 @@ def rope(x, positions, theta: float):
     return out.to(x.dtype)
 
 
+def sinusoidal_positions(positions, d_model: int, dtype=torch.float32):
+    """Absolute sinusoidal embeddings (whisper-style).  positions: [S]."""
+    half = d_model // 2
+    freqs = torch.exp(-math.log(10000.0)
+                      * torch.arange(half, dtype=torch.float32,
+                                     device=positions.device)
+                      / max(half - 1, 1))
+    ang = positions[:, None].float() * freqs[None, :]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(dtype)
+
+
 def lengths_vector(cache_len, B, device=None):
     """Normalize a scalar-or-[B] cache length to a [B] int32 vector."""
     v = torch.as_tensor(cache_len, dtype=torch.int32, device=device)
     return v.expand(B) if v.ndim == 0 else v
+
+
+# ---------------------------------------------------------------------------
+# Full-sequence attention
+# ---------------------------------------------------------------------------
+def blockwise_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                        kv_offset: int = 0):
+    """q: [B, Sq, H, D]; k/v: [B, Sk, Kh, D] -> [B, Sq, H, D].  GQA by
+    ``h // (H // Kh)``.
+
+    ``kv_offset``: absolute position of q[0] minus that of k[0]; ``window``
+    > 0 keeps the last ``window`` keys of each query.  The JAX package
+    loops over query chunks and slices the window's keys; here one kernel
+    call computes the whole function on head-split views (no copy), and
+    skips the key tiles a query tile cannot see.  A query that sees no key
+    comes out 0 (the JAX loop's softmax over all-masked scores averages
+    them instead); serving never makes such a row.
+    """
+    out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                          v.transpose(1, 2), causal=causal, window=window,
+                          kv_offset=kv_offset)
+    return out.transpose(1, 2)
 
 
 # ---------------------------------------------------------------------------

@@ -8,12 +8,15 @@ packages identical inputs.  Pools are updated in place by the cache-write
 kernel (the JAX package donates them instead); the functions still return
 them so the call shapes match.
 
-Two families are covered: dense attention + MLP layers (``ATTN_MLP``)
+Three families are covered: dense attention + MLP layers (``ATTN_MLP``)
 with an optional vision frontend, the LLaVA family the paper evaluates;
-and attention-free Mamba-1 models (``MAMBA1``, falcon-mamba), whose
-per-request recurrent state travels in the step's ``state`` argument.
-Other layer kinds and frontends raise ``NotImplementedError`` (ROADMAP,
-queue 1: other families).  The JAX package's dense ``forward``/
+the encoder-decoder whisper family (``ATTN_MLP`` decoder layers with
+cross-attention, an audio encoder as the encode stage, sinusoidal
+positions), whose encoder output and per-layer cross K/V travel in the
+step's ``state`` argument; and attention-free Mamba-1 models (``MAMBA1``,
+falcon-mamba), whose per-request recurrent state travels there too.
+Other layer kinds raise ``NotImplementedError`` (ROADMAP, queue 1: other
+families).  The JAX package's dense ``forward``/
 ``decode_step``/``prefill_chunk`` paths are not ported (ROADMAP, queue 1:
 dense fallbacks).
 """
@@ -43,14 +46,12 @@ def check_supported(cfg: ModelConfig):
         raise NotImplementedError(
             f"{cfg.name}: Mamba-1 with a {cfg.frontend!r} frontend is not "
             f"ported yet (ROADMAP queue 1: other families)")
-    if cfg.frontend not in ("none", "vision") or cfg.cross_attention:
+    if cfg.frontend not in ("none", "vision", "audio") or \
+            (cfg.frontend == "audio") != cfg.cross_attention:
         raise NotImplementedError(
-            f"{cfg.name}: frontend {cfg.frontend!r} / cross-attention is not "
-            f"ported yet (ROADMAP queue 1: other families, whisper)")
-    if not cfg.rope_theta:
-        raise NotImplementedError(
-            f"{cfg.name}: sinusoidal positions are not ported yet "
-            f"(ROADMAP queue 1: other families, whisper)")
+            f"{cfg.name}: frontend {cfg.frontend!r} with cross_attention="
+            f"{cfg.cross_attention} is not ported yet (ROADMAP queue 1: "
+            f"other families)")
 
 
 # ---------------------------------------------------------------------------
@@ -72,38 +73,72 @@ def init_params(cfg: ModelConfig, gen: torch.Generator,
     def dense(shape, scale=None):
         return layers.dense_init(gen, shape, dtype, scale)
 
+    def attn_mlp(cross: bool) -> dict:
+        p = {"norm1": zeros(d), "wq": dense((d, H * Dh)),
+             "wk": dense((d, Kh * Dh)), "wv": dense((d, Kh * Dh)),
+             "wo": dense((H * Dh, d)), "norm2": zeros(d)}
+        if cross:
+            p.update({"xnorm": zeros(d), "xq": dense((d, H * Dh)),
+                      "xk": dense((d, Kh * Dh)), "xv": dense((d, Kh * Dh)),
+                      "xo": dense((H * Dh, d))})
+        if cfg.act != "gelu_mlp":
+            p["w_gate"] = dense((d, cfg.d_ff))
+        p["w_up"] = dense((d, cfg.d_ff))
+        p["w_down"] = dense((cfg.d_ff, d))
+        return p
+
     tree = {"embed": dense((cfg.vocab_size, d), scale=0.02),
             "final_norm": zeros(d), "layers": []}
     for kind in cfg.layer_kinds():
         if kind == MAMBA1:
             tree["layers"].append(mamba.init_mamba1(gen, cfg, dtype))
             continue
-        p = {"norm1": zeros(d), "wq": dense((d, H * Dh)),
-             "wk": dense((d, Kh * Dh)), "wv": dense((d, Kh * Dh)),
-             "wo": dense((H * Dh, d)), "norm2": zeros(d)}
-        if cfg.act != "gelu_mlp":
-            p["w_gate"] = dense((d, cfg.d_ff))
-        p["w_up"] = dense((d, cfg.d_ff))
-        p["w_down"] = dense((cfg.d_ff, d))
-        tree["layers"].append(p)
+        tree["layers"].append(attn_mlp(cfg.cross_attention))
     if not cfg.tie_embeddings:
         tree["lm_head"] = dense((d, cfg.vocab_size), scale=0.02)
     if cfg.frontend == "vision":
         tree["media_proj_w1"] = dense((d, 2 * d))
         tree["media_proj_w2"] = dense((2 * d, d))
+    if cfg.encoder_layers:
+        tree["encoder"] = {"layers": [attn_mlp(False)
+                                      for _ in range(cfg.encoder_layers)],
+                           "norm": zeros(d)}
     return ParamTree(tree)
 
 
 # ---------------------------------------------------------------------------
 # encode stage / logits
 # ---------------------------------------------------------------------------
+def _attn_full(p, x, cfg):
+    """The audio encoder's self-attention: non-causal over all S frames of
+    x [B, S, d], through the flash-attention kernel (no RoPE: whisper adds
+    sinusoidal positions to its input)."""
+    B, S, _ = x.shape
+    q, k, v = _qkv(p, x, cfg, torch.arange(S, device=x.device))
+    o = layers.blockwise_attention(q, k, v, causal=False)
+    return o.reshape(B, S, -1) @ p.wo
+
+
 def encode_media(cfg, params, media):
-    """The encode-stage computation: the vision projector."""
+    """The encode-stage computation: the vision projector, or the audio
+    encoder (sinusoidal positions, non-causal self-attention + MLP blocks,
+    a final norm) over precomputed frame embeddings [B, T, d]."""
     if cfg.frontend == "vision":
         w1 = params.media_proj_w1
         h = torch.nn.functional.gelu(media.to(w1.dtype) @ w1,
                                      approximate="tanh")
         return h @ params.media_proj_w2
+    if cfg.frontend == "audio":
+        enc = params.encoder
+        dtype = params.embed.dtype          # the weights' type
+        T = media.shape[1]
+        h = media.to(dtype) + layers.sinusoidal_positions(
+            torch.arange(T, device=media.device), cfg.d_model, dtype)
+        for lp in enc.layers:
+            h = h + _attn_full(lp, rmsnorm(h, lp.norm1, cfg.norm_eps), cfg)
+            h = h + layers.mlp(lp, rmsnorm(h, lp.norm2, cfg.norm_eps),
+                               cfg.act)
+        return rmsnorm(h, enc.norm, cfg.norm_eps)
     check_supported(cfg)
     return media
 
@@ -172,15 +207,41 @@ def sample_from_logits(logits, sample, noise=None):
 # decode over device-resident paged caches (DESIGN.md §11)
 # ---------------------------------------------------------------------------
 def _qkv(p, x, cfg, pos):
-    """Projected, rotated q [B, S, H, Dh] and k/v [B, S, Kh, Dh]."""
+    """Projected q [B, S, H, Dh] and k/v [B, S, Kh, Dh], rotated when the
+    model uses RoPE (whisper adds sinusoidal positions to h instead)."""
     B, S, _ = x.shape
     H, Kh, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q = (x @ p.wq).view(B, S, H, Dh)
     k = (x @ p.wk).view(B, S, Kh, Dh)
     v = (x @ p.wv).view(B, S, Kh, Dh)
-    q = layers.rope(q, pos, cfg.rope_theta)
-    k = layers.rope(k, pos, cfg.rope_theta)
+    if cfg.rope_theta:
+        q = layers.rope(q, pos, cfg.rope_theta)
+        k = layers.rope(k, pos, cfg.rope_theta)
     return q, k, v
+
+
+def _positions(cfg, h, pos):
+    """h + sinusoidal embeddings of ``pos`` (same shape as h[..., 0]) for
+    models without RoPE; h as it is otherwise."""
+    if cfg.rope_theta:
+        return h
+    emb = layers.sinusoidal_positions(pos.reshape(-1), cfg.d_model, h.dtype)
+    return h + emb.reshape(h.shape)
+
+
+def _cross_decode(p, x, cfg, ent):
+    """Cross-attention of one decode token per lane over the lane's cached
+    cross K/V ``ent["xk"]``/``ent["xv"]`` [B, T, Kh*Dh]: the flash kernel
+    at Sq = 1, non-causal over all T keys (what the JAX package's
+    ``decode_attention(..., cache_len=T-1)`` computes)."""
+    B = x.shape[0]
+    H, Kh, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    xk, xv = ent["xk"], ent["xv"]
+    T = xk.shape[1]
+    q = (x @ p.xq).view(B, 1, H, Dh).to(xk.dtype)
+    o = layers.blockwise_attention(q, xk.view(B, T, Kh, Dh),
+                                   xv.view(B, T, Kh, Dh), causal=False)
+    return o.reshape(B, 1, H * Dh).to(x.dtype) @ p.xo
 
 
 def _pages(data, layer, cfg):
@@ -216,13 +277,15 @@ def decode_step_paged(cfg: ModelConfig, params, data, ctl, state, lens,
     token being appended} (with the pool), "sample": optional controls of
     :func:`sample_from_logits`}.  ``state``: {"layers": [...]} batched
     per-layer non-paged state (see :func:`empty_state`): Mamba-1 layers
-    carry {"state", "conv"}, attention layers nothing.  ``lens``: [B] int32
-    tokens already cached; ``token``: [B, 1].
+    carry {"state", "conv"}, cross-attention layers their cached {"xk",
+    "xv"} [B, T, Kh*Dh], other attention layers nothing.  ``lens``: [B]
+    int32 tokens already cached; ``token``: [B, 1].
 
     Returns (logits [B, V] — or sampled ids [B] with ``ctl["sample"]`` —,
-    {"kv": data} (empty without a pool), {"layers": new per-layer state}).
+    {"kv": data} (empty without a pool), {"layers": new per-layer state};
+    cross K/V do not change in decode, so their entries come back empty).
     """
-    h = params.embed[token.long()]
+    h = _positions(cfg, params.embed[token.long()], lens)
     kv, pool = ctl.get("kv"), data.get("kv")
     lengths = lens + 1
     new_state = []
@@ -242,6 +305,9 @@ def decode_step_paged(cfg: ModelConfig, params, data, ctl, state, lens,
             p, rmsnorm(h, p.norm1, cfg.norm_eps), cfg, pool, aj,
             kv["tables"], kv["slots"], lens, lengths, window)
         aj += 1
+        if cfg.cross_attention:
+            h = h + _cross_decode(p, rmsnorm(h, p.xnorm, cfg.norm_eps), cfg,
+                                  state["layers"][i])
         h = h + layers.mlp(p, rmsnorm(h, p.norm2, cfg.norm_eps), cfg.act)
         new_state.append({})
     logits = _logits(cfg, params, h[:, 0])
@@ -275,6 +341,23 @@ def _attn_chunk_paged(p, x, cfg, data, layer, tables, slots, ctx_lens,
     return o.reshape(B, C, -1).to(x.dtype) @ p.wo
 
 
+def _cross_chunk(p, x, enc_out, cfg):
+    """Cross-attention of a prefill chunk x [B, C, d] over the encoder
+    output [B, T, d]; returns (out, (xk, xv) [B, T, Kh*Dh]).  Recomputed
+    from ``enc_out`` every chunk, as the JAX package does: deterministic
+    in the encoder output, so a batch may mix first and later chunks."""
+    B, C, _ = x.shape
+    H, Kh, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    T = enc_out.shape[1]
+    e = enc_out.to(x.dtype)
+    q = (x @ p.xq).view(B, C, H, Dh)
+    k = e @ p.xk
+    v = e @ p.xv
+    o = layers.blockwise_attention(q, k.view(B, T, Kh, Dh),
+                                   v.view(B, T, Kh, Dh), causal=False)
+    return o.reshape(B, C, H * Dh) @ p.xo, (k, v)
+
+
 def prefill_chunk_paged(cfg: ModelConfig, params, data, ctl, state, ctx_lens,
                         tokens):
     """One batched prefill chunk reading/writing device paged caches in place.
@@ -288,14 +371,17 @@ def prefill_chunk_paged(cfg: ModelConfig, params, data, ctl, state, ctx_lens,
     int32 index of each request's last valid position, "sample":
     optional}.  ``state``: {"layers": [...]} batched per-layer Mamba-1
     state/conv (zeros for a request's first chunk; see
-    :func:`empty_state`).  ``ctx_lens``: [B] int32 tokens already cached;
-    ``tokens``: [B, C] int32 (0 at media positions — media embeddings are
-    read straight off the image-cache pages).
+    :func:`empty_state`), and for cross-attention models "enc_out": [B, T,
+    d], each lane's encoder output.  ``ctx_lens``: [B] int32 tokens
+    already cached; ``tokens``: [B, C] int32 (0 at media positions — media
+    embeddings are read straight off the image-cache pages).
 
     Returns (last-token logits [B, V] — or sampled ids [B] —, {"kv": data}
-    (empty without a pool), {"layers": new per-layer state}).  Padded
-    positions freeze the Mamba recurrence (``mask``), so each lane's new
-    state is that of its valid tokens alone.
+    (empty without a pool), {"layers": new per-layer state}: Mamba-1
+    state/conv, and each cross-attention layer's {"xk", "xv"} [B, T,
+    Kh*Dh] for the decode steps).  Padded positions freeze the Mamba
+    recurrence (``mask``), so each lane's new state is that of its valid
+    tokens alone.
     """
     B, C = tokens.shape
     h = params.embed[tokens.long()]
@@ -307,6 +393,8 @@ def prefill_chunk_paged(cfg: ModelConfig, params, data, ctl, state, ctx_lens,
         islots = img["slots"]
         media_h = img_flat[islots.clamp(min=0).long()]
         h = torch.where((islots >= 0)[..., None], media_h.to(h.dtype), h)
+    h = _positions(cfg, h, ctx_lens[:, None] + torch.arange(
+        C, device=h.device, dtype=ctx_lens.dtype))
     kv, pool = ctl.get("kv"), data.get("kv")
     mask = ctl["mask"]
     new_state = []
@@ -326,8 +414,14 @@ def prefill_chunk_paged(cfg: ModelConfig, params, data, ctl, state, ctx_lens,
             p, rmsnorm(h, p.norm1, cfg.norm_eps), cfg, pool, aj,
             kv["tables"], kv["slots"], ctx_lens, window)
         aj += 1
+        ent = {}
+        if cfg.cross_attention:
+            c, (xk, xv) = _cross_chunk(p, rmsnorm(h, p.xnorm, cfg.norm_eps),
+                                       state["enc_out"], cfg)
+            h = h + c
+            ent = {"xk": xk, "xv": xv}
         h = h + layers.mlp(p, rmsnorm(h, p.norm2, cfg.norm_eps), cfg.act)
-        new_state.append({})
+        new_state.append(ent)
     h_last = h[torch.arange(B, device=h.device), ctl["last"].long()]
     logits = _logits(cfg, params, h_last)
     if ctl.get("sample") is not None:
@@ -337,11 +431,21 @@ def prefill_chunk_paged(cfg: ModelConfig, params, data, ctl, state, ctx_lens,
 
 def empty_state(cfg: ModelConfig, *, dtype=torch.float32,
                 device="cpu") -> dict:
-    """The non-paged per-layer state of one new request, zero: Mamba-1
-    layers carry {"state": [1, d_inner, N] f32, "conv": [1, K-1, d_inner]
-    in ``dtype`` (the weights' type)}; attention layers carry nothing.  The
-    steps take it batched: one such lane per request, concatenated."""
+    """The non-paged state of one new request, zero: Mamba-1 layers carry
+    {"state": [1, d_inner, N] f32, "conv": [1, K-1, d_inner] in ``dtype``
+    (the weights' type)}; cross-attention layers {"xk", "xv": [1, T,
+    Kh*Dh]} and the model "enc_out": [1, T, d] in ``dtype``, T the frames
+    of one clip (every layer shares one read-only zero tensor); other
+    attention layers carry nothing.  The steps take it batched: one such
+    lane per request, concatenated."""
     out = []
+    tree = {}
+    if cfg.cross_attention:
+        T = cfg.media_tokens
+        tree["enc_out"] = torch.zeros((1, T, cfg.d_model), dtype=dtype,
+                                      device=device)
+        zx = torch.zeros((1, T, cfg.num_kv_heads * cfg.head_dim),
+                         dtype=dtype, device=device)
     for kind in cfg.layer_kinds():
         ent = {}
         if kind == MAMBA1:
@@ -350,5 +454,7 @@ def empty_state(cfg: ModelConfig, *, dtype=torch.float32,
                                         device=device),
                    "conv": torch.zeros(shapes["conv"], dtype=dtype,
                                        device=device)}
+        elif cfg.cross_attention:
+            ent = {"xk": zx, "xv": zx}
         out.append(ent)
-    return {"layers": out}
+    return {"layers": out, **tree}

@@ -2,7 +2,10 @@
 
 The attribute names follow the JAX package's param tree (``embed``,
 ``final_norm``, ``lm_head``, ``media_proj_w1``/``w2``, attention layers'
-``layers[i].{norm1, wq, wk, wv, wo, norm2, w_gate, w_up, w_down}``, Mamba-1
+``layers[i].{norm1, wq, wk, wv, wo, norm2, w_gate, w_up, w_down}`` (with
+cross-attention also ``xnorm, xq, xk, xv, xo``), the audio encoder's
+``encoder.{layers[i].{norm1, wq, wk, wv, wo, norm2, w_up, w_down}, norm}``,
+Mamba-1
 layers' ``layers[i].{norm, in_proj, conv_w, conv_b, x_proj, dt_proj,
 dt_bias, A_log, D, out_proj}``), and every weight keeps the JAX layout
 ([in, out], applied as ``x @ w``), so a tree converted from
@@ -18,8 +21,8 @@ from torch import nn
 from repro_torch import resolve_device
 
 # leaves the JAX package keeps in f32 whatever the weights' type
-F32_LEAVES = frozenset({"final_norm", "norm", "norm1", "norm2", "dt_bias",
-                        "A_log", "D"})
+F32_LEAVES = frozenset({"final_norm", "norm", "norm1", "norm2", "xnorm",
+                        "dt_bias", "A_log", "D"})
 
 
 class ParamTree(nn.Module):

@@ -7,7 +7,8 @@ tests/test_torch_cuda.py``.
 Tolerances: f32 1e-4 absolute (summation order only), bf16 2e-2 absolute
 (one bf16 rounding of outputs near 1); the cache write is exact.  The
 selective scan computes in f32 from the same inputs on both sides and
-returns f32, so bf16 inputs keep the f32 bar of 1e-4.
+returns f32, so bf16 inputs keep the f32 bar of 1e-4.  Flash attention
+keeps the attention bars (f32 1e-4, bf16 2e-2).
 """
 import numpy as np
 import pytest
@@ -16,6 +17,8 @@ import torch
 from repro_torch import kernels as K
 from repro_torch.kernels.cache_write import ops as tcw
 from repro_torch.kernels.cache_write.ref import cache_write_ref
+from repro_torch.kernels.flash_attention import ops as tfa
+from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 from repro_torch.kernels.paged_attention import ops as tpa
 from repro_torch.kernels.paged_attention.ref import (
     paged_attention_ref, paged_prefill_attention_ref)
@@ -149,3 +152,59 @@ def test_selective_scan_kernel_zero_dt_freezes_state(cuda):
     _, h = tss.selective_scan(dt, x, A, Bm, Cm, h0)
     torch.cuda.synchronize()
     assert torch.equal(h, h_head)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,H,Kh,Sq,Sk,D,causal,window,off", [
+    (2, 3, 3, 77, 1500, 64, False, 0, 0),    # odd Sk, whisper cross chunk
+    (3, 4, 4, 1, 333, 64, False, 0, 0),      # a decode row
+    (1, 8, 2, 130, 130, 128, True, 0, 0),    # GQA, causal
+    (2, 4, 1, 200, 200, 128, True, 37, 0),   # window
+    (1, 4, 2, 45, 301, 64, True, 17, 256),   # a chunk after a prefix
+    (40, 4, 4, 9, 65, 64, False, 0, 0),      # many lanes: the 64-row tile
+    (2, 4, 2, 600, 700, 64, True, 0, 100),   # the 32-row tile (132 SMs)
+    (3, 4, 4, 300, 301, 128, True, 0, 0),    # the 16-row tile (132 SMs)
+])
+def test_flash_attention_kernel_matches_plain(cuda, dtype, B, H, Kh, Sq, Sk,
+                                              D, causal, window, off):
+    gen = torch.Generator().manual_seed(B * 1000 + Sq + Sk + D)
+    q = torch.randn((B, H, Sq, D), generator=gen).to(cuda, dtype)
+    k = torch.randn((B, Kh, Sk, D), generator=gen).to(cuda, dtype)
+    v = torch.randn((B, Kh, Sk, D), generator=gen).to(cuda, dtype)
+    before = K.launches["flash_attention"]
+    got = tfa.flash_attention(q, k, v, causal=causal, window=window,
+                              kv_offset=off)
+    want = flash_attention_ref(q, k, v, causal=causal, window=window,
+                               kv_offset=off)
+    torch.cuda.synchronize()
+    assert K.launches["flash_attention"] == before + 1
+    assert got.dtype == dtype and torch.isfinite(got.float()).all()
+    assert (got.float() - want.float()).abs().max().item() <= TOL[dtype]
+
+
+def test_flash_attention_kernel_reads_head_split_views(cuda):
+    """[B, S, H, D] projections viewed as [B, H, S, D]: the kernel reads
+    them through their strides and writes its output in q's layout."""
+    gen = torch.Generator().manual_seed(3)
+    B, S, T, H, D = 2, 50, 90, 4, 64
+    q = torch.randn((B, S, H, D), generator=gen).to(cuda).transpose(1, 2)
+    kv = torch.randn((B, T, 2, H, D), generator=gen).to(cuda)
+    k, v = kv[:, :, 0].transpose(1, 2), kv[:, :, 1].transpose(1, 2)
+    got = tfa.flash_attention(q, k, v, causal=False)
+    want = flash_attention_ref(q.contiguous(), k.contiguous(),
+                               v.contiguous(), causal=False)
+    torch.cuda.synchronize()
+    assert got.stride() == q.stride()
+    assert (got - want).abs().max().item() <= TOL[torch.float32]
+
+
+def test_flash_attention_kernel_rows_without_keys_are_zero(cuda):
+    gen = torch.Generator().manual_seed(4)
+    q = torch.randn((1, 2, 70, 64), generator=gen).to(cuda)
+    k = torch.randn((1, 2, 100, 64), generator=gen).to(cuda)
+    got = tfa.flash_attention(q, k, k, causal=True, window=8, kv_offset=-20)
+    torch.cuda.synchronize()
+    assert not got[:, :, :20].any() and torch.isfinite(got).all()
+    want = flash_attention_ref(q, k, k, causal=True, window=8, kv_offset=-20)
+    assert (got - want).abs().max().item() <= TOL[torch.float32]

@@ -15,6 +15,7 @@ from repro_torch.engine import runner as R
 from repro_torch.engine.api import Engine
 from repro_torch.engine.paged_cache import DevicePagedCache, PagedCacheSpec
 from repro_torch.kernels.cache_write import ops as tcw
+from repro_torch.kernels.flash_attention import ops as tfa
 from repro_torch.kernels.paged_attention import ops as tpa
 from repro_torch.kernels.selective_scan import ops as tss
 from repro_torch.models import model as M
@@ -22,6 +23,18 @@ from repro_torch.models import model as M
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + \
     [ROOT / "chip_smoke.py"]
+
+
+def test_port_files_include_every_kernel_module():
+    """The import scan below covers each kernel's wrapper and plain
+    version, beside its CUDA source."""
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    for kernel in ("cache_write", "paged_attention", "selective_scan",
+                   "flash_attention"):
+        for part in ("ops.py", "ref.py"):
+            assert f"src/repro_torch/kernels/{kernel}/{part}" in names
+        assert (ROOT / "src" / "repro_torch" / "csrc"
+                / f"{kernel}.cu").exists()
 
 
 def _imported_roots(path: Path) -> set:
@@ -84,13 +97,14 @@ def _boom(*a, **k):  # pragma: no cover - only hit on regression
 
 @pytest.mark.parametrize("wrapper", ["cache_write", "paged_attention",
                                      "paged_prefill_attention",
-                                     "selective_scan"])
+                                     "selective_scan", "flash_attention"])
 def test_wrapper_never_falls_back_to_plain_version(no_card, monkeypatch,
                                                    wrapper):
     monkeypatch.setattr(tcw, "cache_write_ref", _boom)
     monkeypatch.setattr(tpa, "paged_attention_ref", _boom)
     monkeypatch.setattr(tpa, "paged_prefill_attention_ref", _boom)
     monkeypatch.setattr(tss, "selective_scan_ref", _boom)
+    monkeypatch.setattr(tfa, "flash_attention_ref", _boom)
     pages, tables, lens = _fake_cuda(8, 4, 2, 8), _fake_cuda(1, 2), \
         _fake_cuda(1)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -100,6 +114,10 @@ def test_wrapper_never_falls_back_to_plain_version(no_card, monkeypatch,
         elif wrapper == "selective_scan":
             seq, bc = _fake_cuda(1, 3, 8), _fake_cuda(1, 3, 4)
             tss.selective_scan(seq, seq, _fake_cuda(8, 4), bc, bc)
+        elif wrapper == "flash_attention":
+            tfa.flash_attention(_fake_cuda(1, 2, 3, 64),
+                                _fake_cuda(1, 2, 5, 64),
+                                _fake_cuda(1, 2, 5, 64))
         elif wrapper == "paged_attention":
             tpa.paged_attention(_fake_cuda(1, 2, 8), pages, pages, tables,
                                 lens)

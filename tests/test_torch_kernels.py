@@ -16,6 +16,7 @@ from repro.kernels.cache_write import ops as jcw
 from repro.kernels.paged_attention import ops as jpa
 from repro_torch import kernels as K
 from repro_torch.kernels.cache_write import ops as tcw
+from repro_torch.kernels.flash_attention import ops as tfa
 from repro_torch.kernels.paged_attention import ops as tpa
 from repro_torch.kernels.selective_scan import ops as tss
 
@@ -161,5 +162,8 @@ def test_cpu_calls_take_plain_versions_and_count_no_launch(rng):
     tcw.paged_token_write(_t(kp).view(1, 1, -1, PAGE, 16), 0,
                           q.reshape(1, 1, 16), torch.tensor([3], dtype=torch.int32))
     tss.selective_scan(q, q, -q[0].abs().T, q[:, :, :2], q[:, :, :2])
+    x = _t(rng.standard_normal((1, 2, 3, 64)).astype(np.float32))
+    tfa.flash_attention(x, x, x, causal=False)
     assert K.launches == {"cache_write": 0, "paged_attention": 0,
-                          "paged_prefill_attention": 0, "selective_scan": 0}
+                          "paged_prefill_attention": 0, "selective_scan": 0,
+                          "flash_attention": 0}

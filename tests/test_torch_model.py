@@ -72,7 +72,7 @@ def test_init_params_matches_jax_tree_shapes(llava):
 
 
 @pytest.mark.parametrize("arch", ["deepseek-v2-236b", "zamba2-7b",
-                                  "whisper-small", "granite-moe-1b-a400m"])
+                                  "granite-moe-1b-a400m"])
 def test_unported_families_raise(arch):
     cfg = get_config(arch).reduced()
     with pytest.raises(NotImplementedError, match="ROADMAP"):
