@@ -9,11 +9,15 @@ on failure:
 
 1. card   - name and power limit, from nvidia-smi;
 2. build  - compile every kernel of the serving paths from ``src/repro_torch/
-            csrc`` (all nvcc processes at once);
+            csrc`` (all nvcc processes at once), and read from ``cuobjdump
+            -sass`` that the bf16 attention kernels run on tensor cores
+            (HMMA instructions);
 3. kernels- each kernel against its plain PyTorch version on the card: the
             attention and cache-write kernels at full-width LLaVA-1.5-7B
             shapes (H = Kh = 32, D = 128, page 16, w = 4096), in f32 and
-            bf16, plus a window case, a GQA case and empty-mask rows; the
+            bf16, plus a window case, a GQA case and empty-mask rows, and
+            chunked prefill at whisper-small's decoder shape (H = Kh = 12,
+            D = 64, 64-row chunks with ragged valid rows); the
             selective scan at falcon-mamba-7b widths (d = 8192, N = 16):
             prefill B = 1 and 4 at S = 512 from a nonzero state, decode
             B = 4 and 8, f32 and bf16, and a tail of dt = 0 that must leave
@@ -22,7 +26,11 @@ on failure:
             and 4, cross-attention of a 64-row chunk at B = 4 and of a
             decode row at B = 8) and causal GQA at H = 32, Kh = 8, D = 128,
             S = 1024 (plain, window 256, and a 256-row chunk after 768
-            cached keys), f32 and bf16; times kernel, plain version and one
+            cached keys), f32 and bf16, the decode row also with L2 flushed
+            between calls (as a decode step finds its cross K/V; device
+            time from a torch.profiler trace), and the split-KV merge
+            kernel on its own against its plain version, with a planted
+            fault its bar must catch; times kernel, plain version and one
             PyTorch library call (where there is one) with CUDA events, and
             computes each kernel's bound;
 4. model  - the port's runner on the card against the same runner on the
@@ -42,10 +50,13 @@ on failure:
             migrate P -> D); then full-width whisper-small on E/P/D
             instances (five requests of one 1500x768 frame-embedding clip
             and 8-48 prompt tokens, same sampling mix; flash attention must
-            launch in encode, prefill and decode, each request's encoder
-            output and cross K/V must migrate P -> D, and the embedding
-            cache must hold a host copy of every encoder output);
-6. report - one JSON line of kernels, then the final status line.
+            launch in encode, prefill and decode, the split-KV merge must
+            launch in decode, each request's encoder output and cross K/V
+            must migrate P -> D, and the embedding cache must hold a host
+            copy of every encoder output);
+6. report - one JSON line of kernels (the flash split-KV merge has its own
+            row: a second kernel of flash attention's path), then the final
+            status line.
 
 Exits non-zero (and prints no status line) without a card or outside the
 repository.
@@ -78,11 +89,19 @@ PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12}     # FLOP/s, dense
 # once (values near 1 after averaging few keys round by up to 2^-8 ~ 4e-3,
 # and the first causal rows see a single key, where outputs keep |v| up to
 # ~4): the prefill bar of 2e-2.
+# The bf16 attention tiles also round P to bf16 before P V, and sum l from
+# the same rounded P, so numerator and denominator weigh each key alike:
+# inside the same bars.  The merge of split-KV partials (bf16 only: f32
+# never splits) rounds its output once and is checked at the decode row,
+# whose outputs average 1500 keys and stay below 1 in magnitude (checked):
+# one rounding there is at most 2^-9 < 2e-3 (its own bar, which dropping
+# one split of the partials must exceed; checked too).
 TOL = {"paged_attention": {"float32": 1e-4, "bfloat16": 4e-3},
        "paged_prefill_attention": {"float32": 1e-4, "bfloat16": 2e-2},
        "cache_write": {"float32": 0.0, "bfloat16": 0.0},
        "selective_scan": {"float32": 1e-4, "bfloat16": 1e-4},
-       "flash_attention": {"float32": 1e-4, "bfloat16": 2e-2}}
+       "flash_attention": {"float32": 1e-4, "bfloat16": 2e-2},
+       "flash_attention_merge": {"bfloat16": 2e-3}}
 H, KH, D, PAGE, W = 32, 32, 128, 16, 4096             # llava-1.5-7b widths
 D_INNER, N_STATE = 8192, 16                           # falcon-mamba-7b widths
 WH, WD, WT = 12, 64, 1500                             # whisper-small heads,
@@ -113,6 +132,61 @@ def time_ms(fn, reps: int = 10, rounds: int = 5) -> float:
         b.synchronize()
         out.append(a.elapsed_time(b) / reps)
     return statistics.median(out)
+
+
+def time_ms_graph(fn, reps: int = 20, rounds: int = 5) -> float:
+    """Median over ``rounds`` of one call's time in a replay of a CUDA graph
+    that holds ``reps`` calls: the device time, without the host's cost of
+    issuing each call (a wrapper's Python and its launches), which the
+    back-to-back timing of ``time_ms`` includes once it exceeds the device
+    time."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(rounds):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        out.append(a.elapsed_time(b) / reps)
+    del graph
+    return statistics.median(out)
+
+
+def time_ms_cold(fn, kernels: tuple, reps: int = 20) -> float:
+    """Device time of one call with the 50 MB L2 flushed before it (a 64 MB
+    buffer is written before each call): the mean over ``reps`` calls of
+    the summed time of the kernels whose names contain one of
+    ``kernels``, from a torch.profiler trace, so neither the flush nor the
+    host's issue time falls inside it."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and any(k in e.key for k in kernels))
+    if us <= 0:
+        raise AssertionError(f"no device time of {kernels} in the trace")
+    return us / reps / 1e3
 
 
 def bound(nbytes: float, flops: float, dtype: str) -> tuple:
@@ -151,7 +225,7 @@ def distinct_kv_rows(tables, n_keys) -> int:
 # ---------------------------------------------------------------------------
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
-def paged_case(gen, dev, dtype, *, lens, n_pages_total, Kh=KH):
+def paged_case(gen, dev, dtype, *, lens, n_pages_total, Kh=KH, Dh=D):
     """Random K/V pages (last page = scratch) and block tables: request b
     owns ceil(lens[b] / PAGE) distinct pages, padded lanes (lens None) and
     the tail of every row point at scratch."""
@@ -160,9 +234,9 @@ def paged_case(gen, dev, dtype, *, lens, n_pages_total, Kh=KH):
     from repro_torch.engine.runner import bucket_pow2
     scratch = n_pages_total - 1
     max_pages = bucket_pow2(max(-(-(n or 1) // PAGE) for n in lens))
-    kp = torch.randn((n_pages_total, PAGE, Kh, D), generator=gen,
+    kp = torch.randn((n_pages_total, PAGE, Kh, Dh), generator=gen,
                      device=dev).to(dtype)
-    vp = torch.randn((n_pages_total, PAGE, Kh, D), generator=gen,
+    vp = torch.randn((n_pages_total, PAGE, Kh, Dh), generator=gen,
                      device=dev).to(dtype)
     tables = np.full((len(lens), max_pages), scratch, np.int32)
     free = list(np.random.default_rng(len(lens)).permutation(scratch))
@@ -249,24 +323,31 @@ def prefill_cases(gen, dev, results):
     from repro_torch.kernels.paged_attention.ops import paged_prefill_attention
     from repro_torch.kernels.paged_attention.ref import \
         paged_prefill_attention_ref
-    # (tag, ctx per lane (None = padded lane), C, valid rows, Kh, window)
-    cases = [("text-c32", [600, 620, 650, None], 32, 32, KH, 0),
-             ("media-c1024", [0], 1024, 576, KH, 0),
-             ("text-c32-window128", [600, 620, 650, 1200], 32, 32, KH, 128),
-             ("text-c32-gqa-kh8", [600, 620, 650, None], 32, 32, 8, 0)]
+    # (tag, ctx per lane (None = padded lane), C, valid rows per lane, H,
+    # Kh, D, window); LLaVA's widths, then whisper-small's decoder prefill
+    # (H = Kh = 12, D = 64: the D = 64 tile) with ragged valid rows, two
+    # first chunks and two later ones
+    cases = [("text-c32", [600, 620, 650, None], 32, 32, H, KH, D, 0),
+             ("media-c1024", [0], 1024, 576, H, KH, D, 0),
+             ("text-c32-window128", [600, 620, 650, 1200], 32, 32, H, KH, D,
+              128),
+             ("text-c32-gqa-kh8", [600, 620, 650, None], 32, 32, H, 8, D, 0),
+             ("whisper-c64", [0, 0, 64, 37], 64, [45, 22, 64, 20], WH, WH,
+              WD, 0)]
     errs = []
-    for tag, ctx, C, n_valid, kh, window in cases:
-        dtypes = (torch.float32, torch.bfloat16) if window == 0 and kh == KH \
-            else (torch.float32,)
-        for dtype in dtypes:
+    for tag, ctx, C, n_valid, Hq, kh, Dh, window in cases:
+        if isinstance(n_valid, int):
+            n_valid = [n_valid] * len(ctx)
+        for dtype in (torch.float32, torch.bfloat16):
             # lane 3 of the window case sits past its table: every row's
             # window is empty there, which must still come out finite
-            lens = [None if c is None or c >= 1000 else c + n_valid
-                    for c in ctx]
+            lens = [None if c is None or c >= 1000 else c + n
+                    for c, n in zip(ctx, n_valid)]
             kp, vp, tables, P = paged_case(gen, dev, dtype, lens=lens,
-                                           n_pages_total=400, Kh=kh)
+                                           n_pages_total=400, Kh=kh, Dh=Dh)
             B = len(ctx)
-            q = torch.randn((B, C, H, D), generator=gen, device=dev).to(dtype)
+            q = torch.randn((B, C, Hq, Dh), generator=gen,
+                            device=dev).to(dtype)
             ctx_t = torch.tensor([c or 0 for c in ctx], dtype=torch.int32,
                                  device=dev)
             got = paged_prefill_attention(q, kp, vp, tables, ctx_t,
@@ -297,19 +378,41 @@ def prefill_cases(gen, dev, results):
                     2 * q.numel() * isz + 2 * rows_kv * kh * D * isz
                     + tables.numel() * 4 + B * 4,
                     4 * pairs * H * D, dname(dtype))
+                # ctx 0 and S == C: the mask is the square causal triangle,
+                # so the yardstick is SDPA's own causal path; the boolean
+                # mask's time goes on the timing line beside it
+                if ctx_t.tolist() != [0] or S != C:
+                    raise AssertionError("media-c1024 must be the square "
+                                         "causal case")
+                masked_ms = time_ms(lambda: F.scaled_dot_product_attention(
+                    qq, k, v, attn_mask=mask))
                 results["paged_prefill_attention"] = {
-                    "shape": f"B={B} C={C} ({n_valid} valid) H={H} Kh={kh} "
-                             f"D={D} ctx 0 {dname(dtype)}",
+                    "shape": f"B={B} C={C} ({n_valid[0]} valid) H={H} "
+                             f"Kh={kh} D={D} ctx 0 {dname(dtype)}",
                     "ms": time_ms(lambda: paged_prefill_attention(
                         q, kp, vp, tables, ctx_t)),
                     "plain_ms": time_ms(lambda: paged_prefill_attention_ref(
                         q, kp, vp, tables, ctx_t)),
                     "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-                        qq, k, v, attn_mask=mask)),
+                        qq, k, v, is_causal=True)),
                     "bound_ms": b_ms, "bound_by": b_by}
-            if tag == "text-c32" and dtype == torch.bfloat16:
-                log({"timing": "paged_prefill_attention/text-c32-bf16",
+                results["paged_prefill_attention"].update(
+                    device_ms=time_ms_graph(lambda: paged_prefill_attention(
+                        q, kp, vp, tables, ctx_t)),
+                    library_device_ms=time_ms_graph(
+                        lambda: F.scaled_dot_product_attention(
+                            qq, k, v, is_causal=True)))
+                log({"timing": "paged_prefill_attention/media-c1024-bf16",
+                     **results["paged_prefill_attention"],
+                     "library_masked_ms": masked_ms})
+            if tag in ("text-c32", "whisper-c64") \
+                    and dtype == torch.bfloat16:
+                log({"timing": f"paged_prefill_attention/{tag}-bf16",
                      "ms": time_ms(lambda: paged_prefill_attention(
+                         q, kp, vp, tables, ctx_t)),
+                     "plain_ms": time_ms(lambda: paged_prefill_attention_ref(
+                         q, kp, vp, tables, ctx_t)),
+                     "device_ms": time_ms_graph(lambda: paged_prefill_attention(
                          q, kp, vp, tables, ctx_t))})
     results.setdefault("paged_prefill_attention", {})["max_abs_err"] = \
         max(errs)
@@ -515,11 +618,93 @@ def flash_cases(gen, dev, results, rate):
                            q, k, v, **sdpa_kw)),
                    "bound_ms": max(t_bytes, t_ops),
                    "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+            row["device_ms"] = time_ms_graph(
+                lambda: flash_attention(q, k, v, **kw))
+            row["library_device_ms"] = time_ms_graph(
+                lambda: F.scaled_dot_product_attention(q, k, v, **sdpa_kw))
+            if tag == "cross-decode-b8":
+                row["device_ms_cold_l2"] = time_ms_cold(
+                    lambda: flash_attention(q, k, v, **kw),
+                    ("flash_mma_kernel", "flash_merge_kernel"))
+                split_merge_case(q, k, v, kw, results)
             if tag == "enc-self-b4":
                 results["flash_attention"] = row
             log({"timing": f"flash_attention/{tag}", **row})
             del q, k, v, got, want
     results["flash_attention"]["max_abs_err"] = max(errs)
+
+
+def split_merge_case(q, k, v, kw, results):
+    """The merge kernel alone at the decode row's shape, on the plain
+    partials of the split the plan picks, against the plain merge (the
+    split kernel is checked through flash_attention at every split shape).
+    Its bar must also catch a merge that loses a split: the same kernel on
+    partials with one live split dropped (l = 0) must miss it."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_partials_ref, merge_partials_ref)
+    B, Hq, Sq, Dh = q.shape
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    _, n_split = ops.plan(B, Hq, Sq, k.shape[2], sms)
+    if n_split <= 1:
+        raise AssertionError("the decode row must take split-KV")
+    m, l, acc = flash_attention_partials_ref(q, k, v, n_split, **kw)
+    want = merge_partials_ref(m, l, acc)
+    if not want.abs().max() < 1:
+        raise AssertionError("the merge's bar assumes outputs below 1")
+    bf = torch.bfloat16
+    out = torch.empty((B, Hq, Sq, Dh), dtype=bf, device=q.device)
+    ops.merge_partials(m, l, acc, out)
+    err = check(f"flash_attention_merge/cross-decode-b8-n{n_split}", bf,
+                out, want)
+    dropped = l.clone()
+    dropped[n_split // 2] = 0
+    fault = torch.empty_like(out)
+    ops.merge_partials(m, dropped, acc, fault)
+    fault_err = (fault.float() - want).abs().max().item()
+    tol = TOL["flash_attention_merge"]["bfloat16"]
+    log({"planted_fault": "flash_attention_merge, split "
+                          f"{n_split // 2} of {n_split} dropped",
+         "max_abs_err": fault_err, "sound_max_abs_err": err, "tol": tol})
+    if not fault_err > tol:
+        raise AssertionError(f"merge bar {tol} passes a dropped split "
+                             f"({fault_err})")
+    # each partial read once, the output written once; one FMA per
+    # partial element on the CUDA cores
+    b_ms, b_by = bound((2 * m.numel() + acc.numel()) * 4
+                       + out.numel() * out.element_size(),
+                       2 * acc.numel(), "float32")
+    results["flash_attention_merge"] = {
+        "shape": f"n_split={n_split} B={B} H={Hq} Sq={Sq} D={Dh} f32 "
+                 f"partials -> bf16",
+        "ms": time_ms(lambda: ops.merge_partials(m, l, acc, out)),
+        "device_ms": time_ms_graph(lambda: ops.merge_partials(
+            m, l, acc, out)),
+        "plain_ms": time_ms(lambda: merge_partials_ref(m, l, acc)),
+        "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+        "max_abs_err": err}
+
+
+def sass_hmma(card: str):
+    """Count the tensor-core instructions (HMMA) in each bf16 attention
+    kernel's SASS (``cuobjdump -sass`` of the built libraries); fails when
+    one has none."""
+    import shutil
+    from repro_torch.kernels import _build
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    counts = {}
+    for lib in ("paged_attention", "flash_attention"):
+        sass = subprocess.run([tool, "-sass", str(_build._lib_path(lib))],
+                              capture_output=True, text=True,
+                              check=True).stdout
+        for part in sass.split("Function : ")[1:]:
+            name = part.split(maxsplit=1)[0]
+            if "mma_kernel" in name:
+                counts[name] = sum("HMMA" in ln for ln in part.splitlines())
+    log({"sass_hmma": counts, "card": card})
+    if not counts or not all(counts.values()):
+        raise AssertionError(f"bf16 attention kernels without HMMA: {counts}")
 
 
 # ---------------------------------------------------------------------------
@@ -665,27 +850,31 @@ def whisper_model_check(seed: int):
 # ---------------------------------------------------------------------------
 @contextlib.contextmanager
 def timed_calls(targets):
-    """Accumulate wall seconds, calls and flash-attention launches of each
-    ``owner.name`` in ``targets`` into the yielded {name: {"s", "calls",
-    "flash_launches"}}; the originals come back on exit.  The runner's
-    methods return host numpy, so their wall time covers the device work
-    they started."""
+    """Accumulate wall seconds, calls and flash-attention and merge launches
+    of each ``owner.name`` in ``targets`` into the yielded {name: {"s",
+    "calls", "flash_launches", "merge_launches"}}; the originals come back
+    on exit.  The runner's methods return host numpy, so their wall time
+    covers the device work they started."""
     from repro_torch import kernels as K
     acc, saved = {}, []
     for owner, name in targets:
         fn = getattr(owner, name)
         saved.append((owner, name, fn))
-        acc[name] = rec = {"s": 0.0, "calls": 0, "flash_launches": 0}
+        acc[name] = rec = {"s": 0.0, "calls": 0, "flash_launches": 0,
+                           "merge_launches": 0}
 
         def timed(*a, _fn=fn, _rec=rec, **k):
             t = time.perf_counter()
             n = K.launches["flash_attention"]
+            n_merge = K.launches["flash_attention_merge"]
             try:
                 return _fn(*a, **k)
             finally:
                 _rec["s"] += time.perf_counter() - t
                 _rec["calls"] += 1
                 _rec["flash_launches"] += K.launches["flash_attention"] - n
+                _rec["merge_launches"] += \
+                    K.launches["flash_attention_merge"] - n_merge
         setattr(owner, name, timed)
     try:
         yield acc
@@ -993,6 +1182,8 @@ def serve_whisper(seed: int, card: str):
     for stage in ("encode", "prefill_chunks", "decode"):
         if split[stage]["flash_launches"] <= 0:
             raise AssertionError(f"no flash-attention launch in {stage}")
+    if split["decode"]["merge_launches"] <= 0:
+        raise AssertionError("decode's cross-attention never took split-KV")
     srv = eng.server
     row = cfg.media_tokens * cfg.d_model * 2          # one [T, d] bf16 row
     cross_bytes = (1 + 2 * cfg.num_layers) * row      # enc_out + xk/xv
@@ -1074,6 +1265,7 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"ptxas {name}: {line.strip()}")
     log({"phase": "build", "built": sorted(logs), "s": time.perf_counter() - t0})
+    sass_hmma(card)
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(args.seed)
@@ -1100,8 +1292,9 @@ def main() -> int:
                                              card)["selective_scan"]
     gc.collect()
     torch.cuda.empty_cache()
-    launches["flash_attention"] = serve_whisper(args.seed,
-                                                card)["flash_attention"]
+    whisper = serve_whisper(args.seed, card)
+    for name in ("flash_attention", "flash_attention_merge"):
+        launches[name] = whisper[name]
 
     src = {"cache_write": ("src/repro_torch/csrc/cache_write.cu",
                            "src/repro/kernels/cache_write/kernel.py:25"),
@@ -1113,7 +1306,10 @@ def main() -> int:
            "selective_scan": ("src/repro_torch/csrc/selective_scan.cu",
                               "src/repro/kernels/selective_scan/kernel.py:51"),
            "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
-                               "src/repro/kernels/flash_attention/kernel.py:65")}
+                               "src/repro/kernels/flash_attention/kernel.py:65"),
+           "flash_attention_merge": (
+               "src/repro_torch/csrc/flash_attention.cu",
+               "src/repro/kernels/flash_attention/kernel.py:65")}
     kernels = []
     for name, (source, replaces) in src.items():
         r = results[name]
@@ -1122,7 +1318,10 @@ def main() -> int:
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
-                        "library_ms": r["library_ms"], "shape": r["shape"]})
+                        "library_ms": r["library_ms"], "shape": r["shape"],
+                        **{key: r[key] for key in ("device_ms",
+                                                    "library_device_ms")
+                           if key in r}})
     log({"total_s": time.perf_counter() - t_start, "card": card})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

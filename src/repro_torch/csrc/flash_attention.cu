@@ -20,51 +20,255 @@
 // Layouts: q/out [B, H, Sq, D], k/v [B, Kh, Sk, D], addressed through the
 // (batch, head, sequence) strides in elements the caller passes, the last
 // dimension contiguous; so a [B, S, H, D] projection viewed as [B, H, S, D]
-// is read and written in place.  f32 or bf16 in and out; D = 64 or 128.
+// is read and written in place.  D = 64 or 128.
 //
 // The TPU grid walks (b, h, q block, kv block) with the kv block innermost
 // and the softmax state carried in VMEM scratch across grid steps.  CUDA
-// blocks run in no order, so here one block of 128 threads owns (b, h, a
-// tile of BQ = 8 * TM query rows) and loops over tiles of 64 keys: it
-// stages K^T and V of the tile in shared memory as f32, and each thread
-// computes a TM x 4 patch of the scores and a TM x D/16 patch of the
-// output from registers (16 threads share a row group: row max and row sum
-// are shuffles within a half warp).  Tiles wholly after the tile's last
-// causal key or before its first window key are skipped.  TM shrinks from
-// 8 towards 1 while the grid would not fill the card once (decode rows,
-// short chunks).
+// blocks run in no order, so a block owns (b, h, a tile of query rows) and
+// loops over tiles of 64 keys.  Two bodies, chosen by the input type:
 //
-// Bound: operations for long sequences (4 * Sq * Sk * D per head on the
-// tensor cores, and Sq * Sk exponentials), bytes for Sq = 1 (each K/V row
-// is read once).  This first version is deliberately simple: f32 products
-// on CUDA cores from shared memory, one tile in flight.  Tensor cores
-// (wgmma), TMA staging, warp specialisation and split-KV for short query
-// tiles are later work.
+// - bf16: the tensor-core tile of attn_mma.cuh (mma.sync, bf16 K/V staged
+//   by cp.async in a ring, online softmax in registers), blocks of one
+//   warp of 16 rows or four warps of 16 rows, as the wrapper's plan says.  Short query tiles (decode rows,
+//   whisper's prefill chunks) would leave most SMs idle with one block per
+//   (b, h), so the plan splits the keys into n_split ranges of whole tiles
+//   (split-KV): each block then writes f32 partials (m, l, acc) of its
+//   range to scratch, and flash_merge's kernel combines them by
+//   log-sum-exp (partials with l = 0, ranges that saw no key, weigh
+//   nothing) into out.
+// - f32: CUDA-core products in f32, by design, not as a fallback: the
+//   port's f32 model checks hold the card to the CPU within 2e-4 and the
+//   f32 kernel checks to 1e-4, which TF32 or bf16 tensor-core products
+//   would break.  128 threads stage K^T and V of a tile in shared memory
+//   as f32, and each thread computes a TM x 4 patch of the scores and a
+//   TM x D/16 patch of the output (16 threads share a row group: row max
+//   and sum are half-warp shuffles).  TM shrinks from 8 towards 1 while the
+//   grid would not fill the card once.
+//
+// Both skip tiles wholly after the tile's last causal key or before its
+// first window key.  Bound: operations for long sequences (4 * Sq * Sk * D
+// per head on the tensor cores, and Sq * Sk exponentials), bytes for short
+// query tiles (each K/V row is read once per query tile).
+#include "attn_mma.cuh"
+
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr float NEG_INF = -1e30f;
-constexpr int THREADS = 128;   // 8 row groups x 16 column groups
-constexpr int BK = 64;         // keys per K/V tile
-constexpr int PAD = 4;         // keeps transposed rows 16-byte aligned
-
-template <typename T> __device__ __forceinline__ float to_f32(T x);
-template <> __device__ __forceinline__ float to_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
+using attn::bf16;
+using attn::NEG_INF;
 
 struct Strides {
   int64_t b, h, s;
 };
+
+// ---------------------------------------------------------------------------
+// bf16: the tensor-core tile, optionally over one split of the keys
+// ---------------------------------------------------------------------------
+struct FlashProb {
+  const bf16 *q_base, *k_base, *v_base;   // this (b, h) / (b, kv head)
+  int64_t qs, ks, vs;                     // sequence strides
+  int q0, rows_valid, kv_limit, causal, window, kv_offset;
+  __device__ const bf16* q_row(int r) const { return q_base + (q0 + r) * qs; }
+  __device__ int qpos(int r) const { return kv_offset + q0 + r; }
+  template <int N, int STEP>
+  __device__ void kv_rows(int j, int (&row)[N]) const {
+#pragma unroll
+    for (int m = 0; m < N; ++m) row[m] = j + m * STEP < kv_limit ? j + m * STEP : -1;
+  }
+  __device__ const bf16* k_at(int j) const { return k_base + j * ks; }
+  __device__ const bf16* v_at(int j) const { return v_base + j * vs; }
+};
+
+// grid (n_qt * n_split, H, B); block 32 * NW, 16 rows per warp.  part_m
+// == nullptr: one range, out written; else split s = blockIdx.x / n_qt
+// covers key tiles [s * split_tiles, (s + 1) * split_tiles) and writes
+// partials [n_split, B, H, Sq] (m in natural units, l) and [n_split, B, H,
+// Sq, D].
+template <int D, int NW>
+__global__ void __launch_bounds__(32 * NW, D == 128 ? 2 : 1)
+flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                 const bf16* __restrict__ v, bf16* __restrict__ out, Strides qst,
+                 Strides kst, Strides vst, Strides ost, int H, int Kh, int Sq, int Sk,
+                 int causal, int window, int kv_offset, float scale_log2, int n_qt,
+                 int split_tiles, float* __restrict__ part_m, float* __restrict__ part_l,
+                 float* __restrict__ part_acc) {
+  constexpr int BK = attn::Cfg<D>::BK;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int rows = 16 * NW;
+  // causal: the last query tiles see the most keys, so they start first
+  const int qt = causal ? n_qt - 1 - (int)blockIdx.x % n_qt : (int)blockIdx.x % n_qt;
+  const int split = blockIdx.x / n_qt;
+  const int h = blockIdx.y, b = blockIdx.z, kh = h / (H / Kh), q0 = qt * rows;
+
+  FlashProb P;
+  P.q_base = q + b * qst.b + h * qst.h;
+  P.k_base = k + b * kst.b + kh * kst.h;
+  P.v_base = v + b * vst.b + kh * vst.h;
+  P.qs = qst.s;
+  P.ks = kst.s;
+  P.vs = vst.s;
+  P.q0 = q0;
+  P.rows_valid = min(rows, Sq - q0);
+  P.kv_limit = Sk;
+  P.causal = causal;
+  P.window = window;
+  P.kv_offset = kv_offset;
+
+  // key tiles any row of the tile can see, cut to this block's split
+  const int q_lo = kv_offset + q0, q_hi = kv_offset + q0 + P.rows_valid - 1;
+  const int k_end = causal ? min(Sk, q_hi + 1) : Sk;
+  const int k_begin = window > 0 ? max(0, q_lo - window + 1) : 0;
+  int kt_begin = k_begin / BK, kt_end = k_end > k_begin ? (k_end + BK - 1) / BK : kt_begin;
+  if (part_m != nullptr) {
+    kt_begin = max(kt_begin, split * split_tiles);
+    kt_end = min(kt_end, (split + 1) * split_tiles);
+  }
+
+  attn::RowState<D> st;
+  attn::attend<D, NW>(P, kt_begin, kt_end, scale_log2, st,
+                      reinterpret_cast<bf16*>(smem_raw));
+
+  const int lane = threadIdx.x % 32, r0 = threadIdx.x / 32 * 16;
+  const int g = lane / 4, tig = lane % 4;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int i = q0 + r0 + g + 8 * half;
+    if (i >= Sq) continue;
+    if (part_m == nullptr) {
+      const float inv = 1.f / fmaxf(st.l[half], 1e-30f);
+      bf16* o = out + b * ost.b + h * ost.h + i * ost.s + 2 * tig;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n)
+        *reinterpret_cast<__nv_bfloat162*>(o + 8 * n) = __floats2bfloat162_rn(
+            st.acc[n][2 * half] * inv, st.acc[n][2 * half + 1] * inv);
+    } else {
+      const int64_t row = (((int64_t)split * gridDim.z + b) * H + h) * Sq + i;
+      if (tig == 0) {
+        part_m[row] = st.l[half] > 0.f ? st.m[half] * attn::LN2 : NEG_INF;
+        part_l[row] = st.l[half];
+      }
+      float* a = part_acc + row * D + 2 * tig;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n)
+        *reinterpret_cast<float2*>(a + 8 * n) =
+            make_float2(st.acc[n][2 * half], st.acc[n][2 * half + 1]);
+    }
+  }
+}
+
+// One warp per (b, h, i) row: M = the largest m of the splits with l > 0,
+// out = sum_s e^(m_s - M) acc_s / max(sum_s e^(m_s - M) l_s, 1e-30).
+// Splits with l = 0 saw no key and weigh nothing (their acc is not read);
+// a row no split saw comes out 0.  The lanes read the splits' m and l side
+// by side, so a row costs two rounds of loads, not one per split.
+template <int D>
+__global__ void __launch_bounds__(256)
+flash_merge_kernel(const float* __restrict__ part_m, const float* __restrict__ part_l,
+                   const float* __restrict__ part_acc, bf16* __restrict__ out, Strides ost,
+                   int n_split, int B, int H, int Sq) {
+  const int64_t n_rows = (int64_t)B * H * Sq;
+  const int64_t row = (int64_t)blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (row >= n_rows) return;
+  float M = NEG_INF;
+  for (int s = lane; s < n_split; s += 32)
+    if (part_l[s * n_rows + row] > 0.f) M = fmaxf(M, part_m[s * n_rows + row]);
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) M = fmaxf(M, __shfl_xor_sync(0xffffffffu, M, o));
+  float L = 0.f, acc[D / 32];
+#pragma unroll
+  for (int c = 0; c < D / 32; ++c) acc[c] = 0.f;
+  for (int s0 = 0; s0 < n_split; s0 += 32) {
+    float w = 0.f, l = 0.f;      // split s0 + lane's weight
+    if (s0 + lane < n_split) {
+      l = part_l[(s0 + lane) * n_rows + row];
+      if (l > 0.f) w = expf(part_m[(s0 + lane) * n_rows + row] - M);
+    }
+    L += w * l;
+    const int n = min(32, n_split - s0);
+#pragma unroll 4
+    for (int j = 0; j < n; ++j) {
+      const float wj = __shfl_sync(0xffffffffu, w, j);
+      if (wj == 0.f) continue;
+      const float* a = part_acc + ((s0 + j) * n_rows + row) * D;
+#pragma unroll
+      for (int c = 0; c < D / 32; ++c) acc[c] += wj * a[lane + 32 * c];
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) L += __shfl_xor_sync(0xffffffffu, L, o);
+  const int i = (int)(row % Sq), h = (int)(row / Sq % H), b = (int)(row / ((int64_t)Sq * H));
+  bf16* o = out + b * ost.b + h * ost.h + i * ost.s;
+  const float inv = 1.f / fmaxf(L, 1e-30f);
+#pragma unroll
+  for (int c = 0; c < D / 32; ++c) o[lane + 32 * c] = __float2bfloat16(acc[c] * inv);
+}
+
+cudaError_t launch_merge(const float* pm, const float* pl, const float* pa, void* out,
+                         Strides ost, int n_split, int B, int H, int Sq, int D,
+                         cudaStream_t s) {
+  const int64_t n_rows = (int64_t)B * H * Sq;
+  if (n_rows == 0) return cudaSuccess;
+  constexpr int WARPS = 8;
+  const unsigned grid = (unsigned)((n_rows + WARPS - 1) / WARPS);
+  bf16* o = static_cast<bf16*>(out);
+  if (D == 64)
+    flash_merge_kernel<64><<<grid, 32 * WARPS, 0, s>>>(pm, pl, pa, o, ost, n_split, B, H, Sq);
+  else if (D == 128)
+    flash_merge_kernel<128><<<grid, 32 * WARPS, 0, s>>>(pm, pl, pa, o, ost, n_split, B, H, Sq);
+  else
+    return cudaErrorInvalidValue;
+  return cudaGetLastError();
+}
+
+template <int D, int NW>
+cudaError_t launch_tile(const void* q, const void* k, const void* v, void* out,
+                        const Strides* st, int B, int H, int Kh, int Sq, int Sk,
+                        int causal, int window, int kv_offset, int n_split, float* pm,
+                        float* pl, float* pacc, cudaStream_t stream) {
+  using C = attn::Cfg<D>;
+  constexpr int rows = 16 * NW;
+  static const cudaError_t attr =
+      attn::allow_smem(flash_mma_kernel<D, NW>, C::smem_bytes(rows));
+  if (attr != cudaSuccess) return attr;
+  const int n_qt = (Sq + rows - 1) / rows;
+  const int tiles = (Sk + C::BK - 1) / C::BK;
+  const int split_tiles = n_split > 1 ? (tiles + n_split - 1) / n_split : tiles;
+  const dim3 grid(n_qt * n_split, H, B);
+  flash_mma_kernel<D, NW><<<grid, 32 * NW, C::smem_bytes(rows), stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(out), st[0], st[1], st[2], st[3],
+      H, Kh, Sq, Sk, causal, window, kv_offset, attn::LOG2E / sqrtf((float)D), n_qt,
+      split_tiles, n_split > 1 ? pm : nullptr, pl, pacc);
+  return cudaGetLastError();
+}
+
+// rows: 16 (one warp) or 64 (four warps)
+template <int D>
+cudaError_t launch_mma(const void* q, const void* k, const void* v, void* out,
+                       const Strides* st, int B, int H, int Kh, int Sq, int Sk,
+                       int causal, int window, int kv_offset, int rows, int n_split,
+                       float* pm, float* pl, float* pacc, cudaStream_t stream) {
+  if (n_split < 1 || (n_split > 1 && (pm == nullptr || pl == nullptr || pacc == nullptr)))
+    return cudaErrorInvalidValue;
+  if (rows == 16)
+    return launch_tile<D, 1>(q, k, v, out, st, B, H, Kh, Sq, Sk, causal, window,
+                             kv_offset, n_split, pm, pl, pacc, stream);
+  if (rows == 64)
+    return launch_tile<D, 4>(q, k, v, out, st, B, H, Kh, Sq, Sk, causal, window,
+                             kv_offset, n_split, pm, pl, pacc, stream);
+  return cudaErrorInvalidValue;
+}
+
+// ---------------------------------------------------------------------------
+// f32: CUDA-core products
+// ---------------------------------------------------------------------------
+constexpr int THREADS = 128;   // 8 row groups x 16 column groups
+constexpr int BK = 64;         // keys per K/V tile
+constexpr int PAD = 4;         // keeps transposed rows 16-byte aligned
 
 // N consecutive floats of shared memory into registers (N = 1, 2, 4, 8),
 // as the widest aligned vector loads
@@ -97,10 +301,10 @@ constexpr size_t smem_bytes() {
                   8 * TM * (BK + PAD)) * sizeof(float);
 }
 
-template <typename T, int D, int TM>
+template <int D, int TM>
 __global__ void __launch_bounds__(THREADS)
-flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ out, Strides qst,
+flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
+             const float* __restrict__ v, float* __restrict__ out, Strides qst,
              Strides kst, Strides vst, Strides ost, int H, int Kh, int Sq, int Sk,
              int causal, int window, int kv_offset, float scale) {
   constexpr int BQ = 8 * TM;
@@ -116,13 +320,13 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
   const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * BQ;
   const int kh = h / (H / Kh);
-  const T* qb = q + b * qst.b + h * qst.h;
-  const T* kb = k + b * kst.b + kh * kst.h;
-  const T* vb = v + b * vst.b + kh * vst.h;
+  const float* qb = q + b * qst.b + h * qst.h;
+  const float* kb = k + b * kst.b + kh * kst.h;
+  const float* vb = v + b * vst.b + kh * vst.h;
 
   for (int i = tid; i < BQ * D; i += THREADS) {
     const int r = i / D, d = i % D;
-    Qs[d * BQP + r] = q0 + r < Sq ? to_f32(qb[(q0 + r) * qst.s + d]) : 0.f;
+    Qs[d * BQP + r] = q0 + r < Sq ? qb[(q0 + r) * qst.s + d] : 0.f;
   }
 
   float acc[TM][DC], m[TM], l[TM];
@@ -146,8 +350,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int j = i / D, d = i % D;
       float kx = 0.f, vx = 0.f;  // keys past Sk: zero, so p * v stays finite
       if (k0 + j < Sk) {
-        kx = to_f32(kb[(k0 + j) * kst.s + d]);
-        vx = to_f32(vb[(k0 + j) * vst.s + d]);
+        kx = kb[(k0 + j) * kst.s + d];
+        vx = vb[(k0 + j) * vst.s + d];
       }
       Ks[d * BKP + j] = kx;
       Vs[j * D + d] = vx;
@@ -225,7 +429,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  T* ob = out + b * ost.b + h * ost.h;
+  float* ob = out + b * ost.b + h * ost.h;
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
     const int r = q0 + ty * TM + i;
@@ -233,76 +437,113 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const float denom = fmaxf(l[i], 1e-30f);
 #pragma unroll
       for (int c = 0; c < DC; ++c)
-        ob[r * ost.s + tx * DC + c] = from_f32<T>(acc[i][c] / denom);
+        ob[r * ost.s + tx * DC + c] = acc[i][c] / denom;
     }
   }
 }
 
-template <typename T, int D, int TM>
+template <int D, int TM>
 cudaError_t launch_tm(const void* q, const void* k, const void* v, void* out,
                       const Strides* st, int B, int H, int Kh, int Sq, int Sk,
                       int causal, int window, int kv_offset, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D, TM>();
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel<T, D, TM>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
+  static const cudaError_t attr = attn::allow_smem(flash_kernel<D, TM>, smem);
+  if (attr != cudaSuccess) return attr;
   const dim3 grid((Sq + 8 * TM - 1) / (8 * TM), H, B);
-  flash_kernel<T, D, TM><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), st[0], st[1], st[2], st[3], H, Kh, Sq, Sk, causal,
-      window, kv_offset, 1.0f / sqrtf((float)D));
+  flash_kernel<D, TM><<<grid, THREADS, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), st[0], st[1], st[2], st[3],
+      H, Kh, Sq, Sk, causal, window, kv_offset, 1.0f / sqrtf((float)D));
   return cudaGetLastError();
 }
 
-template <typename T, int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   const Strides* st, int B, int H, int Kh, int Sq, int Sk,
-                   int causal, int window, int kv_offset, cudaStream_t stream) {
-  int dev = 0, sms = 132;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+template <int D>
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out,
+                       const Strides* st, int B, int H, int Kh, int Sq, int Sk,
+                       int causal, int window, int kv_offset, cudaStream_t stream) {
   // the largest row tile whose grid still covers every SM once
+  const int sms = attn::sm_count();
   int tm = 8;
   while (tm > 1 && (int64_t)B * H * ((Sq + 8 * tm - 1) / (8 * tm)) < sms) tm /= 2;
   switch (tm) {
-    case 8: return launch_tm<T, D, 8>(q, k, v, out, st, B, H, Kh, Sq, Sk, causal, window, kv_offset, stream);
-    case 4: return launch_tm<T, D, 4>(q, k, v, out, st, B, H, Kh, Sq, Sk, causal, window, kv_offset, stream);
-    case 2: return launch_tm<T, D, 2>(q, k, v, out, st, B, H, Kh, Sq, Sk, causal, window, kv_offset, stream);
-    default: return launch_tm<T, D, 1>(q, k, v, out, st, B, H, Kh, Sq, Sk, causal, window, kv_offset, stream);
+    case 8: return launch_tm<D, 8>(q, k, v, out, st, B, H, Kh, Sq, Sk, causal, window, kv_offset, stream);
+    case 4: return launch_tm<D, 4>(q, k, v, out, st, B, H, Kh, Sq, Sk, causal, window, kv_offset, stream);
+    case 2: return launch_tm<D, 2>(q, k, v, out, st, B, H, Kh, Sq, Sk, causal, window, kv_offset, stream);
+    default: return launch_tm<D, 1>(q, k, v, out, st, B, H, Kh, Sq, Sk, causal, window, kv_offset, stream);
   }
 }
 
-template <typename T>
-cudaError_t launch_d(const void* q, const void* k, const void* v, void* out,
-                     const Strides* st, int B, int H, int Kh, int Sq, int Sk, int D,
-                     int causal, int window, int kv_offset, cudaStream_t stream) {
-  if (D == 64)
-    return launch<T, 64>(q, k, v, out, st, B, H, Kh, Sq, Sk, causal, window, kv_offset, stream);
-  if (D == 128)
-    return launch<T, 128>(q, k, v, out, st, B, H, Kh, Sq, Sk, causal, window, kv_offset, stream);
-  return cudaErrorInvalidValue;
+void unpack(const int64_t* strides, Strides* st, int n) {
+  for (int i = 0; i < n; ++i)
+    st[i] = Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
+}
+
+// The split kernel's scratch: one f32 buffer of n_split * B * H * Sq *
+// (D + 2) values, m [n_split, B, H, Sq], then l (the same shape), then acc
+// [n_split, B, H, Sq, D].
+struct Parts {
+  float *m, *l, *acc;
+  Parts(void* buf, int n_split, int B, int H, int Sq) {
+    const int64_t n = (int64_t)n_split * B * H * Sq;
+    m = static_cast<float*>(buf);
+    l = m != nullptr ? m + n : nullptr;
+    acc = m != nullptr ? l + n : nullptr;
+  }
+};
+
+int run(const void* q, const void* k, const void* v, void* out, int dtype, int B, int H,
+        int Kh, int Sq, int Sk, int D, int causal, int window, int kv_offset,
+        const int64_t* strides, int rows, int n_split, void* parts, cudaStream_t s) {
+  if (B == 0 || H == 0 || Sq == 0) return (int)cudaSuccess;
+  if (Kh <= 0 || H % Kh != 0) return (int)cudaErrorInvalidValue;
+  Strides st[4];
+  unpack(strides, st, 4);
+  if (dtype == 0 && D == 64)
+    return (int)launch_f32<64>(q, k, v, out, st, B, H, Kh, Sq, Sk, causal, window, kv_offset, s);
+  if (dtype == 0 && D == 128)
+    return (int)launch_f32<128>(q, k, v, out, st, B, H, Kh, Sq, Sk, causal, window, kv_offset, s);
+  if (dtype != 1 || (D != 64 && D != 128) || (n_split > 1 && parts == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const Parts P(parts, n_split, B, H, Sq);
+  cudaError_t err =
+      D == 64 ? launch_mma<64>(q, k, v, out, st, B, H, Kh, Sq, Sk, causal, window,
+                               kv_offset, rows, n_split, P.m, P.l, P.acc, s)
+              : launch_mma<128>(q, k, v, out, st, B, H, Kh, Sq, Sk, causal, window,
+                                kv_offset, rows, n_split, P.m, P.l, P.acc, s);
+  if (err != cudaSuccess || n_split == 1) return (int)err;
+  return (int)launch_merge(P.m, P.l, P.acc, out, st[3], n_split, B, H, Sq, D, s);
 }
 
 }  // namespace
 
 // dtype codes: 0 = float32, 1 = bfloat16.  strides: 12 int64 values, the
 // (batch, head, sequence) strides in elements of q, k, v and out, in that
-// order.  Returns a cudaError_t.
+// order.  bf16 only: rows (16 or 64) is the query tile, and
+// n_split > 1 splits the keys into that many ranges of ceil(tiles /
+// n_split) whole 64-key tiles, whose f32 partials go to parts (see Parts)
+// and are then merged into out, a second launch.  f32 ignores rows,
+// n_split and parts.  Each returns a cudaError_t, checked after every
+// launch.
 extern "C" int flash_attention(const void* q, const void* k, const void* v, void* out,
                                int dtype, int B, int H, int Kh, int Sq, int Sk, int D,
                                int causal, int window, int kv_offset,
-                               const int64_t* strides, void* stream) {
-  if (B == 0 || H == 0 || Sq == 0) return (int)cudaSuccess;
-  if (Kh <= 0 || H % Kh != 0) return (int)cudaErrorInvalidValue;
-  Strides st[4];
-  for (int i = 0; i < 4; ++i)
-    st[i] = Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return (int)launch_d<float>(q, k, v, out, st, B, H, Kh, Sq, Sk, D, causal, window,
-                                kv_offset, s);
-  if (dtype == 1)
-    return (int)launch_d<__nv_bfloat16>(q, k, v, out, st, B, H, Kh, Sq, Sk, D, causal,
-                                        window, kv_offset, s);
-  return (int)cudaErrorInvalidValue;
+                               const int64_t* strides, int rows, int n_split,
+                               void* parts, void* stream) {
+  return run(q, k, v, out, dtype, B, H, Kh, Sq, Sk, D, causal, window, kv_offset, strides,
+             rows, n_split, parts, static_cast<cudaStream_t>(stream));
+}
+
+// The merge alone, for checking it against its plain version: partials m /
+// l [n_split, B, H, Sq] and acc [n_split, B, H, Sq, D] (f32, contiguous)
+// into a bf16 out [B, H, Sq, D] (strides: out's 3 (batch, head, sequence)
+// strides in elements).
+extern "C" int flash_merge(const void* part_m, const void* part_l, const void* part_acc,
+                           void* out, int n_split, int B, int H, int Sq, int D,
+                           const int64_t* strides, void* stream) {
+  Strides st;
+  unpack(strides, &st, 1);
+  return (int)launch_merge(static_cast<const float*>(part_m),
+                           static_cast<const float*>(part_l),
+                           static_cast<const float*>(part_acc), out, st, n_split, B, H,
+                           Sq, D, static_cast<cudaStream_t>(stream));
 }

@@ -21,36 +21,49 @@
 //
 // The TPU grid walks (batch, page) with the page dimension sequential and
 // the softmax state carried in scratch across grid steps.  CUDA blocks run
-// in no order, so here one block owns (request, KV head, tile of chunk
-// rows) and walks its pages in a loop: it loads its own table row, stages
-// one page of K and V for its KV head in shared memory, and updates the
-// running max, sum and accumulator of its tile_c x G query rows.  Pages
+// in no order, so here one block owns (request, KV head, tile of query
+// rows) and walks its pages in a loop, reading its own table row.  Pages
 // wholly before the tile's window or after its last query are skipped.
+// Two bodies:
 //
-// Bound: bytes for decode (every cached K/V row is read once per step and
-// the arithmetic per byte is ~1 FLOP); for prefill with long chunks the
-// score and value products (2 * C * ctx * D per head, twice) on CUDA cores
-// bound it.  This first version is deliberately simple: f32 CUDA-core dot
-// products from shared memory, one page in flight.  Tensor cores (wgmma),
-// TMA staging and split-KV for small decode batches are later work.
+// - bf16 chunked prefill, D = 64, 128 or 256: the tensor-core tile of
+//   attn_mma.cuh.  The block's rows are (chunk row c, query head g) pairs
+//   of its KV head, r = c * G + g, cut into tiles of 64 rows, 16 per warp
+//   (GQA folds into the M dimension of the products); blocks of the last
+//   rows, which see the most keys, start first.  A key tile is 64 keys
+//   (32 at D = 256): each thread looks up its keys' pages in the table
+//   (one division per tile) and copies the rows at ((blk * page + t) * Kh
+//   + kh) * D (64-bit offsets) with cp.async.  Bound: the two products
+//   (4 * C * ctx * D per head) on the tensor cores, and the exponentials.
+// - decode (both types) and f32 prefill: CUDA-core f32 products from
+//   shared memory, one page in flight.  f32 stays off the tensor cores by
+//   design (the f32 model checks hold the card to the CPU within 2e-4);
+//   decode, bound by the bytes of the cached K/V it reads once per step,
+//   is the next kernel to redesign (split-KV for small batches).  The
+//   block's tile_c x G query rows keep their running max, sum and
+//   accumulator in shared memory.
+#include "attn_mma.cuh"
+
+#include <atomic>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr float NEG_INF = -1e30f;
+using attn::bf16;
+using attn::NEG_INF;
 constexpr int THREADS = 128;
 constexpr int ROWS_PER_BLOCK = 16;   // target tile_c * G for prefill
 
 template <typename T> __device__ __forceinline__ float to_f32(T x);
 template <> __device__ __forceinline__ float to_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
+template <> __device__ __forceinline__ float to_f32<bf16>(bf16 x) {
   return __bfloat162float(x);
 }
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+template <> __device__ __forceinline__ bf16 from_f32<bf16>(float x) {
   return __float2bfloat16(x);
 }
 
@@ -174,9 +187,14 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* tabl
   const size_t QR = (size_t)tile_c * G;
   const size_t smem = (QR * (D + 1) + QR * D + (size_t)page * (D + 1) +
                        (size_t)page * D + QR * page + 3 * QR) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      paged_attn_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
+  // raise the kernel's shared-memory limit only when a launch needs more
+  // than any launch before it (D, G and page vary between callers)
+  static std::atomic<size_t> allowed{0};
+  if (smem > allowed.load()) {
+    const cudaError_t err = attn::allow_smem(paged_attn_kernel<T>, smem);
+    if (err != cudaSuccess) return err;
+    allowed.store(smem);
+  }
   const dim3 grid((C + tile_c - 1) / tile_c, Kh, B);
   paged_attn_kernel<T><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
@@ -186,16 +204,131 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* tabl
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// bf16 chunked prefill on the tensor-core tile
+// ---------------------------------------------------------------------------
+struct PagedProb {
+  const bf16 *q_base, *k_base, *v_base;
+  const int32_t* table;                   // this request's row
+  int64_t q_b;                            // q offset of (b, c = 0, h = kh * G)
+  int row0, rows_valid, G, H, Kh, D, page, ctx, kv_limit, causal, window;
+  __device__ const bf16* q_row(int r) const {
+    const int rg = row0 + r;
+    return q_base + q_b + ((int64_t)(rg / G) * H + rg % G) * D;
+  }
+  __device__ int qpos(int r) const { return ctx + (row0 + r) / G; }
+  // key j: row j % page of page table[j / page], as a row of the layer's
+  // [n_pages * page, Kh, D] pool (kh's D elements of it).  One division
+  // per tile: the keys j + m * STEP walk the pages by subtraction.
+  template <int N, int STEP>
+  __device__ void kv_rows(int j, int (&row)[N]) const {
+    int pg = j / page, t = j % page;
+#pragma unroll
+    for (int m = 0; m < N; ++m) {
+      row[m] = j + m * STEP < kv_limit ? table[pg] * page + t : -1;
+      for (t += STEP; t >= page; t -= page) ++pg;
+    }
+  }
+  __device__ const bf16* k_at(int i) const { return k_base + (int64_t)i * Kh * D; }
+  __device__ const bf16* v_at(int i) const { return v_base + (int64_t)i * Kh * D; }
+};
+
+// grid (ceil(C * G / 64), Kh, B); block of 4 warps, 16 rows each (the
+// warps whose rows lie past the chunk still copy K/V tiles)
+template <int D>
+__global__ void __launch_bounds__(32 * attn::MAX_WARPS, 2)
+paged_prefill_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp,
+                         const bf16* __restrict__ vp, const int32_t* __restrict__ tables,
+                         const int32_t* __restrict__ ctx_lens, bf16* __restrict__ out,
+                         int C, int H, int Kh, int page, int max_pages, int window,
+                         float scale_log2) {
+  constexpr int BK = attn::Cfg<D>::BK;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int rows = 16 * attn::MAX_WARPS;
+  const int b = blockIdx.z, kh = blockIdx.y, G = H / Kh;
+  // later rows see more keys (causal), so their blocks start first
+  const int row0 = (gridDim.x - 1 - blockIdx.x) * rows;
+
+  PagedProb P;
+  P.q_b = ((int64_t)b * C * H + (int64_t)kh * G) * D;
+  P.q_base = q;
+  P.k_base = kp + (int64_t)kh * D;
+  P.v_base = vp + (int64_t)kh * D;
+  P.table = tables + (int64_t)b * max_pages;
+  P.row0 = row0;
+  P.rows_valid = min(rows, C * G - row0);
+  P.G = G;
+  P.H = H;
+  P.Kh = Kh;
+  P.D = D;
+  P.page = page;
+  P.ctx = ctx_lens[b];
+  P.kv_limit = max_pages * page;
+  P.causal = 1;
+  P.window = window;
+
+  // key tiles any row of the tile can see
+  const int q_lo = P.qpos(0), q_hi = P.qpos(P.rows_valid - 1);
+  const int k_end = min(P.kv_limit, q_hi + 1);
+  const int k_begin = window > 0 ? max(0, q_lo - window + 1) : 0;
+  const int kt_begin = k_begin / BK;
+  const int kt_end = k_end > k_begin ? (k_end + BK - 1) / BK : kt_begin;
+
+  attn::RowState<D> st;
+  attn::attend<D, attn::MAX_WARPS>(P, kt_begin, kt_end, scale_log2, st,
+                                   reinterpret_cast<bf16*>(smem_raw));
+
+  const int lane = threadIdx.x % 32, r0 = threadIdx.x / 32 * 16;
+  const int g = lane / 4, tig = lane % 4;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = r0 + g + 8 * half;
+    if (r >= P.rows_valid) continue;
+    const float inv = 1.f / fmaxf(st.l[half], 1e-30f);
+    bf16* o = out + P.q_b + ((int64_t)((row0 + r) / G) * H + (row0 + r) % G) * D + 2 * tig;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(o + 8 * n) = __floats2bfloat162_rn(
+          st.acc[n][2 * half] * inv, st.acc[n][2 * half + 1] * inv);
+  }
+}
+
+template <int D>
+cudaError_t launch_mma(const void* q, const void* k, const void* v, const void* tables,
+                       const void* ctx_lens, void* out, int B, int C, int H, int Kh,
+                       int page, int max_pages, int window, cudaStream_t stream) {
+  using Cf = attn::Cfg<D>;
+  static const cudaError_t attr =
+      attn::allow_smem(paged_prefill_mma_kernel<D>, Cf::smem_bytes(16 * attn::MAX_WARPS));
+  if (attr != cudaSuccess) return attr;
+  if (B == 0 || C == 0) return cudaSuccess;
+  const int n_rows = C * (H / Kh), rows = 16 * attn::MAX_WARPS;
+  const dim3 grid((n_rows + rows - 1) / rows, Kh, B);
+  paged_prefill_mma_kernel<D><<<grid, 32 * attn::MAX_WARPS, Cf::smem_bytes(rows), stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const int32_t*>(tables), static_cast<const int32_t*>(ctx_lens),
+      static_cast<bf16*>(out), C, H, Kh, page, max_pages, window,
+      attn::LOG2E / sqrtf((float)D));
+  return cudaGetLastError();
+}
+
 int dispatch(const void* q, const void* k, const void* v, const void* tables,
              const void* lens, void* out, int dtype, int B, int C, int H, int Kh,
              int D, int page, int max_pages, int window, int decode, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (Kh <= 0 || H % Kh != 0) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
     return launch<float>(q, k, v, tables, lens, out, B, C, H, Kh, D, page,
                          max_pages, window, decode, s);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k, v, tables, lens, out, B, C, H, Kh, D, page,
-                                 max_pages, window, decode, s);
+  if (dtype == 1 && decode)
+    return launch<bf16>(q, k, v, tables, lens, out, B, C, H, Kh, D, page,
+                        max_pages, window, decode, s);
+  if (dtype == 1 && D == 64)
+    return launch_mma<64>(q, k, v, tables, lens, out, B, C, H, Kh, page, max_pages, window, s);
+  if (dtype == 1 && D == 128)
+    return launch_mma<128>(q, k, v, tables, lens, out, B, C, H, Kh, page, max_pages, window, s);
+  if (dtype == 1 && D == 256)
+    return launch_mma<256>(q, k, v, tables, lens, out, B, C, H, Kh, page, max_pages, window, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -5,7 +5,8 @@ TPU kernel of the JAX package:
   paged_attention  - decode and chunked-prefill attention over paged KV
   selective_scan   - the Mamba-1 recurrence (falcon-mamba prefill and decode)
   flash_attention  - full-sequence attention over contiguous K/V (whisper's
-                     audio encoder and cross-attention)
+                     audio encoder and cross-attention), with split-KV for
+                     short query tiles and the kernel that merges the splits
 
 Each subpackage: ``ref.py`` (plain PyTorch version, also the CPU path) and
 ``ops.py`` (the wrapper).  The CUDA sources live in ``repro_torch/csrc``
@@ -21,7 +22,7 @@ import torch
 
 launches = {"cache_write": 0, "paged_attention": 0,
             "paged_prefill_attention": 0, "selective_scan": 0,
-            "flash_attention": 0}
+            "flash_attention": 0, "flash_attention_merge": 0}
 
 
 def reset_launches():

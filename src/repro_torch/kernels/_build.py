@@ -2,16 +2,18 @@
 
 Each ``src/repro_torch/csrc/<name>.cu`` exports a plain C interface.  It is
 compiled with ``nvcc`` for Hopper (``sm_90a``) into a shared library under
-``build/kernels/`` at the repository root, named by a hash of its source so
-an edited kernel is never served from a stale build, and loaded with
-``ctypes``.  Nothing is built when the package is imported: the CPU tests
-import every module and never reach a kernel.
+``build/kernels/`` at the repository root, named by a hash of its source,
+of every ``csrc`` header it includes and of the compiler flags, so an
+edited kernel or header is never served from a stale build, and loaded
+with ``ctypes``.  Nothing is built when the package is imported: the CPU
+tests import every module and never reach a kernel.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -36,10 +38,27 @@ def _nvcc() -> str:
     return path
 
 
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]+"([^"]+)"', re.M)
+
+
+def _sources(name: str) -> list:
+    """``csrc/<name>.cu`` and the ``csrc`` headers it includes with
+    ``#include "..."``, transitively."""
+    seen, todo = [], [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop()
+        if path not in seen:
+            seen.append(path)
+            todo += [CSRC / m.decode()
+                     for m in _INCLUDE.findall(path.read_bytes())]
+    return seen
+
+
 def _lib_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in _sources(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def _start(name: str):

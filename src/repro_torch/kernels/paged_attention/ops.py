@@ -2,11 +2,12 @@
 
 Replace ``repro/kernels/paged_attention/kernel.py::paged_attention_tpu`` and
 ``paged_prefill_attention_tpu``.  Both launch ``csrc/paged_attention.cu``:
-one block per (request, KV head, tile of chunk rows) walks the request's
-pages in a loop, staging one page of K/V in shared memory and carrying an
-online softmax in f32.  Decode is bound by the bytes of the cached K/V it
-reads once per step; prefill over long chunks by the score/value products,
-which this first version runs on CUDA cores (tensor cores come later).
+one block per (request, KV head, tile of query rows) walks the request's
+pages in a loop, carrying an online softmax in f32.  bf16 chunked prefill
+(head dims in ``PREFILL_MMA_HEAD_DIMS``) runs on the tensor-core tile of
+``csrc/attn_mma.cuh``, bound by the score/value products over long
+chunks; decode, bound by the bytes of the cached K/V it reads once per
+step, and f32 prefill run on CUDA-core f32 products.
 """
 from __future__ import annotations
 
@@ -22,6 +23,7 @@ from repro_torch.kernels.paged_attention.ref import (
 _P, _I = ct.c_void_p, ct.c_int
 _DECODE_ARGS = [_P] * 6 + [_I] * 8 + [_P]     # ... dtype B H Kh D page P window
 _PREFILL_ARGS = [_P] * 6 + [_I] * 9 + [_P]    # ... dtype B C H Kh D page P window
+PREFILL_MMA_HEAD_DIMS = (64, 128, 256)        # D of the bf16 prefill kernel
 
 
 def _check(q, k_pages, v_pages, block_tables, lens, q_ndim: int):
@@ -82,6 +84,11 @@ def paged_prefill_attention(q, k_pages, v_pages, block_tables, ctx_lens, *,
     B, H, Kh, D, page, P = _check(q, k_pages, v_pages, block_tables,
                                   ctx_lens, 4)
     C = q.shape[1]
+    K.require(q.dtype != torch.bfloat16 or D in PREFILL_MMA_HEAD_DIMS,
+              f"bf16 paged prefill attention takes head dims "
+              f"{PREFILL_MMA_HEAD_DIMS}, got {D}")
+    K.require(k_pages.shape[0] * page < 2 ** 31,
+              "paged prefill attention indexes pool rows with 32 bits")
     out = torch.empty_like(q)
     fn = _build.function("paged_attention", "paged_prefill_attention",
                          _PREFILL_ARGS)

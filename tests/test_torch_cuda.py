@@ -5,7 +5,8 @@ a card; on the machine with one: ``PYTHONPATH=src python -m pytest
 tests/test_torch_cuda.py``.
 
 Tolerances: f32 1e-4 absolute (summation order only), bf16 2e-2 absolute
-(one bf16 rounding of outputs near 1); the cache write is exact.  The
+(one bf16 rounding of outputs near 1, and of P before P V on the bf16
+tensor-core tile); the cache write is exact.  The
 selective scan computes in f32 from the same inputs on both sides and
 returns f32, so bf16 inputs keep the f32 bar of 1e-4.  Flash attention
 keeps the attention bars (f32 1e-4, bf16 2e-2).
@@ -18,7 +19,8 @@ from repro_torch import kernels as K
 from repro_torch.kernels.cache_write import ops as tcw
 from repro_torch.kernels.cache_write.ref import cache_write_ref
 from repro_torch.kernels.flash_attention import ops as tfa
-from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.kernels.flash_attention.ref import (
+    flash_attention_partials_ref, flash_attention_ref, merge_partials_ref)
 from repro_torch.kernels.paged_attention import ops as tpa
 from repro_torch.kernels.paged_attention.ref import (
     paged_attention_ref, paged_prefill_attention_ref)
@@ -208,3 +210,136 @@ def test_flash_attention_kernel_rows_without_keys_are_zero(cuda):
     assert not got[:, :, :20].any() and torch.isfinite(got).all()
     want = flash_attention_ref(q, k, k, causal=True, window=8, kv_offset=-20)
     assert (got - want).abs().max().item() <= TOL[torch.float32]
+
+
+# ---------------------------------------------------------------------------
+# the bf16 tensor-core tile (csrc/attn_mma.cuh) at its edges; f32 takes the
+# CUDA-core kernels on the same cases
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("H,Kh,D,C,ctx,window,page", [
+    (4, 4, 128, 100, [0, 13, 70], 0, 16),    # C not a multiple of 16 or 64
+    (2, 2, 256, 37, [5, 64, 90], 0, 16),     # D = 256: 32-key tiles
+    (16, 4, 128, 21, [0, 50, 130], 0, 16),   # G = 4 folded into the rows
+    (8, 2, 256, 9, [3, 40, 61], 0, 8),       # G = 4 at D = 256, 8-row pages
+    (4, 4, 64, 50, [100, 130, 7], 40, 16),   # a window that starts mid-tile
+    (4, 2, 128, 70, [33, 0, 250], 100, 32),  # chunks crossing pages and tiles
+])
+def test_prefill_mma_edges_match_plain(cuda, dtype, H, Kh, D, C, ctx, window,
+                                       page):
+    gen = torch.Generator().manual_seed(H * 1000 + D + C + window + page)
+    n = max(ctx) + C
+    kp, vp, tables = _pages(gen, cuda, lens=[c + C for c in ctx], Kh=Kh, D=D,
+                            page=page, n_pages=3 * (-(-n // page)) + 2,
+                            max_pages=-(-n // page) + 1, dtype=dtype)
+    q = torch.randn((len(ctx), C, H, D), generator=gen).to(cuda, dtype)
+    ctx_t = torch.tensor(ctx, dtype=torch.int32, device=cuda)
+    before = K.launches["paged_prefill_attention"]
+    got = tpa.paged_prefill_attention(q, kp, vp, tables, ctx_t, window=window)
+    want = paged_prefill_attention_ref(q, kp, vp, tables, ctx_t,
+                                       window=window)
+    torch.cuda.synchronize()
+    assert K.launches["paged_prefill_attention"] == before + 1
+    assert torch.isfinite(got.float()).all()
+    assert (got.float() - want.float()).abs().max().item() <= TOL[dtype]
+
+
+def test_prefill_bf16_rejects_other_head_dims(cuda):
+    gen = torch.Generator().manual_seed(9)
+    kp, vp, tables = _pages(gen, cuda, lens=[20], Kh=2, D=32,
+                            dtype=torch.bfloat16)
+    q = torch.randn((1, 4, 2, 32), generator=gen).to(cuda, torch.bfloat16)
+    ctx = torch.zeros(1, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="head dims"):
+        tpa.paged_prefill_attention(q, kp, vp, tables, ctx)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,H,Kh,Sq,Sk,D,causal,window,off", [
+    (1, 1, 1, 1, 1500, 64, False, 0, 0),      # one row: many splits
+    (1, 2, 2, 20, 700, 64, True, 8, -10),     # rows 0-9 and most splits
+    #                                           see no key
+    (1, 4, 2, 17, 129, 128, True, 16, 120),   # a window across split edges
+])
+def test_flash_split_kv_matches_plain(cuda, dtype, B, H, Kh, Sq, Sk, D,
+                                      causal, window, off):
+    gen = torch.Generator().manual_seed(Sq + Sk + D)
+    q = torch.randn((B, H, Sq, D), generator=gen).to(cuda, dtype)
+    k = torch.randn((B, Kh, Sk, D), generator=gen).to(cuda, dtype)
+    v = torch.randn((B, Kh, Sk, D), generator=gen).to(cuda, dtype)
+    kw = dict(causal=causal, window=window, kv_offset=off)
+    n_sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    _, n_split = tfa.plan(B, H, Sq, Sk, n_sms)
+    split = dtype == torch.bfloat16 and n_split > 1
+    before = dict(K.launches)
+    got = tfa.flash_attention(q, k, v, **kw)
+    want = flash_attention_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert K.launches["flash_attention"] == before["flash_attention"] + 1
+    assert K.launches["flash_attention_merge"] == \
+        before["flash_attention_merge"] + int(split)
+    assert dtype == torch.float32 or n_split > 1
+    assert torch.isfinite(got.float()).all()
+    assert (got.float() - want.float()).abs().max().item() <= TOL[dtype]
+    if off < 0:                       # rows before the first key: exactly 0
+        assert not got[:, :, :-off].any()
+
+
+@pytest.mark.parametrize("Sq,causal,window,off", [(1, False, 0, 0),
+                                                  (40, True, 30, 300),
+                                                  (9, True, 0, -4)])
+def test_flash_split_and_merge_kernels_match_their_plain_versions(
+        cuda, Sq, causal, window, off):
+    """The split path through flash_attention (split kernel, then merge)
+    against the plain attention at the attention bar, and the merge kernel
+    alone on plain partials (empty splits among them) against the plain
+    merge at its own bar: each bf16 output rounded once (2^-8 of its
+    value) after f32 sums in another order (1e-5 at outputs up to ~4)."""
+    gen = torch.Generator().manual_seed(Sq + window)
+    B, H, Sk, D = 2, 3, 1000, 64
+    q, k, v = (torch.randn(s, generator=gen).to(cuda, torch.bfloat16)
+               for s in ((B, H, Sq, D), (B, H, Sk, D), (B, H, Sk, D)))
+    kw = dict(causal=causal, window=window, kv_offset=off)
+    n_sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    _, n_split = tfa.plan(B, H, Sq, Sk, n_sms)
+    assert n_split > 1
+    before = K.launches["flash_attention_merge"]
+    got = tfa.flash_attention(q, k, v, **kw)
+    want = flash_attention_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert K.launches["flash_attention_merge"] == before + 1
+    assert (got.float() - want.float()).abs().max().item() <= \
+        TOL[torch.bfloat16]
+    parts = flash_attention_partials_ref(q, k, v, n_split, **kw)
+    out = torch.empty((B, H, Sq, D), dtype=torch.bfloat16, device=cuda)
+    tfa.merge_partials(*parts, out)
+    torch.cuda.synchronize()
+    assert K.launches["flash_attention_merge"] == before + 2
+    want = merge_partials_ref(*parts)
+    assert ((out.float() - want).abs() <= want.abs() * 2 ** -8 + 1e-5).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,H,Kh,Sq,Sk,causal,window,off", [
+    (1, 4, 2, 200, 333, True, 37, 50),       # a window starting mid-tile
+    (2, 3, 3, 130, 1500, False, 0, 0),       # a ragged last query tile
+])
+def test_flash_64_row_tiles_match_plain(cuda, dtype, B, H, Kh, Sq, Sk,
+                                        causal, window, off):
+    """64-row tiles of four warps, causal blocks started last tile first."""
+    D = 64
+    n_sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert tfa.plan(B, H, Sq, Sk, n_sms)[0] == 64
+    gen = torch.Generator().manual_seed(Sq + Sk)
+    q = torch.randn((B, H, Sq, D), generator=gen).to(cuda, dtype)
+    k = torch.randn((B, Kh, Sk, D), generator=gen).to(cuda, dtype)
+    v = torch.randn((B, Kh, Sk, D), generator=gen).to(cuda, dtype)
+    kw = dict(causal=causal, window=window, kv_offset=off)
+    got = tfa.flash_attention(q, k, v, **kw)
+    want = flash_attention_ref(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    assert (got.float() - want.float()).abs().max().item() <= TOL[dtype]
