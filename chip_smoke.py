@@ -15,24 +15,27 @@ on failure:
 3. kernels- each kernel against its plain PyTorch version on the card: the
             attention and cache-write kernels at full-width LLaVA-1.5-7B
             shapes (H = Kh = 32, D = 128, page 16, w = 4096), in f32 and
-            bf16, plus a window case, a GQA case and empty-mask rows, and
-            chunked prefill at whisper-small's decoder shape (H = Kh = 12,
-            D = 64, 64-row chunks with ragged valid rows); the
-            selective scan at falcon-mamba-7b widths (d = 8192, N = 16):
-            prefill B = 1 and 4 at S = 512 from a nonzero state, decode
-            B = 4 and 8, f32 and bf16, and a tail of dt = 0 that must leave
-            the state unchanged; flash attention at whisper-small shapes
-            (H = 12, D = 64, 1500 frames: encoder self-attention at B = 1
-            and 4, cross-attention of a 64-row chunk at B = 4 and of a
-            decode row at B = 8) and causal GQA at H = 32, Kh = 8, D = 128,
-            S = 1024 (plain, window 256, and a 256-row chunk after 768
-            cached keys), f32 and bf16, the decode row also with L2 flushed
-            between calls (as a decode step finds its cross K/V; device
-            time from a torch.profiler trace), and the split-KV merge
-            kernel on its own against its plain version, with a planted
-            fault its bar must catch; times kernel, plain version and one
-            PyTorch library call (where there is one) with CUDA events, and
-            computes each kernel's bound;
+            bf16, plus a window case, a GQA case and empty-mask rows;
+            decode also at whisper-small's decoder shape (H = Kh = 12,
+            D = 64, one split) and on one lane of 4096 keys (many splits),
+            at B = 8 with L2 flushed too, and captured in a CUDA graph;
+            chunked prefill at whisper-small's decoder shape (64-row chunks
+            with ragged valid rows); the selective scan at falcon-mamba-7b
+            widths (d = 8192, N = 16): prefill B = 1 and 4 at S = 512 from
+            a nonzero state, decode B = 4 and 8, f32 and bf16, and a tail
+            of dt = 0 that must leave the state unchanged; flash attention
+            at whisper-small shapes (H = 12, D = 64, 1500 frames: encoder
+            self-attention at B = 1 and 4, cross-attention of a 64-row chunk
+            at B = 4 and of a decode row at B = 8) and causal GQA at H = 32,
+            Kh = 8, D = 128, S = 1024 (plain, window 256, and a 256-row
+            chunk after 768 cached keys), f32 and bf16, the decode row also
+            with L2 flushed between calls (as a decode step finds its cross
+            K/V; device time from a torch.profiler trace); the split-KV
+            merge (csrc/attn_merge.cuh) of each library that builds it on
+            its own against its plain version, with a planted fault its bar
+            must catch; times kernel (eager, and CUDA-graph replay), plain
+            version and one PyTorch library call (where there is one) with
+            CUDA events, and computes each kernel's bound;
 4. model  - the port's runner on the card against the same runner on the
             CPU (plain versions) on reduced LLaVA, reduced falcon-mamba
             (batched chunks of different lengths) and reduced whisper-small
@@ -43,20 +46,22 @@ on failure:
             just after: full-width, 32-layer LLaVA-1.5-7B with random bf16
             weights on E/P/D instances (four image+text greedy requests and
             one seeded sampled request; every attention and cache-write
-            kernel must launch); then, with LLaVA's memory freed,
+            kernel and the decode merge must launch; device time by kernel
+            of a steady decode step); then, with LLaVA's memory freed,
             full-width 64-layer falcon-mamba-7b on P/D instances (four
             greedy text requests of 200-600 tokens and one seeded sampled
             one; the scan must launch, each request's recurrent state must
-            migrate P -> D); then full-width whisper-small on E/P/D
+            migrate P -> D; device time by kernel of a 512-token prefill
+            chunk); then full-width whisper-small on E/P/D
             instances (five requests of one 1500x768 frame-embedding clip
             and 8-48 prompt tokens, same sampling mix; flash attention must
             launch in encode, prefill and decode, the split-KV merge must
             launch in decode, each request's encoder output and cross K/V
             must migrate P -> D, and the embedding cache must hold a host
             copy of every encoder output);
-6. report - one JSON line of kernels (the flash split-KV merge has its own
-            row: a second kernel of flash attention's path), then the final
-            status line.
+6. report - one JSON line of kernels (each split-KV merge has its own row:
+            a second kernel of the flash and decode attention paths), then
+            the final status line.
 
 Exits non-zero (and prints no status line) without a card or outside the
 repository.
@@ -79,8 +84,9 @@ SRC = ROOT / "src"
 PEAK_BYTES = 3.35e12                                  # H100 SXM HBM3, B/s
 PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12}     # FLOP/s, dense
 # kernel vs plain, max abs error.  f32 differs in summation order only.
-# bf16 rounds each output to 8 bits: decode outputs average 600+ keys and
-# stay small (measured error 4.9e-4 on H100), while the first rows of a
+# bf16 rounds each output to 8 bits: decode outputs average 40 to 4096 keys
+# and stay small (measured error 4.9e-4 on H100; decode keeps P in f32, so
+# one output rounding is all it adds), while the first rows of a
 # prefill chunk see one to a few keys and keep values near 4, where one
 # rounding is 1.6e-2 (measured 7.8e-3).  The cache write copies exactly.
 # The selective scan computes in f32 from the same inputs on both sides and
@@ -91,17 +97,19 @@ PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12}     # FLOP/s, dense
 # ~4): the prefill bar of 2e-2.
 # The bf16 attention tiles also round P to bf16 before P V, and sum l from
 # the same rounded P, so numerator and denominator weigh each key alike:
-# inside the same bars.  The merge of split-KV partials (bf16 only: f32
-# never splits) rounds its output once and is checked at the decode row,
-# whose outputs average 1500 keys and stay below 1 in magnitude (checked):
-# one rounding there is at most 2^-9 < 2e-3 (its own bar, which dropping
-# one split of the partials must exceed; checked too).
+# inside the same bars.  The merge of split-KV partials rounds its output
+# once and is checked alone into bf16 at flash's decode row (outputs
+# average 1500 keys) and at paged decode's B = 8 (600-700 keys), where
+# outputs stay below 1 in magnitude (checked): one rounding there is at
+# most 2^-9 < 2e-3 (its own bar, which dropping one split of the partials
+# must exceed; checked too).
 TOL = {"paged_attention": {"float32": 1e-4, "bfloat16": 4e-3},
        "paged_prefill_attention": {"float32": 1e-4, "bfloat16": 2e-2},
        "cache_write": {"float32": 0.0, "bfloat16": 0.0},
        "selective_scan": {"float32": 1e-4, "bfloat16": 1e-4},
        "flash_attention": {"float32": 1e-4, "bfloat16": 2e-2},
-       "flash_attention_merge": {"bfloat16": 2e-3}}
+       "flash_attention_merge": {"bfloat16": 2e-3},
+       "paged_attention_merge": {"bfloat16": 2e-3}}
 H, KH, D, PAGE, W = 32, 32, 128, 16, 4096             # llava-1.5-7b widths
 D_INNER, N_STATE = 8192, 16                           # falcon-mamba-7b widths
 WH, WD, WT = 12, 64, 1500                             # whisper-small heads,
@@ -264,36 +272,51 @@ def check(name, dtype, got, want, rows=None):
 
 
 def decode_cases(gen, dev, results):
+    """Decode attention against its plain version: LLaVA's widths at B = 4
+    and 8 (ctx 600-700), a 256-key window, GQA with 8 KV heads, whisper's
+    decoder (H = Kh = 12, D = 64, under 64 keys: one split) and one lane of
+    4096 keys (many splits), f32 and bf16; at B = 8 bf16 the times warm
+    (eager and CUDA-graph replay), with L2 flushed, and SDPA's on the same
+    keys gathered contiguous; then the split-KV merge alone."""
     import torch
     import torch.nn.functional as F
+    from repro_torch.kernels.paged_attention import ops
     from repro_torch.kernels.paged_attention.ops import paged_attention
     from repro_torch.kernels.paged_attention.ref import paged_attention_ref
-    cases = [("b4", [600, 633, 700, None], KH, 0),
-             ("b8", [600, 615, 631, 648, 656, 671, 689, 700], KH, 0),
-             ("b4-window256", [600, 633, 700, None], KH, 256),
-             ("b4-gqa-kh8", [600, 633, 700, None], 8, 0)]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    # (tag, lens (None = padded lane), H, Kh, D, window)
+    cases = [("b4", [600, 633, 700, None], H, KH, D, 0),
+             ("b8", [600, 615, 631, 648, 656, 671, 689, 700], H, KH, D, 0),
+             ("b4-window256", [600, 633, 700, None], H, KH, D, 256),
+             ("b4-gqa-kh8", [600, 633, 700, None], H, 8, D, 0),
+             ("whisper-b4", [40, 41, 45, 48], WH, WH, WD, 0),
+             ("b1-ctx4096", [4096], H, KH, D, 0)]
     errs = []
-    for tag, lens, kh, window in cases:
-        dtypes = (torch.float32, torch.bfloat16) if window == 0 and kh == KH \
-            else (torch.float32,)
-        for dtype in dtypes:
+    for tag, lens, Hq, kh, Dh, window in cases:
+        for dtype in (torch.float32, torch.bfloat16):
             kp, vp, tables, P = paged_case(gen, dev, dtype, lens=lens,
-                                           n_pages_total=400, Kh=kh)
+                                           n_pages_total=400, Kh=kh, Dh=Dh)
             B = len(lens)
-            q = torch.randn((B, H, D), generator=gen, device=dev).to(dtype)
+            q = torch.randn((B, Hq, Dh), generator=gen, device=dev).to(dtype)
             lengths = torch.tensor([n or 1 for n in lens], dtype=torch.int32,
                                    device=dev)
             got = paged_attention(q, kp, vp, tables, lengths, window=window)
             want = paged_attention_ref(q, kp, vp, tables, lengths,
                                        window=window)
             err = check(f"paged_attention/{tag}", dtype, got, want)
+            n_split = ops.decode_plan(B, Hq, kh, P, PAGE, sms)
             if dtype == torch.bfloat16:
                 errs.append(err)
+            if dtype == torch.bfloat16 and tag != "b8":
+                log({"timing": f"paged_attention/{tag}-bf16",
+                     "n_split": n_split,
+                     "device_ms": time_ms_graph(lambda: paged_attention(
+                         q, kp, vp, tables, lengths, window=window))})
             if tag == "b8" and dtype == torch.bfloat16:
                 # yardstick: SDPA on the same keys, pre-gathered contiguous
                 S = P * PAGE
-                k = kp[tables.long()].reshape(B, S, kh, D).transpose(1, 2)
-                v = vp[tables.long()].reshape(B, S, kh, D).transpose(1, 2)
+                k = kp[tables.long()].reshape(B, S, kh, Dh).transpose(1, 2)
+                v = vp[tables.long()].reshape(B, S, kh, Dh).transpose(1, 2)
                 mask = (torch.arange(S, device=dev)[None]
                         < lengths[:, None])[:, None, None, :]
                 qq = q[:, :, None, :]
@@ -301,20 +324,95 @@ def decode_cases(gen, dev, results):
                 nkeys = sum(lengths.tolist())
                 rows_kv = distinct_kv_rows(tables, lengths.tolist())
                 b_ms, b_by = bound(
-                    2 * q.numel() * isz + 2 * rows_kv * kh * D * isz
+                    2 * q.numel() * isz + 2 * rows_kv * kh * Dh * isz
                     + tables.numel() * 4 + B * 4,
-                    4 * nkeys * H * D, dname(dtype))
-                results["paged_attention"] = {
-                    "shape": f"B={B} H={H} Kh={kh} D={D} page={PAGE} "
-                             f"ctx 600-700 {dname(dtype)}",
-                    "ms": time_ms(lambda: paged_attention(
-                        q, kp, vp, tables, lengths)),
-                    "plain_ms": time_ms(lambda: paged_attention_ref(
-                        q, kp, vp, tables, lengths)),
-                    "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-                        qq, k, v, attn_mask=mask)),
-                    "bound_ms": b_ms, "bound_by": b_by}
-    results.setdefault("paged_attention", {})["max_abs_err"] = max(errs)
+                    4 * nkeys * Hq * Dh, dname(dtype))
+
+                def call():
+                    return paged_attention(q, kp, vp, tables, lengths)
+
+                def sdpa():
+                    return F.scaled_dot_product_attention(qq, k, v,
+                                                          attn_mask=mask)
+                row = {"shape": f"B={B} H={Hq} Kh={kh} D={Dh} page={PAGE} "
+                                f"ctx 600-700 {dname(dtype)}",
+                       "n_split": n_split, "ms": time_ms(call),
+                       "device_ms": time_ms_graph(call),
+                       "device_ms_cold_l2": time_ms_cold(
+                           call, ("paged_decode_kernel", "merge_kernel")),
+                       "plain_ms": time_ms(lambda: paged_attention_ref(
+                           q, kp, vp, tables, lengths)),
+                       "library_ms": time_ms(sdpa),
+                       "library_device_ms": time_ms_graph(sdpa),
+                       "bound_ms": b_ms, "bound_by": b_by}
+                row["bound_share"] = b_ms / row["device_ms"]
+                row["bound_share_cold_l2"] = b_ms / row["device_ms_cold_l2"]
+                results["paged_attention"] = row
+                log({"timing": "paged_attention/b8-bf16", **row})
+                paged_merge_case(q, kp, vp, tables, lengths, n_split, results)
+    results["paged_attention"]["max_abs_err"] = max(errs)
+
+
+def paged_merge_case(q, kp, vp, tables, lengths, n_split, results):
+    """The decode merge alone at B = 8, on the plain partials of the split
+    the plan picks, against the plain merge; its bar must catch a merge
+    that loses a split."""
+    import torch
+    from repro_torch.kernels.paged_attention.ref import \
+        paged_attention_partials_ref
+    if n_split <= 1:
+        raise AssertionError("decode at B = 8 must take split-KV")
+    m, l, acc = paged_attention_partials_ref(q, kp, vp, tables, lengths,
+                                             n_split)
+    merge_check("paged_attention_merge", f"b8-n{n_split}", m[..., None],
+                l[..., None], acc[..., None, :], results)
+
+
+def merge_check(name, tag, m, l, acc, results):
+    """The merge kernel of ``name`` (flash_attention_merge or
+    paged_attention_merge) alone on partials m/l [n, B, H, Sq] and acc [n,
+    B, H, Sq, D] into bf16, against the plain merge at its own bar, which
+    the same kernel on partials with one live split dropped (l = 0) must
+    miss.  Records the kernel's row."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import merge_partials_ref
+    kernel = name[:-len("_merge")]
+    n_split, B, Hq, Sq, Dh = acc.shape
+    want = merge_partials_ref(m, l, acc)
+    if not want.abs().max() < 1:
+        raise AssertionError("the merge's bar assumes outputs below 1")
+    bf = torch.bfloat16
+    out = torch.empty((B, Hq, Sq, Dh), dtype=bf, device=acc.device)
+    ops.merge_partials(m, l, acc, out, kernel=kernel)
+    err = check(f"{name}/{tag}", bf, out, want)
+    dropped = l.clone()
+    dropped[n_split // 2] = 0
+    fault = torch.empty_like(out)
+    ops.merge_partials(m, dropped, acc, fault, kernel=kernel)
+    fault_err = (fault.float() - want).abs().max().item()
+    tol = TOL[name]["bfloat16"]
+    log({"planted_fault": f"{name}, split {n_split // 2} of {n_split} "
+                          "dropped",
+         "max_abs_err": fault_err, "sound_max_abs_err": err, "tol": tol})
+    if not fault_err > tol:
+        raise AssertionError(f"{name} bar {tol} passes a dropped split "
+                             f"({fault_err})")
+    # each partial read once, the output written once; one FMA per
+    # partial element on the CUDA cores
+    b_ms, b_by = bound((2 * m.numel() + acc.numel()) * 4
+                       + out.numel() * out.element_size(),
+                       2 * acc.numel(), "float32")
+    results[name] = {
+        "shape": f"n_split={n_split} B={B} H={Hq} Sq={Sq} D={Dh} f32 "
+                 f"partials -> bf16",
+        "ms": time_ms(lambda: ops.merge_partials(m, l, acc, out,
+                                                 kernel=kernel)),
+        "device_ms": time_ms_graph(lambda: ops.merge_partials(
+            m, l, acc, out, kernel=kernel)),
+        "plain_ms": time_ms(lambda: merge_partials_ref(m, l, acc)),
+        "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
+        "max_abs_err": err}
 
 
 def prefill_cases(gen, dev, results):
@@ -472,6 +570,11 @@ def cache_write_cases(gen, dev, results):
                         flat, rows2, slot_vec)),
                     "library_ms": time_ms(lambda: flat.view(-1, W).index_copy_(
                         0, slot_vec, rows2)),
+                    "device_ms": time_ms_graph(lambda: paged_chunk_write(
+                        got, layer, rows, slots)),
+                    "library_device_ms": time_ms_graph(
+                        lambda: flat.view(-1, W).index_copy_(0, slot_vec,
+                                                             rows2)),
                     "bound_ms": b_ms, "bound_by": b_by}
             if tag == "decode-b8" and pool_dtype == row_dtype \
                     == torch.bfloat16:
@@ -528,6 +631,8 @@ def scan_cases(gen, dev, results, rate):
                    "plain_ms": time_ms(lambda: selective_scan_ref(*ins),
                                        reps=2, rounds=3),
                    "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
+            row["device_ms"] = time_ms_graph(lambda: selective_scan(*ins))
+            row["bound_share"] = b_ms / row["device_ms"]
             if tag == "prefill-b1-s512" and dtype == torch.bfloat16:
                 results["selective_scan"] = row
             else:
@@ -625,7 +730,7 @@ def flash_cases(gen, dev, results, rate):
             if tag == "cross-decode-b8":
                 row["device_ms_cold_l2"] = time_ms_cold(
                     lambda: flash_attention(q, k, v, **kw),
-                    ("flash_mma_kernel", "flash_merge_kernel"))
+                    ("flash_mma_kernel", "merge_kernel"))
                 split_merge_case(q, k, v, kw, results)
             if tag == "enc-self-b4":
                 results["flash_attention"] = row
@@ -635,55 +740,41 @@ def flash_cases(gen, dev, results, rate):
 
 
 def split_merge_case(q, k, v, kw, results):
-    """The merge kernel alone at the decode row's shape, on the plain
-    partials of the split the plan picks, against the plain merge (the
-    split kernel is checked through flash_attention at every split shape).
-    Its bar must also catch a merge that loses a split: the same kernel on
-    partials with one live split dropped (l = 0) must miss it."""
+    """The flash merge alone at the decode row's shape, on the plain
+    partials of the split the plan picks (the split kernel is checked
+    through flash_attention at every split shape)."""
     import torch
     from repro_torch.kernels.flash_attention import ops
-    from repro_torch.kernels.flash_attention.ref import (
-        flash_attention_partials_ref, merge_partials_ref)
+    from repro_torch.kernels.flash_attention.ref import \
+        flash_attention_partials_ref
     B, Hq, Sq, Dh = q.shape
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     _, n_split = ops.plan(B, Hq, Sq, k.shape[2], sms)
     if n_split <= 1:
         raise AssertionError("the decode row must take split-KV")
     m, l, acc = flash_attention_partials_ref(q, k, v, n_split, **kw)
-    want = merge_partials_ref(m, l, acc)
-    if not want.abs().max() < 1:
-        raise AssertionError("the merge's bar assumes outputs below 1")
-    bf = torch.bfloat16
-    out = torch.empty((B, Hq, Sq, Dh), dtype=bf, device=q.device)
-    ops.merge_partials(m, l, acc, out)
-    err = check(f"flash_attention_merge/cross-decode-b8-n{n_split}", bf,
-                out, want)
-    dropped = l.clone()
-    dropped[n_split // 2] = 0
-    fault = torch.empty_like(out)
-    ops.merge_partials(m, dropped, acc, fault)
-    fault_err = (fault.float() - want).abs().max().item()
-    tol = TOL["flash_attention_merge"]["bfloat16"]
-    log({"planted_fault": "flash_attention_merge, split "
-                          f"{n_split // 2} of {n_split} dropped",
-         "max_abs_err": fault_err, "sound_max_abs_err": err, "tol": tol})
-    if not fault_err > tol:
-        raise AssertionError(f"merge bar {tol} passes a dropped split "
-                             f"({fault_err})")
-    # each partial read once, the output written once; one FMA per
-    # partial element on the CUDA cores
-    b_ms, b_by = bound((2 * m.numel() + acc.numel()) * 4
-                       + out.numel() * out.element_size(),
-                       2 * acc.numel(), "float32")
-    results["flash_attention_merge"] = {
-        "shape": f"n_split={n_split} B={B} H={Hq} Sq={Sq} D={Dh} f32 "
-                 f"partials -> bf16",
-        "ms": time_ms(lambda: ops.merge_partials(m, l, acc, out)),
-        "device_ms": time_ms_graph(lambda: ops.merge_partials(
-            m, l, acc, out)),
-        "plain_ms": time_ms(lambda: merge_partials_ref(m, l, acc)),
-        "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
-        "max_abs_err": err}
+    merge_check("flash_attention_merge", f"cross-decode-b8-n{n_split}", m,
+                l, acc, results)
+
+
+def ptxas_report(text: str) -> list:
+    """[{"fn", "registers", "spill_bytes"}] for each kernel in an nvcc
+    ``-Xptxas -v`` log (spill_bytes: stores + loads)."""
+    import re
+    out, fn = [], None
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            fn = {"fn": m.group(1), "registers": None, "spill_bytes": 0}
+            out.append(fn)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and fn is not None:
+            fn["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn is not None:
+            fn["registers"] = int(m.group(1))
+    return out
 
 
 def sass_hmma(card: str):
@@ -936,8 +1027,8 @@ def check_reclaimed(srv):
                                      f"reclaimed")
 
 
-def profile_decode(runner, rids, toks, card: str, tag: str, steps: int = 3):
-    """Device time by kernel over a few steady decode steps (torch.profiler
+def profile_calls(fn, what: str, card: str, tag: str, steps: int = 3):
+    """Device time by kernel over ``steps`` calls of ``fn`` (torch.profiler
     with CUDA activity), and the device's busy share of their wall time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -946,7 +1037,7 @@ def profile_decode(runner, rids, toks, card: str, tag: str, steps: int = 3):
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            runner.decode(rids, toks)
+            fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     rows = []                    # device-side kernel events only: the
@@ -958,12 +1049,12 @@ def profile_decode(runner, rids, toks, card: str, tag: str, steps: int = 3):
             rows.append((dev_us, e.key, e.count))
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
-    log({"decode_profile": f"B={len(rids)}, {steps} steady steps",
-         "path": tag, "card": card, "wall_ms_per_step": wall_us / steps / 1e3,
-         "device_ms_per_step": busy / steps / 1e3,
+    log({"profile": f"{what}, {steps} calls",
+         "path": tag, "card": card, "wall_ms_per_call": wall_us / steps / 1e3,
+         "device_ms_per_call": busy / steps / 1e3,
          "device_busy_share": busy / wall_us if wall_us else None,
-         "top": [{"kernel": k[:80], "ms_per_step": us / steps / 1e3,
-                  "calls_per_step": n / steps}
+         "top": [{"kernel": k[:80], "ms_per_call": us / steps / 1e3,
+                  "launches_per_call": n / steps}
                  for us, k, n in rows[:12]]})
 
 
@@ -987,7 +1078,8 @@ def steady_decode(d, add, release, card: str, tag: str):
             d.runner.decode(rids, toks)
         steady[f"B={B}"] = (time.perf_counter() - t0) / 8 * 1e3
         if B == 4:
-            profile_decode(d.runner, rids, toks, card, tag)
+            profile_calls(lambda: d.runner.decode(rids, toks),
+                          "steady decode step, B=4", card, tag)
         for rid in rids:
             release(rid)
     log({"steady_decode_ms_per_step": steady, "path": tag, "card": card})
@@ -1027,7 +1119,8 @@ def serve(seed: int, card: str):
         K.reset_launches()
         rs, outs, wall = run_requests(eng, reqs, cfg.vocab_size)
         launches = dict(K.launches)
-    for name in ("cache_write", "paged_attention", "paged_prefill_attention"):
+    for name in ("cache_write", "paged_attention", "paged_attention_merge",
+                 "paged_prefill_attention"):
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} never launched on the "
                                  f"llava main path")
@@ -1123,6 +1216,18 @@ def serve_mamba(seed: int, card: str):
          "state_bytes_per_request": state_bytes, "launches": launches,
          "scan_calls_by_shape": scan_shapes, "wall_split": split,
          "greedy_tokens_req0": outs[0]})
+
+    # one 512-token prefill chunk of a new request on the P instance, its
+    # state freed after each call so every call starts from zero
+    p = next(i for i in srv.instances if i.role_name == "P")
+    chunk = rng.integers(0, cfg.vocab_size, 512).astype(np.int32)
+
+    def prefill_chunk():
+        p.runner.prefill_chunks([(20_000, chunk, False)])
+        p.caches.release(20_000)
+    prefill_chunk()
+    profile_calls(prefill_chunk, "prefill chunk of 512 tokens, B=1", card,
+                  "falcon-mamba-7b")
 
     d = next(i for i in srv.instances if i.role_name == "D")
     zero = M.empty_state(cfg, dtype=torch.bfloat16, device="cuda")
@@ -1261,9 +1366,7 @@ def main() -> int:
     t0 = time.perf_counter()
     logs = _build.build_all()
     for name, text in logs.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"ptxas {name}: {line.strip()}")
+        log({"ptxas": name, "kernels": ptxas_report(text)})
     log({"phase": "build", "built": sorted(logs), "s": time.perf_counter() - t0})
     sass_hmma(card)
 
@@ -1300,6 +1403,9 @@ def main() -> int:
                            "src/repro/kernels/cache_write/kernel.py:25"),
            "paged_attention": ("src/repro_torch/csrc/paged_attention.cu",
                                "src/repro/kernels/paged_attention/kernel.py:78"),
+           "paged_attention_merge": (
+               "src/repro_torch/csrc/attn_merge.cuh",
+               "src/repro/kernels/paged_attention/kernel.py:78"),
            "paged_prefill_attention": (
                "src/repro_torch/csrc/paged_attention.cu",
                "src/repro/kernels/paged_attention/kernel.py:162"),
@@ -1308,7 +1414,7 @@ def main() -> int:
            "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                                "src/repro/kernels/flash_attention/kernel.py:65"),
            "flash_attention_merge": (
-               "src/repro_torch/csrc/flash_attention.cu",
+               "src/repro_torch/csrc/attn_merge.cuh",
                "src/repro/kernels/flash_attention/kernel.py:65")}
     kernels = []
     for name, (source, replaces) in src.items():
@@ -1319,8 +1425,9 @@ def main() -> int:
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"], "shape": r["shape"],
-                        **{key: r[key] for key in ("device_ms",
-                                                    "library_device_ms")
+                        **{key: r[key] for key in (
+                            "device_ms", "device_ms_cold_l2",
+                            "library_device_ms", "bound_share", "n_split")
                            if key in r}})
     log({"total_s": time.perf_counter() - t_start, "card": card})
     print(json.dumps({"kernels": kernels}), flush=True)

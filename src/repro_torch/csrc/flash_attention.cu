@@ -33,7 +33,7 @@
 //   whisper's prefill chunks) would leave most SMs idle with one block per
 //   (b, h), so the plan splits the keys into n_split ranges of whole tiles
 //   (split-KV): each block then writes f32 partials (m, l, acc) of its
-//   range to scratch, and flash_merge's kernel combines them by
+//   range to scratch, and the merge kernel of attn_merge.cuh combines them by
 //   log-sum-exp (partials with l = 0, ranges that saw no key, weigh
 //   nothing) into out.
 // - f32: CUDA-core products in f32, by design, not as a fallback: the
@@ -50,6 +50,7 @@
 // per head on the tensor cores, and Sq * Sk exponentials), bytes for short
 // query tiles (each K/V row is read once per query tile).
 #include "attn_mma.cuh"
+#include "attn_merge.cuh"
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -59,10 +60,7 @@ namespace {
 
 using attn::bf16;
 using attn::NEG_INF;
-
-struct Strides {
-  int64_t b, h, s;
-};
+using attn::Strides;
 
 // ---------------------------------------------------------------------------
 // bf16: the tensor-core tile, optionally over one split of the keys
@@ -157,71 +155,6 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
             make_float2(st.acc[n][2 * half], st.acc[n][2 * half + 1]);
     }
   }
-}
-
-// One warp per (b, h, i) row: M = the largest m of the splits with l > 0,
-// out = sum_s e^(m_s - M) acc_s / max(sum_s e^(m_s - M) l_s, 1e-30).
-// Splits with l = 0 saw no key and weigh nothing (their acc is not read);
-// a row no split saw comes out 0.  The lanes read the splits' m and l side
-// by side, so a row costs two rounds of loads, not one per split.
-template <int D>
-__global__ void __launch_bounds__(256)
-flash_merge_kernel(const float* __restrict__ part_m, const float* __restrict__ part_l,
-                   const float* __restrict__ part_acc, bf16* __restrict__ out, Strides ost,
-                   int n_split, int B, int H, int Sq) {
-  const int64_t n_rows = (int64_t)B * H * Sq;
-  const int64_t row = (int64_t)blockIdx.x * (blockDim.x / 32) + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (row >= n_rows) return;
-  float M = NEG_INF;
-  for (int s = lane; s < n_split; s += 32)
-    if (part_l[s * n_rows + row] > 0.f) M = fmaxf(M, part_m[s * n_rows + row]);
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) M = fmaxf(M, __shfl_xor_sync(0xffffffffu, M, o));
-  float L = 0.f, acc[D / 32];
-#pragma unroll
-  for (int c = 0; c < D / 32; ++c) acc[c] = 0.f;
-  for (int s0 = 0; s0 < n_split; s0 += 32) {
-    float w = 0.f, l = 0.f;      // split s0 + lane's weight
-    if (s0 + lane < n_split) {
-      l = part_l[(s0 + lane) * n_rows + row];
-      if (l > 0.f) w = expf(part_m[(s0 + lane) * n_rows + row] - M);
-    }
-    L += w * l;
-    const int n = min(32, n_split - s0);
-#pragma unroll 4
-    for (int j = 0; j < n; ++j) {
-      const float wj = __shfl_sync(0xffffffffu, w, j);
-      if (wj == 0.f) continue;
-      const float* a = part_acc + ((s0 + j) * n_rows + row) * D;
-#pragma unroll
-      for (int c = 0; c < D / 32; ++c) acc[c] += wj * a[lane + 32 * c];
-    }
-  }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) L += __shfl_xor_sync(0xffffffffu, L, o);
-  const int i = (int)(row % Sq), h = (int)(row / Sq % H), b = (int)(row / ((int64_t)Sq * H));
-  bf16* o = out + b * ost.b + h * ost.h + i * ost.s;
-  const float inv = 1.f / fmaxf(L, 1e-30f);
-#pragma unroll
-  for (int c = 0; c < D / 32; ++c) o[lane + 32 * c] = __float2bfloat16(acc[c] * inv);
-}
-
-cudaError_t launch_merge(const float* pm, const float* pl, const float* pa, void* out,
-                         Strides ost, int n_split, int B, int H, int Sq, int D,
-                         cudaStream_t s) {
-  const int64_t n_rows = (int64_t)B * H * Sq;
-  if (n_rows == 0) return cudaSuccess;
-  constexpr int WARPS = 8;
-  const unsigned grid = (unsigned)((n_rows + WARPS - 1) / WARPS);
-  bf16* o = static_cast<bf16*>(out);
-  if (D == 64)
-    flash_merge_kernel<64><<<grid, 32 * WARPS, 0, s>>>(pm, pl, pa, o, ost, n_split, B, H, Sq);
-  else if (D == 128)
-    flash_merge_kernel<128><<<grid, 32 * WARPS, 0, s>>>(pm, pl, pa, o, ost, n_split, B, H, Sq);
-  else
-    return cudaErrorInvalidValue;
-  return cudaGetLastError();
 }
 
 template <int D, int NW>
@@ -511,7 +444,7 @@ int run(const void* q, const void* k, const void* v, void* out, int dtype, int B
               : launch_mma<128>(q, k, v, out, st, B, H, Kh, Sq, Sk, causal, window,
                                 kv_offset, rows, n_split, P.m, P.l, P.acc, s);
   if (err != cudaSuccess || n_split == 1) return (int)err;
-  return (int)launch_merge(P.m, P.l, P.acc, out, st[3], n_split, B, H, Sq, D, s);
+  return (int)attn::launch_merge<bf16>(P.m, P.l, P.acc, out, st[3], n_split, B, H, Sq, D, s);
 }
 
 }  // namespace
@@ -531,19 +464,4 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v, void
                                void* parts, void* stream) {
   return run(q, k, v, out, dtype, B, H, Kh, Sq, Sk, D, causal, window, kv_offset, strides,
              rows, n_split, parts, static_cast<cudaStream_t>(stream));
-}
-
-// The merge alone, for checking it against its plain version: partials m /
-// l [n_split, B, H, Sq] and acc [n_split, B, H, Sq, D] (f32, contiguous)
-// into a bf16 out [B, H, Sq, D] (strides: out's 3 (batch, head, sequence)
-// strides in elements).
-extern "C" int flash_merge(const void* part_m, const void* part_l, const void* part_acc,
-                           void* out, int n_split, int B, int H, int Sq, int D,
-                           const int64_t* strides, void* stream) {
-  Strides st;
-  unpack(strides, &st, 1);
-  return (int)launch_merge(static_cast<const float*>(part_m),
-                           static_cast<const float*>(part_l),
-                           static_cast<const float*>(part_acc), out, st, n_split, B, H,
-                           Sq, D, static_cast<cudaStream_t>(stream));
 }

@@ -9,8 +9,8 @@
 //     pos <= qpos   and, when window > 0,   pos > qpos - window.
 //
 // Decode is the C == 1 case with ctx_b = lengths[b] - 1 (the lengths count
-// the token just written), which is exactly the TPU decode mask
-// pos < lengths[b], pos >= lengths[b] - window.  Query head h reads KV head
+// the token just written): the TPU decode mask pos < lengths[b],
+// pos >= lengths[b] - window.  Query head h reads KV head
 // h / G.  Scores are scaled by 1/sqrt(D), masked with the finite NEG_INF
 // the TPU kernels use, and reduced by an online softmax in f32 that divides
 // by max(l, 1e-30), so rows whose mask is empty come out finite.
@@ -21,11 +21,34 @@
 //
 // The TPU grid walks (batch, page) with the page dimension sequential and
 // the softmax state carried in scratch across grid steps.  CUDA blocks run
-// in no order, so here one block owns (request, KV head, tile of query
-// rows) and walks its pages in a loop, reading its own table row.  Pages
-// wholly before the tile's window or after its last query are skipped.
-// Two bodies:
+// in no order, so here a block owns a slice of the work and walks its pages
+// in a loop, reading its own table row; pages wholly outside the rows'
+// visible keys are skipped.  Three bodies:
 //
+// - decode (f32 and bf16, D = 32, 64, 128 or 256): bound by the bytes of
+//   the cached K/V it reads once per step (LLaVA at B = 8, ctx 600-700:
+//   85 MB, 0.0255 ms at 3.35 TB/s).  Split-KV: the wrapper's decode_plan
+//   cuts the table's columns into n_split ranges of whole pages, from the
+//   shapes alone (no host read of the lengths, so a call can be captured
+//   in a CUDA graph), enough for the (b, head group, split) blocks to
+//   fill the card with two waves of two blocks per SM.  A block clamps
+//   its range to the keys its query sees (pos < len, pos >= len - window)
+//   from lengths[b] on the device; one with none left writes l = 0 and
+//   exits.  A block of 4 warps holds the G query heads of its KV head in
+//   registers (up to 8 a block, so GQA reads each K/V row once per 8
+//   heads), stages its table window in shared memory and reads K/V rows
+//   as 16-byte loads, D * size / 16 lanes a row (a D = 128 bf16 row is 16
+//   lanes), so a warp reads 2-8 keys a step.  It loads the next batch of
+//   keys (up to 4 steps) before it computes this one: at LLaVA's widths
+//   (bf16, D = 128, one query head a KV head) 16 KB of K/V loads per
+//   block are in flight.  Dot products are f32 FMAs and sub-warp
+//   shuffles; each lane group keeps its own online softmax (m, l, acc) in
+//   registers, in log2 units (the 1/sqrt(D) scale and log2 e folded into
+//   q, exponentials on ex2.approx), combined across the warp by shuffles
+//   and across the warps once in shared memory.  P is not rounded: no
+//   tensor cores here, so a bf16 output is rounded once.  One split
+//   writes out; more write f32 partials that the merge of attn_merge.cuh
+//   combines, a second launch from the same entry point.
 // - bf16 chunked prefill, D = 64, 128 or 256: the tensor-core tile of
 //   attn_mma.cuh.  The block's rows are (chunk row c, query head g) pairs
 //   of its KV head, r = c * G + g, cut into tiles of 64 rows, 16 per warp
@@ -35,19 +58,19 @@
 //   (one division per tile) and copies the rows at ((blk * page + t) * Kh
 //   + kh) * D (64-bit offsets) with cp.async.  Bound: the two products
 //   (4 * C * ctx * D per head) on the tensor cores, and the exponentials.
-// - decode (both types) and f32 prefill: CUDA-core f32 products from
-//   shared memory, one page in flight.  f32 stays off the tensor cores by
-//   design (the f32 model checks hold the card to the CPU within 2e-4);
-//   decode, bound by the bytes of the cached K/V it reads once per step,
-//   is the next kernel to redesign (split-KV for small batches).  The
-//   block's tile_c x G query rows keep their running max, sum and
-//   accumulator in shared memory.
+// - f32 prefill: CUDA-core f32 products from shared memory, one page in
+//   flight.  f32 stays off the tensor cores by design (the f32 model
+//   checks hold the card to the CPU within 2e-4).  The block's tile_c x G
+//   query rows keep their running max, sum and accumulator in shared
+//   memory.
 #include "attn_mma.cuh"
+#include "attn_merge.cuh"
 
 #include <atomic>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+#include <type_traits>
 
 namespace {
 
@@ -58,9 +81,6 @@ constexpr int ROWS_PER_BLOCK = 16;   // target tile_c * G for prefill
 
 template <typename T> __device__ __forceinline__ float to_f32(T x);
 template <> __device__ __forceinline__ float to_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ float to_f32<bf16>(bf16 x) {
-  return __bfloat162float(x);
-}
 template <typename T> __device__ __forceinline__ T from_f32(float x);
 template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
 template <> __device__ __forceinline__ bf16 from_f32<bf16>(float x) {
@@ -73,7 +93,7 @@ paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ kp,
                   const T* __restrict__ vp, const int32_t* __restrict__ tables,
                   const int32_t* __restrict__ lens, T* __restrict__ out, int C,
                   int H, int Kh, int D, int page, int max_pages, int window,
-                  int tile_c, int decode, float scale) {
+                  int tile_c, float scale) {
   const int b = blockIdx.z, kh = blockIdx.y, c0 = blockIdx.x * tile_c;
   const int G = H / Kh;
   const int QR = tile_c * G;       // query rows of this block, r = (c - c0) * G + g
@@ -89,7 +109,7 @@ paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   float* alpha = l + QR;           // [QR] rescale of this page
 
   const int tid = threadIdx.x;
-  const int ctx = decode ? lens[b] - 1 : lens[b];
+  const int ctx = lens[b];
 
   for (int i = tid; i < QR * D; i += THREADS) {
     const int r = i / D, d = i % D;
@@ -179,11 +199,10 @@ paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ kp,
 template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* tables,
                    const void* lens, void* out, int B, int C, int H, int Kh, int D,
-                   int page, int max_pages, int window, int decode,
-                   cudaStream_t stream) {
+                   int page, int max_pages, int window, cudaStream_t stream) {
   if (B == 0 || C == 0) return cudaSuccess;
   const int G = H / Kh;
-  const int tile_c = decode ? 1 : (G >= ROWS_PER_BLOCK ? 1 : ROWS_PER_BLOCK / G);
+  const int tile_c = G >= ROWS_PER_BLOCK ? 1 : ROWS_PER_BLOCK / G;
   const size_t QR = (size_t)tile_c * G;
   const size_t smem = (QR * (D + 1) + QR * D + (size_t)page * (D + 1) +
                        (size_t)page * D + QR * page + 3 * QR) * sizeof(float);
@@ -199,9 +218,310 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* tabl
   paged_attn_kernel<T><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const int32_t*>(tables), static_cast<const int32_t*>(lens),
-      static_cast<T*>(out), C, H, Kh, D, page, max_pages, window, tile_c, decode,
+      static_cast<T*>(out), C, H, Kh, D, page, max_pages, window, tile_c,
       1.0f / sqrtf((float)D));
   return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// decode: split-KV over pages, 16-byte loads, the next keys in flight
+// ---------------------------------------------------------------------------
+constexpr int DEC_WARPS = 4;
+constexpr int DEC_TBL = 128;   // table entries a block stages at a time
+
+// 16 bytes of T as floats (bf16 -> f32 is a shift: its bits are the top
+// half of the f32's)
+template <typename T> __device__ __forceinline__ void unpack(const uint4& u, float* f);
+template <> __device__ __forceinline__ void unpack<float>(const uint4& u, float* f) {
+  f[0] = __uint_as_float(u.x);
+  f[1] = __uint_as_float(u.y);
+  f[2] = __uint_as_float(u.z);
+  f[3] = __uint_as_float(u.w);
+}
+template <> __device__ __forceinline__ void unpack<bf16>(const uint4& u, float* f) {
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[2 * i] = __uint_as_float(w[i] << 16);
+    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
+
+// grid (n_split, H / GT, B), block of DEC_WARPS warps.  The block owns
+// query heads h0 .. h0 + GT - 1 of request b (all of one KV head) and the
+// keys of table columns [split * split_pages, (split + 1) * split_pages),
+// cut to the visible ones.  A key is read by LPK lanes, 16 bytes each; a
+// warp reads KPW keys per step, U steps per batch, and loads the next
+// batch before it computes this one.  part_m == nullptr: one split, out is
+// written; else the block writes its partials (m in natural units, l, acc)
+// for the merge.
+template <typename T, int D, int GT>
+__global__ void __launch_bounds__(32 * DEC_WARPS)
+paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
+                    const T* __restrict__ vp, const int32_t* __restrict__ tables,
+                    const int32_t* __restrict__ lens, T* __restrict__ out,
+                    float* __restrict__ part_m, float* __restrict__ part_l,
+                    float* __restrict__ part_acc, int H, int Kh, int page,
+                    int max_pages, int split_pages, int window, float scale_log2) {
+  constexpr int VEC = 16 / sizeof(T);               // elements per 16-byte load
+  constexpr int LPK = D / VEC < 32 ? D / VEC : 32;  // lanes per key
+  constexpr int NV = D / (VEC * LPK);               // loads per lane per row
+  constexpr int KPW = 32 / LPK;                     // keys per warp per step
+  constexpr int U = GT * NV >= 4 ? 1 : 4 / (GT * NV);  // steps per batch
+  constexpr int STEP = DEC_WARPS * KPW, BATCH = U * STEP;
+  __shared__ int tbl[DEC_TBL];
+  __shared__ float red_m[DEC_WARPS][GT], red_l[DEC_WARPS][GT];
+  __shared__ float red_acc[DEC_WARPS][GT][D];
+
+  const int split = blockIdx.x, h0 = blockIdx.y * GT, b = blockIdx.z;
+  const int kh = h0 / (H / Kh);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int sub = lane / LPK, li = lane % LPK;
+  const int64_t prow = ((int64_t)split * gridDim.z + b) * H + h0;   // partial row
+
+  // the keys of this split that the query sees: pos < len, and with a
+  // window pos >= len - window
+  const int len = lens[b];
+  int k0 = split * split_pages * page;
+  const int k1 = min(min(len, max_pages * page), (split + 1) * split_pages * page);
+  if (window > 0) k0 = max(k0, len - window);
+  if (k0 >= k1) {
+    if (part_m == nullptr) {
+      for (int i = threadIdx.x; i < GT * D; i += 32 * DEC_WARPS)
+        out[((int64_t)b * H + h0) * D + i] = from_f32<T>(0.f);
+    } else if (threadIdx.x < GT) {
+      part_m[prow + threadIdx.x] = NEG_INF;
+      part_l[prow + threadIdx.x] = 0.f;
+    }
+    return;
+  }
+
+  float qf[GT][NV][VEC], acc[GT][NV][VEC], m[GT], l[GT];
+#pragma unroll
+  for (int g = 0; g < GT; ++g) {
+    const uint4* qr = reinterpret_cast<const uint4*>(q + ((int64_t)b * H + h0 + g) * D);
+#pragma unroll
+    for (int v = 0; v < NV; ++v) {
+      unpack<T>(qr[v * LPK + li], qf[g][v]);
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        qf[g][v][e] *= scale_log2;
+        acc[g][v][e] = 0.f;
+      }
+    }
+    m[g] = NEG_INF;
+    l[g] = 0.f;
+  }
+
+  for (int p_lo = k0 / page; p_lo * page < k1; p_lo += DEC_TBL) {
+    const int p_hi = min(p_lo + DEC_TBL, (k1 + page - 1) / page);
+    __syncthreads();                       // the last window's readers are done
+    for (int i = threadIdx.x; i < p_hi - p_lo; i += 32 * DEC_WARPS)
+      tbl[i] = tables[(int64_t)b * max_pages + p_lo + i];
+    __syncthreads();
+    const int j_lo = max(k0, p_lo * page), j_hi = min(k1, p_hi * page);
+    const int lane_key = warp * KPW + sub;
+
+    // K and V of this lane's keys j0 + u * STEP + lane_key; zeros past j_hi
+    uint4 kc[U][NV], vc[U][NV], kn[U][NV], vn[U][NV];
+    auto load = [&](int j0, uint4 (&kr)[U][NV], uint4 (&vr)[U][NV]) {
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int j = j0 + u * STEP + lane_key;
+        if (j < j_hi) {
+          const int pj = j / page;
+          const int64_t r = ((int64_t)tbl[pj - p_lo] * page + (j - pj * page)) * Kh + kh;
+          const uint4* kr4 = reinterpret_cast<const uint4*>(kp + r * D) + li;
+          const uint4* vr4 = reinterpret_cast<const uint4*>(vp + r * D) + li;
+#pragma unroll
+          for (int v = 0; v < NV; ++v) {
+            kr[u][v] = __ldg(kr4 + v * LPK);
+            vr[u][v] = __ldg(vr4 + v * LPK);
+          }
+        } else {
+#pragma unroll
+          for (int v = 0; v < NV; ++v) kr[u][v] = vr[u][v] = make_uint4(0, 0, 0, 0);
+        }
+      }
+    };
+    load(j_lo, kc, vc);
+    for (int j0 = j_lo; j0 < j_hi; j0 += BATCH) {
+      if (j0 + BATCH < j_hi) load(j0 + BATCH, kn, vn);
+      float s[U][GT];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        float kf[NV][VEC];
+#pragma unroll
+        for (int v = 0; v < NV; ++v) unpack<T>(kc[u][v], kf[v]);
+#pragma unroll
+        for (int g = 0; g < GT; ++g) {
+          float dot = 0.f;
+#pragma unroll
+          for (int v = 0; v < NV; ++v)
+#pragma unroll
+            for (int e = 0; e < VEC; ++e) dot = fmaf(qf[g][v][e], kf[v][e], dot);
+#pragma unroll
+          for (int o = LPK / 2; o > 0; o >>= 1) dot += __shfl_xor_sync(0xffffffffu, dot, o);
+          s[u][g] = j0 + u * STEP + lane_key < j_hi ? dot : NEG_INF;
+        }
+      }
+      float vf[U][NV][VEC];
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+#pragma unroll
+        for (int v = 0; v < NV; ++v) unpack<T>(vc[u][v], vf[u][v]);
+#pragma unroll
+      for (int g = 0; g < GT; ++g) {
+        float mx = m[g];
+#pragma unroll
+        for (int u = 0; u < U; ++u) mx = fmaxf(mx, s[u][g]);
+        const float alpha = attn::ex2(m[g] - mx);
+        float p[U], ls = 0.f;
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          p[u] = s[u][g] > NEG_INF ? attn::ex2(s[u][g] - mx) : 0.f;   // masked: exactly 0
+          ls += p[u];
+        }
+        l[g] = l[g] * alpha + ls;
+        m[g] = mx;
+#pragma unroll
+        for (int v = 0; v < NV; ++v)
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) {
+            float a = acc[g][v][e] * alpha;
+#pragma unroll
+            for (int u = 0; u < U; ++u) a = fmaf(p[u], vf[u][v][e], a);
+            acc[g][v][e] = a;
+          }
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+#pragma unroll
+        for (int v = 0; v < NV; ++v) {
+          kc[u][v] = kn[u][v];
+          vc[u][v] = vn[u][v];
+        }
+    }
+  }
+
+  // the warp's KPW key streams, then the block's warps, by log-sum-exp
+#pragma unroll
+  for (int o = LPK; o < 32; o <<= 1)
+#pragma unroll
+    for (int g = 0; g < GT; ++g) {
+      const float mo = __shfl_xor_sync(0xffffffffu, m[g], o);
+      const float lo = __shfl_xor_sync(0xffffffffu, l[g], o);
+      const float M = fmaxf(m[g], mo), a = attn::ex2(m[g] - M), c = attn::ex2(mo - M);
+      l[g] = l[g] * a + lo * c;
+      m[g] = M;
+#pragma unroll
+      for (int v = 0; v < NV; ++v)
+#pragma unroll
+        for (int e = 0; e < VEC; ++e)
+          acc[g][v][e] = acc[g][v][e] * a + __shfl_xor_sync(0xffffffffu, acc[g][v][e], o) * c;
+    }
+  if (sub == 0) {
+#pragma unroll
+    for (int g = 0; g < GT; ++g) {
+      if (li == 0) {
+        red_m[warp][g] = m[g];
+        red_l[warp][g] = l[g];
+      }
+#pragma unroll
+      for (int v = 0; v < NV; ++v)
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) red_acc[warp][g][(v * LPK + li) * VEC + e] = acc[g][v][e];
+    }
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < GT * D; i += 32 * DEC_WARPS) {
+    const int g = i / D, d = i % D;
+    float M = NEG_INF, L = 0.f, A = 0.f;
+#pragma unroll
+    for (int w = 0; w < DEC_WARPS; ++w) M = fmaxf(M, red_m[w][g]);
+#pragma unroll
+    for (int w = 0; w < DEC_WARPS; ++w) {
+      const float c = attn::ex2(red_m[w][g] - M);
+      L += red_l[w][g] * c;
+      A += red_acc[w][g][d] * c;
+    }
+    if (part_m == nullptr) {
+      out[((int64_t)b * H + h0) * D + i] = from_f32<T>(A / fmaxf(L, 1e-30f));
+    } else {
+      part_acc[(prow + g) * D + d] = A;
+      if (d == 0) {
+        part_m[prow + g] = L > 0.f ? M * attn::LN2 : NEG_INF;
+        part_l[prow + g] = L;
+      }
+    }
+  }
+}
+
+template <typename T, int D, int GT>
+cudaError_t launch_decode_g(const void* q, const void* k, const void* v, const void* tables,
+                            const void* lens, void* out, int B, int H, int Kh, int page,
+                            int max_pages, int window, int n_split, float* pm, float* pl,
+                            float* pa, cudaStream_t s) {
+  const dim3 grid(n_split, H / GT, B);
+  paged_decode_kernel<T, D, GT><<<grid, 32 * DEC_WARPS, 0, s>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+      static_cast<const int32_t*>(tables), static_cast<const int32_t*>(lens),
+      static_cast<T*>(out), pm, pl, pa, H, Kh, page, max_pages,
+      (max_pages + n_split - 1) / n_split, window, attn::LOG2E / sqrtf((float)D));
+  return cudaGetLastError();
+}
+
+// GT, the query heads of a block: the largest of 8, 4, 2, 1 that divides
+// G = H / Kh, so one block reads each K/V row for up to 8 query heads
+template <typename T, int D>
+cudaError_t launch_decode_d(const void* q, const void* k, const void* v, const void* tables,
+                            const void* lens, void* out, int B, int H, int Kh, int page,
+                            int max_pages, int window, int n_split, float* pm, float* pl,
+                            float* pa, cudaStream_t s) {
+  const int G = H / Kh;
+  if (G % 8 == 0)
+    return launch_decode_g<T, D, 8>(q, k, v, tables, lens, out, B, H, Kh, page, max_pages,
+                                    window, n_split, pm, pl, pa, s);
+  if (G % 4 == 0)
+    return launch_decode_g<T, D, 4>(q, k, v, tables, lens, out, B, H, Kh, page, max_pages,
+                                    window, n_split, pm, pl, pa, s);
+  if (G % 2 == 0)
+    return launch_decode_g<T, D, 2>(q, k, v, tables, lens, out, B, H, Kh, page, max_pages,
+                                    window, n_split, pm, pl, pa, s);
+  return launch_decode_g<T, D, 1>(q, k, v, tables, lens, out, B, H, Kh, page, max_pages,
+                                  window, n_split, pm, pl, pa, s);
+}
+
+// The split kernel, then (n_split > 1) the merge of its partials into out.
+// parts: n_split * B * H * (D + 2) floats, m [n_split, B, H], then l,
+// then acc [n_split, B, H, D].
+template <typename T>
+cudaError_t launch_decode(const void* q, const void* k, const void* v, const void* tables,
+                          const void* lens, void* out, int B, int H, int Kh, int D,
+                          int page, int max_pages, int window, int n_split, void* parts,
+                          cudaStream_t s) {
+  if (B == 0) return cudaSuccess;
+  if (n_split < 1 || (n_split > 1 && (n_split > max_pages || parts == nullptr)))
+    return cudaErrorInvalidValue;
+  const int64_t n = (int64_t)n_split * B * H;
+  float* pm = n_split > 1 ? static_cast<float*>(parts) : nullptr;
+  float* pl = pm != nullptr ? pm + n : nullptr;
+  float* pa = pm != nullptr ? pl + n : nullptr;
+  const auto run = [&](auto d) {
+    return launch_decode_d<T, decltype(d)::value>(q, k, v, tables, lens, out, B, H, Kh, page,
+                                                  max_pages, window, n_split, pm, pl, pa, s);
+  };
+  cudaError_t err;
+  switch (D) {
+    case 32: err = run(std::integral_constant<int, 32>()); break;
+    case 64: err = run(std::integral_constant<int, 64>()); break;
+    case 128: err = run(std::integral_constant<int, 128>()); break;
+    case 256: err = run(std::integral_constant<int, 256>()); break;
+    default: return cudaErrorInvalidValue;
+  }
+  if (err != cudaSuccess || n_split == 1) return err;
+  return attn::launch_merge<T>(pm, pl, pa, out, attn::Strides{(int64_t)H * D, D, 0}, n_split,
+                               B, H, 1, D, s);
 }
 
 // ---------------------------------------------------------------------------
@@ -312,23 +632,19 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, const void* 
   return cudaGetLastError();
 }
 
-int dispatch(const void* q, const void* k, const void* v, const void* tables,
-             const void* lens, void* out, int dtype, int B, int C, int H, int Kh,
-             int D, int page, int max_pages, int window, int decode, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+int prefill(const void* q, const void* k, const void* v, const void* tables,
+            const void* ctx_lens, void* out, int dtype, int B, int C, int H, int Kh,
+            int D, int page, int max_pages, int window, cudaStream_t s) {
   if (Kh <= 0 || H % Kh != 0) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
-    return launch<float>(q, k, v, tables, lens, out, B, C, H, Kh, D, page,
-                         max_pages, window, decode, s);
-  if (dtype == 1 && decode)
-    return launch<bf16>(q, k, v, tables, lens, out, B, C, H, Kh, D, page,
-                        max_pages, window, decode, s);
+    return launch<float>(q, k, v, tables, ctx_lens, out, B, C, H, Kh, D, page, max_pages,
+                         window, s);
   if (dtype == 1 && D == 64)
-    return launch_mma<64>(q, k, v, tables, lens, out, B, C, H, Kh, page, max_pages, window, s);
+    return launch_mma<64>(q, k, v, tables, ctx_lens, out, B, C, H, Kh, page, max_pages, window, s);
   if (dtype == 1 && D == 128)
-    return launch_mma<128>(q, k, v, tables, lens, out, B, C, H, Kh, page, max_pages, window, s);
+    return launch_mma<128>(q, k, v, tables, ctx_lens, out, B, C, H, Kh, page, max_pages, window, s);
   if (dtype == 1 && D == 256)
-    return launch_mma<256>(q, k, v, tables, lens, out, B, C, H, Kh, page, max_pages, window, s);
+    return launch_mma<256>(q, k, v, tables, ctx_lens, out, B, C, H, Kh, page, max_pages, window, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -337,12 +653,23 @@ int dispatch(const void* q, const void* k, const void* v, const void* tables,
 // dtype codes: 0 = float32, 1 = bfloat16.  Both return a cudaError_t.
 
 // Decode: q/out [B, H, D]; lengths[b] tokens valid (the new one included).
+// D = 32, 64, 128 or 256.  n_split ranges of ceil(max_pages / n_split)
+// table columns; n_split > 1 needs parts, n_split * B * H * (D + 2) f32 of
+// scratch, and launches the merge after the split kernel.
 extern "C" int paged_attention(const void* q, const void* k, const void* v,
                                const void* tables, const void* lengths, void* out,
                                int dtype, int B, int H, int Kh, int D, int page,
-                               int max_pages, int window, void* stream) {
-  return dispatch(q, k, v, tables, lengths, out, dtype, B, 1, H, Kh, D, page,
-                  max_pages, window, 1, stream);
+                               int max_pages, int window, int n_split, void* parts,
+                               void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (Kh <= 0 || H % Kh != 0) return (int)cudaErrorInvalidValue;
+  if (dtype == 0)
+    return (int)launch_decode<float>(q, k, v, tables, lengths, out, B, H, Kh, D, page,
+                                     max_pages, window, n_split, parts, s);
+  if (dtype == 1)
+    return (int)launch_decode<bf16>(q, k, v, tables, lengths, out, B, H, Kh, D, page,
+                                    max_pages, window, n_split, parts, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 // Chunked prefill: q/out [B, C, H, D]; ctx_lens[b] tokens cached before the
@@ -352,6 +679,6 @@ extern "C" int paged_prefill_attention(const void* q, const void* k, const void*
                                        void* out, int dtype, int B, int C, int H,
                                        int Kh, int D, int page, int max_pages,
                                        int window, void* stream) {
-  return dispatch(q, k, v, tables, ctx_lens, out, dtype, B, C, H, Kh, D, page,
-                  max_pages, window, 0, stream);
+  return prefill(q, k, v, tables, ctx_lens, out, dtype, B, C, H, Kh, D, page, max_pages,
+                 window, static_cast<cudaStream_t>(stream));
 }

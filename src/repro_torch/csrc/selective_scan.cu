@@ -13,88 +13,244 @@
 // Bound: operations.  Each (t, c, n) needs one exponential, which runs on
 // the special-function units (16 results per clock per SM on sm_90); the
 // bytes are dt, x and y once each.  At falcon-mamba widths (d = 8192,
-// N = 16) the exponentials take longer than the bytes.
+// N = 16) the exponentials take longer than the bytes: 512 steps at B = 1
+// are 67M of them, 0.016 ms at 4.18e12/s.
 //
 // Design: the TPU kernel walks the sequence in a sequential grid axis and
 // carries h in VMEM scratch.  Here the recurrence is a loop inside the
-// thread: one thread per (b, c) holds its N states in registers and steps
-// through t.  A block of BLOCK_D consecutive channels stages T_CHUNK steps
-// of dt and x (coalesced across channels) and of B_t/C_t (shared by the
-// whole block) in shared memory, then every thread runs those steps from
-// there and writes y[b, t, c] coalesced.  Accurate expf (not __expf), so
-// the result agrees with the plain PyTorch version.  All offsets are
-// 64-bit.  The simple shape has limits that stay for now: at B = 1 and
-// d = 8192 only 128 blocks of two warps run, half of each SM's four
-// schedulers idle; decode (S = 1) is one short launch per layer.
+// thread, and each channel's N states are spread over L = N / 4 adjacent
+// lanes of 4 states each, so B * d * L threads run (at B = 1, d = 8192,
+// N = 16: 32K threads, 8 warps on each of the 132 SMs, every scheduler
+// busy); y_t is the sum of the L lanes' partial dot products, two xor
+// shuffles at N = 16.  No split over time is needed at these widths: the
+// d * N independent recurrences already fill the card.
+//
+// A block of BLOCK_C channels works through chunks of TC = 16 L steps.
+// Each thread loads its share of the next chunk's dt, x, B and C into
+// registers (16-byte loads where aligned) before it runs this chunk's
+// steps, so the loads fly while it computes; between chunks the block
+// writes the loaded chunk to shared memory once, as f32, with dt * x
+// taken once per (step, channel): the conversion needs the values in
+// registers anyway, so they are loaded there rather than copied to shared
+// memory by cp.async and converted in a second pass.  Steps run U at a time, straight-line: their
+// exponentials and dt * x * B first, which do not depend on h, then the
+// U-step recurrence, then y, so a warp has U * 4 exponentials in flight.
+// y is gathered per chunk in shared memory and written coalesced.
+//
+// Exponentials are the accurate expf: one MUFU.EX2 each, after a range
+// reduction on the FMA pipe.  ex2.approx of dt * A * log2 e alone would
+// save that reduction, but its error, compounded over the recurrence,
+// reaches 1.3e-4 to 2.1e-4 in y at B = 1, S = 512 against the plain
+// version's torch.exp (H100, seeds 0-2, tools/kernel_ab.py), past the
+// 1e-4 bar; expf keeps it under 3e-5.  At dt = 0 expf gives exactly 1, so
+// a padded step leaves h bit for bit.  All offsets are 64-bit.  Decode
+// (S = 1) is one chunk of one step.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+#include <type_traits>
 
 namespace {
 
-constexpr int BLOCK_D = 64;   // channels per block, one thread each
-constexpr int T_CHUNK = 32;   // time steps staged in shared memory per pass
+constexpr int BLOCK_C = 32;   // channels per block
+constexpr int SPL = 4;        // states per lane
+constexpr int U = 8;          // steps whose exponentials are taken together
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
+// 16 bytes of T as floats (bf16 -> f32 is a shift: its bits are the top
+// half of the f32's)
+__device__ __forceinline__ void unpack(const uint4& u, float (&f)[4]) {
+  f[0] = __uint_as_float(u.x);
+  f[1] = __uint_as_float(u.y);
+  f[2] = __uint_as_float(u.z);
+  f[3] = __uint_as_float(u.w);
+}
+__device__ __forceinline__ void unpack(const uint4& u, float (&f)[8]) {
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    f[2 * i] = __uint_as_float(w[i] << 16);
+    f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+  }
+}
 
+// VEC = 16 / sizeof(T) elements at p into a 16-byte register: one load
+// when vec (p 16-byte aligned), else element by element, those at or
+// past n left 0
+template <typename T>
+__device__ __forceinline__ uint4 load16(const T* p, int n, bool vec) {
+  constexpr int VEC = 16 / sizeof(T);
+  if (vec && n >= VEC) return __ldg(reinterpret_cast<const uint4*>(p));
+  using Bits = typename std::conditional<sizeof(T) == 2, uint16_t, uint32_t>::type;
+  const Bits* q = reinterpret_cast<const Bits*>(p);
+  uint32_t w[4] = {0, 0, 0, 0};
+#pragma unroll
+  for (int i = 0; i < VEC; ++i)
+    if (i < n) w[i * sizeof(T) / 4] |= (uint32_t)q[i] << (8 * (i * sizeof(T) % 4));
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+template <int K> struct VecOf;
+template <> struct VecOf<2> { using type = float2; };
+template <> struct VecOf<4> { using type = float4; };
+
+// SPL consecutive floats of 16-byte aligned shared memory
+__device__ __forceinline__ void load_spl(const float* p, float (&v)[SPL]) {
+  using V = typename VecOf<SPL>::type;
+  *reinterpret_cast<V*>(v) = *reinterpret_cast<const V*>(p);
+}
+
+// grid (ceil(d / BLOCK_C), B), block BLOCK_C * N / SPL threads: channel
+// c0 + tid / L, states (tid % L) * SPL + [0, SPL).  vec: dt, x, B and C
+// are read 16 bytes at a time (d and S * N multiples of 16 bytes' worth
+// of elements, 16-byte aligned bases).
 template <typename T, int N>
-__global__ void __launch_bounds__(BLOCK_D)
+__global__ void __launch_bounds__(BLOCK_C * N / SPL)
 selective_scan_kernel(const T* __restrict__ dt, const T* __restrict__ x,
                       const float* __restrict__ A, const T* __restrict__ Bm,
                       const T* __restrict__ Cm, const float* __restrict__ h0,
                       float* __restrict__ y, float* __restrict__ hout, int S,
-                      int d) {
-  __shared__ float s_dt[T_CHUNK][BLOCK_D];
-  __shared__ float s_x[T_CHUNK][BLOCK_D];
-  __shared__ float s_B[T_CHUNK * N];
-  __shared__ float s_C[T_CHUNK * N];
+                      int d, int vec) {
+  constexpr int L = N / SPL;                 // lanes per channel
+  constexpr int NT = BLOCK_C * L;            // threads
+  constexpr int TC = 16 * L;                 // steps per chunk
+  constexpr int VEC = 16 / sizeof(T);        // elements per 16-byte load
+  constexpr int XU = TC * BLOCK_C / VEC / NT;            // dt (and x) loads per thread
+  constexpr int BU = (TC * N / VEC + NT - 1) / NT;       // B (and C) loads per thread
+  // the chunk as the steps read it: f32, dt * x taken once per (step,
+  // channel)
+  __shared__ __align__(16) float f_dt[TC][BLOCK_C];
+  __shared__ __align__(16) float f_dx[TC][BLOCK_C];
+  __shared__ __align__(16) float f_B[TC * N];
+  __shared__ __align__(16) float f_C[TC * N];
+  __shared__ __align__(16) float s_y[TC][BLOCK_C];
 
-  const int tid = threadIdx.x;
-  const int c = blockIdx.x * BLOCK_D + tid;
+  const int tid = threadIdx.x, cl = tid / L, n0 = (tid % L) * SPL;
+  const int c0 = blockIdx.x * BLOCK_C, c = c0 + cl;
+  const int cols = min(BLOCK_C, d - c0);
   const int64_t b = blockIdx.y;
   const bool live = c < d;
-  const int64_t state0 = (b * d + c) * N;   // h0/hout offset of (b, c, 0)
-  const int64_t row0 = b * S;               // row of (b, t = 0)
+  const int64_t state0 = (b * d + c) * N + n0;   // h0/hout offset of this lane's states
+  const int64_t row0 = b * S;                    // row of (b, t = 0)
 
-  float a[N], h[N];
+  // the next chunk's dt, x, B and C, in flight in registers while this
+  // chunk's steps run
+  uint4 rdt[XU], rx[XU], rb[BU], rc[BU];
+  auto load = [&](int k) {
+    const int t0 = k * TC, nt = min(TC, S - t0);
 #pragma unroll
-  for (int n = 0; n < N; ++n) {
-    a[n] = live ? A[(int64_t)c * N + n] : 0.f;
-    h[n] = (live && h0 != nullptr) ? h0[state0 + n] : 0.f;
-  }
-
-  for (int t0 = 0; t0 < S; t0 += T_CHUNK) {
-    const int nt = min(T_CHUNK, S - t0);
-    __syncthreads();                        // the last pass is done reading
-    for (int t = 0; t < nt; ++t) {
-      const int64_t off = (row0 + t0 + t) * d + c;
-      s_dt[t][tid] = live ? to_f32(dt[off]) : 0.f;
-      s_x[t][tid] = live ? to_f32(x[off]) : 0.f;
+    for (int j = 0; j < XU; ++j) {
+      const int i = tid + j * NT, t = i / (BLOCK_C / VEC), cu = i % (BLOCK_C / VEC) * VEC;
+      const int n = t < nt ? cols - cu : 0;
+      const int64_t off = (row0 + t0 + t) * d + c0 + cu;
+      rdt[j] = load16(dt + off, n, vec);
+      rx[j] = load16(x + off, n, vec);
     }
-    const int64_t bc0 = (row0 + t0) * N;    // B/C rows of this pass: contiguous
-    for (int i = tid; i < nt * N; i += BLOCK_D) {
-      s_B[i] = to_f32(Bm[bc0 + i]);
-      s_C[i] = to_f32(Cm[bc0 + i]);
-    }
-    __syncthreads();
-    if (live) {
-      for (int t = 0; t < nt; ++t) {
-        const float dtv = s_dt[t][tid];
-        const float dx = dtv * s_x[t][tid];
-        float acc = 0.f;
+    const int64_t bc0 = (row0 + t0) * N;     // B/C rows of the chunk: contiguous
 #pragma unroll
-        for (int n = 0; n < N; ++n) {
-          h[n] = expf(dtv * a[n]) * h[n] + dx * s_B[t * N + n];
-          acc += h[n] * s_C[t * N + n];
-        }
-        y[(row0 + t0 + t) * d + c] = acc;
+    for (int j = 0; j < BU; ++j) {
+      const int e = (tid + j * NT) * VEC;
+      rb[j] = load16(Bm + bc0 + e, nt * N - e, vec);
+      rc[j] = load16(Cm + bc0 + e, nt * N - e, vec);
+    }
+  };
+  auto put = [&]() {
+#pragma unroll
+    for (int j = 0; j < XU; ++j) {
+      const int i = tid + j * NT, t = i / (BLOCK_C / VEC), cu = i % (BLOCK_C / VEC) * VEC;
+      float fd[VEC], fx[VEC];
+      unpack(rdt[j], fd);
+      unpack(rx[j], fx);
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        f_dt[t][cu + e] = fd[e];
+        f_dx[t][cu + e] = fd[e] * fx[e];
       }
     }
+#pragma unroll
+    for (int j = 0; j < BU; ++j) {
+      const int e0 = (tid + j * NT) * VEC;
+      if (e0 < TC * N) {
+        float fb[VEC], fc[VEC];
+        unpack(rb[j], fb);
+        unpack(rc[j], fc);
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) {
+          f_B[e0 + e] = fb[e];
+          f_C[e0 + e] = fc[e];
+        }
+      }
+    }
+  };
+  auto store_y = [&](int k) {
+    const int t0 = k * TC, nt = min(TC, S - t0);
+    for (int i = tid; i < nt * BLOCK_C; i += NT) {
+      const int t = i / BLOCK_C, cc = i % BLOCK_C;
+      if (cc < cols) y[(row0 + t0 + t) * d + c0 + cc] = s_y[t][cc];
+    }
+  };
+
+  float a[SPL], h[SPL];
+#pragma unroll
+  for (int i = 0; i < SPL; ++i) {
+    a[i] = live ? A[(int64_t)c * N + n0 + i] : 0.f;
+    h[i] = (live && h0 != nullptr) ? h0[state0 + i] : 0.f;
   }
+
+  // steps tu .. tu + UU - 1 of the staged chunk
+  auto steps = [&](int tu, auto uu) {
+    constexpr int UU = decltype(uu)::value;
+    float e[UU][SPL], w[UU][SPL], cv[UU][SPL];
+#pragma unroll
+    for (int u = 0; u < UU; ++u) {
+      const float dtv = f_dt[tu + u][cl], dx = f_dx[tu + u][cl];
+      float bv[SPL];
+      load_spl(&f_B[(tu + u) * N + n0], bv);
+      load_spl(&f_C[(tu + u) * N + n0], cv[u]);
+#pragma unroll
+      for (int i = 0; i < SPL; ++i) {
+        e[u][i] = expf(dtv * a[i]);
+        w[u][i] = dx * bv[i];
+      }
+    }
+    float part[UU];
+#pragma unroll
+    for (int u = 0; u < UU; ++u) {
+      part[u] = 0.f;
+#pragma unroll
+      for (int i = 0; i < SPL; ++i) {
+        h[i] = fmaf(e[u][i], h[i], w[u][i]);
+        part[u] = fmaf(h[i], cv[u][i], part[u]);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < UU; ++u) {
+#pragma unroll
+      for (int o = 1; o < L; o <<= 1) part[u] += __shfl_xor_sync(0xffffffffu, part[u], o);
+      if (n0 == 0) s_y[tu + u][cl] = part[u];
+    }
+  };
+
+  const int n_chunks = (S + TC - 1) / TC;
+  load(0);
+  for (int k = 0; k < n_chunks; ++k) {
+    const int nt = min(TC, S - k * TC);
+    __syncthreads();                          // the last chunk's steps are done
+    if (k > 0) store_y(k - 1);
+    put();
+    __syncthreads();
+    if (k + 1 < n_chunks) load(k + 1);
+    // U steps at a time, straight-line: their exponentials and dt * x * B
+    // first (no dependence on h), then the recurrence, then y; the last
+    // steps of a chunk one at a time
+    int tu = 0;
+    for (; tu + U <= nt; tu += U) steps(tu, std::integral_constant<int, U>());
+    for (; tu < nt; ++tu) steps(tu, std::integral_constant<int, 1>());
+  }
+  __syncthreads();
+  store_y(n_chunks - 1);
   if (live) {
 #pragma unroll
-    for (int n = 0; n < N; ++n) hout[state0 + n] = h[n];
+    for (int i = 0; i < SPL; ++i) hout[state0 + i] = h[i];
   }
 }
 
@@ -102,12 +258,15 @@ template <typename T, int N>
 cudaError_t launch(const void* dt, const void* x, const void* A, const void* Bm,
                    const void* Cm, const void* h0, void* y, void* hout, int B,
                    int S, int d, cudaStream_t stream) {
-  dim3 grid((d + BLOCK_D - 1) / BLOCK_D, B);
-  selective_scan_kernel<T, N><<<grid, BLOCK_D, 0, stream>>>(
+  constexpr int VEC = 16 / sizeof(T);
+  const uintptr_t bases = (uintptr_t)dt | (uintptr_t)x | (uintptr_t)Bm | (uintptr_t)Cm;
+  const int vec = d % VEC == 0 && (int64_t)S * N % VEC == 0 && bases % 16 == 0;
+  dim3 grid((d + BLOCK_C - 1) / BLOCK_C, B);
+  selective_scan_kernel<T, N><<<grid, BLOCK_C * N / SPL, 0, stream>>>(
       static_cast<const T*>(dt), static_cast<const T*>(x),
       static_cast<const float*>(A), static_cast<const T*>(Bm),
       static_cast<const T*>(Cm), static_cast<const float*>(h0),
-      static_cast<float*>(y), static_cast<float*>(hout), S, d);
+      static_cast<float*>(y), static_cast<float*>(hout), S, d, vec);
   return cudaGetLastError();
 }
 

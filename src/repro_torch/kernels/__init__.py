@@ -2,7 +2,9 @@
 TPU kernel of the JAX package:
 
   cache_write      - the fused KV/image-cache row write (paper §4.5)
-  paged_attention  - decode and chunked-prefill attention over paged KV
+  paged_attention  - decode and chunked-prefill attention over paged KV,
+                     decode with split-KV and the kernel that merges the
+                     splits (csrc/attn_merge.cuh, shared with flash)
   selective_scan   - the Mamba-1 recurrence (falcon-mamba prefill and decode)
   flash_attention  - full-sequence attention over contiguous K/V (whisper's
                      audio encoder and cross-attention), with split-KV for
@@ -18,10 +20,13 @@ through.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 launches = {"cache_write": 0, "paged_attention": 0,
-            "paged_prefill_attention": 0, "selective_scan": 0,
+            "paged_attention_merge": 0, "paged_prefill_attention": 0,
+            "selective_scan": 0,
             "flash_attention": 0, "flash_attention_merge": 0}
 
 
@@ -52,6 +57,13 @@ def on_cpu(*tensors) -> bool:
 def check_launch(err: int, name: str):
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {err}")
+
+
+@functools.lru_cache(maxsize=None)
+def n_sms(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index`` (the split
+    planners' card width), looked up once per process."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def stream_ptr(t: torch.Tensor) -> int:

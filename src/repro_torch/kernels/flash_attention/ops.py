@@ -18,7 +18,6 @@ keep the f32 model checks' tolerances.
 from __future__ import annotations
 
 import ctypes as ct
-import functools
 
 import torch
 
@@ -32,9 +31,10 @@ _STRIDES = ct.POINTER(ct.c_int64)
 # q k v out, dtype B H Kh Sq Sk D causal window kv_offset, strides,
 # rows n_split, parts, stream
 _ARGS = [_P] * 4 + [_I] * 10 + [_STRIDES] + [_I] * 2 + [_P] * 2
-# part_m part_l part_acc out, n_split B H Sq D, strides, stream
-_MERGE_ARGS = [_P] * 4 + [_I] * 5 + [_STRIDES, _P]
+# part_m part_l part_acc out, dtype n_split B H Sq D, strides, stream
+_MERGE_ARGS = [_P] * 4 + [_I] * 6 + [_STRIDES, _P]
 HEAD_DIMS = (64, 128)                   # D the kernel is built for
+MERGE_HEAD_DIMS = (32, 64, 128, 256)    # D the merge is built for
 MAX_WARPS = 4                           # warps of a block
 WAVE_WARPS = 2 * 4                      # two waves of 4-warp blocks per SM
 
@@ -58,11 +58,6 @@ def plan(B: int, H: int, Sq: int, Sk: int, n_sms: int) -> tuple:
     while -(-tiles // -(-tiles // n_split)) != n_split:   # no empty split
         n_split += 1
     return rows, n_split
-
-
-@functools.lru_cache(maxsize=None)
-def _n_sms(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _conditions(q, k, v):
@@ -114,13 +109,14 @@ def _parts(n_split, B, H, Sq, D, device):
                        device=device)
 
 
-def merge_partials(m, l, acc, out):
+def merge_partials(m, l, acc, out, *, kernel: str = "flash_attention"):
     """Merge split partials m/l [n_split, B, H, Sq] and acc [n_split, B, H,
-    Sq, D] (f32, contiguous) into out [B, H, Sq, D] (any strides, head dim
-    contiguous) by log-sum-exp; see :func:`merge_partials_ref`.  The
-    second kernel of :func:`flash_attention`'s split path, launched alone
-    to check it: on the card out is bf16, the only type that splits.
-    Returns out."""
+    Sq, D] (f32, contiguous) into out [B, H, Sq, D] (f32 or bf16, any
+    strides, head dim contiguous) by log-sum-exp; see
+    :func:`merge_partials_ref`.  The second kernel of a split path
+    (``csrc/attn_merge.cuh``), launched alone to check it, from the library
+    of ``kernel``: "flash_attention" or "paged_attention" (decode), whose
+    launch counter ``<kernel>_merge`` it moves.  Returns out."""
     if K.on_cpu(m, l, acc, out):
         return out.copy_(merge_partials_ref(m, l, acc))
     n_split, B, H, Sq = m.shape
@@ -131,13 +127,16 @@ def merge_partials(m, l, acc, out):
               and out.shape == (B, H, Sq, D) and out.stride(-1) == 1,
               "merge takes contiguous f32 partials [n, B, H, Sq(, D)] and "
               "an out [B, H, Sq, D] with the head dim contiguous")
-    K.require(D in HEAD_DIMS and out.dtype == torch.bfloat16,
-              f"merge: head dim {D} / out type {out.dtype} (bf16 only)")
-    fn = _build.function("flash_attention", "flash_merge", _MERGE_ARGS)
+    K.require(D in MERGE_HEAD_DIMS and out.dtype in K.DTYPE_CODES,
+              f"merge: head dim {D} / out type {out.dtype}")
+    K.require(kernel in ("flash_attention", "paged_attention"),
+              f"merge: no split kernel {kernel!r}")
+    fn = _build.function(kernel, "attn_merge", _MERGE_ARGS)
     err = fn(m.data_ptr(), l.data_ptr(), acc.data_ptr(), out.data_ptr(),
-             n_split, B, H, Sq, D, _strides(out), K.stream_ptr(out))
-    K.check_launch(err, "flash_attention_merge")
-    K.launches["flash_attention_merge"] += 1
+             K.DTYPE_CODES[out.dtype], n_split, B, H, Sq, D, _strides(out),
+             K.stream_ptr(out))
+    K.check_launch(err, f"{kernel}_merge")
+    K.launches[f"{kernel}_merge"] += 1
     return out
 
 
@@ -158,7 +157,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
         return out
     rows, n_split, buf = 0, 1, None
     if q.dtype == torch.bfloat16:
-        rows, n_split = plan(B, H, Sq, Sk, _n_sms(q.device.index or 0))
+        rows, n_split = plan(B, H, Sq, Sk, K.n_sms(q.device.index or 0))
         if n_split > 1:
             buf = _parts(n_split, B, H, Sq, D, q.device)
     fn = _build.function("flash_attention", "flash_attention", _ARGS)

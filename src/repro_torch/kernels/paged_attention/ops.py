@@ -1,13 +1,20 @@
 """Wrappers for paged attention (decode + chunked prefill).
 
 Replace ``repro/kernels/paged_attention/kernel.py::paged_attention_tpu`` and
-``paged_prefill_attention_tpu``.  Both launch ``csrc/paged_attention.cu``:
-one block per (request, KV head, tile of query rows) walks the request's
-pages in a loop, carrying an online softmax in f32.  bf16 chunked prefill
-(head dims in ``PREFILL_MMA_HEAD_DIMS``) runs on the tensor-core tile of
-``csrc/attn_mma.cuh``, bound by the score/value products over long
-chunks; decode, bound by the bytes of the cached K/V it reads once per
-step, and f32 prefill run on CUDA-core f32 products.
+``paged_prefill_attention_tpu``.  Both launch ``csrc/paged_attention.cu``,
+whose blocks walk a request's pages in a loop, carrying an online softmax
+in f32.
+
+Decode is bound by the bytes of the cached K/V it reads once per step.
+:func:`decode_plan` cuts the block table's columns into ``n_split`` ranges
+of whole pages, from the shapes alone, so that the (request, KV head,
+split) blocks fill the card; each block reads its keys' K/V rows with
+16-byte loads, the next keys in flight while it computes, and writes f32
+partials that a second kernel merges (``launches`` counts it as
+``paged_attention_merge``).  No host read of the lengths: a decode call
+can be captured in a CUDA graph.  bf16 chunked prefill (head dims in
+``PREFILL_MMA_HEAD_DIMS``) runs on the tensor-core tile of
+``csrc/attn_mma.cuh``; f32 prefill on CUDA-core f32 products.
 """
 from __future__ import annotations
 
@@ -21,9 +28,39 @@ from repro_torch.kernels.paged_attention.ref import (
     paged_attention_ref, paged_prefill_attention_ref)
 
 _P, _I = ct.c_void_p, ct.c_int
-_DECODE_ARGS = [_P] * 6 + [_I] * 8 + [_P]     # ... dtype B H Kh D page P window
+# q k v tables lens out, dtype B H Kh D page P window n_split, parts, stream
+_DECODE_ARGS = [_P] * 6 + [_I] * 9 + [_P] * 2
 _PREFILL_ARGS = [_P] * 6 + [_I] * 9 + [_P]    # ... dtype B C H Kh D page P window
 PREFILL_MMA_HEAD_DIMS = (64, 128, 256)        # D of the bf16 prefill kernel
+DECODE_HEAD_DIMS = (32, 64, 128, 256)         # D the decode kernel is built for
+WAVE_BLOCKS = 4           # two waves of two resident 4-warp blocks per SM
+MIN_SPLIT_KEYS = 64       # no split covers fewer table columns' keys
+
+
+def heads_per_block(G: int) -> int:
+    """Query heads a decode block holds: the largest of 8, 4, 2, 1 that
+    divides G = H / Kh (all of one KV head)."""
+    return next(n for n in (8, 4, 2, 1) if G % n == 0)
+
+
+def decode_plan(B: int, H: int, Kh: int, max_pages: int, page: int,
+                n_sms: int) -> int:
+    """n_split for the decode kernel: how many ranges of ceil(max_pages /
+    n_split) whole table columns the keys are cut into.  1 when the (b,
+    head group) blocks alone reach ``WAVE_BLOCKS`` blocks per SM, or when
+    the table is too short to split; else the fewest splits that reach
+    that many blocks, none covering fewer than ``MIN_SPLIT_KEYS`` keys'
+    columns (a block's fixed cost, its table window and its reduction,
+    would outweigh fewer keys) and none empty.  A function of shapes only: the lengths are read by the
+    kernel, which skips the part of a split past them."""
+    blocks = B * (H // heads_per_block(H // Kh))
+    most = min(max_pages, max_pages * page // MIN_SPLIT_KEYS)
+    target = WAVE_BLOCKS * n_sms
+    if blocks >= target or most <= 1:
+        return 1
+    n_split = min(most, -(-target // blocks))
+    per = -(-max_pages // n_split)
+    return -(-max_pages // per)
 
 
 def _check(q, k_pages, v_pages, block_tables, lens, q_ndim: int):
@@ -56,20 +93,34 @@ def paged_attention(q, k_pages, v_pages, block_tables, lengths, *,
                     window: int = 0):
     """Decode: q [B, H, D] against pages [n_pages, page, Kh, D] through
     block_tables [B, max_pages]; lengths [B] tokens valid (the new one
-    included).  Returns [B, H, D] in q's type."""
+    included).  Returns [B, H, D] in q's type.  With more than one split
+    (see :func:`decode_plan`) the split kernel and then the merge run."""
     if K.on_cpu(q, k_pages, v_pages, block_tables, lengths):
         return paged_attention_ref(q, k_pages, v_pages, block_tables, lengths,
                                    window=window)
     B, H, Kh, D, page, P = _check(q, k_pages, v_pages, block_tables, lengths,
                                   3)
+    K.require(D in DECODE_HEAD_DIMS,
+              f"paged decode attention takes head dims {DECODE_HEAD_DIMS}, "
+              f"got {D}")
+    # K/V rows and q rows are read 16 bytes at a time
+    K.require((q.data_ptr() | k_pages.data_ptr() | v_pages.data_ptr()) % 16
+              == 0, "paged decode attention needs 16-byte aligned q/pages")
     out = torch.empty_like(q)
+    n_split = decode_plan(B, H, Kh, P, page, K.n_sms(q.device.index or 0)) \
+        if B and P else 1
+    parts = torch.empty(n_split * B * H * (D + 2), dtype=torch.float32,
+                        device=q.device) if n_split > 1 else None
     fn = _build.function("paged_attention", "paged_attention", _DECODE_ARGS)
     err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
              block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
              K.DTYPE_CODES[q.dtype], B, H, Kh, D, page, P, int(window),
+             n_split, None if parts is None else parts.data_ptr(),
              K.stream_ptr(q))
     K.check_launch(err, "paged_attention")
     K.launches["paged_attention"] += 1
+    if n_split > 1:
+        K.launches["paged_attention_merge"] += 1
     return out
 
 

@@ -1,11 +1,14 @@
 """Wrapper for the Mamba-1 selective scan.
 
 Replaces ``repro/kernels/selective_scan/kernel.py::selective_scan_tpu``.
-It launches ``csrc/selective_scan.cu``: one thread per (lane, channel)
-keeps its N states in registers and walks the sequence, with blocks of
-channels staging chunks of dt/x/B/C in shared memory.  The scan is bound
-by its exponentials (one per step, channel and state); the inputs and
-``y`` are read and written once.
+It launches ``csrc/selective_scan.cu``: each channel's N states are spread
+over N / 4 adjacent lanes of 4 states each, in registers, which walk the
+sequence together and sum y_t by shuffles; blocks of 32 channels take the
+sequence in chunks, each thread loading its share of the next chunk into
+registers while the current one runs from shared memory.  The scan is
+bound by its exponentials (one per step, channel and state, each one
+special-function-unit operation); the inputs and ``y`` are read and
+written once.
 """
 from __future__ import annotations
 

@@ -6,7 +6,11 @@ tests/test_torch_cuda.py``.
 
 Tolerances: f32 1e-4 absolute (summation order only), bf16 2e-2 absolute
 (one bf16 rounding of outputs near 1, and of P before P V on the bf16
-tensor-core tile); the cache write is exact.  The
+tensor-core tile); the cache write is exact.  Decode rounds only its output
+(no tensor cores, P stays f32), so its bf16 bar is 4e-3, as in
+chip_smoke.py: a lane of 16+ keys averages values to well under 1, where
+one rounding is at most 2^-9; a lane of one key returns the key's value
+exactly.  The
 selective scan computes in f32 from the same inputs on both sides and
 returns f32, so bf16 inputs keep the f32 bar of 1e-4.  Flash attention
 keeps the attention bars (f32 1e-4, bf16 2e-2).
@@ -28,6 +32,7 @@ from repro_torch.kernels.selective_scan import ops as tss
 from repro_torch.kernels.selective_scan.ref import selective_scan_ref
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+DECODE_TOL = {torch.float32: 1e-4, torch.bfloat16: 4e-3}
 
 
 @pytest.fixture
@@ -52,23 +57,78 @@ def _pages(gen, dev, *, lens, Kh, D, page=16, n_pages=64, max_pages=8,
     return kp, vp, torch.from_numpy(tables).to(dev)
 
 
+# (lengths, max_pages, n_split > 1): lengths that end mid-page (17, 33,
+# 100, 201) and at a page edge (16, 48, 64, 256); with 4 table columns
+# (64 keys) the plan never splits, with 16 or 64 it does, and the B = 1
+# lane leaves most of its 64 columns' splits past its length
+DECODE_LENS = [([1, 16, 33, 64], 4, False),
+               ([1, 17, 48, 100, 256], 16, True),
+               ([201], 64, True)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
+@pytest.mark.parametrize("lens,max_pages,split", DECODE_LENS,
+                         ids=["short", "long", "b1"])
 @pytest.mark.parametrize("H,Kh,D,window", [(4, 4, 64, 0), (8, 2, 64, 0),
-                                           (4, 4, 128, 20), (6, 3, 32, 7)])
-def test_decode_kernel_matches_plain(cuda, dtype, H, Kh, D, window):
-    gen = torch.Generator().manual_seed(H * 100 + D + window)
-    lens = [1, 17, 40, 100]
-    kp, vp, tables = _pages(gen, cuda, lens=lens, Kh=Kh, D=D, dtype=dtype)
+                                           (4, 4, 128, 20), (6, 3, 32, 7),
+                                           (16, 2, 128, 40), (12, 12, 64, 0),
+                                           (4, 4, 256, 0)])
+def test_decode_kernel_matches_plain(cuda, dtype, lens, max_pages, split, H,
+                                     Kh, D, window):
+    gen = torch.Generator().manual_seed(H * 100 + D + window + max_pages)
+    kp, vp, tables = _pages(gen, cuda, lens=lens, Kh=Kh, D=D, dtype=dtype,
+                            n_pages=2 * max_pages * len(lens) + 1,
+                            max_pages=max_pages)
     q = torch.randn((len(lens), H, D), generator=gen).to(cuda, dtype)
     lengths = torch.tensor(lens, dtype=torch.int32, device=cuda)
-    before = K.launches["paged_attention"]
+    n_sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    n_split = tpa.decode_plan(len(lens), H, Kh, max_pages, 16, n_sms)
+    assert (n_split > 1) == split
+    before = dict(K.launches)
     got = tpa.paged_attention(q, kp, vp, tables, lengths, window=window)
     want = paged_attention_ref(q, kp, vp, tables, lengths, window=window)
     torch.cuda.synchronize()
-    assert K.launches["paged_attention"] == before + 1
-    assert torch.isfinite(got.float()).all()
-    assert (got.float() - want.float()).abs().max().item() <= TOL[dtype]
+    assert K.launches["paged_attention"] == before["paged_attention"] + 1
+    assert K.launches["paged_attention_merge"] == \
+        before["paged_attention_merge"] + int(split)
+    assert got.dtype == dtype and torch.isfinite(got.float()).all()
+    assert (got.float() - want.float()).abs().max().item() <= \
+        DECODE_TOL[dtype]
+
+
+def test_decode_kernel_replays_in_a_cuda_graph(cuda):
+    """The decode call reads no device value on the host: it captures in a
+    CUDA graph, and a replay after the lengths change on the device gives
+    the new lengths' answer."""
+    gen = torch.Generator().manual_seed(11)
+    kp, vp, tables = _pages(gen, cuda, lens=[100, 256], Kh=4, D=128,
+                            n_pages=40, max_pages=16, dtype=torch.bfloat16)
+    q = torch.randn((2, 4, 128), generator=gen).to(cuda, torch.bfloat16)
+    lengths = torch.tensor([100, 256], dtype=torch.int32, device=cuda)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tpa.paged_attention(q, kp, vp, tables, lengths)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = tpa.paged_attention(q, kp, vp, tables, lengths)
+    lengths.copy_(torch.tensor([37, 200], dtype=torch.int32))
+    graph.replay()
+    torch.cuda.synchronize()
+    want = paged_attention_ref(q, kp, vp, tables, lengths)
+    assert (out.float() - want.float()).abs().max().item() <= \
+        DECODE_TOL[torch.bfloat16]
+
+
+def test_decode_rejects_other_head_dims(cuda):
+    gen = torch.Generator().manual_seed(9)
+    kp, vp, tables = _pages(gen, cuda, lens=[20], Kh=2, D=48)
+    q = torch.randn((1, 2, 48), generator=gen).to(cuda)
+    lengths = torch.tensor([20], dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="head dims"):
+        tpa.paged_attention(q, kp, vp, tables, lengths)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
@@ -125,7 +185,9 @@ def _scan_inputs(gen, dev, B, S, d, N, dtype):
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("B,S,d,N,with_h0", [
     (1, 37, 100, 16, True), (3, 70, 64, 8, False), (4, 1, 257, 16, True),
-    (2, 33, 64, 4, True)])
+    (2, 33, 64, 4, True)] + [
+    (B, S, 100 if B == 1 else 257, N, S != 37)
+    for N in (4, 8, 16) for S in (1, 37, 512) for B in (1, 5)])
 def test_selective_scan_kernel_matches_plain(cuda, dtype, B, S, d, N,
                                              with_h0):
     gen = torch.Generator().manual_seed(B * 1000 + S + d + N)
@@ -343,3 +405,26 @@ def test_flash_64_row_tiles_match_plain(cuda, dtype, B, H, Kh, Sq, Sk,
     torch.cuda.synchronize()
     assert torch.isfinite(got.float()).all()
     assert (got.float() - want.float()).abs().max().item() <= TOL[dtype]
+
+
+@pytest.mark.parametrize("kernel", ["paged_attention", "flash_attention"])
+def test_merge_kernel_writes_f32(cuda, kernel):
+    """The merge with an f32 output (the f32 decode split's), from either
+    library that builds it, against the plain merge: f32 sums in another
+    order only.  Split 1 sees no key (l = 0, m garbage) and weighs
+    nothing."""
+    gen = torch.Generator().manual_seed(12)
+    n, B, H, D = 5, 3, 4, 128
+    m = torch.randn((n, B, H), generator=gen).to(cuda) * 3
+    l = torch.rand((n, B, H), generator=gen).to(cuda) * 10 + 0.1
+    acc = torch.randn((n, B, H, 1, D), generator=gen).to(cuda)
+    l[1] = 0
+    m[1] = 1e4
+    m, l = m[..., None], l[..., None]
+    out = torch.empty((B, H, 1, D), device=cuda)
+    before = K.launches[f"{kernel}_merge"]
+    tfa.merge_partials(m, l, acc, out, kernel=kernel)
+    torch.cuda.synchronize()
+    assert K.launches[f"{kernel}_merge"] == before + 1
+    want = merge_partials_ref(m, l, acc)
+    assert (out - want).abs().max().item() <= 1e-5 * want.abs().max().item()
