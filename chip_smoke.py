@@ -15,7 +15,9 @@ on failure:
 3. kernels- each kernel against its plain PyTorch version on the card: the
             attention and cache-write kernels at full-width LLaVA-1.5-7B
             shapes (H = Kh = 32, D = 128, page 16, w = 4096), in f32 and
-            bf16, plus a window case, a GQA case and empty-mask rows;
+            bf16, plus a window case, a GQA case and empty-mask rows
+            (bf16 chunked prefill and flash attention held against the
+            plain version's f32 output on the same inputs, upcast);
             decode also at whisper-small's decoder shape (H = Kh = 12,
             D = 64, one split) and on one lane of 4096 keys (many splits),
             at B = 8 with L2 flushed too, and captured in a CUDA graph;
@@ -30,10 +32,18 @@ on failure:
             Kh = 8, D = 128, S = 1024 (plain, window 256, and a 256-row
             chunk after 768 cached keys), f32 and bf16, the decode row also
             with L2 flushed between calls (as a decode step finds its cross
-            K/V; device time from a torch.profiler trace); the split-KV
-            merge (csrc/attn_merge.cuh) of each library that builds it on
-            its own against its plain version, with a planted fault its bar
-            must catch; times kernel (eager, and CUDA-graph replay), plain
+            K/V; device time from a torch.profiler trace); the cache write
+            from separate K and V planes into a pool past 2^31 elements at
+            LLaVA's image chunk and decode (B = 8), the scratch block left
+            byte for byte as it was; the split-KV merge (csrc/
+            attn_merge.cuh), which the split kernels run in their last
+            blocks, also as a kernel of its own from each library against
+            its plain version, with a planted fault its bar must catch,
+            and its share of the split calls that run it (decode at B = 8,
+            flash's decode row and 64-row chunk): their device time beside
+            that of the same calls from a build whose split blocks write
+            their partials and skip the merge;
+            times kernel (eager, and CUDA-graph replay), plain
             version and one PyTorch library call (where there is one) with
             CUDA events, and computes each kernel's bound;
 4. model  - the port's runner on the card against the same runner on the
@@ -46,8 +56,9 @@ on failure:
             just after: full-width, 32-layer LLaVA-1.5-7B with random bf16
             weights on E/P/D instances (four image+text greedy requests and
             one seeded sampled request; every attention and cache-write
-            kernel and the decode merge must launch; device time by kernel
-            of a steady decode step); then, with LLaVA's memory freed,
+            kernel must launch, decode with split-KV; device time by kernel
+            of a steady decode step, with its merge-kernel and copy
+            launches); then, with LLaVA's memory freed,
             full-width 64-layer falcon-mamba-7b on P/D instances (four
             greedy text requests of 200-600 tokens and one seeded sampled
             one; the scan must launch, each request's recurrent state must
@@ -55,13 +66,15 @@ on failure:
             chunk); then full-width whisper-small on E/P/D
             instances (five requests of one 1500x768 frame-embedding clip
             and 8-48 prompt tokens, same sampling mix; flash attention must
-            launch in encode, prefill and decode, the split-KV merge must
-            launch in decode, each request's encoder output and cross K/V
+            launch in encode, prefill and decode, decode's cross-attention
+            must take split-KV, each request's encoder output and cross K/V
             must migrate P -> D, and the embedding cache must hold a host
             copy of every encoder output);
-6. report - one JSON line of kernels (each split-KV merge has its own row:
-            a second kernel of the flash and decode attention paths), then
-            the final status line.
+6. report - one JSON line of kernels (each split-KV merge keeps its own
+            row: fused into its split kernel, its launches are the split
+            calls, ``ms`` and ``standalone_*`` time the merge kernel alone,
+            ``fused`` its share of the split calls), then the final status
+            line.
 
 Exits non-zero (and prints no status line) without a card or outside the
 repository.
@@ -97,7 +110,9 @@ PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12}     # FLOP/s, dense
 # ~4): the prefill bar of 2e-2.
 # The bf16 attention tiles also round P to bf16 before P V, and sum l from
 # the same rounded P, so numerator and denominator weigh each key alike:
-# inside the same bars.  The merge of split-KV partials rounds its output
+# inside the same bars.  bf16 chunked prefill and flash attention are held
+# against the plain version run in f32 on the same inputs (upcast), its
+# output not rounded: the kernel's own error, not two roundings' sum.  The merge of split-KV partials rounds its output
 # once and is checked alone into bf16 at flash's decode row (outputs
 # average 1500 keys) and at paged decode's B = 8 (600-700 keys), where
 # outputs stay below 1 in magnitude (checked): one rounding there is at
@@ -271,6 +286,63 @@ def check(name, dtype, got, want, rows=None):
     return err
 
 
+NO_MERGE = {}     # split kernel libraries built without their fused merge
+
+
+def start_no_merge_builds():
+    """Start nvcc (all at once) on copies of the two split kernels' sources
+    whose ``arrive_last`` answers false at once: every split block writes
+    its partials and stops, no block merges.  Built under the ignored
+    ``build/``, used only to time the merge's share of a split call.
+    Returns the jobs for :func:`finish_no_merge_builds`."""
+    import shutil
+    from repro_torch.kernels import _build
+    out = ROOT / "build" / "no_merge"
+    shutil.rmtree(out, ignore_errors=True)
+    shutil.copytree(_build.CSRC, out / "csrc")
+    header = out / "csrc" / "attn_merge.cuh"
+    head = ("__device__ __forceinline__ bool arrive_last(unsigned* counter, "
+            "int n_split) {\n")
+    text = header.read_text()
+    if head not in text:
+        raise RuntimeError("attn_merge.cuh: arrive_last not where expected")
+    header.write_text(text.replace(head, head + "  return false;\n", 1))
+    return {n: (subprocess.Popen(
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out / f"{n}.so"),
+         str(out / "csrc" / f"{n}.cu")]), out / f"{n}.so")
+        for n in ("paged_attention", "flash_attention")}
+
+
+def finish_no_merge_builds(jobs):
+    import ctypes
+    for name, (proc, lib) in jobs.items():
+        if proc.wait() != 0:
+            raise RuntimeError(f"nvcc failed for the no-merge {name}")
+        NO_MERGE[name] = ctypes.CDLL(str(lib))
+
+
+@contextlib.contextmanager
+def no_merge(name: str):
+    """Calls of ``name``'s wrapper launch the no-merge build meanwhile."""
+    from repro_torch.kernels import _build
+    keep = _build.load(name)
+    _build._LIBS[name] = NO_MERGE[name]
+    try:
+        yield
+    finally:
+        _build._LIBS[name] = keep
+
+
+def fused_share(name: str, call, device_ms: float) -> dict:
+    """A split call's device time (``device_ms``, CUDA-graph replay) beside
+    the same call's from the no-merge build: the fused merge's share."""
+    with no_merge(name):
+        bare = time_ms_graph(call)
+    return {"split_call_device_ms": device_ms,
+            "split_call_no_merge_device_ms": bare,
+            "merge_share_device_ms": device_ms - bare}
+
+
 def decode_cases(gen, dev, results):
     """Decode attention against its plain version: LLaVA's widths at B = 4
     and 8 (ctx 600-700), a 256-key window, GQA with 8 KV heads, whisper's
@@ -339,7 +411,7 @@ def decode_cases(gen, dev, results):
                        "n_split": n_split, "ms": time_ms(call),
                        "device_ms": time_ms_graph(call),
                        "device_ms_cold_l2": time_ms_cold(
-                           call, ("paged_decode_kernel", "merge_kernel")),
+                           call, ("paged_decode_kernel",)),
                        "plain_ms": time_ms(lambda: paged_attention_ref(
                            q, kp, vp, tables, lengths)),
                        "library_ms": time_ms(sdpa),
@@ -349,14 +421,18 @@ def decode_cases(gen, dev, results):
                 row["bound_share_cold_l2"] = b_ms / row["device_ms_cold_l2"]
                 results["paged_attention"] = row
                 log({"timing": "paged_attention/b8-bf16", **row})
-                paged_merge_case(q, kp, vp, tables, lengths, n_split, results)
+                fused = {"b8": fused_share("paged_attention", call,
+                                           row["device_ms"])}
+                paged_merge_case(q, kp, vp, tables, lengths, n_split, fused,
+                                 results)
     results["paged_attention"]["max_abs_err"] = max(errs)
 
 
-def paged_merge_case(q, kp, vp, tables, lengths, n_split, results):
-    """The decode merge alone at B = 8, on the plain partials of the split
-    the plan picks, against the plain merge; its bar must catch a merge
-    that loses a split."""
+def paged_merge_case(q, kp, vp, tables, lengths, n_split, fused, results):
+    """The decode merge (run by the split kernel's last blocks) as a kernel
+    of its own at B = 8, on the plain partials of the split the plan picks,
+    against the plain merge; its bar must catch a merge that loses a
+    split.  ``fused``: its share of the split calls (:func:`fused_share`)."""
     import torch
     from repro_torch.kernels.paged_attention.ref import \
         paged_attention_partials_ref
@@ -365,15 +441,20 @@ def paged_merge_case(q, kp, vp, tables, lengths, n_split, results):
     m, l, acc = paged_attention_partials_ref(q, kp, vp, tables, lengths,
                                              n_split)
     merge_check("paged_attention_merge", f"b8-n{n_split}", m[..., None],
-                l[..., None], acc[..., None, :], results)
+                l[..., None], acc[..., None, :], results,
+                fused_into="paged_decode_kernel", fused=fused)
 
 
-def merge_check(name, tag, m, l, acc, results):
+def merge_check(name, tag, m, l, acc, results, *, fused_into: str,
+                fused: dict):
     """The merge kernel of ``name`` (flash_attention_merge or
     paged_attention_merge) alone on partials m/l [n, B, H, Sq] and acc [n,
     B, H, Sq, D] into bf16, against the plain merge at its own bar, which
     the same kernel on partials with one live split dropped (l = 0) must
-    miss.  Records the kernel's row."""
+    miss.  Records the kernel's row: the same row merge runs in the last
+    blocks of ``fused_into`` on the main path, where ``fused`` (by shape)
+    gives its share of the split calls; ``ms`` (the line's key) and
+    ``standalone_ms`` time the merge kernel alone."""
     import torch
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.kernels.flash_attention.ref import merge_partials_ref
@@ -403,13 +484,18 @@ def merge_check(name, tag, m, l, acc, results):
     b_ms, b_by = bound((2 * m.numel() + acc.numel()) * 4
                        + out.numel() * out.element_size(),
                        2 * acc.numel(), "float32")
+    alone = time_ms(lambda: ops.merge_partials(m, l, acc, out, kernel=kernel))
     results[name] = {
         "shape": f"n_split={n_split} B={B} H={Hq} Sq={Sq} D={Dh} f32 "
                  f"partials -> bf16",
-        "ms": time_ms(lambda: ops.merge_partials(m, l, acc, out,
-                                                 kernel=kernel)),
-        "device_ms": time_ms_graph(lambda: ops.merge_partials(
+        "fused_into": fused_into,
+        "launches_are": "split calls: each merges in its last blocks; ms "
+                        "and standalone_* time the merge kernel alone, "
+                        "fused its share of the split calls on the device",
+        "ms": alone, "standalone_ms": alone,
+        "standalone_device_ms": time_ms_graph(lambda: ops.merge_partials(
             m, l, acc, out, kernel=kernel)),
+        "fused": fused,
         "plain_ms": time_ms(lambda: merge_partials_ref(m, l, acc)),
         "library_ms": None, "bound_ms": b_ms, "bound_by": b_by,
         "max_abs_err": err}
@@ -450,7 +536,8 @@ def prefill_cases(gen, dev, results):
                                  device=dev)
             got = paged_prefill_attention(q, kp, vp, tables, ctx_t,
                                           window=window)
-            want = paged_prefill_attention_ref(q, kp, vp, tables, ctx_t,
+            want = paged_prefill_attention_ref(q.float(), kp.float(),
+                                               vp.float(), tables, ctx_t,
                                                window=window)
             rows = slice(0, 3) if "window" in tag else None
             err = check(f"paged_prefill_attention/{tag}", dtype, got, want,
@@ -519,7 +606,13 @@ def prefill_cases(gen, dev, results):
 def cache_write_cases(gen, dev, results):
     """Writes into the full KV pool of one instance with the server's
     default kv_blocks=512: 2 x 32 x 513 x 16 x 4096 elements, past 2^31,
-    at the last layer (offsets beyond 2^31 elements)."""
+    at the last layer (offsets beyond 2^31 elements), from K and V as two
+    separate planes (the model passes them so), the scratch block named as
+    the model names it.  Every row not aimed at scratch must match the
+    plain version bit for bit, and the scratch block must come out byte
+    for byte as it was.  Timed at LLaVA's image chunk and at decode B = 8,
+    each against the bytes it must move: every row not aimed at scratch
+    read once and written once, and the slots."""
     import torch
     from repro_torch.kernels.cache_write.ops import paged_chunk_write
     from repro_torch.kernels.cache_write.ref import cache_write_ref
@@ -532,59 +625,71 @@ def cache_write_cases(gen, dev, results):
                            device=dev).to(pool_dtype)
         if pool_dtype == torch.bfloat16 and pool.numel() <= 2 ** 31:
             raise AssertionError("the pool must exceed 2^31 elements")
+        scratch = NBx * bs
         for tag, B, C, n in (("decode-b8", 8, 1, 1),
                              ("prefill-c1024", 1, 1024, 576)):
             layer = L - 1
             perm = torch.randperm(NBx * bs, generator=gen, device=dev)
-            slots = torch.full((B, C), NBx * bs, dtype=torch.int32,
+            slots = torch.full((B, C), scratch, dtype=torch.int32,
                                device=dev)
             slots[:, :n] = perm[:B * n].view(B, n).to(torch.int32)
-            rows = torch.randn((T, B, C, W), generator=gen,
-                               device=dev).to(row_dtype)
+            k, v = (torch.randn((B, C, W), generator=gen, device=dev)
+                    .to(row_dtype) for _ in range(T))
             got = pool.clone()
-            paged_chunk_write(got, layer, rows, slots)
+            paged_chunk_write(got, layer, (k, v), slots, scratch=scratch)
             plane = (torch.arange(T, device=dev) * L + layer) * \
                 ((NBx + 1) * bs)
             slot_vec = (plane[:, None] + slots.reshape(-1)[None].long()) \
                 .reshape(-1)
-            flat = pool.view(-1, bs, W)
-            cache_write_ref(flat, rows.reshape(-1, W), slot_vec)
+            want = pool.clone()
+            flat = want.view(-1, bs, W)
+            rows2 = torch.stack([k, v]).reshape(-1, W)
+            cache_write_ref(flat, rows2, slot_vec)
             err = check(f"cache_write/{tag}/rows-{dname(row_dtype)}",
-                        pool_dtype, got[:, :, :NBx], pool[:, :, :NBx])
+                        pool_dtype, got[:, :, :NBx], want[:, :, :NBx])
             errs.append(err)
-            if tag == "prefill-c1024" and pool_dtype == row_dtype \
-                    == torch.bfloat16:
-                rows2 = rows.reshape(-1, W)
-                isz = rows.element_size()
-                # each distinct destination row (the padded positions all
-                # land on one scratch row) is read once and written once
-                n_dst = T * torch.unique(slots).numel()
+            if not torch.equal(got[:, :, NBx].view(torch.uint8),
+                               pool[:, :, NBx].view(torch.uint8)):
+                raise AssertionError(f"cache_write/{tag}: the kernel wrote "
+                                     f"into the scratch block")
+            if pool_dtype == row_dtype == torch.bfloat16:
+                isz = k.element_size()
+                n_dst = T * int((slots < scratch).sum())
                 b_ms, b_by = bound(2 * n_dst * W * isz + slots.numel() * 4,
                                    0.0, dname(pool_dtype))
-                results["cache_write"] = {
-                    "shape": f"T=2 B=1 C=1024 w={W} into a {NBx + 1}-block "
-                             f"pool {dname(pool_dtype)}",
-                    "ms": time_ms(lambda: paged_chunk_write(
-                        got, layer, rows, slots)),
-                    "plain_ms": time_ms(lambda: cache_write_ref(
-                        flat, rows2, slot_vec)),
-                    "library_ms": time_ms(lambda: flat.view(-1, W).index_copy_(
-                        0, slot_vec, rows2)),
-                    "device_ms": time_ms_graph(lambda: paged_chunk_write(
-                        got, layer, rows, slots)),
-                    "library_device_ms": time_ms_graph(
-                        lambda: flat.view(-1, W).index_copy_(0, slot_vec,
-                                                             rows2)),
-                    "bound_ms": b_ms, "bound_by": b_by}
-            if tag == "decode-b8" and pool_dtype == row_dtype \
-                    == torch.bfloat16:
-                log({"timing": "cache_write/decode-b8-bf16",
-                     "ms": time_ms(lambda: paged_chunk_write(
-                         got, layer, rows, slots))})
-            del got
-        del pool, flat
+
+                def write():
+                    paged_chunk_write(got, layer, (k, v), slots,
+                                      scratch=scratch)
+                row = {"shape": f"T=2 B={B} C={C} ({n} valid) w={W} from "
+                                f"K and V planes into a {NBx + 1}-block pool "
+                                f"{dname(pool_dtype)}",
+                       "ms": time_ms(write),
+                       "plain_ms": time_ms(lambda: cache_write_ref(
+                           flat, rows2, slot_vec)),
+                       "library_ms": time_ms(lambda: flat.view(-1, W)
+                                             .index_copy_(0, slot_vec, rows2)),
+                       "device_ms": time_ms_graph(write),
+                       "library_device_ms": time_ms_graph(
+                           lambda: flat.view(-1, W).index_copy_(0, slot_vec,
+                                                                rows2)),
+                       # as a step finds it: K/V and the pool rows not in
+                       # L2 (a warm replay keeps the image chunk's 19 MB
+                       # there, under the HBM bound)
+                       "device_ms_cold_l2": time_ms_cold(
+                           write, ("cache_write_kernel",)),
+                       "bound_ms": b_ms, "bound_by": b_by}
+                row["bound_share"] = b_ms / row["device_ms"]
+                row["bound_share_cold_l2"] = b_ms / row["device_ms_cold_l2"]
+                log({"timing": f"cache_write/{tag}-bf16", **row})
+                if tag == "prefill-c1024":
+                    results.setdefault("cache_write", {}).update(row)
+                else:
+                    results.setdefault("cache_write", {})["decode_b8"] = row
+            del got, want, flat, k, v
+        del pool
         torch.cuda.empty_cache()
-    results.setdefault("cache_write", {})["max_abs_err"] = max(errs)
+    results["cache_write"]["max_abs_err"] = max(errs)
 
 
 def scan_inputs(gen, dev, B, S, dtype, d=D_INNER, N=N_STATE):
@@ -675,7 +780,7 @@ def flash_cases(gen, dev, results, rate):
               0),
              ("causal-gqa-offset768", 2, 32, 8, 256, 1024, 128, True, 0,
               768)]
-    errs = []
+    errs, fused = [], {}
     for tag, B, Hq, Kh, Sq, Sk, Dh, causal, window, off in cases:
         for dtype in (torch.float32, torch.bfloat16):
             q = torch.randn((B, Hq, Sq, Dh), generator=gen,
@@ -686,7 +791,7 @@ def flash_cases(gen, dev, results, rate):
                             device=dev).to(dtype)
             kw = dict(causal=causal, window=window, kv_offset=off)
             got = flash_attention(q, k, v, **kw)
-            want = flash_attention_ref(q, k, v, **kw)
+            want = flash_attention_ref(q.float(), k.float(), v.float(), **kw)
             err = check(f"flash_attention/{tag}", dtype, got, want)
             errs.append(err)
             if dtype != torch.bfloat16:
@@ -727,11 +832,15 @@ def flash_cases(gen, dev, results, rate):
                 lambda: flash_attention(q, k, v, **kw))
             row["library_device_ms"] = time_ms_graph(
                 lambda: F.scaled_dot_product_attention(q, k, v, **sdpa_kw))
+            if tag.startswith("cross-"):
+                fused[tag] = fused_share(
+                    "flash_attention", lambda: flash_attention(q, k, v, **kw),
+                    row["device_ms"])
             if tag == "cross-decode-b8":
                 row["device_ms_cold_l2"] = time_ms_cold(
                     lambda: flash_attention(q, k, v, **kw),
-                    ("flash_mma_kernel", "merge_kernel"))
-                split_merge_case(q, k, v, kw, results)
+                    ("flash_mma_kernel",))
+                split_merge_case(q, k, v, kw, fused, results)
             if tag == "enc-self-b4":
                 results["flash_attention"] = row
             log({"timing": f"flash_attention/{tag}", **row})
@@ -739,22 +848,21 @@ def flash_cases(gen, dev, results, rate):
     results["flash_attention"]["max_abs_err"] = max(errs)
 
 
-def split_merge_case(q, k, v, kw, results):
-    """The flash merge alone at the decode row's shape, on the plain
-    partials of the split the plan picks (the split kernel is checked
-    through flash_attention at every split shape)."""
-    import torch
+def split_merge_case(q, k, v, kw, fused, results):
+    """The flash merge as a kernel of its own at the decode row's shape, on
+    the plain partials of the split the plan picks (the split kernel and
+    its fused merge are checked through flash_attention at every split
+    shape).  ``fused``: its share of the split calls, by shape."""
     from repro_torch.kernels.flash_attention import ops
     from repro_torch.kernels.flash_attention.ref import \
         flash_attention_partials_ref
     B, Hq, Sq, Dh = q.shape
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    _, n_split = ops.plan(B, Hq, Sq, k.shape[2], sms)
+    _, n_split = ops.split_plan(B, Hq, Sq, k.shape[2], Dh, 0)
     if n_split <= 1:
         raise AssertionError("the decode row must take split-KV")
     m, l, acc = flash_attention_partials_ref(q, k, v, n_split, **kw)
     merge_check("flash_attention_merge", f"cross-decode-b8-n{n_split}", m,
-                l, acc, results)
+                l, acc, results, fused_into="flash_mma_kernel", fused=fused)
 
 
 def ptxas_report(text: str) -> list:
@@ -941,31 +1049,32 @@ def whisper_model_check(seed: int):
 # ---------------------------------------------------------------------------
 @contextlib.contextmanager
 def timed_calls(targets):
-    """Accumulate wall seconds, calls and flash-attention and merge launches
-    of each ``owner.name`` in ``targets`` into the yielded {name: {"s",
-    "calls", "flash_launches", "merge_launches"}}; the originals come back
-    on exit.  The runner's methods return host numpy, so their wall time
-    covers the device work they started."""
+    """Accumulate wall seconds, calls and flash-attention launches (all,
+    and the split calls among them) of each ``owner.name`` in ``targets``
+    into the yielded {name: {"s", "calls", "flash_launches",
+    "split_launches"}}; the originals come back on exit.  The runner's
+    methods return host numpy, so their wall time covers the device work
+    they started."""
     from repro_torch import kernels as K
     acc, saved = {}, []
     for owner, name in targets:
         fn = getattr(owner, name)
         saved.append((owner, name, fn))
         acc[name] = rec = {"s": 0.0, "calls": 0, "flash_launches": 0,
-                           "merge_launches": 0}
+                           "split_launches": 0}
 
         def timed(*a, _fn=fn, _rec=rec, **k):
             t = time.perf_counter()
             n = K.launches["flash_attention"]
-            n_merge = K.launches["flash_attention_merge"]
+            n_split = K.launches["flash_attention_split"]
             try:
                 return _fn(*a, **k)
             finally:
                 _rec["s"] += time.perf_counter() - t
                 _rec["calls"] += 1
                 _rec["flash_launches"] += K.launches["flash_attention"] - n
-                _rec["merge_launches"] += \
-                    K.launches["flash_attention_merge"] - n_merge
+                _rec["split_launches"] += \
+                    K.launches["flash_attention_split"] - n_split
         setattr(owner, name, timed)
     try:
         yield acc
@@ -1029,7 +1138,10 @@ def check_reclaimed(srv):
 
 def profile_calls(fn, what: str, card: str, tag: str, steps: int = 3):
     """Device time by kernel over ``steps`` calls of ``fn`` (torch.profiler
-    with CUDA activity), and the device's busy share of their wall time."""
+    with CUDA activity), the device's busy share of their wall time, and
+    the launches per call of the split-KV merge kernel and of copy kernels
+    (names with "copy" in them: CatArrayBatchedCopy of torch.stack and
+    torch.cat, casts and copies)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1049,10 +1161,19 @@ def profile_calls(fn, what: str, card: str, tag: str, steps: int = 3):
             rows.append((dev_us, e.key, e.count))
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
+    copies: dict = {}            # launches per call by (shortened) name
+    for _, k, n in rows:
+        if "copy" in k.lower():
+            copies[k[:60]] = copies.get(k[:60], 0) + n / steps
     log({"profile": f"{what}, {steps} calls",
          "path": tag, "card": card, "wall_ms_per_call": wall_us / steps / 1e3,
          "device_ms_per_call": busy / steps / 1e3,
          "device_busy_share": busy / wall_us if wall_us else None,
+         "launches_per_call": sum(n for _, _, n in rows) / steps,
+         "merge_kernel_launches_per_call": sum(
+             n for _, k, n in rows if "merge_kernel" in k) / steps,
+         "copy_launches_per_call": sum(copies.values()),
+         "copy_kernels": copies,
          "top": [{"kernel": k[:80], "ms_per_call": us / steps / 1e3,
                   "launches_per_call": n / steps}
                  for us, k, n in rows[:12]]})
@@ -1119,7 +1240,7 @@ def serve(seed: int, card: str):
         K.reset_launches()
         rs, outs, wall = run_requests(eng, reqs, cfg.vocab_size)
         launches = dict(K.launches)
-    for name in ("cache_write", "paged_attention", "paged_attention_merge",
+    for name in ("cache_write", "paged_attention", "paged_attention_split",
                  "paged_prefill_attention"):
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} never launched on the "
@@ -1287,7 +1408,7 @@ def serve_whisper(seed: int, card: str):
     for stage in ("encode", "prefill_chunks", "decode"):
         if split[stage]["flash_launches"] <= 0:
             raise AssertionError(f"no flash-attention launch in {stage}")
-    if split["decode"]["merge_launches"] <= 0:
+    if split["decode"]["split_launches"] <= 0:
         raise AssertionError("decode's cross-attention never took split-KV")
     srv = eng.server
     row = cfg.media_tokens * cfg.d_model * 2          # one [T, d] bf16 row
@@ -1364,7 +1485,9 @@ def main() -> int:
 
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
+    jobs = start_no_merge_builds()
     logs = _build.build_all()
+    finish_no_merge_builds(jobs)
     for name, text in logs.items():
         log({"ptxas": name, "kernels": ptxas_report(text)})
     log({"phase": "build", "built": sorted(logs), "s": time.perf_counter() - t0})
@@ -1396,8 +1519,16 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     whisper = serve_whisper(args.seed, card)
-    for name in ("flash_attention", "flash_attention_merge"):
+    for name in ("flash_attention", "flash_attention_split",
+                 "flash_attention_merge"):
         launches[name] = whisper[name]
+    # a merge row's launches: the split calls, each merging in its last
+    # blocks (the merge kernel alone never runs on the main paths)
+    for name in ("paged_attention", "flash_attention"):
+        if launches[f"{name}_merge"]:
+            raise AssertionError(f"the {name} merge kernel launched on its "
+                                 f"own on a main path")
+        launches[f"{name}_merge"] = launches[f"{name}_split"]
 
     src = {"cache_write": ("src/repro_torch/csrc/cache_write.cu",
                            "src/repro/kernels/cache_write/kernel.py:25"),
@@ -1427,7 +1558,9 @@ def main() -> int:
                         "library_ms": r["library_ms"], "shape": r["shape"],
                         **{key: r[key] for key in (
                             "device_ms", "device_ms_cold_l2",
-                            "library_device_ms", "bound_share", "n_split")
+                            "library_device_ms", "bound_share", "n_split",
+                            "fused_into", "launches_are", "standalone_ms",
+                            "standalone_device_ms", "fused", "decode_b8")
                            if key in r}})
     log({"total_s": time.perf_counter() - t_start, "card": card})
     print(json.dumps({"kernels": kernels}), flush=True)

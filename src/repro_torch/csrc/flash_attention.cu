@@ -33,9 +33,13 @@
 //   whisper's prefill chunks) would leave most SMs idle with one block per
 //   (b, h), so the plan splits the keys into n_split ranges of whole tiles
 //   (split-KV): each block then writes f32 partials (m, l, acc) of its
-//   range to scratch, and the merge kernel of attn_merge.cuh combines them by
-//   log-sum-exp (partials with l = 0, ranges that saw no key, weigh
-//   nothing) into out.
+//   range to scratch, and the last of a (b, h, query tile)'s split blocks
+//   to finish combines them by log-sum-exp (partials with l = 0, ranges
+//   that saw no key, weigh nothing) into out, in the same launch
+//   (attn_merge.cuh's arrive_last; a one-warp tile then runs merge_rows,
+//   a four-warp tile folds the other splits into the state its lanes
+//   hold).  The plan keeps every block in one wave.  Blocks are ordered
+//   with the split slowest.
 // - f32: CUDA-core products in f32, by design, not as a fallback: the
 //   port's f32 model checks hold the card to the CPU within 2e-4 and the
 //   f32 kernel checks to 1e-4, which TF32 or bf16 tensor-core products
@@ -80,11 +84,15 @@ struct FlashProb {
   __device__ const bf16* v_at(int j) const { return v_base + j * vs; }
 };
 
-// grid (n_qt * n_split, H, B); block 32 * NW, 16 rows per warp.  part_m
-// == nullptr: one range, out written; else split s = blockIdx.x / n_qt
-// covers key tiles [s * split_tiles, (s + 1) * split_tiles) and writes
-// partials [n_split, B, H, Sq] (m in natural units, l) and [n_split, B, H,
-// Sq, D].
+// grid (n_qt * n_split, H, B), read in launch order as (split, b, h, query
+// tile), split slowest; block 32 * NW, 16 rows per warp.  part_m ==
+// nullptr: one range, out written; else split s covers key tiles
+// [s * split_tiles, (s + 1) * split_tiles) and writes partials [n_split, B,
+// H, Sq] (m in natural units, l) and [n_split, B, H, Sq, D], and the last
+// split block of the (b, h, query tile) merges the
+// tile's rows into out, with the tile's counter in `counters`.
+// A block whose range holds no key runs no tile and writes l = 0: it
+// still counts in.
 template <int D, int NW>
 __global__ void __launch_bounds__(32 * NW, D == 128 ? 2 : 1)
 flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -92,14 +100,18 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  Strides kst, Strides vst, Strides ost, int H, int Kh, int Sq, int Sk,
                  int causal, int window, int kv_offset, float scale_log2, int n_qt,
                  int split_tiles, float* __restrict__ part_m, float* __restrict__ part_l,
-                 float* __restrict__ part_acc) {
+                 float* __restrict__ part_acc, unsigned* __restrict__ counters) {
   constexpr int BK = attn::Cfg<D>::BK;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   constexpr int rows = 16 * NW;
   // causal: the last query tiles see the most keys, so they start first
-  const int qt = causal ? n_qt - 1 - (int)blockIdx.x % n_qt : (int)blockIdx.x % n_qt;
-  const int split = blockIdx.x / n_qt;
-  const int h = blockIdx.y, b = blockIdx.z, kh = h / (H / Kh), q0 = qt * rows;
+  // block (x, y, z) in launch order: split slowest, then b, h, query tile
+  const int64_t lin =
+      blockIdx.x + (int64_t)gridDim.x * (blockIdx.y + (int64_t)gridDim.y * blockIdx.z);
+  const int64_t per = (int64_t)n_qt * H * gridDim.z;
+  const int split = (int)(lin / per), rem = (int)(lin % per);
+  const int qt = causal ? n_qt - 1 - rem % n_qt : rem % n_qt;
+  const int h = rem / n_qt % H, b = rem / (n_qt * H), kh = h / (H / Kh), q0 = qt * rows;
 
   FlashProb P;
   P.q_base = q + b * qst.b + h * qst.h;
@@ -155,18 +167,93 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
             make_float2(st.acc[n][2 * half], st.acc[n][2 * half + 1]);
     }
   }
+  const int n_split = gridDim.x / n_qt;
+  if (part_m == nullptr ||
+      !attn::arrive_last(counters + ((int64_t)b * H + h) * n_qt + qt, n_split))
+    return;
+  const int64_t n_rows = (int64_t)gridDim.z * H * Sq, row0 = ((int64_t)b * H + h) * Sq + q0;
+  if constexpr (NW == 1) {
+    // a warp's tile (decode rows: few valid rows): one 4-column chunk a
+    // thread, 4 splits' loads at a time
+    attn::merge_rows<bf16, D>(
+        part_m, part_l, part_acc, n_rows, row0, P.rows_valid, n_split,
+        [&](int r) { return out + b * ost.b + h * ost.h + (q0 + r) * ost.s; });
+  } else {
+    // 64 rows: one block pulling every chunk of them through merge_rows
+    // pays a chain of round trips to L2 per thread.  Instead each lane
+    // folds the other splits' partials of the two rows and D / 4 columns
+    // that it already holds (its own split's, in registers) into its own
+    // softmax state, all of a split's loads for both rows in flight at
+    // once, and writes out as an unsplit block does.
+    float M[2], L[2];
+    int64_t row[2];
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int i = min(q0 + r0 + g + 8 * half, Sq - 1);    // rows past Sq: not written
+      row[half] = ((int64_t)b * H + h) * Sq + i;
+      M[half] = st.l[half] > 0.f ? st.m[half] * attn::LN2 : NEG_INF;
+      L[half] = st.l[half];
+    }
+#pragma unroll 2
+    for (int s = 0; s < n_split; ++s) {
+      if (s == split) continue;
+      float ls[2], ms[2];
+      float2 x[2][D / 8];
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int64_t pr = s * n_rows + row[half];
+        ls[half] = __ldcg(part_l + pr);
+        ms[half] = __ldcg(part_m + pr);
+        const float* a = part_acc + pr * D + 2 * tig;
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n)
+          x[half][n] = __ldcg(reinterpret_cast<const float2*>(a + 8 * n));
+      }
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const bool seen = ls[half] > 0.f;  // a split that saw no key weighs nothing
+        const float Mn = seen ? fmaxf(M[half], ms[half]) : M[half];
+        const float sc = expf(M[half] - Mn), w = seen ? expf(ms[half] - Mn) : 0.f;
+        L[half] = fmaf(w, ls[half], L[half] * sc);
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n) {
+          st.acc[n][2 * half] = fmaf(w, x[half][n].x, st.acc[n][2 * half] * sc);
+          st.acc[n][2 * half + 1] = fmaf(w, x[half][n].y, st.acc[n][2 * half + 1] * sc);
+        }
+        M[half] = Mn;
+      }
+    }
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int i = q0 + r0 + g + 8 * half;
+      if (i >= Sq) continue;
+      const float inv = 1.f / fmaxf(L[half], 1e-30f);
+      bf16* o = out + b * ost.b + h * ost.h + i * ost.s + 2 * tig;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n)
+        *reinterpret_cast<__nv_bfloat162*>(o + 8 * n) = __floats2bfloat162_rn(
+            st.acc[n][2 * half] * inv, st.acc[n][2 * half + 1] * inv);
+    }
+  }
+}
+
+// The shared-memory limit of the bf16 kernel raised to what its tile
+// needs, once per process and instantiation.
+template <int D, int NW>
+cudaError_t tile_ready() {
+  static const cudaError_t attr =
+      attn::allow_smem(flash_mma_kernel<D, NW>, attn::Cfg<D>::smem_bytes(16 * NW));
+  return attr;
 }
 
 template <int D, int NW>
 cudaError_t launch_tile(const void* q, const void* k, const void* v, void* out,
                         const Strides* st, int B, int H, int Kh, int Sq, int Sk,
                         int causal, int window, int kv_offset, int n_split, float* pm,
-                        float* pl, float* pacc, cudaStream_t stream) {
+                        float* pl, float* pacc, unsigned* counters, cudaStream_t stream) {
   using C = attn::Cfg<D>;
   constexpr int rows = 16 * NW;
-  static const cudaError_t attr =
-      attn::allow_smem(flash_mma_kernel<D, NW>, C::smem_bytes(rows));
-  if (attr != cudaSuccess) return attr;
+  if (const cudaError_t attr = tile_ready<D, NW>()) return attr;
   const int n_qt = (Sq + rows - 1) / rows;
   const int tiles = (Sk + C::BK - 1) / C::BK;
   const int split_tiles = n_split > 1 ? (tiles + n_split - 1) / n_split : tiles;
@@ -175,7 +262,7 @@ cudaError_t launch_tile(const void* q, const void* k, const void* v, void* out,
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(out), st[0], st[1], st[2], st[3],
       H, Kh, Sq, Sk, causal, window, kv_offset, attn::LOG2E / sqrtf((float)D), n_qt,
-      split_tiles, n_split > 1 ? pm : nullptr, pl, pacc);
+      split_tiles, n_split > 1 ? pm : nullptr, pl, pacc, counters);
   return cudaGetLastError();
 }
 
@@ -184,15 +271,16 @@ template <int D>
 cudaError_t launch_mma(const void* q, const void* k, const void* v, void* out,
                        const Strides* st, int B, int H, int Kh, int Sq, int Sk,
                        int causal, int window, int kv_offset, int rows, int n_split,
-                       float* pm, float* pl, float* pacc, cudaStream_t stream) {
-  if (n_split < 1 || (n_split > 1 && (pm == nullptr || pl == nullptr || pacc == nullptr)))
+                       float* pm, float* pl, float* pacc, unsigned* counters, cudaStream_t stream) {
+  if (n_split < 1 ||
+      (n_split > 1 && (pm == nullptr || pl == nullptr || pacc == nullptr || counters == nullptr)))
     return cudaErrorInvalidValue;
   if (rows == 16)
     return launch_tile<D, 1>(q, k, v, out, st, B, H, Kh, Sq, Sk, causal, window,
-                             kv_offset, n_split, pm, pl, pacc, stream);
+                             kv_offset, n_split, pm, pl, pacc, counters, stream);
   if (rows == 64)
     return launch_tile<D, 4>(q, k, v, out, st, B, H, Kh, Sq, Sk, causal, window,
-                             kv_offset, n_split, pm, pl, pacc, stream);
+                             kv_offset, n_split, pm, pl, pacc, counters, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -426,7 +514,8 @@ struct Parts {
 
 int run(const void* q, const void* k, const void* v, void* out, int dtype, int B, int H,
         int Kh, int Sq, int Sk, int D, int causal, int window, int kv_offset,
-        const int64_t* strides, int rows, int n_split, void* parts, cudaStream_t s) {
+        const int64_t* strides, int rows, int n_split, void* parts, unsigned* counters,
+        cudaStream_t s) {
   if (B == 0 || H == 0 || Sq == 0) return (int)cudaSuccess;
   if (Kh <= 0 || H % Kh != 0) return (int)cudaErrorInvalidValue;
   Strides st[4];
@@ -438,13 +527,11 @@ int run(const void* q, const void* k, const void* v, void* out, int dtype, int B
   if (dtype != 1 || (D != 64 && D != 128) || (n_split > 1 && parts == nullptr))
     return (int)cudaErrorInvalidValue;
   const Parts P(parts, n_split, B, H, Sq);
-  cudaError_t err =
-      D == 64 ? launch_mma<64>(q, k, v, out, st, B, H, Kh, Sq, Sk, causal, window,
-                               kv_offset, rows, n_split, P.m, P.l, P.acc, s)
-              : launch_mma<128>(q, k, v, out, st, B, H, Kh, Sq, Sk, causal, window,
-                                kv_offset, rows, n_split, P.m, P.l, P.acc, s);
-  if (err != cudaSuccess || n_split == 1) return (int)err;
-  return (int)attn::launch_merge<bf16>(P.m, P.l, P.acc, out, st[3], n_split, B, H, Sq, D, s);
+  return (int)(D == 64 ? launch_mma<64>(q, k, v, out, st, B, H, Kh, Sq, Sk, causal, window,
+                                        kv_offset, rows, n_split, P.m, P.l, P.acc, counters, s)
+                       : launch_mma<128>(q, k, v, out, st, B, H, Kh, Sq, Sk, causal, window,
+                                         kv_offset, rows, n_split, P.m, P.l, P.acc, counters,
+                                         s));
 }
 
 }  // namespace
@@ -454,14 +541,39 @@ int run(const void* q, const void* k, const void* v, void* out, int dtype, int B
 // order.  bf16 only: rows (16 or 64) is the query tile, and
 // n_split > 1 splits the keys into that many ranges of ceil(tiles /
 // n_split) whole 64-key tiles, whose f32 partials go to parts (see Parts)
-// and are then merged into out, a second launch.  f32 ignores rows,
-// n_split and parts.  Each returns a cudaError_t, checked after every
-// launch.
+// and are merged into out in the same launch, with one counter of
+// counters (B * H * ceil(Sq / rows) of them, zero, left zero; see
+// attn_merge.cuh) per output tile.  f32 ignores rows, n_split, parts and
+// counters.  Each returns a
+// cudaError_t, checked after every launch.
 extern "C" int flash_attention(const void* q, const void* k, const void* v, void* out,
                                int dtype, int B, int H, int Kh, int Sq, int Sk, int D,
                                int causal, int window, int kv_offset,
                                const int64_t* strides, int rows, int n_split,
-                               void* parts, void* stream) {
+                               void* parts, void* counters, void* stream) {
   return run(q, k, v, out, dtype, B, H, Kh, Sq, Sk, D, causal, window, kv_offset, strides,
-             rows, n_split, parts, static_cast<cudaStream_t>(stream));
+             rows, n_split, parts, static_cast<unsigned*>(counters),
+             static_cast<cudaStream_t>(stream));
+}
+
+// Blocks of the bf16 kernel with query tile `rows` (16 or 64) at head dim
+// D (64 or 128) that one SM holds at once (shared memory, registers and
+// threads, from the occupancy calculator), into *blocks: the planner's
+// wave.  Returns a cudaError_t.
+extern "C" int flash_blocks_per_sm(int rows, int D, int* blocks) {
+  const auto ask = [&](auto kernel, cudaError_t ready, int threads, size_t smem) {
+    if (ready != cudaSuccess) return (int)ready;
+    return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, threads, smem);
+  };
+  if (rows == 16 && D == 64)
+    return ask(flash_mma_kernel<64, 1>, tile_ready<64, 1>(), 32, attn::Cfg<64>::smem_bytes(16));
+  if (rows == 64 && D == 64)
+    return ask(flash_mma_kernel<64, 4>, tile_ready<64, 4>(), 128, attn::Cfg<64>::smem_bytes(64));
+  if (rows == 16 && D == 128)
+    return ask(flash_mma_kernel<128, 1>, tile_ready<128, 1>(), 32,
+               attn::Cfg<128>::smem_bytes(16));
+  if (rows == 64 && D == 128)
+    return ask(flash_mma_kernel<128, 4>, tile_ready<128, 4>(), 128,
+               attn::Cfg<128>::smem_bytes(64));
+  return (int)cudaErrorInvalidValue;
 }

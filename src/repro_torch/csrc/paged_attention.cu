@@ -34,9 +34,9 @@
 //   fill the card with two waves of two blocks per SM.  A block clamps
 //   its range to the keys its query sees (pos < len, pos >= len - window)
 //   from lengths[b] on the device; one with none left writes l = 0 and
-//   exits.  A block of 4 warps holds the G query heads of its KV head in
-//   registers (up to 8 a block, so GQA reads each K/V row once per 8
-//   heads), stages its table window in shared memory and reads K/V rows
+//   counts itself in.  A block of 4 warps holds the G query heads of its
+//   KV head in registers (up to 8 a block, so GQA reads each K/V row once
+//   per 8 heads), stages its table window in shared memory and reads K/V rows
 //   as 16-byte loads, D * size / 16 lanes a row (a D = 128 bf16 row is 16
 //   lanes), so a warp reads 2-8 keys a step.  It loads the next batch of
 //   keys (up to 4 steps) before it computes this one: at LLaVA's widths
@@ -47,8 +47,9 @@
 //   q, exponentials on ex2.approx), combined across the warp by shuffles
 //   and across the warps once in shared memory.  P is not rounded: no
 //   tensor cores here, so a bf16 output is rounded once.  One split
-//   writes out; more write f32 partials that the merge of attn_merge.cuh
-//   combines, a second launch from the same entry point.
+//   writes out; more write f32 partials, and the last of a (b, head group)
+//   tile's split blocks to finish merges them into out (attn_merge.cuh's
+//   arrive_last and merge_rows): one launch.
 // - bf16 chunked prefill, D = 64, 128 or 256: the tensor-core tile of
 //   attn_mma.cuh.  The block's rows are (chunk row c, query head g) pairs
 //   of its KV head, r = c * G + g, cut into tiles of 64 rows, 16 per warp
@@ -253,8 +254,9 @@ template <> __device__ __forceinline__ void unpack<bf16>(const uint4& u, float* 
 // cut to the visible ones.  A key is read by LPK lanes, 16 bytes each; a
 // warp reads KPW keys per step, U steps per batch, and loads the next
 // batch before it computes this one.  part_m == nullptr: one split, out is
-// written; else the block writes its partials (m in natural units, l, acc)
-// for the merge.
+// written; else the block writes its partials (m in natural units, l, acc),
+// and the last split block of its (b, head group) tile merges the tile's
+// GT rows into out, with the tile's counter in `counters`.
 template <typename T, int D, int GT>
 __global__ void __launch_bounds__(32 * DEC_WARPS)
 paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
@@ -262,7 +264,8 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
                     const int32_t* __restrict__ lens, T* __restrict__ out,
                     float* __restrict__ part_m, float* __restrict__ part_l,
                     float* __restrict__ part_acc, int H, int Kh, int page,
-                    int max_pages, int split_pages, int window, float scale_log2) {
+                    int max_pages, int split_pages, int window, float scale_log2,
+                    unsigned* __restrict__ counters) {
   constexpr int VEC = 16 / sizeof(T);               // elements per 16-byte load
   constexpr int LPK = D / VEC < 32 ? D / VEC : 32;  // lanes per key
   constexpr int NV = D / (VEC * LPK);               // loads per lane per row
@@ -278,6 +281,8 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int sub = lane / LPK, li = lane % LPK;
   const int64_t prow = ((int64_t)split * gridDim.z + b) * H + h0;   // partial row
+  // the tile's GT output rows (b, h0 .. h0 + GT - 1) and its counter
+  const int64_t orow = (int64_t)b * H + h0, tile = (int64_t)b * gridDim.y + blockIdx.y;
 
   // the keys of this split that the query sees: pos < len, and with a
   // window pos >= len - window
@@ -289,10 +294,15 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
     if (part_m == nullptr) {
       for (int i = threadIdx.x; i < GT * D; i += 32 * DEC_WARPS)
         out[((int64_t)b * H + h0) * D + i] = from_f32<T>(0.f);
-    } else if (threadIdx.x < GT) {
+      return;
+    }
+    if (threadIdx.x < GT) {      // l = 0: this split weighs nothing, but counts
       part_m[prow + threadIdx.x] = NEG_INF;
       part_l[prow + threadIdx.x] = 0.f;
     }
+    if (attn::arrive_last(counters + tile, gridDim.x))
+      attn::merge_rows<T, D>(part_m, part_l, part_acc, (int64_t)gridDim.z * H, orow, GT,
+                             gridDim.x, [&](int r) { return out + (orow + r) * D; });
     return;
   }
 
@@ -455,19 +465,22 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
       }
     }
   }
+  if (part_m != nullptr && attn::arrive_last(counters + tile, gridDim.x))
+    attn::merge_rows<T, D>(part_m, part_l, part_acc, (int64_t)gridDim.z * H, orow, GT,
+                           gridDim.x, [&](int r) { return out + (orow + r) * D; });
 }
 
 template <typename T, int D, int GT>
 cudaError_t launch_decode_g(const void* q, const void* k, const void* v, const void* tables,
                             const void* lens, void* out, int B, int H, int Kh, int page,
                             int max_pages, int window, int n_split, float* pm, float* pl,
-                            float* pa, cudaStream_t s) {
+                            float* pa, unsigned* counters, cudaStream_t s) {
   const dim3 grid(n_split, H / GT, B);
   paged_decode_kernel<T, D, GT><<<grid, 32 * DEC_WARPS, 0, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const int32_t*>(tables), static_cast<const int32_t*>(lens),
       static_cast<T*>(out), pm, pl, pa, H, Kh, page, max_pages,
-      (max_pages + n_split - 1) / n_split, window, attn::LOG2E / sqrtf((float)D));
+      (max_pages + n_split - 1) / n_split, window, attn::LOG2E / sqrtf((float)D), counters);
   return cudaGetLastError();
 }
 
@@ -477,31 +490,32 @@ template <typename T, int D>
 cudaError_t launch_decode_d(const void* q, const void* k, const void* v, const void* tables,
                             const void* lens, void* out, int B, int H, int Kh, int page,
                             int max_pages, int window, int n_split, float* pm, float* pl,
-                            float* pa, cudaStream_t s) {
+                            float* pa, unsigned* counters, cudaStream_t s) {
   const int G = H / Kh;
   if (G % 8 == 0)
     return launch_decode_g<T, D, 8>(q, k, v, tables, lens, out, B, H, Kh, page, max_pages,
-                                    window, n_split, pm, pl, pa, s);
+                                    window, n_split, pm, pl, pa, counters, s);
   if (G % 4 == 0)
     return launch_decode_g<T, D, 4>(q, k, v, tables, lens, out, B, H, Kh, page, max_pages,
-                                    window, n_split, pm, pl, pa, s);
+                                    window, n_split, pm, pl, pa, counters, s);
   if (G % 2 == 0)
     return launch_decode_g<T, D, 2>(q, k, v, tables, lens, out, B, H, Kh, page, max_pages,
-                                    window, n_split, pm, pl, pa, s);
+                                    window, n_split, pm, pl, pa, counters, s);
   return launch_decode_g<T, D, 1>(q, k, v, tables, lens, out, B, H, Kh, page, max_pages,
-                                  window, n_split, pm, pl, pa, s);
+                                  window, n_split, pm, pl, pa, counters, s);
 }
 
-// The split kernel, then (n_split > 1) the merge of its partials into out.
+// The split kernel, which (n_split > 1) also merges its partials into out.
 // parts: n_split * B * H * (D + 2) floats, m [n_split, B, H], then l,
 // then acc [n_split, B, H, D].
 template <typename T>
 cudaError_t launch_decode(const void* q, const void* k, const void* v, const void* tables,
                           const void* lens, void* out, int B, int H, int Kh, int D,
                           int page, int max_pages, int window, int n_split, void* parts,
-                          cudaStream_t s) {
+                          unsigned* counters, cudaStream_t s) {
   if (B == 0) return cudaSuccess;
-  if (n_split < 1 || (n_split > 1 && (n_split > max_pages || parts == nullptr)))
+  if (n_split < 1 ||
+      (n_split > 1 && (n_split > max_pages || parts == nullptr || counters == nullptr)))
     return cudaErrorInvalidValue;
   const int64_t n = (int64_t)n_split * B * H;
   float* pm = n_split > 1 ? static_cast<float*>(parts) : nullptr;
@@ -509,19 +523,16 @@ cudaError_t launch_decode(const void* q, const void* k, const void* v, const voi
   float* pa = pm != nullptr ? pl + n : nullptr;
   const auto run = [&](auto d) {
     return launch_decode_d<T, decltype(d)::value>(q, k, v, tables, lens, out, B, H, Kh, page,
-                                                  max_pages, window, n_split, pm, pl, pa, s);
+                                                  max_pages, window, n_split, pm, pl, pa,
+                                                  counters, s);
   };
-  cudaError_t err;
   switch (D) {
-    case 32: err = run(std::integral_constant<int, 32>()); break;
-    case 64: err = run(std::integral_constant<int, 64>()); break;
-    case 128: err = run(std::integral_constant<int, 128>()); break;
-    case 256: err = run(std::integral_constant<int, 256>()); break;
+    case 32: return run(std::integral_constant<int, 32>());
+    case 64: return run(std::integral_constant<int, 64>());
+    case 128: return run(std::integral_constant<int, 128>());
+    case 256: return run(std::integral_constant<int, 256>());
     default: return cudaErrorInvalidValue;
   }
-  if (err != cudaSuccess || n_split == 1) return err;
-  return attn::launch_merge<T>(pm, pl, pa, out, attn::Strides{(int64_t)H * D, D, 0}, n_split,
-                               B, H, 1, D, s);
 }
 
 // ---------------------------------------------------------------------------
@@ -655,20 +666,24 @@ int prefill(const void* q, const void* k, const void* v, const void* tables,
 // Decode: q/out [B, H, D]; lengths[b] tokens valid (the new one included).
 // D = 32, 64, 128 or 256.  n_split ranges of ceil(max_pages / n_split)
 // table columns; n_split > 1 needs parts, n_split * B * H * (D + 2) f32 of
-// scratch, and launches the merge after the split kernel.
+// scratch, and merges in the same launch with one counter of counters
+// (B * H / GT of them, GT the query heads of a block; zero, left zero; see
+// attn_merge.cuh) per output tile.
 extern "C" int paged_attention(const void* q, const void* k, const void* v,
                                const void* tables, const void* lengths, void* out,
                                int dtype, int B, int H, int Kh, int D, int page,
                                int max_pages, int window, int n_split, void* parts,
-                               void* stream) {
+                               void* counters, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (Kh <= 0 || H % Kh != 0) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
     return (int)launch_decode<float>(q, k, v, tables, lengths, out, B, H, Kh, D, page,
-                                     max_pages, window, n_split, parts, s);
+                                     max_pages, window, n_split, parts,
+                                     static_cast<unsigned*>(counters), s);
   if (dtype == 1)
     return (int)launch_decode<bf16>(q, k, v, tables, lengths, out, B, H, Kh, D, page,
-                                    max_pages, window, n_split, parts, s);
+                                    max_pages, window, n_split, parts,
+                                    static_cast<unsigned*>(counters), s);
   return (int)cudaErrorInvalidValue;
 }
 

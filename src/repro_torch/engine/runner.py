@@ -380,7 +380,8 @@ class ModelRunner:
                                                   bucket_pow2(pages))
             data["kv"] = cache.data
             ctl["kv"] = {"tables": self._dev(tables),
-                         "slots": self._dev(slots)}
+                         "slots": self._dev(slots),
+                         "scratch": cache.scratch_block * bs}
         if img_slots is not None:
             # media positions read the device image cache in the step
             ctl["img"] = {"slots": self._dev(img_slots),
@@ -423,7 +424,8 @@ class ModelRunner:
                                                  bucket_pow2(pages))
             data["kv"] = cache.data
             ctl["kv"] = {"tables": self._dev(tables),
-                         "slots": self._dev(slots)}
+                         "slots": self._dev(slots),
+                         "scratch": cache.scratch_block * bs}
         return data, ctl, self._dev(lens_arr), lens
 
     def _commit_paged(self, rids, new_state, lens):

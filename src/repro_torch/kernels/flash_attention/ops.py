@@ -11,13 +11,15 @@ read and written without a copy.
 bf16 runs on the tensor-core tile of ``csrc/attn_mma.cuh``.  When the grid
 of query tiles is too small to fill the card (decode rows, short prefill
 chunks), :func:`plan` splits the keys: the kernel writes per-split f32
-partials and a second kernel merges them (``launches`` counts it as
-``flash_attention_merge``).  f32 runs on CUDA-core f32 products, which
+partials and the last block of each (b, h, query tile) to finish merges
+them in the same launch (``launches`` counts such calls as
+``flash_attention_split``).  f32 runs on CUDA-core f32 products, which
 keep the f32 model checks' tolerances.
 """
 from __future__ import annotations
 
 import ctypes as ct
+import functools
 
 import torch
 
@@ -29,35 +31,61 @@ from repro_torch.kernels.flash_attention.ref import (
 _P, _I = ct.c_void_p, ct.c_int
 _STRIDES = ct.POINTER(ct.c_int64)
 # q k v out, dtype B H Kh Sq Sk D causal window kv_offset, strides,
-# rows n_split, parts, stream
-_ARGS = [_P] * 4 + [_I] * 10 + [_STRIDES] + [_I] * 2 + [_P] * 2
+# rows n_split, parts, counters, stream
+_ARGS = [_P] * 4 + [_I] * 10 + [_STRIDES] + [_I] * 2 + [_P] * 3
 # part_m part_l part_acc out, dtype n_split B H Sq D, strides, stream
 _MERGE_ARGS = [_P] * 4 + [_I] * 6 + [_STRIDES, _P]
 HEAD_DIMS = (64, 128)                   # D the kernel is built for
 MERGE_HEAD_DIMS = (32, 64, 128, 256)    # D the merge is built for
 MAX_WARPS = 4                           # warps of a block
-WAVE_WARPS = 2 * 4                      # two waves of 4-warp blocks per SM
+MAX_SPLITS_64 = 4   # splits of a 64-row tile, whose last block folds in the
+#                     others' partials one round trip to L2 each
 
 
-def plan(B: int, H: int, Sq: int, Sk: int, n_sms: int) -> tuple:
-    """(rows, n_split) for the bf16 kernel.  rows is the query tile: one
-    warp of 16 rows when Sq <= 16, else four warps of 16 rows.  n_split is
-    how many ranges of whole ``BLOCK_K``-key tiles the keys are split
-    into: 1, unless the grid of (b, h, query tile) blocks holds fewer
-    16-row warp tiles than two waves of 4-warp blocks on ``n_sms`` SMs;
-    then the fewest splits that reach that many, each of ceil(tiles /
-    n_split) tiles and none empty (or one tile per split, if there are too
-    few tiles)."""
-    rows = 16 if Sq <= 16 else 16 * MAX_WARPS
-    grid_warps = B * H * -(-Sq // rows) * (rows // 16)
+def tile_rows(Sq: int) -> int:
+    """The bf16 kernel's query tile: one warp of 16 rows when Sq <= 16,
+    else four warps of 16 rows."""
+    return 16 if Sq <= 16 else 16 * MAX_WARPS
+
+
+def plan(B: int, H: int, Sq: int, Sk: int, n_sms: int, per_sm: int) -> tuple:
+    """(rows, n_split) for the bf16 kernel: rows = :func:`tile_rows`, and
+    n_split, how many ranges of whole ``BLOCK_K``-key tiles the keys are
+    split into, the most that keeps every block of the call in one wave
+    of ``per_sm`` blocks of that tile on each of ``n_sms`` SMs (see
+    :func:`blocks_per_sm`), none empty, and for 64-row tiles at most
+    ``MAX_SPLITS_64``; 1 when the (b, h, query tile) blocks alone fill half
+    a wave, or there is one tile.  A second wave of split blocks, or a
+    64-row tile's fifth split, costs more than the shorter key ranges save
+    (``tools/kernel_ab.py``'s plan sweep; PERF.md)."""
+    rows = tile_rows(Sq)
+    blocks = B * H * -(-Sq // rows)
     tiles = -(-Sk // BLOCK_K)
-    target = WAVE_WARPS * n_sms
-    if grid_warps >= target or tiles <= 1:
+    most = min(tiles, n_sms * per_sm // max(blocks, 1))
+    if rows == 64:
+        most = min(most, MAX_SPLITS_64)
+    if most <= 1:
         return rows, 1
-    n_split = min(tiles, -(-target // grid_warps))
-    while -(-tiles // -(-tiles // n_split)) != n_split:   # no empty split
-        n_split += 1
-    return rows, n_split
+    per = -(-tiles // most)
+    return rows, -(-tiles // per)
+
+
+@functools.lru_cache(maxsize=None)
+def blocks_per_sm(rows: int, D: int) -> int:
+    """Blocks of the bf16 kernel's ``rows``-row tile at head dim D that one
+    SM holds at once (the CUDA occupancy calculator; asked once per
+    process)."""
+    n = ct.c_int()
+    fn = _build.function("flash_attention", "flash_blocks_per_sm",
+                         [_I, _I, _P])
+    K.check_launch(fn(rows, D, ct.byref(n)), "flash_attention occupancy")
+    return n.value
+
+
+def split_plan(B: int, H: int, Sq: int, Sk: int, D: int, index: int) -> tuple:
+    """:func:`plan` on CUDA device ``index``: its SMs, and the blocks of
+    the tile that one of them holds."""
+    return plan(B, H, Sq, Sk, K.n_sms(index), blocks_per_sm(tile_rows(Sq), D))
 
 
 def _conditions(q, k, v):
@@ -113,8 +141,8 @@ def merge_partials(m, l, acc, out, *, kernel: str = "flash_attention"):
     """Merge split partials m/l [n_split, B, H, Sq] and acc [n_split, B, H,
     Sq, D] (f32, contiguous) into out [B, H, Sq, D] (f32 or bf16, any
     strides, head dim contiguous) by log-sum-exp; see
-    :func:`merge_partials_ref`.  The second kernel of a split path
-    (``csrc/attn_merge.cuh``), launched alone to check it, from the library
+    :func:`merge_partials_ref`.  The split kernels' merge
+    (``csrc/attn_merge.cuh``) as a kernel of its own, to check it, from the library
     of ``kernel``: "flash_attention" or "paged_attention" (decode), whose
     launch counter ``<kernel>_merge`` it moves.  Returns out."""
     if K.on_cpu(m, l, acc, out):
@@ -146,7 +174,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     contiguous).  Query row i sits at position ``kv_offset + i``; see
     :func:`flash_attention_ref` for the mask.  Returns [B, H, Sq, D] in
     q's type, laid out in memory as q is.  bf16 with a split (see
-    :func:`plan`) launches the split kernel and then the merge."""
+    :func:`plan`) merges the splits in the kernel's last blocks."""
     if K.on_cpu(q, k, v):
         return flash_attention_ref(q, k, v, causal=causal, window=window,
                                    kv_offset=kv_offset)
@@ -157,17 +185,20 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
         return out
     rows, n_split, buf = 0, 1, None
     if q.dtype == torch.bfloat16:
-        rows, n_split = plan(B, H, Sq, Sk, K.n_sms(q.device.index or 0))
+        rows, n_split = split_plan(B, H, Sq, Sk, D, q.device.index or 0)
         if n_split > 1:
             buf = _parts(n_split, B, H, Sq, D, q.device)
     fn = _build.function("flash_attention", "flash_attention", _ARGS)
+    stream = K.stream_ptr(q)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              K.DTYPE_CODES[q.dtype], B, H, Kh, Sq, Sk, D, int(causal),
              int(window), int(kv_offset), _strides(q, k, v, out), rows,
              n_split, None if buf is None else buf.data_ptr(),
-             K.stream_ptr(q))
+             K.tile_counters(q, stream, B * H * -(-Sq // rows),
+                             "flash_attention") if n_split > 1 else None,
+             stream)
     K.check_launch(err, "flash_attention")
     K.launches["flash_attention"] += 1
     if n_split > 1:
-        K.launches["flash_attention_merge"] += 1
+        K.launches["flash_attention_split"] += 1
     return out

@@ -10,8 +10,9 @@ Decode is bound by the bytes of the cached K/V it reads once per step.
 of whole pages, from the shapes alone, so that the (request, KV head,
 split) blocks fill the card; each block reads its keys' K/V rows with
 16-byte loads, the next keys in flight while it computes, and writes f32
-partials that a second kernel merges (``launches`` counts it as
-``paged_attention_merge``).  No host read of the lengths: a decode call
+partials; the last block of each (request, head group) to finish merges
+them in the same launch (``launches`` counts such calls as
+``paged_attention_split``).  No host read of the lengths: a decode call
 can be captured in a CUDA graph.  bf16 chunked prefill (head dims in
 ``PREFILL_MMA_HEAD_DIMS``) runs on the tensor-core tile of
 ``csrc/attn_mma.cuh``; f32 prefill on CUDA-core f32 products.
@@ -28,8 +29,9 @@ from repro_torch.kernels.paged_attention.ref import (
     paged_attention_ref, paged_prefill_attention_ref)
 
 _P, _I = ct.c_void_p, ct.c_int
-# q k v tables lens out, dtype B H Kh D page P window n_split, parts, stream
-_DECODE_ARGS = [_P] * 6 + [_I] * 9 + [_P] * 2
+# q k v tables lens out, dtype B H Kh D page P window n_split, parts,
+# counters, stream
+_DECODE_ARGS = [_P] * 6 + [_I] * 9 + [_P] * 3
 _PREFILL_ARGS = [_P] * 6 + [_I] * 9 + [_P]    # ... dtype B C H Kh D page P window
 PREFILL_MMA_HEAD_DIMS = (64, 128, 256)        # D of the bf16 prefill kernel
 DECODE_HEAD_DIMS = (32, 64, 128, 256)         # D the decode kernel is built for
@@ -94,7 +96,7 @@ def paged_attention(q, k_pages, v_pages, block_tables, lengths, *,
     """Decode: q [B, H, D] against pages [n_pages, page, Kh, D] through
     block_tables [B, max_pages]; lengths [B] tokens valid (the new one
     included).  Returns [B, H, D] in q's type.  With more than one split
-    (see :func:`decode_plan`) the split kernel and then the merge run."""
+    (see :func:`decode_plan`) the kernel's last blocks merge the splits."""
     if K.on_cpu(q, k_pages, v_pages, block_tables, lengths):
         return paged_attention_ref(q, k_pages, v_pages, block_tables, lengths,
                                    window=window)
@@ -112,15 +114,18 @@ def paged_attention(q, k_pages, v_pages, block_tables, lengths, *,
     parts = torch.empty(n_split * B * H * (D + 2), dtype=torch.float32,
                         device=q.device) if n_split > 1 else None
     fn = _build.function("paged_attention", "paged_attention", _DECODE_ARGS)
+    stream = K.stream_ptr(q)
     err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
              block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
              K.DTYPE_CODES[q.dtype], B, H, Kh, D, page, P, int(window),
              n_split, None if parts is None else parts.data_ptr(),
-             K.stream_ptr(q))
+             K.tile_counters(q, stream, B * (H // heads_per_block(H // Kh)),
+                             "paged_attention") if n_split > 1 else None,
+             stream)
     K.check_launch(err, "paged_attention")
     K.launches["paged_attention"] += 1
     if n_split > 1:
-        K.launches["paged_attention_merge"] += 1
+        K.launches["paged_attention_split"] += 1
     return out
 
 

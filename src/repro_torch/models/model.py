@@ -250,20 +250,21 @@ def _pages(data, layer, cfg):
     return data[0, layer].view(shape), data[1, layer].view(shape)
 
 
-def _attn_decode_paged(p, x, cfg, data, layer, tables, slots, lens, lengths,
-                       window):
+def _attn_decode_paged(p, x, cfg, data, layer, kv, lens, lengths, window):
     """Dense-attention decode step against the paged KV store: append the
     new token's K/V via the fused cache write, then attend through the
-    paged-attention kernel over pages + block tables.  ``lengths`` is
-    ``lens + 1`` (the cached tokens plus the new one)."""
+    paged-attention kernel over pages + block tables.  ``kv``: the step's
+    ``ctl["kv"]``.  ``lengths`` is ``lens + 1`` (the cached tokens plus the
+    new one)."""
     B = x.shape[0]
     Kh, Dh = cfg.num_kv_heads, cfg.head_dim
     q, k, v = _qkv(p, x, cfg, layers.lengths_vector(lens, B)[:, None])
-    rows = torch.stack([k.reshape(B, Kh * Dh), v.reshape(B, Kh * Dh)])
-    paged_token_write(data, layer, rows, slots)
+    paged_token_write(data, layer, (k.reshape(B, Kh * Dh),
+                                    v.reshape(B, Kh * Dh)), kv["slots"],
+                      scratch=kv.get("scratch"))
     k_pages, v_pages = _pages(data, layer, cfg)
-    o = paged_attention(q[:, 0].to(k_pages.dtype), k_pages, v_pages, tables,
-                        lengths, window=window)
+    o = paged_attention(q[:, 0].to(k_pages.dtype), k_pages, v_pages,
+                        kv["tables"], lengths, window=window)
     return o.reshape(B, 1, -1).to(x.dtype) @ p.wo
 
 
@@ -274,7 +275,9 @@ def decode_step_paged(cfg: ModelConfig, params, data, ctl, state, lens,
     ``data``: {"kv": [2, L_attn, num_blocks+1, bs, width]} page pool,
     written in place (absent for attention-free models).  ``ctl``: {"kv":
     {"tables": [B, P] int32, "slots": [B] int32 within-plane row slot of the
-    token being appended} (with the pool), "sample": optional controls of
+    token being appended, "scratch": optional first within-plane slot of
+    the scratch block that padded lanes write to, whose rows the cache-write
+    kernel then skips} (with the pool), "sample": optional controls of
     :func:`sample_from_logits`}.  ``state``: {"layers": [...]} batched
     per-layer non-paged state (see :func:`empty_state`): Mamba-1 layers
     carry {"state", "conv"}, cross-attention layers their cached {"xk",
@@ -302,8 +305,8 @@ def decode_step_paged(cfg: ModelConfig, params, data, ctl, state, lens,
             continue
         window = cfg.sliding_window if cfg.is_local_layer(i) else 0
         h = h + _attn_decode_paged(
-            p, rmsnorm(h, p.norm1, cfg.norm_eps), cfg, pool, aj,
-            kv["tables"], kv["slots"], lens, lengths, window)
+            p, rmsnorm(h, p.norm1, cfg.norm_eps), cfg, pool, aj, kv, lens,
+            lengths, window)
         aj += 1
         if cfg.cross_attention:
             h = h + _cross_decode(p, rmsnorm(h, p.xnorm, cfg.norm_eps), cfg,
@@ -323,21 +326,22 @@ def _paged(pool) -> dict:
 # ---------------------------------------------------------------------------
 # batched chunked prefill over device-resident paged caches (DESIGN.md §12)
 # ---------------------------------------------------------------------------
-def _attn_chunk_paged(p, x, cfg, data, layer, tables, slots, ctx_lens,
-                      window):
+def _attn_chunk_paged(p, x, cfg, data, layer, kv, ctx_lens, window):
     """Chunked-prefill dense attention against the paged KV store: write the
     chunk's K/V rows with one fused launch, then attend the chunk's queries
-    through the chunked paged-attention kernel (chunk-causal over pages)."""
+    through the chunked paged-attention kernel (chunk-causal over pages).
+    ``kv``: the chunk's ``ctl["kv"]``."""
     B, C, _ = x.shape
     Kh, Dh = cfg.num_kv_heads, cfg.head_dim
     pos = ctx_lens[:, None] + torch.arange(C, device=x.device,
                                            dtype=ctx_lens.dtype)
     q, k, v = _qkv(p, x, cfg, pos)
-    rows = torch.stack([k.reshape(B, C, Kh * Dh), v.reshape(B, C, Kh * Dh)])
-    paged_chunk_write(data, layer, rows, slots)
+    paged_chunk_write(data, layer, (k.reshape(B, C, Kh * Dh),
+                                    v.reshape(B, C, Kh * Dh)), kv["slots"],
+                      scratch=kv.get("scratch"))
     k_pages, v_pages = _pages(data, layer, cfg)
     o = paged_prefill_attention(q.to(k_pages.dtype), k_pages, v_pages,
-                                tables, ctx_lens, window=window)
+                                kv["tables"], ctx_lens, window=window)
     return o.reshape(B, C, -1).to(x.dtype) @ p.wo
 
 
@@ -365,7 +369,8 @@ def prefill_chunk_paged(cfg: ModelConfig, params, data, ctl, state, ctx_lens,
     ``data``: {"kv": [2, L_attn, NB+1, bs, w]} page pool (absent for
     attention-free models).  ``ctl``: {"kv": {"tables": [B, P] int32,
     "slots": [B, C] int32 within-plane row slots of the chunk tokens (padded
-    positions point at scratch)} (with the pool), "img": {"slots": [B, C]
+    positions point at scratch), "scratch": optional, as for
+    :func:`decode_step_paged`} (with the pool), "img": {"slots": [B, C]
     int32 image-cache row per media position or -1, "pages": image page
     pool} (optional), "mask": [B, C] bool valid chunk positions, "last": [B]
     int32 index of each request's last valid position, "sample":
@@ -411,8 +416,8 @@ def prefill_chunk_paged(cfg: ModelConfig, params, data, ctl, state, ctx_lens,
             continue
         window = cfg.sliding_window if cfg.is_local_layer(i) else 0
         h = h + _attn_chunk_paged(
-            p, rmsnorm(h, p.norm1, cfg.norm_eps), cfg, pool, aj,
-            kv["tables"], kv["slots"], ctx_lens, window)
+            p, rmsnorm(h, p.norm1, cfg.norm_eps), cfg, pool, aj, kv,
+            ctx_lens, window)
         aj += 1
         ent = {}
         if cfg.cross_attention:

@@ -6,7 +6,9 @@ tests/test_torch_cuda.py``.
 
 Tolerances: f32 1e-4 absolute (summation order only), bf16 2e-2 absolute
 (one bf16 rounding of outputs near 1, and of P before P V on the bf16
-tensor-core tile); the cache write is exact.  Decode rounds only its output
+tensor-core tile); bf16 chunked prefill and flash attention are held
+against the plain version's f32 output on the same (upcast) inputs, so
+only the kernel's own rounding counts; the cache write is exact.  Decode rounds only its output
 (no tensor cores, P stays f32), so its bf16 bar is 4e-3, as in
 chip_smoke.py: a lane of 16+ keys averages values to well under 1, where
 one rounding is at most 2^-9; a lane of one key returns the key's value
@@ -32,6 +34,12 @@ from repro_torch.kernels.selective_scan import ops as tss
 from repro_torch.kernels.selective_scan.ref import selective_scan_ref
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def _f32(*ts):
+    """The same inputs upcast: the plain version then computes and returns
+    f32, and the kernel's bf16 output is held against that, unrounded."""
+    return [t.float() for t in ts]
 DECODE_TOL = {torch.float32: 1e-4, torch.bfloat16: 4e-3}
 
 
@@ -90,8 +98,10 @@ def test_decode_kernel_matches_plain(cuda, dtype, lens, max_pages, split, H,
     want = paged_attention_ref(q, kp, vp, tables, lengths, window=window)
     torch.cuda.synchronize()
     assert K.launches["paged_attention"] == before["paged_attention"] + 1
+    assert K.launches["paged_attention_split"] == \
+        before["paged_attention_split"] + int(split)
     assert K.launches["paged_attention_merge"] == \
-        before["paged_attention_merge"] + int(split)
+        before["paged_attention_merge"]        # merged in the same launch
     assert got.dtype == dtype and torch.isfinite(got.float()).all()
     assert (got.float() - want.float()).abs().max().item() <= \
         DECODE_TOL[dtype]
@@ -144,11 +154,11 @@ def test_prefill_kernel_matches_plain(cuda, dtype, H, Kh, C, window):
     q = torch.randn((len(ctx), C, H, D), generator=gen).to(cuda, dtype)
     ctx_t = torch.tensor(ctx, dtype=torch.int32, device=cuda)
     got = tpa.paged_prefill_attention(q, kp, vp, tables, ctx_t, window=window)
-    want = paged_prefill_attention_ref(q, kp, vp, tables, ctx_t,
+    want = paged_prefill_attention_ref(*_f32(q, kp, vp), tables, ctx_t,
                                        window=window)
     torch.cuda.synchronize()
     assert torch.isfinite(got.float()).all()
-    assert (got.float() - want.float()).abs().max().item() <= TOL[dtype]
+    assert (got.float() - want).abs().max().item() <= TOL[dtype]
 
 
 @pytest.mark.parametrize("src,dst,w", [
@@ -239,12 +249,12 @@ def test_flash_attention_kernel_matches_plain(cuda, dtype, B, H, Kh, Sq, Sk,
     before = K.launches["flash_attention"]
     got = tfa.flash_attention(q, k, v, causal=causal, window=window,
                               kv_offset=off)
-    want = flash_attention_ref(q, k, v, causal=causal, window=window,
+    want = flash_attention_ref(*_f32(q, k, v), causal=causal, window=window,
                                kv_offset=off)
     torch.cuda.synchronize()
     assert K.launches["flash_attention"] == before + 1
     assert got.dtype == dtype and torch.isfinite(got.float()).all()
-    assert (got.float() - want.float()).abs().max().item() <= TOL[dtype]
+    assert (got.float() - want).abs().max().item() <= TOL[dtype]
 
 
 def test_flash_attention_kernel_reads_head_split_views(cuda):
@@ -299,12 +309,12 @@ def test_prefill_mma_edges_match_plain(cuda, dtype, H, Kh, D, C, ctx, window,
     ctx_t = torch.tensor(ctx, dtype=torch.int32, device=cuda)
     before = K.launches["paged_prefill_attention"]
     got = tpa.paged_prefill_attention(q, kp, vp, tables, ctx_t, window=window)
-    want = paged_prefill_attention_ref(q, kp, vp, tables, ctx_t,
+    want = paged_prefill_attention_ref(*_f32(q, kp, vp), tables, ctx_t,
                                        window=window)
     torch.cuda.synchronize()
     assert K.launches["paged_prefill_attention"] == before + 1
     assert torch.isfinite(got.float()).all()
-    assert (got.float() - want.float()).abs().max().item() <= TOL[dtype]
+    assert (got.float() - want).abs().max().item() <= TOL[dtype]
 
 
 def test_prefill_bf16_rejects_other_head_dims(cuda):
@@ -332,19 +342,20 @@ def test_flash_split_kv_matches_plain(cuda, dtype, B, H, Kh, Sq, Sk, D,
     k = torch.randn((B, Kh, Sk, D), generator=gen).to(cuda, dtype)
     v = torch.randn((B, Kh, Sk, D), generator=gen).to(cuda, dtype)
     kw = dict(causal=causal, window=window, kv_offset=off)
-    n_sms = torch.cuda.get_device_properties(cuda).multi_processor_count
-    _, n_split = tfa.plan(B, H, Sq, Sk, n_sms)
+    _, n_split = tfa.split_plan(B, H, Sq, Sk, D, 0)
     split = dtype == torch.bfloat16 and n_split > 1
     before = dict(K.launches)
     got = tfa.flash_attention(q, k, v, **kw)
-    want = flash_attention_ref(q, k, v, **kw)
+    want = flash_attention_ref(*_f32(q, k, v), **kw)
     torch.cuda.synchronize()
     assert K.launches["flash_attention"] == before["flash_attention"] + 1
+    assert K.launches["flash_attention_split"] == \
+        before["flash_attention_split"] + int(split)
     assert K.launches["flash_attention_merge"] == \
-        before["flash_attention_merge"] + int(split)
+        before["flash_attention_merge"]        # merged in the same launch
     assert dtype == torch.float32 or n_split > 1
     assert torch.isfinite(got.float()).all()
-    assert (got.float() - want.float()).abs().max().item() <= TOL[dtype]
+    assert (got.float() - want).abs().max().item() <= TOL[dtype]
     if off < 0:                       # rows before the first key: exactly 0
         assert not got[:, :, :-off].any()
 
@@ -354,31 +365,34 @@ def test_flash_split_kv_matches_plain(cuda, dtype, B, H, Kh, Sq, Sk, D,
                                                   (9, True, 0, -4)])
 def test_flash_split_and_merge_kernels_match_their_plain_versions(
         cuda, Sq, causal, window, off):
-    """The split path through flash_attention (split kernel, then merge)
-    against the plain attention at the attention bar, and the merge kernel
-    alone on plain partials (empty splits among them) against the plain
-    merge at its own bar: each bf16 output rounded once (2^-8 of its
-    value) after f32 sums in another order (1e-5 at outputs up to ~4)."""
+    """The split path through flash_attention (the split kernel, merging
+    in its last blocks) against the plain attention at the attention bar,
+    and the merge kernel alone on plain partials (empty splits among them)
+    against the plain merge at its own bar: each bf16 output rounded once
+    (2^-8 of its value) after f32 sums in another order (1e-5 at outputs
+    up to ~4)."""
     gen = torch.Generator().manual_seed(Sq + window)
     B, H, Sk, D = 2, 3, 1000, 64
     q, k, v = (torch.randn(s, generator=gen).to(cuda, torch.bfloat16)
                for s in ((B, H, Sq, D), (B, H, Sk, D), (B, H, Sk, D)))
     kw = dict(causal=causal, window=window, kv_offset=off)
-    n_sms = torch.cuda.get_device_properties(cuda).multi_processor_count
-    _, n_split = tfa.plan(B, H, Sq, Sk, n_sms)
+    _, n_split = tfa.split_plan(B, H, Sq, Sk, D, 0)
     assert n_split > 1
-    before = K.launches["flash_attention_merge"]
+    before = dict(K.launches)
     got = tfa.flash_attention(q, k, v, **kw)
-    want = flash_attention_ref(q, k, v, **kw)
+    want = flash_attention_ref(*_f32(q, k, v), **kw)
     torch.cuda.synchronize()
-    assert K.launches["flash_attention_merge"] == before + 1
-    assert (got.float() - want.float()).abs().max().item() <= \
-        TOL[torch.bfloat16]
+    assert K.launches["flash_attention_split"] == \
+        before["flash_attention_split"] + 1
+    assert K.launches["flash_attention_merge"] == \
+        before["flash_attention_merge"]
+    assert (got.float() - want).abs().max().item() <= TOL[torch.bfloat16]
     parts = flash_attention_partials_ref(q, k, v, n_split, **kw)
     out = torch.empty((B, H, Sq, D), dtype=torch.bfloat16, device=cuda)
     tfa.merge_partials(*parts, out)
     torch.cuda.synchronize()
-    assert K.launches["flash_attention_merge"] == before + 2
+    assert K.launches["flash_attention_merge"] == \
+        before["flash_attention_merge"] + 1
     want = merge_partials_ref(*parts)
     assert ((out.float() - want).abs() <= want.abs() * 2 ** -8 + 1e-5).all()
 
@@ -393,18 +407,17 @@ def test_flash_64_row_tiles_match_plain(cuda, dtype, B, H, Kh, Sq, Sk,
                                         causal, window, off):
     """64-row tiles of four warps, causal blocks started last tile first."""
     D = 64
-    n_sms = torch.cuda.get_device_properties(cuda).multi_processor_count
-    assert tfa.plan(B, H, Sq, Sk, n_sms)[0] == 64
+    assert tfa.split_plan(B, H, Sq, Sk, D, 0)[0] == 64
     gen = torch.Generator().manual_seed(Sq + Sk)
     q = torch.randn((B, H, Sq, D), generator=gen).to(cuda, dtype)
     k = torch.randn((B, Kh, Sk, D), generator=gen).to(cuda, dtype)
     v = torch.randn((B, Kh, Sk, D), generator=gen).to(cuda, dtype)
     kw = dict(causal=causal, window=window, kv_offset=off)
     got = tfa.flash_attention(q, k, v, **kw)
-    want = flash_attention_ref(q, k, v, **kw)
+    want = flash_attention_ref(*_f32(q, k, v), **kw)
     torch.cuda.synchronize()
     assert torch.isfinite(got.float()).all()
-    assert (got.float() - want.float()).abs().max().item() <= TOL[dtype]
+    assert (got.float() - want).abs().max().item() <= TOL[dtype]
 
 
 @pytest.mark.parametrize("kernel", ["paged_attention", "flash_attention"])
@@ -428,3 +441,279 @@ def test_merge_kernel_writes_f32(cuda, kernel):
     assert K.launches[f"{kernel}_merge"] == before + 1
     want = merge_partials_ref(m, l, acc)
     assert (out - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+
+
+# ---------------------------------------------------------------------------
+# the cache write from separate K/V planes, the scratch block untouched
+# ---------------------------------------------------------------------------
+def _bytes(t):
+    return t.contiguous().view(torch.uint8)
+
+
+@pytest.mark.parametrize("C", [1, 9], ids=["token", "chunk"])
+@pytest.mark.parametrize("src,dst,w,NB,form", [
+    (torch.bfloat16, torch.bfloat16, 4096, 512, "planes"),  # pool > 2^31
+    (torch.bfloat16, torch.bfloat16, 768, 40, "strided"),   # whisper's width
+    (torch.float32, torch.bfloat16, 64, 10, "planes"),      # casts
+    (torch.bfloat16, torch.float32, 64, 10, "strided"),
+    (torch.float32, torch.float32, 37, 10, "planes"),       # no 16-byte rows
+    (torch.float32, torch.float32, 64, 10, "stacked"),
+], ids=["bf16-w4096-big", "bf16-w768-strided", "f32-to-bf16",
+        "bf16-to-f32-strided", "f32-w37", "f32-stacked"])
+def test_cache_write_from_planes_leaves_scratch_untouched(cuda, C, src, dst,
+                                                          w, NB, form):
+    """K and V as separate planes (or column slices of one wider buffer,
+    or one stacked tensor) into the last layer of a pool with a scratch
+    block: every row not aimed at scratch bit-exact against the plain
+    version (which writes the scratch rows too), and the scratch block
+    byte for byte as it was.  Lane 6 has padded positions, lane 7 is a
+    padded lane.  The first case's pool holds more than 2^31 elements."""
+    gen = torch.Generator(device=cuda).manual_seed(w + C)
+    T, bs, B = 2, 16, 8
+    L = 32 if NB == 512 else 3
+    data = torch.empty((T, L, NB + 1, bs, w), dtype=dst,
+                       device=cuda).normal_(generator=gen)
+    assert NB != 512 or data.numel() > 2 ** 31
+    rows = torch.randn((T, B, C, w), generator=gen, device=cuda).to(src)
+    if form == "stacked":
+        planes = rows
+    elif form == "planes":
+        planes = tuple(r.clone() for r in rows)
+    else:
+        wide = torch.zeros((B, C, 3 * w), dtype=src, device=cuda)
+        for t in range(T):
+            wide[..., t * w:(t + 1) * w] = rows[t]
+        planes = tuple(wide[..., t * w:(t + 1) * w] for t in range(T))
+    scratch = NB * bs
+    perm = torch.randperm(NB * bs, generator=gen, device=cuda)
+    slots = perm[:B * C].view(B, C).to(torch.int32)
+    slots[6, C // 2 + (C == 1):] = scratch + 3
+    slots[7] = scratch
+    before = data.clone()
+    before_launches = K.launches["cache_write"]
+    if C == 1:
+        src_rows = planes[:, :, 0] if form == "stacked" else \
+            tuple(p[:, 0] for p in planes)
+        tcw.paged_token_write(data, L - 1, src_rows, slots[:, 0],
+                              scratch=scratch)
+    else:
+        tcw.paged_chunk_write(data, L - 1, planes, slots, scratch=scratch)
+    want = before.clone()
+    plane = (torch.arange(T, device=cuda) * L + L - 1) * ((NB + 1) * bs)
+    cache_write_ref(want.view(-1, bs, w), rows.reshape(-1, w),
+                    (plane[:, None] + slots.reshape(-1)[None].long())
+                    .reshape(-1))
+    torch.cuda.synchronize()
+    assert K.launches["cache_write"] == before_launches + 1
+    assert torch.equal(_bytes(data[:, :, :NB]), _bytes(want[:, :, :NB]))
+    assert torch.equal(_bytes(data[:, :, NB]), _bytes(before[:, :, NB]))
+    assert not torch.equal(_bytes(data), _bytes(before))
+
+
+def test_cache_write_without_scratch_writes_every_row(cuda):
+    """No scratch named (the flat write, the install of a media entry):
+    rows aimed at the last block are written like any other."""
+    gen = torch.Generator().manual_seed(21)
+    T, L, NB, bs, w = 2, 2, 6, 4, 64
+    data = torch.randn((T, L, NB + 1, bs, w), generator=gen).to(cuda)
+    k, v = (torch.randn((3, w), generator=gen).to(cuda) for _ in range(2))
+    slots = torch.tensor([NB * bs, NB * bs + 3, 5], dtype=torch.int32,
+                         device=cuda)
+    want = data.cpu()                    # the plain version on the CPU
+    tcw.paged_token_write(want, 1, (k.cpu(), v.cpu()), slots.cpu())
+    tcw.paged_token_write(data, 1, (k, v), slots)
+    torch.cuda.synchronize()
+    assert torch.equal(data.cpu(), want)
+
+
+# ---------------------------------------------------------------------------
+# the split-KV merge fused into the split kernels' last blocks
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("window", [0, 24])
+@pytest.mark.parametrize("n_split", [2, 3, 7, 16])
+def test_decode_fused_merge_at_forced_splits(cuda, monkeypatch, dtype,
+                                             window, n_split):
+    """Decode at split counts the plan would not pick, over 16 table
+    columns: lanes of 1, 17, 100 and 256 keys (the later splits of short
+    lanes see no key; with a window the earlier ones see none either), GQA
+    of 8 query heads on 2 KV heads, and a padded lane."""
+    monkeypatch.setattr(tpa, "decode_plan", lambda *a: n_split)
+    lens = [1, 17, 100, 256, 1]
+    gen = torch.Generator().manual_seed(n_split * 10 + window)
+    kp, vp, tables = _pages(gen, cuda, lens=lens[:4], Kh=2, D=64,
+                            dtype=dtype, n_pages=70, max_pages=16)
+    tables = torch.cat([tables, torch.full_like(tables[:1], 69)])
+    q = torch.randn((5, 8, 64), generator=gen).to(cuda, dtype)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    before = dict(K.launches)
+    got = tpa.paged_attention(q, kp, vp, tables, lengths, window=window)
+    want = paged_attention_ref(q, kp, vp, tables, lengths, window=window)
+    torch.cuda.synchronize()
+    assert K.launches["paged_attention_split"] == \
+        before["paged_attention_split"] + 1
+    assert torch.isfinite(got.float()).all()
+    assert (got.float() - want.float()).abs().max().item() <= \
+        DECODE_TOL[dtype]
+
+
+@pytest.mark.parametrize("n_split", [2, 5, 24, 30])
+@pytest.mark.parametrize("Sq,causal,window,off", [
+    (1, False, 0, 0), (16, True, 100, 1400), (40, True, 30, 300),
+    (9, True, 0, -4)], ids=["row", "window-tail", "chunk", "no-key-rows"])
+def test_flash_fused_merge_at_forced_splits(cuda, monkeypatch, n_split, Sq,
+                                            causal, window, off):
+    """bf16 flash attention at split counts the plan would not pick over
+    1500 keys (24 tiles; 30 splits leave six ranges with no tile), GQA of
+    4 query heads on 2 KV heads: windows leave most splits without a key,
+    and rows before the first key come out 0."""
+    monkeypatch.setattr(tfa, "plan", lambda B, H, Sq, Sk, n, per_sm: (
+        16 if Sq <= 16 else 64, n_split))
+    gen = torch.Generator().manual_seed(n_split + Sq)
+    B, H, Kh, Sk, D = 2, 4, 2, 1500, 64
+    q = torch.randn((B, H, Sq, D), generator=gen).to(cuda, torch.bfloat16)
+    k = torch.randn((B, Kh, Sk, D), generator=gen).to(cuda, torch.bfloat16)
+    v = torch.randn((B, Kh, Sk, D), generator=gen).to(cuda, torch.bfloat16)
+    kw = dict(causal=causal, window=window, kv_offset=off)
+    before = dict(K.launches)
+    got = tfa.flash_attention(q, k, v, **kw)
+    want = flash_attention_ref(*_f32(q, k, v), **kw)
+    torch.cuda.synchronize()
+    assert K.launches["flash_attention_split"] == \
+        before["flash_attention_split"] + 1
+    assert K.launches["flash_attention_merge"] == \
+        before["flash_attention_merge"]
+    assert torch.isfinite(got.float()).all()
+    assert (got.float() - want).abs().max().item() <= TOL[torch.bfloat16]
+    if off < 0:
+        assert not got[:, :, :-off].any()
+
+
+def _split_call(kind, dev, seed):
+    """A decode or flash call the plan splits, as a closure."""
+    gen = torch.Generator().manual_seed(seed)
+    if kind == "decode":
+        kp, vp, tables = _pages(gen, dev, lens=[100, 256], Kh=4, D=128,
+                                n_pages=40, max_pages=16,
+                                dtype=torch.bfloat16)
+        q = torch.randn((2, 4, 128), generator=gen).to(dev, torch.bfloat16)
+        lengths = torch.tensor([100, 256], dtype=torch.int32, device=dev)
+        return (lambda: tpa.paged_attention(q, kp, vp, tables, lengths),
+                lambda: paged_attention_ref(q, kp, vp, tables, lengths),
+                "paged_attention_split")
+    q, k, v = (torch.randn(s, generator=gen).to(dev, torch.bfloat16)
+               for s in ((2, 3, 1, 64), (2, 3, 1000, 64), (2, 3, 1000, 64)))
+    return (lambda: tfa.flash_attention(q, k, v, causal=False),
+            lambda: flash_attention_ref(*_f32(q, k, v), causal=False),
+            "flash_attention_split")
+
+
+@pytest.mark.parametrize("kind", ["decode", "flash"])
+def test_fused_merge_repeats_and_replays_identically(cuda, kind):
+    """A split call twice, then replayed twice from one CUDA graph: the
+    same bits every time, so every call leaves its tile counters at 0
+    (a counter left over would make a later call merge early or never)."""
+    call, _, key = _split_call(kind, cuda, 31)
+    before = K.launches[key]
+    first, second = call(), call()
+    torch.cuda.synchronize()
+    assert K.launches[key] == before + 2
+    assert torch.equal(first, second)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = call()
+    replays = []
+    for _ in range(2):
+        graph.replay()
+        replays.append(out.clone())
+    torch.cuda.synchronize()
+    assert all(torch.equal(r, first) for r in replays)
+    assert torch.equal(call(), first)
+
+
+@pytest.mark.parametrize("kind", ["decode", "flash"])
+def test_split_calls_on_two_streams_keep_their_own_counters(cuda, kind):
+    """Split calls issued on two streams at once, each on its own inputs:
+    each stream has its own counter buffer, and both answers are right."""
+    calls = [_split_call(kind, cuda, 40 + i) for i in range(2)]
+    streams = [torch.cuda.Stream() for _ in calls]
+    for s in streams:
+        s.wait_stream(torch.cuda.current_stream())
+    outs = []
+    for s, (call, _, _) in zip(streams, calls):
+        with torch.cuda.stream(s):
+            outs.append([call() for _ in range(8)])
+    for s in streams:
+        torch.cuda.current_stream().wait_stream(s)
+    torch.cuda.synchronize()
+    dev = torch.cuda.current_device()
+    buffers = {K._counters[(dev, s.cuda_stream)][1].data_ptr()
+               for s in streams}
+    assert len(buffers) == 2
+    for (_, plain, _), got in zip(calls, outs):
+        want = plain().float()
+        for o in got:
+            assert (o.float() - want).abs().max().item() <= \
+                TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("kind", ["decode", "flash"])
+def test_graphs_from_one_capture_stream_replay_at_once(cuda, kind):
+    """Two graphs captured one after the other on torch's default capture
+    stream, each over its own inputs, then replayed on two streams at
+    once, several times: each capture made its own counters, so both
+    answers stay right and every replay gives the same bits."""
+    calls = [_split_call(kind, cuda, 50 + i) for i in range(2)]
+    graphs, outs = [], []
+    for call, _, _ in calls:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            call()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            outs.append(call())
+        graphs.append(graph)
+    wants = [plain().float() for _, plain, _ in calls]
+    streams = [torch.cuda.Stream() for _ in graphs]
+    firsts = None
+    for _ in range(4):
+        for s in streams:
+            s.wait_stream(torch.cuda.current_stream())
+        for s, g in zip(streams, graphs):
+            with torch.cuda.stream(s):
+                g.replay()
+        for s in streams:
+            torch.cuda.current_stream().wait_stream(s)
+        got = [o.clone() for o in outs]
+        torch.cuda.synchronize()
+        for o, want in zip(got, wants):
+            assert (o.float() - want).abs().max().item() <= \
+                TOL[torch.bfloat16]
+        firsts = firsts or got
+        assert all(torch.equal(a, b) for a, b in zip(got, firsts))
+
+
+def test_tile_counters_grow_zero_and_keep_per_stream(cuda):
+    """A stream's counter buffer is zero when made and is replaced by a
+    larger zero buffer when a call needs more tiles than it holds; a
+    buffer large enough is kept."""
+    side = torch.cuda.Stream()
+    t = torch.empty(1, device=cuda)
+    with torch.cuda.stream(side):
+        first = K.tile_counters(t, side.cuda_stream, 10, "paged_attention")
+        assert K.tile_counters(t, side.cuda_stream, 100,
+                               "paged_attention") == first
+        grown = K.tile_counters(t, side.cuda_stream, 10_000,
+                                "flash_attention")
+        buf = K._counters[(torch.cuda.current_device(), side.cuda_stream)][1]
+    torch.cuda.synchronize()
+    assert buf.data_ptr() == grown and buf.numel() >= 10_000
+    assert not buf.any()

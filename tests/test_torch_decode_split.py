@@ -120,6 +120,7 @@ def test_cpu_decode_counts_no_launch():
     tpa.paged_attention(_t(q), _t(kp), _t(vp), _t(tables), _t(lengths))
     assert K.launches["paged_attention"] == 0
     assert K.launches["paged_attention_merge"] == 0
+    assert K.launches["paged_attention_split"] == 0
 
 
 # ---------------------------------------------------------------------------

@@ -108,6 +108,7 @@ def test_cpu_split_wrappers_count_no_launch(rng):
     tfa.flash_attention(x, x, x, causal=False)
     assert K.launches["flash_attention"] == 0
     assert K.launches["flash_attention_merge"] == 0
+    assert K.launches["flash_attention_split"] == 0
 
 
 # ---------------------------------------------------------------------------
@@ -122,30 +123,34 @@ PLAN_CASES = [(4, 12, 1500, 1500), (1, 12, 1500, 1500), (8, 12, 1, 1500),
 
 
 @pytest.mark.parametrize("B,H,Sq,Sk", PLAN_CASES)
-@pytest.mark.parametrize("n_sms", [132, 114])
-def test_plan_fills_the_card_with_whole_tile_splits(B, H, Sq, Sk, n_sms):
-    rows, n_split = tfa.plan(B, H, Sq, Sk, n_sms)
+@pytest.mark.parametrize("n_sms,per_sm", [(132, 3), (114, 2)])
+def test_plan_fills_the_card_with_whole_tile_splits(B, H, Sq, Sk, n_sms,
+                                                    per_sm):
+    rows, n_split = tfa.plan(B, H, Sq, Sk, n_sms, per_sm)
     assert rows == (16 if Sq <= 16 else 64)     # one warp or four
     tiles = -(-Sk // BLOCK_K)
-    assert 1 <= n_split <= max(tiles, 1)
+    cap = tiles if rows == 16 else min(tiles, tfa.MAX_SPLITS_64)
+    assert 1 <= n_split <= max(cap, 1)
     per = -(-tiles // n_split)
     assert (n_split - 1) * per < tiles or tiles == 0   # no empty split
     assert split_ranges(Sk, n_split) == [
         (s * per * BLOCK_K, min((s + 1) * per * BLOCK_K, Sk))
         for s in range(n_split)]
-    warps = B * H * -(-Sq // rows) * rows // 16
-    target = tfa.WAVE_WARPS * n_sms
+    blocks = B * H * -(-Sq // rows)
+    wave = per_sm * n_sms
     if n_split > 1:
-        assert warps * n_split >= target or n_split == tiles
-        assert warps < target
-    else:
-        assert warps >= target or tiles <= 1
+        assert blocks * n_split <= wave       # every block in one wave
+    # the next split count of whole tiles would leave the wave, the tiles
+    # or the 64-row tile's cap behind
+    more = -(-tiles // (per - 1)) if per > 1 else tiles + 1
+    assert blocks * more > wave or more > cap
 
 
 def test_plan_splits_short_tiles_and_not_the_encoder():
-    assert tfa.plan(4, 12, 1500, 1500, 132) == (64, 1)
-    assert tfa.plan(1, 12, 1500, 1500, 132) == (64, 1)
-    rows, n_split = tfa.plan(8, 12, 1, 1500, 132)       # decode rows
+    # whisper-small on an H100: 3 blocks of either tile per SM
+    assert tfa.plan(4, 12, 1500, 1500, 132, 3) == (64, 1)
+    assert tfa.plan(1, 12, 1500, 1500, 132, 3) == (64, 1)
+    rows, n_split = tfa.plan(8, 12, 1, 1500, 132, 3)    # decode rows
     assert rows == 16 and n_split > 1
-    rows, n_split = tfa.plan(4, 12, 64, 1500, 132)      # a 64-row chunk
+    rows, n_split = tfa.plan(4, 12, 64, 1500, 132, 3)   # a 64-row chunk
     assert rows == 64 and n_split > 1

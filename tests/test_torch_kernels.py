@@ -165,6 +165,8 @@ def test_cpu_calls_take_plain_versions_and_count_no_launch(rng):
     x = _t(rng.standard_normal((1, 2, 3, 64)).astype(np.float32))
     tfa.flash_attention(x, x, x, causal=False)
     assert K.launches == {"cache_write": 0, "paged_attention": 0,
+                          "paged_attention_split": 0,
                           "paged_attention_merge": 0,
                           "paged_prefill_attention": 0, "selective_scan": 0,
-                          "flash_attention": 0, "flash_attention_merge": 0}
+                          "flash_attention": 0, "flash_attention_split": 0,
+                          "flash_attention_merge": 0}

@@ -1,19 +1,27 @@
 #!/usr/bin/env python3
-"""Device times of the attention and selective-scan kernels of two source
-trees on one card, and the accuracy cost of an approximate scan
-exponential.
+"""Device times of the cache-write, attention and selective-scan kernels
+of two source trees on one card, and the accuracy cost of an approximate
+scan exponential.
 
     python3 tools/kernel_ab.py --parent DIR
 
-DIR holds another checkout's ``src/repro_torch/csrc`` (for example one
-unpacked with ``git archive <commit> src/repro_torch/csrc | tar -x -C
-DIR``).  Both trees' ``paged_attention.cu``, ``flash_attention.cu`` and
-``selective_scan.cu`` are built with nvcc: decode and chunked-prefill
-paged attention, flash attention (with its split-KV merge) and the scan
-at the smoke's shapes.  Each case is timed parent, change, change, parent
-(CUDA-graph replays of 20 calls, medians of 7; decode also with the 50 MB
-L2 flushed before each call), so the two versions meet the same card in
-one process.  The last lines build the checkout's scan with ``expf``
+DIR holds another checkout's ``src/repro_torch`` (for example one
+unpacked with ``git archive <commit> src/repro_torch | tar -x -C DIR``):
+its ``csrc`` sources and its flash planner.  Both trees' ``cache_write.cu``, ``paged_attention.cu``,
+``flash_attention.cu`` and ``selective_scan.cu`` are built with nvcc: the
+cache write of K and V at LLaVA's image chunk and decode (B = 8, w = 4096)
+and at whisper's decode (w = 768), each tree's caller path (the parent's
+stacks K and V into one tensor first; this tree's reads them where they
+lie and skips the scratch rows), with the stack copy and each write also
+timed alone; decode and chunked-prefill paged attention, flash attention
+(split calls with their merge, each tree at its own plan, then this
+tree's kernel at other plans of the split shapes) and the scan at the
+smoke's shapes.  Each
+case is timed parent, change, change, parent (CUDA-graph replays of 20
+calls, medians of 7; decode also with the 50 MB L2 flushed before each
+call), so the two versions meet the same card in one process.  The
+parent's entry points are those of the tree before the split kernels
+merged in their own last blocks and the write took separate planes.  The last lines build the checkout's scan with ``expf``
 replaced by ``ex2.approx`` of dt * A * log2 e and report both kernels'
 largest error against the plain version at falcon-mamba's prefill shape,
 seeds 0-2, beside the scan's bar of 1e-4.  Needs a CUDA card and nvcc;
@@ -84,9 +92,10 @@ def decode_ab(libs, gen, sms):
     from repro_torch.kernels.paged_attention.ops import decode_plan
     from repro_torch.kernels.paged_attention.ref import paged_attention_ref
     par, new = libs["parent_pa"].paged_attention, libs["pa"].paged_attention
-    par.argtypes = [_P] * 6 + [_I] * 8 + [_P]
-    new.argtypes = [_P] * 6 + [_I] * 9 + [_P] * 2
+    par.argtypes = [_P] * 6 + [_I] * 9 + [_P] * 2
+    new.argtypes = [_P] * 6 + [_I] * 9 + [_P] * 3
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    counters = torch.zeros(4096, dtype=torch.int32, device="cuda")
 
     def cold(fn):
         return graph_ms(lambda: (flush.zero_(), fn())) - \
@@ -122,11 +131,11 @@ def decode_ab(libs, gen, sms):
 
         def fp():
             par(*ptrs, outs[0].data_ptr(), 1, B, H, Kh, D, PAGE, P, 0,
-                stream())
+                n_split, parts.data_ptr(), stream())
 
         def fn():
             new(*ptrs, outs[1].data_ptr(), 1, B, H, Kh, D, PAGE, P, 0,
-                n_split, parts.data_ptr(), stream())
+                n_split, parts.data_ptr(), counters.data_ptr(), stream())
         fp()
         fn()
         torch.cuda.synchronize()
@@ -169,16 +178,22 @@ def prefill_ab(libs, gen):
           flush=True)
 
 
-def flash_ab(libs, gen, sms):
+def flash_ab(libs, gen, sms, parent_plan):
     """bf16 flash attention at whisper's shapes: the encoder (one split)
-    and the cross-attention of a 64-row chunk and of a decode row (split
-    kernel and merge in one call)."""
+    and the cross-attention of a 64-row chunk and of a decode row, each
+    tree at its own plan (``parent_plan``: the parent's ``plan``; the
+    parent's split calls launch their merge as a second kernel).  Then
+    this tree's kernel at other (rows, n_split) plans of the two split
+    shapes, timed once each, to compare the planner's choice with."""
     import torch
-    from repro_torch.kernels.flash_attention.ops import plan
-    fns = [libs[n].flash_attention for n in ("parent_fa", "fa")]
-    for f in fns:
-        f.argtypes = [_P] * 4 + [_I] * 10 + [ctypes.POINTER(ctypes.c_int64)] \
-            + [_I] * 2 + [_P] * 2
+    from repro_torch.kernels.flash_attention.ops import split_plan
+    par, new = (libs[n].flash_attention for n in ("parent_fa", "fa"))
+    head = [_P] * 4 + [_I] * 10 + [ctypes.POINTER(ctypes.c_int64)] + [_I] * 2
+    par.argtypes = head + [_P] * 2
+    new.argtypes = head + [_P] * 3
+    counters = torch.zeros(4096, dtype=torch.int32, device="cuda")
+    sweep = {"cross-prefill-b4-c64": [(64, n) for n in (2, 3, 4, 6, 8, 12)],
+             "cross-decode-b8": [(16, n) for n in (2, 3, 4, 6, 8, 12)]}
     for tag, B, Sq in [("enc-self-b4", 4, 1500), ("cross-prefill-b4-c64", 4,
                                                   64),
                        ("cross-decode-b8", 8, 1)]:
@@ -187,20 +202,97 @@ def flash_ab(libs, gen, sms):
         k, v = (torch.randn((B, H, Sk, D), generator=gen,
                             device="cuda").bfloat16() for _ in range(2))
         out = torch.empty_like(q)
-        rows, n_split = plan(B, H, Sq, Sk, sms)
-        parts = torch.empty(n_split * B * H * Sq * (D + 2), device="cuda")
+        parts = torch.empty(12 * B * H * Sq * (D + 2), device="cuda")
         strides = (ctypes.c_int64 * 12)(*(st for t in (q, k, v, out)
                                           for st in t.stride()[:3]))
         ptrs = [t.data_ptr() for t in (q, k, v, out)]
-        calls = [lambda f=f: f(*ptrs, 1, B, H, H, Sq, Sk, D, 0, 0, 0, strides,
-                               rows, n_split, parts.data_ptr(),
-                               torch.cuda.current_stream().cuda_stream)
-                 for f in fns]
-        print(json.dumps({"flash": f"{tag}: B={B} H={H} Sq={Sq} Sk={Sk} D={D} "
-                                   f"bf16, {n_split} split(s)",
-                          "device_ms": alternate(*calls, graph_ms),
-                          "order": "parent, change, change, parent"}),
-              flush=True)
+
+        def call(f, rows, n_split, *x):
+            return lambda: f(*ptrs, 1, B, H, H, Sq, Sk, D, 0, 0, 0, strides,
+                             rows, n_split, parts.data_ptr(), *x,
+                             torch.cuda.current_stream().cuda_stream)
+        pplan = parent_plan(B, H, Sq, Sk, sms)
+        nplan = split_plan(B, H, Sq, Sk, D, 0)
+        print(json.dumps({
+            "flash": f"{tag}: B={B} H={H} Sq={Sq} Sk={Sk} D={D} bf16",
+            "plan_rows_n_split": {"parent": pplan, "change": nplan},
+            "device_ms": alternate(call(par, *pplan),
+                                   call(new, *nplan, counters.data_ptr()),
+                                   graph_ms),
+            "order": "parent, change, change, parent"}), flush=True)
+        if tag in sweep:
+            print(json.dumps({
+                "flash_plans": tag, "change_device_ms": {
+                    f"{r}x{n}": graph_ms(call(new, r, n, counters.data_ptr()))
+                    for r, n in sweep[tag]}}), flush=True)
+
+
+def cache_write_ab(libs, gen):
+    """The write of one layer's K and V rows into a 513-block pool (32
+    layers of w = 4096 for LLaVA, 12 of w = 768 for whisper; bf16): the
+    parent's path stacks K and V, then writes every row; this tree's reads
+    K and V where they lie and skips the rows aimed at the scratch block.
+    Each path, then the stack alone and each tree's write alone."""
+    import torch
+    par, new = libs["parent_cw"].cache_write, libs["cw"].cache_write
+    L_ = ctypes.c_longlong
+    par.argtypes = [_P, _I, _P, _I, _P, _I, _I, L_, L_, _I, _I, _P]
+    new.argtypes = [_P, _I, _P, _I, L_, L_, _P, L_, _I, L_, L_, _I, _I, _I,
+                    _I, _P]
+    NB, bs = 512, PAGE
+    for tag, L, w, B, C, n in [("image-chunk", 32, 4096, 1, 1024, 576),
+                               ("decode-b8", 32, 4096, 8, 1, 1),
+                               ("whisper-decode-b8", 12, 768, 8, 1, 1)]:
+        pool = torch.zeros((2, L, NB + 1, bs, w), dtype=torch.bfloat16,
+                           device="cuda")
+        k, v = (torch.randn((B, C, w), generator=gen, device="cuda")
+                .bfloat16() for _ in range(2))
+        scratch = NB * bs
+        slots = torch.full((B, C), scratch, dtype=torch.int32, device="cuda")
+        perm = torch.randperm(NB * bs, generator=gen, device="cuda")
+        slots[:, :n] = perm[:B * n].view(B, n).int()
+        stacked = torch.stack([k, v])
+        layer = L - 1
+        pstride = (v.data_ptr() - k.data_ptr()) // 2
+
+        def stream():
+            return torch.cuda.current_stream().cuda_stream
+
+        def write_parent(rows):
+            err = par(pool.data_ptr(), 1, rows.data_ptr(), 1,
+                      slots.data_ptr(), 2 * B * C, B * C,
+                      L * (NB + 1) * bs, layer * (NB + 1) * bs, w, 1,
+                      stream())
+            if err:
+                raise RuntimeError(f"parent cache_write: {err}")
+
+        def write_change():
+            err = new(pool.data_ptr(), 1, k.data_ptr(), 1, pstride, w,
+                      slots.data_ptr(), 2 * B * C, B * C,
+                      L * (NB + 1) * bs, layer * (NB + 1) * bs, scratch, bs,
+                      w, 1, stream())
+            if err:
+                raise RuntimeError(f"cache_write: {err}")
+
+        write_parent(stacked)
+        want = pool.clone()
+        pool.zero_()
+        write_change()
+        torch.cuda.synchronize()
+        same = torch.equal(pool[:, :, :NB], want[:, :, :NB]) and \
+            not pool[:, :, NB].any()
+        print(json.dumps({
+            "cache_write": f"{tag}: T=2 B={B} C={C} ({n} valid) w={w} bf16",
+            "rows_match_parent_scratch_untouched": same,
+            "path_device_ms": alternate(
+                lambda: write_parent(torch.stack([k, v])), write_change,
+                graph_ms),
+            "stack_device_ms": graph_ms(lambda: torch.stack([k, v])),
+            "write_alone_device_ms": alternate(
+                lambda: write_parent(stacked), write_change, graph_ms),
+            "order": "parent, change, change, parent"}), flush=True)
+        del pool, want
+        torch.cuda.empty_cache()
 
 
 def scan_inputs(gen, B, S, dtype, d=8192, N=16):
@@ -260,6 +352,17 @@ def scan_ab(libs, gen):
                           "tol": 1e-4}), flush=True)
 
 
+def parent_function(parent: Path, module: str, name: str):
+    """Function ``name`` of the parent tree's ``src/repro_torch/<module>``,
+    loaded from its file (its imports resolve to this tree's package)."""
+    import importlib.util
+    path = parent / "src" / "repro_torch" / module
+    spec = importlib.util.spec_from_file_location(f"parent_{path.stem}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return getattr(mod, name)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent", required=True, type=Path)
@@ -282,7 +385,9 @@ def main() -> int:
         "ex2a(float x) {\n  float y;\n  asm(\"ex2.approx.ftz.f32 %0, %1;\" : "
         "\"=f\"(y) : \"f\"(x * 1.4426950408889634f));\n  return y;\n}\n", 1)
         .replace(old, "ex2a(dtv * a[i])"))
-    libs = build({"pa": (csrc / "paged_attention.cu", csrc),
+    libs = build({"cw": (csrc / "cache_write.cu", csrc),
+                  "parent_cw": (pcsrc / "cache_write.cu", pcsrc),
+                  "pa": (csrc / "paged_attention.cu", csrc),
                   "ss": (csrc / "selective_scan.cu", csrc),
                   "fa": (csrc / "flash_attention.cu", csrc),
                   "parent_fa": (pcsrc / "flash_attention.cu", pcsrc),
@@ -295,9 +400,11 @@ def main() -> int:
     print(json.dumps({"card": card}), flush=True)
     gen = torch.Generator(device="cuda").manual_seed(0)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
+    cache_write_ab(libs, gen)
     decode_ab(libs, gen, sms)
     prefill_ab(libs, gen)
-    flash_ab(libs, gen, sms)
+    flash_ab(libs, gen, sms, parent_function(
+        args.parent, "kernels/flash_attention/ops.py", "plan"))
     scan_ab(libs, gen)
     return 0
 
