@@ -43,14 +43,21 @@ on failure:
             flash's decode row and 64-row chunk): their device time beside
             that of the same calls from a build whose split blocks write
             their partials and skip the merge;
+            MLA's latent rows (K and V the same pages, one KV head, 128
+            query heads) at D = 80, 112 and 576: decode at B = 8 and
+            chunked prefill of a 64-row chunk, f32 and bf16, and the
+            single-plane width-576 cache write of a decode step, scratch
+            untouched;
             times kernel (eager, and CUDA-graph replay), plain
             version and one PyTorch library call (where there is one) with
-            CUDA events, and computes each kernel's bound;
+            CUDA events, and computes each kernel's bound (at D = 576 too:
+            decode at B = 8, a 512-token chunk, the write);
 4. model  - the port's runner on the card against the same runner on the
             CPU (plain versions) on reduced LLaVA, reduced falcon-mamba
             (batched chunks of different lengths) and reduced whisper-small
-            (encoder output, batched chunks, decode over cross K/V): logits
-            per step;
+            (encoder output, batched chunks, decode over cross K/V),
+            reduced granite-moe-1b-a400m and reduced DeepSeek-V2 (latent
+            pool, D = 80): logits per step;
 5. serve  - three main paths through ``repro_torch.engine.api.Engine``,
             each with the launch counters set to 0 just before it and read
             just after: full-width, 32-layer LLaVA-1.5-7B with random bf16
@@ -69,12 +76,20 @@ on failure:
             launch in encode, prefill and decode, decode's cross-attention
             must take split-KV, each request's encoder output and cross K/V
             must migrate P -> D, and the embedding cache must hold a host
-            copy of every encoder output);
+            copy of every encoder output); then full-width 24-layer
+            granite-moe-1b-a400m and full-width DeepSeek-V2 cut to 4
+            layers (MLA + MoE on a latent pool), each on P/D instances
+            (five greedy/sampled text requests of 200-600 tokens as for
+            falcon-mamba; every attention and cache-write kernel must
+            launch, the K/V or latent rows must migrate P -> D; one
+            profiled decode step at B = 4 with its MoE FFN's device time
+            and the share of its matrix products);
 6. report - one JSON line of kernels (each split-KV merge keeps its own
             row: fused into its split kernel, its launches are the split
             calls, ``ms`` and ``standalone_*`` time the merge kernel alone,
-            ``fused`` its share of the split calls), then the final status
-            line.
+            ``fused`` its share of the split calls; the ``*_mla`` rows are
+            the paged kernels at DeepSeek-V2's latent rows, their launches
+            the DeepSeek-V2 path's), then the final status line.
 
 Exits non-zero (and prints no status line) without a card or outside the
 repository.
@@ -129,6 +144,11 @@ H, KH, D, PAGE, W = 32, 32, 128, 16, 4096             # llava-1.5-7b widths
 D_INNER, N_STATE = 8192, 16                           # falcon-mamba-7b widths
 WH, WD, WT = 12, 64, 1500                             # whisper-small heads,
 #                                                       head dim, frames
+GH, GKH, GD, GL = 16, 8, 64, 24                       # granite-moe-1b-a400m
+#                                  heads, KV heads, head dim, layers
+MLA_H = 128                                           # deepseek-v2 heads
+LATENT_DIMS = (80, 112, 576)                          # MLA latent rows R +
+#                                          rope: reduced, 112, full width
 
 
 def log(obj):
@@ -346,8 +366,9 @@ def fused_share(name: str, call, device_ms: float) -> dict:
 def decode_cases(gen, dev, results):
     """Decode attention against its plain version: LLaVA's widths at B = 4
     and 8 (ctx 600-700), a 256-key window, GQA with 8 KV heads, whisper's
-    decoder (H = Kh = 12, D = 64, under 64 keys: one split) and one lane of
-    4096 keys (many splits), f32 and bf16; at B = 8 bf16 the times warm
+    decoder (H = Kh = 12, D = 64, under 64 keys: one split), granite-moe's
+    (H = 16, Kh = 8, D = 64, ctx 200-600) and one lane of 4096 keys (many
+    splits), f32 and bf16; at B = 8 bf16 the times warm
     (eager and CUDA-graph replay), with L2 flushed, and SDPA's on the same
     keys gathered contiguous; then the split-KV merge alone."""
     import torch
@@ -362,6 +383,7 @@ def decode_cases(gen, dev, results):
              ("b4-window256", [600, 633, 700, None], H, KH, D, 256),
              ("b4-gqa-kh8", [600, 633, 700, None], H, 8, D, 0),
              ("whisper-b4", [40, 41, 45, 48], WH, WH, WD, 0),
+             ("granite-b4", [200, 350, 480, 600], GH, GKH, GD, 0),
              ("b1-ctx4096", [4096], H, KH, D, 0)]
     errs = []
     for tag, lens, Hq, kh, Dh, window in cases:
@@ -376,7 +398,7 @@ def decode_cases(gen, dev, results):
             want = paged_attention_ref(q, kp, vp, tables, lengths,
                                        window=window)
             err = check(f"paged_attention/{tag}", dtype, got, want)
-            n_split = ops.decode_plan(B, Hq, kh, P, PAGE, sms)
+            n_split = ops.decode_plan(B, Hq, kh, Dh, P, PAGE, sms)
             if dtype == torch.bfloat16:
                 errs.append(err)
             if dtype == torch.bfloat16 and tag != "b8":
@@ -510,14 +532,16 @@ def prefill_cases(gen, dev, results):
     # (tag, ctx per lane (None = padded lane), C, valid rows per lane, H,
     # Kh, D, window); LLaVA's widths, then whisper-small's decoder prefill
     # (H = Kh = 12, D = 64: the D = 64 tile) with ragged valid rows, two
-    # first chunks and two later ones
+    # first chunks and two later ones, then granite-moe's (H = 16, Kh = 8,
+    # D = 64) at its 512-token budget: a first chunk and a later one
     cases = [("text-c32", [600, 620, 650, None], 32, 32, H, KH, D, 0),
              ("media-c1024", [0], 1024, 576, H, KH, D, 0),
              ("text-c32-window128", [600, 620, 650, 1200], 32, 32, H, KH, D,
               128),
              ("text-c32-gqa-kh8", [600, 620, 650, None], 32, 32, H, 8, D, 0),
              ("whisper-c64", [0, 0, 64, 37], 64, [45, 22, 64, 20], WH, WH,
-              WD, 0)]
+              WD, 0),
+             ("granite-c512", [0, 512], 512, [512, 88], GH, GKH, GD, 0)]
     errs = []
     for tag, ctx, C, n_valid, Hq, kh, Dh, window in cases:
         if isinstance(n_valid, int):
@@ -590,7 +614,7 @@ def prefill_cases(gen, dev, results):
                 log({"timing": "paged_prefill_attention/media-c1024-bf16",
                      **results["paged_prefill_attention"],
                      "library_masked_ms": masked_ms})
-            if tag in ("text-c32", "whisper-c64") \
+            if tag in ("text-c32", "whisper-c64", "granite-c512") \
                     and dtype == torch.bfloat16:
                 log({"timing": f"paged_prefill_attention/{tag}-bf16",
                      "ms": time_ms(lambda: paged_prefill_attention(
@@ -612,28 +636,36 @@ def cache_write_cases(gen, dev, results):
     plain version bit for bit, and the scratch block must come out byte
     for byte as it was.  Timed at LLaVA's image chunk and at decode B = 8,
     each against the bytes it must move: every row not aimed at scratch
-    read once and written once, and the slots."""
+    read once and written once, and the slots.  Then granite-moe's writes
+    (K and V planes of Kh * D = 512 into its 24-layer pool), checked and
+    timed alike at its decode (B = 4) and a 512-token chunk."""
     import torch
     from repro_torch.kernels.cache_write.ops import paged_chunk_write
     from repro_torch.kernels.cache_write.ref import cache_write_ref
-    T, L, NB, bs = 2, 32, 512, PAGE
+    T, NB, bs = 2, 512, PAGE
+    # (tag, B, C, valid rows a lane): LLaVA's, then granite-moe's
+    llava = (("decode-b8", 8, 1, 1), ("prefill-c1024", 1, 1024, 576))
+    granite = (("granite-decode-b4", 4, 1, 1),
+               ("granite-prefill-c512", 1, 512, 512))
     errs = []
-    for pool_dtype, row_dtype, NBx in ((torch.bfloat16, torch.bfloat16, NB),
-                                       (torch.bfloat16, torch.float32, NB),
-                                       (torch.float32, torch.float32, 64)):
-        pool = torch.randn((T, L, NBx + 1, bs, W), generator=gen,
+    for pool_dtype, row_dtype, NBx, L, Wp, writes in (
+            (torch.bfloat16, torch.bfloat16, NB, 32, W, llava),
+            (torch.bfloat16, torch.float32, NB, 32, W, llava),
+            (torch.float32, torch.float32, 64, 32, W, llava),
+            (torch.bfloat16, torch.bfloat16, NB, GL, GKH * GD, granite)):
+        pool = torch.randn((T, L, NBx + 1, bs, Wp), generator=gen,
                            device=dev).to(pool_dtype)
-        if pool_dtype == torch.bfloat16 and pool.numel() <= 2 ** 31:
+        if writes is llava and pool_dtype == torch.bfloat16 \
+                and pool.numel() <= 2 ** 31:
             raise AssertionError("the pool must exceed 2^31 elements")
         scratch = NBx * bs
-        for tag, B, C, n in (("decode-b8", 8, 1, 1),
-                             ("prefill-c1024", 1, 1024, 576)):
+        for tag, B, C, n in writes:
             layer = L - 1
             perm = torch.randperm(NBx * bs, generator=gen, device=dev)
             slots = torch.full((B, C), scratch, dtype=torch.int32,
                                device=dev)
             slots[:, :n] = perm[:B * n].view(B, n).to(torch.int32)
-            k, v = (torch.randn((B, C, W), generator=gen, device=dev)
+            k, v = (torch.randn((B, C, Wp), generator=gen, device=dev)
                     .to(row_dtype) for _ in range(T))
             got = pool.clone()
             paged_chunk_write(got, layer, (k, v), slots, scratch=scratch)
@@ -642,8 +674,8 @@ def cache_write_cases(gen, dev, results):
             slot_vec = (plane[:, None] + slots.reshape(-1)[None].long()) \
                 .reshape(-1)
             want = pool.clone()
-            flat = want.view(-1, bs, W)
-            rows2 = torch.stack([k, v]).reshape(-1, W)
+            flat = want.view(-1, bs, Wp)
+            rows2 = torch.stack([k, v]).reshape(-1, Wp)
             cache_write_ref(flat, rows2, slot_vec)
             err = check(f"cache_write/{tag}/rows-{dname(row_dtype)}",
                         pool_dtype, got[:, :, :NBx], want[:, :, :NBx])
@@ -655,23 +687,23 @@ def cache_write_cases(gen, dev, results):
             if pool_dtype == row_dtype == torch.bfloat16:
                 isz = k.element_size()
                 n_dst = T * int((slots < scratch).sum())
-                b_ms, b_by = bound(2 * n_dst * W * isz + slots.numel() * 4,
+                b_ms, b_by = bound(2 * n_dst * Wp * isz + slots.numel() * 4,
                                    0.0, dname(pool_dtype))
 
                 def write():
                     paged_chunk_write(got, layer, (k, v), slots,
                                       scratch=scratch)
-                row = {"shape": f"T=2 B={B} C={C} ({n} valid) w={W} from "
-                                f"K and V planes into a {NBx + 1}-block pool "
-                                f"{dname(pool_dtype)}",
+                row = {"shape": f"T=2 B={B} C={C} ({n} valid) w={Wp} from "
+                                f"K and V planes into a {NBx + 1}-block "
+                                f"{L}-layer pool {dname(pool_dtype)}",
                        "ms": time_ms(write),
                        "plain_ms": time_ms(lambda: cache_write_ref(
                            flat, rows2, slot_vec)),
-                       "library_ms": time_ms(lambda: flat.view(-1, W)
+                       "library_ms": time_ms(lambda: flat.view(-1, Wp)
                                              .index_copy_(0, slot_vec, rows2)),
                        "device_ms": time_ms_graph(write),
                        "library_device_ms": time_ms_graph(
-                           lambda: flat.view(-1, W).index_copy_(0, slot_vec,
+                           lambda: flat.view(-1, Wp).index_copy_(0, slot_vec,
                                                                 rows2)),
                        # as a step finds it: K/V and the pool rows not in
                        # L2 (a warm replay keeps the image chunk's 19 MB
@@ -684,12 +716,187 @@ def cache_write_cases(gen, dev, results):
                 log({"timing": f"cache_write/{tag}-bf16", **row})
                 if tag == "prefill-c1024":
                     results.setdefault("cache_write", {}).update(row)
-                else:
+                elif tag == "decode-b8":
                     results.setdefault("cache_write", {})["decode_b8"] = row
             del got, want, flat, k, v
         del pool
         torch.cuda.empty_cache()
     results["cache_write"]["max_abs_err"] = max(errs)
+
+
+def latent_cases(gen, dev, results):
+    """MLA's absorbed attention on the paged kernels: 1-KV-head MQA over
+    latent rows (K and V the same pages) at D = 80 (reduced DeepSeek-V2),
+    112 and 576 (full width), G = MLA_H query heads.  Decode at B = 8
+    (ctx 600-700), f32 and bf16; chunked prefill of a 64-row chunk at B = 4
+    (a first chunk, two later ones, a padded lane), f32 and bf16; the
+    single-plane width-576 cache write of a decode step at B = 8 (a padded
+    lane aimed at scratch), exact, the scratch block untouched.  At each D
+    in bf16 the times of the decode at B = 8 and of one 512-token prefill
+    chunk, and at D = 576 of the write, each beside its plain version, one
+    PyTorch call (SDPA on the pre-gathered latent rows; index_copy_) and
+    its bound; the kernels line takes the D = 576 rows."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.cache_write.ops import paged_token_write
+    from repro_torch.kernels.cache_write.ref import cache_write_ref
+    from repro_torch.kernels.paged_attention import ops
+    from repro_torch.kernels.paged_attention.ops import (
+        paged_attention, paged_prefill_attention)
+    from repro_torch.kernels.paged_attention.ref import (
+        paged_attention_ref, paged_prefill_attention_ref)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    lens8 = [600, 615, 631, 648, 656, 671, 689, 700]
+    errs = {"paged_attention": [], "paged_prefill_attention": []}
+    for Dl in LATENT_DIMS:
+        for dtype in (torch.float32, torch.bfloat16):
+            kp, _, tables, P = paged_case(gen, dev, dtype, lens=lens8,
+                                          n_pages_total=400, Kh=1, Dh=Dl)
+            B = len(lens8)
+            q = torch.randn((B, MLA_H, Dl), generator=gen,
+                            device=dev).to(dtype)
+            lengths = torch.tensor(lens8, dtype=torch.int32, device=dev)
+            got = paged_attention(q, kp, kp, tables, lengths)
+            want = paged_attention_ref(q, kp, kp, tables, lengths)
+            errs["paged_attention"].append(check(
+                f"paged_attention/mla-d{Dl}-g{MLA_H}", dtype, got, want))
+            if dtype != torch.bfloat16:
+                continue
+            S = P * PAGE
+            k = kp[tables.long()].reshape(B, 1, S, Dl) \
+                .expand(B, MLA_H, S, Dl)
+            mask = (torch.arange(S, device=dev)[None]
+                    < lengths[:, None])[:, None, None, :]
+            qq = q[:, :, None, :]
+            isz = q.element_size()
+            nkeys = sum(lens8)
+            rows_kv = distinct_kv_rows(tables, lens8)
+            # one read of each latent row serves as both K and V
+            b_ms, b_by = bound(2 * q.numel() * isz + rows_kv * Dl * isz
+                               + tables.numel() * 4 + B * 4,
+                               4 * nkeys * MLA_H * Dl, dname(dtype))
+
+            def call():
+                return paged_attention(q, kp, kp, tables, lengths)
+
+            def sdpa():
+                return F.scaled_dot_product_attention(qq, k, k,
+                                                      attn_mask=mask)
+            row = {"shape": f"B={B} H={MLA_H} Kh=1 D={Dl} page={PAGE} "
+                            f"ctx 600-700, K = V pages {dname(dtype)}",
+                   "n_split": ops.decode_plan(B, MLA_H, 1, Dl, P, PAGE, sms),
+                   "ms": time_ms(call), "device_ms": time_ms_graph(call),
+                   "plain_ms": time_ms(lambda: paged_attention_ref(
+                       q, kp, kp, tables, lengths)),
+                   "library_ms": time_ms(sdpa),
+                   "library_device_ms": time_ms_graph(sdpa),
+                   "bound_ms": b_ms, "bound_by": b_by}
+            row["bound_share"] = b_ms / row["device_ms"]
+            if Dl == 576:
+                results["paged_attention_mla"] = row
+            log({"timing": f"paged_attention/mla-d{Dl}-bf16", **row})
+            del k, mask
+        # chunked prefill: lane 0 a first chunk, lanes 1-2 later chunks
+        # (lane 2 with 30 valid rows), lane 3 padded
+        ctx, C, n_valid = [0, 200, 450, None], 64, [64, 64, 30, 0]
+        for dtype in (torch.float32, torch.bfloat16):
+            lens = [None if c is None else c + n for c, n in zip(ctx, n_valid)]
+            kp, _, tables, P = paged_case(gen, dev, dtype, lens=lens,
+                                          n_pages_total=400, Kh=1, Dh=Dl)
+            q = torch.randn((len(ctx), C, MLA_H, Dl), generator=gen,
+                            device=dev).to(dtype)
+            ctx_t = torch.tensor([c or 0 for c in ctx], dtype=torch.int32,
+                                 device=dev)
+            got = paged_prefill_attention(q, kp, kp, tables, ctx_t)
+            want = paged_prefill_attention_ref(q.float(), kp.float(),
+                                               kp.float(), tables, ctx_t)
+            err = check(f"paged_prefill_attention/mla-d{Dl}-g{MLA_H}", dtype,
+                        got[:2], want[:2])
+            err = max(err, check(
+                f"paged_prefill_attention/mla-d{Dl}-g{MLA_H}-ragged", dtype,
+                got[2, :30], want[2, :30]))
+            errs["paged_prefill_attention"].append(err)
+    # one 512-token first chunk at each D, bf16: the prefill's timing rows
+    C, dtype = 512, torch.bfloat16
+    for Dl in LATENT_DIMS:
+        kp, _, tables, P = paged_case(gen, dev, dtype, lens=[C],
+                                      n_pages_total=40, Kh=1, Dh=Dl)
+        q = torch.randn((1, C, MLA_H, Dl), generator=gen,
+                        device=dev).to(dtype)
+        ctx_t = torch.zeros(1, dtype=torch.int32, device=dev)
+        S = tables.shape[1] * PAGE
+        if S != C:
+            raise AssertionError("the timed chunk must be the square "
+                                 "causal case")
+        k = kp[tables.long()].reshape(1, 1, S, Dl).expand(1, MLA_H, S, Dl)
+        qq = q.transpose(1, 2)
+        isz = q.element_size()
+        b_ms, b_by = bound(2 * q.numel() * isz + C * Dl * isz
+                           + tables.numel() * 4 + 4,
+                           4 * (C * (C + 1) // 2) * MLA_H * Dl, dname(dtype))
+
+        def chunk():
+            return paged_prefill_attention(q, kp, kp, tables, ctx_t)
+
+        def sdpa_chunk():
+            return F.scaled_dot_product_attention(qq, k, k, is_causal=True)
+        row = {"shape": f"B=1 C={C} H={MLA_H} Kh=1 D={Dl} ctx 0, K = V "
+                        f"pages {dname(dtype)}",
+               "ms": time_ms(chunk), "device_ms": time_ms_graph(chunk, reps=5),
+               "plain_ms": time_ms(lambda: paged_prefill_attention_ref(
+                   q, kp, kp, tables, ctx_t), reps=3, rounds=3),
+               "library_ms": time_ms(sdpa_chunk),
+               "library_device_ms": time_ms_graph(sdpa_chunk, reps=5),
+               "bound_ms": b_ms, "bound_by": b_by}
+        row["bound_share"] = b_ms / row["device_ms"]
+        if Dl == 576:
+            results["paged_prefill_attention_mla"] = row
+        log({"timing": f"paged_prefill_attention/mla-d{Dl}-c512-bf16",
+             **row})
+        del k, q, qq
+    for name, e in errs.items():
+        results[f"{name}_mla"]["max_abs_err"] = max(e)
+
+    # the write of one decode step's latent rows: one plane, 1,152-byte rows
+    L, NB, B, Dl = 3, 512, 8, 576
+    pool = torch.randn((1, L, NB + 1, PAGE, Dl), generator=gen,
+                       device=dev).to(dtype)
+    scratch = NB * PAGE
+    slots = torch.randperm(NB * PAGE, generator=gen, device=dev)[:B] \
+        .to(torch.int32)
+    slots[-1] = scratch + 7                       # a padded lane
+    rows = torch.randn((1, B, Dl), generator=gen, device=dev).to(dtype)
+    got = pool.clone()
+    paged_token_write(got, L - 1, rows, slots, scratch=scratch)
+    want = pool.clone()
+    flat = want.view(-1, PAGE, Dl)
+    slot_vec = (L - 1) * (NB + 1) * PAGE + slots.long()
+    cache_write_ref(flat, rows.reshape(-1, Dl), slot_vec)
+    err = check("cache_write/mla-d576-decode-b8", dtype, got[:, :, :NB],
+                want[:, :, :NB])
+    if not torch.equal(got[:, :, NB].view(torch.uint8),
+                       pool[:, :, NB].view(torch.uint8)):
+        raise AssertionError("cache_write/mla-d576: the kernel wrote into "
+                             "the scratch block")
+    isz = rows.element_size()
+    b_ms, b_by = bound(2 * (B - 1) * Dl * isz + B * 4, 0.0, dname(dtype))
+
+    def write():
+        paged_token_write(got, L - 1, rows, slots, scratch=scratch)
+
+    def index_copy():
+        flat.view(-1, Dl).index_copy_(0, slot_vec, rows.reshape(-1, Dl))
+    row = {"shape": f"T=1 B={B} ({B - 1} valid) w={Dl} into a {NB + 1}-block "
+                    f"{L}-layer latent pool {dname(dtype)}",
+           "ms": time_ms(write), "device_ms": time_ms_graph(write),
+           "plain_ms": time_ms(lambda: cache_write_ref(
+               flat, rows.reshape(-1, Dl), slot_vec)),
+           "library_ms": time_ms(index_copy),
+           "library_device_ms": time_ms_graph(index_copy),
+           "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": err}
+    row["bound_share"] = b_ms / row["device_ms"]
+    results["cache_write_mla"] = row
+    log({"timing": "cache_write/mla-d576-decode-b8-bf16", **row})
 
 
 def scan_inputs(gen, dev, B, S, dtype, d=D_INNER, N=N_STATE):
@@ -1044,6 +1251,50 @@ def whisper_model_check(seed: int):
          "steps": steps, "max_rel_err": worst, "tol": 2e-4})
 
 
+def moe_model_check(arch: str, seed: int):
+    """Reduced granite-moe or DeepSeek-V2 (MoE FFN; DeepSeek with latent
+    attention over its MLA pool, head dim 80, one KV head): a batched first
+    chunk of three prompts of different lengths, a second chunk for two of
+    them, then four decode steps, on the card and on the CPU."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.engine import runner as R
+    from repro_torch.models import model as M
+    cfg = get_config(arch).reduced()
+    runners = {}
+    for dev in ("cpu", "cuda"):
+        p = M.init_params(cfg, torch.Generator().manual_seed(seed)).to(dev)
+        runners[dev] = R.ModelRunner(cfg, p, R.RunnerCaches(
+            cfg, kv_blocks=32, device=dev), device=dev)
+    pools = {n for n, _ in runners["cuda"].caches.seq_pools()}
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (13, 6, 9)]
+    worst, steps = 0.0, 0
+
+    def compare(fn):
+        nonlocal worst, steps
+        want, got = fn(runners["cpu"]), fn(runners["cuda"])
+        rel = float(np.abs(got - want).max() / (np.abs(want).max() + 1e-9))
+        worst, steps = max(worst, rel), steps + 1
+        if not rel < 2e-4:
+            raise AssertionError(f"{arch} model check: logits off by {rel}")
+        return want
+
+    first = compare(lambda r: r.prefill_chunks([(0, prompts[0][:8], False),
+                                                (1, prompts[1], False),
+                                                (2, prompts[2][:5], False)]))
+    last = compare(lambda r: r.prefill_chunks([(0, prompts[0][8:], False),
+                                               (2, prompts[2][5:], False)]))
+    toks = np.argmax(np.stack([last[0], first[1], last[1]]), -1)
+    for _ in range(4):
+        toks = np.argmax(compare(lambda r: r.decode([0, 1, 2], toks)), -1)
+    log({"model_check": f"reduced {arch} f32 (pools {sorted(pools)}), "
+                        f"runner on cuda vs cpu",
+         "steps": steps, "max_rel_logit_err": worst, "tol": 2e-4})
+
+
 # ---------------------------------------------------------------------------
 # phase 5: the main path
 # ---------------------------------------------------------------------------
@@ -1127,7 +1378,7 @@ def check_reclaimed(srv):
     for inst in srv.instances:
         if inst.running or inst.waiting or inst.caches.states.store:
             raise AssertionError(f"instance {inst.iid} still holds work")
-        for c in (inst.caches.kv, inst.caches.img):
+        for c in (inst.caches.kv, inst.caches.mla, inst.caches.img):
             if c is not None and (
                     c.tables or any(c.refcount)
                     or c.allocator.n_free + len(c.evictable)
@@ -1136,12 +1387,16 @@ def check_reclaimed(srv):
                                      f"reclaimed")
 
 
-def profile_calls(fn, what: str, card: str, tag: str, steps: int = 3):
+def profile_calls(fn, what: str, card: str, tag: str, steps: int = 3,
+                  ranges: tuple = ()):
     """Device time by kernel over ``steps`` calls of ``fn`` (torch.profiler
     with CUDA activity), the device's busy share of their wall time, and
     the launches per call of the split-KV merge kernel and of copy kernels
     (names with "copy" in them: CatArrayBatchedCopy of torch.stack and
-    torch.cat, casts and copies)."""
+    torch.cat, casts and copies).  For each name in ``ranges`` (a
+    ``record_function`` range that ``fn`` opens) also the device time of
+    the kernels launched inside it, and of the matrix products
+    (``aten::mm``) among them, as shares of the busy time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -1154,8 +1409,8 @@ def profile_calls(fn, what: str, card: str, tag: str, steps: int = 3):
         wall_us = (time.perf_counter() - t0) * 1e6
     rows = []                    # device-side kernel events only: the
     for e in prof.key_averages():  # host ops above them carry the same time
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
+        if e.device_type != torch.autograd.DeviceType.CUDA or e.key in ranges:
+            continue                 # (a range's own span on the device too)
         dev_us = e.self_device_time_total
         if dev_us > 0:
             rows.append((dev_us, e.key, e.count))
@@ -1165,6 +1420,21 @@ def profile_calls(fn, what: str, card: str, tag: str, steps: int = 3):
     for _, k, n in rows:
         if "copy" in k.lower():
             copies[k[:60]] = copies.get(k[:60], 0) + n / steps
+    spans = {}
+    for name in ranges:
+        inside = [e for e in prof.events() if e.name == name
+                  and e.device_type == torch.autograd.DeviceType.CPU]
+        if not inside:
+            raise AssertionError(f"no {name} range in the trace")
+
+        def mm_us(e):
+            return sum(c.device_time_total if c.name == "aten::mm"
+                       else mm_us(c) for c in e.cpu_children)
+        us = sum(e.device_time_total for e in inside)
+        spans[name] = {"device_ms_per_call": us / steps / 1e3,
+                       "share": us / busy if busy else None,
+                       "matmul_share": sum(map(mm_us, inside)) / busy
+                       if busy else None}
     log({"profile": f"{what}, {steps} calls",
          "path": tag, "card": card, "wall_ms_per_call": wall_us / steps / 1e3,
          "device_ms_per_call": busy / steps / 1e3,
@@ -1173,7 +1443,7 @@ def profile_calls(fn, what: str, card: str, tag: str, steps: int = 3):
          "merge_kernel_launches_per_call": sum(
              n for _, k, n in rows if "merge_kernel" in k) / steps,
          "copy_launches_per_call": sum(copies.values()),
-         "copy_kernels": copies,
+         "copy_kernels": copies, **({"ranges": spans} if spans else {}),
          "top": [{"kernel": k[:80], "ms_per_call": us / steps / 1e3,
                   "launches_per_call": n / steps}
                  for us, k, n in rows[:12]]})
@@ -1361,6 +1631,108 @@ def serve_mamba(seed: int, card: str):
     return launches
 
 
+def serve_moe(arch: str, seed: int, card: str):
+    """granite-moe-1b-a400m at full width and depth, or DeepSeek-V2 at full
+    width cut to 4 layers (one MLA_MLP, three MLA_MOE: 236 B parameters do
+    not fit one card), P1+D1: five text requests of 200-600 prompt tokens,
+    16 new tokens, four greedy and one seeded sampled; then one profiled
+    decode step at B = 4 on the D instance.  Returns the launch counts of
+    the run."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_config
+    from repro_torch.core.budgets import Budgets
+    from repro_torch.core.request import SamplingParams
+    from repro_torch.core.simulator import DisaggConfig
+    from repro_torch.engine.api import Engine
+    from repro_torch.models import model as M
+    from repro_torch.models import moe
+    cfg = get_config(arch)
+    mla = bool(cfg.kv_lora_rank)
+    if mla:
+        cfg = dataclasses.replace(cfg, num_layers=4)
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(device="cuda")
+                           .manual_seed(seed), dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    eng = Engine(cfg, params, DisaggConfig({"P": 1, "D": 1}),
+                 budgets=Budgets(512, 4), device="cuda")
+    log({"setup": f"{arch} full width, {cfg.num_layers} layers, random bf16 "
+                  f"weights", "params": n_params,
+         "weight_bytes": sum(p.numel() * p.element_size()
+                             for p in params.parameters()),
+         "setup_s": time.perf_counter() - t0})
+    rng = np.random.default_rng(seed)
+    reqs = []
+    for i in range(5):
+        prompt = rng.integers(0, cfg.vocab_size,
+                              int(rng.integers(200, 601))).astype(np.int32)
+        sp = SamplingParams(max_tokens=16) if i < 4 else SamplingParams(
+            temperature=0.8, top_k=50, top_p=0.95, seed=seed, max_tokens=16)
+        reqs.append((prompt, None, sp))
+
+    with timed_calls(wall_split_targets()) as split:
+        K.reset_launches()
+        rs, outs, wall = run_requests(eng, reqs, cfg.vocab_size)
+        launches = dict(K.launches)
+    for name in ("cache_write", "paged_attention", "paged_prefill_attention"):
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} never launched on the "
+                                 f"{arch} main path")
+    srv = eng.server
+    d = next(i for i in srv.instances if i.role_name == "D")
+    pool_name, pool = d.caches.seq_pools()[0]
+    if [n for n, _ in d.caches.seq_pools()] != (["mla"] if mla else ["kv"]):
+        raise AssertionError(f"{arch}: pools {d.caches.seq_pools()}")
+    # each request's rows: its prompt (and first token) in every layer
+    row_bytes = pool.spec.n_tensors * pool.spec.n_layers * pool.spec.width * 2
+    if srv.n_migrations < len(reqs) or srv.migrated_bytes < sum(
+            len(p) for p, _, _ in reqs) * row_bytes:
+        raise AssertionError(f"{srv.n_migrations} migrations moved "
+                             f"{srv.migrated_bytes} bytes")
+    check_reclaimed(srv)
+    log({"main_path": f"Engine P1+D1, {arch} bf16 ({cfg.num_layers} layers, "
+                      f"{pool_name} pool of width {pool.spec.width}), 5 text "
+                      f"requests of 200-600 prompt tokens, 16 new tokens, "
+                      f"token budget 512",
+         "card": card, "wall_s": wall, **request_metrics(rs),
+         "prompt_tokens": [len(p) for p, _, _ in reqs],
+         "migrations": srv.n_migrations, "migrated_bytes": srv.migrated_bytes,
+         "launches": launches, "wall_split": split,
+         "greedy_tokens_req0": outs[0]})
+
+    # one decode step at B = 4 over random cached rows (context 400) and
+    # random tokens, so the lanes route to different experts
+    ctx, rids = 400, [10_000 + b for b in range(4)]
+    spec = pool.spec
+    for rid in rids:
+        pool.append(rid, torch.randn((spec.n_tensors, spec.n_layers, ctx,
+                                      spec.width), device="cuda")
+                    .to(torch.bfloat16))
+    toks = rng.integers(0, cfg.vocab_size, len(rids)).astype(np.int32)
+    ffn = moe.moe_ffn
+
+    def annotated(*a, **k):
+        with torch.profiler.record_function("moe_ffn"):
+            return ffn(*a, **k)
+    d.runner.decode(rids, toks)
+    moe.moe_ffn = annotated
+    try:
+        profile_calls(lambda: d.runner.decode(rids, toks),
+                      "decode step, B=4", card,
+                      f"{arch}, {cfg.num_layers} layers, context {ctx}",
+                      ranges=("moe_ffn",))
+    finally:
+        moe.moe_ffn = ffn
+    for rid in rids:
+        d.caches.release(rid)
+    return launches
+
+
 def serve_whisper(seed: int, card: str):
     """whisper-small, E1+P1+D1; returns the launch counts of its run."""
     import numpy as np
@@ -1504,6 +1876,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     flash_cases(gen, dev, results, rate)
     torch.cuda.empty_cache()
+    latent_cases(gen, dev, results)
+    torch.cuda.empty_cache()
     for name, r in results.items():
         log({"kernel": name, "card": card, **r})
     log({"phase": "kernels", "s": time.perf_counter() - t0})
@@ -1511,6 +1885,8 @@ def main() -> int:
     model_check(args.seed)
     mamba_model_check(args.seed)
     whisper_model_check(args.seed)
+    for arch in ("granite-moe-1b-a400m", "deepseek-v2-236b"):
+        moe_model_check(arch, args.seed)
     launches = serve(args.seed, card)
     gc.collect()                      # LLaVA's weights and pools go first
     torch.cuda.empty_cache()
@@ -1522,6 +1898,14 @@ def main() -> int:
     for name in ("flash_attention", "flash_attention_split",
                  "flash_attention_merge"):
         launches[name] = whisper[name]
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve_moe("granite-moe-1b-a400m", args.seed, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the latent rows' kernel rows count the DeepSeek-V2 path's launches
+    for name, n in serve_moe("deepseek-v2-236b", args.seed, card).items():
+        launches[f"{name}_mla"] = n
     # a merge row's launches: the split calls, each merging in its last
     # blocks (the merge kernel alone never runs on the main paths)
     for name in ("paged_attention", "flash_attention"):
@@ -1546,7 +1930,16 @@ def main() -> int:
                                "src/repro/kernels/flash_attention/kernel.py:65"),
            "flash_attention_merge": (
                "src/repro_torch/csrc/attn_merge.cuh",
-               "src/repro/kernels/flash_attention/kernel.py:65")}
+               "src/repro/kernels/flash_attention/kernel.py:65"),
+           # the same kernels at MLA's latent rows (D = 576, one KV head)
+           "paged_attention_mla": (
+               "src/repro_torch/csrc/paged_attention.cu",
+               "src/repro/kernels/paged_attention/kernel.py:78"),
+           "paged_prefill_attention_mla": (
+               "src/repro_torch/csrc/paged_attention.cu",
+               "src/repro/kernels/paged_attention/kernel.py:162"),
+           "cache_write_mla": ("src/repro_torch/csrc/cache_write.cu",
+                               "src/repro/kernels/cache_write/kernel.py:25")}
     kernels = []
     for name, (source, replaces) in src.items():
         r = results[name]

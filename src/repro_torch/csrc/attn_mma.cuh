@@ -59,10 +59,13 @@ constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 constexpr int MAX_WARPS = 4;
 
-// Tile shape per head dim: keys per tile, ring depth, Q kept in registers
+// Tile shape per head dim: keys per tile, ring depth, Q kept in registers.
+// Any D that is a multiple of 16 up to 256 (the products step 16 deep and
+// 16 wide); above that the O accumulators no longer fit a warp's registers
+// (paged_attention.cu has a kernel that splits D across warps instead).
 template <int D>
 struct Cfg {
-  static_assert(D == 64 || D == 128 || D == 256, "head dim 64, 128 or 256");
+  static_assert(D % 16 == 0 && D >= 32 && D <= 256, "head dim 16k, 32 <= D <= 256");
   static constexpr int BK = D <= 128 ? 64 : 32;
   static constexpr int STAGES = D <= 64 ? 3 : 2;
   static constexpr bool Q_REGS = D <= 128;
@@ -199,6 +202,8 @@ __device__ __forceinline__ void softmax_tile(const float (&s)[BK / 8][4], uint32
 //   kv_rows<N, STEP>(j, row)
 //                       row[m] = the row index of key j + m * STEP, or -1
 //                       for a key at or past kv_limit (m < N)
+//   kv_row(j)           the same for one key (needed only when D / 8 does
+//                       not divide the block's threads; FlashProb has none)
 //   k_at(i), v_at(i)    the K and V rows of row index i
 //   kv_limit, causal, window
 // Key j is visible to a row at qpos when j < kv_limit, (!causal or j <=
@@ -228,20 +233,37 @@ __device__ __forceinline__ void attend(const Prob& P, int kt_begin, int kt_end,
   bf16* sQ = smem;
   bf16* sKV = sQ + ROWS * LD;          // stage s: K at s * 2 * BK * LD, then V
 
-  // thread tid copies chunk tid % CH of keys tid / CH + m * NTHR / CH
+  // When CH divides the block, thread tid copies chunk tid % CH of keys
+  // tid / CH + m * NTHR / CH, their rows found with one division a tile;
+  // else chunk i % CH of key i / CH for i = tid + m * NTHR, each key's row
+  // looked up on its own (P.kv_row).  The second path would serve every
+  // D, but costs a division by the page size per chunk: 18% and 22% more
+  // device time at D = 64 and 128 on an H100 (tools/kernel_ab.py --mla).
   auto load_tile = [&](int kt, int stage) {
-    constexpr int PER = BK * CH / NTHR, STEP = NTHR / CH;
+    constexpr int PER = BK * CH / NTHR;
     bf16* kd = sKV + stage * 2 * BK * LD;
     bf16* vd = kd + BK * LD;
-    const int c = tid % CH;
-    int row[PER];
-    P.template kv_rows<PER, STEP>(kt * BK + tid / CH, row);
+    if constexpr (NTHR % CH == 0) {
+      constexpr int STEP = NTHR / CH;
+      const int c = tid % CH;
+      int row[PER];
+      P.template kv_rows<PER, STEP>(kt * BK + tid / CH, row);
 #pragma unroll
-    for (int m = 0; m < PER; ++m) {
-      const int j = tid / CH + m * STEP;
-      const bool ok = row[m] >= 0;
-      cp_async16(kd + j * LD + c * 8, ok ? P.k_at(row[m]) + c * 8 : P.k_base, ok);
-      cp_async16(vd + j * LD + c * 8, ok ? P.v_at(row[m]) + c * 8 : P.k_base, ok);
+      for (int m = 0; m < PER; ++m) {
+        const int j = tid / CH + m * STEP;
+        const bool ok = row[m] >= 0;
+        cp_async16(kd + j * LD + c * 8, ok ? P.k_at(row[m]) + c * 8 : P.k_base, ok);
+        cp_async16(vd + j * LD + c * 8, ok ? P.v_at(row[m]) + c * 8 : P.k_base, ok);
+      }
+    } else {
+#pragma unroll
+      for (int m = 0; m < PER; ++m) {
+        const int i = tid + m * NTHR, j = i / CH, c = i % CH;
+        const int row = P.kv_row(kt * BK + j);
+        const bool ok = row >= 0;
+        cp_async16(kd + j * LD + c * 8, ok ? P.k_at(row) + c * 8 : P.k_base, ok);
+        cp_async16(vd + j * LD + c * 8, ok ? P.v_at(row) + c * 8 : P.k_base, ok);
+      }
     }
   };
 

@@ -25,8 +25,8 @@
 // in a loop, reading its own table row; pages wholly outside the rows'
 // visible keys are skipped.  Three bodies:
 //
-// - decode (f32 and bf16, D = 32, 64, 128 or 256): bound by the bytes of
-//   the cached K/V it reads once per step (LLaVA at B = 8, ctx 600-700:
+// - decode (f32 and bf16, D = 32, 64, 80, 112, 128, 256 or 576): bound by
+//   the bytes of the cached K/V it reads once per step (LLaVA at B = 8, ctx 600-700:
 //   85 MB, 0.0255 ms at 3.35 TB/s).  Split-KV: the wrapper's decode_plan
 //   cuts the table's columns into n_split ranges of whole pages, from the
 //   shapes alone (no host read of the lengths, so a call can be captured
@@ -46,13 +46,22 @@
 //   registers, in log2 units (the 1/sqrt(D) scale and log2 e folded into
 //   q, exponentials on ex2.approx), combined across the warp by shuffles
 //   and across the warps once in shared memory.  P is not rounded: no
-//   tensor cores here, so a bf16 output is rounded once.  One split
+//   tensor cores here, so a bf16 output is rounded once.  Rows whose
+//   16-byte chunks do not fill a power of two of lanes (D = 80, 112, 576:
+//   MLA's latent rows, one KV head for all 128 query heads at full width)
+//   leave the lanes past the row idle; at D = 576 a block holds 2 heads,
+//   so their q and acc fit registers (see DecCfg).  At G = 128 the 64
+//   blocks of a request read the same latent rows, and the same rows again
+//   as V: right, not fast.  One split
 //   writes out; more write f32 partials, and the last of a (b, head group)
 //   tile's split blocks to finish merges them into out (attn_merge.cuh's
 //   arrive_last and merge_rows): one launch.
-// - bf16 chunked prefill, D = 64, 128 or 256: the tensor-core tile of
-//   attn_mma.cuh.  The block's rows are (chunk row c, query head g) pairs
-//   of its KV head, r = c * G + g, cut into tiles of 64 rows, 16 per warp
+// - bf16 chunked prefill, D = 64, 80, 112, 128 or 256: the tensor-core
+//   tile of attn_mma.cuh.  At D = 576 (MLA's latent rows) the tile's O
+//   accumulators do not fit a warp, so paged_prefill_wide_kernel splits D
+//   across the block's four warps (see there).  The block's rows are
+//   (chunk row c, query head g) pairs of its KV head, r = c * G + g, cut
+//   into tiles of 64 rows, 16 per warp
 //   (GQA folds into the M dimension of the products); blocks of the last
 //   rows, which see the most keys, start first.  A key tile is 64 keys
 //   (32 at D = 256): each thread looks up its keys' pages in the table
@@ -61,9 +70,9 @@
 //   (4 * C * ctx * D per head) on the tensor cores, and the exponentials.
 // - f32 prefill: CUDA-core f32 products from shared memory, one page in
 //   flight.  f32 stays off the tensor cores by design (the f32 model
-//   checks hold the card to the CPU within 2e-4).  The block's tile_c x G
-//   query rows keep their running max, sum and accumulator in shared
-//   memory.
+//   checks hold the card to the CPU within 2e-4).  The block's 16 query
+//   rows (of the C * G (c, g) pairs) keep their running max, sum and
+//   accumulator in shared memory, so any D fits.
 #include "attn_mma.cuh"
 #include "attn_merge.cuh"
 
@@ -78,7 +87,7 @@ namespace {
 using attn::bf16;
 using attn::NEG_INF;
 constexpr int THREADS = 128;
-constexpr int ROWS_PER_BLOCK = 16;   // target tile_c * G for prefill
+constexpr int ROWS_PER_BLOCK = 16;   // query rows of an f32 prefill block
 
 template <typename T> __device__ __forceinline__ float to_f32(T x);
 template <> __device__ __forceinline__ float to_f32<float>(float x) { return x; }
@@ -88,16 +97,22 @@ template <> __device__ __forceinline__ bf16 from_f32<bf16>(float x) {
   return __float2bfloat16(x);
 }
 
+// grid (ceil(C * G / ROWS_PER_BLOCK), Kh, B): the block's query rows are
+// the (chunk row c, head g) pairs r = c * G + g of its KV head, rows row0 ..
+// row0 + QR - 1 of the C * G, so its shared memory is bounded whatever G
+// and D are.
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
 paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ kp,
                   const T* __restrict__ vp, const int32_t* __restrict__ tables,
                   const int32_t* __restrict__ lens, T* __restrict__ out, int C,
                   int H, int Kh, int D, int page, int max_pages, int window,
-                  int tile_c, float scale) {
-  const int b = blockIdx.z, kh = blockIdx.y, c0 = blockIdx.x * tile_c;
+                  float scale) {
+  const int b = blockIdx.z, kh = blockIdx.y;
   const int G = H / Kh;
-  const int QR = tile_c * G;       // query rows of this block, r = (c - c0) * G + g
+  const int QR = ROWS_PER_BLOCK;   // query rows of this block
+  const int row0 = blockIdx.x * QR;
+  const int n_rows = C * G;
   const int DP = D + 1;            // padded stride: no bank conflicts across rows
   extern __shared__ float smem[];
   float* qs = smem;                // [QR, DP] scaled queries
@@ -114,9 +129,10 @@ paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ kp,
 
   for (int i = tid; i < QR * D; i += THREADS) {
     const int r = i / D, d = i % D;
-    const int c = c0 + r / G, g = r % G;
+    const int c = (row0 + r) / G, g = (row0 + r) % G;
     float v = 0.f;
-    if (c < C) v = to_f32(q[(((int64_t)b * C + c) * H + kh * G + g) * D + d]) * scale;
+    if (row0 + r < n_rows)
+      v = to_f32(q[(((int64_t)b * C + c) * H + kh * G + g) * D + d]) * scale;
     qs[r * DP + d] = v;
     acc[i] = 0.f;
   }
@@ -126,8 +142,8 @@ paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   }
 
   // pages any row of the tile can see
-  const int q_lo = ctx + c0;
-  const int q_hi = ctx + min(c0 + tile_c, C) - 1;
+  const int q_lo = ctx + row0 / G;
+  const int q_hi = ctx + (min(row0 + QR, n_rows) - 1) / G;
   const int j_end = q_hi < 0 ? 0 : min(max_pages, q_hi / page + 1);
   int j_begin = 0;
   if (window > 0 && q_lo - window + 1 > 0) j_begin = (q_lo - window + 1) / page;
@@ -153,7 +169,7 @@ paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ kp,
       for (int d = lane; d < D; d += gs) part += qs[r * DP + d] * ks[t * DP + d];
       for (int o = gs / 2; o > 0; o >>= 1) part += __shfl_xor_sync(0xffffffffu, part, o);
       if (lane == 0) {
-        const int qpos = ctx + c0 + r / G;
+        const int qpos = ctx + (row0 + r) / G;
         const int pos = j * page + t;
         const bool valid = pos <= qpos && (window <= 0 || pos > qpos - window);
         s[idx] = valid ? part : NEG_INF;
@@ -190,8 +206,8 @@ paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ kp,
 
   for (int i = tid; i < QR * D; i += THREADS) {
     const int r = i / D, d = i % D;
-    const int c = c0 + r / G, g = r % G;
-    if (c < C)
+    const int c = (row0 + r) / G, g = (row0 + r) % G;
+    if (row0 + r < n_rows)
       out[(((int64_t)b * C + c) * H + kh * G + g) * D + d] =
           from_f32<T>(acc[i] / fmaxf(l[r], 1e-30f));
   }
@@ -203,8 +219,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* tabl
                    int page, int max_pages, int window, cudaStream_t stream) {
   if (B == 0 || C == 0) return cudaSuccess;
   const int G = H / Kh;
-  const int tile_c = G >= ROWS_PER_BLOCK ? 1 : ROWS_PER_BLOCK / G;
-  const size_t QR = (size_t)tile_c * G;
+  const size_t QR = ROWS_PER_BLOCK;
   const size_t smem = (QR * (D + 1) + QR * D + (size_t)page * (D + 1) +
                        (size_t)page * D + QR * page + 3 * QR) * sizeof(float);
   // raise the kernel's shared-memory limit only when a launch needs more
@@ -215,11 +230,11 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* tabl
     if (err != cudaSuccess) return err;
     allowed.store(smem);
   }
-  const dim3 grid((C + tile_c - 1) / tile_c, Kh, B);
+  const dim3 grid((unsigned)(((int64_t)C * G + QR - 1) / QR), Kh, B);
   paged_attn_kernel<T><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const int32_t*>(tables), static_cast<const int32_t*>(lens),
-      static_cast<T*>(out), C, H, Kh, D, page, max_pages, window, tile_c,
+      static_cast<T*>(out), C, H, Kh, D, page, max_pages, window,
       1.0f / sqrtf((float)D));
   return cudaGetLastError();
 }
@@ -248,6 +263,33 @@ template <> __device__ __forceinline__ void unpack<bf16>(const uint4& u, float* 
   }
 }
 
+__host__ __device__ constexpr int pow2_at_least(int n) {
+  int p = 1;
+  while (p < n) p <<= 1;
+  return p;
+}
+
+// How a decode block reads a row of D elements of T: CH 16-byte chunks, LPK
+// lanes a key (the power of two at or above CH, at most 32), NV chunks a
+// lane; when LPK does not divide CH, the lanes past the row's last chunk
+// load nothing and hold zeros (D = 80 and 112: 10 and 14 bf16 chunks on 16
+// lanes; D = 576: 72 bf16 chunks on 32 lanes, 3 a lane).  A lane keeps q
+// and acc in registers for each of the block's GT query heads, NV * VEC
+// floats each, at most 64 in all: MAX_GT heads a block, 8 up to D = 256
+// and 2 at D = 576 (the wrapper's heads_per_block mirrors it).
+template <typename T, int D>
+struct DecCfg {
+  static constexpr int VEC = 16 / sizeof(T);                  // elements per 16-byte load
+  static_assert(D % VEC == 0, "rows of whole 16-byte chunks");
+  static constexpr int CH = D / VEC;
+  static constexpr int LPK = CH >= 32 ? 32 : pow2_at_least(CH);  // lanes per key
+  static constexpr int NV = (CH + LPK - 1) / LPK;              // loads per lane per row
+  static constexpr bool PAD = CH % LPK != 0;                   // some lanes hold no chunk
+  static constexpr int KPW = 32 / LPK;                         // keys per warp per step
+  static constexpr int MAX_GT = D <= 256 ? 8 : 2;             // query heads a block
+  static_assert(MAX_GT * NV * VEC <= 64, "q and acc of a block's heads fit registers");
+};
+
 // grid (n_split, H / GT, B), block of DEC_WARPS warps.  The block owns
 // query heads h0 .. h0 + GT - 1 of request b (all of one KV head) and the
 // keys of table columns [split * split_pages, (split + 1) * split_pages),
@@ -266,11 +308,10 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
                     float* __restrict__ part_acc, int H, int Kh, int page,
                     int max_pages, int split_pages, int window, float scale_log2,
                     unsigned* __restrict__ counters) {
-  constexpr int VEC = 16 / sizeof(T);               // elements per 16-byte load
-  constexpr int LPK = D / VEC < 32 ? D / VEC : 32;  // lanes per key
-  constexpr int NV = D / (VEC * LPK);               // loads per lane per row
-  constexpr int KPW = 32 / LPK;                     // keys per warp per step
-  constexpr int U = GT * NV >= 4 ? 1 : 4 / (GT * NV);  // steps per batch
+  using Cf = DecCfg<T, D>;
+  constexpr int VEC = Cf::VEC, LPK = Cf::LPK, NV = Cf::NV, KPW = Cf::KPW;
+  static_assert(GT <= Cf::MAX_GT, "the block's heads fit registers");
+  constexpr int U = GT * NV >= 4 ? 1 : 4 / (GT * NV);        // steps per batch
   constexpr int STEP = DEC_WARPS * KPW, BATCH = U * STEP;
   __shared__ int tbl[DEC_TBL];
   __shared__ float red_m[DEC_WARPS][GT], red_l[DEC_WARPS][GT];
@@ -280,6 +321,8 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
   const int kh = h0 / (H / Kh);
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int sub = lane / LPK, li = lane % LPK;
+  // chunk v * LPK + li of a row is this lane's, if the row has it
+  auto mine = [&](int v) { return !Cf::PAD || v * LPK + li < Cf::CH; };
   const int64_t prow = ((int64_t)split * gridDim.z + b) * H + h0;   // partial row
   // the tile's GT output rows (b, h0 .. h0 + GT - 1) and its counter
   const int64_t orow = (int64_t)b * H + h0, tile = (int64_t)b * gridDim.y + blockIdx.y;
@@ -312,7 +355,7 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
     const uint4* qr = reinterpret_cast<const uint4*>(q + ((int64_t)b * H + h0 + g) * D);
 #pragma unroll
     for (int v = 0; v < NV; ++v) {
-      unpack<T>(qr[v * LPK + li], qf[g][v]);
+      unpack<T>(mine(v) ? qr[v * LPK + li] : make_uint4(0, 0, 0, 0), qf[g][v]);
 #pragma unroll
       for (int e = 0; e < VEC; ++e) {
         qf[g][v][e] *= scale_log2;
@@ -345,8 +388,8 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
           const uint4* vr4 = reinterpret_cast<const uint4*>(vp + r * D) + li;
 #pragma unroll
           for (int v = 0; v < NV; ++v) {
-            kr[u][v] = __ldg(kr4 + v * LPK);
-            vr[u][v] = __ldg(vr4 + v * LPK);
+            kr[u][v] = mine(v) ? __ldg(kr4 + v * LPK) : make_uint4(0, 0, 0, 0);
+            vr[u][v] = mine(v) ? __ldg(vr4 + v * LPK) : make_uint4(0, 0, 0, 0);
           }
         } else {
 #pragma unroll
@@ -439,8 +482,9 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kp,
       }
 #pragma unroll
       for (int v = 0; v < NV; ++v)
+        if (mine(v))
 #pragma unroll
-        for (int e = 0; e < VEC; ++e) red_acc[warp][g][(v * LPK + li) * VEC + e] = acc[g][v][e];
+          for (int e = 0; e < VEC; ++e) red_acc[warp][g][(v * LPK + li) * VEC + e] = acc[g][v][e];
     }
   }
   __syncthreads();
@@ -485,19 +529,23 @@ cudaError_t launch_decode_g(const void* q, const void* k, const void* v, const v
 }
 
 // GT, the query heads of a block: the largest of 8, 4, 2, 1 that divides
-// G = H / Kh, so one block reads each K/V row for up to 8 query heads
+// G = H / Kh (all of one KV head) and is at most DecCfg's MAX_GT, so one
+// block reads each K/V row for up to MAX_GT query heads
 template <typename T, int D>
 cudaError_t launch_decode_d(const void* q, const void* k, const void* v, const void* tables,
                             const void* lens, void* out, int B, int H, int Kh, int page,
                             int max_pages, int window, int n_split, float* pm, float* pl,
                             float* pa, unsigned* counters, cudaStream_t s) {
   const int G = H / Kh;
-  if (G % 8 == 0)
-    return launch_decode_g<T, D, 8>(q, k, v, tables, lens, out, B, H, Kh, page, max_pages,
-                                    window, n_split, pm, pl, pa, counters, s);
-  if (G % 4 == 0)
-    return launch_decode_g<T, D, 4>(q, k, v, tables, lens, out, B, H, Kh, page, max_pages,
-                                    window, n_split, pm, pl, pa, counters, s);
+  constexpr int MAX_GT = DecCfg<T, D>::MAX_GT;
+  if constexpr (MAX_GT >= 8)
+    if (G % 8 == 0)
+      return launch_decode_g<T, D, 8>(q, k, v, tables, lens, out, B, H, Kh, page, max_pages,
+                                      window, n_split, pm, pl, pa, counters, s);
+  if constexpr (MAX_GT >= 4)
+    if (G % 4 == 0)
+      return launch_decode_g<T, D, 4>(q, k, v, tables, lens, out, B, H, Kh, page, max_pages,
+                                      window, n_split, pm, pl, pa, counters, s);
   if (G % 2 == 0)
     return launch_decode_g<T, D, 2>(q, k, v, tables, lens, out, B, H, Kh, page, max_pages,
                                     window, n_split, pm, pl, pa, counters, s);
@@ -529,8 +577,11 @@ cudaError_t launch_decode(const void* q, const void* k, const void* v, const voi
   switch (D) {
     case 32: return run(std::integral_constant<int, 32>());
     case 64: return run(std::integral_constant<int, 64>());
+    case 80: return run(std::integral_constant<int, 80>());
+    case 112: return run(std::integral_constant<int, 112>());
     case 128: return run(std::integral_constant<int, 128>());
     case 256: return run(std::integral_constant<int, 256>());
+    case 576: return run(std::integral_constant<int, 576>());
     default: return cudaErrorInvalidValue;
   }
 }
@@ -559,6 +610,9 @@ struct PagedProb {
       row[m] = j + m * STEP < kv_limit ? table[pg] * page + t : -1;
       for (t += STEP; t >= page; t -= page) ++pg;
     }
+  }
+  __device__ int kv_row(int j) const {
+    return j < kv_limit ? table[j / page] * page + j % page : -1;
   }
   __device__ const bf16* k_at(int i) const { return k_base + (int64_t)i * Kh * D; }
   __device__ const bf16* v_at(int i) const { return v_base + (int64_t)i * Kh * D; }
@@ -643,6 +697,233 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, const void* 
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// bf16 chunked prefill above D = 256: the head dim split across warps
+// ---------------------------------------------------------------------------
+// Above D = 256 a warp cannot hold the O accumulators of its 16 rows (D / 2
+// floats a lane) beside its Q fragments.  So the block's four warps share
+// one tile of 16 query rows and split D four ways: warp w takes the partial
+// scores of a key tile over its quarter of Q's and K's columns (mma.sync,
+// its Q A-fragments in registers), the four partial score tiles are summed
+// through shared memory in one fixed order (every warp then holds the same
+// scores and computes the same softmax state), and warp w accumulates O's
+// columns [w * D / 4, (w + 1) * D / 4) from the same P and its quarter of
+// V.  K/V tiles of 32 keys stream through a two-stage cp.async ring as in
+// attn::attend.  Simple first: a K/V tile is read once per 16 query rows
+// (at MLA's 128 heads, 8 blocks per chunk row read the same latent rows).
+template <int D>
+struct WideCfg {
+  static_assert(D % 64 == 0, "D splits into four warp quarters of whole 16-column steps");
+  static constexpr int BK = 32, STAGES = 2, NW = 4;
+  static constexpr int DW = D / NW;          // a warp's quarter of the columns
+  static constexpr int LD = D + 8;           // padded row, in elements
+  static constexpr int CH = D / 8;           // 16-byte chunks per row
+  static constexpr int RED = BK / 8 * 4 * 32;  // a warp's partial scores, in floats
+  static size_t smem_bytes() {
+    return (size_t)(16 + STAGES * 2 * BK) * LD * sizeof(bf16) + (size_t)NW * RED * sizeof(float);
+  }
+};
+
+// grid (ceil(C * G / 16), Kh, B); block of 4 warps sharing 16 rows
+template <int D>
+__global__ void __launch_bounds__(128, 1)
+paged_prefill_wide_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp,
+                          const bf16* __restrict__ vp, const int32_t* __restrict__ tables,
+                          const int32_t* __restrict__ ctx_lens, bf16* __restrict__ out,
+                          int C, int H, int Kh, int page, int max_pages, int window,
+                          float scale_log2) {
+  using W = WideCfg<D>;
+  constexpr int BK = W::BK, LD = W::LD, CH = W::CH, DW = W::DW, STAGES = W::STAGES;
+  constexpr int NTHR = 32 * W::NW, KW = DW / 16;   // KW: a warp's 16-deep score steps
+  static_assert((BK * CH) % NTHR == 0, "copy split");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
+  bf16* sKV = sQ + 16 * LD;                  // stage s: K at s * 2 * BK * LD, then V
+  float* red = reinterpret_cast<float*>(sKV + STAGES * 2 * BK * LD);   // [NW][RED]
+  const int b = blockIdx.z, kh = blockIdx.y, G = H / Kh;
+  // later rows see more keys (causal), so their blocks start first
+  const int row0 = (gridDim.x - 1 - blockIdx.x) * 16;
+
+  PagedProb P;
+  P.q_b = ((int64_t)b * C * H + (int64_t)kh * G) * D;
+  P.q_base = q;
+  P.k_base = kp + (int64_t)kh * D;
+  P.v_base = vp + (int64_t)kh * D;
+  P.table = tables + (int64_t)b * max_pages;
+  P.row0 = row0;
+  P.rows_valid = min(16, C * G - row0);
+  P.G = G;
+  P.H = H;
+  P.Kh = Kh;
+  P.D = D;
+  P.page = page;
+  P.ctx = ctx_lens[b];
+  P.kv_limit = max_pages * page;
+  P.causal = 1;
+  P.window = window;
+
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int g = lane / 4, tig = lane % 4;
+  // key tiles any row of the tile can see
+  const int qlo = P.qpos(0), qhi = P.qpos(15);
+  const int k_end = min(P.kv_limit, P.qpos(P.rows_valid - 1) + 1);
+  const int k_begin = window > 0 ? max(0, qlo - window + 1) : 0;
+  const int kt_begin = k_begin / BK;
+  const int kt_end = k_end > k_begin ? (k_end + BK - 1) / BK : kt_begin;
+
+  attn::RowState<DW> st;
+#pragma unroll
+  for (int n = 0; n < DW / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) st.acc[n][e] = 0.f;
+  st.m[0] = st.m[1] = NEG_INF;
+  st.l[0] = st.l[1] = 0.f;
+
+  auto load_tile = [&](int kt, int stage) {
+    bf16* kd = sKV + stage * 2 * BK * LD;
+    bf16* vd = kd + BK * LD;
+#pragma unroll
+    for (int m = 0; m < BK * CH / NTHR; ++m) {
+      const int i = tid + m * NTHR, j = i / CH, c = i % CH;
+      const int row = P.kv_row(kt * BK + j);
+      const bool ok = row >= 0;
+      attn::cp_async16(kd + j * LD + c * 8, ok ? P.k_at(row) + c * 8 : P.k_base, ok);
+      attn::cp_async16(vd + j * LD + c * 8, ok ? P.v_at(row) + c * 8 : P.k_base, ok);
+    }
+  };
+  if (kt_begin < kt_end) {
+    // group 0: Q and the first tile; then one group per further tile
+    for (int i = tid; i < 16 * CH; i += NTHR) {
+      const int r = i / CH, c = i % CH;
+      const bool ok = r < P.rows_valid;
+      attn::cp_async16(sQ + r * LD + c * 8, ok ? P.q_row(r) + c * 8 : P.q_base, ok);
+    }
+    load_tile(kt_begin, 0);
+    attn::cp_async_commit();
+  }
+  const int qp0 = P.qpos(g), qp1 = P.qpos(g + 8);
+  uint32_t qf[KW][4];
+  for (int kt = kt_begin, it = 0; kt < kt_end; ++kt, ++it) {
+    attn::cp_async_wait<STAGES - 2>();       // tile kt (and Q) have landed
+    __syncthreads();                         // ... for every thread; tile kt-1 is done
+    if (kt + 1 < kt_end) load_tile(kt + 1, (it + 1) % STAGES);
+    attn::cp_async_commit();
+    const bf16* sK = sKV + (it % STAGES) * 2 * BK * LD;
+    const bf16* sV = sK + BK * LD;
+    if (it == 0) {
+#pragma unroll
+      for (int kk = 0; kk < KW; ++kk)
+        attn::ldsm_x4(qf[kk], sQ + (lane & 15) * LD + (warp * KW + kk) * 16 + (lane >> 4) * 8);
+    }
+
+    // this warp's quarter of S = Q K^T, 16 rows x BK keys
+    float s[BK / 8][4];
+#pragma unroll
+    for (int n = 0; n < BK / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KW; ++kk) {
+      const int col = (warp * KW + kk) * 16;
+#pragma unroll
+      for (int nn = 0; nn < BK / 16; ++nn) {
+        uint32_t bb[4];
+        attn::ldsm_x4(bb, sK + (nn * 16 + (lane & 7) + (lane >> 4) * 8) * LD + col +
+                              ((lane >> 3) & 1) * 8);
+        attn::mma16816(s[2 * nn], qf[kk], bb[0], bb[1]);
+        attn::mma16816(s[2 * nn + 1], qf[kk], bb[2], bb[3]);
+      }
+    }
+    // the four quarters summed in one order: every warp gets the same S
+#pragma unroll
+    for (int n = 0; n < BK / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) red[warp * W::RED + (n * 4 + e) * 32 + lane] = s[n][e];
+    __syncthreads();
+#pragma unroll
+    for (int n = 0; n < BK / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float t = 0.f;
+#pragma unroll
+        for (int w = 0; w < W::NW; ++w) t += red[w * W::RED + (n * 4 + e) * 32 + lane];
+        s[n][e] = t;
+      }
+
+    // online softmax into bf16 pairs of P; only edge tiles compute a mask
+    const int k0 = kt * BK;
+    uint32_t pb[BK / 8][2];
+    if (k0 + BK <= P.kv_limit && k0 + BK - 1 <= qlo && (window <= 0 || k0 > qhi - window)) {
+      attn::softmax_tile<DW, BK, false>(s, 0u, scale_log2, st, pb);
+    } else {
+      uint32_t vis = 0u;               // bit n * 4 + e: the key is visible
+#pragma unroll
+      for (int n = 0; n < BK / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int key = k0 + n * 8 + 2 * tig + (e & 1);
+          const int qp = e < 2 ? qp0 : qp1;
+          if (key < P.kv_limit && key <= qp && (window <= 0 || key > qp - window))
+            vis |= 1u << (n * 4 + e);
+        }
+      attn::softmax_tile<DW, BK, true>(s, vis, scale_log2, st, pb);
+    }
+
+    // O[:, warp's quarter] += P V[:, warp's quarter]
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      const uint32_t a[4] = {pb[2 * kk][0], pb[2 * kk][1], pb[2 * kk + 1][0],
+                             pb[2 * kk + 1][1]};
+#pragma unroll
+      for (int dd = 0; dd < DW / 16; ++dd) {
+        uint32_t bb[4];
+        attn::ldsm_x4_t(bb, sV + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
+                                warp * DW + dd * 16 + (lane >> 4) * 8);
+        attn::mma16816(st.acc[2 * dd], a, bb[0], bb[1]);
+        attn::mma16816(st.acc[2 * dd + 1], a, bb[2], bb[3]);
+      }
+    }
+  }
+  attn::cp_async_wait<0>();    // only empty groups are left; leave none in flight
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    st.l[i] += __shfl_xor_sync(0xffffffffu, st.l[i], 1);
+    st.l[i] += __shfl_xor_sync(0xffffffffu, st.l[i], 2);
+  }
+
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = g + 8 * half;
+    if (r >= P.rows_valid) continue;
+    const float inv = 1.f / fmaxf(st.l[half], 1e-30f);
+    bf16* o = out + P.q_b + ((int64_t)((row0 + r) / G) * H + (row0 + r) % G) * D + warp * DW +
+              2 * tig;
+#pragma unroll
+    for (int n = 0; n < DW / 8; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(o + 8 * n) = __floats2bfloat162_rn(
+          st.acc[n][2 * half] * inv, st.acc[n][2 * half + 1] * inv);
+  }
+}
+
+template <int D>
+cudaError_t launch_wide(const void* q, const void* k, const void* v, const void* tables,
+                        const void* ctx_lens, void* out, int B, int C, int H, int Kh,
+                        int page, int max_pages, int window, cudaStream_t stream) {
+  using W = WideCfg<D>;
+  static const cudaError_t attr =
+      attn::allow_smem(paged_prefill_wide_kernel<D>, W::smem_bytes());
+  if (attr != cudaSuccess) return attr;
+  if (B == 0 || C == 0) return cudaSuccess;
+  const int64_t n_rows = (int64_t)C * (H / Kh);
+  const dim3 grid((unsigned)((n_rows + 15) / 16), Kh, B);
+  paged_prefill_wide_kernel<D><<<grid, 32 * W::NW, W::smem_bytes(), stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const int32_t*>(tables), static_cast<const int32_t*>(ctx_lens),
+      static_cast<bf16*>(out), C, H, Kh, page, max_pages, window,
+      attn::LOG2E / sqrtf((float)D));
+  return cudaGetLastError();
+}
+
 int prefill(const void* q, const void* k, const void* v, const void* tables,
             const void* ctx_lens, void* out, int dtype, int B, int C, int H, int Kh,
             int D, int page, int max_pages, int window, cudaStream_t s) {
@@ -650,13 +931,22 @@ int prefill(const void* q, const void* k, const void* v, const void* tables,
   if (dtype == 0)
     return launch<float>(q, k, v, tables, ctx_lens, out, B, C, H, Kh, D, page, max_pages,
                          window, s);
-  if (dtype == 1 && D == 64)
-    return launch_mma<64>(q, k, v, tables, ctx_lens, out, B, C, H, Kh, page, max_pages, window, s);
-  if (dtype == 1 && D == 128)
-    return launch_mma<128>(q, k, v, tables, ctx_lens, out, B, C, H, Kh, page, max_pages, window, s);
-  if (dtype == 1 && D == 256)
-    return launch_mma<256>(q, k, v, tables, ctx_lens, out, B, C, H, Kh, page, max_pages, window, s);
-  return (int)cudaErrorInvalidValue;
+  if (dtype != 1) return (int)cudaErrorInvalidValue;
+  const auto run = [&](auto d) {
+    return launch_mma<decltype(d)::value>(q, k, v, tables, ctx_lens, out, B, C, H, Kh, page,
+                                          max_pages, window, s);
+  };
+  switch (D) {
+    case 64: return (int)run(std::integral_constant<int, 64>());
+    case 80: return (int)run(std::integral_constant<int, 80>());
+    case 112: return (int)run(std::integral_constant<int, 112>());
+    case 128: return (int)run(std::integral_constant<int, 128>());
+    case 256: return (int)run(std::integral_constant<int, 256>());
+    case 576:
+      return (int)launch_wide<576>(q, k, v, tables, ctx_lens, out, B, C, H, Kh, page,
+                                   max_pages, window, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -664,7 +954,7 @@ int prefill(const void* q, const void* k, const void* v, const void* tables,
 // dtype codes: 0 = float32, 1 = bfloat16.  Both return a cudaError_t.
 
 // Decode: q/out [B, H, D]; lengths[b] tokens valid (the new one included).
-// D = 32, 64, 128 or 256.  n_split ranges of ceil(max_pages / n_split)
+// D = 32, 64, 80, 112, 128, 256 or 576.  n_split ranges of ceil(max_pages / n_split)
 // table columns; n_split > 1 needs parts, n_split * B * H * (D + 2) f32 of
 // scratch, and merges in the same launch with one counter of counters
 // (B * H / GT of them, GT the query heads of a block; zero, left zero; see
@@ -689,6 +979,7 @@ extern "C" int paged_attention(const void* q, const void* k, const void* v,
 
 // Chunked prefill: q/out [B, C, H, D]; ctx_lens[b] tokens cached before the
 // chunk, whose own K/V rows are already in the pages (write-then-attend).
+// f32: any D; bf16: D = 64, 80, 112, 128, 256 or 576.
 extern "C" int paged_prefill_attention(const void* q, const void* k, const void* v,
                                        const void* tables, const void* ctx_lens,
                                        void* out, int dtype, int B, int C, int H,

@@ -37,7 +37,8 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs.base import ATTN_MLP, MAMBA1, ModelConfig
+from repro_torch.configs.base import (ATTN_MLP, ATTN_MOE, MAMBA1, MLA_MLP,
+                                      MLA_MOE, ModelConfig)
 from repro_torch.engine.paged_cache import (DevicePagedCache, PagedCacheSpec,
                                             StateStore, migrate_request)
 from repro_torch.models import model as M
@@ -51,16 +52,23 @@ def bucket_pow2(n: int) -> int:
     return 1 << max(0, n - 1).bit_length()
 
 
-def _seq_layers(cfg: ModelConfig) -> list:
-    """Ids of the layers with a sequence-like paged KV cache."""
-    return [i for i, k in enumerate(cfg.layer_kinds()) if k == ATTN_MLP]
+def _seq_layers(cfg: ModelConfig):
+    """(attn_layer_ids, mla_layer_ids): the layers with a sequence-like
+    paged cache, K/V planes or latent rows."""
+    attn, mla = [], []
+    for i, kind in enumerate(cfg.layer_kinds()):
+        if kind in (MLA_MLP, MLA_MOE):
+            mla.append(i)
+        elif kind in (ATTN_MLP, ATTN_MOE):
+            attn.append(i)
+    return attn, mla
 
 
 class RunnerCaches:
-    """Per-instance cache pool: paged KV + paged image cache + state store,
-    all sharing the unified transfer interface (paper §4.5).  ``kv`` is
-    None for attention-free models; ``mla`` is always None in this slice
-    (MLA is not ported yet)."""
+    """Per-instance cache pool: paged KV + paged latent (MLA) cache + paged
+    image cache + state store, all sharing the unified transfer interface
+    (paper §4.5).  ``kv`` is None without attention layers, ``mla``
+    without MLA layers."""
 
     def __init__(self, cfg: ModelConfig, *, kv_blocks: int = 512,
                  img_blocks: int = 16, dtype=torch.float32, device="cuda",
@@ -70,13 +78,13 @@ class RunnerCaches:
         self.device = resolve_device(device)
         self.dtype = dtype
         self.sharing = sharing
-        self.attn_layers = _seq_layers(cfg)
-        self.mla_layers: list = []
+        self.attn_layers, self.mla_layers = _seq_layers(cfg)
         # Prefix sharing of the KV cache is unsound for models with
         # recurrent layers: their state at a prefix boundary is not paged or
         # snapshotted, so an adopted KV prefix would pair with a zero state.
         # The image cache (pure content, position-free) still shares.
         self.has_recurrent = MAMBA1 in cfg.layer_kinds()
+        share_seq = sharing and not self.has_recurrent
         stores = []
         self.kv = self.mla = self.img = None
         if self.attn_layers:
@@ -84,9 +92,17 @@ class RunnerCaches:
                 n_tensors=2, n_layers=len(self.attn_layers),
                 block_size=KV_BLOCK, width=cfg.num_kv_heads * cfg.head_dim,
                 num_blocks=kv_blocks, dtype=dtype),
-                sharing=sharing and not self.has_recurrent,
-                device=self.device)
+                sharing=share_seq, device=self.device)
             stores.append(self.kv)
+        if self.mla_layers:
+            # one latent row per token, read as both key and value
+            self.mla = DevicePagedCache(PagedCacheSpec(
+                n_tensors=1, n_layers=len(self.mla_layers),
+                block_size=KV_BLOCK,
+                width=cfg.kv_lora_rank + cfg.qk_rope_head_dim,
+                num_blocks=kv_blocks, dtype=dtype),
+                sharing=share_seq, device=self.device)
+            stores.append(self.mla)
         if cfg.frontend != "none":
             # one image per block so a repeated image shares exactly its
             # own pages (media_tokens when set, the LLaVA default otherwise)
@@ -107,17 +123,26 @@ class RunnerCaches:
         for s in self.stores:
             s.free(rid)
 
+    def seq_pools(self) -> list:
+        """(step argument name, pool) of each sequence pool present."""
+        return [(n, c) for n, c in (("kv", self.kv), ("mla", self.mla))
+                if c is not None]
+
     def kv_tokens_free(self) -> int:
-        if self.kv is None:
+        """Tokens every sequence pool can still take (the least of them)."""
+        pools = self.seq_pools()
+        if not pools:
             return 1 << 30       # SSM-only: no token-proportional cache
-        return self.kv.available_blocks * self.kv.spec.block_size
+        return min(c.available_blocks * c.spec.block_size for _, c in pools)
 
     def kv_tokens_total(self) -> int:
-        """Whole-pool KV capacity in tokens: the admission check's
-        can-this-request-EVER-fit bound (DESIGN.md §15)."""
-        if self.kv is None:
+        """Whole-pool KV capacity in tokens, the least over the sequence
+        pools: the admission check's can-this-request-EVER-fit bound
+        (DESIGN.md §15)."""
+        pools = self.seq_pools()
+        if not pools:
             return 1 << 30
-        return self.kv.spec.num_blocks * self.kv.spec.block_size
+        return min(c.spec.num_blocks * c.spec.block_size for _, c in pools)
 
     def live_rids(self) -> set:
         """Every rid holding any state on this instance's stores — the set
@@ -258,8 +283,9 @@ class ModelRunner:
         return self.prefill_chunks([(rid, tokens, use_media)])[0]
 
     def _ctx_len(self, rid: int) -> int:
-        if self.caches.kv is not None:
-            return self.caches.kv.lengths.get(rid, 0)
+        pools = self.caches.seq_pools()
+        if pools:
+            return pools[0][1].lengths.get(rid, 0)
         st = self.caches.states.get(rid) or {}
         return int(st.get("ctx_len", 0))
 
@@ -371,15 +397,14 @@ class ModelRunner:
         last[:B] = np.maximum(np.asarray(n_new, np.int32) - 1, 0)
         lens_arr = np.zeros(B_pad, np.int32)
         lens_arr[:B] = ctx
-        cache = self.caches.kv
         data, ctl = {}, {}
-        if cache is not None:
+        for name, cache in self.caches.seq_pools():
             bs = cache.spec.block_size
             pages = max(-(-(c + n) // bs) for c, n in zip(ctx, n_new))
             tables, slots = cache.prepare_prefill(rids, n_new, B_pad, C_pad,
                                                   bucket_pow2(pages))
-            data["kv"] = cache.data
-            ctl["kv"] = {"tables": self._dev(tables),
+            data[name] = cache.data
+            ctl[name] = {"tables": self._dev(tables),
                          "slots": self._dev(slots),
                          "scratch": cache.scratch_block * bs}
         if img_slots is not None:
@@ -397,7 +422,7 @@ class ModelRunner:
             self.cfg, self.params, data, ctl, state, self._dev(lens_arr),
             self._dev(tokens))
         res = self._finish(logits, B, greedy)
-        if cache is not None:
+        for _, cache in self.caches.seq_pools():
             cache.commit_prefill(rids, n_new)
         self._commit_states(rids, new_state,
                             [c + n for c, n in zip(ctx, n_new)])
@@ -415,15 +440,14 @@ class ModelRunner:
         lens = [self._ctx_len(r) for r in rids]
         lens_arr = np.zeros(B_pad, np.int32)
         lens_arr[:B] = lens
-        cache = self.caches.kv
         data, ctl = {}, {}
-        if cache is not None:
+        for name, cache in self.caches.seq_pools():
             bs = cache.spec.block_size
             pages = max(-(-(n + 1) // bs) for n in lens)
             tables, slots = cache.prepare_decode(rids, B_pad,
                                                  bucket_pow2(pages))
-            data["kv"] = cache.data
-            ctl["kv"] = {"tables": self._dev(tables),
+            data[name] = cache.data
+            ctl[name] = {"tables": self._dev(tables),
                          "slots": self._dev(slots),
                          "scratch": cache.scratch_block * bs}
         return data, ctl, self._dev(lens_arr), lens
@@ -431,8 +455,8 @@ class ModelRunner:
     def _commit_paged(self, rids, new_state, lens):
         """Block tables/lengths advance by the one token the step wrote;
         each lane's new Mamba state goes back to its request."""
-        if self.caches.kv is not None:
-            self.caches.kv.commit_decode(rids)
+        for _, cache in self.caches.seq_pools():
+            cache.commit_decode(rids)
         self._commit_states(rids, new_state, [n + 1 for n in lens])
 
     @torch.inference_mode()

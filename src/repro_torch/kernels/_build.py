@@ -23,8 +23,10 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 KERNELS = ("cache_write", "paged_attention", "selective_scan",
            "flash_attention")
+# --split-compile=0: nvcc optimizes a file's kernels in parallel on all the
+# host's cores (paged_attention.cu holds about 70 template instances)
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "--split-compile=0"]
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()

@@ -13,9 +13,15 @@ split) blocks fill the card; each block reads its keys' K/V rows with
 partials; the last block of each (request, head group) to finish merges
 them in the same launch (``launches`` counts such calls as
 ``paged_attention_split``).  No host read of the lengths: a decode call
-can be captured in a CUDA graph.  bf16 chunked prefill (head dims in
-``PREFILL_MMA_HEAD_DIMS``) runs on the tensor-core tile of
-``csrc/attn_mma.cuh``; f32 prefill on CUDA-core f32 products.
+can be captured in a CUDA graph.  Decode takes the head dims in
+``DECODE_HEAD_DIMS``: 80, 112 and 576 are widths of MLA's latent rows (R
++ rope; 576 at DeepSeek-V2's full width, 80 in its reduced test model),
+read as 1-KV-head MQA with all the query heads of a request (128 at full
+width) over the same rows.  bf16 chunked prefill (head dims in
+``PREFILL_BF16_HEAD_DIMS``) runs on the tensor-core tile of
+``csrc/attn_mma.cuh`` up to D = 256, and above it (576) on a tile whose
+four warps split D; f32 prefill on CUDA-core f32 products, any D.  A head
+dim outside these sets raises on a CUDA tensor.
 """
 from __future__ import annotations
 
@@ -33,19 +39,21 @@ _P, _I = ct.c_void_p, ct.c_int
 # counters, stream
 _DECODE_ARGS = [_P] * 6 + [_I] * 9 + [_P] * 3
 _PREFILL_ARGS = [_P] * 6 + [_I] * 9 + [_P]    # ... dtype B C H Kh D page P window
-PREFILL_MMA_HEAD_DIMS = (64, 128, 256)        # D of the bf16 prefill kernel
-DECODE_HEAD_DIMS = (32, 64, 128, 256)         # D the decode kernel is built for
+PREFILL_BF16_HEAD_DIMS = (64, 80, 112, 128, 256, 576)   # D of bf16 prefill
+DECODE_HEAD_DIMS = (32, 64, 80, 112, 128, 256, 576)     # D of decode
 WAVE_BLOCKS = 4           # two waves of two resident 4-warp blocks per SM
 MIN_SPLIT_KEYS = 64       # no split covers fewer table columns' keys
 
 
-def heads_per_block(G: int) -> int:
+def heads_per_block(G: int, D: int) -> int:
     """Query heads a decode block holds: the largest of 8, 4, 2, 1 that
-    divides G = H / Kh (all of one KV head)."""
-    return next(n for n in (8, 4, 2, 1) if G % n == 0)
+    divides G = H / Kh (all of one KV head), at most 2 above D = 256 (a
+    lane keeps each head's q and acc in registers; ``DecCfg::MAX_GT``)."""
+    most = 8 if D <= 256 else 2
+    return next(n for n in (8, 4, 2, 1) if G % n == 0 and n <= most)
 
 
-def decode_plan(B: int, H: int, Kh: int, max_pages: int, page: int,
+def decode_plan(B: int, H: int, Kh: int, D: int, max_pages: int, page: int,
                 n_sms: int) -> int:
     """n_split for the decode kernel: how many ranges of ceil(max_pages /
     n_split) whole table columns the keys are cut into.  1 when the (b,
@@ -55,7 +63,7 @@ def decode_plan(B: int, H: int, Kh: int, max_pages: int, page: int,
     columns (a block's fixed cost, its table window and its reduction,
     would outweigh fewer keys) and none empty.  A function of shapes only: the lengths are read by the
     kernel, which skips the part of a split past them."""
-    blocks = B * (H // heads_per_block(H // Kh))
+    blocks = B * (H // heads_per_block(H // Kh, D))
     most = min(max_pages, max_pages * page // MIN_SPLIT_KEYS)
     target = WAVE_BLOCKS * n_sms
     if blocks >= target or most <= 1:
@@ -109,8 +117,8 @@ def paged_attention(q, k_pages, v_pages, block_tables, lengths, *,
     K.require((q.data_ptr() | k_pages.data_ptr() | v_pages.data_ptr()) % 16
               == 0, "paged decode attention needs 16-byte aligned q/pages")
     out = torch.empty_like(q)
-    n_split = decode_plan(B, H, Kh, P, page, K.n_sms(q.device.index or 0)) \
-        if B and P else 1
+    n_split = decode_plan(B, H, Kh, D, P, page,
+                          K.n_sms(q.device.index or 0)) if B and P else 1
     parts = torch.empty(n_split * B * H * (D + 2), dtype=torch.float32,
                         device=q.device) if n_split > 1 else None
     fn = _build.function("paged_attention", "paged_attention", _DECODE_ARGS)
@@ -119,7 +127,7 @@ def paged_attention(q, k_pages, v_pages, block_tables, lengths, *,
              block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
              K.DTYPE_CODES[q.dtype], B, H, Kh, D, page, P, int(window),
              n_split, None if parts is None else parts.data_ptr(),
-             K.tile_counters(q, stream, B * (H // heads_per_block(H // Kh)),
+             K.tile_counters(q, stream, B * (H // heads_per_block(H // Kh, D)),
                              "paged_attention") if n_split > 1 else None,
              stream)
     K.check_launch(err, "paged_attention")
@@ -140,9 +148,9 @@ def paged_prefill_attention(q, k_pages, v_pages, block_tables, ctx_lens, *,
     B, H, Kh, D, page, P = _check(q, k_pages, v_pages, block_tables,
                                   ctx_lens, 4)
     C = q.shape[1]
-    K.require(q.dtype != torch.bfloat16 or D in PREFILL_MMA_HEAD_DIMS,
+    K.require(q.dtype != torch.bfloat16 or D in PREFILL_BF16_HEAD_DIMS,
               f"bf16 paged prefill attention takes head dims "
-              f"{PREFILL_MMA_HEAD_DIMS}, got {D}")
+              f"{PREFILL_BF16_HEAD_DIMS}, got {D}")
     K.require(k_pages.shape[0] * page < 2 ** 31,
               "paged prefill attention indexes pool rows with 32 bits")
     out = torch.empty_like(q)

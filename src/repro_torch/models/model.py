@@ -8,28 +8,31 @@ packages identical inputs.  Pools are updated in place by the cache-write
 kernel (the JAX package donates them instead); the functions still return
 them so the call shapes match.
 
-Three families are covered: dense attention + MLP layers (``ATTN_MLP``)
+Four families are covered: dense attention + MLP layers (``ATTN_MLP``)
 with an optional vision frontend, the LLaVA family the paper evaluates;
 the encoder-decoder whisper family (``ATTN_MLP`` decoder layers with
 cross-attention, an audio encoder as the encode stage, sinusoidal
 positions), whose encoder output and per-layer cross K/V travel in the
-step's ``state`` argument; and attention-free Mamba-1 models (``MAMBA1``,
-falcon-mamba), whose per-request recurrent state travels there too.
-Other layer kinds raise ``NotImplementedError`` (ROADMAP, queue 1: other
-families).  The JAX package's dense ``forward``/
-``decode_step``/``prefill_chunk`` paths are not ported (ROADMAP, queue 1:
-dense fallbacks).
+step's ``state`` argument; attention-free Mamba-1 models (``MAMBA1``,
+falcon-mamba), whose per-request recurrent state travels there too; and
+the MoE family: attention + MoE FFN (``ATTN_MOE``, granite-moe) and
+DeepSeek-V2's latent attention (``MLA_MLP``/``MLA_MOE``), whose layers
+read and write a second page pool, ``"mla"``, of latent rows.  Other layer
+kinds raise ``NotImplementedError`` (ROADMAP, queue 1: other families).
+The JAX package's dense ``forward``/``decode_step``/``prefill_chunk`` paths
+are not ported (ROADMAP, queue 1: dense fallbacks).
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.configs.base import ATTN_MLP, MAMBA1, ModelConfig
+from repro_torch.configs.base import (ATTN_MLP, ATTN_MOE, MAMBA1, MLA_MLP,
+                                      MLA_MOE, ModelConfig)
 from repro_torch.kernels.cache_write.ops import (paged_chunk_write,
                                                  paged_token_write)
 from repro_torch.kernels.paged_attention.ops import (paged_attention,
                                                      paged_prefill_attention)
-from repro_torch.models import layers, mamba
+from repro_torch.models import layers, mamba, mla, moe
 from repro_torch.models.layers import rmsnorm
 from repro_torch.params import ParamTree
 
@@ -37,7 +40,7 @@ from repro_torch.params import ParamTree
 def check_supported(cfg: ModelConfig):
     """Raise for what this slice of the port does not cover yet."""
     kinds = set(cfg.layer_kinds())
-    other = sorted(kinds - {ATTN_MLP, MAMBA1})
+    other = sorted(kinds - {ATTN_MLP, ATTN_MOE, MLA_MLP, MLA_MOE, MAMBA1})
     if other:
         raise NotImplementedError(
             f"{cfg.name}: layer kinds {other} are not ported yet "
@@ -73,7 +76,7 @@ def init_params(cfg: ModelConfig, gen: torch.Generator,
     def dense(shape, scale=None):
         return layers.dense_init(gen, shape, dtype, scale)
 
-    def attn_mlp(cross: bool) -> dict:
+    def attn(cross: bool) -> dict:
         p = {"norm1": zeros(d), "wq": dense((d, H * Dh)),
              "wk": dense((d, Kh * Dh)), "wv": dense((d, Kh * Dh)),
              "wo": dense((H * Dh, d)), "norm2": zeros(d)}
@@ -81,26 +84,37 @@ def init_params(cfg: ModelConfig, gen: torch.Generator,
             p.update({"xnorm": zeros(d), "xq": dense((d, H * Dh)),
                       "xk": dense((d, Kh * Dh)), "xv": dense((d, Kh * Dh)),
                       "xo": dense((H * Dh, d))})
-        if cfg.act != "gelu_mlp":
-            p["w_gate"] = dense((d, cfg.d_ff))
+        return p
+
+    def mlp() -> dict:
+        p = {} if cfg.act == "gelu_mlp" else {"w_gate": dense((d, cfg.d_ff))}
         p["w_up"] = dense((d, cfg.d_ff))
         p["w_down"] = dense((cfg.d_ff, d))
         return p
 
-    tree = {"embed": dense((cfg.vocab_size, d), scale=0.02),
-            "final_norm": zeros(d), "layers": []}
-    for kind in cfg.layer_kinds():
+    def layer(kind) -> dict:
+        """``repro.models.model._init_layer``'s tree for one layer."""
         if kind == MAMBA1:
-            tree["layers"].append(mamba.init_mamba1(gen, cfg, dtype))
-            continue
-        tree["layers"].append(attn_mlp(cfg.cross_attention))
+            return mamba.init_mamba1(gen, cfg, dtype)
+        if kind in (MLA_MLP, MLA_MOE):
+            p = {"norm1": zeros(d), "norm2": zeros(d),
+                 **mla.init_mla(gen, cfg, dtype)}
+        else:
+            p = attn(cfg.cross_attention)
+        p.update(moe.init_moe(gen, cfg, dtype) if kind in (ATTN_MOE, MLA_MOE)
+                 else mlp())
+        return p
+
+    tree = {"embed": dense((cfg.vocab_size, d), scale=0.02),
+            "final_norm": zeros(d),
+            "layers": [layer(kind) for kind in cfg.layer_kinds()]}
     if not cfg.tie_embeddings:
         tree["lm_head"] = dense((d, cfg.vocab_size), scale=0.02)
     if cfg.frontend == "vision":
         tree["media_proj_w1"] = dense((d, 2 * d))
         tree["media_proj_w2"] = dense((2 * d, d))
     if cfg.encoder_layers:
-        tree["encoder"] = {"layers": [attn_mlp(False)
+        tree["encoder"] = {"layers": [attn(False) | mlp()
                                       for _ in range(cfg.encoder_layers)],
                            "norm": zeros(d)}
     return ParamTree(tree)
@@ -268,31 +282,41 @@ def _attn_decode_paged(p, x, cfg, data, layer, kv, lens, lengths, window):
     return o.reshape(B, 1, -1).to(x.dtype) @ p.wo
 
 
+def _ffn(p, x, cfg, kind):
+    """The layer's FFN: the lossless MoE for MoE kinds, else the MLP."""
+    if kind in (ATTN_MOE, MLA_MOE):
+        return moe.moe_ffn(p, x, cfg)
+    return layers.mlp(p, x, cfg.act)
+
+
 def decode_step_paged(cfg: ModelConfig, params, data, ctl, state, lens,
                       token):
     """One decode step reading/writing device-resident paged caches in place.
 
-    ``data``: {"kv": [2, L_attn, num_blocks+1, bs, width]} page pool,
-    written in place (absent for attention-free models).  ``ctl``: {"kv":
-    {"tables": [B, P] int32, "slots": [B] int32 within-plane row slot of the
-    token being appended, "scratch": optional first within-plane slot of
-    the scratch block that padded lanes write to, whose rows the cache-write
-    kernel then skips} (with the pool), "sample": optional controls of
+    ``data``: {"kv": [2, L_attn, num_blocks+1, bs, width] page pool of the
+    attention layers, "mla": [1, L_mla, num_blocks+1, bs, R + rope] latent
+    pool of the MLA layers}, each present when the model has such layers,
+    written in place.  ``ctl``: {"kv" / "mla" (with its pool): {"tables":
+    [B, P] int32, "slots": [B] int32 within-plane row slot of the token
+    being appended, "scratch": optional first within-plane slot of the
+    scratch block that padded lanes write to, whose rows the cache-write
+    kernel then skips}, "sample": optional controls of
     :func:`sample_from_logits`}.  ``state``: {"layers": [...]} batched
     per-layer non-paged state (see :func:`empty_state`): Mamba-1 layers
     carry {"state", "conv"}, cross-attention layers their cached {"xk",
-    "xv"} [B, T, Kh*Dh], other attention layers nothing.  ``lens``: [B]
-    int32 tokens already cached; ``token``: [B, 1].
+    "xv"} [B, T, Kh*Dh], other layers nothing.  ``lens``: [B] int32 tokens
+    already cached; ``token``: [B, 1].
 
     Returns (logits [B, V] — or sampled ids [B] with ``ctl["sample"]`` —,
-    {"kv": data} (empty without a pool), {"layers": new per-layer state};
-    cross K/V do not change in decode, so their entries come back empty).
+    the pools present in ``data``, {"layers": new per-layer state}; cross
+    K/V do not change in decode, so their entries come back empty).
     """
     h = _positions(cfg, params.embed[token.long()], lens)
     kv, pool = ctl.get("kv"), data.get("kv")
+    lat, lat_pool = ctl.get("mla"), data.get("mla")
     lengths = lens + 1
     new_state = []
-    aj = 0                       # running index into the attention planes
+    aj = mj = 0              # running indices into the kv / mla planes
     for i, kind in enumerate(cfg.layer_kinds()):
         p = params.layers[i]
         if kind == MAMBA1:
@@ -303,24 +327,31 @@ def decode_step_paged(cfg: ModelConfig, params, data, ctl, state, lens,
             h = h + y
             new_state.append({"state": st, "conv": conv})
             continue
-        window = cfg.sliding_window if cfg.is_local_layer(i) else 0
-        h = h + _attn_decode_paged(
-            p, rmsnorm(h, p.norm1, cfg.norm_eps), cfg, pool, aj, kv, lens,
-            lengths, window)
-        aj += 1
+        x = rmsnorm(h, p.norm1, cfg.norm_eps)
+        if kind in (MLA_MLP, MLA_MOE):
+            a, _ = mla.mla_decode_paged(p, x, cfg, lat_pool, mj,
+                                        lat["tables"], lat["slots"], lens,
+                                        scratch=lat.get("scratch"))
+            mj += 1
+        else:
+            window = cfg.sliding_window if cfg.is_local_layer(i) else 0
+            a = _attn_decode_paged(p, x, cfg, pool, aj, kv, lens, lengths,
+                                   window)
+            aj += 1
+        h = h + a
         if cfg.cross_attention:
             h = h + _cross_decode(p, rmsnorm(h, p.xnorm, cfg.norm_eps), cfg,
                                   state["layers"][i])
-        h = h + layers.mlp(p, rmsnorm(h, p.norm2, cfg.norm_eps), cfg.act)
+        h = h + _ffn(p, rmsnorm(h, p.norm2, cfg.norm_eps), cfg, kind)
         new_state.append({})
     logits = _logits(cfg, params, h[:, 0])
     out = logits if ctl.get("sample") is None \
         else sample_from_logits(logits, ctl["sample"])
-    return out, _paged(pool), {"layers": new_state}
+    return out, _paged(data), {"layers": new_state}
 
 
-def _paged(pool) -> dict:
-    return {} if pool is None else {"kv": pool}
+def _paged(data) -> dict:
+    return {k: data[k] for k in ("kv", "mla") if data.get(k) is not None}
 
 
 # ---------------------------------------------------------------------------
@@ -366,11 +397,12 @@ def prefill_chunk_paged(cfg: ModelConfig, params, data, ctl, state, ctx_lens,
                         tokens):
     """One batched prefill chunk reading/writing device paged caches in place.
 
-    ``data``: {"kv": [2, L_attn, NB+1, bs, w]} page pool (absent for
-    attention-free models).  ``ctl``: {"kv": {"tables": [B, P] int32,
-    "slots": [B, C] int32 within-plane row slots of the chunk tokens (padded
-    positions point at scratch), "scratch": optional, as for
-    :func:`decode_step_paged`} (with the pool), "img": {"slots": [B, C]
+    ``data``: {"kv": [2, L_attn, NB+1, bs, w], "mla": [1, L_mla, NB+1, bs,
+    R + rope]} page pools, as for :func:`decode_step_paged`.  ``ctl``:
+    {"kv" / "mla" (with its pool): {"tables": [B, P] int32, "slots": [B, C]
+    int32 within-plane row slots of the chunk tokens (padded positions
+    point at scratch), "scratch": optional, as for
+    :func:`decode_step_paged`}, "img": {"slots": [B, C]
     int32 image-cache row per media position or -1, "pages": image page
     pool} (optional), "mask": [B, C] bool valid chunk positions, "last": [B]
     int32 index of each request's last valid position, "sample":
@@ -381,8 +413,8 @@ def prefill_chunk_paged(cfg: ModelConfig, params, data, ctl, state, ctx_lens,
     already cached; ``tokens``: [B, C] int32 (0 at media positions — media
     embeddings are read straight off the image-cache pages).
 
-    Returns (last-token logits [B, V] — or sampled ids [B] —, {"kv": data}
-    (empty without a pool), {"layers": new per-layer state}: Mamba-1
+    Returns (last-token logits [B, V] — or sampled ids [B] —, the pools
+    present in ``data``, {"layers": new per-layer state}: Mamba-1
     state/conv, and each cross-attention layer's {"xk", "xv"} [B, T,
     Kh*Dh] for the decode steps).  Padded positions freeze the Mamba
     recurrence (``mask``), so each lane's new state is that of its valid
@@ -401,9 +433,10 @@ def prefill_chunk_paged(cfg: ModelConfig, params, data, ctl, state, ctx_lens,
     h = _positions(cfg, h, ctx_lens[:, None] + torch.arange(
         C, device=h.device, dtype=ctx_lens.dtype))
     kv, pool = ctl.get("kv"), data.get("kv")
+    lat, lat_pool = ctl.get("mla"), data.get("mla")
     mask = ctl["mask"]
     new_state = []
-    aj = 0                       # running index into the attention planes
+    aj = mj = 0              # running indices into the kv / mla planes
     for i, kind in enumerate(cfg.layer_kinds()):
         p = params.layers[i]
         if kind == MAMBA1:
@@ -414,24 +447,30 @@ def prefill_chunk_paged(cfg: ModelConfig, params, data, ctl, state, ctx_lens,
             h = h + y
             new_state.append({"state": st, "conv": conv})
             continue
-        window = cfg.sliding_window if cfg.is_local_layer(i) else 0
-        h = h + _attn_chunk_paged(
-            p, rmsnorm(h, p.norm1, cfg.norm_eps), cfg, pool, aj, kv,
-            ctx_lens, window)
-        aj += 1
+        x = rmsnorm(h, p.norm1, cfg.norm_eps)
+        if kind in (MLA_MLP, MLA_MOE):
+            a, _ = mla.mla_chunk_paged(p, x, cfg, lat_pool, mj,
+                                       lat["tables"], lat["slots"], ctx_lens,
+                                       scratch=lat.get("scratch"))
+            mj += 1
+        else:
+            window = cfg.sliding_window if cfg.is_local_layer(i) else 0
+            a = _attn_chunk_paged(p, x, cfg, pool, aj, kv, ctx_lens, window)
+            aj += 1
+        h = h + a
         ent = {}
         if cfg.cross_attention:
             c, (xk, xv) = _cross_chunk(p, rmsnorm(h, p.xnorm, cfg.norm_eps),
                                        state["enc_out"], cfg)
             h = h + c
             ent = {"xk": xk, "xv": xv}
-        h = h + layers.mlp(p, rmsnorm(h, p.norm2, cfg.norm_eps), cfg.act)
+        h = h + _ffn(p, rmsnorm(h, p.norm2, cfg.norm_eps), cfg, kind)
         new_state.append(ent)
     h_last = h[torch.arange(B, device=h.device), ctl["last"].long()]
     logits = _logits(cfg, params, h_last)
     if ctl.get("sample") is not None:
         logits = sample_from_logits(logits, ctl["sample"])
-    return logits, _paged(pool), {"layers": new_state}
+    return logits, _paged(data), {"layers": new_state}
 
 
 def empty_state(cfg: ModelConfig, *, dtype=torch.float32,

@@ -91,7 +91,7 @@ def test_decode_kernel_matches_plain(cuda, dtype, lens, max_pages, split, H,
     q = torch.randn((len(lens), H, D), generator=gen).to(cuda, dtype)
     lengths = torch.tensor(lens, dtype=torch.int32, device=cuda)
     n_sms = torch.cuda.get_device_properties(cuda).multi_processor_count
-    n_split = tpa.decode_plan(len(lens), H, Kh, max_pages, 16, n_sms)
+    n_split = tpa.decode_plan(len(lens), H, Kh, D, max_pages, 16, n_sms)
     assert (n_split > 1) == split
     before = dict(K.launches)
     got = tpa.paged_attention(q, kp, vp, tables, lengths, window=window)
@@ -717,3 +717,120 @@ def test_tile_counters_grow_zero_and_keep_per_stream(cuda):
     torch.cuda.synchronize()
     assert buf.data_ptr() == grown and buf.numel() >= 10_000
     assert not buf.any()
+
+
+# ---------------------------------------------------------------------------
+# MLA's latent rows (R + rope wide: 80 reduced, 576 at DeepSeek-V2's width,
+# and 112) read as 1-KV-head attention with K and V the same pages, at G = 4
+# (the reduced model) and G = 128 (full width)
+# ---------------------------------------------------------------------------
+LATENT_DIMS = [80, 112, 576]
+
+
+def _latent(gen, dev, lens, D, G, dtype, C=1, max_pages=48):
+    kp, _, tables = _pages(gen, dev, lens=lens, Kh=1, D=D, dtype=dtype,
+                           n_pages=len(lens) * max_pages + 1,
+                           max_pages=max_pages)
+    shape = (len(lens), G, D) if C == 1 else (len(lens), C, G, D)
+    return kp, tables, torch.randn(shape, generator=gen).to(dev, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("D", LATENT_DIMS)
+@pytest.mark.parametrize("G", [4, 128])
+def test_decode_latent_head_dims_match_plain(cuda, dtype, D, G):
+    gen = torch.Generator().manual_seed(D + G)
+    lens = [1, 17, 200, 650]
+    kp, tables, q = _latent(gen, cuda, lens, D, G, dtype)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    before = K.launches["paged_attention"]
+    got = tpa.paged_attention(q, kp, kp, tables, lengths)
+    want = paged_attention_ref(q, kp, kp, tables, lengths)
+    torch.cuda.synchronize()
+    assert K.launches["paged_attention"] == before + 1
+    assert got.dtype == dtype and torch.isfinite(got.float()).all()
+    assert (got.float() - want.float()).abs().max().item() <= \
+        DECODE_TOL[dtype]
+
+
+def test_decode_latent_576_replays_in_a_cuda_graph(cuda):
+    gen = torch.Generator().manual_seed(576)
+    kp, tables, q = _latent(gen, cuda, [300, 650], 576, 128, torch.bfloat16)
+    lengths = torch.tensor([300, 650], dtype=torch.int32, device=cuda)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tpa.paged_attention(q, kp, kp, tables, lengths)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = tpa.paged_attention(q, kp, kp, tables, lengths)
+    lengths.copy_(torch.tensor([650, 41], dtype=torch.int32))
+    graph.replay()
+    torch.cuda.synchronize()
+    want = paged_attention_ref(q, kp, kp, tables, lengths)
+    assert (out.float() - want.float()).abs().max().item() <= \
+        DECODE_TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("D", LATENT_DIMS)
+@pytest.mark.parametrize("G,C", [(4, 37), (128, 21)])
+def test_prefill_latent_head_dims_match_plain(cuda, dtype, D, G, C):
+    gen = torch.Generator().manual_seed(D + G + C)
+    ctx = [0, 13, 60]
+    kp, tables, q = _latent(gen, cuda, [c + C for c in ctx], D, G, dtype,
+                            C=C, max_pages=8)
+    ctx_t = torch.tensor(ctx, dtype=torch.int32, device=cuda)
+    before = K.launches["paged_prefill_attention"]
+    got = tpa.paged_prefill_attention(q, kp, kp, tables, ctx_t)
+    want = paged_prefill_attention_ref(*_f32(q, kp, kp), tables, ctx_t)
+    torch.cuda.synchronize()
+    assert K.launches["paged_prefill_attention"] == before + 1
+    assert torch.isfinite(got.float()).all()
+    assert (got.float() - want).abs().max().item() <= TOL[dtype]
+
+
+@pytest.mark.parametrize("D", [48, 96, 512, 640])
+def test_unbuilt_head_dims_raise_on_the_card(cuda, D):
+    """Decode and bf16 prefill raise for a head dim they are not built for
+    (never a silent route to the plain version)."""
+    gen = torch.Generator().manual_seed(D)
+    kp, tables, q = _latent(gen, cuda, [20], D, 4, torch.bfloat16,
+                            max_pages=4)
+    lengths = torch.tensor([20], dtype=torch.int32, device=cuda)
+    before = dict(K.launches)
+    with pytest.raises(ValueError, match="head dims"):
+        tpa.paged_attention(q, kp, kp, tables, lengths)
+    with pytest.raises(ValueError, match="head dims"):
+        tpa.paged_prefill_attention(q[:, None], kp, kp, tables, lengths - 1)
+    assert K.launches == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_cache_write_latent_576_single_plane(cuda, dtype):
+    """One plane of 576-wide rows (1,152 bytes in bf16: not a whole number
+    of the kernel's 1 KB pieces), one token per lane: every row not aimed at
+    scratch bit-exact, the scratch block byte for byte untouched."""
+    gen = torch.Generator(device=cuda).manual_seed(576)
+    L, NB, bs, B, w = 3, 40, 16, 8, 576
+    data = torch.empty((1, L, NB + 1, bs, w), dtype=dtype,
+                       device=cuda).normal_(generator=gen)
+    rows = torch.randn((1, B, w), generator=gen, device=cuda).to(dtype)
+    scratch = NB * bs
+    slots = torch.randperm(NB * bs, generator=gen, device=cuda)[:B] \
+        .to(torch.int32)
+    slots[7] = scratch + 5                   # a padded lane
+    before = data.clone()
+    launches = K.launches["cache_write"]
+    tcw.paged_token_write(data, 1, rows, slots, scratch=scratch)
+    want = before.clone()
+    cache_write_ref(want.view(-1, bs, w), rows.reshape(-1, w),
+                    (NB + 1) * bs + slots.long())
+    torch.cuda.synchronize()
+    assert K.launches["cache_write"] == launches + 1
+    assert torch.equal(_bytes(data[:, :, :NB]), _bytes(want[:, :, :NB]))
+    assert torch.equal(_bytes(data[:, :, NB]), _bytes(before[:, :, NB]))

@@ -138,13 +138,13 @@ PLAN_CASES = [(8, 32, 32, 64), (4, 32, 32, 64), (5, 32, 32, 64),
 @pytest.mark.parametrize("n_sms", [132, 114])
 def test_decode_plan_splits_whole_pages_and_fills_the_card(B, H, Kh, P,
                                                            n_sms):
-    n_split = tpa.decode_plan(B, H, Kh, P, 16, n_sms)
+    n_split = tpa.decode_plan(B, H, Kh, 128, P, 16, n_sms)
     assert isinstance(n_split, int) and 1 <= n_split <= P
     per = -(-P // n_split)
     assert (n_split - 1) * per < P                     # no empty split
     assert all(hi > lo for lo, hi in split_columns(P, n_split))
     assert per * 16 >= tpa.MIN_SPLIT_KEYS or n_split == 1
-    blocks = B * H // tpa.heads_per_block(H // Kh)
+    blocks = B * H // tpa.heads_per_block(H // Kh, 128)
     target = tpa.WAVE_BLOCKS * n_sms
     if n_split > 1:
         assert blocks < target
@@ -154,15 +154,15 @@ def test_decode_plan_splits_whole_pages_and_fills_the_card(B, H, Kh, P,
 
 
 def test_decode_plan_splits_small_batches_more():
-    big = tpa.decode_plan(8, 32, 32, 64, 16, 132)
-    one = tpa.decode_plan(1, 32, 32, 64, 16, 132)
+    big = tpa.decode_plan(8, 32, 32, 128, 64, 16, 132)
+    one = tpa.decode_plan(1, 32, 32, 128, 64, 16, 132)
     assert 1 <= big < one
     # whisper's 12 KV heads split more than LLaVA's 32 at the same table
-    assert tpa.decode_plan(4, 12, 12, 64, 16, 132) > \
-        tpa.decode_plan(4, 32, 32, 64, 16, 132)
+    assert tpa.decode_plan(4, 12, 12, 128, 64, 16, 132) > \
+        tpa.decode_plan(4, 32, 32, 128, 64, 16, 132)
     # a long context splits more than a short one, a 4-page table not at all
-    assert tpa.decode_plan(1, 32, 32, 256, 16, 132) >= one
-    assert tpa.decode_plan(4, 12, 12, 4, 16, 132) == 1
+    assert tpa.decode_plan(1, 32, 32, 128, 256, 16, 132) >= one
+    assert tpa.decode_plan(4, 12, 12, 128, 4, 16, 132) == 1
 
 
 def test_decode_plan_takes_shapes_only():
@@ -170,8 +170,20 @@ def test_decode_plan_takes_shapes_only():
     the wrapper reads no device value on the host, so a decode call can be
     captured in a CUDA graph."""
     params = list(inspect.signature(tpa.decode_plan).parameters)
-    assert params == ["B", "H", "Kh", "max_pages", "page", "n_sms"]
+    assert params == ["B", "H", "Kh", "D", "max_pages", "page", "n_sms"]
     src = inspect.getsource(tpa.paged_attention)
     assert not re.search(r"\.(item|tolist|cpu|numpy)\(|\bint\(lengths", src)
-    assert tpa.decode_plan(8, 32, 32, 64, 16, 132) == \
-        tpa.decode_plan(8, 32, 32, 64, 16, 132)
+    assert tpa.decode_plan(8, 32, 32, 128, 64, 16, 132) == \
+        tpa.decode_plan(8, 32, 32, 128, 64, 16, 132)
+
+
+def test_heads_per_block_keeps_q_and_acc_in_registers():
+    """Above D = 256 (MLA's 576-wide latent rows) a decode block holds 2
+    query heads, as the kernel's ``DecCfg::MAX_GT`` does, and the plan
+    counts its blocks so."""
+    assert tpa.heads_per_block(128, 576) == 2
+    assert tpa.heads_per_block(1, 576) == 1
+    assert tpa.heads_per_block(128, 80) == tpa.heads_per_block(128, 256) == 8
+    # B = 8 at G = 128: 512 blocks of 2 heads want 2 splits, 128 of 8 want 5
+    assert tpa.decode_plan(8, 128, 1, 576, 64, 16, 132) == 2
+    assert tpa.decode_plan(8, 128, 1, 112, 64, 16, 132) == 5

@@ -71,8 +71,7 @@ def test_init_params_matches_jax_tree_shapes(llava):
         assert str(flat[k].dtype).split(".")[-1] == str(a.dtype), k
 
 
-@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "zamba2-7b",
-                                  "granite-moe-1b-a400m"])
+@pytest.mark.parametrize("arch", ["zamba2-7b"])
 def test_unported_families_raise(arch):
     cfg = get_config(arch).reduced()
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -24,8 +24,17 @@ parent's entry points are those of the tree before the split kernels
 merged in their own last blocks and the write took separate planes.  The last lines build the checkout's scan with ``expf``
 replaced by ``ex2.approx`` of dt * A * log2 e and report both kernels'
 largest error against the plain version at falcon-mamba's prefill shape,
-seeds 0-2, beside the scan's bar of 1e-4.  Needs a CUDA card and nvcc;
-prints one JSON object per line.
+seeds 0-2, beside the scan's bar of 1e-4.
+
+    python3 tools/kernel_ab.py --mla --parent DIR
+
+times only MLA's decode at full width (B = 8, H = 128, Kh = 1, D = 576,
+ctx 600-700, bf16) of both trees' ``paged_attention.cu``, each at its own
+plan, and this tree's bf16 chunked prefill at D = 64 (granite-moe) and
+D = 128 (LLaVA) as built beside a build whose tensor-core tile copies
+every K/V chunk through its own key's row lookup (``attn_mma.cuh``'s
+general copy path, which D = 80 and 112 take).  Needs a CUDA card and
+nvcc; prints one JSON object per line.
 """
 from __future__ import annotations
 
@@ -40,7 +49,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 OUT = ROOT / "build" / "ab"
 NVCC = ["/usr/local/cuda/bin/nvcc", "-gencode", "arch=compute_90a,code=sm_90a",
-        "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
+        "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+        "--split-compile=0"]
 _P, _I = ctypes.c_void_p, ctypes.c_int
 PAGE = 16
 
@@ -121,7 +131,7 @@ def decode_ab(libs, gen, sms):
             used += m
         q = torch.randn((B, H, D), generator=gen, device="cuda").bfloat16()
         lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
-        n_split = decode_plan(B, H, Kh, P, PAGE, sms)
+        n_split = decode_plan(B, H, Kh, D, P, PAGE, sms)
         parts = torch.empty(n_split * B * H * (D + 2), device="cuda")
         outs = [torch.empty_like(q) for _ in range(2)]
         ptrs = [t.data_ptr() for t in (q, kp, vp, tables, lengths)]
@@ -176,6 +186,89 @@ def prefill_ab(libs, gen):
                                                                 graph_ms),
                       "order": "parent, change, change, parent"}),
           flush=True)
+
+
+def mla_decode_ab(libs, gen, sms, parent_plan):
+    """Decode at DeepSeek-V2's latent rows, K and V the same pages: the
+    parent's kernel and plan against this tree's."""
+    import torch
+    from repro_torch.kernels.paged_attention.ops import decode_plan
+    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
+    fns = [libs[n].paged_attention for n in ("parent_pa", "pa")]
+    for f in fns:
+        f.argtypes = [_P] * 6 + [_I] * 9 + [_P] * 3
+    lens = [600, 615, 631, 648, 656, 671, 689, 700]
+    B, H, Kh, D, n_pages, P = len(lens), 128, 1, 576, 400, 64
+    kp = torch.randn((n_pages, PAGE, Kh, D), generator=gen,
+                     device="cuda").bfloat16()
+    perm = torch.randperm(n_pages - 1, generator=gen, device="cuda")
+    tables = torch.full((B, P), n_pages - 1, dtype=torch.int32,
+                        device="cuda")
+    used = 0
+    for b, n in enumerate(lens):
+        m = -(-n // PAGE)
+        tables[b, :m] = perm[used:used + m].int()
+        used += m
+    q = torch.randn((B, H, D), generator=gen, device="cuda").bfloat16()
+    lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
+    splits = [parent_plan(B, H, Kh, P, PAGE, sms),
+              decode_plan(B, H, Kh, D, P, PAGE, sms)]
+    counters = torch.zeros(4096, dtype=torch.int32, device="cuda")
+    outs = [torch.empty_like(q) for _ in range(2)]
+    parts = [torch.empty(n * B * H * (D + 2), device="cuda") for n in splits]
+    ptrs = [t.data_ptr() for t in (q, kp, kp, tables, lengths)]
+    calls = [lambda i=i: fns[i](
+        *ptrs, outs[i].data_ptr(), 1, B, H, Kh, D, PAGE, P, 0, splits[i],
+        parts[i].data_ptr(), counters.data_ptr(),
+        torch.cuda.current_stream().cuda_stream) for i in range(2)]
+    for c in calls:
+        c()
+    torch.cuda.synchronize()
+    want = paged_attention_ref(q, kp, kp, tables, lengths).float()
+    print(json.dumps({
+        "decode": f"mla: B={B} H={H} Kh={Kh} D={D} ctx 600-700 bf16",
+        "n_split": splits,
+        "max_abs_err": [(o.float() - want).abs().max().item() for o in outs],
+        "device_ms": alternate(*calls, graph_ms),
+        "order": "parent, change, change, parent"}), flush=True)
+
+
+def load_tile_ab(libs, gen):
+    """bf16 chunked prefill on the tensor-core tile, this tree as built
+    ("parent") against the build that looks up each K/V chunk's key row
+    on its own ("change"): granite-moe's 512-token first chunk (H = 16,
+    Kh = 8, D = 64) and LLaVA's image chunk (1024 rows, 576 valid, H = Kh
+    = 32, D = 128).  The outputs must be equal bit for bit."""
+    import torch
+    fns = [libs[n].paged_prefill_attention for n in ("pa", "pa_per_key")]
+    for f in fns:
+        f.argtypes = [_P] * 6 + [_I] * 9 + [_P]
+    for tag, H, Kh, D, C, valid in (("granite-c512", 16, 8, 64, 512, 512),
+                                    ("llava-c1024", 32, 32, 128, 1024, 576)):
+        n_pages = C // PAGE + 1
+        kp, vp = (torch.randn((n_pages, PAGE, Kh, D), generator=gen,
+                              device="cuda").bfloat16() for _ in range(2))
+        tables = torch.full((1, C // PAGE), n_pages - 1, dtype=torch.int32,
+                            device="cuda")
+        tables[0, :valid // PAGE] = torch.randperm(
+            n_pages - 1, generator=gen, device="cuda")[:valid // PAGE].int()
+        q = torch.randn((1, C, H, D), generator=gen, device="cuda").bfloat16()
+        ctx = torch.zeros(1, dtype=torch.int32, device="cuda")
+        outs = [torch.empty_like(q) for _ in range(2)]
+        ptrs = [t.data_ptr() for t in (q, kp, vp, tables, ctx)]
+        calls = [lambda i=i: fns[i](
+            *ptrs, outs[i].data_ptr(), 1, 1, C, H, Kh, D, PAGE, C // PAGE, 0,
+            torch.cuda.current_stream().cuda_stream) for i in range(2)]
+        for c in calls:
+            c()
+        torch.cuda.synchronize()
+        print(json.dumps({
+            "prefill": f"{tag}: B=1 C={C} ({valid} valid) H={H} Kh={Kh} "
+                       f"D={D} bf16",
+            "equal": bool(torch.equal(outs[0], outs[1])),
+            "device_ms": alternate(*calls, graph_ms),
+            "order": "as built, per-key copy, per-key copy, as built"}),
+            flush=True)
 
 
 def flash_ab(libs, gen, sms, parent_plan):
@@ -366,6 +459,9 @@ def parent_function(parent: Path, module: str, name: str):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent", required=True, type=Path)
+    ap.add_argument("--mla", action="store_true",
+                    help="only MLA's decode and the prefill tile's copy "
+                         "paths")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -374,6 +470,31 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     csrc = ROOT / "src" / "repro_torch" / "csrc"
     pcsrc = args.parent / "src" / "repro_torch" / "csrc"
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    if args.mla:
+        import shutil
+        per_key = OUT / "per_key_csrc"
+        shutil.rmtree(per_key, ignore_errors=True)
+        shutil.copytree(csrc, per_key)
+        header = per_key / "attn_mma.cuh"
+        text = header.read_text()
+        old = "if constexpr (NTHR % CH == 0) {"
+        if old not in text:
+            raise RuntimeError("the tile's copy paths are not where expected")
+        header.write_text(text.replace(old, "if constexpr (false) {", 1))
+        libs = build({"pa": (csrc / "paged_attention.cu", csrc),
+                      "parent_pa": (pcsrc / "paged_attention.cu", pcsrc),
+                      "pa_per_key": (per_key / "paged_attention.cu",
+                                     per_key)})
+        print(json.dumps({"card": card}), flush=True)
+        mla_decode_ab(libs, gen, sms, parent_function(
+            args.parent, "kernels/paged_attention/ops.py", "decode_plan"))
+        load_tile_ab(libs, gen)
+        return 0
     scan = (csrc / "selective_scan.cu").read_text()
     old = "expf(dtv * a[i])"
     if old not in scan:
@@ -394,12 +515,7 @@ def main() -> int:
                   "parent_pa": (pcsrc / "paged_attention.cu", pcsrc),
                   "parent_ss": (pcsrc / "selective_scan.cu", pcsrc),
                   "ss_ex2": (variant, csrc)})
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, check=True).stdout.strip()
     print(json.dumps({"card": card}), flush=True)
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
     cache_write_ab(libs, gen)
     decode_ab(libs, gen, sms)
     prefill_ab(libs, gen)
