@@ -11,7 +11,8 @@ on failure:
 2. build  - compile every kernel of the serving paths from ``src/repro_torch/
             csrc`` (all nvcc processes at once), and read from ``cuobjdump
             -sass`` that the bf16 attention kernels run on tensor cores
-            (HMMA instructions);
+            (HMMA instructions; HGMMA, wgmma, in the latent-row kernel)
+            and from ptxas that the latent-row kernel does not spill;
 3. kernels- each kernel against its plain PyTorch version on the card: the
             attention and cache-write kernels at full-width LLaVA-1.5-7B
             shapes (H = Kh = 32, D = 128, page 16, w = 4096), in f32 and
@@ -45,7 +46,10 @@ on failure:
             their partials and skip the merge;
             MLA's latent rows (K and V the same pages, one KV head, 128
             query heads) at D = 80, 112 and 576: decode at B = 8 and
-            chunked prefill of a 64-row chunk, f32 and bf16, and the
+            chunked prefill of a 64-row chunk, f32 and bf16 (bf16 at 576
+            on the latent-row wgmma kernels of csrc/attn_latent.cuh, held
+            against the plain version's f32 output; its decode also on
+            one lane of 4096 keys and with L2 flushed), and the
             single-plane width-576 cache write of a decode step, scratch
             untouched;
             times kernel (eager, and CUDA-graph replay), plain
@@ -81,14 +85,17 @@ on failure:
             layers (MLA + MoE on a latent pool), each on P/D instances
             (five greedy/sampled text requests of 200-600 tokens as for
             falcon-mamba; every attention and cache-write kernel must
-            launch, the K/V or latent rows must migrate P -> D; one
+            launch (DeepSeek-V2's attention on the latent-row kernels,
+            none of it on the other paged attention kernels), the K/V or
+            latent rows must migrate P -> D; one
             profiled decode step at B = 4 with its MoE FFN's device time
             and the share of its matrix products);
 6. report - one JSON line of kernels (each split-KV merge keeps its own
             row: fused into its split kernel, its launches are the split
             calls, ``ms`` and ``standalone_*`` time the merge kernel alone,
-            ``fused`` its share of the split calls; the ``*_mla`` rows are
-            the paged kernels at DeepSeek-V2's latent rows, their launches
+            ``fused`` its share of the split calls; the ``*_latent`` rows
+            are the latent-row kernels and ``cache_write_mla`` the
+            576-wide write, at DeepSeek-V2's latent rows, their launches
             the DeepSeek-V2 path's), then the final status line.
 
 Exits non-zero (and prints no status line) without a card or outside the
@@ -98,6 +105,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import gc
 import json
 import statistics
@@ -116,7 +124,10 @@ PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12}     # FLOP/s, dense
 # and stay small (measured error 4.9e-4 on H100; decode keeps P in f32, so
 # one output rounding is all it adds), while the first rows of a
 # prefill chunk see one to a few keys and keep values near 4, where one
-# rounding is 1.6e-2 (measured 7.8e-3).  The cache write copies exactly.
+# rounding is 1.6e-2 (measured 7.8e-3).  The bf16 latent-row decode at D =
+# 576 runs on tensor cores but weighs P as hi + lo bf16 parts (P to about
+# 16 bits), so the decode bar holds for it too; it is held against the
+# plain version's f32 output.  The cache write copies exactly.
 # The selective scan computes in f32 from the same inputs on both sides and
 # returns f32, so bf16 inputs keep the f32 bar.
 # Flash attention: f32 in summation order only; bf16 rounds each output
@@ -265,6 +276,35 @@ def distinct_kv_rows(tables, n_keys) -> int:
                 for b, n in enumerate(n_keys) for p in range(n)})
 
 
+def paged_yardstick(q, kp, vp, tables, n_keys, qpos, flops):
+    """The bound of a paged attention call (distinct K/V rows read once,
+    q read and out written once, the table; or ``flops``) and its
+    library yardstick: SDPA over K/V pre-gathered contiguous and expanded
+    to the query heads, with the call's mask (keys < n_keys[b], and key
+    <= qpos[b, row]).  q: [B, Sq, H, D]."""
+    import torch
+    import torch.nn.functional as F
+    B, Sq, Hq, Dh = q.shape
+    kh = kp.shape[2]
+    S = tables.shape[1] * PAGE
+    k, v = (x[tables.long()].reshape(B, S, kh, Dh).transpose(1, 2)
+            .repeat_interleave(Hq // kh, dim=1) for x in (kp, vp))
+    keys = torch.arange(S, device=q.device)
+    n = torch.tensor(n_keys, device=q.device)
+    mask = ((keys[None, None] < n[:, None, None])
+            & (keys[None, None] <= qpos[:, :, None]))[:, None]
+    qq = q.transpose(1, 2)
+    isz = q.element_size()
+    b_ms, b_by = bound(2 * q.numel() * isz
+                       + 2 * distinct_kv_rows(tables, n_keys) * kh * Dh * isz
+                       + tables.numel() * 4 + B * 4, flops, dname(q.dtype))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qq, k, v, attn_mask=mask)
+    return {"bound_ms": b_ms, "bound_by": b_by, "library_ms": time_ms(sdpa),
+            "library_device_ms": time_ms_graph(sdpa)}
+
+
 # ---------------------------------------------------------------------------
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
@@ -402,10 +442,17 @@ def decode_cases(gen, dev, results):
             if dtype == torch.bfloat16:
                 errs.append(err)
             if dtype == torch.bfloat16 and tag != "b8":
-                log({"timing": f"paged_attention/{tag}-bf16",
-                     "n_split": n_split,
-                     "device_ms": time_ms_graph(lambda: paged_attention(
-                         q, kp, vp, tables, lengths, window=window))})
+                row = {"n_split": n_split,
+                       "device_ms": time_ms_graph(lambda: paged_attention(
+                           q, kp, vp, tables, lengths, window=window))}
+                if tag == "granite-b4":    # bound and SDPA beside it
+                    n_keys = lengths.tolist()
+                    row.update(paged_yardstick(
+                        q[:, None], kp, vp, tables, n_keys,
+                        (lengths.long() - 1)[:, None],
+                        4 * sum(n_keys) * Hq * Dh))
+                    row["bound_share"] = row["bound_ms"] / row["device_ms"]
+                log({"timing": f"paged_attention/{tag}-bf16", **row})
             if tag == "b8" and dtype == torch.bfloat16:
                 # yardstick: SDPA on the same keys, pre-gathered contiguous
                 S = P * PAGE
@@ -616,13 +663,24 @@ def prefill_cases(gen, dev, results):
                      "library_masked_ms": masked_ms})
             if tag in ("text-c32", "whisper-c64", "granite-c512") \
                     and dtype == torch.bfloat16:
-                log({"timing": f"paged_prefill_attention/{tag}-bf16",
-                     "ms": time_ms(lambda: paged_prefill_attention(
-                         q, kp, vp, tables, ctx_t)),
-                     "plain_ms": time_ms(lambda: paged_prefill_attention_ref(
-                         q, kp, vp, tables, ctx_t)),
-                     "device_ms": time_ms_graph(lambda: paged_prefill_attention(
-                         q, kp, vp, tables, ctx_t))})
+                row = {"ms": time_ms(lambda: paged_prefill_attention(
+                           q, kp, vp, tables, ctx_t)),
+                       "plain_ms": time_ms(lambda: paged_prefill_attention_ref(
+                           q, kp, vp, tables, ctx_t)),
+                       "device_ms": time_ms_graph(lambda: paged_prefill_attention(
+                           q, kp, vp, tables, ctx_t))}
+                if tag == "granite-c512":  # bound and SDPA beside it
+                    # as for the image chunk: every row of the padded
+                    # chunk is computed, over the keys its table holds
+                    S = tables.shape[1] * PAGE
+                    qpos = ctx_t.long()[:, None] + torch.arange(C, device=dev)
+                    n_keys = [min(c + C, S) for c in ctx_t.tolist()]
+                    pairs = sum(min(c + i + 1, S) for c in ctx_t.tolist()
+                                for i in range(C))
+                    row.update(paged_yardstick(q, kp, vp, tables, n_keys, qpos,
+                                               4 * pairs * Hq * Dh))
+                    row["bound_share"] = row["bound_ms"] / row["device_ms"]
+                log({"timing": f"paged_prefill_attention/{tag}-bf16", **row})
     results.setdefault("paged_prefill_attention", {})["max_abs_err"] = \
         max(errs)
 
@@ -728,14 +786,19 @@ def latent_cases(gen, dev, results):
     """MLA's absorbed attention on the paged kernels: 1-KV-head MQA over
     latent rows (K and V the same pages) at D = 80 (reduced DeepSeek-V2),
     112 and 576 (full width), G = MLA_H query heads.  Decode at B = 8
-    (ctx 600-700), f32 and bf16; chunked prefill of a 64-row chunk at B = 4
-    (a first chunk, two later ones, a padded lane), f32 and bf16; the
-    single-plane width-576 cache write of a decode step at B = 8 (a padded
-    lane aimed at scratch), exact, the scratch block untouched.  At each D
-    in bf16 the times of the decode at B = 8 and of one 512-token prefill
-    chunk, and at D = 576 of the write, each beside its plain version, one
-    PyTorch call (SDPA on the pre-gathered latent rows; index_copy_) and
-    its bound; the kernels line takes the D = 576 rows."""
+    (ctx 600-700), f32 and bf16, and at D = 576 also one lane of 4096
+    keys; chunked prefill of a 64-row chunk at B = 4 (a first chunk, two
+    later ones, a padded lane), f32 and bf16; the single-plane width-576
+    cache write of a decode step at B = 8 (a padded lane aimed at
+    scratch), exact, the scratch block untouched.  bf16 at D = 576 runs on
+    the latent-row wgmma kernels (csrc/attn_latent.cuh), held against the
+    plain version's f32 output on the same inputs (upcast); the other
+    widths on the CUDA-core decode and attn_mma.cuh's mma.sync tile, held
+    as the other decode and prefill checks are.  At each D in bf16 the times of the decode at
+    B = 8 and of one 512-token prefill chunk, and at D = 576 of the write,
+    each beside its plain version, one PyTorch call (SDPA on the
+    pre-gathered latent rows; index_copy_) and its bound; the kernels line
+    takes the D = 576 rows (the decode also with L2 flushed)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.cache_write.ops import paged_token_write
@@ -748,6 +811,10 @@ def latent_cases(gen, dev, results):
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     lens8 = [600, 615, 631, 648, 656, 671, 689, 700]
     errs = {"paged_attention": [], "paged_prefill_attention": []}
+
+    def latent(Dl, dtype):             # the row of the kernels line it feeds
+        return Dl == 576 and dtype == torch.bfloat16
+
     for Dl in LATENT_DIMS:
         for dtype in (torch.float32, torch.bfloat16):
             kp, _, tables, P = paged_case(gen, dev, dtype, lens=lens8,
@@ -757,9 +824,14 @@ def latent_cases(gen, dev, results):
                             device=dev).to(dtype)
             lengths = torch.tensor(lens8, dtype=torch.int32, device=dev)
             got = paged_attention(q, kp, kp, tables, lengths)
-            want = paged_attention_ref(q, kp, kp, tables, lengths)
-            errs["paged_attention"].append(check(
-                f"paged_attention/mla-d{Dl}-g{MLA_H}", dtype, got, want))
+            if latent(Dl, dtype):
+                want = paged_attention_ref(q.float(), kp.float(), kp.float(),
+                                           tables, lengths)
+            else:
+                want = paged_attention_ref(q, kp, kp, tables, lengths)
+            err = check(f"paged_attention/mla-d{Dl}-g{MLA_H}", dtype, got, want)
+            if latent(Dl, dtype):
+                errs["paged_attention"].append(err)
             if dtype != torch.bfloat16:
                 continue
             S = P * PAGE
@@ -784,7 +856,10 @@ def latent_cases(gen, dev, results):
                                                       attn_mask=mask)
             row = {"shape": f"B={B} H={MLA_H} Kh=1 D={Dl} page={PAGE} "
                             f"ctx 600-700, K = V pages {dname(dtype)}",
-                   "n_split": ops.decode_plan(B, MLA_H, 1, Dl, P, PAGE, sms),
+                   "n_split": (ops.latent_decode_plan(
+                       B, MLA_H, P, PAGE, sms, functools.partial(
+                           ops.latent_max_clusters, 0))[0] if Dl == 576 else
+                       ops.decode_plan(B, MLA_H, 1, Dl, P, PAGE, sms)),
                    "ms": time_ms(call), "device_ms": time_ms_graph(call),
                    "plain_ms": time_ms(lambda: paged_attention_ref(
                        q, kp, kp, tables, lengths)),
@@ -793,7 +868,10 @@ def latent_cases(gen, dev, results):
                    "bound_ms": b_ms, "bound_by": b_by}
             row["bound_share"] = b_ms / row["device_ms"]
             if Dl == 576:
-                results["paged_attention_mla"] = row
+                row["device_ms_cold_l2"] = time_ms_cold(call,
+                                                        ("latent_kernel",))
+                row["bound_share_cold_l2"] = b_ms / row["device_ms_cold_l2"]
+                results["paged_attention_latent"] = row
             log({"timing": f"paged_attention/mla-d{Dl}-bf16", **row})
             del k, mask
         # chunked prefill: lane 0 a first chunk, lanes 1-2 later chunks
@@ -815,7 +893,19 @@ def latent_cases(gen, dev, results):
             err = max(err, check(
                 f"paged_prefill_attention/mla-d{Dl}-g{MLA_H}-ragged", dtype,
                 got[2, :30], want[2, :30]))
-            errs["paged_prefill_attention"].append(err)
+            if latent(Dl, dtype):
+                errs["paged_prefill_attention"].append(err)
+    # the latent decode on one lane of 4096 keys (many splits)
+    kp, _, tables, P = paged_case(gen, dev, torch.bfloat16, lens=[4096],
+                                  n_pages_total=400, Kh=1, Dh=576)
+    q = torch.randn((1, MLA_H, 576), generator=gen,
+                    device=dev).to(torch.bfloat16)
+    lengths = torch.tensor([4096], dtype=torch.int32, device=dev)
+    errs["paged_attention"].append(check(
+        f"paged_attention/mla-d576-g{MLA_H}-b1-ctx4096", torch.bfloat16,
+        paged_attention(q, kp, kp, tables, lengths),
+        paged_attention_ref(q.float(), kp.float(), kp.float(), tables,
+                            lengths)))
     # one 512-token first chunk at each D, bf16: the prefill's timing rows
     C, dtype = 512, torch.bfloat16
     for Dl in LATENT_DIMS:
@@ -840,6 +930,11 @@ def latent_cases(gen, dev, results):
 
         def sdpa_chunk():
             return F.scaled_dot_product_attention(qq, k, k, is_causal=True)
+        if Dl == 576:                  # checked at the timed shape too
+            errs["paged_prefill_attention"].append(check(
+                "paged_prefill_attention/mla-d576-c512", dtype, chunk(),
+                paged_prefill_attention_ref(q.float(), kp.float(),
+                                            kp.float(), tables, ctx_t)))
         row = {"shape": f"B=1 C={C} H={MLA_H} Kh=1 D={Dl} ctx 0, K = V "
                         f"pages {dname(dtype)}",
                "ms": time_ms(chunk), "device_ms": time_ms_graph(chunk, reps=5),
@@ -850,12 +945,12 @@ def latent_cases(gen, dev, results):
                "bound_ms": b_ms, "bound_by": b_by}
         row["bound_share"] = b_ms / row["device_ms"]
         if Dl == 576:
-            results["paged_prefill_attention_mla"] = row
+            results["paged_prefill_attention_latent"] = row
         log({"timing": f"paged_prefill_attention/mla-d{Dl}-c512-bf16",
              **row})
         del k, q, qq
     for name, e in errs.items():
-        results[f"{name}_mla"]["max_abs_err"] = max(e)
+        results[f"{name}_latent"]["max_abs_err"] = max(e)
 
     # the write of one decode step's latent rows: one plane, 1,152-byte rows
     L, NB, B, Dl = 3, 512, 8, 576
@@ -1093,24 +1188,43 @@ def ptxas_report(text: str) -> list:
 
 
 def sass_hmma(card: str):
-    """Count the tensor-core instructions (HMMA) in each bf16 attention
-    kernel's SASS (``cuobjdump -sass`` of the built libraries); fails when
-    one has none."""
+    """Count the tensor-core instructions in each bf16 attention kernel's
+    SASS (``cuobjdump -sass`` of the built libraries): HMMA (mma.sync) in
+    the attn_mma.cuh tiles, HGMMA (wgmma) in the latent-row kernel; fails
+    when one has none of its kind."""
     import shutil
     from repro_torch.kernels import _build
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    counts = {}
+    counts, hgmma = {}, {}
     for lib in ("paged_attention", "flash_attention"):
         sass = subprocess.run([tool, "-sass", str(_build._lib_path(lib))],
                               capture_output=True, text=True,
                               check=True).stdout
         for part in sass.split("Function : ")[1:]:
             name = part.split(maxsplit=1)[0]
+            lines = part.splitlines()
             if "mma_kernel" in name:
-                counts[name] = sum("HMMA" in ln for ln in part.splitlines())
-    log({"sass_hmma": counts, "card": card})
+                counts[name] = sum("HMMA" in ln for ln in lines)
+            if "latent_kernel" in name:
+                hgmma[name] = sum("HGMMA" in ln for ln in lines)
+    log({"sass_hmma": counts, "sass_hgmma": hgmma, "card": card})
     if not counts or not all(counts.values()):
         raise AssertionError(f"bf16 attention kernels without HMMA: {counts}")
+    if not hgmma or not all(hgmma.values()):
+        raise AssertionError(f"latent-row kernels without HGMMA: {hgmma}")
+
+
+def check_ptxas(logs: dict):
+    """Print each built kernel's registers and spills (``-Xptxas -v``);
+    fails when the latent-row kernel spills."""
+    for name, text in logs.items():
+        report = ptxas_report(text)
+        log({"ptxas": name, "kernels": report})
+        for k in report:
+            if "latent_kernel" in k["fn"]:
+                log({"ptxas_latent": k})
+                if k["spill_bytes"]:
+                    raise AssertionError(f"the latent-row kernel spills: {k}")
 
 
 # ---------------------------------------------------------------------------
@@ -1679,10 +1793,18 @@ def serve_moe(arch: str, seed: int, card: str):
         K.reset_launches()
         rs, outs, wall = run_requests(eng, reqs, cfg.vocab_size)
         launches = dict(K.launches)
-    for name in ("cache_write", "paged_attention", "paged_prefill_attention"):
+    # MLA's latent rows (bf16, D = 576) run on the latent-row kernels
+    # only; the CUDA-core decode and the mma.sync prefill stay unlaunched
+    attn = (("paged_attention_latent", "paged_prefill_attention_latent")
+            if mla else ("paged_attention", "paged_prefill_attention"))
+    for name in ("cache_write",) + attn:
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} never launched on the "
                                  f"{arch} main path")
+    if mla and (launches["paged_attention"] or
+                launches["paged_prefill_attention"]):
+        raise AssertionError(f"{arch}: the latent rows went through the "
+                             f"other paged kernels: {launches}")
     srv = eng.server
     d = next(i for i in srv.instances if i.role_name == "D")
     pool_name, pool = d.caches.seq_pools()[0]
@@ -1860,8 +1982,7 @@ def main() -> int:
     jobs = start_no_merge_builds()
     logs = _build.build_all()
     finish_no_merge_builds(jobs)
-    for name, text in logs.items():
-        log({"ptxas": name, "kernels": ptxas_report(text)})
+    check_ptxas(logs)
     log({"phase": "build", "built": sorted(logs), "s": time.perf_counter() - t0})
     sass_hmma(card)
 
@@ -1903,9 +2024,12 @@ def main() -> int:
     serve_moe("granite-moe-1b-a400m", args.seed, card)
     gc.collect()
     torch.cuda.empty_cache()
-    # the latent rows' kernel rows count the DeepSeek-V2 path's launches
-    for name, n in serve_moe("deepseek-v2-236b", args.seed, card).items():
-        launches[f"{name}_mla"] = n
+    # the latent-row kernels and the 576-wide write count the DeepSeek-V2
+    # path's launches
+    deepseek = serve_moe("deepseek-v2-236b", args.seed, card)
+    for name in ("paged_attention_latent", "paged_prefill_attention_latent"):
+        launches[name] = deepseek[name]
+    launches["cache_write_mla"] = deepseek["cache_write"]
     # a merge row's launches: the split calls, each merging in its last
     # blocks (the merge kernel alone never runs on the main paths)
     for name in ("paged_attention", "flash_attention"):
@@ -1931,12 +2055,12 @@ def main() -> int:
            "flash_attention_merge": (
                "src/repro_torch/csrc/attn_merge.cuh",
                "src/repro/kernels/flash_attention/kernel.py:65"),
-           # the same kernels at MLA's latent rows (D = 576, one KV head)
-           "paged_attention_mla": (
-               "src/repro_torch/csrc/paged_attention.cu",
+           # MLA's latent rows (bf16, D = 576, one KV head, K = V)
+           "paged_attention_latent": (
+               "src/repro_torch/csrc/attn_latent.cuh",
                "src/repro/kernels/paged_attention/kernel.py:78"),
-           "paged_prefill_attention_mla": (
-               "src/repro_torch/csrc/paged_attention.cu",
+           "paged_prefill_attention_latent": (
+               "src/repro_torch/csrc/attn_latent.cuh",
                "src/repro/kernels/paged_attention/kernel.py:162"),
            "cache_write_mla": ("src/repro_torch/csrc/cache_write.cu",
                                "src/repro/kernels/cache_write/kernel.py:25")}
@@ -1951,7 +2075,8 @@ def main() -> int:
                         "library_ms": r["library_ms"], "shape": r["shape"],
                         **{key: r[key] for key in (
                             "device_ms", "device_ms_cold_l2",
-                            "library_device_ms", "bound_share", "n_split",
+                            "library_device_ms", "bound_share",
+                            "bound_share_cold_l2", "n_split",
                             "fused_into", "launches_are", "standalone_ms",
                             "standalone_device_ms", "fused", "decode_b8")
                            if key in r}})

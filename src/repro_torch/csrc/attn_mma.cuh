@@ -62,7 +62,7 @@ constexpr int MAX_WARPS = 4;
 // Tile shape per head dim: keys per tile, ring depth, Q kept in registers.
 // Any D that is a multiple of 16 up to 256 (the products step 16 deep and
 // 16 wide); above that the O accumulators no longer fit a warp's registers
-// (paged_attention.cu has a kernel that splits D across warps instead).
+// (MLA's 576-wide latent rows run on attn_latent.cuh instead).
 template <int D>
 struct Cfg {
   static_assert(D % 16 == 0 && D >= 32 && D <= 256, "head dim 16k, 32 <= D <= 256");

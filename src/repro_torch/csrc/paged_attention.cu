@@ -25,7 +25,7 @@
 // in a loop, reading its own table row; pages wholly outside the rows'
 // visible keys are skipped.  Three bodies:
 //
-// - decode (f32 and bf16, D = 32, 64, 80, 112, 128, 256 or 576): bound by
+// - decode (f32 and bf16, D = 32, 64, 80, 112, 128 or 256; f32 also 576): bound by
 //   the bytes of the cached K/V it reads once per step (LLaVA at B = 8, ctx 600-700:
 //   85 MB, 0.0255 ms at 3.35 TB/s).  Split-KV: the wrapper's decode_plan
 //   cuts the table's columns into n_split ranges of whole pages, from the
@@ -47,19 +47,14 @@
 //   q, exponentials on ex2.approx), combined across the warp by shuffles
 //   and across the warps once in shared memory.  P is not rounded: no
 //   tensor cores here, so a bf16 output is rounded once.  Rows whose
-//   16-byte chunks do not fill a power of two of lanes (D = 80, 112, 576:
-//   MLA's latent rows, one KV head for all 128 query heads at full width)
-//   leave the lanes past the row idle; at D = 576 a block holds 2 heads,
-//   so their q and acc fit registers (see DecCfg).  At G = 128 the 64
-//   blocks of a request read the same latent rows, and the same rows again
-//   as V: right, not fast.  One split
-//   writes out; more write f32 partials, and the last of a (b, head group)
-//   tile's split blocks to finish merges them into out (attn_merge.cuh's
-//   arrive_last and merge_rows): one launch.
+//   16-byte chunks do not fill a power of two of lanes (D = 80, 112, and
+//   576 in f32: MLA's latent rows) leave the lanes past the row idle; at
+//   D = 576 an f32 block holds 2 heads, so their q and acc fit registers
+//   (see DecCfg).  One split writes out; more write f32 partials, and the
+//   last of a (b, head group) tile's split blocks to finish merges them
+//   into out (attn_merge.cuh's arrive_last and merge_rows): one launch.
 // - bf16 chunked prefill, D = 64, 80, 112, 128 or 256: the tensor-core
-//   tile of attn_mma.cuh.  At D = 576 (MLA's latent rows) the tile's O
-//   accumulators do not fit a warp, so paged_prefill_wide_kernel splits D
-//   across the block's four warps (see there).  The block's rows are
+//   tile of attn_mma.cuh.  The block's rows are
 //   (chunk row c, query head g) pairs of its KV head, r = c * G + g, cut
 //   into tiles of 64 rows, 16 per warp
 //   (GQA folds into the M dimension of the products); blocks of the last
@@ -68,6 +63,11 @@
 //   (one division per tile) and copies the rows at ((blk * page + t) * Kh
 //   + kh) * D (64-bit offsets) with cp.async.  Bound: the two products
 //   (4 * C * ctx * D per head) on the tensor cores, and the exponentials.
+// - bf16 at D = 576 with one KV head and K and V the same pages (MLA's
+//   latent rows), decode and chunked prefill: the wgmma tiles of
+//   attn_latent.cuh, exported as paged_latent_attention and
+//   paged_latent_prefill_attention.  The two entry points above refuse
+//   bf16 at D = 576.
 // - f32 prefill: CUDA-core f32 products from shared memory, one page in
 //   flight.  f32 stays off the tensor cores by design (the f32 model
 //   checks hold the card to the CPU within 2e-4).  The block's 16 query
@@ -75,6 +75,7 @@
 //   accumulator in shared memory, so any D fits.
 #include "attn_mma.cuh"
 #include "attn_merge.cuh"
+#include "attn_latent.cuh"
 
 #include <atomic>
 #include <cuda_runtime.h>
@@ -273,10 +274,11 @@ __host__ __device__ constexpr int pow2_at_least(int n) {
 // lanes a key (the power of two at or above CH, at most 32), NV chunks a
 // lane; when LPK does not divide CH, the lanes past the row's last chunk
 // load nothing and hold zeros (D = 80 and 112: 10 and 14 bf16 chunks on 16
-// lanes; D = 576: 72 bf16 chunks on 32 lanes, 3 a lane).  A lane keeps q
+// lanes; D = 576 in f32: 144 chunks on 32 lanes, 5 a lane).  A lane keeps q
 // and acc in registers for each of the block's GT query heads, NV * VEC
 // floats each, at most 64 in all: MAX_GT heads a block, 8 up to D = 256
-// and 2 at D = 576 (the wrapper's heads_per_block mirrors it).
+// and 2 at D = 576, built for f32 only (the wrapper's heads_per_block
+// mirrors it).
 template <typename T, int D>
 struct DecCfg {
   static constexpr int VEC = 16 / sizeof(T);                  // elements per 16-byte load
@@ -581,7 +583,9 @@ cudaError_t launch_decode(const void* q, const void* k, const void* v, const voi
     case 112: return run(std::integral_constant<int, 112>());
     case 128: return run(std::integral_constant<int, 128>());
     case 256: return run(std::integral_constant<int, 256>());
-    case 576: return run(std::integral_constant<int, 576>());
+    case 576:   // f32 only: bf16 latent rows run on attn_latent.cuh
+      if constexpr (std::is_same<T, float>::value) return run(std::integral_constant<int, 576>());
+      return cudaErrorInvalidValue;
     default: return cudaErrorInvalidValue;
   }
 }
@@ -697,233 +701,6 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, const void* 
   return cudaGetLastError();
 }
 
-// ---------------------------------------------------------------------------
-// bf16 chunked prefill above D = 256: the head dim split across warps
-// ---------------------------------------------------------------------------
-// Above D = 256 a warp cannot hold the O accumulators of its 16 rows (D / 2
-// floats a lane) beside its Q fragments.  So the block's four warps share
-// one tile of 16 query rows and split D four ways: warp w takes the partial
-// scores of a key tile over its quarter of Q's and K's columns (mma.sync,
-// its Q A-fragments in registers), the four partial score tiles are summed
-// through shared memory in one fixed order (every warp then holds the same
-// scores and computes the same softmax state), and warp w accumulates O's
-// columns [w * D / 4, (w + 1) * D / 4) from the same P and its quarter of
-// V.  K/V tiles of 32 keys stream through a two-stage cp.async ring as in
-// attn::attend.  Simple first: a K/V tile is read once per 16 query rows
-// (at MLA's 128 heads, 8 blocks per chunk row read the same latent rows).
-template <int D>
-struct WideCfg {
-  static_assert(D % 64 == 0, "D splits into four warp quarters of whole 16-column steps");
-  static constexpr int BK = 32, STAGES = 2, NW = 4;
-  static constexpr int DW = D / NW;          // a warp's quarter of the columns
-  static constexpr int LD = D + 8;           // padded row, in elements
-  static constexpr int CH = D / 8;           // 16-byte chunks per row
-  static constexpr int RED = BK / 8 * 4 * 32;  // a warp's partial scores, in floats
-  static size_t smem_bytes() {
-    return (size_t)(16 + STAGES * 2 * BK) * LD * sizeof(bf16) + (size_t)NW * RED * sizeof(float);
-  }
-};
-
-// grid (ceil(C * G / 16), Kh, B); block of 4 warps sharing 16 rows
-template <int D>
-__global__ void __launch_bounds__(128, 1)
-paged_prefill_wide_kernel(const bf16* __restrict__ q, const bf16* __restrict__ kp,
-                          const bf16* __restrict__ vp, const int32_t* __restrict__ tables,
-                          const int32_t* __restrict__ ctx_lens, bf16* __restrict__ out,
-                          int C, int H, int Kh, int page, int max_pages, int window,
-                          float scale_log2) {
-  using W = WideCfg<D>;
-  constexpr int BK = W::BK, LD = W::LD, CH = W::CH, DW = W::DW, STAGES = W::STAGES;
-  constexpr int NTHR = 32 * W::NW, KW = DW / 16;   // KW: a warp's 16-deep score steps
-  static_assert((BK * CH) % NTHR == 0, "copy split");
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sKV = sQ + 16 * LD;                  // stage s: K at s * 2 * BK * LD, then V
-  float* red = reinterpret_cast<float*>(sKV + STAGES * 2 * BK * LD);   // [NW][RED]
-  const int b = blockIdx.z, kh = blockIdx.y, G = H / Kh;
-  // later rows see more keys (causal), so their blocks start first
-  const int row0 = (gridDim.x - 1 - blockIdx.x) * 16;
-
-  PagedProb P;
-  P.q_b = ((int64_t)b * C * H + (int64_t)kh * G) * D;
-  P.q_base = q;
-  P.k_base = kp + (int64_t)kh * D;
-  P.v_base = vp + (int64_t)kh * D;
-  P.table = tables + (int64_t)b * max_pages;
-  P.row0 = row0;
-  P.rows_valid = min(16, C * G - row0);
-  P.G = G;
-  P.H = H;
-  P.Kh = Kh;
-  P.D = D;
-  P.page = page;
-  P.ctx = ctx_lens[b];
-  P.kv_limit = max_pages * page;
-  P.causal = 1;
-  P.window = window;
-
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int g = lane / 4, tig = lane % 4;
-  // key tiles any row of the tile can see
-  const int qlo = P.qpos(0), qhi = P.qpos(15);
-  const int k_end = min(P.kv_limit, P.qpos(P.rows_valid - 1) + 1);
-  const int k_begin = window > 0 ? max(0, qlo - window + 1) : 0;
-  const int kt_begin = k_begin / BK;
-  const int kt_end = k_end > k_begin ? (k_end + BK - 1) / BK : kt_begin;
-
-  attn::RowState<DW> st;
-#pragma unroll
-  for (int n = 0; n < DW / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) st.acc[n][e] = 0.f;
-  st.m[0] = st.m[1] = NEG_INF;
-  st.l[0] = st.l[1] = 0.f;
-
-  auto load_tile = [&](int kt, int stage) {
-    bf16* kd = sKV + stage * 2 * BK * LD;
-    bf16* vd = kd + BK * LD;
-#pragma unroll
-    for (int m = 0; m < BK * CH / NTHR; ++m) {
-      const int i = tid + m * NTHR, j = i / CH, c = i % CH;
-      const int row = P.kv_row(kt * BK + j);
-      const bool ok = row >= 0;
-      attn::cp_async16(kd + j * LD + c * 8, ok ? P.k_at(row) + c * 8 : P.k_base, ok);
-      attn::cp_async16(vd + j * LD + c * 8, ok ? P.v_at(row) + c * 8 : P.k_base, ok);
-    }
-  };
-  if (kt_begin < kt_end) {
-    // group 0: Q and the first tile; then one group per further tile
-    for (int i = tid; i < 16 * CH; i += NTHR) {
-      const int r = i / CH, c = i % CH;
-      const bool ok = r < P.rows_valid;
-      attn::cp_async16(sQ + r * LD + c * 8, ok ? P.q_row(r) + c * 8 : P.q_base, ok);
-    }
-    load_tile(kt_begin, 0);
-    attn::cp_async_commit();
-  }
-  const int qp0 = P.qpos(g), qp1 = P.qpos(g + 8);
-  uint32_t qf[KW][4];
-  for (int kt = kt_begin, it = 0; kt < kt_end; ++kt, ++it) {
-    attn::cp_async_wait<STAGES - 2>();       // tile kt (and Q) have landed
-    __syncthreads();                         // ... for every thread; tile kt-1 is done
-    if (kt + 1 < kt_end) load_tile(kt + 1, (it + 1) % STAGES);
-    attn::cp_async_commit();
-    const bf16* sK = sKV + (it % STAGES) * 2 * BK * LD;
-    const bf16* sV = sK + BK * LD;
-    if (it == 0) {
-#pragma unroll
-      for (int kk = 0; kk < KW; ++kk)
-        attn::ldsm_x4(qf[kk], sQ + (lane & 15) * LD + (warp * KW + kk) * 16 + (lane >> 4) * 8);
-    }
-
-    // this warp's quarter of S = Q K^T, 16 rows x BK keys
-    float s[BK / 8][4];
-#pragma unroll
-    for (int n = 0; n < BK / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KW; ++kk) {
-      const int col = (warp * KW + kk) * 16;
-#pragma unroll
-      for (int nn = 0; nn < BK / 16; ++nn) {
-        uint32_t bb[4];
-        attn::ldsm_x4(bb, sK + (nn * 16 + (lane & 7) + (lane >> 4) * 8) * LD + col +
-                              ((lane >> 3) & 1) * 8);
-        attn::mma16816(s[2 * nn], qf[kk], bb[0], bb[1]);
-        attn::mma16816(s[2 * nn + 1], qf[kk], bb[2], bb[3]);
-      }
-    }
-    // the four quarters summed in one order: every warp gets the same S
-#pragma unroll
-    for (int n = 0; n < BK / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) red[warp * W::RED + (n * 4 + e) * 32 + lane] = s[n][e];
-    __syncthreads();
-#pragma unroll
-    for (int n = 0; n < BK / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float t = 0.f;
-#pragma unroll
-        for (int w = 0; w < W::NW; ++w) t += red[w * W::RED + (n * 4 + e) * 32 + lane];
-        s[n][e] = t;
-      }
-
-    // online softmax into bf16 pairs of P; only edge tiles compute a mask
-    const int k0 = kt * BK;
-    uint32_t pb[BK / 8][2];
-    if (k0 + BK <= P.kv_limit && k0 + BK - 1 <= qlo && (window <= 0 || k0 > qhi - window)) {
-      attn::softmax_tile<DW, BK, false>(s, 0u, scale_log2, st, pb);
-    } else {
-      uint32_t vis = 0u;               // bit n * 4 + e: the key is visible
-#pragma unroll
-      for (int n = 0; n < BK / 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int key = k0 + n * 8 + 2 * tig + (e & 1);
-          const int qp = e < 2 ? qp0 : qp1;
-          if (key < P.kv_limit && key <= qp && (window <= 0 || key > qp - window))
-            vis |= 1u << (n * 4 + e);
-        }
-      attn::softmax_tile<DW, BK, true>(s, vis, scale_log2, st, pb);
-    }
-
-    // O[:, warp's quarter] += P V[:, warp's quarter]
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      const uint32_t a[4] = {pb[2 * kk][0], pb[2 * kk][1], pb[2 * kk + 1][0],
-                             pb[2 * kk + 1][1]};
-#pragma unroll
-      for (int dd = 0; dd < DW / 16; ++dd) {
-        uint32_t bb[4];
-        attn::ldsm_x4_t(bb, sV + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
-                                warp * DW + dd * 16 + (lane >> 4) * 8);
-        attn::mma16816(st.acc[2 * dd], a, bb[0], bb[1]);
-        attn::mma16816(st.acc[2 * dd + 1], a, bb[2], bb[3]);
-      }
-    }
-  }
-  attn::cp_async_wait<0>();    // only empty groups are left; leave none in flight
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    st.l[i] += __shfl_xor_sync(0xffffffffu, st.l[i], 1);
-    st.l[i] += __shfl_xor_sync(0xffffffffu, st.l[i], 2);
-  }
-
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int r = g + 8 * half;
-    if (r >= P.rows_valid) continue;
-    const float inv = 1.f / fmaxf(st.l[half], 1e-30f);
-    bf16* o = out + P.q_b + ((int64_t)((row0 + r) / G) * H + (row0 + r) % G) * D + warp * DW +
-              2 * tig;
-#pragma unroll
-    for (int n = 0; n < DW / 8; ++n)
-      *reinterpret_cast<__nv_bfloat162*>(o + 8 * n) = __floats2bfloat162_rn(
-          st.acc[n][2 * half] * inv, st.acc[n][2 * half + 1] * inv);
-  }
-}
-
-template <int D>
-cudaError_t launch_wide(const void* q, const void* k, const void* v, const void* tables,
-                        const void* ctx_lens, void* out, int B, int C, int H, int Kh,
-                        int page, int max_pages, int window, cudaStream_t stream) {
-  using W = WideCfg<D>;
-  static const cudaError_t attr =
-      attn::allow_smem(paged_prefill_wide_kernel<D>, W::smem_bytes());
-  if (attr != cudaSuccess) return attr;
-  if (B == 0 || C == 0) return cudaSuccess;
-  const int64_t n_rows = (int64_t)C * (H / Kh);
-  const dim3 grid((unsigned)((n_rows + 15) / 16), Kh, B);
-  paged_prefill_wide_kernel<D><<<grid, 32 * W::NW, W::smem_bytes(), stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const int32_t*>(tables), static_cast<const int32_t*>(ctx_lens),
-      static_cast<bf16*>(out), C, H, Kh, page, max_pages, window,
-      attn::LOG2E / sqrtf((float)D));
-  return cudaGetLastError();
-}
-
 int prefill(const void* q, const void* k, const void* v, const void* tables,
             const void* ctx_lens, void* out, int dtype, int B, int C, int H, int Kh,
             int D, int page, int max_pages, int window, cudaStream_t s) {
@@ -942,10 +719,7 @@ int prefill(const void* q, const void* k, const void* v, const void* tables,
     case 112: return (int)run(std::integral_constant<int, 112>());
     case 128: return (int)run(std::integral_constant<int, 128>());
     case 256: return (int)run(std::integral_constant<int, 256>());
-    case 576:
-      return (int)launch_wide<576>(q, k, v, tables, ctx_lens, out, B, C, H, Kh, page,
-                                   max_pages, window, s);
-    default: return (int)cudaErrorInvalidValue;
+    default: return (int)cudaErrorInvalidValue;   // 576: attn_latent.cuh
   }
 }
 
@@ -954,7 +728,7 @@ int prefill(const void* q, const void* k, const void* v, const void* tables,
 // dtype codes: 0 = float32, 1 = bfloat16.  Both return a cudaError_t.
 
 // Decode: q/out [B, H, D]; lengths[b] tokens valid (the new one included).
-// D = 32, 64, 80, 112, 128, 256 or 576.  n_split ranges of ceil(max_pages / n_split)
+// D = 32, 64, 80, 112, 128 or 256, and 576 in f32.  n_split ranges of ceil(max_pages / n_split)
 // table columns; n_split > 1 needs parts, n_split * B * H * (D + 2) f32 of
 // scratch, and merges in the same launch with one counter of counters
 // (B * H / GT of them, GT the query heads of a block; zero, left zero; see
@@ -979,7 +753,7 @@ extern "C" int paged_attention(const void* q, const void* k, const void* v,
 
 // Chunked prefill: q/out [B, C, H, D]; ctx_lens[b] tokens cached before the
 // chunk, whose own K/V rows are already in the pages (write-then-attend).
-// f32: any D; bf16: D = 64, 80, 112, 128, 256 or 576.
+// f32: any D; bf16: D = 64, 80, 112, 128 or 256.
 extern "C" int paged_prefill_attention(const void* q, const void* k, const void* v,
                                        const void* tables, const void* ctx_lens,
                                        void* out, int dtype, int B, int C, int H,
@@ -987,4 +761,69 @@ extern "C" int paged_prefill_attention(const void* q, const void* k, const void*
                                        int window, void* stream) {
   return prefill(q, k, v, tables, ctx_lens, out, dtype, B, C, H, Kh, D, page, max_pages,
                  window, static_cast<cudaStream_t>(stream));
+}
+
+// MLA's latent rows (attn_latent.cuh): bf16, D = 576, one KV head, K and V
+// the same pages [pool_rows / page, page, 1, 576]; page 8, 16, 32 or a
+// multiple of 32.  q and out 16-byte aligned.  Both return a cudaError_t.
+//
+// Decode: q/out [B, H, 576]; lengths[b] tokens valid (the new one
+// included).  n_split (at most 8) ranges of split_pages table columns;
+// with n_split > 1 the split blocks of a (b, head tile) are one cluster
+// and merge through distributed shared memory in the same launch.
+extern "C" int paged_latent_attention(const void* q, const void* pages, const void* tables,
+                                      const void* lengths, void* out, int B, int H, int page,
+                                      int max_pages, int pool_rows, int n_split,
+                                      int split_pages, void* stream) {
+  if (B == 0 || H == 0) return (int)cudaSuccess;
+  if (n_split < 1 || split_pages < 1 || (int64_t)n_split * split_pages < max_pages)
+    return (int)cudaErrorInvalidValue;
+  latent::Params p{};
+  p.tables = static_cast<const int32_t*>(tables);
+  p.lens = static_cast<const int32_t*>(lengths);
+  p.out = static_cast<bf16*>(out);
+  p.B = B;
+  p.C = 1;
+  p.H = H;
+  p.page = page;
+  p.max_pages = max_pages;
+  p.split_pages = split_pages;
+  p.box_rows = latent::box_rows(page);
+  p.pool_rows = pool_rows;
+  p.decode = 1;
+  p.scale_log2 = attn::LOG2E / sqrtf((float)latent::D);
+  const dim3 grid(n_split, (H + latent::BM - 1) / latent::BM, B);
+  return (int)latent::launch(q, (int64_t)B * H, pages, p, grid,
+                             static_cast<cudaStream_t>(stream));
+}
+
+// How many clusters of n_split (1-8) latent decode blocks the current card
+// runs at once, in *out: the split planner's card width.
+extern "C" int paged_latent_max_clusters(int n_split, int* out) {
+  return (int)latent::max_clusters(n_split, out);
+}
+
+// Chunked prefill: q/out [B, C, H, 576]; ctx_lens[b] tokens cached before
+// the chunk, whose own latent rows are already in the pages.
+extern "C" int paged_latent_prefill_attention(const void* q, const void* pages,
+                                              const void* tables, const void* ctx_lens,
+                                              void* out, int B, int C, int H, int page,
+                                              int max_pages, int pool_rows, void* stream) {
+  if (B == 0 || C == 0 || H == 0) return (int)cudaSuccess;
+  latent::Params p{};
+  p.tables = static_cast<const int32_t*>(tables);
+  p.lens = static_cast<const int32_t*>(ctx_lens);
+  p.out = static_cast<bf16*>(out);
+  p.B = B;
+  p.C = C;
+  p.H = H;
+  p.page = page;
+  p.max_pages = max_pages;
+  p.box_rows = latent::box_rows(page);
+  p.pool_rows = pool_rows;
+  p.scale_log2 = attn::LOG2E / sqrtf((float)latent::D);
+  const int64_t rows = (int64_t)C * H;
+  const dim3 grid((unsigned)((rows + latent::BM - 1) / latent::BM), 1, B);
+  return (int)latent::launch(q, (int64_t)B * rows, pages, p, grid,
+                             static_cast<cudaStream_t>(stream));
 }

@@ -4,7 +4,9 @@ TPU kernel of the JAX package:
   cache_write      - the fused KV/image-cache row write (paper §4.5)
   paged_attention  - decode and chunked-prefill attention over paged KV,
                      decode with split-KV whose last block per tile merges
-                     the splits (csrc/attn_merge.cuh, shared with flash)
+                     the splits (csrc/attn_merge.cuh, shared with flash);
+                     bf16 MLA latent rows (D = 576) on the wgmma tiles of
+                     csrc/attn_latent.cuh
   selective_scan   - the Mamba-1 recurrence (falcon-mamba prefill and decode)
   flash_attention  - full-sequence attention over contiguous K/V (whisper's
                      audio encoder and cross-attention), with split-KV for
@@ -17,8 +19,8 @@ to the plain version and CUDA tensors to the kernel; there is no switch and
 no fallback.  ``launches`` counts kernel launches (only real launches, never
 plain-version calls), so a run can show which kernels its path went
 through: ``*_split`` counts the split calls among them, each of which
-merges its splits in its own last blocks, and ``*_merge`` the merge kernel
-launched alone (to check it).
+merges its splits in its own last blocks, ``*_merge`` the merge kernel
+launched alone (to check it), and ``*_latent`` the latent-row kernels.
 """
 from __future__ import annotations
 
@@ -30,7 +32,8 @@ import torch
 
 launches = {"cache_write": 0, "paged_attention": 0,
             "paged_attention_split": 0, "paged_attention_merge": 0,
-            "paged_prefill_attention": 0, "selective_scan": 0,
+            "paged_prefill_attention": 0, "paged_attention_latent": 0,
+            "paged_prefill_attention_latent": 0, "selective_scan": 0,
             "flash_attention": 0, "flash_attention_split": 0,
             "flash_attention_merge": 0}
 

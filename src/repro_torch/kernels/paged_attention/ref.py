@@ -2,7 +2,8 @@
 chunked prefill (a chunk of queries, chunk-causal over pages).  Gather the
 pages, then a masked softmax in f32, as ``repro``'s jnp oracles do.  And the
 decode kernel's split-KV pair: per-split partials over ranges of table
-columns, merged by log-sum-exp."""
+columns, merged by log-sum-exp; and the latent-row kernels' decomposition
+(:func:`latent_tiles_ref`), for tests of their arithmetic off the card."""
 from __future__ import annotations
 
 import math
@@ -10,6 +11,9 @@ import math
 import torch
 
 from repro_torch.kernels.flash_attention.ref import NEG_INF, merge_partials_ref
+
+LOG2E = 1.4426950408889634
+LN2 = 0.6931471805599453
 
 
 def _gather(pages, block_tables):
@@ -131,3 +135,81 @@ def paged_prefill_attention_ref(q, k_pages, v_pages, block_tables, ctx_lens,
     probs = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgcs,bskd->bckgd", probs, v)
     return out.reshape(B, C, H, D).to(q.dtype)
+
+
+def latent_tiles_ref(q, pages, block_tables, lens, *, decode: bool,
+                     n_split: int = 1, split_pages=None, rows: int = 64,
+                     keys: int = 32, round_bf16: bool = False,
+                     p_hi_lo=None):
+    """The latent-row kernels' arithmetic (``csrc/attn_latent.cuh``) in
+    plain PyTorch, tile by tile: 1-KV-head attention whose values are the
+    keys' rows (K = V = ``pages`` [n_pages, page, 1, D]).
+
+    decode: q [B, H, D], lens = tokens valid (the new one included); else
+    chunked prefill: q [B, C, H, D], lens = tokens cached before the chunk.
+    Query rows are (chunk row, head) pairs r = c * H + g in tiles of
+    ``rows``; each tile walks its keys in ``keys``-key tiles with an online
+    softmax in f32 in log2 units (scores times log2(e) / sqrt(D), a masked
+    key at the finite NEG_INF for the row max and exactly 0 after it).
+    Decode cuts the keys into ``n_split`` ranges of ``split_pages`` table
+    columns (default: ceil(max_pages / n_split)) whose partials (m, l,
+    acc) are merged by log-sum-exp (:func:`merge_partials_ref`, as the
+    kernel's cluster merges them); prefill is one range.  ``round_bf16``
+    weighs P V as the bf16 tensor-core tiles do, l summing the P that the
+    product weighs: prefill rounds P to bf16, decode takes it as hi + lo,
+    hi its bf16 rounding and lo the bf16 rounding of the rest (``p_hi_lo``
+    overrides which); and rounds the output to bf16.  Returns q's shape,
+    f32 unless ``round_bf16``."""
+    if p_hi_lo is None:
+        p_hi_lo = decode
+    q4 = q[:, None] if decode else q
+    B, C, H, D = q4.shape
+    page, P = pages.shape[1], block_tables.shape[1]
+    kv = _gather(pages, block_tables)[:, :, 0]             # [B, S, D]
+    if split_pages is None:
+        split_pages = -(-P // n_split)
+    scale_log2 = LOG2E / math.sqrt(D)
+    out = torch.zeros((B, C * H, D), dtype=torch.float32, device=q.device)
+    for b in range(B):
+        qb = q4[b].reshape(C * H, D).float()
+        n = int(lens[b])
+        ctx = n - 1 if decode else n
+        for row0 in range(0, C * H, rows):
+            qt = qb[row0:row0 + rows]
+            qpos = ctx + torch.arange(row0, row0 + qt.shape[0],
+                                      device=q.device) // H
+            parts = []
+            for s in range(n_split if decode else 1):
+                if decode:
+                    k0 = s * split_pages * page
+                    k1 = min(n, P * page, (s + 1) * split_pages * page)
+                else:
+                    k0, k1 = 0, min(P * page, int(qpos[-1]) + 1)
+                m = torch.full((qt.shape[0],), NEG_INF, device=q.device)
+                l = torch.zeros_like(m)
+                acc = torch.zeros_like(qt)
+                for kb in range(k0, k1, keys):
+                    kt = kv[b, kb:kb + keys]
+                    key = torch.arange(kb, kb + kt.shape[0], device=q.device)
+                    vis = (key[None] < k1) & (key[None] <= qpos[:, None])
+                    sc = qt @ kt.T
+                    mx = torch.where(vis, sc, NEG_INF).amax(1)
+                    m_new = torch.maximum(m, torch.where(
+                        mx == NEG_INF, NEG_INF, mx * scale_log2))
+                    alpha = torch.exp2(m - m_new)
+                    p = torch.where(vis, torch.exp2(
+                        sc * scale_log2 - m_new[:, None]), 0.0)
+                    if round_bf16:
+                        hi = p.bfloat16().float()
+                        p = hi + (p - hi).bfloat16().float() if p_hi_lo else hi
+                    l = alpha * l + p.sum(1)
+                    acc = alpha[:, None] * acc + p @ kt
+                    m = m_new
+                parts.append((torch.where(l > 0, m * LN2, NEG_INF), l, acc))
+            if len(parts) == 1:
+                o = parts[0][2] / parts[0][1].clamp_min(1e-30)[:, None]
+            else:
+                o = merge_partials_ref(*(torch.stack(x) for x in zip(*parts)))
+            out[b, row0:row0 + qt.shape[0]] = o
+    out = out.reshape(q.shape)
+    return out.bfloat16() if round_bf16 else out

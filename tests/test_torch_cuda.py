@@ -9,10 +9,11 @@ Tolerances: f32 1e-4 absolute (summation order only), bf16 2e-2 absolute
 tensor-core tile); bf16 chunked prefill and flash attention are held
 against the plain version's f32 output on the same (upcast) inputs, so
 only the kernel's own rounding counts; the cache write is exact.  Decode rounds only its output
-(no tensor cores, P stays f32), so its bf16 bar is 4e-3, as in
-chip_smoke.py: a lane of 16+ keys averages values to well under 1, where
-one rounding is at most 2^-9; a lane of one key returns the key's value
-exactly.  The
+(no tensor cores, P stays f32; the bf16 latent-row decode at D = 576
+weighs P as hi + lo bf16 parts, P to about 16 bits), so its bf16 bar is
+4e-3, as in chip_smoke.py: a lane of 16+ keys averages values to well
+under 1, where one rounding is at most 2^-9; a lane of one key returns
+the key's value exactly.  The
 selective scan computes in f32 from the same inputs on both sides and
 returns f32, so bf16 inputs keep the f32 bar of 1e-4.  Flash attention
 keeps the attention bars (f32 1e-4, bf16 2e-2).
@@ -735,6 +736,14 @@ def _latent(gen, dev, lens, D, G, dtype, C=1, max_pages=48):
     return kp, tables, torch.randn(shape, generator=gen).to(dev, dtype)
 
 
+def _latent_counter(dtype, D, prefill=False):
+    """The launch counter of the kernel a latent call at (dtype, D) takes:
+    bf16 at D = 576 runs on csrc/attn_latent.cuh."""
+    name = "paged_prefill_attention" if prefill else "paged_attention"
+    latent = dtype == torch.bfloat16 and D == tpa.LATENT_D
+    return name + "_latent" if latent else name
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("D", LATENT_DIMS)
@@ -744,17 +753,21 @@ def test_decode_latent_head_dims_match_plain(cuda, dtype, D, G):
     lens = [1, 17, 200, 650]
     kp, tables, q = _latent(gen, cuda, lens, D, G, dtype)
     lengths = torch.tensor(lens, dtype=torch.int32, device=cuda)
-    before = K.launches["paged_attention"]
+    counter = _latent_counter(dtype, D)
+    before = K.launches[counter]
     got = tpa.paged_attention(q, kp, kp, tables, lengths)
     want = paged_attention_ref(q, kp, kp, tables, lengths)
     torch.cuda.synchronize()
-    assert K.launches["paged_attention"] == before + 1
+    assert K.launches[counter] == before + 1
     assert got.dtype == dtype and torch.isfinite(got.float()).all()
     assert (got.float() - want.float()).abs().max().item() <= \
         DECODE_TOL[dtype]
 
 
 def test_decode_latent_576_replays_in_a_cuda_graph(cuda):
+    """The latent decode captured in a CUDA graph, in splits: replays read
+    the lengths on the device and count no launch on the host; a request
+    tile's splits merge in their cluster, with no counter to leave set."""
     gen = torch.Generator().manual_seed(576)
     kp, tables, q = _latent(gen, cuda, [300, 650], 576, 128, torch.bfloat16)
     lengths = torch.tensor([300, 650], dtype=torch.int32, device=cuda)
@@ -766,9 +779,14 @@ def test_decode_latent_576_replays_in_a_cuda_graph(cuda):
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         out = tpa.paged_attention(q, kp, kp, tables, lengths)
+    counted = K.launches["paged_attention_latent"]
     lengths.copy_(torch.tensor([650, 41], dtype=torch.int32))
-    graph.replay()
+    for _ in range(3):
+        graph.replay()
     torch.cuda.synchronize()
+    assert K.launches["paged_attention_latent"] == counted
+    n_sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert tpa.latent_decode_plan(2, 128, tables.shape[1], 16, n_sms)[0] > 1
     want = paged_attention_ref(q, kp, kp, tables, lengths)
     assert (out.float() - want.float()).abs().max().item() <= \
         DECODE_TOL[torch.bfloat16]
@@ -784,13 +802,94 @@ def test_prefill_latent_head_dims_match_plain(cuda, dtype, D, G, C):
     kp, tables, q = _latent(gen, cuda, [c + C for c in ctx], D, G, dtype,
                             C=C, max_pages=8)
     ctx_t = torch.tensor(ctx, dtype=torch.int32, device=cuda)
-    before = K.launches["paged_prefill_attention"]
+    counter = _latent_counter(dtype, D, prefill=True)
+    before = K.launches[counter]
     got = tpa.paged_prefill_attention(q, kp, kp, tables, ctx_t)
     want = paged_prefill_attention_ref(*_f32(q, kp, kp), tables, ctx_t)
     torch.cuda.synchronize()
-    assert K.launches["paged_prefill_attention"] == before + 1
+    assert K.launches[counter] == before + 1
     assert torch.isfinite(got.float()).all()
     assert (got.float() - want).abs().max().item() <= TOL[dtype]
+
+
+# MLA at DeepSeek-V2's full width on the latent kernels: D = 576, G = 128,
+# one KV head, K = V.  Decode lengths that are not whole pages, one lane of
+# 4096 keys, batches that split (1, 8) and one that barely does (33).
+LATENT_DECODE_LENS = {
+    1: [4096],
+    8: [600, 615, 631, 648, 656, 671, 689, 700],
+    33: [1 + 37 * i for i in range(32)] + [4096],
+}
+
+
+@pytest.mark.parametrize("B", sorted(LATENT_DECODE_LENS))
+def test_latent_decode_matches_plain(cuda, B):
+    gen = torch.Generator().manual_seed(B)
+    lens = LATENT_DECODE_LENS[B]
+    P = 256
+    kp, tables, q = _latent(gen, cuda, lens, 576, 128, torch.bfloat16,
+                            max_pages=P)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    before = dict(K.launches)
+    got = tpa.paged_attention(q, kp, kp, tables, lengths)
+    want = paged_attention_ref(*_f32(q, kp, kp), tables, lengths)
+    torch.cuda.synchronize()
+    assert K.launches["paged_attention_latent"] == \
+        before["paged_attention_latent"] + 1
+    assert all(K.launches[n] == before[n] for n in before
+               if n != "paged_attention_latent")
+    assert got.dtype == torch.bfloat16 and torch.isfinite(got.float()).all()
+    assert (got.float() - want).abs().max().item() <= \
+        DECODE_TOL[torch.bfloat16]
+
+
+# (ctx, C, G): a first chunk, later chunks and a padded lane (None: ctx 0
+# over scratch pages); C * G not a multiple of the 64-row tile at G = 4
+@pytest.mark.parametrize("ctx,C,G", [([0, 13, 60, None], 37, 4),
+                                     ([0, 13, 60, None], 21, 128),
+                                     ([0, 200, 450], 64, 128)])
+def test_latent_prefill_matches_plain(cuda, ctx, C, G):
+    gen = torch.Generator().manual_seed(C + G)
+    lens = [C if c is None else c + C for c in ctx]
+    kp, tables, q = _latent(gen, cuda, lens, 576, G, torch.bfloat16, C=C,
+                            max_pages=36)
+    if None in ctx:                      # the padded lane reads scratch only
+        tables[ctx.index(None)] = kp.shape[0] - 1
+    ctx_t = torch.tensor([c or 0 for c in ctx], dtype=torch.int32,
+                         device=cuda)
+    before = K.launches["paged_prefill_attention_latent"]
+    got = tpa.paged_prefill_attention(q, kp, kp, tables, ctx_t)
+    want = paged_prefill_attention_ref(*_f32(q, kp, kp), tables, ctx_t)
+    torch.cuda.synchronize()
+    assert K.launches["paged_prefill_attention_latent"] == before + 1
+    assert torch.isfinite(got.float()).all()
+    valid = [b for b, c in enumerate(ctx) if c is not None]
+    assert (got[valid].float() - want[valid]).abs().max().item() <= \
+        TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("case", ["distinct-kv", "kh2", "window"])
+def test_latent_shapes_it_does_not_take_raise(cuda, case):
+    """bf16 at D = 576 runs on the latent kernels only: distinct K and V
+    pages, more than one KV head or a window raise, naming the reason,
+    and nothing launches."""
+    gen = torch.Generator().manual_seed(7)
+    Kh = 2 if case == "kh2" else 1
+    kp, vp, tables = _pages(gen, cuda, lens=[40, 70], Kh=Kh, D=576,
+                            dtype=torch.bfloat16, max_pages=8)
+    vp = vp if case == "distinct-kv" else kp
+    q = torch.randn((2, 8, 576), generator=gen).to(cuda, torch.bfloat16)
+    lengths = torch.tensor([40, 70], dtype=torch.int32, device=cuda)
+    window = 16 if case == "window" else 0
+    match = {"distinct-kv": "same pages", "kh2": "one KV head",
+             "window": "no window"}[case]
+    before = dict(K.launches)
+    with pytest.raises(ValueError, match=match):
+        tpa.paged_attention(q, kp, vp, tables, lengths, window=window)
+    with pytest.raises(ValueError, match=match):
+        tpa.paged_prefill_attention(q[:, None], kp, vp, tables, lengths - 1,
+                                    window=window)
+    assert K.launches == before
 
 
 @pytest.mark.parametrize("D", [48, 96, 512, 640])

@@ -178,9 +178,9 @@ def test_decode_plan_takes_shapes_only():
 
 
 def test_heads_per_block_keeps_q_and_acc_in_registers():
-    """Above D = 256 (MLA's 576-wide latent rows) a decode block holds 2
-    query heads, as the kernel's ``DecCfg::MAX_GT`` does, and the plan
-    counts its blocks so."""
+    """Above D = 256 (MLA's 576-wide latent rows in f32; bf16 runs on the
+    latent-row kernels) a decode block holds 2 query heads, as the
+    kernel's ``DecCfg::MAX_GT`` does, and the plan counts its blocks so."""
     assert tpa.heads_per_block(128, 576) == 2
     assert tpa.heads_per_block(1, 576) == 1
     assert tpa.heads_per_block(128, 80) == tpa.heads_per_block(128, 256) == 8

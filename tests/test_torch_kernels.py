@@ -167,6 +167,9 @@ def test_cpu_calls_take_plain_versions_and_count_no_launch(rng):
     assert K.launches == {"cache_write": 0, "paged_attention": 0,
                           "paged_attention_split": 0,
                           "paged_attention_merge": 0,
-                          "paged_prefill_attention": 0, "selective_scan": 0,
+                          "paged_prefill_attention": 0,
+                          "paged_attention_latent": 0,
+                          "paged_prefill_attention_latent": 0,
+                          "selective_scan": 0,
                           "flash_attention": 0, "flash_attention_split": 0,
                           "flash_attention_merge": 0}

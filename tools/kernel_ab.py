@@ -28,18 +28,23 @@ seeds 0-2, beside the scan's bar of 1e-4.
 
     python3 tools/kernel_ab.py --mla --parent DIR
 
-times only MLA's decode at full width (B = 8, H = 128, Kh = 1, D = 576,
-ctx 600-700, bf16) of both trees' ``paged_attention.cu``, each at its own
-plan, and this tree's bf16 chunked prefill at D = 64 (granite-moe) and
-D = 128 (LLaVA) as built beside a build whose tensor-core tile copies
-every K/V chunk through its own key's row lookup (``attn_mma.cuh``'s
-general copy path, which D = 80 and 112 take).  Needs a CUDA card and
-nvcc; prints one JSON object per line.
+times only MLA's attention at full width (bf16, H = 128, Kh = 1, D =
+576, K and V the same pages): the parent's paged decode (its plan) and
+chunked prefill against this tree's latent-row kernels
+(``csrc/attn_latent.cuh``, decode at ``latent_decode_plan``), decode at B
+= 8, ctx 600-700 (warm and with L2 flushed), prefill of one 512-token
+first chunk, each with its largest error against the plain version's f32
+output; then this tree's decode at every split count from 1 to 8 beside
+the card's cluster capacity for it (``latent_max_clusters``).  The parent is a tree whose ``paged_attention.cu`` still serves
+bf16 at D = 576 through ``paged_attention`` and
+``paged_prefill_attention``.  Needs a CUDA card and nvcc; prints one JSON
+object per line.
 """
 from __future__ import annotations
 
 import argparse
 import ctypes
+import functools
 import json
 import statistics
 import subprocess
@@ -188,87 +193,124 @@ def prefill_ab(libs, gen):
           flush=True)
 
 
-def mla_decode_ab(libs, gen, sms, parent_plan):
-    """Decode at DeepSeek-V2's latent rows, K and V the same pages: the
-    parent's kernel and plan against this tree's."""
+def mla_ab(libs, gen, sms, parent_plan):
+    """MLA's latent rows at full width (bf16, H = 128, Kh = 1, D = 576, K
+    and V the same pages): the parent's paged kernels (its CUDA-core
+    decode at its own plan, its chunked prefill) against this tree's
+    latent-row kernels (csrc/attn_latent.cuh, decode at
+    latent_decode_plan).  Decode at B = 8, ctx 600-700, warm and with L2
+    flushed; one 512-token first chunk."""
     import torch
-    from repro_torch.kernels.paged_attention.ops import decode_plan
-    from repro_torch.kernels.paged_attention.ref import paged_attention_ref
-    fns = [libs[n].paged_attention for n in ("parent_pa", "pa")]
-    for f in fns:
-        f.argtypes = [_P] * 6 + [_I] * 9 + [_P] * 3
+    from repro_torch.kernels.paged_attention.ops import (
+        _LATENT_DECODE_ARGS, _LATENT_PREFILL_ARGS, latent_decode_plan,
+        latent_max_clusters)
+    from repro_torch.kernels.paged_attention.ref import (
+        paged_attention_ref, paged_prefill_attention_ref)
+    par_dec, par_pre = (libs["parent_pa"].paged_attention,
+                        libs["parent_pa"].paged_prefill_attention)
+    par_dec.argtypes = [_P] * 6 + [_I] * 9 + [_P] * 3
+    par_pre.argtypes = [_P] * 6 + [_I] * 9 + [_P]
+    new_dec, new_pre = (libs["pa"].paged_latent_attention,
+                        libs["pa"].paged_latent_prefill_attention)
+    new_dec.argtypes = _LATENT_DECODE_ARGS
+    new_pre.argtypes = _LATENT_PREFILL_ARGS
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+
+    def cold(fn):
+        return graph_ms(lambda: (flush.zero_(), fn())) - \
+            graph_ms(lambda: flush.zero_())
+
+    def stream():
+        return torch.cuda.current_stream().cuda_stream
+
+    def pool(lens, P, n_pages):
+        kp = torch.randn((n_pages, PAGE, 1, 576), generator=gen,
+                         device="cuda").bfloat16()
+        perm = torch.randperm(n_pages - 1, generator=gen, device="cuda")
+        tables = torch.full((len(lens), P), n_pages - 1, dtype=torch.int32,
+                            device="cuda")
+        used = 0
+        for b, n in enumerate(lens):
+            m = -(-n // PAGE)
+            tables[b, :m] = perm[used:used + m].int()
+            used += m
+        return kp, tables
+
     lens = [600, 615, 631, 648, 656, 671, 689, 700]
-    B, H, Kh, D, n_pages, P = len(lens), 128, 1, 576, 400, 64
-    kp = torch.randn((n_pages, PAGE, Kh, D), generator=gen,
-                     device="cuda").bfloat16()
-    perm = torch.randperm(n_pages - 1, generator=gen, device="cuda")
-    tables = torch.full((B, P), n_pages - 1, dtype=torch.int32,
-                        device="cuda")
-    used = 0
-    for b, n in enumerate(lens):
-        m = -(-n // PAGE)
-        tables[b, :m] = perm[used:used + m].int()
-        used += m
+    B, H, D, P = len(lens), 128, 576, 64
+    kp, tables = pool(lens, P, 400)
     q = torch.randn((B, H, D), generator=gen, device="cuda").bfloat16()
     lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
-    splits = [parent_plan(B, H, Kh, P, PAGE, sms),
-              decode_plan(B, H, Kh, D, P, PAGE, sms)]
+    p_split = parent_plan(B, H, 1, D, P, PAGE, sms)
+    n_split, per = latent_decode_plan(B, H, P, PAGE, sms, functools.partial(
+        latent_max_clusters, 0))
     counters = torch.zeros(4096, dtype=torch.int32, device="cuda")
     outs = [torch.empty_like(q) for _ in range(2)]
-    parts = [torch.empty(n * B * H * (D + 2), device="cuda") for n in splits]
+    parts = torch.empty(p_split * B * H * (D + 2), device="cuda")
     ptrs = [t.data_ptr() for t in (q, kp, kp, tables, lengths)]
-    calls = [lambda i=i: fns[i](
-        *ptrs, outs[i].data_ptr(), 1, B, H, Kh, D, PAGE, P, 0, splits[i],
-        parts[i].data_ptr(), counters.data_ptr(),
-        torch.cuda.current_stream().cuda_stream) for i in range(2)]
-    for c in calls:
-        c()
+
+    def fp():
+        par_dec(*ptrs, outs[0].data_ptr(), 1, B, H, 1, D, PAGE, P, 0,
+                p_split, parts.data_ptr(), counters.data_ptr(), stream())
+
+    def fn():
+        new_dec(q.data_ptr(), kp.data_ptr(), tables.data_ptr(),
+                lengths.data_ptr(), outs[1].data_ptr(), B, H, PAGE, P,
+                kp.shape[0] * PAGE, n_split, per, stream())
+    fp()
+    fn()
     torch.cuda.synchronize()
-    want = paged_attention_ref(q, kp, kp, tables, lengths).float()
+    want = paged_attention_ref(q.float(), kp.float(), kp.float(), tables,
+                               lengths)
     print(json.dumps({
-        "decode": f"mla: B={B} H={H} Kh={Kh} D={D} ctx 600-700 bf16",
-        "n_split": splits,
+        "decode": f"mla: B={B} H={H} Kh=1 D={D} ctx 600-700 bf16",
+        "n_split": [p_split, n_split],
         "max_abs_err": [(o.float() - want).abs().max().item() for o in outs],
-        "device_ms": alternate(*calls, graph_ms),
+        "device_ms": alternate(fp, fn, graph_ms),
+        "cold_l2_ms": alternate(fp, fn, cold),
         "order": "parent, change, change, parent"}), flush=True)
 
+    # this tree's decode at every split count, beside the card's cluster
+    # capacity for it (the plan takes the most splits whose clusters all
+    # fit at once)
+    sweep = {}
+    for n in range(1, 9):
+        per_n = -(-P // n)
+        per_n += per_n % 2
+        sweep[n] = {"max_clusters": latent_max_clusters(0, n),
+                    "device_ms": graph_ms(lambda: new_dec(
+                        q.data_ptr(), kp.data_ptr(), tables.data_ptr(),
+                        lengths.data_ptr(), outs[1].data_ptr(), B, H, PAGE,
+                        P, kp.shape[0] * PAGE, n, per_n, stream()))}
+    print(json.dumps({"decode_splits": f"mla: B={B} H={H} (16 request x "
+                      f"head-tile pairs) ctx 600-700, this tree",
+                      "plan": n_split, "by_n_split": sweep}), flush=True)
 
-def load_tile_ab(libs, gen):
-    """bf16 chunked prefill on the tensor-core tile, this tree as built
-    ("parent") against the build that looks up each K/V chunk's key row
-    on its own ("change"): granite-moe's 512-token first chunk (H = 16,
-    Kh = 8, D = 64) and LLaVA's image chunk (1024 rows, 576 valid, H = Kh
-    = 32, D = 128).  The outputs must be equal bit for bit."""
-    import torch
-    fns = [libs[n].paged_prefill_attention for n in ("pa", "pa_per_key")]
-    for f in fns:
-        f.argtypes = [_P] * 6 + [_I] * 9 + [_P]
-    for tag, H, Kh, D, C, valid in (("granite-c512", 16, 8, 64, 512, 512),
-                                    ("llava-c1024", 32, 32, 128, 1024, 576)):
-        n_pages = C // PAGE + 1
-        kp, vp = (torch.randn((n_pages, PAGE, Kh, D), generator=gen,
-                              device="cuda").bfloat16() for _ in range(2))
-        tables = torch.full((1, C // PAGE), n_pages - 1, dtype=torch.int32,
-                            device="cuda")
-        tables[0, :valid // PAGE] = torch.randperm(
-            n_pages - 1, generator=gen, device="cuda")[:valid // PAGE].int()
-        q = torch.randn((1, C, H, D), generator=gen, device="cuda").bfloat16()
-        ctx = torch.zeros(1, dtype=torch.int32, device="cuda")
-        outs = [torch.empty_like(q) for _ in range(2)]
-        ptrs = [t.data_ptr() for t in (q, kp, vp, tables, ctx)]
-        calls = [lambda i=i: fns[i](
-            *ptrs, outs[i].data_ptr(), 1, 1, C, H, Kh, D, PAGE, C // PAGE, 0,
-            torch.cuda.current_stream().cuda_stream) for i in range(2)]
-        for c in calls:
-            c()
-        torch.cuda.synchronize()
-        print(json.dumps({
-            "prefill": f"{tag}: B=1 C={C} ({valid} valid) H={H} Kh={Kh} "
-                       f"D={D} bf16",
-            "equal": bool(torch.equal(outs[0], outs[1])),
-            "device_ms": alternate(*calls, graph_ms),
-            "order": "as built, per-key copy, per-key copy, as built"}),
-            flush=True)
+    C = 512
+    kp, tables = pool([C], C // PAGE, C // PAGE + 1)
+    q = torch.randn((1, C, H, D), generator=gen, device="cuda").bfloat16()
+    ctx = torch.zeros(1, dtype=torch.int32, device="cuda")
+    outs = [torch.empty_like(q) for _ in range(2)]
+
+    def pp():
+        par_pre(q.data_ptr(), kp.data_ptr(), kp.data_ptr(), tables.data_ptr(),
+                ctx.data_ptr(), outs[0].data_ptr(), 1, 1, C, H, 1, D, PAGE,
+                C // PAGE, 0, stream())
+
+    def pn():
+        new_pre(q.data_ptr(), kp.data_ptr(), tables.data_ptr(),
+                ctx.data_ptr(), outs[1].data_ptr(), 1, C, H, PAGE, C // PAGE,
+                kp.shape[0] * PAGE, stream())
+    pp()
+    pn()
+    torch.cuda.synchronize()
+    want = paged_prefill_attention_ref(q.float(), kp.float(), kp.float(),
+                                       tables, ctx)
+    print(json.dumps({
+        "prefill": f"mla: B=1 C={C} H={H} Kh=1 D={D} ctx 0 bf16",
+        "max_abs_err": [(o.float() - want).abs().max().item() for o in outs],
+        "device_ms": alternate(pp, pn, lambda f: graph_ms(f, reps=5)),
+        "order": "parent, change, change, parent"}), flush=True)
 
 
 def flash_ab(libs, gen, sms, parent_plan):
@@ -460,8 +502,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent", required=True, type=Path)
     ap.add_argument("--mla", action="store_true",
-                    help="only MLA's decode and the prefill tile's copy "
-                         "paths")
+                    help="only MLA's decode and chunked prefill at D = 576")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -476,24 +517,11 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(0)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     if args.mla:
-        import shutil
-        per_key = OUT / "per_key_csrc"
-        shutil.rmtree(per_key, ignore_errors=True)
-        shutil.copytree(csrc, per_key)
-        header = per_key / "attn_mma.cuh"
-        text = header.read_text()
-        old = "if constexpr (NTHR % CH == 0) {"
-        if old not in text:
-            raise RuntimeError("the tile's copy paths are not where expected")
-        header.write_text(text.replace(old, "if constexpr (false) {", 1))
         libs = build({"pa": (csrc / "paged_attention.cu", csrc),
-                      "parent_pa": (pcsrc / "paged_attention.cu", pcsrc),
-                      "pa_per_key": (per_key / "paged_attention.cu",
-                                     per_key)})
+                      "parent_pa": (pcsrc / "paged_attention.cu", pcsrc)})
         print(json.dumps({"card": card}), flush=True)
-        mla_decode_ab(libs, gen, sms, parent_function(
+        mla_ab(libs, gen, sms, parent_function(
             args.parent, "kernels/paged_attention/ops.py", "decode_plan"))
-        load_tile_ab(libs, gen)
         return 0
     scan = (csrc / "selective_scan.cu").read_text()
     old = "expf(dtv * a[i])"
