@@ -12,7 +12,8 @@ on failure:
             csrc`` (all nvcc processes at once), and read from ``cuobjdump
             -sass`` that the bf16 attention kernels run on tensor cores
             (HMMA instructions; HGMMA, wgmma, in the latent-row kernel)
-            and from ptxas that the latent-row kernel does not spill;
+            and from ptxas that the latent-row kernel and the scan's
+            per-head mode do not spill;
 3. kernels- each kernel against its plain PyTorch version on the card: the
             attention and cache-write kernels at full-width LLaVA-1.5-7B
             shapes (H = Kh = 32, D = 128, page 16, w = 4096), in f32 and
@@ -56,12 +57,22 @@ on failure:
             version and one PyTorch library call (where there is one) with
             CUDA events, and computes each kernel's bound (at D = 576 too:
             decode at B = 8, a 512-token chunk, the write);
+            the scan's per-head mode (Mamba-2) at zamba2-7b's widths (H =
+            112 heads of P = 64, N = 64): prefill B = 1 and 4 at S = 512
+            from a nonzero state, decode B = 4 and 8, f32 and bf16, a dt =
+            0 tail that must leave the state unchanged, its bound from the
+            bytes and 3 f32 instructions per (step, channel, state) over
+            the card's f32 lanes; the paged decode (B = 8) and chunked
+            prefill (a 512-token chunk, f32 and bf16) at zamba2-7b's
+            shared attention (H = Kh = 32, D = 112) against their plain
+            versions and SDPA;
 4. model  - the port's runner on the card against the same runner on the
             CPU (plain versions) on reduced LLaVA, reduced falcon-mamba
             (batched chunks of different lengths) and reduced whisper-small
             (encoder output, batched chunks, decode over cross K/V),
-            reduced granite-moe-1b-a400m and reduced DeepSeek-V2 (latent
-            pool, D = 80): logits per step;
+            reduced granite-moe-1b-a400m, reduced DeepSeek-V2 (latent
+            pool, D = 80), reduced zamba2-7b (Mamba-2 + shared attention)
+            and reduced gemma3-4b (sliding window): logits per step;
 5. serve  - three main paths through ``repro_torch.engine.api.Engine``,
             each with the launch counters set to 0 just before it and read
             just after: full-width, 32-layer LLaVA-1.5-7B with random bf16
@@ -89,14 +100,23 @@ on failure:
             none of it on the other paged attention kernels), the K/V or
             latent rows must migrate P -> D; one
             profiled decode step at B = 4 with its MoE FFN's device time
-            and the share of its matrix products);
+            and the share of its matrix products); then full-width,
+            81-layer zamba2-7b on P/D instances with falcon-mamba's
+            request mix (the scan's per-head mode must launch 68 times a
+            decode step and in every prefill call, Mamba-1's scan never,
+            every paged attention and cache-write kernel must launch, each
+            request's KV and 127.8 MB of recurrent state must migrate P ->
+            D; device time by kernel of a 512-token prefill chunk and of a
+            steady decode step at B = 4);
 6. report - one JSON line of kernels (each split-KV merge keeps its own
             row: fused into its split kernel, its launches are the split
             calls, ``ms`` and ``standalone_*`` time the merge kernel alone,
             ``fused`` its share of the split calls; the ``*_latent`` rows
             are the latent-row kernels and ``cache_write_mla`` the
             576-wide write, at DeepSeek-V2's latent rows, their launches
-            the DeepSeek-V2 path's), then the final status line.
+            the DeepSeek-V2 path's; ``selective_scan_heads`` and the
+            ``*_zamba2`` rows at zamba2-7b's widths, their launches the
+            zamba2 path's), then the final status line.
 
 Exits non-zero (and prints no status line) without a card or outside the
 repository.
@@ -148,11 +168,16 @@ TOL = {"paged_attention": {"float32": 1e-4, "bfloat16": 4e-3},
        "paged_prefill_attention": {"float32": 1e-4, "bfloat16": 2e-2},
        "cache_write": {"float32": 0.0, "bfloat16": 0.0},
        "selective_scan": {"float32": 1e-4, "bfloat16": 1e-4},
+       "selective_scan_heads": {"float32": 1e-4, "bfloat16": 1e-4},
        "flash_attention": {"float32": 1e-4, "bfloat16": 2e-2},
        "flash_attention_merge": {"bfloat16": 2e-3},
        "paged_attention_merge": {"bfloat16": 2e-3}}
 H, KH, D, PAGE, W = 32, 32, 128, 16, 4096             # llava-1.5-7b widths
 D_INNER, N_STATE = 8192, 16                           # falcon-mamba-7b widths
+ZH, ZP, ZN = 112, 64, 64                              # zamba2-7b Mamba-2
+#                                           heads, head width, state size
+ZAH, ZD = 32, 112                                     # zamba2-7b attention
+#                                           heads (= KV heads), head dim
 WH, WD, WT = 12, 64, 1500                             # whisper-small heads,
 #                                                       head dim, frames
 GH, GKH, GD, GL = 16, 8, 64, 24                       # granite-moe-1b-a400m
@@ -249,18 +274,30 @@ def bound(nbytes: float, flops: float, dtype: str) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def exp_rate() -> float:
-    """Exponentials per second the card's special-function units give: 16
-    results per clock per SM on sm_90 (the CUDA C++ Programming Guide's
-    table of arithmetic-instruction throughput) at the card's maximum SM
-    clock, as nvidia-smi reports it."""
+def sm_rate(per_clock: int) -> float:
+    """Results per second of a unit that gives ``per_clock`` results per
+    clock per SM, at the card's maximum SM clock as nvidia-smi reports
+    it."""
     import torch
     mhz = float(subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm",
          "--format=csv,noheader,nounits"], capture_output=True, text=True,
         check=True).stdout.split()[0])
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    return sms * 16 * mhz * 1e6
+    return sms * per_clock * mhz * 1e6
+
+
+def exp_rate() -> float:
+    """Exponentials per second the card's special-function units give: 16
+    results per clock per SM on sm_90 (the CUDA C++ Programming Guide's
+    table of arithmetic-instruction throughput)."""
+    return sm_rate(16)
+
+
+def fma_rate() -> float:
+    """f32 instructions (an FMA counts one) per second of the card's f32
+    lanes: 128 per clock per SM on sm_90 (the same table)."""
+    return sm_rate(128)
 
 
 def dname(dtype) -> str:
@@ -1018,49 +1055,152 @@ def scan_bound(B, S, isz, rate, d=D_INNER, N=N_STATE) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def scan_cases(gen, dev, results, rate):
+def scan_cases(gen, dev, results, name, fn, ref, inputs, bound, widths,
+               tail_dtype):
+    """One mode of the selective scan against its plain version: prefill
+    B = 1 and 4 at S = 512 from a nonzero state, decode B = 4 and 8, f32
+    and bf16, timed beside ``bound(B, S, itemsize)``; then a tail of dt =
+    0 (what the prefill mask makes of padded positions) that must leave
+    the state exactly as the valid head left it.  ``inputs(gen, dev, B,
+    S, dtype)`` makes (dt, x, A, B, C, h0); the B = 1 bf16 prefill is the
+    kernels line's row."""
     import torch
-    from repro_torch.kernels.selective_scan.ops import selective_scan
-    from repro_torch.kernels.selective_scan.ref import selective_scan_ref
     errs = []
     for tag, B, S in (("prefill-b1-s512", 1, 512), ("prefill-b4-s512", 4, 512),
                       ("decode-b4", 4, 1), ("decode-b8", 8, 1)):
         for dtype in (torch.float32, torch.bfloat16):
-            ins = scan_inputs(gen, dev, B, S, dtype)
-            y, h = selective_scan(*ins)
-            y_ref, h_ref = selective_scan_ref(*ins)
-            errs += [check(f"selective_scan/{tag}/y", dtype, y, y_ref),
-                     check(f"selective_scan/{tag}/h", dtype, h, h_ref)]
-            b_ms, b_by = scan_bound(B, S, ins[0].element_size(), rate)
-            row = {"shape": f"B={B} S={S} d={D_INNER} N={N_STATE} "
-                            f"{dname(dtype)} inputs, f32 state",
-                   "ms": time_ms(lambda: selective_scan(*ins)),
-                   "plain_ms": time_ms(lambda: selective_scan_ref(*ins),
-                                       reps=2, rounds=3),
+            ins = inputs(gen, dev, B, S, dtype)
+            y, h = fn(*ins)
+            y_ref, h_ref = ref(*ins)
+            errs += [check(f"{name}/{tag}/y", dtype, y, y_ref),
+                     check(f"{name}/{tag}/h", dtype, h, h_ref)]
+            b_ms, b_by = bound(B, S, ins[0].element_size())
+            row = {"shape": f"B={B} S={S} {widths} {dname(dtype)} inputs, "
+                            f"f32 state",
+                   "ms": time_ms(lambda: fn(*ins)),
+                   "plain_ms": time_ms(lambda: ref(*ins), reps=2, rounds=3),
                    "library_ms": None, "bound_ms": b_ms, "bound_by": b_by}
-            row["device_ms"] = time_ms_graph(lambda: selective_scan(*ins))
+            row["device_ms"] = time_ms_graph(lambda: fn(*ins))
             row["bound_share"] = b_ms / row["device_ms"]
             if tag == "prefill-b1-s512" and dtype == torch.bfloat16:
-                results["selective_scan"] = row
+                results[name] = row
             else:
-                log({"timing": f"selective_scan/{tag}-{dname(dtype)}", **row})
+                log({"timing": f"{name}/{tag}-{dname(dtype)}", **row})
             del ins, y, h, y_ref, h_ref
-    # a tail of dt = 0 (what the prefill mask makes of padded positions)
-    # must leave the state exactly as the valid head left it
-    dt, x, A, Bm, Cm, h0 = scan_inputs(gen, dev, 2, 512, torch.float32)
+    dt, x, A, Bm, Cm, h0 = inputs(gen, dev, 2, 512, tail_dtype)
     n = 384
-    _, h_head = selective_scan(dt[:, :n].contiguous(), x[:, :n].contiguous(),
-                               A, Bm[:, :n].contiguous(),
-                               Cm[:, :n].contiguous(), h0)
+    _, h_head = fn(dt[:, :n].contiguous(), x[:, :n].contiguous(), A,
+                   Bm[:, :n].contiguous(), Cm[:, :n].contiguous(), h0)
     dt[:, n:] = 0
-    y, h = selective_scan(dt, x, A, Bm, Cm, h0)
-    y_ref, h_ref = selective_scan_ref(dt, x, A, Bm, Cm, h0)
-    errs += [check("selective_scan/zero-dt-tail/y", dt.dtype, y, y_ref),
-             check("selective_scan/zero-dt-tail/h", dt.dtype, h, h_ref)]
+    y, h = fn(dt, x, A, Bm, Cm, h0)
+    y_ref, h_ref = ref(dt, x, A, Bm, Cm, h0)
+    errs += [check(f"{name}/zero-dt-tail/y", dt.dtype, y, y_ref),
+             check(f"{name}/zero-dt-tail/h", dt.dtype, h, h_ref)]
     if not torch.equal(h, h_head):
-        raise AssertionError("selective_scan: dt = 0 changed the state")
-    log({"check": "selective_scan/zero-dt-tail", "state_unchanged": True})
-    results["selective_scan"]["max_abs_err"] = max(errs)
+        raise AssertionError(f"{name}: dt = 0 changed the state")
+    log({"check": f"{name}/zero-dt-tail", "state_unchanged": True})
+    results[name]["max_abs_err"] = max(errs)
+
+
+def heads_inputs(gen, dev, B, S, dtype, Hh=ZH, P=ZP, N=ZN):
+    """dt = 0.1 |z| per head, x, B, C ~ z; A = -|z| per head, f32; a
+    nonzero f32 state h0 [B, H, P, N]."""
+    import torch
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+    return ((rnd(B, S, Hh).abs() * 0.1).to(dtype), rnd(B, S, Hh * P).to(dtype),
+            -rnd(Hh).abs(), rnd(B, S, N).to(dtype), rnd(B, S, N).to(dtype),
+            rnd(B, Hh, P, N))
+
+
+def heads_bound(B, S, isz, fma, rate, Hh=ZH, P=ZP, N=ZN) -> tuple:
+    """The least time of one per-head scan call: each input read once (x,
+    dt, B, C in their type; A and h0 in f32), y and h written once in f32;
+    against 3 f32 instructions per (step, channel, state) over the f32
+    lanes (dt * x * B, the recurrence's FMA, y's FMA), plus one
+    exponential per (step, head) over the special-function units."""
+    d = Hh * P
+    nbytes = (B * S * d + B * S * Hh + 2 * B * S * N) * isz + Hh * 4 \
+        + 2 * B * d * N * 4 + B * S * d * 4
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = (3 * B * S * d * N / fma + B * S * Hh / rate) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def zamba_attention_cases(gen, dev, results):
+    """The paged kernels at zamba2-7b's shared attention (H = Kh = 32, D =
+    112): decode at B = 8 (ctx 600-700) and a 512-token chunk (a first
+    one and a later one at B = 2), f32 and bf16 (bf16 chunked prefill held
+    against the plain version's f32 output); the bf16 calls timed beside
+    their bound, plain version and SDPA on pre-gathered K/V."""
+    import torch
+    from repro_torch.kernels.paged_attention.ops import (
+        paged_attention, paged_prefill_attention)
+    from repro_torch.kernels.paged_attention.ref import (
+        paged_attention_ref, paged_prefill_attention_ref)
+    errs = {"paged_attention_zamba2": [], "paged_prefill_attention_zamba2": []}
+    for dtype in (torch.float32, torch.bfloat16):
+        lens = [600, 615, 631, 648, 656, 671, 689, 700]
+        kp, vp, tables, _ = paged_case(gen, dev, dtype, lens=lens,
+                                       n_pages_total=400, Kh=ZAH, Dh=ZD)
+        B = len(lens)
+        q = torch.randn((B, ZAH, ZD), generator=gen, device=dev).to(dtype)
+        lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+
+        def call():
+            return paged_attention(q, kp, vp, tables, lengths)
+
+        def plain():
+            return paged_attention_ref(q.float(), kp.float(), vp.float(),
+                                       tables, lengths)
+        errs["paged_attention_zamba2"].append(check(
+            "paged_attention/zamba2-b8", dtype, call(), plain()))
+        if dtype == torch.bfloat16:
+            row = {"shape": f"B={B} H={ZAH} Kh={ZAH} D={ZD} page={PAGE} "
+                            f"ctx 600-700 bf16",
+                   "ms": time_ms(call), "device_ms": time_ms_graph(call),
+                   "plain_ms": time_ms(plain),
+                   **paged_yardstick(q[:, None], kp, vp, tables, lens,
+                                     (lengths.long() - 1)[:, None],
+                                     4 * sum(lens) * ZAH * ZD)}
+            row["bound_share"] = row["bound_ms"] / row["device_ms"]
+            results["paged_attention_zamba2"] = row
+
+        ctx, C, n_valid = [0, 512], 512, [512, 88]
+        kp, vp, tables, _ = paged_case(
+            gen, dev, dtype, lens=[c + n for c, n in zip(ctx, n_valid)],
+            n_pages_total=400, Kh=ZAH, Dh=ZD)
+        q = torch.randn((len(ctx), C, ZAH, ZD), generator=gen,
+                        device=dev).to(dtype)
+        ctx_t = torch.tensor(ctx, dtype=torch.int32, device=dev)
+
+        def chunk():
+            return paged_prefill_attention(q, kp, vp, tables, ctx_t)
+
+        def chunk_plain():
+            return paged_prefill_attention_ref(q.float(), kp.float(),
+                                               vp.float(), tables, ctx_t)
+        errs["paged_prefill_attention_zamba2"].append(check(
+            "paged_prefill_attention/zamba2-c512", dtype, chunk(),
+            chunk_plain()))
+        if dtype == torch.bfloat16:
+            # every row of the padded chunk is computed, over the keys its
+            # table holds (as for granite-moe's chunk)
+            S = tables.shape[1] * PAGE
+            qpos = ctx_t.long()[:, None] + torch.arange(C, device=dev)
+            n_keys = [min(c + C, S) for c in ctx]
+            pairs = sum(min(c + i + 1, S) for c in ctx for i in range(C))
+            row = {"shape": f"B=2 C={C} (512 + 88 valid) ctx 0 / 512 "
+                            f"H={ZAH} Kh={ZAH} D={ZD} bf16",
+                   "ms": time_ms(chunk), "device_ms": time_ms_graph(chunk),
+                   "plain_ms": time_ms(chunk_plain),
+                   **paged_yardstick(q, kp, vp, tables, n_keys, qpos,
+                                     4 * pairs * ZAH * ZD)}
+            row["bound_share"] = row["bound_ms"] / row["device_ms"]
+            results["paged_prefill_attention_zamba2"] = row
+    for name, e in errs.items():
+        results[name]["max_abs_err"] = max(e)
 
 
 def flash_cases(gen, dev, results, rate):
@@ -1216,15 +1356,17 @@ def sass_hmma(card: str):
 
 def check_ptxas(logs: dict):
     """Print each built kernel's registers and spills (``-Xptxas -v``);
-    fails when the latent-row kernel spills."""
+    fails when the latent-row kernel or the scan's per-head mode (a 4 x 4
+    tile of states a thread) spills."""
     for name, text in logs.items():
         report = ptxas_report(text)
         log({"ptxas": name, "kernels": report})
         for k in report:
-            if "latent_kernel" in k["fn"]:
-                log({"ptxas_latent": k})
+            heads = "selective_scan_heads_kernel" in k["fn"]
+            if "latent_kernel" in k["fn"] or heads:
+                log({"ptxas_latent" if not heads else "ptxas_scan_heads": k})
                 if k["spill_bytes"]:
-                    raise AssertionError(f"the latent-row kernel spills: {k}")
+                    raise AssertionError(f"{k['fn']} spills: {k}")
 
 
 # ---------------------------------------------------------------------------
@@ -1365,9 +1507,11 @@ def whisper_model_check(seed: int):
          "steps": steps, "max_rel_err": worst, "tol": 2e-4})
 
 
-def moe_model_check(arch: str, seed: int):
+def arch_model_check(arch: str, seed: int):
     """Reduced granite-moe or DeepSeek-V2 (MoE FFN; DeepSeek with latent
-    attention over its MLA pool, head dim 80, one KV head): a batched first
+    attention over its MLA pool, head dim 80, one KV head), zamba2-7b
+    (Mamba-2 layers and shared attention over the KV pool) or gemma3-4b
+    (sliding window 16 on local layers, tied embeddings): a batched first
     chunk of three prompts of different lengths, a second chunk for two of
     them, then four decode steps, on the card and on the CPU."""
     import numpy as np
@@ -1475,6 +1619,19 @@ def run_requests(eng, reqs, vocab: int):
     return [eng.result(s.rid).req for s in streams], outs, wall
 
 
+def text_requests(rng, vocab: int, seed: int) -> list:
+    """The text paths' mix: five requests of 200-600 prompt tokens, 16 new
+    tokens, four greedy and one seeded sampled; [(prompt, None, params)]."""
+    from repro_torch.core.request import SamplingParams
+    reqs = []
+    for i in range(5):
+        prompt = rng.integers(0, vocab, int(rng.integers(200, 601)))
+        sp = SamplingParams(max_tokens=16) if i < 4 else SamplingParams(
+            temperature=0.8, top_k=50, top_p=0.95, seed=seed, max_tokens=16)
+        reqs.append((prompt.astype("int32"), None, sp))
+    return reqs
+
+
 def request_metrics(rs) -> dict:
     ttft = [r.ttft() for r in rs]
     tpot = [t for r in rs for t in r.tpots()]
@@ -1563,10 +1720,11 @@ def profile_calls(fn, what: str, card: str, tag: str, steps: int = 3,
                  for us, k, n in rows[:12]]})
 
 
-def steady_decode(d, add, release, card: str, tag: str):
+def steady_decode(d, add, release, card: str, tag: str, ranges: tuple = ()):
     """Decode steps on the decode instance outside the scheduler, at B = 1
     and 4: the floor under TPOT.  ``add(rid)`` gives a request its cached
-    context, ``release(rid)`` frees it."""
+    context, ``release(rid)`` frees it; ``ranges`` go to the B = 4
+    profile (:func:`profile_calls`)."""
     import numpy as np
     import torch
     steady = {}
@@ -1584,7 +1742,7 @@ def steady_decode(d, add, release, card: str, tag: str):
         steady[f"B={B}"] = (time.perf_counter() - t0) / 8 * 1e3
         if B == 4:
             profile_calls(lambda: d.runner.decode(rids, toks),
-                          "steady decode step, B=4", card, tag)
+                          "steady decode step, B=4", card, tag, ranges=ranges)
         for rid in rids:
             release(rid)
     log({"steady_decode_ms_per_step": steady, "path": tag, "card": card})
@@ -1656,7 +1814,6 @@ def serve_mamba(seed: int, card: str):
     from repro_torch import kernels as K
     from repro_torch.configs import get_config
     from repro_torch.core.budgets import Budgets
-    from repro_torch.core.request import SamplingParams
     from repro_torch.core.simulator import DisaggConfig
     from repro_torch.engine.api import Engine
     from repro_torch.models import mamba
@@ -1675,13 +1832,7 @@ def serve_mamba(seed: int, card: str):
          "params": sum(p.numel() for p in params.parameters()),
          "setup_s": time.perf_counter() - t0})
     rng = np.random.default_rng(seed)
-    reqs = []
-    for i in range(5):
-        prompt = rng.integers(0, cfg.vocab_size,
-                              int(rng.integers(200, 601))).astype(np.int32)
-        sp = SamplingParams(max_tokens=16) if i < 4 else SamplingParams(
-            temperature=0.8, top_k=50, top_p=0.95, seed=seed, max_tokens=16)
-        reqs.append((prompt, None, sp))
+    reqs = text_requests(rng, cfg.vocab_size, seed)
 
     scan_shapes: dict = {}
     scan = mamba.selective_scan
@@ -1759,7 +1910,6 @@ def serve_moe(arch: str, seed: int, card: str):
     from repro_torch import kernels as K
     from repro_torch.configs import get_config
     from repro_torch.core.budgets import Budgets
-    from repro_torch.core.request import SamplingParams
     from repro_torch.core.simulator import DisaggConfig
     from repro_torch.engine.api import Engine
     from repro_torch.models import model as M
@@ -1781,13 +1931,7 @@ def serve_moe(arch: str, seed: int, card: str):
                              for p in params.parameters()),
          "setup_s": time.perf_counter() - t0})
     rng = np.random.default_rng(seed)
-    reqs = []
-    for i in range(5):
-        prompt = rng.integers(0, cfg.vocab_size,
-                              int(rng.integers(200, 601))).astype(np.int32)
-        sp = SamplingParams(max_tokens=16) if i < 4 else SamplingParams(
-            temperature=0.8, top_k=50, top_p=0.95, seed=seed, max_tokens=16)
-        reqs.append((prompt, None, sp))
+    reqs = text_requests(rng, cfg.vocab_size, seed)
 
     with timed_calls(wall_split_targets()) as split:
         K.reset_launches()
@@ -1852,6 +1996,144 @@ def serve_moe(arch: str, seed: int, card: str):
         moe.moe_ffn = ffn
     for rid in rids:
         d.caches.release(rid)
+    return launches
+
+
+def serve_zamba(seed: int, card: str):
+    """zamba2-7b at full width and depth (68 Mamba-2 and 13 shared
+    attention layers), P1+D1, with falcon-mamba's request mix: five text
+    requests of 200-600 prompt tokens, 16 new tokens, four greedy and one
+    seeded sampled.  The scan's per-head mode must launch 68 times in each
+    decode step and a multiple of 68 in each prefill call, Mamba-1's scan
+    never; every paged attention and cache-write kernel must launch; each
+    request's KV and 127.8 MB of recurrent state must migrate P -> D.
+    Then device time by kernel of one 512-token prefill chunk and of
+    steady decode steps.  Returns the launch counts of the run."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import MAMBA2
+    from repro_torch.core.budgets import Budgets
+    from repro_torch.core.simulator import DisaggConfig
+    from repro_torch.engine import runner
+    from repro_torch.engine.api import Engine
+    from repro_torch.models import mamba
+    from repro_torch.models import model as M
+    cfg = get_config("zamba2-7b")
+    n_mamba = cfg.layer_kinds().count(MAMBA2)
+    t0 = time.perf_counter()
+    params = M.init_params(cfg, torch.Generator(device="cuda")
+                           .manual_seed(seed), dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    eng = Engine(cfg, params, DisaggConfig({"P": 1, "D": 1}),
+                 budgets=Budgets(512, 4), device="cuda")
+    log({"setup": f"zamba2-7b full width, {cfg.num_layers} layers "
+                  f"({n_mamba} Mamba-2), random bf16 weights",
+         "params": sum(p.numel() for p in params.parameters()),
+         "weight_bytes": sum(p.numel() * p.element_size()
+                             for p in params.parameters()),
+         "setup_s": time.perf_counter() - t0})
+    rng = np.random.default_rng(seed)
+    reqs = text_requests(rng, cfg.vocab_size, seed)
+
+    # the per-head scan's launches inside each runner call, by stage
+    stages = {n: {"calls": 0, "scan_launches": 0}
+              for n in ("prefill_chunks", "decode")}
+    saved = {}
+
+    def counted(name):
+        def call(*a, **k):
+            n = K.launches["selective_scan_heads"]
+            try:
+                return saved[name](*a, **k)
+            finally:
+                stages[name]["calls"] += 1
+                stages[name]["scan_launches"] += \
+                    K.launches["selective_scan_heads"] - n
+        return call
+    with timed_calls(wall_split_targets()) as split:
+        for n in stages:                # inside timed_calls' own wrappers
+            saved[n] = getattr(runner.ModelRunner, n)
+            setattr(runner.ModelRunner, n, counted(n))
+        try:
+            K.reset_launches()
+            rs, outs, wall = run_requests(eng, reqs, cfg.vocab_size)
+            launches = dict(K.launches)
+        finally:
+            for n, fn in saved.items():
+                setattr(runner.ModelRunner, n, fn)
+    for name in ("selective_scan_heads", "cache_write", "paged_attention",
+                 "paged_prefill_attention"):
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} never launched on the "
+                                 f"zamba2-7b main path")
+    if launches["selective_scan"]:
+        raise AssertionError("zamba2-7b launched the Mamba-1 scan")
+    dec, pre = stages["decode"], stages["prefill_chunks"]
+    if not dec["calls"] or dec["scan_launches"] != n_mamba * dec["calls"] \
+            or not pre["calls"] or pre["scan_launches"] % n_mamba \
+            or pre["scan_launches"] < n_mamba * pre["calls"]:
+        raise AssertionError(f"per-head scan launches by stage: {stages}")
+    srv = eng.server
+    shapes = mamba.mamba2_cache_shape(cfg, 1)
+    state_bytes = n_mamba * (4 * int(np.prod(shapes["state"]))
+                             + 2 * int(np.prod(shapes["conv"])))
+    d = next(i for i in srv.instances if i.role_name == "D")
+    spec = d.caches.kv.spec
+    row_bytes = spec.n_tensors * spec.n_layers * spec.width * 2
+    if srv.n_migrations < len(reqs) or \
+            srv.migrated_bytes - srv.n_migrations * state_bytes < \
+            sum(len(p) for p, _, _ in reqs) * row_bytes:
+        raise AssertionError(f"{srv.n_migrations} migrations moved "
+                             f"{srv.migrated_bytes} bytes; expected "
+                             f"{state_bytes} of state each and every "
+                             f"prompt's KV")
+    check_reclaimed(srv)
+    log({"main_path": f"Engine P1+D1, zamba2-7b bf16 (f32 state; KV pool of "
+                      f"{spec.n_layers} attention layers, width "
+                      f"{spec.width}), 5 text requests of 200-600 prompt "
+                      f"tokens, 16 new tokens, token budget 512",
+         "card": card, "wall_s": wall, **request_metrics(rs),
+         "prompt_tokens": [len(p) for p, _, _ in reqs],
+         "migrations": srv.n_migrations, "migrated_bytes": srv.migrated_bytes,
+         "state_bytes_per_request": state_bytes,
+         "kv_bytes_per_token": row_bytes, "launches": launches,
+         "scan_heads_by_stage": stages, "wall_split": split,
+         "greedy_tokens_req0": outs[0]})
+
+    p = next(i for i in srv.instances if i.role_name == "P")
+    chunk = rng.integers(0, cfg.vocab_size, 512).astype(np.int32)
+
+    def prefill_chunk():
+        p.runner.prefill_chunks([(20_000, chunk, False)])
+        p.caches.release(20_000)
+    prefill_chunk()
+    profile_calls(prefill_chunk, "prefill chunk of 512 tokens, B=1", card,
+                  "zamba2-7b")
+
+    ctx = 400
+    zero = M.empty_state(cfg, dtype=torch.bfloat16, device="cuda")
+
+    def add(rid):
+        d.caches.kv.append(rid, torch.zeros(
+            (spec.n_tensors, spec.n_layers, ctx, spec.width),
+            dtype=torch.bfloat16, device="cuda"))
+        d.caches.states.put(rid, {"ctx_len": ctx, **{
+            f"mamba{i}": e for i, e in enumerate(zero["layers"]) if e}})
+    # the step's gather of every lane's 68 states and conv prefixes into
+    # batched tensors (torch.cat), timed on the device as its own range
+    gather = runner.ModelRunner._batched_state
+
+    def ranged(*a, **k):
+        with torch.profiler.record_function("state_gather"):
+            return gather(*a, **k)
+    runner.ModelRunner._batched_state = ranged
+    try:
+        steady_decode(d, add, d.caches.release, card,
+                      f"zamba2-7b, context {ctx}", ranges=("state_gather",))
+    finally:
+        runner.ModelRunner._batched_state = gather
     return launches
 
 
@@ -1992,8 +2274,22 @@ def main() -> int:
     decode_cases(gen, dev, results)
     prefill_cases(gen, dev, results)
     cache_write_cases(gen, dev, results)
-    rate = exp_rate()
-    scan_cases(gen, dev, results, rate)
+    from repro_torch.kernels.selective_scan import ops as scan_ops
+    from repro_torch.kernels.selective_scan import ref as scan_ref
+    rate, fma = exp_rate(), fma_rate()
+    scan_cases(gen, dev, results, "selective_scan", scan_ops.selective_scan,
+               scan_ref.selective_scan_ref, scan_inputs,
+               lambda B, S, isz: scan_bound(B, S, isz, rate),
+               f"d={D_INNER} N={N_STATE}", torch.float32)
+    torch.cuda.empty_cache()
+    # the per-head mode (Mamba-2) at zamba2-7b's widths
+    scan_cases(gen, dev, results, "selective_scan_heads",
+               scan_ops.selective_scan_heads,
+               scan_ref.selective_scan_heads_ref, heads_inputs,
+               lambda B, S, isz: heads_bound(B, S, isz, fma, rate),
+               f"H={ZH} P={ZP} N={ZN}", torch.bfloat16)
+    torch.cuda.empty_cache()
+    zamba_attention_cases(gen, dev, results)
     torch.cuda.empty_cache()
     flash_cases(gen, dev, results, rate)
     torch.cuda.empty_cache()
@@ -2006,8 +2302,9 @@ def main() -> int:
     model_check(args.seed)
     mamba_model_check(args.seed)
     whisper_model_check(args.seed)
-    for arch in ("granite-moe-1b-a400m", "deepseek-v2-236b"):
-        moe_model_check(arch, args.seed)
+    for arch in ("granite-moe-1b-a400m", "deepseek-v2-236b", "zamba2-7b",
+                 "gemma3-4b"):
+        arch_model_check(arch, args.seed)
     launches = serve(args.seed, card)
     gc.collect()                      # LLaVA's weights and pools go first
     torch.cuda.empty_cache()
@@ -2030,6 +2327,13 @@ def main() -> int:
     for name in ("paged_attention_latent", "paged_prefill_attention_latent"):
         launches[name] = deepseek[name]
     launches["cache_write_mla"] = deepseek["cache_write"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the per-head scan and the D = 112 attention rows count zamba2's
+    zamba = serve_zamba(args.seed, card)
+    launches["selective_scan_heads"] = zamba["selective_scan_heads"]
+    for name in ("paged_attention", "paged_prefill_attention"):
+        launches[f"{name}_zamba2"] = zamba[name]
     # a merge row's launches: the split calls, each merging in its last
     # blocks (the merge kernel alone never runs on the main paths)
     for name in ("paged_attention", "flash_attention"):
@@ -2050,6 +2354,10 @@ def main() -> int:
                "src/repro/kernels/paged_attention/kernel.py:162"),
            "selective_scan": ("src/repro_torch/csrc/selective_scan.cu",
                               "src/repro/kernels/selective_scan/kernel.py:51"),
+           # the per-head mode: Mamba-2's recurrence (zamba2-7b)
+           "selective_scan_heads": (
+               "src/repro_torch/csrc/selective_scan.cu",
+               "src/repro/kernels/selective_scan/kernel.py:51"),
            "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                                "src/repro/kernels/flash_attention/kernel.py:65"),
            "flash_attention_merge": (
@@ -2063,7 +2371,14 @@ def main() -> int:
                "src/repro_torch/csrc/attn_latent.cuh",
                "src/repro/kernels/paged_attention/kernel.py:162"),
            "cache_write_mla": ("src/repro_torch/csrc/cache_write.cu",
-                               "src/repro/kernels/cache_write/kernel.py:25")}
+                               "src/repro/kernels/cache_write/kernel.py:25"),
+           # zamba2-7b's shared attention (H = Kh = 32, D = 112)
+           "paged_attention_zamba2": (
+               "src/repro_torch/csrc/paged_attention.cu",
+               "src/repro/kernels/paged_attention/kernel.py:78"),
+           "paged_prefill_attention_zamba2": (
+               "src/repro_torch/csrc/paged_attention.cu",
+               "src/repro/kernels/paged_attention/kernel.py:162")}
     kernels = []
     for name, (source, replaces) in src.items():
         r = results[name]

@@ -1,4 +1,5 @@
-// Mamba-1 selective scan for Hopper (sm_90a).
+// Mamba-1 selective scan for Hopper (sm_90a), and its per-head mode for
+// Mamba-2 (below the Mamba-1 kernel).
 //
 // Replaces the Pallas TPU kernel repro/kernels/selective_scan/kernel.py::
 // selective_scan_tpu (body _scan_kernel).  For each lane b and channel c:
@@ -55,6 +56,9 @@ namespace {
 constexpr int BLOCK_C = 32;   // channels per block
 constexpr int SPL = 4;        // states per lane
 constexpr int U = 8;          // steps whose exponentials are taken together
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
 
 // 16 bytes of T as floats (bf16 -> f32 is a shift: its bits are the top
 // half of the f32's)
@@ -283,6 +287,223 @@ cudaError_t dispatch_n(const void* dt, const void* x, const void* A,
   }
 }
 
+// ---------------------------------------------------------------------------
+// Per-head mode (selective_scan_heads): Mamba-2, whose reference is the
+// lax.scan over _ssm2_step in repro/models/mamba.py.  Channels come in
+// heads of P, and dt [B, S, H] and A [H] are one per head:
+//
+//   h_t = exp(dt_t[h] * A[h]) * h_{t-1} + (dt_t[h] * x_t) * B_t
+//   y_t = h_t . C_t
+//
+// over h [B, H, P, N] (the memory of [B, d, N], d = H * P), one B/C group.
+//
+// Bound: operations, but no longer the exponentials.  P is a multiple of
+// HBLOCK_C, so a block's channels share one head, and dA_t = expf(dt_t *
+// A[h]) is taken once per (step, block) when the chunk is staged, beside
+// dt * x once per (step, channel).  What is left per (t, c, n) is three
+// f32 instructions: dt * x * B, the FMA into h, the FMA into y.  At
+// zamba2's widths (d = 7168, N = 64) a 512-step call at B = 1 is 0.70 G
+// of them, 0.021 ms over the f32 lanes; the bytes (x, y once each) take
+// a third of that.
+//
+// Design: Mamba-1's layout (4 states a lane, 16 lanes a channel at N = 64)
+// measured 0.146 ms here (H100, 14% of the bound): per step each lane
+// paid two shared-memory loads for its 4 states of B and C, one for
+// dt * x, one for dA and four shuffles to sum y, against 12 FMAs, so the
+// shared-memory and shuffle pipes, not the FMAs, set the pace.  Here a
+// lane holds a 4 x 4 tile: 4 channels by 4 states.  Per step it loads
+// dt * x of its 4 channels, B and C of its 4 states (one 16-byte load
+// each) and dA, and does 48 FMA-pipe instructions; the 16 lanes of a
+// channel quad sum its 4 partial y's in 5 shuffles (a transposed
+// reduction: halve the values each lane keeps at each of the first two
+// steps), and the lanes holding the sums store y straight to device
+// memory, 32 bytes a warp a step.  Blocks of HBLOCK_C = 32 channels (128
+// threads) take the sequence in chunks of HTC steps, each thread loading
+// its share of the next chunk into registers while this one runs from
+// shared memory, as in the Mamba-1 kernel; steps run HU at a time,
+// straight-line, so one step's shuffles overlap the next one's FMAs.
+// On the H100, 8 steps at a time ran faster than 4; chunks of 64 steps
+// and blocks of 16 channels did not help at zamba2's shapes.  The
+// exponential is the accurate expf (at
+// dt = 0 it gives exactly 1, so a padded step leaves h bit for bit).  All
+// offsets are 64-bit.
+constexpr int HN = 64;                    // state size
+constexpr int HC = 4;                     // channels per lane
+constexpr int HS = 4;                     // states per lane
+constexpr int HL = HN / HS;               // lanes per channel quad
+constexpr int HBLOCK_C = 32;              // channels per block
+constexpr int HNT = HBLOCK_C / HC * HL;   // threads per block
+constexpr int HTC = 32;                   // steps per chunk
+constexpr int HU = 8;                     // steps run together
+
+template <typename T>
+__global__ void __launch_bounds__(HNT)
+selective_scan_heads_kernel(const T* __restrict__ dt, const T* __restrict__ x,
+                            const float* __restrict__ A,
+                            const T* __restrict__ Bm, const T* __restrict__ Cm,
+                            const float* __restrict__ h0,
+                            float* __restrict__ y, float* __restrict__ hout,
+                            int S, int H, int P, int vec) {
+  constexpr int VEC = 16 / sizeof(T);           // elements per 16-byte load
+  constexpr int XN = HTC * HBLOCK_C / VEC;      // 16-byte x loads per chunk
+  constexpr int XU = (XN + HNT - 1) / HNT;      // per thread
+  constexpr int BU = (HTC * HN / VEC + HNT - 1) / HNT;   // B (and C) loads per thread
+  // the chunk as the steps read it, in f32: dt * x per (step, channel),
+  // exp(dt * A) per step, B and C per (step, state)
+  __shared__ __align__(16) float f_dx[HTC][HBLOCK_C];
+  __shared__ __align__(16) float f_B[HTC * HN];
+  __shared__ __align__(16) float f_C[HTC * HN];
+  __shared__ float f_dA[HTC];
+
+  const int d = H * P;
+  const int tid = threadIdx.x, l = tid % HL, n0 = l * HS;
+  const int cl = tid / HL * HC;                 // first channel of the quad, in the block
+  const int c0 = blockIdx.x * HBLOCK_C, hh = c0 / P;
+  const int64_t b = blockIdx.y;
+  const int64_t row0 = b * S;                   // row of (b, t = 0)
+  const float ah = A[hh];
+
+  // the next chunk in flight in registers: x (with its step's dt), B, C,
+  // and the dt of step tid for dA
+  uint4 rx[XU], rb[BU], rc[BU];
+  float rdx[XU], rda = 0.f;
+  auto load = [&](int k) {
+    const int t0 = k * HTC, nt = min(HTC, S - t0);
+#pragma unroll
+    for (int j = 0; j < XU; ++j) {
+      const int i = tid + j * HNT, t = i / (HBLOCK_C / VEC);
+      const int cu = i % (HBLOCK_C / VEC) * VEC;
+      const bool in = i < XN && t < nt;
+      rx[j] = load16(x + (row0 + t0 + t) * d + c0 + cu, in ? VEC : 0, vec);
+      rdx[j] = in ? to_f(dt[(row0 + t0 + t) * H + hh]) : 0.f;
+    }
+    if (tid < HTC) rda = tid < nt ? to_f(dt[(row0 + t0 + tid) * H + hh]) : 0.f;
+    const int64_t bc0 = (row0 + t0) * HN;       // B/C rows of the chunk: contiguous
+#pragma unroll
+    for (int j = 0; j < BU; ++j) {
+      const int e = (tid + j * HNT) * VEC;
+      rb[j] = load16(Bm + bc0 + e, nt * HN - e, vec);
+      rc[j] = load16(Cm + bc0 + e, nt * HN - e, vec);
+    }
+  };
+  auto put = [&]() {
+#pragma unroll
+    for (int j = 0; j < XU; ++j) {
+      const int i = tid + j * HNT, t = i / (HBLOCK_C / VEC);
+      const int cu = i % (HBLOCK_C / VEC) * VEC;
+      if (XN % HNT != 0 && i >= XN) break;
+      float fx[VEC];
+      unpack(rx[j], fx);
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) f_dx[t][cu + e] = rdx[j] * fx[e];
+    }
+    if (tid < HTC) f_dA[tid] = expf(rda * ah);
+#pragma unroll
+    for (int j = 0; j < BU; ++j) {
+      const int e0 = (tid + j * HNT) * VEC;
+      if (e0 < HTC * HN) {
+        float fb[VEC], fc[VEC];
+        unpack(rb[j], fb);
+        unpack(rc[j], fc);
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) {
+          f_B[e0 + e] = fb[e];
+          f_C[e0 + e] = fc[e];
+        }
+      }
+    }
+  };
+  float h[HC][HS];
+#pragma unroll
+  for (int c = 0; c < HC; ++c)
+#pragma unroll
+    for (int n = 0; n < HS; ++n)
+      h[c][n] = h0 != nullptr ? h0[(b * d + c0 + cl + c) * HN + n0 + n] : 0.f;
+
+  // steps tu .. tu + UU - 1 of chunk row t0's staged chunk: the
+  // recurrence and each channel's partial y over this lane's states, then
+  // the sums over the quad's 16 lanes (lane bits 3 and 2 pick the channel
+  // each lane keeps; lanes 0, 4, 8, 12 of the quad store channels 0-3, so
+  // a warp stores 8 adjacent floats a step)
+  const bool hi8 = l & 8, hi4 = l & 4;
+  float* yq = y + c0 + cl + (hi8 ? 2 : 0) + (hi4 ? 1 : 0);
+  auto steps = [&](int64_t t0, int tu, auto uu) {
+    constexpr int UU = decltype(uu)::value;
+    float yp[UU][HC];
+#pragma unroll
+    for (int u = 0; u < UU; ++u) {
+      const int t = tu + u;
+      const float dA = f_dA[t];
+      const float4 xv = *reinterpret_cast<const float4*>(&f_dx[t][cl]);
+      const float4 bv = *reinterpret_cast<const float4*>(&f_B[t * HN + n0]);
+      const float4 cv = *reinterpret_cast<const float4*>(&f_C[t * HN + n0]);
+      const float xs[HC] = {xv.x, xv.y, xv.z, xv.w};
+      const float bs[HS] = {bv.x, bv.y, bv.z, bv.w};
+      const float cs[HS] = {cv.x, cv.y, cv.z, cv.w};
+#pragma unroll
+      for (int c = 0; c < HC; ++c) {
+        yp[u][c] = 0.f;
+#pragma unroll
+        for (int n = 0; n < HS; ++n) {
+          h[c][n] = fmaf(dA, h[c][n], xs[c] * bs[n]);
+          yp[u][c] = fmaf(h[c][n], cs[n], yp[u][c]);
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < UU; ++u) {
+      // lanes l and l ^ 8: keep channels (hi8 ? 2 : 0) + {0, 1}
+      float k0 = hi8 ? yp[u][2] : yp[u][0], k1 = hi8 ? yp[u][3] : yp[u][1];
+      const float s0 = hi8 ? yp[u][0] : yp[u][2], s1 = hi8 ? yp[u][1] : yp[u][3];
+      k0 += __shfl_xor_sync(0xffffffffu, s0, 8);
+      k1 += __shfl_xor_sync(0xffffffffu, s1, 8);
+      // lanes l and l ^ 4: keep channel (hi8 ? 2 : 0) + (hi4 ? 1 : 0)
+      float k = hi4 ? k1 : k0;
+      k += __shfl_xor_sync(0xffffffffu, hi4 ? k0 : k1, 4);
+      k += __shfl_xor_sync(0xffffffffu, k, 2);
+      k += __shfl_xor_sync(0xffffffffu, k, 1);
+      if ((l & 3) == 0) yq[(row0 + t0 + tu + u) * d] = k;
+    }
+  };
+
+  const int n_chunks = (S + HTC - 1) / HTC;
+  load(0);
+  for (int k = 0; k < n_chunks; ++k) {
+    const int64_t t0 = (int64_t)k * HTC;
+    const int nt = min(HTC, S - k * HTC);
+    __syncthreads();                          // the last chunk's steps are done
+    put();
+    __syncthreads();
+    if (k + 1 < n_chunks) load(k + 1);
+    int tu = 0;
+    for (; tu + HU <= nt; tu += HU) steps(t0, tu, std::integral_constant<int, HU>());
+    for (; tu < nt; ++tu) steps(t0, tu, std::integral_constant<int, 1>());
+  }
+#pragma unroll
+  for (int c = 0; c < HC; ++c)
+#pragma unroll
+    for (int n = 0; n < HS; ++n)
+      hout[(b * d + c0 + cl + c) * HN + n0 + n] = h[c][n];
+}
+
+template <typename T>
+cudaError_t launch_heads(const void* dt, const void* x, const void* A,
+                         const void* Bm, const void* Cm, const void* h0,
+                         void* y, void* hout, int B, int S, int H, int P,
+                         cudaStream_t stream) {
+  constexpr int VEC = 16 / sizeof(T);
+  // x, B and C 16 bytes at a time (dt is read one element at a time)
+  const uintptr_t bases = (uintptr_t)x | (uintptr_t)Bm | (uintptr_t)Cm;
+  const int vec = bases % 16 == 0 && P % VEC == 0;
+  dim3 grid(H * P / HBLOCK_C, B);
+  selective_scan_heads_kernel<T><<<grid, HNT, 0, stream>>>(
+      static_cast<const T*>(dt), static_cast<const T*>(x),
+      static_cast<const float*>(A), static_cast<const T*>(Bm),
+      static_cast<const T*>(Cm), static_cast<const float*>(h0),
+      static_cast<float*>(y), static_cast<float*>(hout), S, H, P, vec);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // dtype: 0 = f32, 1 = bf16 (dt, x, B and C).  h0 may be null (zeros).
@@ -298,5 +519,26 @@ extern "C" int selective_scan(const void* dt, const void* x, const void* A,
   if (dtype == 1)
     return (int)dispatch_n<__nv_bfloat16>(dt, x, A, Bm, Cm, h0, y, hout, B, S,
                                           d, N, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The per-head mode: dt [B, S, H], x [B, S, H * P], A [H], B/C [B, S, N],
+// h0 / hout [B, H, P, N]; dtype as above.  P must be a multiple of
+// HBLOCK_C (a block's channels in one head) and N 64.  Returns the
+// launch's cudaError_t; nothing synchronises.
+extern "C" int selective_scan_heads(const void* dt, const void* x,
+                                    const void* A, const void* Bm,
+                                    const void* Cm, const void* h0, void* y,
+                                    void* hout, int dtype, int B, int S, int H,
+                                    int P, int N, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (B <= 0 || S <= 0 || H <= 0 || P <= 0 || P % HBLOCK_C != 0 || N != HN ||
+      (int64_t)H * P > INT32_MAX)
+    return (int)cudaErrorInvalidValue;
+  if (dtype == 0)
+    return (int)launch_heads<float>(dt, x, A, Bm, Cm, h0, y, hout, B, S, H, P, s);
+  if (dtype == 1)
+    return (int)launch_heads<__nv_bfloat16>(dt, x, A, Bm, Cm, h0, y, hout, B,
+                                            S, H, P, s);
   return (int)cudaErrorInvalidValue;
 }

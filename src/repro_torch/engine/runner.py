@@ -16,9 +16,11 @@ through the paged-attention kernels and appends the new token — or the
 whole prefill chunk — in place through the fused cache-write kernel.  Only
 small control tensors (block tables, lengths, slots) go to the device and
 only sampled token ids (or logits, when asked for) come back each step.
-Mamba-1 layers keep no paged cache: each request's recurrent state and conv
-prefix (``mamba{i}`` entries of the state store, device tensors, the state
-in f32) are batched into the step and scattered back per lane after it.
+Mamba layers (Mamba-1, and zamba2's Mamba-2 beside its shared-attention
+layers, which use the KV pool) keep no paged cache: each request's
+recurrent state and conv prefix (``mamba{i}`` entries of the state store,
+device tensors, the state in f32) are batched into the step and scattered
+back per lane after it.
 Cross-attention models keep each request's encoder output (``enc_out``)
 and, after prefill, each layer's cross K/V (``xk{i}``/``xv{i}``) there
 too, as device tensors in the pool's type: prefill batches ``enc_out``,
@@ -37,8 +39,9 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs.base import (ATTN_MLP, ATTN_MOE, MAMBA1, MLA_MLP,
-                                      MLA_MOE, ModelConfig)
+from repro_torch.configs.base import (ATTN_MLP, ATTN_MOE, MAMBA1, MAMBA2,
+                                      MLA_MLP, MLA_MOE, SHARED_ATTN,
+                                      ModelConfig)
 from repro_torch.engine.paged_cache import (DevicePagedCache, PagedCacheSpec,
                                             StateStore, migrate_request)
 from repro_torch.models import model as M
@@ -59,7 +62,7 @@ def _seq_layers(cfg: ModelConfig):
     for i, kind in enumerate(cfg.layer_kinds()):
         if kind in (MLA_MLP, MLA_MOE):
             mla.append(i)
-        elif kind in (ATTN_MLP, ATTN_MOE):
+        elif kind in (ATTN_MLP, ATTN_MOE, SHARED_ATTN):
             attn.append(i)
     return attn, mla
 
@@ -83,7 +86,8 @@ class RunnerCaches:
         # recurrent layers: their state at a prefix boundary is not paged or
         # snapshotted, so an adopted KV prefix would pair with a zero state.
         # The image cache (pure content, position-free) still shares.
-        self.has_recurrent = MAMBA1 in cfg.layer_kinds()
+        self.has_recurrent = any(k in (MAMBA1, MAMBA2)
+                                 for k in cfg.layer_kinds())
         share_seq = sharing and not self.has_recurrent
         stores = []
         self.kv = self.mla = self.img = None
@@ -293,7 +297,7 @@ class ModelRunner:
         """Batch each request's non-paged state into the step's [B_pad, ...]
         state; padded lanes get zeros.
 
-        Mamba-1 layers take each request's state/conv; ``fresh`` (prefill):
+        Mamba layers take each request's state/conv; ``fresh`` (prefill):
         a request with none yet (its first chunk) starts from zeros, while
         in decode every request must have one.  Cross-attention models take
         each lane's ``enc_out`` in prefill and each layer's cross K/V in
@@ -311,7 +315,7 @@ class ModelRunner:
 
         out = []
         for i, zero in enumerate(self._zero["layers"]):
-            if "state" in zero:                         # Mamba-1
+            if "state" in zero:                         # Mamba-1 or -2
                 per = [st[f"mamba{i}"] if not fresh or f"mamba{i}" in st
                        else zero for st in sts] + [zero] * pad
                 out.append({n: torch.cat([e[n] for e in per])

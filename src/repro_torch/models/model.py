@@ -14,11 +14,15 @@ the encoder-decoder whisper family (``ATTN_MLP`` decoder layers with
 cross-attention, an audio encoder as the encode stage, sinusoidal
 positions), whose encoder output and per-layer cross K/V travel in the
 step's ``state`` argument; attention-free Mamba-1 models (``MAMBA1``,
-falcon-mamba), whose per-request recurrent state travels there too; and
-the MoE family: attention + MoE FFN (``ATTN_MOE``, granite-moe) and
+falcon-mamba), whose per-request recurrent state travels there too; the
+MoE family: attention + MoE FFN (``ATTN_MOE``, granite-moe) and
 DeepSeek-V2's latent attention (``MLA_MLP``/``MLA_MOE``), whose layers
-read and write a second page pool, ``"mla"``, of latent rows.  Other layer
-kinds raise ``NotImplementedError`` (ROADMAP, queue 1: other families).
+read and write a second page pool, ``"mla"``, of latent rows; and the
+zamba2 hybrid: Mamba-2 layers (``MAMBA2``, their state in ``state`` as
+Mamba-1's) and ``SHARED_ATTN`` layers, each of which runs the one
+attention + MLP block ``params.shared`` after its own norm, over its own
+plane of the KV pool.  A Mamba model with a media frontend raises
+``NotImplementedError`` (ROADMAP, queue 1: other families).
 The JAX package's dense ``forward``/``decode_step``/``prefill_chunk`` paths
 are not ported (ROADMAP, queue 1: dense fallbacks).
 """
@@ -26,8 +30,9 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.configs.base import (ATTN_MLP, ATTN_MOE, MAMBA1, MLA_MLP,
-                                      MLA_MOE, ModelConfig)
+from repro_torch.configs.base import (ATTN_MLP, ATTN_MOE, MAMBA1, MAMBA2,
+                                      MLA_MLP, MLA_MOE, SHARED_ATTN,
+                                      ModelConfig)
 from repro_torch.kernels.cache_write.ops import (paged_chunk_write,
                                                  paged_token_write)
 from repro_torch.kernels.paged_attention.ops import (paged_attention,
@@ -40,15 +45,18 @@ from repro_torch.params import ParamTree
 def check_supported(cfg: ModelConfig):
     """Raise for what this slice of the port does not cover yet."""
     kinds = set(cfg.layer_kinds())
-    other = sorted(kinds - {ATTN_MLP, ATTN_MOE, MLA_MLP, MLA_MOE, MAMBA1})
+    other = sorted(kinds - {ATTN_MLP, ATTN_MOE, MLA_MLP, MLA_MOE, MAMBA1,
+                            MAMBA2, SHARED_ATTN})
     if other:
         raise NotImplementedError(
             f"{cfg.name}: layer kinds {other} are not ported yet "
             f"(ROADMAP queue 1: other families)")
-    if MAMBA1 in kinds and cfg.frontend != "none":
+    mamba_kinds = sorted(kinds & {MAMBA1, MAMBA2})
+    if mamba_kinds and cfg.frontend != "none":
         raise NotImplementedError(
-            f"{cfg.name}: Mamba-1 with a {cfg.frontend!r} frontend is not "
-            f"ported yet (ROADMAP queue 1: other families)")
+            f"{cfg.name}: {mamba_kinds} layers with a {cfg.frontend!r} "
+            f"frontend are not ported yet (ROADMAP queue 1: other "
+            f"families)")
     if cfg.frontend not in ("none", "vision", "audio") or \
             (cfg.frontend == "audio") != cfg.cross_attention:
         raise NotImplementedError(
@@ -96,6 +104,10 @@ def init_params(cfg: ModelConfig, gen: torch.Generator,
         """``repro.models.model._init_layer``'s tree for one layer."""
         if kind == MAMBA1:
             return mamba.init_mamba1(gen, cfg, dtype)
+        if kind == MAMBA2:
+            return mamba.init_mamba2(gen, cfg, dtype)
+        if kind == SHARED_ATTN:
+            return {"norm": zeros(d)}
         if kind in (MLA_MLP, MLA_MOE):
             p = {"norm1": zeros(d), "norm2": zeros(d),
                  **mla.init_mla(gen, cfg, dtype)}
@@ -110,6 +122,8 @@ def init_params(cfg: ModelConfig, gen: torch.Generator,
             "layers": [layer(kind) for kind in cfg.layer_kinds()]}
     if not cfg.tie_embeddings:
         tree["lm_head"] = dense((d, cfg.vocab_size), scale=0.02)
+    if SHARED_ATTN in cfg.layer_kinds():
+        tree["shared"] = attn(False) | mlp()
     if cfg.frontend == "vision":
         tree["media_proj_w1"] = dense((d, 2 * d))
         tree["media_proj_w2"] = dense((2 * d, d))
@@ -302,10 +316,10 @@ def decode_step_paged(cfg: ModelConfig, params, data, ctl, state, lens,
     scratch block that padded lanes write to, whose rows the cache-write
     kernel then skips}, "sample": optional controls of
     :func:`sample_from_logits`}.  ``state``: {"layers": [...]} batched
-    per-layer non-paged state (see :func:`empty_state`): Mamba-1 layers
-    carry {"state", "conv"}, cross-attention layers their cached {"xk",
-    "xv"} [B, T, Kh*Dh], other layers nothing.  ``lens``: [B] int32 tokens
-    already cached; ``token``: [B, 1].
+    per-layer non-paged state (see :func:`empty_state`): Mamba-1 and
+    Mamba-2 layers carry {"state", "conv"}, cross-attention layers their
+    cached {"xk", "xv"} [B, T, Kh*Dh], other layers nothing.  ``lens``:
+    [B] int32 tokens already cached; ``token``: [B, 1].
 
     Returns (logits [B, V] — or sampled ids [B] with ``ctl["sample"]`` —,
     the pools present in ``data``, {"layers": new per-layer state}; cross
@@ -319,13 +333,23 @@ def decode_step_paged(cfg: ModelConfig, params, data, ctl, state, lens,
     aj = mj = 0              # running indices into the kv / mla planes
     for i, kind in enumerate(cfg.layer_kinds()):
         p = params.layers[i]
-        if kind == MAMBA1:
+        if kind in (MAMBA1, MAMBA2):
+            fn = mamba.mamba1_decode if kind == MAMBA1 \
+                else mamba.mamba2_decode
             ent = state["layers"][i]
-            y, (st, conv) = mamba.mamba1_decode(
-                p, rmsnorm(h, p.norm, cfg.norm_eps), cfg, ent["state"],
-                ent["conv"])
+            y, (st, conv) = fn(p, rmsnorm(h, p.norm, cfg.norm_eps), cfg,
+                               ent["state"], ent["conv"])
             h = h + y
             new_state.append({"state": st, "conv": conv})
+            continue
+        if kind == SHARED_ATTN:
+            sp = params.shared
+            h = h + _attn_decode_paged(sp, rmsnorm(h, p.norm, cfg.norm_eps),
+                                       cfg, pool, aj, kv, lens, lengths, 0)
+            aj += 1
+            h = h + layers.mlp(sp, rmsnorm(h, sp.norm2, cfg.norm_eps),
+                               cfg.act)
+            new_state.append({})
             continue
         x = rmsnorm(h, p.norm1, cfg.norm_eps)
         if kind in (MLA_MLP, MLA_MOE):
@@ -406,7 +430,7 @@ def prefill_chunk_paged(cfg: ModelConfig, params, data, ctl, state, ctx_lens,
     int32 image-cache row per media position or -1, "pages": image page
     pool} (optional), "mask": [B, C] bool valid chunk positions, "last": [B]
     int32 index of each request's last valid position, "sample":
-    optional}.  ``state``: {"layers": [...]} batched per-layer Mamba-1
+    optional}.  ``state``: {"layers": [...]} batched per-layer Mamba
     state/conv (zeros for a request's first chunk; see
     :func:`empty_state`), and for cross-attention models "enc_out": [B, T,
     d], each lane's encoder output.  ``ctx_lens``: [B] int32 tokens
@@ -414,7 +438,7 @@ def prefill_chunk_paged(cfg: ModelConfig, params, data, ctl, state, ctx_lens,
     embeddings are read straight off the image-cache pages).
 
     Returns (last-token logits [B, V] — or sampled ids [B] —, the pools
-    present in ``data``, {"layers": new per-layer state}: Mamba-1
+    present in ``data``, {"layers": new per-layer state}: Mamba
     state/conv, and each cross-attention layer's {"xk", "xv"} [B, T,
     Kh*Dh] for the decode steps).  Padded positions freeze the Mamba
     recurrence (``mask``), so each lane's new state is that of its valid
@@ -439,13 +463,22 @@ def prefill_chunk_paged(cfg: ModelConfig, params, data, ctl, state, ctx_lens,
     aj = mj = 0              # running indices into the kv / mla planes
     for i, kind in enumerate(cfg.layer_kinds()):
         p = params.layers[i]
-        if kind == MAMBA1:
+        if kind in (MAMBA1, MAMBA2):
+            fn = mamba.mamba1_seq if kind == MAMBA1 else mamba.mamba2_seq
             ent = state["layers"][i]
-            y, (st, conv) = mamba.mamba1_seq(
-                p, rmsnorm(h, p.norm, cfg.norm_eps), cfg, ent["state"],
-                ent["conv"], mask=mask)
+            y, (st, conv) = fn(p, rmsnorm(h, p.norm, cfg.norm_eps), cfg,
+                               ent["state"], ent["conv"], mask=mask)
             h = h + y
             new_state.append({"state": st, "conv": conv})
+            continue
+        if kind == SHARED_ATTN:
+            sp = params.shared
+            h = h + _attn_chunk_paged(sp, rmsnorm(h, p.norm, cfg.norm_eps),
+                                      cfg, pool, aj, kv, ctx_lens, 0)
+            aj += 1
+            h = h + layers.mlp(sp, rmsnorm(h, sp.norm2, cfg.norm_eps),
+                               cfg.act)
+            new_state.append({})
             continue
         x = rmsnorm(h, p.norm1, cfg.norm_eps)
         if kind in (MLA_MLP, MLA_MOE):
@@ -477,11 +510,12 @@ def empty_state(cfg: ModelConfig, *, dtype=torch.float32,
                 device="cpu") -> dict:
     """The non-paged state of one new request, zero: Mamba-1 layers carry
     {"state": [1, d_inner, N] f32, "conv": [1, K-1, d_inner] in ``dtype``
-    (the weights' type)}; cross-attention layers {"xk", "xv": [1, T,
-    Kh*Dh]} and the model "enc_out": [1, T, d] in ``dtype``, T the frames
-    of one clip (every layer shares one read-only zero tensor); other
-    attention layers carry nothing.  The steps take it batched: one such
-    lane per request, concatenated."""
+    (the weights' type)}, Mamba-2 layers {"state": [1, H, P, N] f32,
+    "conv": [1, K-1, d_inner + 2N] in ``dtype``}; cross-attention layers
+    {"xk", "xv": [1, T, Kh*Dh]} and the model "enc_out": [1, T, d] in
+    ``dtype``, T the frames of one clip (every layer shares one read-only
+    zero tensor); other attention layers carry nothing.  The steps take it
+    batched: one such lane per request, concatenated."""
     out = []
     tree = {}
     if cfg.cross_attention:
@@ -492,8 +526,9 @@ def empty_state(cfg: ModelConfig, *, dtype=torch.float32,
                          dtype=dtype, device=device)
     for kind in cfg.layer_kinds():
         ent = {}
-        if kind == MAMBA1:
-            shapes = mamba.mamba1_cache_shape(cfg, 1)
+        if kind in (MAMBA1, MAMBA2):
+            shapes = (mamba.mamba1_cache_shape if kind == MAMBA1
+                      else mamba.mamba2_cache_shape)(cfg, 1)
             ent = {"state": torch.zeros(shapes["state"], dtype=torch.float32,
                                         device=device),
                    "conv": torch.zeros(shapes["conv"], dtype=dtype,

@@ -6,11 +6,14 @@ The attribute names follow the JAX package's param tree (``embed``,
 cross-attention also ``xnorm, xq, xk, xv, xo``), the audio encoder's
 ``encoder.{layers[i].{norm1, wq, wk, wv, wo, norm2, w_up, w_down}, norm}``,
 Mamba-1 layers' ``layers[i].{norm, in_proj, conv_w, conv_b, x_proj,
-dt_proj, dt_bias, A_log, D, out_proj}``, MoE layers' ``router`` and
-experts ``moe_w_{gate, up, down}`` [E, in, out] (with shared experts
-``sh_w_{gate, up, down}``) in place of the MLP, MLA layers' ``{norm1,
-kv_a, kv_norm, kv_b, wo, q_a, q_norm, q_b, norm2}`` in place of the
-attention), and every weight keeps the JAX layout
+dt_proj, dt_bias, A_log, D, out_proj}``, Mamba-2 layers' ``{norm,
+in_proj, bc_proj, dtp, conv_w, conv_b, dt_bias2, A_log2, D2, ssm_norm,
+out_proj}`` (a shared-attention layer holds only its ``norm``; the block
+it shares is ``shared``, an attention layer's tree), MoE layers'
+``router`` and experts ``moe_w_{gate, up, down}`` [E, in, out] (with
+shared experts ``sh_w_{gate, up, down}``) in place of the MLP, MLA
+layers' ``{norm1, kv_a, kv_norm, kv_b, wo, q_a, q_norm, q_b, norm2}`` in
+place of the attention), and every weight keeps the JAX layout
 ([in, out], applied as ``x @ w``), so a tree converted from
 ``repro.models.model.init_params`` computes exactly what the JAX model
 computes.
@@ -25,8 +28,8 @@ from repro_torch import resolve_device
 
 # leaves the JAX package keeps in f32 whatever the weights' type
 F32_LEAVES = frozenset({"final_norm", "norm", "norm1", "norm2", "xnorm",
-                        "dt_bias", "A_log", "D", "router", "kv_norm",
-                        "q_norm"})
+                        "dt_bias", "A_log", "D", "dt_bias2", "A_log2", "D2",
+                        "ssm_norm", "router", "kv_norm", "q_norm"})
 
 
 class ParamTree(nn.Module):
@@ -53,8 +56,8 @@ def params_from_numpy(tree: dict, device="cuda", dtype=None) -> ParamTree:
     """The JAX param tree, with numpy arrays as leaves (``np.asarray`` of
     each jax array), as the port's module on ``device``.  ``dtype`` casts
     the weights; the leaves in ``F32_LEAVES`` (norm scales, the Mamba
-    ``dt_bias``/``A_log``/``D`` and the MoE router) stay f32, as the JAX
-    package keeps them."""
+    ``dt_bias``/``A_log``/``D`` and their Mamba-2 counterparts, and the
+    MoE router) stay f32, as the JAX package keeps them."""
     dev = resolve_device(device)
 
     def conv(x, name=None):

@@ -2,11 +2,13 @@
 model-level parity tests: two prefill chunks (lanes of different lengths,
 so padded positions), then decode steps, each package reading and writing
 its own copy of the same page pools ("kv" and/or "mla") built from the
-same control tensors.
+same control tensors, and carrying its own copy of the per-layer Mamba
+state and conv prefix from step to step.
 
 Tolerances: logits within 2e-4 of the reference's largest logit, the
 reference's own bar for paged vs dense steps (tests/test_device_cache.py);
-pools within 1e-5 absolute.
+pools and Mamba states within 1e-5 absolute (a caller may add a
+relative bar for states that grow large, ``state_rtol``).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -46,14 +48,28 @@ def _pools(cfg, n_blocks=16):
     return out
 
 
-def run_steps(cfg, jparams, tparams, rng, *, n_decode=4):
+def _close_states(got, want, rtol):
+    """Per-layer Mamba state and conv prefix (layers without: empty)."""
+    for g, w in zip(got["layers"], want["layers"]):
+        assert set(g) == set(w)
+        for k in g:
+            np.testing.assert_allclose(g[k].numpy(), np.asarray(w[k]),
+                                       atol=1e-5, rtol=rtol)
+
+
+def run_steps(cfg, jparams, tparams, rng, *, n_decode=4, state_rtol=0.0):
     """Prefill chunks of [8, 5] then [3, 8] tokens for two lanes, then
-    ``n_decode`` greedy teacher-forced decode steps; asserts logits and
-    pools against the JAX package's ``*_paged`` steps ("ref" kernels)."""
+    ``n_decode`` greedy teacher-forced decode steps; asserts logits, Mamba
+    states and pools against the JAX package's ``*_paged`` steps ("ref"
+    kernels)."""
     B = 2
     pools = _pools(cfg)
     jdata = {n: jnp.asarray(c.data.numpy()) for n, c in pools.items()}
-    state = {"layers": [{} for _ in range(cfg.num_layers)]}
+    zero = M.empty_state(cfg)              # one lane: Mamba layers' zeros
+    tstate = {"layers": [{k: v.expand(B, *v.shape[1:]).contiguous()
+                          for k, v in e.items()} for e in zero["layers"]]}
+    jstate = {"layers": [{k: jnp.asarray(v.numpy()) for k, v in e.items()}
+                         for e in tstate["layers"]]}
     rids = list(range(B))
     lens0 = next(iter(pools.values())).lengths
 
@@ -67,7 +83,7 @@ def run_steps(cfg, jparams, tparams, rng, *, n_decode=4):
         return jc, tc
 
     def chunk(n_new):
-        nonlocal jdata
+        nonlocal jdata, jstate, tstate
         C = R.bucket_pow2(max(n_new))
         tokens = rng.integers(0, cfg.vocab_size, (B, C)).astype(np.int32)
         ctx = np.asarray([lens0.get(b, 0) for b in rids], np.int32)
@@ -78,15 +94,16 @@ def run_steps(cfg, jparams, tparams, rng, *, n_decode=4):
         last = np.asarray(n_new, np.int32) - 1
         for c, v in ((jc, jnp.asarray), (tc, t)):
             c.update(mask=v(mask), last=v(last))
-        want, jdata, _ = JM.prefill_chunk_paged(
-            cfg, jparams, jdata, jc, state, jnp.asarray(ctx),
+        want, jdata, jstate = JM.prefill_chunk_paged(
+            cfg, jparams, jdata, jc, jstate, jnp.asarray(ctx),
             jnp.asarray(tokens), attn_impl="ref")
-        got, _, _ = M.prefill_chunk_paged(
-            cfg, tparams, {n: c.data for n, c in pools.items()}, tc, state,
+        got, _, tstate = M.prefill_chunk_paged(
+            cfg, tparams, {n: c.data for n, c in pools.items()}, tc, tstate,
             t(ctx), t(tokens))
         for c in pools.values():
             c.commit_prefill(rids, n_new)
         close_logits(got.numpy(), want)
+        _close_states(tstate, jstate, state_rtol)
         return want
 
     chunk([8, 5])
@@ -97,15 +114,16 @@ def run_steps(cfg, jparams, tparams, rng, *, n_decode=4):
         pages = max(-(-(n + 1) // R.KV_BLOCK) for n in lens)
         jc, tc = ctl(lambda c: c.prepare_decode(rids, B,
                                                 R.bucket_pow2(int(pages))))
-        want, jdata, _ = JM.decode_step_paged(
-            cfg, jparams, jdata, jc, state, jnp.asarray(lens),
+        want, jdata, jstate = JM.decode_step_paged(
+            cfg, jparams, jdata, jc, jstate, jnp.asarray(lens),
             jnp.asarray(tok[:, None]), attn_impl="ref")
-        got, _, _ = M.decode_step_paged(
-            cfg, tparams, {n: c.data for n, c in pools.items()}, tc, state,
+        got, _, tstate = M.decode_step_paged(
+            cfg, tparams, {n: c.data for n, c in pools.items()}, tc, tstate,
             t(lens), t(tok[:, None]))
         for c in pools.values():
             c.commit_decode(rids)
         close_logits(got.numpy(), want)
+        _close_states(tstate, jstate, state_rtol)
         tok = np.argmax(np.asarray(want), -1).astype(np.int32)
     for n, c in pools.items():
         nb = c.spec.num_blocks      # scratch excluded: padded writes collide

@@ -14,8 +14,8 @@ weighs P as hi + lo bf16 parts, P to about 16 bits), so its bf16 bar is
 4e-3, as in chip_smoke.py: a lane of 16+ keys averages values to well
 under 1, where one rounding is at most 2^-9; a lane of one key returns
 the key's value exactly.  The
-selective scan computes in f32 from the same inputs on both sides and
-returns f32, so bf16 inputs keep the f32 bar of 1e-4.  Flash attention
+selective scan (both modes) computes in f32 from the same inputs on both
+sides and returns f32, so bf16 inputs keep the f32 bar of 1e-4.  Flash attention
 keeps the attention bars (f32 1e-4, bf16 2e-2).
 """
 import numpy as np
@@ -32,7 +32,8 @@ from repro_torch.kernels.paged_attention import ops as tpa
 from repro_torch.kernels.paged_attention.ref import (
     paged_attention_ref, paged_prefill_attention_ref)
 from repro_torch.kernels.selective_scan import ops as tss
-from repro_torch.kernels.selective_scan.ref import selective_scan_ref
+from repro_torch.kernels.selective_scan.ref import (selective_scan_heads_ref,
+                                                    selective_scan_ref)
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
@@ -227,6 +228,91 @@ def test_selective_scan_kernel_zero_dt_freezes_state(cuda):
     _, h = tss.selective_scan(dt, x, A, Bm, Cm, h0)
     torch.cuda.synchronize()
     assert torch.equal(h, h_head)
+
+
+def _heads_inputs(gen, dev, B, S, Hh, P, N, dtype):
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen)
+    dt = (rnd(B, S, Hh).abs() * 0.1).to(dev, dtype)
+    return (dt, rnd(B, S, Hh * P).to(dev, dtype), -rnd(Hh).abs().to(dev),
+            rnd(B, S, N).to(dev, dtype), rnd(B, S, N).to(dev, dtype),
+            rnd(B, Hh, P, N).to(dev))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,S,Hh,P,with_h0", [
+    (1, 37, 3, 64, True), (2, 1, 4, 32, True), (3, 70, 2, 96, False),
+    (1, 512, 5, 64, True), (4, 33, 112, 64, True), (8, 1, 112, 64, True)])
+def test_selective_scan_heads_kernel_matches_plain(cuda, dtype, B, S, Hh, P,
+                                                   with_h0):
+    gen = torch.Generator().manual_seed(B * 1000 + S + Hh + P)
+    dt, x, A, Bm, Cm, h0 = _heads_inputs(gen, cuda, B, S, Hh, P, 64, dtype)
+    h0 = h0 if with_h0 else None
+    before = K.launches["selective_scan_heads"]
+    y, h = tss.selective_scan_heads(dt, x, A, Bm, Cm, h0)
+    y_ref, h_ref = selective_scan_heads_ref(dt, x, A, Bm, Cm, h0)
+    torch.cuda.synchronize()
+    assert K.launches["selective_scan_heads"] == before + 1
+    assert y.dtype == h.dtype == torch.float32
+    assert tuple(h.shape) == (B, Hh, P, 64)
+    assert torch.isfinite(y).all() and torch.isfinite(h).all()
+    assert (y - y_ref).abs().max().item() <= 1e-4
+    assert (h - h_ref).abs().max().item() <= 1e-4
+
+
+def test_selective_scan_heads_zero_dt_freezes_state(cuda):
+    gen = torch.Generator().manual_seed(6)
+    dt, x, A, Bm, Cm, h0 = _heads_inputs(gen, cuda, 2, 80, 4, 64, 64,
+                                         torch.bfloat16)
+    _, h_head = tss.selective_scan_heads(
+        dt[:, :45].contiguous(), x[:, :45].contiguous(), A,
+        Bm[:, :45].contiguous(), Cm[:, :45].contiguous(), h0)
+    dt[:, 45:] = 0
+    _, h = tss.selective_scan_heads(dt, x, A, Bm, Cm, h0)
+    torch.cuda.synchronize()
+    assert torch.equal(h, h_head)
+
+
+@pytest.mark.parametrize("N,P", [(16, 64), (64, 48)])
+def test_selective_scan_heads_rejects_unbuilt_shapes(cuda, N, P):
+    gen = torch.Generator().manual_seed(N + P)
+    ins = _heads_inputs(gen, cuda, 1, 4, 2, P, N, torch.float32)
+    with pytest.raises(ValueError, match="N=|P="):
+        tss.selective_scan_heads(*ins)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("kind", ["decode", "prefill"])
+def test_paged_kernels_at_zamba2_attention_shape(cuda, dtype, kind):
+    """zamba2-7b's shared attention: H = Kh = 32 (G = 1), D = 112, held
+    against the plain version's f32 output on the same inputs."""
+    gen = torch.Generator().manual_seed(112)
+    H = Kh = 32
+    D, C, ctx = 112, 37, [0, 13, 60, 200]
+    lens = [1, 17, 100, 256] if kind == "decode" else [c + C for c in ctx]
+    kp, vp, tables = _pages(gen, cuda, lens=lens, Kh=Kh, D=D, dtype=dtype,
+                            n_pages=2 * 17 * len(lens) + 1, max_pages=17)
+    name = "paged_attention" if kind == "decode" \
+        else "paged_prefill_attention"
+    before = K.launches[name]
+    if kind == "decode":
+        q = torch.randn((len(lens), H, D), generator=gen).to(cuda, dtype)
+        lengths = torch.tensor(lens, dtype=torch.int32, device=cuda)
+        got = tpa.paged_attention(q, kp, vp, tables, lengths)
+        want = paged_attention_ref(*_f32(q, kp, vp), tables, lengths)
+        tol = DECODE_TOL[dtype]
+    else:
+        q = torch.randn((len(ctx), C, H, D), generator=gen).to(cuda, dtype)
+        ctx_t = torch.tensor(ctx, dtype=torch.int32, device=cuda)
+        got = tpa.paged_prefill_attention(q, kp, vp, tables, ctx_t)
+        want = paged_prefill_attention_ref(*_f32(q, kp, vp), tables, ctx_t)
+        tol = TOL[dtype]
+    torch.cuda.synchronize()
+    assert K.launches[name] == before + 1
+    assert torch.isfinite(got.float()).all()
+    assert (got.float() - want).abs().max().item() <= tol
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],

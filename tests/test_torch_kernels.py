@@ -162,6 +162,9 @@ def test_cpu_calls_take_plain_versions_and_count_no_launch(rng):
     tcw.paged_token_write(_t(kp).view(1, 1, -1, PAGE, 16), 0,
                           q.reshape(1, 1, 16), torch.tensor([3], dtype=torch.int32))
     tss.selective_scan(q, q, -q[0].abs().T, q[:, :, :2], q[:, :, :2])
+    xh = _t(rng.standard_normal((1, 2, 64)).astype(np.float32))
+    tss.selective_scan_heads(xh[:, :, :2].abs(), xh, -xh[0, 0, :2].abs(),
+                             xh, xh)
     x = _t(rng.standard_normal((1, 2, 3, 64)).astype(np.float32))
     tfa.flash_attention(x, x, x, causal=False)
     assert K.launches == {"cache_write": 0, "paged_attention": 0,
@@ -170,6 +173,6 @@ def test_cpu_calls_take_plain_versions_and_count_no_launch(rng):
                           "paged_prefill_attention": 0,
                           "paged_attention_latent": 0,
                           "paged_prefill_attention_latent": 0,
-                          "selective_scan": 0,
+                          "selective_scan": 0, "selective_scan_heads": 0,
                           "flash_attention": 0, "flash_attention_split": 0,
                           "flash_attention_merge": 0}

@@ -1,12 +1,16 @@
 """The port's model steps against ``repro.models.model`` on the same weights
 (converted through ``params_from_numpy``), the same page pools and the same
-control tensors, on reduced LLaVA-1.5-7B in f32.
+control tensors, on reduced LLaVA-1.5-7B in f32, and reduced gemma3-4b
+(sliding-window local layers, tied embeddings, GeGLU) through the shared
+teacher-forced steps of tests/_torch_steps.py.
 
 Tolerances: logits within 2e-4 of the reference's largest logit, the
 reference's own bar for paged vs dense steps (tests/test_device_cache.py);
 page pools within 1e-5 absolute; sampled ids identical when both sides get
 the same Gumbel noise.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -20,6 +24,7 @@ from repro_torch.engine.runner import bucket_pow2
 from repro_torch.models import model as M
 from repro_torch.params import params_from_numpy
 
+from _torch_steps import run_steps
 from conftest import reduced_cfg
 
 REL = 2e-4
@@ -73,9 +78,28 @@ def test_init_params_matches_jax_tree_shapes(llava):
 
 @pytest.mark.parametrize("arch", ["zamba2-7b"])
 def test_unported_families_raise(arch):
-    cfg = get_config(arch).reduced()
+    """Every layer kind is ported; a Mamba model with a media frontend is
+    not, and says where it is queued."""
+    cfg = dataclasses.replace(get_config(arch).reduced(), frontend="vision",
+                              media_tokens=16)
+    M.check_supported(get_config(arch).reduced())
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        M.check_supported(cfg)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         M.init_params(cfg, torch.Generator().manual_seed(0))
+
+
+def test_gemma3_paged_steps_match_jax(rng):
+    """Reduced gemma3-4b: sliding window 16 on the local layers, one
+    global layer in 2, tied embeddings, GeGLU; prefill chunks and decode
+    steps past the window against the JAX package's."""
+    cfg = reduced_cfg("gemma3-4b")
+    assert cfg.sliding_window == 16 and cfg.tie_embeddings
+    assert [cfg.is_local_layer(i) for i in range(2)] == [True, False]
+    jparams = JM.init_params(cfg, jax.random.PRNGKey(9))
+    tparams = params_from_numpy(jax.tree.map(np.asarray, jparams), "cpu")
+    assert "lm_head" not in dict(tparams.named_parameters())
+    run_steps(cfg, jparams, tparams, rng, n_decode=6)
 
 
 def test_encode_media_matches_jax(rng, llava):
