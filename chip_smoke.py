@@ -12,8 +12,9 @@ on failure:
             csrc`` (all nvcc processes at once), and read from ``cuobjdump
             -sass`` that the bf16 attention kernels run on tensor cores
             (HMMA instructions; HGMMA, wgmma, in the latent-row kernel)
-            and from ptxas that the latent-row kernel and the scan's
-            per-head mode do not spill;
+            and from ptxas that the latent-row kernel, the scan's
+            per-head mode and the D = 160 instances of decode and the
+            chunked-prefill tile do not spill;
 3. kernels- each kernel against its plain PyTorch version on the card: the
             attention and cache-write kernels at full-width LLaVA-1.5-7B
             shapes (H = Kh = 32, D = 128, page 16, w = 4096), in f32 and
@@ -65,7 +66,8 @@ on failure:
             the card's f32 lanes; the paged decode (B = 8) and chunked
             prefill (a 512-token chunk, f32 and bf16) at zamba2-7b's
             shared attention (H = Kh = 32, D = 112) against their plain
-            versions and SDPA;
+            versions and SDPA, and the same at stablelm-12b's attention
+            (H = 32, Kh = 8, D = 160);
 4. model  - the port's runner on the card against the same runner on the
             CPU (plain versions) on reduced LLaVA, reduced falcon-mamba
             (batched chunks of different lengths) and reduced whisper-small
@@ -107,7 +109,19 @@ on failure:
             every paged attention and cache-write kernel must launch, each
             request's KV and 127.8 MB of recurrent state must migrate P ->
             D; device time by kernel of a 512-token prefill chunk and of a
-            steady decode step at B = 4);
+            steady decode step at B = 4); then the serving entry point
+            ``repro_torch.launch.serve`` in process: the CLI on
+            full-width LLaVA-1.5-7B E1+P1+D1 (its defaults: six requests,
+            12 new tokens; every request's 12 tokens read from its
+            printed lines, every attention and cache-write kernel must
+            launch), its HTTP front on the same model (port 0: a
+            non-streaming and a streaming greedy completion with an
+            image part, their JSON body and SSE framing, the same tokens
+            as ``Engine.generate`` on the same prompt ids and
+            pseudo-embedding, ``/v1/models``, an unknown model's 404, TTFT
+            over HTTP), the CLI on full-width 40-layer stablelm-12b P1+D1
+            (every attention call a D = 160 instance), and ``--sim`` once
+            (the simulator on the host);
 6. report - one JSON line of kernels (each split-KV merge keeps its own
             row: fused into its split kernel, its launches are the split
             calls, ``ms`` and ``standalone_*`` time the merge kernel alone,
@@ -116,7 +130,9 @@ on failure:
             576-wide write, at DeepSeek-V2's latent rows, their launches
             the DeepSeek-V2 path's; ``selective_scan_heads`` and the
             ``*_zamba2`` rows at zamba2-7b's widths, their launches the
-            zamba2 path's), then the final status line.
+            zamba2 path's; the ``*_d160`` rows at stablelm-12b's attention,
+            their launches its CLI path's, ``cli_max_abs_err`` their error
+            at the shapes of that path), then the final status line.
 
 Exits non-zero (and prints no status line) without a card or outside the
 repository.
@@ -128,6 +144,7 @@ import contextlib
 import functools
 import gc
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -148,6 +165,10 @@ PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12}     # FLOP/s, dense
 # 576 runs on tensor cores but weighs P as hi + lo bf16 parts (P to about
 # 16 bits), so the decode bar holds for it too; it is held against the
 # plain version's f32 output.  The cache write copies exactly.
+# Decode over a few keys (the serve CLI's 17-27) keeps outputs up to ~3,
+# where the bf16 store alone rounds by up to 2^-8 |o| (7.8e-3 at |o| = 2,
+# past 4e-3 even when exactly rounded): there the decode bar is held on
+# top of that rounding, |err| <= 4e-3 + |o| / 256.
 # The selective scan computes in f32 from the same inputs on both sides and
 # returns f32, so bf16 inputs keep the f32 bar.
 # Flash attention: f32 in summation order only; bf16 rounds each output
@@ -178,6 +199,8 @@ ZH, ZP, ZN = 112, 64, 64                              # zamba2-7b Mamba-2
 #                                           heads, head width, state size
 ZAH, ZD = 32, 112                                     # zamba2-7b attention
 #                                           heads (= KV heads), head dim
+SH, SKH, SD = 32, 8, 160                              # stablelm-12b heads,
+#                                                       KV heads, head dim
 WH, WD, WT = 12, 64, 1500                             # whisper-small heads,
 #                                                       head dim, frames
 GH, GKH, GD, GL = 16, 8, 64, 24                       # granite-moe-1b-a400m
@@ -366,7 +389,9 @@ def paged_case(gen, dev, dtype, *, lens, n_pages_total, Kh=KH, Dh=D):
     return kp, vp, torch.from_numpy(tables).to(dev), max_pages
 
 
-def check(name, dtype, got, want, rows=None):
+def check(name, dtype, got, want, rows=None, rtol=0.0):
+    """Max abs error of ``got`` against ``want``; fails unless every
+    element is within the bar plus ``rtol`` |want|."""
     import torch
     g, w = got.float(), want.float()
     if not torch.isfinite(g).all():
@@ -374,12 +399,14 @@ def check(name, dtype, got, want, rows=None):
     if rows is not None:
         g, w = g[rows], w[rows]
     err = (g - w).abs().max().item()
+    over = ((g - w).abs() - rtol * w.abs()).max().item()
     tol = TOL[name.split("/")[0]][dname(dtype)]
     log({"check": name, "dtype": dname(dtype), "max_abs_err": err,
-         "tol": tol})
-    if not err <= tol:
-        raise AssertionError(f"{name} {dname(dtype)}: max abs err {err} > "
-                             f"{tol}")
+         "tol": tol, **({"rtol": rtol, "max_err_over_rtol": over}
+                        if rtol else {})})
+    if not over <= tol:
+        raise AssertionError(f"{name} {dname(dtype)}: max abs err {err} "
+                             f"({over} over {rtol} |want|) > {tol}")
     return err
 
 
@@ -1128,24 +1155,28 @@ def heads_bound(B, S, isz, fma, rate, Hh=ZH, P=ZP, N=ZN) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def zamba_attention_cases(gen, dev, results):
-    """The paged kernels at zamba2-7b's shared attention (H = Kh = 32, D =
-    112): decode at B = 8 (ctx 600-700) and a 512-token chunk (a first
-    one and a later one at B = 2), f32 and bf16 (bf16 chunked prefill held
-    against the plain version's f32 output); the bf16 calls timed beside
-    their bound, plain version and SDPA on pre-gathered K/V."""
+def width_attention_cases(gen, dev, results, tag, Hq, Kh, Dh, cli=False):
+    """The paged kernels at one model's attention widths (``Hq`` query
+    heads over ``Kh`` KV heads of ``Dh``; rows ``*_{tag}``): decode at B =
+    8 (ctx 600-700) and a 512-token chunk (a first one and a later one at
+    B = 2), f32 and bf16 (bf16 chunked prefill held against the plain
+    version's f32 output); the bf16 calls timed beside their bound, plain
+    version and SDPA on pre-gathered K/V.  zamba2-7b's shared attention
+    (H = Kh = 32, D = 112) and stablelm-12b's (H = 32, Kh = 8, D = 160;
+    ``cli``: also at the shapes its CLI run gives the kernels)."""
     import torch
     from repro_torch.kernels.paged_attention.ops import (
         paged_attention, paged_prefill_attention)
     from repro_torch.kernels.paged_attention.ref import (
         paged_attention_ref, paged_prefill_attention_ref)
-    errs = {"paged_attention_zamba2": [], "paged_prefill_attention_zamba2": []}
+    dec, pre = f"paged_attention_{tag}", f"paged_prefill_attention_{tag}"
+    errs = {dec: [], pre: []}
     for dtype in (torch.float32, torch.bfloat16):
         lens = [600, 615, 631, 648, 656, 671, 689, 700]
         kp, vp, tables, _ = paged_case(gen, dev, dtype, lens=lens,
-                                       n_pages_total=400, Kh=ZAH, Dh=ZD)
+                                       n_pages_total=400, Kh=Kh, Dh=Dh)
         B = len(lens)
-        q = torch.randn((B, ZAH, ZD), generator=gen, device=dev).to(dtype)
+        q = torch.randn((B, Hq, Dh), generator=gen, device=dev).to(dtype)
         lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
 
         def call():
@@ -1154,24 +1185,24 @@ def zamba_attention_cases(gen, dev, results):
         def plain():
             return paged_attention_ref(q.float(), kp.float(), vp.float(),
                                        tables, lengths)
-        errs["paged_attention_zamba2"].append(check(
-            "paged_attention/zamba2-b8", dtype, call(), plain()))
+        errs[dec].append(check(f"paged_attention/{tag}-b8", dtype, call(),
+                               plain()))
         if dtype == torch.bfloat16:
-            row = {"shape": f"B={B} H={ZAH} Kh={ZAH} D={ZD} page={PAGE} "
+            row = {"shape": f"B={B} H={Hq} Kh={Kh} D={Dh} page={PAGE} "
                             f"ctx 600-700 bf16",
                    "ms": time_ms(call), "device_ms": time_ms_graph(call),
                    "plain_ms": time_ms(plain),
                    **paged_yardstick(q[:, None], kp, vp, tables, lens,
                                      (lengths.long() - 1)[:, None],
-                                     4 * sum(lens) * ZAH * ZD)}
+                                     4 * sum(lens) * Hq * Dh)}
             row["bound_share"] = row["bound_ms"] / row["device_ms"]
-            results["paged_attention_zamba2"] = row
+            results[dec] = row
 
         ctx, C, n_valid = [0, 512], 512, [512, 88]
         kp, vp, tables, _ = paged_case(
             gen, dev, dtype, lens=[c + n for c, n in zip(ctx, n_valid)],
-            n_pages_total=400, Kh=ZAH, Dh=ZD)
-        q = torch.randn((len(ctx), C, ZAH, ZD), generator=gen,
+            n_pages_total=400, Kh=Kh, Dh=Dh)
+        q = torch.randn((len(ctx), C, Hq, Dh), generator=gen,
                         device=dev).to(dtype)
         ctx_t = torch.tensor(ctx, dtype=torch.int32, device=dev)
 
@@ -1181,26 +1212,84 @@ def zamba_attention_cases(gen, dev, results):
         def chunk_plain():
             return paged_prefill_attention_ref(q.float(), kp.float(),
                                                vp.float(), tables, ctx_t)
-        errs["paged_prefill_attention_zamba2"].append(check(
-            "paged_prefill_attention/zamba2-c512", dtype, chunk(),
-            chunk_plain()))
+        errs[pre].append(check(f"paged_prefill_attention/{tag}-c512", dtype,
+                               chunk(), chunk_plain()))
         if dtype == torch.bfloat16:
-            # every row of the padded chunk is computed, over the keys its
-            # table holds (as for granite-moe's chunk)
+            # bytes: q and out whole, the keys each table names; products:
+            # the valid rows only (row i < n_valid[b] over its c + i + 1
+            # keys), the work this chunk's data needs
             S = tables.shape[1] * PAGE
             qpos = ctx_t.long()[:, None] + torch.arange(C, device=dev)
             n_keys = [min(c + C, S) for c in ctx]
-            pairs = sum(min(c + i + 1, S) for c in ctx for i in range(C))
+            pairs = sum(c + i + 1 for c, n in zip(ctx, n_valid)
+                        for i in range(n))
             row = {"shape": f"B=2 C={C} (512 + 88 valid) ctx 0 / 512 "
-                            f"H={ZAH} Kh={ZAH} D={ZD} bf16",
+                            f"H={Hq} Kh={Kh} D={Dh} bf16",
                    "ms": time_ms(chunk), "device_ms": time_ms_graph(chunk),
                    "plain_ms": time_ms(chunk_plain),
                    **paged_yardstick(q, kp, vp, tables, n_keys, qpos,
-                                     4 * pairs * ZAH * ZD)}
+                                     4 * pairs * Hq * Dh)}
             row["bound_share"] = row["bound_ms"] / row["device_ms"]
-            results["paged_prefill_attention_zamba2"] = row
+            results[pre] = row
     for name, e in errs.items():
         results[name]["max_abs_err"] = max(e)
+    if cli:
+        for name, e in cli_shape_cases(gen, dev, tag, Hq, Kh, Dh).items():
+            results[name]["cli_max_abs_err"] = e
+
+
+# the shapes stablelm-12b's CLI run (six 16-token prompts, 12 new tokens)
+# gives the paged kernels: decode at B = 2, 4 and 8 (the last with two
+# padded lanes of length 1) over 17-27 keys in two table columns, and
+# 16-row first chunks at B = 2 and 4
+CLI_DECODE_LENS = [[27, 27], [17, 17, 17, 17],
+                   [27, 27, 27, 27, 26, 26, None, None]]
+CLI_CHUNK_B = [2, 4]
+
+
+def cli_shape_cases(gen, dev, tag, Hq, Kh, Dh):
+    """The paged kernels at the CLI run's shapes, f32 and bf16, held
+    against their plain versions at the bars of the timed shapes (bf16
+    decode on top of the store's rounding, see ``TOL``): decode in one
+    split (``decode_plan`` must say 1, so the kernel writes out
+    directly), chunks of 16 rows at ctx 0.  Returns the largest error of
+    each kernel."""
+    import torch
+    from repro_torch.kernels.paged_attention import ops
+    from repro_torch.kernels.paged_attention.ref import (
+        paged_attention_ref, paged_prefill_attention_ref)
+    dec, pre = f"paged_attention_{tag}", f"paged_prefill_attention_{tag}"
+    errs = {dec: [], pre: []}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for dtype in (torch.float32, torch.bfloat16):
+        for lens in CLI_DECODE_LENS:
+            kp, vp, tables, P = paged_case(gen, dev, dtype, lens=lens,
+                                           n_pages_total=32, Kh=Kh, Dh=Dh)
+            B = len(lens)
+            n_split = ops.decode_plan(B, Hq, Kh, Dh, P, PAGE, sms)
+            if n_split != 1:
+                raise AssertionError(f"{dec} cli-b{B}: {n_split} splits")
+            q = torch.randn((B, Hq, Dh), generator=gen, device=dev).to(dtype)
+            lengths = torch.tensor([n or 1 for n in lens], dtype=torch.int32,
+                                   device=dev)
+            errs[dec].append(check(
+                f"paged_attention/{tag}-cli-b{B}", dtype,
+                ops.paged_attention(q, kp, vp, tables, lengths),
+                paged_attention_ref(q.float(), kp.float(), vp.float(),
+                                    tables, lengths),
+                rtol=2 ** -8 if dtype == torch.bfloat16 else 0.0))
+        for B in CLI_CHUNK_B:
+            kp, vp, tables, _ = paged_case(gen, dev, dtype, lens=[16] * B,
+                                           n_pages_total=32, Kh=Kh, Dh=Dh)
+            q = torch.randn((B, 16, Hq, Dh), generator=gen,
+                            device=dev).to(dtype)
+            ctx_t = torch.zeros(B, dtype=torch.int32, device=dev)
+            errs[pre].append(check(
+                f"paged_prefill_attention/{tag}-cli-b{B}-c16", dtype,
+                ops.paged_prefill_attention(q, kp, vp, tables, ctx_t),
+                paged_prefill_attention_ref(q.float(), kp.float(),
+                                            vp.float(), tables, ctx_t)))
+    return {name: max(e) for name, e in errs.items()}
 
 
 def flash_cases(gen, dev, results, rate):
@@ -1356,17 +1445,31 @@ def sass_hmma(card: str):
 
 def check_ptxas(logs: dict):
     """Print each built kernel's registers and spills (``-Xptxas -v``);
-    fails when the latent-row kernel or the scan's per-head mode (a 4 x 4
-    tile of states a thread) spills."""
+    fails when the latent-row kernel, the scan's per-head mode (a 4 x 4
+    tile of states a thread) or a D = 160 instance of the paged decode or
+    chunked-prefill tile (stablelm-12b's head dim: ``paged_decode_kernel``
+    or ``paged_prefill_mma_kernel`` with template argument ``Li160E`` in
+    the mangled name) spills, or when no D = 160 instance of either was
+    built."""
+    d160 = set()
     for name, text in logs.items():
         report = ptxas_report(text)
         log({"ptxas": name, "kernels": report})
         for k in report:
             heads = "selective_scan_heads_kernel" in k["fn"]
-            if "latent_kernel" in k["fn"] or heads:
-                log({"ptxas_latent" if not heads else "ptxas_scan_heads": k})
+            kind = ("decode" if "paged_decode_kernel" in k["fn"] else
+                    "prefill" if "paged_prefill_mma_kernel" in k["fn"]
+                    else None)
+            wide = kind is not None and "Li160E" in k["fn"]
+            if "latent_kernel" in k["fn"] or heads or wide:
+                log({"ptxas_latent" if "latent_kernel" in k["fn"] else
+                     "ptxas_scan_heads" if heads else "ptxas_d160": k})
                 if k["spill_bytes"]:
                     raise AssertionError(f"{k['fn']} spills: {k}")
+            if wide:
+                d160.add(kind)
+    if d160 != {"decode", "prefill"}:
+        raise AssertionError(f"D = 160 instances built: {sorted(d160)}")
 
 
 # ---------------------------------------------------------------------------
@@ -2233,6 +2336,205 @@ def serve_whisper(seed: int, card: str):
 
 
 # ---------------------------------------------------------------------------
+# phase 5, continued: the serving entry point repro_torch.launch.serve
+# ---------------------------------------------------------------------------
+ATTN_KERNELS = ("cache_write", "paged_attention", "paged_prefill_attention")
+
+
+def captured(fn, *a):
+    """fn(*a) with its standard output caught, then echoed: (result,
+    text)."""
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*a)
+    print(buf.getvalue(), end="", flush=True)
+    return out, buf.getvalue()
+
+
+def serve_cli(argv: list, card: str) -> dict:
+    """``repro_torch.launch.serve.main(argv)`` in process, as a user runs
+    the CLI on the card (full width, bf16 weights from a generator seeded
+    with 0), the launch counters set to 0 just before it and read just
+    after.  Checks from its printed lines that every request generated
+    ``--max-new-tokens`` tokens from the vocabulary, and that every
+    attention and cache-write kernel launched; returns the launches."""
+    import torch
+    from repro_torch import kernels as K
+    from repro_torch.launch import serve as S
+    args = S.parse_args(argv)
+    K.reset_launches()
+    t0 = time.perf_counter()
+    srv, text = captured(S.main, argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(K.launches)
+    cfg = srv.cfg
+    streams = [json.loads(m) for m in
+               re.findall(r"^req \d+: (\[.*\])$", text, re.M)]
+    if len(streams) != args.requests or any(
+            len(t) != args.max_new_tokens
+            or not all(0 <= x < cfg.vocab_size for x in t) for t in streams):
+        raise AssertionError(f"{cfg.name}: streams {streams}")
+    m = re.search(r"^(\d+) requests in ([0-9.]+)s, (\d+) migrations "
+                  r"\(([0-9.]+) MB\)$", text, re.M)
+    if m is None or int(m[1]) != args.requests or int(m[3]) < 1:
+        raise AssertionError(f"{cfg.name}: no migration line in {text!r}")
+    for name in ATTN_KERNELS:
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} never launched on the "
+                                 f"{cfg.name} CLI path")
+    check_reclaimed(srv)
+    log({"cli": "python -m repro_torch.launch.serve " + " ".join(argv),
+         "card": card, "arch": cfg.name, "layers": cfg.num_layers,
+         "d_model": cfg.d_model, "heads": cfg.num_heads,
+         "kv_heads": cfg.num_kv_heads, "head_dim": cfg.head_dim,
+         "wall_s_with_weights": wall, "serve_wall_s": float(m[2]),
+         "migrations": int(m[3]), "migrated_mb": float(m[4]),
+         "launches": launches})
+    return launches
+
+
+def http_call(port: int, method: str, path: str, body=None):
+    """(status, headers, body text) of one request to the front."""
+    import http.client
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    conn.request(method, path, None if body is None else json.dumps(body),
+                 {"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    out = resp.status, resp.getheader("Content-Type"), resp.read().decode()
+    conn.close()
+    return out
+
+
+def serve_http(card: str) -> dict:
+    """The port's HTTP front on full-width LLaVA-1.5-7B, E1+P1+D1, started
+    on port 0 through ``build_http`` as ``--http`` starts it: one
+    non-streaming and one streaming greedy completion of an image and a
+    text part (the JSON body, the SSE framing ending in ``data: [DONE]``,
+    the same 12 tokens in both and from ``Engine.generate`` on the same
+    prompt ids and pseudo-embedding), ``/v1/models`` and an unknown
+    model's 404; TTFT over HTTP (POST to the first token event).  Returns
+    the launches of the two completions."""
+    import threading
+    import torch
+    from repro_torch import kernels as K
+    from repro_torch.core.request import SamplingParams
+    from repro_torch.launch import serve as S
+    t0 = time.perf_counter()
+    httpd, engine = S.build_http(S.parse_args(
+        ["--http", "--arch", "llava-1.5-7b", "--disagg", "E1,P1,D1",
+         "--host", "127.0.0.1", "--port", "0"]))
+    setup_s = time.perf_counter() - t0
+    cfg = engine.server.cfg
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    port = httpd.server_address[1]
+    url, n_new = "http://x/cat.png", 12
+    body = {"messages": [{"role": "user", "content": [
+        {"type": "text", "text": "describe this image"},
+        {"type": "image_url", "image_url": {"url": url}}]}],
+        "max_tokens": n_new, "temperature": 0}
+    try:
+        K.reset_launches()
+        t0 = time.perf_counter()
+        status, ctype, text = http_call(port, "POST",
+                                        "/v1/chat/completions", body)
+        complete_s = time.perf_counter() - t0
+        out = json.loads(text)
+        choice = out["choices"][0]
+        toks = [int(t) for t in re.findall(r"<(\d+)>",
+                                           choice["message"]["content"])]
+        if (status != 200 or out["object"] != "chat.completion"
+                or choice["finish_reason"] != "length"
+                or out["usage"]["completion_tokens"] != n_new
+                or len(toks) != n_new):
+            raise AssertionError(f"completion: {status} {text}")
+
+        import http.client
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+        t0 = time.perf_counter()
+        conn.request("POST", "/v1/chat/completions",
+                     json.dumps({**body, "stream": True}),
+                     {"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        if resp.status != 200 or not resp.getheader(
+                "Content-Type", "").startswith("text/event-stream"):
+            raise AssertionError(f"stream: {resp.status}")
+        lines, ttft = [], None
+        while line := resp.readline().decode():
+            lines.append(line)
+            if ttft is None and '"content"' in line:
+                ttft = time.perf_counter() - t0
+        stream_s = time.perf_counter() - t0
+        conn.close()
+        launches = dict(K.launches)
+        # SSE framing: "data: <event>" lines, each closed by a blank line
+        if (lines[1::2] != ["\n"] * (len(lines) // 2) or len(lines) % 2
+                or not all(ln.startswith("data: ") for ln in lines[::2])
+                or lines[-2] != "data: [DONE]\n"):
+            raise AssertionError(f"SSE framing: {lines}")
+        events = [json.loads(ln[6:]) for ln in lines[:-2:2]]
+        deltas = [e["choices"][0]["delta"] for e in events]
+        stoks = [int(d["content"][1:-1]) for d in deltas if "content" in d]
+        if (deltas[0].get("role") != "assistant"
+                or events[-1]["choices"][0]["finish_reason"] != "length"):
+            raise AssertionError(f"SSE events: {events}")
+
+        stream = engine.generate(S.encode_text("describe this image",
+                                               cfg.vocab_size),
+                                 media=[S.media_from_url(url, cfg)],
+                                 sampling=SamplingParams(max_tokens=n_new))
+        etoks = stream.tokens()
+        engine.release(stream.rid)
+        if not toks == stoks == etoks:
+            raise AssertionError(f"greedy tokens differ: HTTP {toks}, SSE "
+                                 f"{stoks}, Engine.generate {etoks}")
+        status, _, text = http_call(port, "GET", "/v1/models")
+        if status != 200 or json.loads(text)["data"][0]["id"] != cfg.name:
+            raise AssertionError(f"/v1/models: {status} {text}")
+        status, _, text = http_call(port, "POST", "/v1/chat/completions",
+                                    {"model": "gpt-oss-419b",
+                                     "messages": [{"content": "hi"}]})
+        if status != 404 or json.loads(text)["error"]["type"] != \
+                "model_not_found":
+            raise AssertionError(f"unknown model: {status} {text}")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        engine.close(drain_timeout=0)
+        thread.join(timeout=60)
+    if thread.is_alive():
+        raise AssertionError("the HTTP front's thread did not stop")
+    for name in ATTN_KERNELS:
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} never launched behind the "
+                                 f"HTTP front")
+    torch.cuda.synchronize()
+    log({"http_front": "repro_torch.launch.serve --http, llava-1.5-7b "
+                       "E1+P1+D1 bf16, one image + 3 words, 12 greedy tokens",
+         "card": card, "setup_s": setup_s, "complete_s": complete_s,
+         "ttft_http_s": ttft, "stream_s": stream_s, "tokens": toks,
+         "launches": launches})
+    return launches
+
+
+def serve_sim(card: str):
+    """``--sim`` once: the simulator on the host, as the JAX CLI runs it."""
+    from repro_torch.launch import serve as S
+    argv = ["--sim", "--arch", "llava-next-7b", "--dataset", "textcaps",
+            "--rate", "8", "--n", "60"]
+    t0 = time.perf_counter()
+    _, text = captured(S.main, argv)
+    m = re.fullmatch(r"rate=8.0 attainment=([0-9.]+)% p90_ttft=[0-9.]+s "
+                     r"p90_tpot=[0-9.]+ms tok/s=\d+\n", text)
+    if m is None or not 0.0 <= float(m[1]) <= 100.0:
+        raise AssertionError(f"--sim printed {text!r}")
+    log({"sim": " ".join(argv), "card": card, "line": text.strip(),
+         "s": time.perf_counter() - t0})
+
+
+# ---------------------------------------------------------------------------
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2289,7 +2591,9 @@ def main() -> int:
                lambda B, S, isz: heads_bound(B, S, isz, fma, rate),
                f"H={ZH} P={ZP} N={ZN}", torch.bfloat16)
     torch.cuda.empty_cache()
-    zamba_attention_cases(gen, dev, results)
+    width_attention_cases(gen, dev, results, "zamba2", ZAH, ZAH, ZD)
+    torch.cuda.empty_cache()
+    width_attention_cases(gen, dev, results, "d160", SH, SKH, SD, cli=True)
     torch.cuda.empty_cache()
     flash_cases(gen, dev, results, rate)
     torch.cuda.empty_cache()
@@ -2334,6 +2638,28 @@ def main() -> int:
     launches["selective_scan_heads"] = zamba["selective_scan_heads"]
     for name in ("paged_attention", "paged_prefill_attention"):
         launches[f"{name}_zamba2"] = zamba[name]
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the serving entry point: the CLI and the HTTP front on full-width
+    # LLaVA-1.5-7B (the JAX CLI's defaults), then the CLI on full-width
+    # stablelm-12b, whose every attention call runs a D = 160 instance
+    serve_cli(["--arch", "llava-1.5-7b", "--disagg", "E1,P1,D1",
+               "--requests", "6", "--max-new-tokens", "12"], card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve_http(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    from repro_torch.configs import get_config
+    if get_config("stablelm-12b").head_dim != SD:
+        raise AssertionError("stablelm-12b's head dim is not 160")
+    stablelm = serve_cli(["--arch", "stablelm-12b", "--disagg", "P1,D1"],
+                         card)
+    for name in ("paged_attention", "paged_prefill_attention"):
+        launches[f"{name}_d160"] = stablelm[name]
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve_sim(card)
     # a merge row's launches: the split calls, each merging in its last
     # blocks (the merge kernel alone never runs on the main paths)
     for name in ("paged_attention", "flash_attention"):
@@ -2378,6 +2704,13 @@ def main() -> int:
                "src/repro/kernels/paged_attention/kernel.py:78"),
            "paged_prefill_attention_zamba2": (
                "src/repro_torch/csrc/paged_attention.cu",
+               "src/repro/kernels/paged_attention/kernel.py:162"),
+           # stablelm-12b's attention (H = 32, Kh = 8, D = 160)
+           "paged_attention_d160": (
+               "src/repro_torch/csrc/paged_attention.cu",
+               "src/repro/kernels/paged_attention/kernel.py:78"),
+           "paged_prefill_attention_d160": (
+               "src/repro_torch/csrc/paged_attention.cu",
                "src/repro/kernels/paged_attention/kernel.py:162")}
     kernels = []
     for name, (source, replaces) in src.items():
@@ -2393,7 +2726,8 @@ def main() -> int:
                             "library_device_ms", "bound_share",
                             "bound_share_cold_l2", "n_split",
                             "fused_into", "launches_are", "standalone_ms",
-                            "standalone_device_ms", "fused", "decode_b8")
+                            "standalone_device_ms", "fused", "decode_b8",
+                            "cli_max_abs_err")
                            if key in r}})
     log({"total_s": time.perf_counter() - t_start, "card": card})
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -25,7 +25,7 @@
 // in a loop, reading its own table row; pages wholly outside the rows'
 // visible keys are skipped.  Three bodies:
 //
-// - decode (f32 and bf16, D = 32, 64, 80, 112, 128 or 256; f32 also 576): bound by
+// - decode (f32 and bf16, D = 32, 64, 80, 112, 128, 160 or 256; f32 also 576): bound by
 //   the bytes of the cached K/V it reads once per step (LLaVA at B = 8, ctx 600-700:
 //   85 MB, 0.0255 ms at 3.35 TB/s).  Split-KV: the wrapper's decode_plan
 //   cuts the table's columns into n_split ranges of whole pages, from the
@@ -48,18 +48,18 @@
 //   and across the warps once in shared memory.  P is not rounded: no
 //   tensor cores here, so a bf16 output is rounded once.  Rows whose
 //   16-byte chunks do not fill a power of two of lanes (D = 80, 112, and
-//   576 in f32: MLA's latent rows) leave the lanes past the row idle; at
+//   576 in f32: MLA's latent rows; stablelm-12b's D = 160) leave the lanes past the row idle; at
 //   D = 576 an f32 block holds 2 heads, so their q and acc fit registers
 //   (see DecCfg).  One split writes out; more write f32 partials, and the
 //   last of a (b, head group) tile's split blocks to finish merges them
 //   into out (attn_merge.cuh's arrive_last and merge_rows): one launch.
-// - bf16 chunked prefill, D = 64, 80, 112, 128 or 256: the tensor-core
+// - bf16 chunked prefill, D = 64, 80, 112, 128, 160 or 256: the tensor-core
 //   tile of attn_mma.cuh.  The block's rows are
 //   (chunk row c, query head g) pairs of its KV head, r = c * G + g, cut
 //   into tiles of 64 rows, 16 per warp
 //   (GQA folds into the M dimension of the products); blocks of the last
 //   rows, which see the most keys, start first.  A key tile is 64 keys
-//   (32 at D = 256): each thread looks up its keys' pages in the table
+//   (32 at D = 160 and 256): each thread looks up its keys' pages in the table
 //   (one division per tile) and copies the rows at ((blk * page + t) * Kh
 //   + kh) * D (64-bit offsets) with cp.async.  Bound: the two products
 //   (4 * C * ctx * D per head) on the tensor cores, and the exponentials.
@@ -582,6 +582,7 @@ cudaError_t launch_decode(const void* q, const void* k, const void* v, const voi
     case 80: return run(std::integral_constant<int, 80>());
     case 112: return run(std::integral_constant<int, 112>());
     case 128: return run(std::integral_constant<int, 128>());
+    case 160: return run(std::integral_constant<int, 160>());
     case 256: return run(std::integral_constant<int, 256>());
     case 576:   // f32 only: bf16 latent rows run on attn_latent.cuh
       if constexpr (std::is_same<T, float>::value) return run(std::integral_constant<int, 576>());
@@ -718,6 +719,7 @@ int prefill(const void* q, const void* k, const void* v, const void* tables,
     case 80: return (int)run(std::integral_constant<int, 80>());
     case 112: return (int)run(std::integral_constant<int, 112>());
     case 128: return (int)run(std::integral_constant<int, 128>());
+    case 160: return (int)run(std::integral_constant<int, 160>());
     case 256: return (int)run(std::integral_constant<int, 256>());
     default: return (int)cudaErrorInvalidValue;   // 576: attn_latent.cuh
   }
@@ -728,7 +730,7 @@ int prefill(const void* q, const void* k, const void* v, const void* tables,
 // dtype codes: 0 = float32, 1 = bfloat16.  Both return a cudaError_t.
 
 // Decode: q/out [B, H, D]; lengths[b] tokens valid (the new one included).
-// D = 32, 64, 80, 112, 128 or 256, and 576 in f32.  n_split ranges of ceil(max_pages / n_split)
+// D = 32, 64, 80, 112, 128, 160 or 256, and 576 in f32.  n_split ranges of ceil(max_pages / n_split)
 // table columns; n_split > 1 needs parts, n_split * B * H * (D + 2) f32 of
 // scratch, and merges in the same launch with one counter of counters
 // (B * H / GT of them, GT the query heads of a block; zero, left zero; see
@@ -753,7 +755,7 @@ extern "C" int paged_attention(const void* q, const void* k, const void* v,
 
 // Chunked prefill: q/out [B, C, H, D]; ctx_lens[b] tokens cached before the
 // chunk, whose own K/V rows are already in the pages (write-then-attend).
-// f32: any D; bf16: D = 64, 80, 112, 128 or 256.
+// f32: any D; bf16: D = 64, 80, 112, 128, 160 or 256.
 extern "C" int paged_prefill_attention(const void* q, const void* k, const void* v,
                                        const void* tables, const void* ctx_lens,
                                        void* out, int dtype, int B, int C, int H,

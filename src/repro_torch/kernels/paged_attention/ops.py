@@ -16,7 +16,9 @@ them in the same launch (``launches`` counts such calls as
 can be captured in a CUDA graph.  Decode takes the head dims in
 ``DECODE_HEAD_DIMS``: 80 and 112 are widths of MLA's latent rows (R +
 rope; 80 in DeepSeek-V2's reduced test model), read as 1-KV-head MQA with
-all the query heads of a request over the same rows.  bf16 chunked prefill
+all the query heads of a request over the same rows; 160 is stablelm-12b's
+head dim (112 also zamba2-7b's).  Every served config's head dim is in
+both sets (tests/test_torch_model.py).  bf16 chunked prefill
 (head dims in ``PREFILL_BF16_HEAD_DIMS``) runs on the tensor-core tile of
 ``csrc/attn_mma.cuh``; f32 prefill on CUDA-core f32 products, any D.
 
@@ -53,8 +55,8 @@ _PREFILL_ARGS = [_P] * 6 + [_I] * 9 + [_P]    # ... dtype B C H Kh D page P wind
 # stream; prefill: ... out, B C H page P pool_rows, stream
 _LATENT_DECODE_ARGS = [_P] * 5 + [_I] * 7 + [_P]
 _LATENT_PREFILL_ARGS = [_P] * 5 + [_I] * 6 + [_P]
-PREFILL_BF16_HEAD_DIMS = (64, 80, 112, 128, 256, 576)   # D of bf16 prefill
-DECODE_HEAD_DIMS = (32, 64, 80, 112, 128, 256, 576)     # D of decode
+PREFILL_BF16_HEAD_DIMS = (64, 80, 112, 128, 160, 256, 576)  # bf16 prefill D
+DECODE_HEAD_DIMS = (32, 64, 80, 112, 128, 160, 256, 576)    # decode D
 LATENT_D = 576            # bf16 at this D runs on csrc/attn_latent.cuh
 LATENT_ROWS = 64          # query rows of a latent block (wgmma's M)
 LATENT_KEYS = 32          # keys of a latent tile

@@ -317,6 +317,66 @@ def test_paged_kernels_at_zamba2_attention_shape(cuda, dtype, kind):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
+@pytest.mark.parametrize("kind", ["decode", "prefill", "decode-cli",
+                                  "prefill-cli"])
+def test_paged_kernels_at_stablelm_attention_shape(cuda, dtype, kind):
+    """stablelm-12b's attention: H = 32 over Kh = 8 (G = 4), D = 160 (20
+    16-byte chunks a bf16 row, 32-key tiles on the tensor-core tile).
+    Decode at B = 8 over 600-700 keys; a 512-row first chunk and a later
+    one of 88 rows after 512 cached keys.  ``*-cli``: the shapes the serve
+    CLI's run gives them (six 16-token prompts): decode at B = 8 over
+    17-27 keys in two table columns with two padded lanes of length 1, in
+    one split, and 16-row first chunks at B = 4.  Held against the plain
+    version's f32 output on the same inputs; bf16 decode over so few keys
+    keeps outputs up to ~3, so its bar there sits on top of the store's
+    own rounding (|want| / 256)."""
+    gen = torch.Generator().manual_seed(160)
+    H, Kh, D = 32, 8, 160
+    rtol = 0.0
+    if kind == "decode":
+        lens = [600, 615, 631, 648, 656, 671, 689, 700]
+    elif kind == "decode-cli":
+        lens = [27, 27, 27, 27, 26, 26, 0, 0]
+        rtol = 2 ** -8 if dtype == torch.bfloat16 else 0.0
+    elif kind == "prefill":
+        ctx, C, n_valid = [0, 512], 512, [512, 88]
+        lens = [c + n for c, n in zip(ctx, n_valid)]
+    else:
+        ctx, C = [0] * 4, 16
+        lens = [C] * 4
+    max_pages = 2 if kind == "decode-cli" else -(-max(lens) // 16)
+    kp, vp, tables = _pages(gen, cuda, lens=lens, Kh=Kh, D=D, dtype=dtype,
+                            n_pages=sum(-(-n // 16) for n in lens) + 1,
+                            max_pages=max_pages)
+    name = "paged_attention" if kind.startswith("decode") \
+        else "paged_prefill_attention"
+    before = K.launches[name]
+    if kind.startswith("decode"):
+        if kind == "decode-cli":
+            n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+            assert tpa.decode_plan(len(lens), H, Kh, D, max_pages, 16,
+                                   n_sms) == 1
+        q = torch.randn((len(lens), H, D), generator=gen).to(cuda, dtype)
+        lengths = torch.tensor([max(n, 1) for n in lens], dtype=torch.int32,
+                               device=cuda)
+        got = tpa.paged_attention(q, kp, vp, tables, lengths)
+        want = paged_attention_ref(*_f32(q, kp, vp), tables, lengths)
+        tol = DECODE_TOL[dtype]
+    else:
+        q = torch.randn((len(ctx), C, H, D), generator=gen).to(cuda, dtype)
+        ctx_t = torch.tensor(ctx, dtype=torch.int32, device=cuda)
+        got = tpa.paged_prefill_attention(q, kp, vp, tables, ctx_t)
+        want = paged_prefill_attention_ref(*_f32(q, kp, vp), tables, ctx_t)
+        tol = TOL[dtype]
+    torch.cuda.synchronize()
+    assert K.launches[name] == before + 1
+    assert torch.isfinite(got.float()).all()
+    err = (got.float() - want).abs()
+    assert (err - rtol * want.abs()).max().item() <= tol
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
 @pytest.mark.parametrize("B,H,Kh,Sq,Sk,D,causal,window,off", [
     (2, 3, 3, 77, 1500, 64, False, 0, 0),    # odd Sk, whisper cross chunk
     (3, 4, 4, 1, 333, 64, False, 0, 0),      # a decode row

@@ -1,8 +1,10 @@
 """The port's model steps against ``repro.models.model`` on the same weights
 (converted through ``params_from_numpy``), the same page pools and the same
 control tensors, on reduced LLaVA-1.5-7B in f32, and reduced gemma3-4b
-(sliding-window local layers, tied embeddings, GeGLU) through the shared
-teacher-forced steps of tests/_torch_steps.py.
+(sliding-window local layers, tied embeddings, GeGLU) and stablelm-12b (at
+its head dim of 160) through the shared teacher-forced steps of
+tests/_torch_steps.py.  Also: every served config's attention width is one
+the kernels are built for.
 
 Tolerances: logits within 2e-4 of the reference's largest logit, the
 reference's own bar for paged vs dense steps (tests/test_device_cache.py);
@@ -18,9 +20,11 @@ import pytest
 import torch
 
 from repro.models import model as JM
-from repro_torch.configs import get_config
+from repro_torch.configs import ALL_ARCHS, get_config
 from repro_torch.engine.paged_cache import DevicePagedCache, PagedCacheSpec
-from repro_torch.engine.runner import bucket_pow2
+from repro_torch.engine.runner import _seq_layers, bucket_pow2
+from repro_torch.kernels.flash_attention import ops as tfa
+from repro_torch.kernels.paged_attention import ops as tpa
 from repro_torch.models import model as M
 from repro_torch.params import params_from_numpy
 
@@ -222,3 +226,37 @@ def test_own_gumbel_draw_is_a_function_of_seed_and_step():
     np.testing.assert_array_equal(a[0].numpy(), b[2].numpy())
     np.testing.assert_array_equal(a[1].numpy(), b[0].numpy())
     assert not torch.equal(a[0], a[1])
+
+
+def test_stablelm_paged_steps_match_jax():
+    """Reduced stablelm-12b kept at its published head dim, D = 160, and
+    its GQA ratio of 4 query heads a KV head; prefill chunks and decode
+    steps against the JAX package's (inputs from a generator of its own,
+    so the shared ``rng`` fixture's stream is what it was for later
+    tests)."""
+    cfg = reduced_cfg("stablelm-12b", head_dim=160, num_kv_heads=1)
+    full = get_config("stablelm-12b")
+    assert cfg.head_dim == full.head_dim
+    assert cfg.num_heads // cfg.num_kv_heads == \
+        full.num_heads // full.num_kv_heads
+    jparams = JM.init_params(cfg, jax.random.PRNGKey(12))
+    tparams = params_from_numpy(jax.tree.map(np.asarray, jparams), "cpu")
+    run_steps(cfg, jparams, tparams, np.random.default_rng(160), n_decode=4)
+
+
+@pytest.mark.parametrize("arch", ALL_ARCHS)
+def test_every_served_head_dim_is_built(arch):
+    """Every config is admitted, and has its paged attention width (the
+    head dim, or MLA's latent row) among the widths the decode and bf16
+    chunked-prefill kernels are built for, and a cross-attention model's
+    head dim among flash attention's: a gap fails here, not on the card."""
+    cfg = get_config(arch)
+    M.check_supported(cfg)
+    attn, mla = _seq_layers(cfg)
+    widths = ([cfg.head_dim] if attn else []) + \
+        ([cfg.kv_lora_rank + cfg.qk_rope_head_dim] if mla else [])
+    for D in widths:
+        assert D in tpa.DECODE_HEAD_DIMS, (arch, D)
+        assert D in tpa.PREFILL_BF16_HEAD_DIMS, (arch, D)
+    if cfg.cross_attention:
+        assert cfg.head_dim in tfa.HEAD_DIMS, arch
