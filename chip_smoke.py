@@ -68,6 +68,16 @@ on failure:
             shared attention (H = Kh = 32, D = 112) against their plain
             versions and SDPA, and the same at stablelm-12b's attention
             (H = 32, Kh = 8, D = 160);
+            flash attention's backward (csrc/flash_attention.cu,
+            flash_attention_bwd) and the forward's new log-sum-exp against
+            their plain versions at LLaVA-1.5-7B's training shape (B = 2,
+            H = 32, S = 2624 = 2048 text + 576 image, D = 128, causal;
+            bf16 and f32), llama3-8b's GQA (Kh = 8), whisper's encoder
+            (D = 64, non-causal), a 256-key window, a ragged chunk after
+            123 cached keys and a small f32 case (bf16 held against the
+            f32 plain output; every call run twice, bit-equal), timed at
+            LLaVA's shape beside its bound and SDPA's backward, and the
+            forward with lse beside the forward row;
 4. model  - the port's runner on the card against the same runner on the
             CPU (plain versions) on reduced LLaVA, reduced falcon-mamba
             (batched chunks of different lengths) and reduced whisper-small
@@ -75,6 +85,18 @@ on failure:
             reduced granite-moe-1b-a400m, reduced DeepSeek-V2 (latent
             pool, D = 80), reduced zamba2-7b (Mamba-2 + shared attention)
             and reduced gemma3-4b (sliding window): logits per step;
+   train  - reduced LLaVA-1.5-7B in f32: the loss and every gradient leaf
+            of a training step on the card against the CPU (within 1e-4
+            of the leaf's largest magnitude), and one train_step; then
+            full-width LLaVA-1.5-7B cut to 16 layers, random bf16
+            weights, 4 AdamW steps (lr 1e-4 after a 100-step warmup)
+            with remat on one batch of B = 2 x
+            (2048 text + 576 image) from train.data.batches: finite
+            losses that fall, step time, tokens/s, peak memory, the
+            flash forward (32) and backward (16) launches a step and no
+            plain-version call on a CUDA tensor; then the main of
+            ``python -m repro_torch.train.train_mm`` at its mini config
+            for 20 steps, its loss falling;
 5. serve  - three main paths through ``repro_torch.engine.api.Engine``,
             each with the launch counters set to 0 just before it and read
             just after: full-width, 32-layer LLaVA-1.5-7B with random bf16
@@ -144,6 +166,7 @@ import contextlib
 import functools
 import gc
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -289,6 +312,27 @@ def time_ms_cold(fn, kernels: tuple, reps: int = 20) -> float:
     if us <= 0:
         raise AssertionError(f"no device time of {kernels} in the trace")
     return us / reps / 1e3
+
+
+def device_ms_by_kernel(fn, names: tuple, reps: int = 5) -> dict:
+    """Device time of one call of ``fn``, split by kernel: for each of
+    ``names``, the summed time of the kernels whose names contain it, from
+    a torch.profiler trace of ``reps`` calls (after a warm-up call)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    out = {n: sum(e.self_device_time_total for e in events if n in e.key)
+           / reps / 1e3 for n in names}
+    if not all(out.values()):
+        raise AssertionError(f"no device time of some of {names}: {out}")
+    return out
 
 
 def bound(nbytes: float, flops: float, dtype: str) -> tuple:
@@ -1450,12 +1494,18 @@ def check_ptxas(logs: dict):
     chunked-prefill tile (stablelm-12b's head dim: ``paged_decode_kernel``
     or ``paged_prefill_mma_kernel`` with template argument ``Li160E`` in
     the mangled name) spills, or when no D = 160 instance of either was
-    built."""
+    built; and when a flash backward kernel spills or one of its ten
+    instances was not built."""
     d160 = set()
+    bwd = []
     for name, text in logs.items():
         report = ptxas_report(text)
         log({"ptxas": name, "kernels": report})
         for k in report:
+            if "flash_bwd" in k["fn"]:
+                bwd.append(k)
+                if k["spill_bytes"]:
+                    raise AssertionError(f"{k['fn']} spills: {k}")
             heads = "selective_scan_heads_kernel" in k["fn"]
             kind = ("decode" if "paged_decode_kernel" in k["fn"] else
                     "prefill" if "paged_prefill_mma_kernel" in k["fn"]
@@ -1470,6 +1520,378 @@ def check_ptxas(logs: dict):
                 d160.add(kind)
     if d160 != {"decode", "prefill"}:
         raise AssertionError(f"D = 160 instances built: {sorted(d160)}")
+    log({"ptxas_flash_bwd": bwd})
+    if len({k["fn"] for k in bwd}) != 10:
+        # delta x 2 types; dK/dV and dQ x 2 types x 2 head dims
+        raise AssertionError(f"flash backward kernels built: {bwd}")
+
+
+# ---------------------------------------------------------------------------
+# training: flash attention's backward, the train step, train_mm
+# ---------------------------------------------------------------------------
+# bf16 backward held against the plain version run in f32 on the same
+# (upcast) inputs: the forward's bar of 2e-2 (P rounded to bf16 on the
+# tile, values of order 1), plus |want| / 128 per element: a gradient sums
+# P- or dS-weighted rows over up to Sq queries (and G heads for dK/dV) and
+# reaches |g| ~ 5-10 at these shapes, where the bf16 store alone rounds by
+# up to |g| / 512 and the bf16 P and dS operands (2^-9 relative each) add
+# as much again, twice over (a CPU emulation of those roundings at H = 8,
+# Kh = 2, S = 1024 gave 1.8e-2 at |g| = 7.4).  f32 differs in summation
+# order only: 1e-4.  lse: f32 1e-4; bf16 4e-3 (the tile sums l from P
+# rounded to bf16, 2^-9 relative at most, so lse moves by under 2e-3).
+BWD_TOL = {"float32": (1e-4, 0.0), "bfloat16": (2e-2, 1 / 128)}
+LSE_TOL = {"float32": 1e-4, "bfloat16": 4e-3}
+TRAIN_LAYERS = 16        # LLaVA-1.5-7B's depth cut for one card (PERF.md)
+TRAIN_B, TRAIN_S = 2, 2048
+
+
+def bwd_check(name, dtype, got, want):
+    """Max abs error of each of (dq, dk, dv) against the plain version's;
+    fails unless every element is within the bar plus rtol |want|."""
+    import torch
+    tol, rtol = BWD_TOL[dname(dtype)]
+    errs = {}
+    for part, g, w in zip(("dq", "dk", "dv"), got, want):
+        g, w = g.float(), w.float()
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"{name}/{part}: non-finite kernel output")
+        err = (g - w).abs()
+        over = (err - rtol * w.abs()).max().item()
+        errs[part] = {"max_abs_err": err.max().item(),
+                      "max_abs_want": w.abs().max().item(), "over": over}
+        if not over <= tol:
+            raise AssertionError(f"{name}/{part} {dname(dtype)}: max abs err "
+                                 f"{err.max().item()} ({over} over {rtol} "
+                                 f"|want|) > {tol}")
+    log({"check": name, "dtype": dname(dtype), "tol": tol, "rtol": rtol,
+         **errs})
+    return max(e["max_abs_err"] for e in errs.values())
+
+
+def flash_bwd_cases(gen, dev, results, rate):
+    """Flash attention's backward kernel (and the forward's lse) against
+    their plain versions: LLaVA-1.5-7B's training shape, llama3-8b's GQA,
+    whisper's encoder (D = 64, non-causal), a window, f32 at a small shape
+    and a ragged chunk after cached keys; timed at LLaVA's shape beside its
+    bound and SDPA's backward.  Also the forward with lse at the training
+    shape and at the forward row's (whisper encoder) shape."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention, flash_attention_bwd, flash_attention_fwd,
+        split_plan)
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_ref, flash_attention_fwd_ref)
+    S = TRAIN_S + 576
+    # (tag, B, H, Kh, Sq, Sk, D, causal, window, kv_offset, dtypes)
+    cases = [("llava-train", TRAIN_B, H, KH, S, S, D, True, 0, 0,
+              (torch.bfloat16, torch.float32)),
+             ("llama3-gqa", 1, 32, 8, 2048, 2048, 128, True, 0, 0,
+              (torch.bfloat16,)),
+             ("whisper-enc", 4, WH, WH, WT, WT, WD, False, 0, 0,
+              (torch.bfloat16,)),
+             ("window256", 1, 32, 8, 1024, 1024, 128, True, 256, 0,
+              (torch.bfloat16,)),
+             ("ragged-offset", 2, 8, 2, 77, 200, 64, True, 0, 123,
+              (torch.float32, torch.bfloat16)),
+             ("small-f32", 2, 4, 2, 130, 130, 128, True, 40, 0,
+              (torch.float32,))]
+    errs = []
+    for tag, B, Hq, Kh, Sq, Sk, Dh, causal, window, off, dtypes in cases:
+        kw = dict(causal=causal, window=window, kv_offset=off)
+        for dtype in dtypes:
+            q = torch.randn((B, Hq, Sq, Dh), generator=gen, device=dev).to(dtype)
+            k = torch.randn((B, Kh, Sk, Dh), generator=gen, device=dev).to(dtype)
+            v = torch.randn((B, Kh, Sk, Dh), generator=gen, device=dev).to(dtype)
+            do = torch.randn((B, Hq, Sq, Dh), generator=gen, device=dev).to(dtype)
+            out, lse = flash_attention_fwd(q, k, v, **kw)
+            want_o, want_lse = flash_attention_fwd_ref(q.float(), k.float(),
+                                                       v.float(), **kw)
+            seen = torch.isfinite(want_lse)
+            lse_err = (lse[seen] - want_lse[seen]).abs().max().item()
+            if not (lse_err <= LSE_TOL[dname(dtype)]
+                    and torch.equal(torch.isposinf(lse), ~seen)):
+                raise AssertionError(f"flash lse/{tag} {dname(dtype)}: {lse_err}")
+            check(f"flash_attention/train-{tag}", dtype, out, want_o)
+            got = flash_attention_bwd(q, k, v, out, lse, do, **kw)
+            want = flash_attention_bwd_ref(q.float(), k.float(), v.float(),
+                                           want_o, want_lse, do.float(), **kw)
+            err = bwd_check(f"flash_attention_bwd/{tag}", dtype, got, want)
+            again = flash_attention_bwd(q, k, v, out, lse, do, **kw)
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"flash bwd/{tag}: not deterministic")
+            log({"check": f"flash_attention_fwd_lse/{tag}",
+                 "dtype": dname(dtype), "max_abs_err": lse_err,
+                 "tol": LSE_TOL[dname(dtype)]})
+            errs.append(err)
+            del got, want, again, want_o, want_lse
+            if tag != "llava-train" or dtype != torch.bfloat16:
+                continue
+            qpos = off + torch.arange(Sq, device=dev)[:, None]
+            kpos = torch.arange(Sk, device=dev)[None, :]
+            pairs = int((kpos <= qpos).sum()) * B * Hq
+            # the five products (2 FLOP a multiply-add) and one exponential
+            # a pair; bytes: q k v out dout read, dq dk dv written, lse
+            nbytes = (3 * q.numel() + 2 * k.numel()) * 2 + \
+                (q.numel() + 2 * k.numel()) * 2 + lse.numel() * 4
+            t_bytes = nbytes / PEAK_BYTES * 1e3
+            t_ops = max(10 * pairs * Dh / PEAK_OPS["bfloat16"],
+                        pairs / rate) * 1e3
+            ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
+            so = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
+
+            def sdpa_bwd():
+                torch.autograd.grad(so, (ql, kl, vl), do, retain_graph=True)
+
+            def bwd():
+                return flash_attention_bwd(q, k, v, out, lse, do, **kw)
+            row = {"shape": f"B={B} H={Hq} Kh={Kh} S={Sq} D={Dh} causal "
+                            f"bf16 (LLaVA-1.5-7B training: {TRAIN_S} text "
+                            f"+ 576 image positions)",
+                   "ms": time_ms(bwd),
+                   "device_ms": time_ms_graph(bwd, reps=5),
+                   "plain_ms": time_ms(lambda: flash_attention_bwd_ref(
+                       q, k, v, out, lse, do, **kw), reps=1, rounds=3),
+                   "library_ms": time_ms(sdpa_bwd),
+                   "library": "autograd over F.scaled_dot_product_attention"
+                              " (its backward only)",
+                   "bound_ms": max(t_bytes, t_ops),
+                   "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                   "pairs": pairs,
+                   "fwd_lse_ms": time_ms(lambda: flash_attention_fwd(
+                       q, k, v, **kw)),
+                   "fwd_lse_device_ms": time_ms_graph(
+                       lambda: flash_attention_fwd(q, k, v, **kw), reps=5),
+                   "fwd_device_ms": time_ms_graph(
+                       lambda: flash_attention(q, k, v, **kw), reps=5)}
+            row["bound_share"] = row["bound_ms"] / row["device_ms"]
+            row["device_ms_by_kernel"] = device_ms_by_kernel(
+                bwd, ("flash_bwd_delta", "flash_bwd_dkdv", "flash_bwd_dq"))
+            results["flash_attention_bwd"] = row
+            log({"timing": f"flash_attention_bwd/{tag}", **row})
+            del ql, kl, vl, so
+        del q, k, v, do, out, lse
+        torch.cuda.empty_cache()
+    results["flash_attention_bwd"]["max_abs_err"] = max(errs)
+    # lse from the split path's merge: a decode row (one-warp tiles,
+    # merge_rows) and a 64-row chunk (the last block's registers), both
+    # over whisper's 1500 frames
+    for tag, B, Sq in (("split-row", 8, 1), ("split-chunk", 4, 64)):
+        q = torch.randn((B, WH, Sq, WD), generator=gen, device=dev).bfloat16()
+        k = torch.randn((B, WH, WT, WD), generator=gen, device=dev).bfloat16()
+        v = torch.randn((B, WH, WT, WD), generator=gen, device=dev).bfloat16()
+        n_split = split_plan(B, WH, Sq, WT, WD, 0)[1]
+        out, lse = flash_attention_fwd(q, k, v, causal=False)
+        want_o, want_lse = flash_attention_fwd_ref(q.float(), k.float(),
+                                                   v.float(), causal=False)
+        check(f"flash_attention/lse-{tag}", torch.bfloat16, out, want_o)
+        lse_err = (lse - want_lse).abs().max().item()
+        log({"check": f"flash_attention_fwd_lse/{tag}", "n_split": n_split,
+             "dtype": "bfloat16", "max_abs_err": lse_err,
+             "tol": LSE_TOL["bfloat16"]})
+        if n_split <= 1 or not lse_err <= LSE_TOL["bfloat16"]:
+            raise AssertionError(f"flash lse/{tag}: {n_split} splits, "
+                                 f"err {lse_err}")
+    # the forward row's own shape (whisper's encoder at B = 4), with lse
+    q = torch.randn((4, WH, WT, WD), generator=gen, device=dev).bfloat16()
+    k = torch.randn((4, WH, WT, WD), generator=gen, device=dev).bfloat16()
+    v = torch.randn((4, WH, WT, WD), generator=gen, device=dev).bfloat16()
+    kw = dict(causal=False)
+    fwd = results["flash_attention"]
+    fwd["lse_ms"] = time_ms(lambda: flash_attention_fwd(q, k, v, **kw))
+    fwd["lse_device_ms"] = time_ms_graph(
+        lambda: flash_attention_fwd(q, k, v, **kw))
+    log({"timing": "flash_attention/enc-self-b4 with lse",
+         "lse_ms": fwd["lse_ms"], "lse_device_ms": fwd["lse_device_ms"],
+         "device_ms": fwd["device_ms"]})
+
+
+def grads_of(cfg, params, batch):
+    """(loss, {path: gradient}) of the port's loss_fn, remat on."""
+    import torch
+    from repro_torch.train.train import loss_fn
+    leaves = params.leaves()
+    loss, _ = loss_fn(cfg, params, batch, remat=True)
+    grads = torch.autograd.grad(loss, list(leaves.values()),
+                                allow_unused=True, materialize_grads=True)
+    return loss.detach(), dict(zip(leaves, grads))
+
+
+def train_check(seed: int):
+    """Reduced LLaVA-1.5-7B in f32: the loss and every gradient leaf of one
+    training step on the card (the f32 flash forward and backward kernels)
+    against the same on the CPU (their plain versions), within 1e-4 of the
+    leaf's largest magnitude; then one train_step on the card."""
+    import torch
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    from repro_torch.train.data import DataConfig, batches, to_device
+    from repro_torch.train.optim import AdamWConfig, init_opt_state
+    from repro_torch.train.train import train_step
+    cfg = get_config("llava-1.5-7b").reduced()
+    b = next(batches(cfg, DataConfig(batch_size=2, seq_len=64, seed=seed)))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        params = M.init_params(cfg, torch.Generator().manual_seed(seed),
+                               trainable=True).to(dev)
+        K.reset_launches()
+        out[dev] = grads_of(cfg, params, to_device(b, dev))
+        if dev == "cuda":
+            launches = {n: K.launches[n] for n in ("flash_attention",
+                                                   "flash_attention_bwd")}
+    (lc, gc_), (lg, gg) = out["cpu"], out["cuda"]
+    loss_err = abs(float(lg) - float(lc)) / abs(float(lc))
+    worst, worst_leaf = 0.0, None
+    for k, want in gc_.items():
+        rel = ((gg[k].cpu() - want).abs().max()
+               / want.abs().max().clamp_min(1e-30)).item()
+        if rel > worst:
+            worst, worst_leaf = rel, k
+    if not (loss_err <= 1e-4 and worst <= 1e-4):
+        raise AssertionError(f"train check: loss off by {loss_err}, grad "
+                             f"leaf {worst_leaf} by {worst} (rel)")
+    if not (launches["flash_attention"] >= 2 * cfg.num_layers
+            and launches["flash_attention_bwd"] == cfg.num_layers):
+        raise AssertionError(f"train check launches {launches}")
+    params = M.init_params(cfg, torch.Generator().manual_seed(seed),
+                           trainable=True).to("cuda")
+    opt = AdamWConfig(lr=1e-3, warmup_steps=0, total_steps=10)
+    _, _, stats = train_step(cfg, opt, params, init_opt_state(params),
+                             to_device(b, "cuda"))
+    if not torch.isfinite(stats["loss"]):
+        raise AssertionError("train check: train_step loss not finite")
+    log({"train_check": "reduced llava-1.5-7b f32, loss and gradients on "
+                        "cuda vs cpu", "loss": float(lc),
+         "loss_rel_err": loss_err, "max_rel_grad_err": worst,
+         "worst_leaf": worst_leaf, "tol": 1e-4, "launches": launches,
+         "train_step_loss": float(stats["loss"])})
+
+
+def train_full(seed: int, card: str) -> dict:
+    """LLaVA-1.5-7B at full width, depth cut to 16 layers, random bf16
+    weights: 4 AdamW steps with remat on one fixed batch of B = 2 rows of
+    2048 tokens and 576 image positions from ``train.data.batches``, lr
+    1e-4 after the schedule's linear warmup over 100 steps (so 1e-6 to
+    4e-6 here).  Without warmup, Adam's first steps move every weight by
+    lr * sign(g), a change that adds up coherently over a 4096-wide
+    layer's inputs: at 1e-4 the loss rises (tools/train_lr_sweep.py).
+    The loss must be finite and fall; the step must run the flash forward
+    (twice a layer: remat) and backward kernels on every layer and never
+    their plain versions.  Returns the launch counts of one step."""
+    import dataclasses
+    import torch
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.models import model as M
+    from repro_torch.train.data import DataConfig, batches, to_device
+    from repro_torch.train.optim import AdamWConfig, init_opt_state
+    from repro_torch.train.train import make_train_step
+    cfg = dataclasses.replace(get_config("llava-1.5-7b"),
+                              num_layers=TRAIN_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(
+        seed), dtype=torch.bfloat16, trainable=True)
+    n_params = sum(p.numel() for p in params.parameters())
+    state = init_opt_state(params)
+    step = make_train_step(cfg, AdamWConfig(lr=1e-4, warmup_steps=100,
+                                            total_steps=10_000))
+    batch = to_device(next(batches(cfg, DataConfig(
+        batch_size=TRAIN_B, seq_len=TRAIN_S, seed=seed))), "cuda",
+        torch.bfloat16)
+    # the plain versions, counted when handed CUDA tensors (never, if the
+    # wrappers dispatch right)
+    names = ("flash_attention_ref", "flash_attention_fwd_ref",
+             "flash_attention_bwd_ref")
+    saved = {n: getattr(fa, n) for n in names}
+    plain = dict.fromkeys(names, 0)
+
+    def count(name, fn):
+        def wrapped(*a, **k):
+            if a[0].is_cuda:
+                plain[name] += 1
+            return fn(*a, **k)
+        return wrapped
+    for n in names:
+        setattr(fa, n, count(n, saved[n]))
+    losses, times, per_step = [], [], []
+    try:
+        for _ in range(4):
+            torch.cuda.synchronize()
+            K.reset_launches()
+            t = time.perf_counter()
+            params, state, stats = step(params, state, batch)
+            losses.append(float(stats["loss"]))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+            per_step.append({n: K.launches[n] for n in (
+                "flash_attention", "flash_attention_split",
+                "flash_attention_bwd")})
+            log({"train_full_step": len(losses), "loss": losses[-1],
+                 "grad_norm": float(stats["grad_norm"]),
+                 "lr": float(stats["lr"]), "s": times[-1],
+                 "launches": per_step[-1]})
+    finally:
+        for n in names:
+            setattr(fa, n, saved[n])
+    peak = torch.cuda.max_memory_allocated()
+    # where a step's device time goes: one more step, profiled, with the
+    # optimizer update in a range of its own
+    from repro_torch.train import train as T
+    update = T.adamw_update
+
+    def annotated(*a, **k):
+        with torch.profiler.record_function("adamw_update"):
+            return update(*a, **k)
+    T.adamw_update = annotated
+    try:
+        profile_calls(lambda: step(params, state, batch), "train step", card,
+                      f"train_full, {TRAIN_LAYERS} layers", steps=1,
+                      ranges=("adamw_update",))
+    finally:
+        T.adamw_update = update
+    positions = TRAIN_B * (TRAIN_S + cfg.media_tokens)
+    steady = statistics.median(times[1:])
+    log({"train_full": f"llava-1.5-7b, {TRAIN_LAYERS} of 32 layers, full "
+                       f"width, bf16, remat, B={TRAIN_B} x ({TRAIN_S} text + "
+                       f"{cfg.media_tokens} image)",
+         "params": n_params, "losses": losses, "step_s": times,
+         "steady_step_s": steady, "text_tokens_per_s": TRAIN_B * TRAIN_S
+         / steady, "positions_per_s": positions / steady,
+         "max_memory_allocated_gb": peak / 1e9, "reckoned_gb": "47-50",
+         "launches_per_step": per_step[-1], "plain_calls_on_cuda": plain,
+         "card": card})
+    if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]):
+        raise AssertionError(f"train_full: losses {losses}")
+    want = {"flash_attention": 2 * TRAIN_LAYERS,
+            "flash_attention_bwd": TRAIN_LAYERS}
+    if any(s[n] != c for s in per_step for n, c in want.items()) \
+            or any(plain.values()):
+        raise AssertionError(f"train_full launches {per_step}, plain "
+                             f"versions on CUDA tensors {plain}")
+    del params, state, batch, stats
+    return per_step[-1]
+
+
+def train_mm_run(card: str):
+    """``train_mm.main`` at its mini config (f32 on the card) for 20
+    steps: the loss must fall."""
+    from repro_torch.train import train_mm
+    path = ROOT / "build" / "train_mm.npz"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    t = time.perf_counter()
+    losses, text = captured(train_mm.main,
+                            ["--steps", "20", "--ckpt", str(path)])
+    wall = time.perf_counter() - t
+    if "checkpoint ->" not in text:
+        raise AssertionError("train_mm: no checkpoint line")
+    log({"train_mm": "mini config (4 layers, d 512, vocab 32000, 64 image "
+                     "positions), f32, 20 steps", "losses": losses,
+         "wall_s": wall, "card": card})
+    if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]):
+        raise AssertionError(f"train_mm: losses {losses}")
+    path.unlink()
 
 
 # ---------------------------------------------------------------------------
@@ -2597,6 +3019,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     flash_cases(gen, dev, results, rate)
     torch.cuda.empty_cache()
+    flash_bwd_cases(gen, dev, results, rate)
+    torch.cuda.empty_cache()
     latent_cases(gen, dev, results)
     torch.cuda.empty_cache()
     for name, r in results.items():
@@ -2609,6 +3033,17 @@ def main() -> int:
     for arch in ("granite-moe-1b-a400m", "deepseek-v2-236b", "zamba2-7b",
                  "gemma3-4b"):
         arch_model_check(arch, args.seed)
+    # training: reduced f32 card vs CPU, then full-width LLaVA (16 layers)
+    # and train_mm
+    train_check(args.seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    trained = train_full(args.seed, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_mm_run(card)
+    gc.collect()
+    torch.cuda.empty_cache()
     launches = serve(args.seed, card)
     gc.collect()                      # LLaVA's weights and pools go first
     torch.cuda.empty_cache()
@@ -2667,6 +3102,8 @@ def main() -> int:
             raise AssertionError(f"the {name} merge kernel launched on its "
                                  f"own on a main path")
         launches[f"{name}_merge"] = launches[f"{name}_split"]
+    # the backward's launches: one train_full step's
+    launches["flash_attention_bwd"] = trained["flash_attention_bwd"]
 
     src = {"cache_write": ("src/repro_torch/csrc/cache_write.cu",
                            "src/repro/kernels/cache_write/kernel.py:25"),
@@ -2688,6 +3125,10 @@ def main() -> int:
                                "src/repro/kernels/flash_attention/kernel.py:65"),
            "flash_attention_merge": (
                "src/repro_torch/csrc/attn_merge.cuh",
+               "src/repro/kernels/flash_attention/kernel.py:65"),
+           # its gradient (the JAX package differentiates jnp attention)
+           "flash_attention_bwd": (
+               "src/repro_torch/csrc/flash_attention.cu",
                "src/repro/kernels/flash_attention/kernel.py:65"),
            # MLA's latent rows (bf16, D = 576, one KV head, K = V)
            "paged_attention_latent": (
@@ -2727,7 +3168,10 @@ def main() -> int:
                             "bound_share_cold_l2", "n_split",
                             "fused_into", "launches_are", "standalone_ms",
                             "standalone_device_ms", "fused", "decode_b8",
-                            "cli_max_abs_err")
+                            "cli_max_abs_err", "lse_ms", "lse_device_ms",
+                            "fwd_lse_ms", "fwd_lse_device_ms",
+                            "fwd_device_ms", "pairs", "library",
+                            "device_ms_by_kernel")
                            if key in r}})
     log({"total_s": time.perf_counter() - t_start, "card": card})
     print(json.dumps({"kernels": kernels}), flush=True)

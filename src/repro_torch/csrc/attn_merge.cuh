@@ -65,7 +65,9 @@ constexpr int MERGE_SPLITS = 4;        // splits whose loads go out together
 
 // Threads of a block merge partial rows row0 .. row0 + rows - 1 of n_rows
 // (the stride between splits) into out_row(r), one 4-column chunk of a row
-// a thread at a time.  For MERGE_SPLITS splits at once a thread reads each
+// a thread at a time; with lse, also each row's log-sum-exp M + log L
+// (+inf for a row no split saw) into lse[row], rows numbered as the
+// partials' (flash attention's training forward).  For MERGE_SPLITS splits at once a thread reads each
 // split's m, l and its chunk of acc, all loads issued before any is used
 // (one round trip to L2 per batch, not a chain of them), then folds the
 // batch into its running (M, L, acc) by log-sum-exp.  Loads go through L2
@@ -76,7 +78,7 @@ constexpr int MERGE_SPLITS = 4;        // splits whose loads go out together
 template <typename T, int D, class OutRow>
 __device__ __forceinline__ void merge_rows(const float* pm, const float* pl, const float* pa,
                                            int64_t n_rows, int64_t row0, int rows, int n_split,
-                                           OutRow out_row) {
+                                           OutRow out_row, float* lse = nullptr) {
   constexpr int C4 = D / 4;              // 4-column chunks of a row
   for (int u = threadIdx.x; u < rows * C4; u += blockDim.x) {
     const int64_t row = row0 + u / C4;
@@ -115,6 +117,7 @@ __device__ __forceinline__ void merge_rows(const float* pm, const float* pl, con
       M = Mn;
     }
     const float inv = 1.f / fmaxf(L, 1e-30f);
+    if (lse != nullptr && u % C4 == 0) lse[row] = L > 0.f ? M + logf(L) : inf_f32();
     T* o = out_row(u / C4) + 4 * (u % C4);
     store_f32(o, a.x * inv);
     store_f32(o + 1, a.y * inv);

@@ -126,6 +126,9 @@ __device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// +inf as f32 (a row that saw no key has log-sum-exp +inf)
+__device__ __forceinline__ float inf_f32() { return __int_as_float(0x7f800000); }
+
 // 2^x on the special-function unit.  Only arguments <= 0 reach it, so
 // flushing results below 2^-126 to 0 changes no sum.
 __device__ __forceinline__ float ex2(float x) {

@@ -10,8 +10,9 @@ TPU kernel of the JAX package:
   selective_scan   - the Mamba-1 recurrence (falcon-mamba prefill and decode)
                      and its per-head mode, the Mamba-2 recurrence (zamba2)
   flash_attention  - full-sequence attention over contiguous K/V (whisper's
-                     audio encoder and cross-attention), with split-KV for
-                     short query tiles, merged the same way
+                     audio encoder and cross-attention, the training
+                     forward), with split-KV for short query tiles, merged
+                     the same way; and its backward (training)
 
 Each subpackage: ``ref.py`` (plain PyTorch version, also the CPU path) and
 ``ops.py`` (the wrapper).  The CUDA sources live in ``repro_torch/csrc``
@@ -36,7 +37,8 @@ launches = {"cache_write": 0, "paged_attention": 0,
             "paged_prefill_attention": 0, "paged_attention_latent": 0,
             "paged_prefill_attention_latent": 0, "selective_scan": 0,
             "selective_scan_heads": 0, "flash_attention": 0,
-            "flash_attention_split": 0, "flash_attention_merge": 0}
+            "flash_attention_split": 0, "flash_attention_merge": 0,
+            "flash_attention_bwd": 0}
 
 
 def reset_launches():

@@ -15,6 +15,13 @@ partials and the last block of each (b, h, query tile) to finish merges
 them in the same launch (``launches`` counts such calls as
 ``flash_attention_split``).  f32 runs on CUDA-core f32 products, which
 keep the f32 model checks' tolerances.
+
+Training differentiates it: :func:`flash_attention` goes through
+:class:`FlashAttentionFn` when grad is on and an input requires it.  Its
+forward also writes each row's log-sum-exp, and its backward is the
+kernel ``flash_attention_bwd`` of the same file (δ = rowsum(dO ∘ O), a
+dK/dV kernel over key tiles and a dQ kernel over query tiles, no
+atomics); the JAX package differentiates its jnp attention instead.
 """
 from __future__ import annotations
 
@@ -26,13 +33,17 @@ import torch
 from repro_torch import kernels as K
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention.ref import (
-    BLOCK_K, flash_attention_ref, merge_partials_ref)
+    BLOCK_K, flash_attention_bwd_ref, flash_attention_fwd_ref,
+    flash_attention_ref, merge_partials_ref)
 
 _P, _I = ct.c_void_p, ct.c_int
 _STRIDES = ct.POINTER(ct.c_int64)
 # q k v out, dtype B H Kh Sq Sk D causal window kv_offset, strides,
-# rows n_split, parts, counters, stream
-_ARGS = [_P] * 4 + [_I] * 10 + [_STRIDES] + [_I] * 2 + [_P] * 3
+# rows n_split, parts, counters, lse, stream
+_ARGS = [_P] * 4 + [_I] * 10 + [_STRIDES] + [_I] * 2 + [_P] * 4
+# q k v out dout lse delta dq dk dv, dtype B H Kh Sq Sk D causal window
+# kv_offset, strides, stream
+_BWD_ARGS = [_P] * 10 + [_I] * 10 + [_STRIDES, _P]
 # part_m part_l part_acc out, dtype n_split B H Sq D, strides, stream
 _MERGE_ARGS = [_P] * 4 + [_I] * 6 + [_STRIDES, _P]
 HEAD_DIMS = (64, 128)                   # D the kernel is built for
@@ -168,21 +179,15 @@ def merge_partials(m, l, acc, out, *, kernel: str = "flash_attention"):
     return out
 
 
-def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
-                    kv_offset: int = 0):
-    """q: [B, H, Sq, D]; k/v: [B, Kh, Sk, D] (any strides, head dim
-    contiguous).  Query row i sits at position ``kv_offset + i``; see
-    :func:`flash_attention_ref` for the mask.  Returns [B, H, Sq, D] in
-    q's type, laid out in memory as q is.  bf16 with a split (see
-    :func:`plan`) merges the splits in the kernel's last blocks."""
-    if K.on_cpu(q, k, v):
-        return flash_attention_ref(q, k, v, causal=causal, window=window,
-                                   kv_offset=kv_offset)
+def _forward(q, k, v, causal, window, kv_offset, with_lse: bool):
+    """The kernel on CUDA tensors: (out, lse or None)."""
     B, H, Kh, Sq, Sk, D = _check(q, k, v)
     K.require(window >= 0, f"window {window} < 0")
     out = torch.empty_like(q)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device) \
+        if with_lse else None
     if out.numel() == 0:
-        return out
+        return out, lse
     rows, n_split, buf = 0, 1, None
     if q.dtype == torch.bfloat16:
         rows, n_split = split_plan(B, H, Sq, Sk, D, q.device.index or 0)
@@ -196,9 +201,104 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
              n_split, None if buf is None else buf.data_ptr(),
              K.tile_counters(q, stream, B * H * -(-Sq // rows),
                              "flash_attention") if n_split > 1 else None,
-             stream)
+             None if lse is None else lse.data_ptr(), stream)
     K.check_launch(err, "flash_attention")
     K.launches["flash_attention"] += 1
     if n_split > 1:
         K.launches["flash_attention_split"] += 1
-    return out
+    return out, lse
+
+
+def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0,
+                        kv_offset: int = 0):
+    """(out, lse): :func:`flash_attention`'s output and the f32 log-sum-exp
+    [B, H, Sq] of each row's scaled, masked scores (``+inf`` for a row
+    that sees no key), which the backward reads; see
+    :func:`flash_attention_fwd_ref`.  Never builds an autograd graph."""
+    if K.on_cpu(q, k, v):
+        return flash_attention_fwd_ref(q, k, v, causal=causal, window=window,
+                                       kv_offset=kv_offset)
+    return _forward(q, k, v, causal, window, kv_offset, True)
+
+
+def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
+                        window: int = 0, kv_offset: int = 0):
+    """(dq, dk, dv) of flash attention, each contiguous in its input's
+    type: q/out/dout [B, H, Sq, D] and k/v [B, Kh, Sk, D] (any strides,
+    head dim contiguous), lse [B, H, Sq] f32 from
+    :func:`flash_attention_fwd`; see :func:`flash_attention_bwd_ref`.
+    bf16 runs on ``mma.sync`` tensor-core tiles, f32 on CUDA cores.  Rows
+    that see no key get zero gradients."""
+    if K.on_cpu(q, k, v, out, lse, dout):
+        return flash_attention_bwd_ref(q, k, v, out, lse, dout,
+                                       causal=causal, window=window,
+                                       kv_offset=kv_offset)
+    B, H, Kh, Sq, Sk, D = _check(q, k, v)
+    K.require(window >= 0, f"window {window} < 0")
+    if dout.stride(-1) != 1 or any(s % 8 for s in dout.stride()[:3]):
+        dout = dout.contiguous()
+    _check(out, k, v)
+    _check(dout, k, v)
+    K.require(out.shape == dout.shape == q.shape, "out/dout must be q's shape")
+    K.require(lse.dtype == torch.float32 and lse.is_contiguous()
+              and lse.shape == (B, H, Sq), "lse must be contiguous f32 "
+              "[B, H, Sq]")
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    if dq.numel() == 0 or dk.numel() == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    fn = _build.function("flash_attention", "flash_attention_bwd",
+                         _BWD_ARGS)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+             dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+             K.DTYPE_CODES[q.dtype], B, H, Kh, Sq, Sk, D, int(causal),
+             int(window), int(kv_offset),
+             _strides(q, k, v, out, dout, dq, dk, dv), K.stream_ptr(q))
+    K.check_launch(err, "flash_attention_bwd")
+    K.launches["flash_attention_bwd"] += 1
+    return dq, dk, dv
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """Flash attention with its gradient: the forward kernel writes each
+    row's log-sum-exp beside the output, and the backward kernel
+    recomputes P from q, k and it (nothing of size Sq x Sk is kept)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, kv_offset):
+        out, lse = flash_attention_fwd(q, k, v, causal=causal,
+                                       window=window, kv_offset=kv_offset)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.mask = (causal, window, kv_offset)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        causal, window, kv_offset = ctx.mask
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, dout,
+                                         causal=causal, window=window,
+                                         kv_offset=kv_offset)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
+                    kv_offset: int = 0):
+    """q: [B, H, Sq, D]; k/v: [B, Kh, Sk, D] (any strides, head dim
+    contiguous).  Query row i sits at position ``kv_offset + i``; see
+    :func:`flash_attention_ref` for the mask.  Returns [B, H, Sq, D] in
+    q's type, laid out in memory as q is.  bf16 with a split (see
+    :func:`plan`) merges the splits in the kernel's last blocks.  With
+    grad on and an input that requires it, runs :class:`FlashAttentionFn`
+    (the same forward, plus its log-sum-exp, and the backward kernel)."""
+    cpu = K.on_cpu(q, k, v)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttentionFn.apply(q, k, v, causal, window, kv_offset)
+    if cpu:
+        return flash_attention_ref(q, k, v, causal=causal, window=window,
+                                   kv_offset=kv_offset)
+    return _forward(q, k, v, causal, window, kv_offset, False)[0]

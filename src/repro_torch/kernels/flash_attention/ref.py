@@ -1,7 +1,9 @@
 """Plain PyTorch version of flash attention: the masked softmax in f32, as
-``repro``'s jnp oracle (``flash_attention_ref``) computes it; and of the
-split-KV pair the bf16 kernel uses for short query tiles: per-split
-partials (m, l, acc) and their log-sum-exp merge."""
+``repro``'s jnp oracle (``flash_attention_ref``) computes it, also with
+each row's log-sum-exp (``flash_attention_fwd_ref``); its gradient by the
+explicit formulas the backward kernel computes (``flash_attention_bwd_ref``);
+and the split-KV pair the bf16 kernel uses for short query tiles:
+per-split partials (m, l, acc) and their log-sum-exp merge."""
 from __future__ import annotations
 
 import math
@@ -48,6 +50,57 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
     probs = torch.softmax(scores, dim=-1).nan_to_num(0.0)  # empty rows
     out = torch.einsum("bkgqs,bksd->bkgqd", probs, v.float())
     return out.reshape(B, H, Sq, D).to(q.dtype)
+
+
+def flash_attention_fwd_ref(q, k, v, *, causal: bool = True, window: int = 0,
+                            kv_offset: int = 0):
+    """(out, lse): :func:`flash_attention_ref`'s output and the f32
+    log-sum-exp [B, H, Sq] of each row's scaled, masked scores, ``+inf``
+    for a row that sees no key (so its probabilities exp(s - lse) are 0
+    in the backward)."""
+    B, H, Sq, D = q.shape
+    mask = _visible(Sq, k.shape[2], causal, window, kv_offset, q.device)
+    scores = _scores(q, k).masked_fill(~mask, float("-inf"))
+    lse = torch.logsumexp(scores, dim=-1)
+    lse = torch.where(torch.isneginf(lse), float("inf"), lse)
+    probs = torch.exp(scores - lse[..., None])
+    out = torch.einsum("bkgqs,bksd->bkgqd", probs, v.float())
+    return out.reshape(B, H, Sq, D).to(q.dtype), lse.reshape(B, H, Sq)
+
+
+def flash_attention_bwd_ref(q, k, v, out, lse, dout, *, causal: bool = True,
+                            window: int = 0, kv_offset: int = 0):
+    """(dq, dk, dv) of flash attention, in the inputs' types, computed in
+    f32 by the explicit formulas (scale = 1/sqrt(D), applied after the
+    product as the forward does):
+
+        delta = rowsum(dO * O),  P = exp(S * scale - lse),
+        dV = P^T dO,  dP = dO V^T,  dS = P * (dP - delta),
+        dQ = dS K * scale,  dK = dS^T Q * scale,
+
+    dK and dV summed over the G = H / Kh query heads of each KV head.
+    ``lse`` [B, H, Sq] is :func:`flash_attention_fwd_ref`'s; a row that
+    sees no key (lse = +inf) has P = 0 and gets zero gradients."""
+    B, H, Sq, D = q.shape
+    Kh, Sk = k.shape[1], k.shape[2]
+    G = H // Kh
+    scale = 1.0 / math.sqrt(D)
+    mask = _visible(Sq, Sk, causal, window, kv_offset, q.device)
+    qf = q.float().reshape(B, Kh, G, Sq, D)
+    of = out.float().reshape(B, Kh, G, Sq, D)
+    dof = dout.float().reshape(B, Kh, G, Sq, D)
+    kf, vf = k.float(), v.float()
+    lse5 = lse.float().reshape(B, Kh, G, Sq, 1)
+    delta = (dof * of).sum(-1, keepdim=True)
+    s = torch.einsum("bkgqd,bksd->bkgqs", qf, kf) * scale
+    p = torch.where(mask, torch.exp(s - lse5), 0.0)
+    dv = torch.einsum("bkgqs,bkgqd->bksd", p, dof)
+    dp = torch.einsum("bkgqd,bksd->bkgqs", dof, vf)
+    ds = p * (dp - delta)
+    dq = torch.einsum("bkgqs,bksd->bkgqd", ds, kf) * scale
+    dk = torch.einsum("bkgqs,bkgqd->bksd", ds, qf) * scale
+    return (dq.reshape(B, H, Sq, D).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
 
 
 def split_ranges(Sk: int, n_split: int, block_k: int = BLOCK_K) -> list:

@@ -83,7 +83,9 @@ def blockwise_attention(q, k, v, *, causal: bool = True, window: int = 0,
     call computes the whole function on head-split views (no copy), and
     skips the key tiles a query tile cannot see.  A query that sees no key
     comes out 0 (the JAX loop's softmax over all-masked scores averages
-    them instead); serving never makes such a row.
+    them instead); serving never makes such a row.  Gradients flow
+    through it (training): with grad on, the flash wrapper's autograd
+    Function runs the backward kernel on the card.
     """
     out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                           v.transpose(1, 2), causal=causal, window=window,

@@ -23,12 +23,19 @@ Mamba-1's) and ``SHARED_ATTN`` layers, each of which runs the one
 attention + MLP block ``params.shared`` after its own norm, over its own
 plane of the KV pool.  A Mamba model with a media frontend raises
 ``NotImplementedError`` (ROADMAP, queue 1: other families).
-The JAX package's dense ``forward``/``decode_step``/``prefill_chunk`` paths
-are not ported (ROADMAP, queue 1: dense fallbacks).
+Training runs the full-sequence :func:`forward` (``repro.models.model``'s
+``forward`` with its ``_embed``, ``_block_full``, ``_attn_full`` and
+``_cross_full``) over dense attention + MLP layers, with the vision
+projector or the audio encoder in front; its attention goes through the
+flash kernel and its gradient.  The other layer kinds raise there
+(ROADMAP queue 1 item 15).  The JAX package's dense ``decode_step``/
+``prefill_chunk`` serving paths are not ported (ROADMAP, queue 1: dense
+fallbacks).
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import (ATTN_MLP, ATTN_MOE, MAMBA1, MAMBA2,
                                       MLA_MLP, MLA_MOE, SHARED_ATTN,
@@ -69,11 +76,13 @@ def check_supported(cfg: ModelConfig):
 # init
 # ---------------------------------------------------------------------------
 def init_params(cfg: ModelConfig, gen: torch.Generator,
-                dtype=torch.float32) -> ParamTree:
+                dtype=torch.float32, trainable: bool = False) -> ParamTree:
     """Random weights drawn from ``gen`` on its device, in the JAX
     package's tree and layout (norm scales zero-initialised in f32).  The
     draws differ from ``jax.random``; parity tests convert the JAX tree
-    with :func:`repro_torch.params.params_from_numpy` instead."""
+    with :func:`repro_torch.params.params_from_numpy` instead.
+    ``trainable``: every leaf requires grad (training); serving keeps them
+    frozen."""
     check_supported(cfg)
     d, H, Kh, Dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     dev = gen.device
@@ -131,20 +140,21 @@ def init_params(cfg: ModelConfig, gen: torch.Generator,
         tree["encoder"] = {"layers": [attn(False) | mlp()
                                       for _ in range(cfg.encoder_layers)],
                            "norm": zeros(d)}
-    return ParamTree(tree)
+    return ParamTree(tree, trainable)
 
 
 # ---------------------------------------------------------------------------
 # encode stage / logits
 # ---------------------------------------------------------------------------
-def _attn_full(p, x, cfg):
-    """The audio encoder's self-attention: non-causal over all S frames of
-    x [B, S, d], through the flash-attention kernel (no RoPE: whisper adds
-    sinusoidal positions to its input)."""
+def _attn_full(p, x, cfg, positions, window, causal=True):
+    """Self-attention over all S positions of x [B, S, d] through the
+    flash-attention kernel (RoPE at ``positions`` [S] when the model has
+    it).  Returns (out [B, S, d], (k, v) [B, S, Kh*Dh])."""
     B, S, _ = x.shape
-    q, k, v = _qkv(p, x, cfg, torch.arange(S, device=x.device))
-    o = layers.blockwise_attention(q, k, v, causal=False)
-    return o.reshape(B, S, -1) @ p.wo
+    q, k, v = _qkv(p, x, cfg, positions)
+    o = layers.blockwise_attention(q, k, v, causal=causal, window=window)
+    return o.reshape(B, S, -1) @ p.wo, (k.reshape(B, S, -1),
+                                        v.reshape(B, S, -1))
 
 
 def encode_media(cfg, params, media):
@@ -160,10 +170,12 @@ def encode_media(cfg, params, media):
         enc = params.encoder
         dtype = params.embed.dtype          # the weights' type
         T = media.shape[1]
-        h = media.to(dtype) + layers.sinusoidal_positions(
-            torch.arange(T, device=media.device), cfg.d_model, dtype)
+        pos = torch.arange(T, device=media.device)
+        h = media.to(dtype) + layers.sinusoidal_positions(pos, cfg.d_model,
+                                                          dtype)
         for lp in enc.layers:
-            h = h + _attn_full(lp, rmsnorm(h, lp.norm1, cfg.norm_eps), cfg)
+            h = h + _attn_full(lp, rmsnorm(h, lp.norm1, cfg.norm_eps), cfg,
+                               pos, window=0, causal=False)[0]
             h = h + layers.mlp(lp, rmsnorm(h, lp.norm2, cfg.norm_eps),
                                cfg.act)
         return rmsnorm(h, enc.norm, cfg.norm_eps)
@@ -175,6 +187,77 @@ def _logits(cfg, params, h):
     h = rmsnorm(h, params.final_norm, cfg.norm_eps)
     w = params.embed.T if cfg.tie_embeddings else params.lm_head
     return h @ w
+
+
+# ---------------------------------------------------------------------------
+# full-sequence forward (training)
+# ---------------------------------------------------------------------------
+def _embed(cfg, params, tokens, media_emb, positions):
+    """Token embeddings [B, S, d], after the media embeddings when given,
+    plus sinusoidal positions for models without RoPE (whisper)."""
+    h = params.embed[tokens.long()]
+    if media_emb is not None:
+        h = torch.cat([media_emb.to(h.dtype), h], dim=1)
+    if not cfg.rope_theta:
+        h = h + layers.sinusoidal_positions(positions, cfg.d_model, h.dtype)
+    return h
+
+
+def _block_full(cfg, p, h, positions, enc_out, window, collect_cache):
+    """One ``ATTN_MLP`` block over the full sequence (cross-attention over
+    ``enc_out`` when the model has it).  Returns (h, cache entry, aux
+    loss): {"k", "v"} (and {"xk", "xv"}) with ``collect_cache``, and no
+    aux loss (0.0) without MoE."""
+    a, (k, v) = _attn_full(p, rmsnorm(h, p.norm1, cfg.norm_eps), cfg,
+                           positions, window)
+    h = h + a
+    cache = {"k": k, "v": v} if collect_cache else {}
+    if cfg.cross_attention:
+        # the reference's _cross_full: the same function as a chunk's
+        c, (xk, xv) = _cross_chunk(p, rmsnorm(h, p.xnorm, cfg.norm_eps),
+                                   enc_out, cfg)
+        h = h + c
+        if collect_cache:
+            cache.update({"xk": xk, "xv": xv})
+    h = h + layers.mlp(p, rmsnorm(h, p.norm2, cfg.norm_eps), cfg.act)
+    return h, cache, 0.0
+
+
+def forward(cfg: ModelConfig, params, tokens, media=None, frames=None, *,
+            remat: bool = False, collect_cache: bool = False):
+    """Full-sequence logits: returns (logits [B, S_total, V], caches or
+    None, aux loss), as ``repro.models.model.forward``.  ``media`` [B, T,
+    d] goes through the vision projector and before the tokens; ``frames``
+    [B, T, d] through the audio encoder, for cross-attention.  ``remat``
+    recomputes each block in the backward (``torch.utils.checkpoint``,
+    non-reentrant), which changes no number.  Layer kinds other than
+    ``ATTN_MLP`` raise ``NotImplementedError`` (ROADMAP queue 1 item 15)."""
+    check_supported(cfg)
+    untrained = sorted(set(cfg.layer_kinds()) - {ATTN_MLP})
+    if untrained:
+        raise NotImplementedError(
+            f"{cfg.name}: the full-sequence forward over layer kinds "
+            f"{untrained} is not ported yet (ROADMAP queue 1 item 15: "
+            f"training)")
+    enc_out = encode_media(cfg, params, frames) if frames is not None \
+        else None
+    media_emb = encode_media(cfg, params, media) if media is not None \
+        else None
+    S_total = tokens.shape[1] + (0 if media_emb is None
+                                 else media_emb.shape[1])
+    positions = torch.arange(S_total, device=tokens.device)
+    h = _embed(cfg, params, tokens, media_emb, positions)
+    caches, aux_total = [], 0.0
+    for i in range(cfg.num_layers):
+        window = cfg.sliding_window if cfg.is_local_layer(i) else 0
+        args = (cfg, params.layers[i], h, positions, enc_out, window,
+                collect_cache)
+        h, cache, aux = checkpoint(_block_full, *args, use_reentrant=False) \
+            if remat else _block_full(*args)
+        aux_total = aux_total + aux
+        caches.append(cache)
+    return _logits(cfg, params, h), (caches if collect_cache else None), \
+        aux_total
 
 
 # ---------------------------------------------------------------------------

@@ -33,31 +33,50 @@ F32_LEAVES = frozenset({"final_norm", "norm", "norm1", "norm2", "xnorm",
 
 
 class ParamTree(nn.Module):
-    """One node of the parameter tree: tensors become frozen
-    ``nn.Parameter``s, dicts child nodes, lists ``nn.ModuleList``s."""
+    """One node of the parameter tree: tensors become ``nn.Parameter``s
+    (frozen unless ``trainable``, as serving keeps them), dicts child
+    nodes, lists ``nn.ModuleList``s."""
 
-    def __init__(self, tree: dict):
+    def __init__(self, tree: dict, trainable: bool = False):
         super().__init__()
         for name, v in tree.items():
             if isinstance(v, dict):
-                setattr(self, name, ParamTree(v))
+                setattr(self, name, ParamTree(v, trainable))
             elif isinstance(v, (list, tuple)):
-                setattr(self, name, nn.ModuleList(ParamTree(x) for x in v))
+                setattr(self, name, nn.ModuleList(ParamTree(x, trainable)
+                                                  for x in v))
             else:
                 self.register_parameter(
-                    name, nn.Parameter(v, requires_grad=False))
+                    name, nn.Parameter(v, requires_grad=trainable))
 
     @property
     def device(self) -> torch.device:
         return next(self.parameters()).device
 
+    def leaves(self) -> dict:
+        """{path: tensor} in the JAX tree's key layout ("embed",
+        "layers/0/wq", "encoder/layers/1/norm1"), the layout of the
+        checkpoints and of the optimizer's moments."""
+        return {name.replace(".", "/"): p
+                for name, p in self.named_parameters()}
 
-def params_from_numpy(tree: dict, device="cuda", dtype=None) -> ParamTree:
+    def tree(self) -> dict:
+        """The nested dicts and lists of tensors this node was built from."""
+        out: dict = dict(self.named_parameters(recurse=False))
+        for name, child in self.named_children():
+            out[name] = child.tree() if isinstance(child, ParamTree) \
+                else [c.tree() for c in child]
+        return out
+
+
+def params_from_numpy(tree: dict, device="cuda", dtype=None,
+                      trainable: bool = False) -> ParamTree:
     """The JAX param tree, with numpy arrays as leaves (``np.asarray`` of
     each jax array), as the port's module on ``device``.  ``dtype`` casts
     the weights; the leaves in ``F32_LEAVES`` (norm scales, the Mamba
     ``dt_bias``/``A_log``/``D`` and their Mamba-2 counterparts, and the
-    MoE router) stay f32, as the JAX package keeps them."""
+    MoE router) stay f32, as the JAX package keeps them.  ``trainable``
+    makes every leaf require grad (training); serving keeps them frozen."""
     dev = resolve_device(device)
 
     def conv(x, name=None):
@@ -71,4 +90,4 @@ def params_from_numpy(tree: dict, device="cuda", dtype=None) -> ParamTree:
             t = t.to(dtype)
         return t.to(dev)
 
-    return ParamTree(conv(tree))
+    return ParamTree(conv(tree), trainable)

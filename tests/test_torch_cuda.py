@@ -1079,3 +1079,94 @@ def test_cache_write_latent_576_single_plane(cuda, dtype):
     assert K.launches["cache_write"] == launches + 1
     assert torch.equal(_bytes(data[:, :, :NB]), _bytes(want[:, :, :NB]))
     assert torch.equal(_bytes(data[:, :, NB]), _bytes(before[:, :, NB]))
+
+
+# ---------------------------------------------------------------------------
+# flash attention's backward (training): dq, dk, dv against the plain
+# version's explicit formulas; bf16 held against the f32 plain output on
+# the same inputs, within 2e-2 + |want| / 128 (chip_smoke.py's BWD_TOL: P
+# and dS rounded to bf16 as product operands, gradients of |g| ~ 5-10);
+# f32 within 1e-4.  lse: f32 1e-4, bf16 4e-3.
+# ---------------------------------------------------------------------------
+BWD_TOL = {torch.float32: (1e-4, 0.0), torch.bfloat16: (2e-2, 1 / 128)}
+LSE_TOL = {torch.float32: 1e-4, torch.bfloat16: 4e-3}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("B,H,Kh,Sq,Sk,D,causal,window,off", [
+    (2, 32, 32, 2624, 2624, 128, True, 0, 0),   # LLaVA-1.5-7B training
+    (1, 32, 8, 1024, 1024, 128, True, 0, 0),    # llama3-8b's GQA
+    (2, 12, 12, 1500, 1500, 64, False, 0, 0),   # whisper's encoder
+    (1, 32, 8, 700, 700, 128, True, 256, 0),    # a window
+    (2, 8, 2, 77, 200, 64, True, 0, 123),       # ragged, after cached keys
+    (1, 4, 4, 50, 90, 64, False, 0, 0),         # non-causal, ragged tiles
+    (1, 2, 2, 70, 100, 64, True, 8, -20),       # rows that see no key
+])
+def test_flash_attention_bwd_matches_plain(cuda, dtype, B, H, Kh, Sq, Sk, D,
+                                           causal, window, off):
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_ref, flash_attention_fwd_ref)
+    gen = torch.Generator().manual_seed(Sq + 7 * Sk + D)
+    q, k, v, do = (torch.randn(s, generator=gen).to(cuda, dtype) for s in (
+        (B, H, Sq, D), (B, Kh, Sk, D), (B, Kh, Sk, D), (B, H, Sq, D)))
+    kw = dict(causal=causal, window=window, kv_offset=off)
+    before = dict(K.launches)
+    out, lse = tfa.flash_attention_fwd(q, k, v, **kw)
+    got = tfa.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    again = tfa.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    want_o, want_lse = flash_attention_fwd_ref(*_f32(q, k, v), **kw)
+    want = flash_attention_bwd_ref(*_f32(q, k, v), want_o, want_lse,
+                                   do.float(), **kw)
+    torch.cuda.synchronize()
+    assert K.launches["flash_attention_bwd"] == \
+        before["flash_attention_bwd"] + 2
+    seen = torch.isfinite(want_lse)
+    assert torch.equal(torch.isposinf(lse), ~seen)
+    assert (lse[seen] - want_lse[seen]).abs().max().item() <= LSE_TOL[dtype]
+    assert (out.float() - want_o).abs().max().item() <= TOL[dtype]
+    tol, rtol = BWD_TOL[dtype]
+    for g, w, g2 in zip(got, want, again):
+        assert g.dtype == dtype and g.is_contiguous()
+        assert torch.equal(g, g2)                 # no atomics: bit-equal
+        assert ((g.float() - w).abs() - rtol * w.abs()).max().item() <= tol
+    if not seen.all():
+        assert not got[0][:, :, ~seen[0, 0]].any()
+
+
+def test_flash_attention_fwd_lse_from_split_paths(cuda):
+    """The split path's merge writes lse: a decode row (merge_rows) and a
+    64-row chunk (merged in the last block's registers)."""
+    from repro_torch.kernels.flash_attention.ref import flash_attention_fwd_ref
+    gen = torch.Generator().manual_seed(9)
+    for B, Sq in ((8, 1), (4, 64)):
+        q = torch.randn((B, 12, Sq, 64), generator=gen).to(cuda, torch.bfloat16)
+        k = torch.randn((B, 12, 1500, 64), generator=gen).to(cuda,
+                                                             torch.bfloat16)
+        assert tfa.split_plan(B, 12, Sq, 1500, 64, 0)[1] > 1
+        out, lse = tfa.flash_attention_fwd(q, k, k, causal=False)
+        want_o, want_lse = flash_attention_fwd_ref(*_f32(q, k, k),
+                                                   causal=False)
+        torch.cuda.synchronize()
+        assert (out.float() - want_o).abs().max().item() <= \
+            TOL[torch.bfloat16]
+        assert (lse - want_lse).abs().max().item() <= LSE_TOL[torch.bfloat16]
+
+
+def test_flash_attention_autograd_on_card_matches_cpu(cuda):
+    """flash_attention with grad on, on head-split views of [B, S, H, D]
+    projections as the model makes them: the Function's forward and
+    backward kernels give the CPU's gradients (f32)."""
+    gen = torch.Generator().manual_seed(10)
+    B, S, H, Kh, D = 2, 90, 8, 2, 64
+    x = [torch.randn(s, generator=gen) for s in ((B, S, H, D), (B, S, Kh, D),
+                                                 (B, S, Kh, D), (B, S, H, D))]
+    grads = {}
+    for dev in ("cpu", cuda):
+        q, k, v = (t.clone().to(dev).requires_grad_() for t in x[:3])
+        from repro_torch.models.layers import blockwise_attention
+        o = blockwise_attention(q, k, v, causal=True, window=40)
+        (o * x[3].to(dev)).sum().backward()
+        grads[str(dev)] = [t.grad.cpu() for t in (q, k, v)]
+    for a, b in zip(grads["cpu"], grads[str(cuda)]):
+        assert (a - b).abs().max().item() <= 1e-4

@@ -97,7 +97,8 @@ def _boom(*a, **k):  # pragma: no cover - only hit on regression
 
 @pytest.mark.parametrize("wrapper", ["cache_write", "paged_attention",
                                      "paged_prefill_attention",
-                                     "selective_scan", "flash_attention"])
+                                     "selective_scan", "flash_attention",
+                                     "flash_attention_bwd"])
 def test_wrapper_never_falls_back_to_plain_version(no_card, monkeypatch,
                                                    wrapper):
     monkeypatch.setattr(tcw, "cache_write_ref", _boom)
@@ -105,6 +106,7 @@ def test_wrapper_never_falls_back_to_plain_version(no_card, monkeypatch,
     monkeypatch.setattr(tpa, "paged_prefill_attention_ref", _boom)
     monkeypatch.setattr(tss, "selective_scan_ref", _boom)
     monkeypatch.setattr(tfa, "flash_attention_ref", _boom)
+    monkeypatch.setattr(tfa, "flash_attention_bwd_ref", _boom)
     pages, tables, lens = _fake_cuda(8, 4, 2, 8), _fake_cuda(1, 2), \
         _fake_cuda(1)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
@@ -118,6 +120,9 @@ def test_wrapper_never_falls_back_to_plain_version(no_card, monkeypatch,
             tfa.flash_attention(_fake_cuda(1, 2, 3, 64),
                                 _fake_cuda(1, 2, 5, 64),
                                 _fake_cuda(1, 2, 5, 64))
+        elif wrapper == "flash_attention_bwd":
+            q, kv = _fake_cuda(1, 2, 3, 64), _fake_cuda(1, 2, 5, 64)
+            tfa.flash_attention_bwd(q, kv, kv, q, _fake_cuda(1, 2, 3), q)
         elif wrapper == "paged_attention":
             tpa.paged_attention(_fake_cuda(1, 2, 8), pages, pages, tables,
                                 lens)

@@ -167,6 +167,8 @@ def test_cpu_calls_take_plain_versions_and_count_no_launch(rng):
                              xh, xh)
     x = _t(rng.standard_normal((1, 2, 3, 64)).astype(np.float32))
     tfa.flash_attention(x, x, x, causal=False)
+    out, lse = tfa.flash_attention_fwd(x, x, x, causal=False)
+    tfa.flash_attention_bwd(x, x, x, out, lse, x, causal=False)
     assert K.launches == {"cache_write": 0, "paged_attention": 0,
                           "paged_attention_split": 0,
                           "paged_attention_merge": 0,
@@ -175,4 +177,5 @@ def test_cpu_calls_take_plain_versions_and_count_no_launch(rng):
                           "paged_prefill_attention_latent": 0,
                           "selective_scan": 0, "selective_scan_heads": 0,
                           "flash_attention": 0, "flash_attention_split": 0,
-                          "flash_attention_merge": 0}
+                          "flash_attention_merge": 0,
+                          "flash_attention_bwd": 0}
