@@ -11,8 +11,9 @@ on failure:
 2. build  - compile every kernel of the serving paths from ``src/repro_torch/
             csrc`` (all nvcc processes at once), and read from ``cuobjdump
             -sass`` that the bf16 attention kernels run on tensor cores
-            (HMMA instructions; HGMMA, wgmma, in the latent-row kernel)
-            and from ptxas that the latent-row kernel, the scan's
+            (HMMA instructions; HGMMA, wgmma, in the latent-row kernel
+            and in flash attention's bf16 backward) and from ptxas that
+            the latent-row kernel, every flash backward kernel, the scan's
             per-head mode and the D = 160 instances of decode and the
             chunked-prefill tile do not spill;
 3. kernels- each kernel against its plain PyTorch version on the card: the
@@ -76,8 +77,9 @@ on failure:
             (D = 64, non-causal), a 256-key window, a ragged chunk after
             123 cached keys and a small f32 case (bf16 held against the
             f32 plain output; every call run twice, bit-equal), timed at
-            LLaVA's shape beside its bound and SDPA's backward, and the
-            forward with lse beside the forward row;
+            LLaVA's, llama3-8b's and whisper's shapes beside each one's
+            bound and SDPA's backward, and the forward with lse beside the
+            forward row and SDPA's forward at the training shape;
 4. model  - the port's runner on the card against the same runner on the
             CPU (plain versions) on reduced LLaVA, reduced falcon-mamba
             (batched chunks of different lengths) and reduced whisper-small
@@ -1463,8 +1465,9 @@ def ptxas_report(text: str) -> list:
 def sass_hmma(card: str):
     """Count the tensor-core instructions in each bf16 attention kernel's
     SASS (``cuobjdump -sass`` of the built libraries): HMMA (mma.sync) in
-    the attn_mma.cuh tiles, HGMMA (wgmma) in the latent-row kernel; fails
-    when one has none of its kind."""
+    the attn_mma.cuh tiles, HGMMA (wgmma) in the latent-row kernel and in
+    flash attention's backward (``flash_bwd_*_wgmma_kernel``); fails when
+    one has none of its kind."""
     import shutil
     from repro_torch.kernels import _build
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -1476,15 +1479,19 @@ def sass_hmma(card: str):
         for part in sass.split("Function : ")[1:]:
             name = part.split(maxsplit=1)[0]
             lines = part.splitlines()
-            if "mma_kernel" in name:
-                counts[name] = sum("HMMA" in ln for ln in lines)
-            if "latent_kernel" in name:
+            if "latent_kernel" in name or "wgmma_kernel" in name:
                 hgmma[name] = sum("HGMMA" in ln for ln in lines)
+            elif "mma_kernel" in name:
+                counts[name] = sum("HMMA" in ln for ln in lines)
     log({"sass_hmma": counts, "sass_hgmma": hgmma, "card": card})
     if not counts or not all(counts.values()):
         raise AssertionError(f"bf16 attention kernels without HMMA: {counts}")
     if not hgmma or not all(hgmma.values()):
-        raise AssertionError(f"latent-row kernels without HGMMA: {hgmma}")
+        raise AssertionError(f"wgmma kernels without HGMMA: {hgmma}")
+    bwd = [n for n in hgmma if "flash_bwd" in n]
+    if len(bwd) != 4:
+        # dK/dV and dQ x D = 64, 128
+        raise AssertionError(f"flash backward wgmma kernels in SASS: {bwd}")
 
 
 def check_ptxas(logs: dict):
@@ -1495,7 +1502,9 @@ def check_ptxas(logs: dict):
     or ``paged_prefill_mma_kernel`` with template argument ``Li160E`` in
     the mangled name) spills, or when no D = 160 instance of either was
     built; and when a flash backward kernel spills or one of its ten
-    instances was not built."""
+    instances was not built (the delta kernel x 2 types; the bf16 wgmma
+    kernels ``flash_bwd_dkdv_wgmma_kernel`` and ``flash_bwd_dq_wgmma_kernel``
+    and the f32 ones x D = 64, 128)."""
     d160 = set()
     bwd = []
     for name, text in logs.items():
@@ -1521,8 +1530,10 @@ def check_ptxas(logs: dict):
     if d160 != {"decode", "prefill"}:
         raise AssertionError(f"D = 160 instances built: {sorted(d160)}")
     log({"ptxas_flash_bwd": bwd})
-    if len({k["fn"] for k in bwd}) != 10:
-        # delta x 2 types; dK/dV and dQ x 2 types x 2 head dims
+    names = {k["fn"] for k in bwd}
+    if len(names) != 10 or sum("wgmma_kernel" in n for n in names) != 4:
+        # delta x 2 types; dK/dV and dQ x 2 bodies (bf16 wgmma, f32) x 2
+        # head dims
         raise AssertionError(f"flash backward kernels built: {bwd}")
 
 
@@ -1572,9 +1583,10 @@ def flash_bwd_cases(gen, dev, results, rate):
     """Flash attention's backward kernel (and the forward's lse) against
     their plain versions: LLaVA-1.5-7B's training shape, llama3-8b's GQA,
     whisper's encoder (D = 64, non-causal), a window, f32 at a small shape
-    and a ragged chunk after cached keys; timed at LLaVA's shape beside its
-    bound and SDPA's backward.  Also the forward with lse at the training
-    shape and at the forward row's (whisper encoder) shape."""
+    and a ragged chunk after cached keys; timed at LLaVA's, llama3-8b's and
+    whisper's shapes beside each one's bound and SDPA's backward.  Also the
+    forward with lse at the training shape (with SDPA's forward beside it)
+    and at the forward row's (whisper encoder) shape."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention.ops import (
@@ -1583,6 +1595,12 @@ def flash_bwd_cases(gen, dev, results, rate):
     from repro_torch.kernels.flash_attention.ref import (
         flash_attention_bwd_ref, flash_attention_fwd_ref)
     S = TRAIN_S + 576
+    # the bf16 shapes timed beside their bound and SDPA's backward
+    TIMED = {"llava-train": f"LLaVA-1.5-7B training: {TRAIN_S} text + 576 "
+                            f"image positions",
+             "llama3-gqa": "llama3-8b's GQA",
+             "whisper-enc": "whisper-small's encoder, D = 64"}
+    others = []
     # (tag, B, H, Kh, Sq, Sk, D, causal, window, kv_offset, dtypes)
     cases = [("llava-train", TRAIN_B, H, KH, S, S, D, True, 0, 0,
               (torch.bfloat16, torch.float32)),
@@ -1625,11 +1643,13 @@ def flash_bwd_cases(gen, dev, results, rate):
                  "tol": LSE_TOL[dname(dtype)]})
             errs.append(err)
             del got, want, again, want_o, want_lse
-            if tag != "llava-train" or dtype != torch.bfloat16:
+            if tag not in TIMED or dtype != torch.bfloat16:
                 continue
             qpos = off + torch.arange(Sq, device=dev)[:, None]
             kpos = torch.arange(Sk, device=dev)[None, :]
-            pairs = int((kpos <= qpos).sum()) * B * Hq
+            vis = kpos <= qpos if causal else torch.ones(
+                (Sq, Sk), dtype=torch.bool, device=dev)
+            pairs = int(vis.sum()) * B * Hq
             # the five products (2 FLOP a multiply-add) and one exponential
             # a pair; bytes: q k v out dout read, dq dk dv written, lse
             nbytes = (3 * q.numel() + 2 * k.numel()) * 2 + \
@@ -1638,40 +1658,60 @@ def flash_bwd_cases(gen, dev, results, rate):
             t_ops = max(10 * pairs * Dh / PEAK_OPS["bfloat16"],
                         pairs / rate) * 1e3
             ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
-            so = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
+            gqa = {"enable_gqa": True} if Kh != Hq else {}
+            so = F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal,
+                                                **gqa)
 
             def sdpa_bwd():
                 torch.autograd.grad(so, (ql, kl, vl), do, retain_graph=True)
 
             def bwd():
                 return flash_attention_bwd(q, k, v, out, lse, do, **kw)
-            row = {"shape": f"B={B} H={Hq} Kh={Kh} S={Sq} D={Dh} causal "
-                            f"bf16 (LLaVA-1.5-7B training: {TRAIN_S} text "
-                            f"+ 576 image positions)",
+            row = {"shape": f"B={B} H={Hq} Kh={Kh} S={Sq} D={Dh} "
+                            f"{'causal' if causal else 'non-causal'} bf16 "
+                            f"({TIMED[tag]})",
                    "ms": time_ms(bwd),
                    "device_ms": time_ms_graph(bwd, reps=5),
-                   "plain_ms": time_ms(lambda: flash_attention_bwd_ref(
-                       q, k, v, out, lse, do, **kw), reps=1, rounds=3),
                    "library_ms": time_ms(sdpa_bwd),
+                   # its kernels' device time (torch.profiler): the eager
+                   # time above includes autograd's host work
+                   "library_device_ms": device_ms_by_kernel(
+                       sdpa_bwd, ("",))[""],
                    "library": "autograd over F.scaled_dot_product_attention"
                               " (its backward only)",
                    "bound_ms": max(t_bytes, t_ops),
                    "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-                   "pairs": pairs,
-                   "fwd_lse_ms": time_ms(lambda: flash_attention_fwd(
-                       q, k, v, **kw)),
-                   "fwd_lse_device_ms": time_ms_graph(
-                       lambda: flash_attention_fwd(q, k, v, **kw), reps=5),
-                   "fwd_device_ms": time_ms_graph(
-                       lambda: flash_attention(q, k, v, **kw), reps=5)}
+                   "pairs": pairs}
             row["bound_share"] = row["bound_ms"] / row["device_ms"]
             row["device_ms_by_kernel"] = device_ms_by_kernel(
-                bwd, ("flash_bwd_delta", "flash_bwd_dkdv", "flash_bwd_dq"))
-            results["flash_attention_bwd"] = row
+                bwd, ("flash_bwd_delta", "flash_bwd_dkdv_wgmma",
+                      "flash_bwd_dq_wgmma"))
+            if tag == "llava-train":
+                row.update({
+                    "plain_ms": time_ms(lambda: flash_attention_bwd_ref(
+                        q, k, v, out, lse, do, **kw), reps=1, rounds=3),
+                    "fwd_lse_ms": time_ms(lambda: flash_attention_fwd(
+                        q, k, v, **kw)),
+                    "fwd_lse_device_ms": time_ms_graph(
+                        lambda: flash_attention_fwd(q, k, v, **kw), reps=5),
+                    "fwd_device_ms": time_ms_graph(
+                        lambda: flash_attention(q, k, v, **kw), reps=5),
+                    # SDPA's forward at the training shape, beside the
+                    # flash forward's row
+                    "library_fwd_ms": time_ms(
+                        lambda: F.scaled_dot_product_attention(
+                            q, k, v, is_causal=True)),
+                    "library_fwd_device_ms": time_ms_graph(
+                        lambda: F.scaled_dot_product_attention(
+                            q, k, v, is_causal=True), reps=5)})
+                results["flash_attention_bwd"] = row
+            else:
+                others.append(row)
             log({"timing": f"flash_attention_bwd/{tag}", **row})
             del ql, kl, vl, so
         del q, k, v, do, out, lse
         torch.cuda.empty_cache()
+    results["flash_attention_bwd"]["other_shapes"] = others
     results["flash_attention_bwd"]["max_abs_err"] = max(errs)
     # lse from the split path's merge: a decode row (one-warp tiles,
     # merge_rows) and a 64-row chunk (the last block's registers), both
@@ -3171,7 +3211,8 @@ def main() -> int:
                             "cli_max_abs_err", "lse_ms", "lse_device_ms",
                             "fwd_lse_ms", "fwd_lse_device_ms",
                             "fwd_device_ms", "pairs", "library",
-                            "device_ms_by_kernel")
+                            "device_ms_by_kernel", "library_fwd_ms",
+                            "library_fwd_device_ms", "other_shapes")
                            if key in r}})
     log({"total_s": time.perf_counter() - t_start, "card": card})
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -61,6 +61,7 @@
 // blockwise_attention) with jax.value_and_grad.
 #include "attn_mma.cuh"
 #include "attn_merge.cuh"
+#include "hopper.cuh"
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -521,26 +522,56 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out,
 // Backward: dQ, dK, dV from q, k, v, out, dout and the forward's lse
 // ---------------------------------------------------------------------------
 //
-// P is recomputed from Q, K and each row's log-sum-exp (P = exp(S * scale -
-// lse), exactly 0 where the mask hides the key or the row saw none), so
-// nothing of size Sq x Sk is kept from the forward.  Three launches on the
+// Replaces the gradient of flash_attention_tpu: the JAX package has no
+// Pallas backward and differentiates its jnp attention with
+// jax.value_and_grad.  P is recomputed from Q, K and each row's
+// log-sum-exp (P = exp(S * scale - lse), exactly 0 where the mask hides the
+// key or the row saw none), so nothing of size Sq x Sk is kept from the
+// forward.  Bound: operations, the five products (S, dP, dV, dK, dQ; 10 *
+// pairs * D FLOP) on the tensor cores at bf16.  Three launches on the
 // caller's stream:
 //   1. delta = rowsum(dO * O) in f32, one warp a row;
-//   2. dK and dV: one block owns (b, KV head, a tile of keys) and walks the
-//      G query heads of that KV head and, for each, the query tiles the mask
-//      lets see the key tile, accumulating dV += P^T dO and dK += dS^T Q
-//      (dS = P * (dP - delta), dP = dO V^T) in registers: no atomics, and
-//      GQA's sum over the G heads happens in the block;
-//   3. dQ: one block owns (b, head, a tile of query rows) and walks the key
-//      tiles as the forward does, accumulating dQ += dS K.
-// S and dP are computed in both 2 and 3: seven products where one kernel
-// with atomic adds into dQ would do five, for gradients that are the same
-// on every run.  bf16: mma.sync m16n8k16 (f32 accumulators) on tiles
-// staged by cp.async, P and dS rounded to bf16 as the A operands of their
-// products, as the forward rounds P.  f32: CUDA-core products in f32, as
-// the forward's f32 body (the f32 training checks hold the card to the CPU
-// within 1e-4).  Bound: operations (the five products, 10 * pairs * D, on
-// the tensor cores at bf16).
+//   2. dK and dV: one block owns (b, KV head, 128 keys) and walks the G
+//      query heads of that KV head and, for each, the tiles of 64 query
+//      rows the mask lets see its keys, accumulating dV += P^T dO and dK +=
+//      dS^T Q (dS = P * (dP - delta), dP = dO V^T) in registers; GQA's sum
+//      over the G heads happens in the block;
+//   3. dQ: one block owns (b, head, 128 query rows) and walks the key tiles
+//      they see, accumulating dQ += dS K.
+// S and dP are computed in both 2 and 3: seven products where dQ's adds
+// from the dK/dV blocks would do five.  That keeps every block
+// independent: each gradient element is one block's sum in a fixed order,
+// with no atomic add and no wait on another block, so every call gives the
+// same bits.
+//
+// bf16 (D = 64 or 128), sm_90a: each block is two consumer warpgroups of
+// 64 own rows (keys or query rows) and a producer warpgroup.  The own rows
+// (K and V; Q and dO) are loaded once; tiles of 64 rows of the other side
+// (Q, dO and their lse and delta; K and V) stream through a ring of
+// STAGES = 3 shared-memory stages filled by TMA from 4-D tensor maps over
+// the tensors' own strides (rows past Sq / Sk read as zeros), completion
+// counted on the stage's mbarrier, released by the 8 consumer warps.  One
+// producer warp issues the copies; setmaxnreg gives the producer
+// warpgroup's registers to the consumers (256 x 240 + 128 x 24 = 64,512).
+// Each consumer computes S^T = K Q^T and dP^T = V dO^T (dK/dV; S and dP in
+// dQ) on wgmma m64n64k16 with both operands K-major in shared memory (the
+// 128-byte swizzle the maps write), forms P and dS in f32 (log2 units) and
+// rounds them to bf16 A-fragments in registers, as the forward rounds P,
+// then dV += P^T dO, dK += dS^T Q (dQ += dS K) on wgmma m64n{64,128}k16
+// with A in registers and B the dO / Q (K) tile already in shared memory,
+// read MN-major: no transposed copy.  dK/dV at D = 128 holds 64 + 64
+// accumulator registers a thread beside S^T and dP^T (32 each).  A tile
+// computes a mask only where it crosses the causal diagonal, the window's
+// edge or the ragged end (tile_kind); a tile no pair of which is visible is
+// skipped by the warpgroup it is empty for.  Causal grids launch their
+// longest blocks first: dK/dV's key blocks from key 0, dQ's query blocks
+// from the last row.  The mma.sync tiles this replaces (4 warps,
+// cp.async, a mask on every score) took 2.660 ms at LLaVA-1.5-7B's
+// training shape on an H100 80GB HBM3 at 700 W (dK/dV 1.395, dQ 1.180,
+// delta 0.035); this design 0.91-0.94 ms (PERF.md, tools/kernel_ab.py
+// --flash-bwd).
+// f32: CUDA-core products in f32, as the forward's f32 body (the f32
+// training checks hold the card to the CPU within 1e-4).
 
 template <typename T>
 __device__ __forceinline__ float to_f32(T x);
@@ -592,298 +623,469 @@ __device__ __forceinline__ void key_tiles(int q0, int rows, int Sk, int bk, int 
   kt_end = k_end > k_begin ? (k_end + bk - 1) / bk : kt_begin;
 }
 
-// bf16 tiles: 4 warps of 16 rows; dK/dV blocks own 64 keys and step over
-// BQ query rows, dQ blocks own 64 query rows and step over 64 keys.
-template <int D>
-struct BwdCfg {
-  static constexpr int ROWS = 64;                 // a block's own rows
-  static constexpr int BQ = D <= 64 ? 64 : 32;    // dK/dV: query rows a step
-  static constexpr int BK = 64;                   // dQ: keys a step
-  static constexpr int LD = D + 8;                // padded row, as attn_mma.cuh's
-  static constexpr size_t dkdv_smem() {
-    return (size_t)(2 * ROWS + 4 * BQ) * LD * sizeof(bf16) + 4 * BQ * sizeof(float);
-  }
-  static constexpr size_t dq_smem() { return (size_t)(2 * ROWS + 4 * BK) * LD * sizeof(bf16); }
+namespace bwd {
+
+using namespace hopper;
+
+constexpr int BM = 64;                 // a consumer warpgroup's own rows (wgmma's M)
+constexpr int BLOCK = 2 * BM;          // a block's own rows: keys (dK/dV) or query rows (dQ)
+constexpr int BN = 64;                 // rows of a streamed tile
+constexpr int STAGES = 3;
+constexpr int THREADS = 384;           // two consumer warpgroups and a producer warpgroup
+constexpr int CONSUMERS = 256;
+constexpr int CONSUMER_REGS = 240;     // setmaxnreg: 256 x 240 + 128 x 24 = 64,512
+constexpr int PRODUCER_REGS = 24;
+constexpr int BOX = BN * 128;          // bytes of 64 rows of one 64-column chunk
+enum Kind { EMPTY = 0, EDGE = 1, FULL = 2 };
+
+// How the mask meets the tile of query rows [q0, q0 + nq) and keys [k0,
+// k0 + nk), by the rule of sees(): EMPTY when no pair is visible (rows at
+// or past Sq and keys at or past Sk are no pair), FULL when every pair of
+// the whole tile is (none past an edge), else EDGE.  Only EDGE tiles
+// compute a mask.  kernels/flash_attention/ops.py keeps a copy
+// (tile_kind) that the CPU tests hold against the mask.
+__device__ __forceinline__ int tile_kind(int q0, int nq, int k0, int nk, int Sq, int Sk,
+                                         int causal, int window, int kv_offset) {
+  const int rq = min(nq, Sq - q0), rk = min(nk, Sk - k0);
+  if (rq <= 0 || rk <= 0) return EMPTY;
+  const int q_lo = kv_offset + q0, q_hi = q_lo + rq - 1, k_hi = k0 + rk - 1;
+  if ((causal && k0 > q_hi) || (window > 0 && k_hi <= q_lo - window)) return EMPTY;
+  const bool all = rq == nq && rk == nk && (!causal || k_hi <= q_lo) &&
+                   (window <= 0 || k0 > q_hi - window);
+  return all ? FULL : EDGE;
+}
+
+struct Params {
+  const float* lse;                    // [B, H, Sq] f32, natural units
+  const float* delta;                  // [B, H, Sq] f32
+  bf16 *dq, *dk, *dv;
+  Strides dqst, dkst, dvst;
+  int B, H, Kh, Sq, Sk, causal, window, kv_offset;
+  float scale, scale_log2;
 };
 
-// n rows of D bf16 from `src` (row stride `stride`; rows at or past
-// `limit` zero-filled) into shared rows of D + 8, 16 bytes a copy
 template <int D>
-__device__ __forceinline__ void stage_rows(bf16* dst, const bf16* src, int64_t stride, int r0,
-                                           int n, int limit) {
-  constexpr int CH = D / 8, LD = D + 8;
-  for (int i = threadIdx.x; i < n * CH; i += blockDim.x) {
-    const int r = i / CH, c = i % CH;
-    const bool ok = r0 + r < limit;
-    attn::cp_async16(dst + r * LD + c * 8, ok ? src + (r0 + r) * stride + c * 8 : src, ok);
+struct alignas(1024) DkdvSmem {
+  bf16 k[D / 64][BLOCK * 64];          // chunk c: [128 keys][64 columns], swizzled
+  bf16 v[D / 64][BLOCK * 64];
+  bf16 q[STAGES][D / 64][BN * 64];     // chunk c of a stage: [64 query rows][64]
+  bf16 dout[STAGES][D / 64][BN * 64];
+  float lse[STAGES][BN], delta[STAGES][BN];   // lse in log2 units
+  uint64_t full[STAGES], empty[STAGES], kv_full;
+};
+
+template <int D>
+struct alignas(1024) DqSmem {
+  bf16 q[D / 64][BLOCK * 64];          // chunk c: [128 query rows][64 columns], swizzled
+  bf16 dout[D / 64][BLOCK * 64];
+  bf16 k[STAGES][D / 64][BN * 64];     // chunk c of a stage: [64 keys][64]
+  bf16 v[STAGES][D / 64][BN * 64];
+  uint64_t full[STAGES], empty[STAGES], qd_full;
+};
+
+template <class Smem>
+__device__ __forceinline__ Smem& smem() {
+  extern __shared__ unsigned char smem_raw[];
+  return *reinterpret_cast<Smem*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
+                                  ~uintptr_t(1023));
+}
+
+// acc[64 x 64] = A B^T over D: A's 64 rows at a (chunks a_chunk bytes
+// apart), B's 64 rows at bm (chunks BOX apart), both K-major, swizzled;
+// issued, not waited for
+template <int D>
+__device__ __forceinline__ void issue_abt(float* acc, uint32_t a, uint32_t a_chunk, uint32_t bm) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    mma_ss_n64(acc, desc(a + (kk / 4) * a_chunk + (kk % 4) * 32, 16, 1024),
+               desc(bm + (kk / 4) * BOX + (kk % 4) * 32, 16, 1024), kk);
+}
+
+// acc[64 x D] += A B: A [64 x 64] as bf16 pairs in the accumulator layout
+// (f[n][i]: row g + 8 i, columns 8 n + 2 t4 and + 1), B's 64 rows of D at bm
+// (chunks BOX apart), read MN-major; issued, not waited for
+template <int D>
+__device__ __forceinline__ void issue_ab(float* acc, const uint32_t (&f)[8][2], uint32_t bm) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint32_t a[4] = {f[2 * kk][0], f[2 * kk][1], f[2 * kk + 1][0], f[2 * kk + 1][1]};
+    const uint64_t db = desc(bm + kk * 16 * 128, BOX, 1024);
+    if constexpr (D == 64)
+      mma_rs_n64(acc, a, db);
+    else
+      mma_rs_n128(acc, a, db);
   }
 }
 
-// acc[16 x N] += A B^T: A's 16 rows at `a` and B's N rows at `bm`, both
-// [.][D] in shared memory
-template <int D, int N>
-__device__ __forceinline__ void mma_abt(float (&acc)[N / 8][4], const bf16* a, const bf16* bm,
-                                        int lane) {
-  constexpr int LD = D + 8;
+// P of a lane's 2 x 16 entries of a tile, in place of the raw scores s
+// (wgmma's accumulator layout: s[4 n + e] is row g + 8 (e >> 1) of the
+// lane's warp, column 8 n + 2 t4 + (e & 1)): P = 2^(s scale_log2 - lse2),
+// exactly 0 where vis says the pair is hidden (MASKED only); pf gets P as
+// bf16 pairs in that layout, the A fragments of a product.  lse2(i, n, c):
+// the log2-unit lse of entry (row g + 8 i, column 8 n + 2 t4 + c).
+template <bool MASKED, class Lse, class Vis>
+__device__ __forceinline__ void probs(float* s, float scale_log2, const Lse& lse2,
+                                      const Vis& vis, uint32_t (&pf)[8][2]) {
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    uint32_t af[4];
-    attn::ldsm_x4(af, a + (lane & 15) * LD + kk * 16 + (lane >> 4) * 8);
+  for (int n = 0; n < 8; ++n)
 #pragma unroll
-    for (int nn = 0; nn < N / 16; ++nn) {
-      uint32_t bf[4];
-      attn::ldsm_x4(bf, bm + (nn * 16 + (lane & 7) + (lane >> 4) * 8) * LD + kk * 16 +
-                            ((lane >> 3) & 1) * 8);
-      attn::mma16816(acc[2 * nn], af, bf[0], bf[1]);
-      attn::mma16816(acc[2 * nn + 1], af, bf[2], bf[3]);
+    for (int i = 0; i < 2; ++i) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        float& x = s[4 * n + 2 * i + c];
+        x = !MASKED || vis(i, n, c) ? attn::ex2(fmaf(x, scale_log2, -lse2(i, n, c))) : 0.f;
+      }
+      pf[n][i] = attn::pack_bf16(s[4 * n + 2 * i], s[4 * n + 2 * i + 1]);
     }
-  }
 }
 
-// acc[16 x D] += P B: P [16 x K] as bf16 pairs in its C-fragment layout
-// (the A-fragments, in registers), B's K rows [K][D] in shared memory
-template <int D, int K>
-__device__ __forceinline__ void mma_pb(float (&acc)[D / 8][4], const uint32_t (&p)[K / 8][2],
-                                       const bf16* bm, int lane) {
-  constexpr int LD = D + 8;
+// dS = P (dP - delta) of the same entries as bf16 pairs in that layout,
+// from probs' P and the raw dP; dl(i, n, c): the entry's delta
+template <class Dl>
+__device__ __forceinline__ void dscores(const float* pr, const float* dp, const Dl& dl,
+                                        uint32_t (&df)[8][2]) {
 #pragma unroll
-  for (int kk = 0; kk < K / 16; ++kk) {
-    const uint32_t a[4] = {p[2 * kk][0], p[2 * kk][1], p[2 * kk + 1][0], p[2 * kk + 1][1]};
+  for (int n = 0; n < 8; ++n)
 #pragma unroll
-    for (int dd = 0; dd < D / 16; ++dd) {
-      uint32_t bf[4];
-      attn::ldsm_x4_t(bf, bm + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + dd * 16 +
-                              (lane >> 4) * 8);
-      attn::mma16816(acc[2 * dd], a, bf[0], bf[1]);
-      attn::mma16816(acc[2 * dd + 1], a, bf[2], bf[3]);
+    for (int i = 0; i < 2; ++i) {
+      const int e = 4 * n + 2 * i;
+      df[n][i] = attn::pack_bf16(pr[e] * (dp[e] - dl(i, n, 0)),
+                                 pr[e + 1] * (dp[e + 1] - dl(i, n, 1)));
     }
-  }
 }
 
-// A lane's two rows (g and g + 8 of its warp's 16) of a [16 x D] f32
-// accumulator, times `scale`, as bf16 at row(half) (skipped when nullptr)
+// A lane's rows r0 and r0 + 8 of a [64 x D] f32 accumulator, times scale,
+// as bf16 at row(i) (skipped when nullptr)
 template <int D, class Row>
-__device__ __forceinline__ void store_rows(const float (&acc)[D / 8][4], float scale, int tig,
-                                           Row row) {
+__device__ __forceinline__ void store_rows(const float* acc, float scale, Row row) {
+  const int t4 = threadIdx.x % 4;
 #pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    bf16* o = row(half);
+  for (int i = 0; i < 2; ++i) {
+    bf16* o = row(i);
     if (o == nullptr) continue;
 #pragma unroll
     for (int n = 0; n < D / 8; ++n)
-      *reinterpret_cast<__nv_bfloat162*>(o + 8 * n + 2 * tig) = __floats2bfloat162_rn(
-          acc[n][2 * half] * scale, acc[n][2 * half + 1] * scale);
+      *reinterpret_cast<__nv_bfloat162*>(o + 8 * n + 2 * t4) =
+          __floats2bfloat162_rn(acc[4 * n + 2 * i] * scale, acc[4 * n + 2 * i + 1] * scale);
   }
 }
 
-// grid (key tiles, Kh, B), 128 threads; warp w owns keys k0 + 16w ..
-// k0 + 16w + 15.  It works on S^T = K Q^T (keys as rows), so P^T and dS^T
-// are the A-fragments of dV += P^T dO and dK += dS^T Q without a transpose.
-// Q and dO of the next step are copied while this one is computed.
+// grid: ceil(Sk / 128) key blocks x Kh x B, the key block slowest (blocks
+// start in launch order: a causal grid's first keys see the most rows).
+// Warpgroup w owns keys k0 + 64 w ..; step it is query head kh * G + it /
+// nq, query tile qt_begin + it % nq.
 template <int D>
-__global__ void __launch_bounds__(128)
-flash_bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                          const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                          const float* __restrict__ lse, const float* __restrict__ delta,
-                          bf16* __restrict__ dk, bf16* __restrict__ dv, Strides qst,
-                          Strides kst, Strides vst, Strides dost, Strides dkst, Strides dvst,
-                          int H, int Kh, int Sq, int Sk, int causal, int window, int kv_offset,
-                          float scale, float scale_log2) {
-  using C = BwdCfg<D>;
-  constexpr int ROWS = C::ROWS, BQ = C::BQ, LD = C::LD;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sK = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sV = sK + ROWS * LD;
-  bf16* sQD = sV + ROWS * LD;           // stage s: Q at s * 2 * BQ * LD, dO after it
-  float* sL = reinterpret_cast<float*>(sQD + 4 * BQ * LD);   // [2][BQ] lse
-  float* sDl = sL + 2 * BQ;                                   // [2][BQ] delta
-
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int g = lane / 4, tig = lane % 4, r0 = warp * 16;
-  const int k0 = blockIdx.x * ROWS, kh = blockIdx.y, b = blockIdx.z, G = H / Kh;
+__global__ void __launch_bounds__(THREADS, 1)
+flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                            const __grid_constant__ CUtensorMap k_map,
+                            const __grid_constant__ CUtensorMap v_map,
+                            const __grid_constant__ CUtensorMap do_map, const Params p) {
+  constexpr int DC = D / 64;
+  auto& sm = smem<DkdvSmem<D>>();
+  const int G = p.H / p.Kh, per = p.Kh * p.B;
+  const int k0 = (int)(blockIdx.x / per) * BLOCK;
+  const int kh = (int)(blockIdx.x % per) % p.Kh, b = (int)(blockIdx.x % per) / p.Kh;
   int q_lo, q_hi;
-  query_range(k0, ROWS, Sq, causal, window, kv_offset, q_lo, q_hi);
-  const int qt_begin = q_lo / BQ;
-  const int nq = q_hi > q_lo ? (q_hi + BQ - 1) / BQ - qt_begin : 0;
+  query_range(k0, BLOCK, p.Sq, p.causal, p.window, p.kv_offset, q_lo, q_hi);
+  const int qt_begin = q_lo / BN;
+  const int nq = q_hi > q_lo ? (q_hi + BN - 1) / BN - qt_begin : 0;
   const int n_iter = G * nq;
 
-  stage_rows<D>(sK, k + b * kst.b + kh * kst.h, kst.s, k0, ROWS, Sk);
-  stage_rows<D>(sV, v + b * vst.b + kh * vst.h, vst.s, k0, ROWS, Sk);
-  // step it: query head kh * G + it / nq, query tile qt_begin + it % nq
-  auto load_step = [&](int it, int stage) {
-    const int h = kh * G + it / nq, q0 = (qt_begin + it % nq) * BQ;
-    bf16* dst = sQD + stage * 2 * BQ * LD;
-    stage_rows<D>(dst, q + b * qst.b + h * qst.h, qst.s, q0, BQ, Sq);
-    stage_rows<D>(dst + BQ * LD, dout + b * dost.b + h * dost.h, dost.s, q0, BQ, Sq);
-    if (threadIdx.x < BQ) {
-      const int i = q0 + threadIdx.x;
-      const int64_t row = ((int64_t)b * H + h) * Sq + i;
-      sL[stage * BQ + threadIdx.x] = i < Sq ? lse[row] * attn::LOG2E : attn::inf_f32();
-      sDl[stage * BQ + threadIdx.x] = i < Sq ? delta[row] : 0.f;
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&sm.full[s], 32);                // the producer warp's lanes
+      mbar_init(&sm.empty[s], CONSUMERS / 32);   // each consumer warp releases
     }
-  };
-  if (n_iter > 0) load_step(0, 0);
-  attn::cp_async_commit();
+    mbar_init(&sm.kv_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
 
-  float dK[D / 8][4], dV[D / 8][4];
+  const int lane = threadIdx.x % 32;
+  if (threadIdx.x >= CONSUMERS) {        // the producer warpgroup; its first warp loads
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x >= CONSUMERS + 32 || n_iter == 0) return;
+    if (lane == 0) {
+      mbar_expect(&sm.kv_full, 2 * DC * 2 * BOX);
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n)
+      for (int c = 0; c < DC; ++c)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) dK[n][e] = dV[n][e] = 0.f;
-  const int key0 = k0 + r0 + g;           // this lane's keys: key0 and key0 + 8
+        for (int r = 0; r < 2; ++r) {
+          tma_load4(reinterpret_cast<unsigned char*>(sm.k[c]) + r * BOX, &k_map, c * 64,
+                    k0 + r * BN, kh, b, &sm.kv_full);
+          tma_load4(reinterpret_cast<unsigned char*>(sm.v[c]) + r * BOX, &v_map, c * 64,
+                    k0 + r * BN, kh, b, &sm.kv_full);
+        }
+    }
+    for (int it = 0; it < n_iter; ++it) {
+      const int s = it % STAGES;
+      if (it >= STAGES) mbar_wait(&sm.empty[s], ((it / STAGES) & 1) ^ 1);
+      const int h = kh * G + it / nq, q0 = (qt_begin + it % nq) * BN;
+      const int64_t row0 = ((int64_t)b * p.H + h) * p.Sq;
+#pragma unroll
+      for (int r = lane; r < BN; r += 32) {
+        const bool in = q0 + r < p.Sq;
+        sm.lse[s][r] = in ? p.lse[row0 + q0 + r] * attn::LOG2E : attn::inf_f32();
+        sm.delta[s][r] = in ? p.delta[row0 + q0 + r] : 0.f;
+      }
+      if (lane == 0) {
+        mbar_expect(&sm.full[s], 2 * DC * BOX);
+#pragma unroll
+        for (int c = 0; c < DC; ++c) {
+          tma_load4(sm.q[s][c], &q_map, c * 64, q0, h, b, &sm.full[s]);
+          tma_load4(sm.dout[s][c], &do_map, c * 64, q0, h, b, &sm.full[s]);
+        }
+      } else {
+        mbar_arrive(&sm.full[s]);
+      }
+    }
+    return;
+  }
+  setmaxnreg_inc<CONSUMER_REGS>();
+
+  const int wg = threadIdx.x / 128, warp = threadIdx.x % 128 / 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int kw = k0 + wg * BM;           // this warpgroup's keys [kw, kw + 64)
+  const int key0 = kw + warp * 16 + g;   // this lane's keys: key0 and key0 + 8
+  const uint32_t k_addr = smem_u32(sm.k) + wg * BM * 128;
+  const uint32_t v_addr = smem_u32(sm.v) + wg * BM * 128;
+  float dK[D / 2], dV[D / 2];            // [64 keys x D] f32 in wgmma's layout
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dK[i] = dV[i] = 0.f;
+  if (n_iter > 0) mbar_wait(&sm.kv_full, 0);
 
   for (int it = 0; it < n_iter; ++it) {
-    const int stage = it & 1;
-    attn::cp_async_wait<0>();   // step it (and K, V) landed
-    __syncthreads();            // ... for every thread; step it - 1 is done
-    if (it + 1 < n_iter) load_step(it + 1, stage ^ 1);
-    attn::cp_async_commit();
+    const int s = it % STAGES;
+    const int q0 = (qt_begin + it % nq) * BN;
+    mbar_wait(&sm.full[s], (it / STAGES) & 1);
+    const int kind =
+        tile_kind(q0, BN, kw, BM, p.Sq, p.Sk, p.causal, p.window, p.kv_offset);
+    if (kind != EMPTY) {
+      const uint32_t q_addr = smem_u32(sm.q[s]), do_addr = smem_u32(sm.dout[s]);
+      float st[32], dpt[32];             // S^T = K Q^T, dP^T = V dO^T: keys x query rows
+      wg_fence();
+      issue_abt<D>(st, k_addr, 2 * BOX, q_addr);
+      wg_commit();
+      issue_abt<D>(dpt, v_addr, 2 * BOX, do_addr);
+      wg_commit();
 
-    const bf16* sQ = sQD + stage * 2 * BQ * LD;
-    const bf16* sdO = sQ + BQ * LD;
-    const float* L2 = sL + stage * BQ;     // lse in log2 units
-    const float* Dl = sDl + stage * BQ;
-    const int q0 = (qt_begin + it % nq) * BQ;
-    float s[BQ / 8][4], dp[BQ / 8][4];
-#pragma unroll
-    for (int n = 0; n < BQ / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-    mma_abt<D, BQ>(s, sK + r0 * LD, sQ, lane);     // S^T = K Q^T
-    mma_abt<D, BQ>(dp, sV + r0 * LD, sdO, lane);   // dP^T = V dO^T
-
-    uint32_t pp[BQ / 8][2], ds[BQ / 8][2];
-#pragma unroll
-    for (int n = 0; n < BQ / 8; ++n)
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int key = key0 + 8 * half;
-        float p[2], d[2];
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          const int col = n * 8 + 2 * tig + c, qi = q0 + col;
-          const bool vis = key < Sk && qi < Sq && sees(kv_offset + qi, key, causal, window);
-          p[c] = vis ? attn::ex2(fmaf(s[n][2 * half + c], scale_log2, -L2[col])) : 0.f;
-          d[c] = p[c] * (dp[n][2 * half + c] - Dl[col]);
-        }
-        pp[n][half] = attn::pack_bf16(p[0], p[1]);
-        ds[n][half] = attn::pack_bf16(d[0], d[1]);
+      // P^T while dP^T is computed (row = key, column = query row, whose
+      // lse and delta the stage holds); then dV += P^T dO while dS^T is
+      // formed, and dK += dS^T Q: dO and Q read MN-major where they lie
+      const float* L = sm.lse[s];
+      const float* Dl = sm.delta[s];
+      auto lse2 = [&](int, int n, int c) { return L[8 * n + 2 * t4 + c]; };
+      auto dl = [&](int, int n, int c) { return Dl[8 * n + 2 * t4 + c]; };
+      uint32_t pf[8][2], df[8][2];
+      wg_wait<1>();
+      fence_regs<32>(st);
+      if (kind == FULL) {
+        probs<false>(st, p.scale_log2, lse2, [](int, int, int) { return true; }, pf);
+      } else {
+        probs<true>(st, p.scale_log2, lse2,
+                    [&](int i, int n, int c) {
+                      const int key = key0 + 8 * i, qi = q0 + 8 * n + 2 * t4 + c;
+                      return key < p.Sk && qi < p.Sq &&
+                             sees(p.kv_offset + qi, key, p.causal, p.window);
+                    },
+                    pf);
       }
-    mma_pb<D, BQ>(dV, pp, sdO, lane);    // dV += P^T dO
-    mma_pb<D, BQ>(dK, ds, sQ, lane);     // dK += dS^T Q
+      fence_regs<D / 2>(dV);
+      wg_fence();
+      issue_ab<D>(dV, pf, do_addr);
+      wg_commit();
+      wg_wait<1>();
+      fence_regs<32>(dpt);
+      dscores(st, dpt, dl, df);
+      fence_regs<D / 2>(dK);
+      wg_fence();
+      issue_ab<D>(dK, df, q_addr);
+      wg_commit();
+      wg_wait<0>();
+      fence_regs<D / 2>(dV);
+      fence_regs<D / 2>(dK);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&sm.empty[s]);
   }
-  attn::cp_async_wait<0>();   // no copy left in flight (K and V when n_iter = 0)
 
-  store_rows<D>(dK, scale, tig, [&](int half) -> bf16* {
-    const int key = key0 + 8 * half;
-    return key < Sk ? dk + b * dkst.b + kh * dkst.h + key * dkst.s : nullptr;
+  store_rows<D>(dK, p.scale, [&](int i) -> bf16* {
+    const int key = key0 + 8 * i;
+    return key < p.Sk ? p.dk + b * p.dkst.b + kh * p.dkst.h + key * p.dkst.s : nullptr;
   });
-  store_rows<D>(dV, 1.f, tig, [&](int half) -> bf16* {
-    const int key = key0 + 8 * half;
-    return key < Sk ? dv + b * dvst.b + kh * dvst.h + key * dvst.s : nullptr;
+  store_rows<D>(dV, 1.f, [&](int i) -> bf16* {
+    const int key = key0 + 8 * i;
+    return key < p.Sk ? p.dv + b * p.dvst.b + kh * p.dvst.h + key * p.dvst.s : nullptr;
   });
 }
 
-// grid (query tiles, H, B), 128 threads; warp w owns query rows q0 + 16w
-// .. q0 + 16w + 15; causal grids start with the last tiles (the most
-// keys).  K and V of the next key tile are copied while this one is
-// computed.
+// grid: ceil(Sq / 128) query blocks x H x B, the query block slowest; a
+// causal grid starts with the last rows (the most keys).  Warpgroup w owns
+// query rows q0 + 64 w ..; step it is key tile kt_begin + it.
 template <int D>
-__global__ void __launch_bounds__(128)
-flash_bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                        const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                        const float* __restrict__ lse, const float* __restrict__ delta,
-                        bf16* __restrict__ dq, Strides qst, Strides kst, Strides vst,
-                        Strides dost, Strides dqst, int H, int Kh, int Sq, int Sk, int causal,
-                        int window, int kv_offset, float scale, float scale_log2) {
-  using C = BwdCfg<D>;
-  constexpr int ROWS = C::ROWS, BK = C::BK, LD = C::LD;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sdO = sQ + ROWS * LD;
-  bf16* sKV = sdO + ROWS * LD;          // stage s: K at s * 2 * BK * LD, V after it
-
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
-  const int g = lane / 4, tig = lane % 4, r0 = warp * 16;
-  const int n_qt = gridDim.x;
-  const int qt = causal ? n_qt - 1 - (int)blockIdx.x : (int)blockIdx.x;
-  const int h = blockIdx.y, b = blockIdx.z, kh = h / (H / Kh), q0 = qt * ROWS;
-  const int rows_valid = min(ROWS, Sq - q0);
+__global__ void __launch_bounds__(THREADS, 1)
+flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                          const __grid_constant__ CUtensorMap k_map,
+                          const __grid_constant__ CUtensorMap v_map,
+                          const __grid_constant__ CUtensorMap do_map, const Params p) {
+  constexpr int DC = D / 64;
+  auto& sm = smem<DqSmem<D>>();
+  const int per = p.H * p.B, n_qb = (int)gridDim.x / per, qb = (int)(blockIdx.x / per);
+  const int q0 = (p.causal ? n_qb - 1 - qb : qb) * BLOCK;
+  const int h = (int)(blockIdx.x % per) % p.H, b = (int)(blockIdx.x % per) / p.H;
+  const int kh = h / (p.H / p.Kh);
   int kt_begin, kt_end;
-  key_tiles(q0, rows_valid, Sk, BK, causal, window, kv_offset, kt_begin, kt_end);
+  key_tiles(q0, min(BLOCK, p.Sq - q0), p.Sk, BN, p.causal, p.window, p.kv_offset, kt_begin,
+            kt_end);
+  const int n_iter = kt_end - kt_begin;
 
-  const bf16* kb = k + b * kst.b + kh * kst.h;
-  const bf16* vb = v + b * vst.b + kh * vst.h;
-  stage_rows<D>(sQ, q + b * qst.b + h * qst.h, qst.s, q0, ROWS, Sq);
-  stage_rows<D>(sdO, dout + b * dost.b + h * dost.h, dost.s, q0, ROWS, Sq);
-  auto load_tile = [&](int kt, int stage) {
-    bf16* dst = sKV + stage * 2 * BK * LD;
-    stage_rows<D>(dst, kb, kst.s, kt * BK, BK, Sk);
-    stage_rows<D>(dst + BK * LD, vb, vst.s, kt * BK, BK, Sk);
-  };
-  if (kt_begin < kt_end) load_tile(kt_begin, 0);
-  attn::cp_async_commit();
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&sm.full[s], 1);
+      mbar_init(&sm.empty[s], CONSUMERS / 32);
+    }
+    mbar_init(&sm.qd_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
 
-  // this lane's rows, their lse (in log2 units) and delta
-  int row[2];
+  const int lane = threadIdx.x % 32;
+  if (threadIdx.x >= CONSUMERS) {        // the producer warpgroup; one thread loads
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x != CONSUMERS || n_iter == 0) return;
+    mbar_expect(&sm.qd_full, 2 * DC * 2 * BOX);
+#pragma unroll
+    for (int c = 0; c < DC; ++c)
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        tma_load4(reinterpret_cast<unsigned char*>(sm.q[c]) + r * BOX, &q_map, c * 64,
+                  q0 + r * BN, h, b, &sm.qd_full);
+        tma_load4(reinterpret_cast<unsigned char*>(sm.dout[c]) + r * BOX, &do_map, c * 64,
+                  q0 + r * BN, h, b, &sm.qd_full);
+      }
+    for (int it = 0; it < n_iter; ++it) {
+      const int s = it % STAGES, key = (kt_begin + it) * BN;
+      if (it >= STAGES) mbar_wait(&sm.empty[s], ((it / STAGES) & 1) ^ 1);
+      mbar_expect(&sm.full[s], 2 * DC * BOX);
+#pragma unroll
+      for (int c = 0; c < DC; ++c) {
+        tma_load4(sm.k[s][c], &k_map, c * 64, key, kh, b, &sm.full[s]);
+        tma_load4(sm.v[s][c], &v_map, c * 64, key, kh, b, &sm.full[s]);
+      }
+    }
+    return;
+  }
+  setmaxnreg_inc<CONSUMER_REGS>();
+
+  const int wg = threadIdx.x / 128, warp = threadIdx.x % 128 / 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int qw = q0 + wg * BM;           // this warpgroup's rows [qw, qw + 64)
+  int row[2];                            // this lane's rows, their lse (log2 units), delta
   float lse2[2], dl[2];
 #pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    row[half] = q0 + r0 + g + 8 * half;
-    const int64_t idx = ((int64_t)b * H + h) * Sq + row[half];
-    lse2[half] = row[half] < Sq ? lse[idx] * attn::LOG2E : attn::inf_f32();
-    dl[half] = row[half] < Sq ? delta[idx] : 0.f;
+  for (int i = 0; i < 2; ++i) {
+    row[i] = qw + warp * 16 + g + 8 * i;
+    const int64_t idx = ((int64_t)b * p.H + h) * p.Sq + row[i];
+    lse2[i] = row[i] < p.Sq ? p.lse[idx] * attn::LOG2E : attn::inf_f32();
+    dl[i] = row[i] < p.Sq ? p.delta[idx] : 0.f;
   }
-  float dQ[D / 8][4];
+  const uint32_t q_addr = smem_u32(sm.q) + wg * BM * 128;
+  const uint32_t do_addr = smem_u32(sm.dout) + wg * BM * 128;
+  float dQ[D / 2];                       // [64 rows x D] f32 in wgmma's layout
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dQ[n][e] = 0.f;
-  const bool active = r0 < rows_valid;   // this warp has a row
+  for (int i = 0; i < D / 2; ++i) dQ[i] = 0.f;
+  if (n_iter > 0) mbar_wait(&sm.qd_full, 0);
 
-  for (int kt = kt_begin, it = 0; kt < kt_end; ++kt, ++it) {
-    const int stage = it & 1;
-    attn::cp_async_wait<0>();
-    __syncthreads();
-    if (kt + 1 < kt_end) load_tile(kt + 1, stage ^ 1);
-    attn::cp_async_commit();
-    if (!active) continue;
+  for (int it = 0; it < n_iter; ++it) {
+    const int s = it % STAGES, kt = kt_begin + it;
+    mbar_wait(&sm.full[s], (it / STAGES) & 1);
+    const int kind =
+        tile_kind(qw, BM, kt * BN, BN, p.Sq, p.Sk, p.causal, p.window, p.kv_offset);
+    if (kind != EMPTY) {
+      const uint32_t k_addr = smem_u32(sm.k[s]), v_addr = smem_u32(sm.v[s]);
+      float sc[32], dp[32];              // S = Q K^T, dP = dO V^T: query rows x keys
+      wg_fence();
+      issue_abt<D>(sc, q_addr, 2 * BOX, k_addr);
+      wg_commit();
+      issue_abt<D>(dp, do_addr, 2 * BOX, v_addr);
+      wg_commit();
 
-    const bf16* sK = sKV + stage * 2 * BK * LD;
-    const bf16* sV = sK + BK * LD;
-    float s[BK / 8][4], dp[BK / 8][4];
-#pragma unroll
-    for (int n = 0; n < BK / 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
-    mma_abt<D, BK>(s, sQ + r0 * LD, sK, lane);     // S = Q K^T
-    mma_abt<D, BK>(dp, sdO + r0 * LD, sV, lane);   // dP = dO V^T
-
-    uint32_t ds[BK / 8][2];
-#pragma unroll
-    for (int n = 0; n < BK / 8; ++n)
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        float d[2];
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          const int key = kt * BK + n * 8 + 2 * tig + c;
-          const bool vis = key < Sk && row[half] < Sq &&
-                           sees(kv_offset + row[half], key, causal, window);
-          const float p =
-              vis ? attn::ex2(fmaf(s[n][2 * half + c], scale_log2, -lse2[half])) : 0.f;
-          d[c] = p * (dp[n][2 * half + c] - dl[half]);
-        }
-        ds[n][half] = attn::pack_bf16(d[0], d[1]);
+      // P while dP is computed, then dS, then dQ += dS K: K read MN-major
+      // where it lies
+      auto l2 = [&](int i, int, int) { return lse2[i]; };
+      auto d2 = [&](int i, int, int) { return dl[i]; };
+      uint32_t pf[8][2], df[8][2];       // pf unused: dQ needs dS only
+      wg_wait<1>();
+      fence_regs<32>(sc);
+      if (kind == FULL) {
+        probs<false>(sc, p.scale_log2, l2, [](int, int, int) { return true; }, pf);
+      } else {
+        probs<true>(sc, p.scale_log2, l2,
+                    [&](int i, int n, int c) {
+                      const int key = kt * BN + 8 * n + 2 * t4 + c;
+                      return key < p.Sk && row[i] < p.Sq &&
+                             sees(p.kv_offset + row[i], key, p.causal, p.window);
+                    },
+                    pf);
       }
-    mma_pb<D, BK>(dQ, ds, sK, lane);     // dQ += dS K
+      wg_wait<0>();
+      fence_regs<32>(dp);
+      dscores(sc, dp, d2, df);
+      fence_regs<D / 2>(dQ);
+      wg_fence();
+      issue_ab<D>(dQ, df, k_addr);
+      wg_commit();
+      wg_wait<0>();
+      fence_regs<D / 2>(dQ);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&sm.empty[s]);
   }
-  attn::cp_async_wait<0>();
 
-  store_rows<D>(dQ, scale, tig, [&](int half) -> bf16* {
-    return row[half] < Sq ? dq + b * dqst.b + h * dqst.h + row[half] * dqst.s : nullptr;
+  store_rows<D>(dQ, p.scale, [&](int i) -> bf16* {
+    return row[i] < p.Sq ? p.dq + b * p.dqst.b + h * p.dqst.h + row[i] * p.dqst.s : nullptr;
   });
 }
+
+template <int D>
+constexpr size_t dkdv_smem() { return sizeof(DkdvSmem<D>) + 1024; }   // + the base's alignment
+template <int D>
+constexpr size_t dq_smem() { return sizeof(DqSmem<D>) + 1024; }
+
+// The two kernels on q/k/v/dout (strides st[0], st[1], st[2], st[4]),
+// writing dq/dk/dv (st[5], st[6], st[7]); delta already computed.
+template <int D>
+cudaError_t launch(const void* q, const void* k, const void* v, const void* dout,
+                   const float* lse, const float* delta, void* dq, void* dk, void* dv,
+                   const Strides* st, int B, int H, int Kh, int Sq, int Sk, int causal,
+                   int window, int kv_offset, cudaStream_t s) {
+  static const cudaError_t a1 = attn::allow_smem(flash_bwd_dkdv_wgmma_kernel<D>, dkdv_smem<D>());
+  static const cudaError_t a2 = attn::allow_smem(flash_bwd_dq_wgmma_kernel<D>, dq_smem<D>());
+  if (a1 != cudaSuccess) return a1;
+  if (a2 != cudaSuccess) return a2;
+  CUtensorMap qm, km, vm, dom;
+  if (!heads_map(&qm, q, B, H, Sq, D, st[0].b, st[0].h, st[0].s, BN) ||
+      !heads_map(&km, k, B, Kh, Sk, D, st[1].b, st[1].h, st[1].s, BN) ||
+      !heads_map(&vm, v, B, Kh, Sk, D, st[2].b, st[2].h, st[2].s, BN) ||
+      !heads_map(&dom, dout, B, H, Sq, D, st[4].b, st[4].h, st[4].s, BN))
+    return cudaErrorInvalidValue;
+  const float scale = 1.0f / sqrtf((float)D);
+  const Params p{lse, delta, static_cast<bf16*>(dq), static_cast<bf16*>(dk),
+                 static_cast<bf16*>(dv), st[5], st[6], st[7], B, H, Kh, Sq, Sk, causal, window,
+                 kv_offset, scale, attn::LOG2E * scale};
+  flash_bwd_dkdv_wgmma_kernel<D>
+      <<<(unsigned)((Sk + BLOCK - 1) / BLOCK * Kh * B), THREADS, dkdv_smem<D>(), s>>>(
+          qm, km, vm, dom, p);
+  if (const cudaError_t e = cudaGetLastError()) return e;
+  flash_bwd_dq_wgmma_kernel<D>
+      <<<(unsigned)((Sq + BLOCK - 1) / BLOCK * H * B), THREADS, dq_smem<D>(), s>>>(
+          qm, km, vm, dom, p);
+  return cudaGetLastError();
+}
+
+}  // namespace bwd
 
 // f32: CUDA-core products.  128 threads; a block owns 32 keys (dK/dV) or
 // 32 query rows (dQ) and steps over 32 rows of the other side, staged in
@@ -1070,31 +1272,19 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* 
                        const void* dout, const float* lse, float* delta, void* dq, void* dk,
                        void* dv, const Strides* st, int B, int H, int Kh, int Sq, int Sk,
                        int causal, int window, int kv_offset, cudaStream_t s) {
-  const T *tq = static_cast<const T*>(q), *tk = static_cast<const T*>(k),
-          *tv = static_cast<const T*>(v), *tdo = static_cast<const T*>(dout);
-  T *tdq = static_cast<T*>(dq), *tdk = static_cast<T*>(dk), *tdv = static_cast<T*>(dv);
   const int64_t rows = (int64_t)B * H * Sq;
   flash_bwd_delta_kernel<T><<<(unsigned)((rows + 7) / 8), 256, 0, s>>>(
-      static_cast<const T*>(out), tdo, delta, st[3], st[4], H, Sq, D, rows);
+      static_cast<const T*>(out), static_cast<const T*>(dout), delta, st[3], st[4], H, Sq, D,
+      rows);
   if (const cudaError_t e = cudaGetLastError()) return e;
-  const float scale = 1.0f / sqrtf((float)D);
   if constexpr (std::is_same<T, bf16>::value) {
-    using C = BwdCfg<D>;
-    static const cudaError_t a1 = attn::allow_smem(flash_bwd_dkdv_mma_kernel<D>, C::dkdv_smem());
-    static const cudaError_t a2 = attn::allow_smem(flash_bwd_dq_mma_kernel<D>, C::dq_smem());
-    if (a1 != cudaSuccess) return a1;
-    if (a2 != cudaSuccess) return a2;
-    const float scale_log2 = attn::LOG2E * scale;
-    flash_bwd_dkdv_mma_kernel<D>
-        <<<dim3((Sk + C::ROWS - 1) / C::ROWS, Kh, B), 128, C::dkdv_smem(), s>>>(
-            tq, tk, tv, tdo, lse, delta, tdk, tdv, st[0], st[1], st[2], st[4], st[6], st[7], H,
-            Kh, Sq, Sk, causal, window, kv_offset, scale, scale_log2);
-    if (const cudaError_t e = cudaGetLastError()) return e;
-    flash_bwd_dq_mma_kernel<D>
-        <<<dim3((Sq + C::ROWS - 1) / C::ROWS, H, B), 128, C::dq_smem(), s>>>(
-            tq, tk, tv, tdo, lse, delta, tdq, st[0], st[1], st[2], st[4], st[5], H, Kh, Sq,
-            Sk, causal, window, kv_offset, scale, scale_log2);
+    return bwd::launch<D>(q, k, v, dout, lse, delta, dq, dk, dv, st, B, H, Kh, Sq, Sk, causal,
+                          window, kv_offset, s);
   } else {
+    const T *tq = static_cast<const T*>(q), *tk = static_cast<const T*>(k),
+            *tv = static_cast<const T*>(v), *tdo = static_cast<const T*>(dout);
+    T *tdq = static_cast<T*>(dq), *tdk = static_cast<T*>(dk), *tdv = static_cast<T*>(dv);
+    const float scale = 1.0f / sqrtf((float)D);
     constexpr size_t smem = bwd_f32_smem<D>();
     static const cudaError_t a1 = attn::allow_smem(flash_bwd_dkdv_f32_kernel<D>, smem);
     static const cudaError_t a2 = attn::allow_smem(flash_bwd_dq_f32_kernel<D>, smem);
@@ -1107,8 +1297,8 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* 
     flash_bwd_dq_f32_kernel<D><<<dim3((Sq + BT - 1) / BT, H, B), 128, smem, s>>>(
         tq, tk, tv, tdo, lse, delta, tdq, st[0], st[1], st[2], st[4], st[5], H, Kh, Sq, Sk,
         causal, window, kv_offset, scale);
+    return cudaGetLastError();
   }
-  return cudaGetLastError();
 }
 
 void unpack(const int64_t* strides, Strides* st, int n) {

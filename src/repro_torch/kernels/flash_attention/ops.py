@@ -20,8 +20,13 @@ Training differentiates it: :func:`flash_attention` goes through
 :class:`FlashAttentionFn` when grad is on and an input requires it.  Its
 forward also writes each row's log-sum-exp, and its backward is the
 kernel ``flash_attention_bwd`` of the same file (δ = rowsum(dO ∘ O), a
-dK/dV kernel over key tiles and a dQ kernel over query tiles, no
-atomics); the JAX package differentiates its jnp attention instead.
+dK/dV kernel over blocks of 128 keys and a dQ kernel over blocks of 128
+query rows; bf16 on ``wgmma`` fed by TMA, each gradient element one
+block's sum in a fixed order, with no atomic add, so every call gives the
+same bits); the JAX package differentiates its jnp attention instead.
+:func:`tile_kind`, :func:`query_range` and :func:`key_tiles` are the
+host's copies of how the backward classifies its tiles and which tiles
+its blocks walk.
 """
 from __future__ import annotations
 
@@ -47,6 +52,9 @@ _BWD_ARGS = [_P] * 10 + [_I] * 10 + [_STRIDES, _P]
 # part_m part_l part_acc out, dtype n_split B H Sq D, strides, stream
 _MERGE_ARGS = [_P] * 4 + [_I] * 6 + [_STRIDES, _P]
 HEAD_DIMS = (64, 128)                   # D the kernel is built for
+BWD_BLOCK = 128     # the bf16 backward's own rows a block: keys (dK/dV) or
+#                     query rows (dQ), two warpgroups of 64
+BWD_TILE = 64       # rows of a tile it streams: query rows (dK/dV) or keys (dQ)
 MERGE_HEAD_DIMS = (32, 64, 128, 256)    # D the merge is built for
 MAX_WARPS = 4                           # warps of a block
 MAX_SPLITS_64 = 4   # splits of a 64-row tile, whose last block folds in the
@@ -97,6 +105,49 @@ def split_plan(B: int, H: int, Sq: int, Sk: int, D: int, index: int) -> tuple:
     """:func:`plan` on CUDA device ``index``: its SMs, and the blocks of
     the tile that one of them holds."""
     return plan(B, H, Sq, Sk, K.n_sms(index), blocks_per_sm(tile_rows(Sq), D))
+
+
+def tile_kind(q0: int, nq: int, k0: int, nk: int, Sq: int, Sk: int,
+              causal: bool, window: int, kv_offset: int) -> str:
+    """How the mask meets the tile of query rows [q0, q0 + nq) and keys
+    [k0, k0 + nk), as the bf16 backward classifies it
+    (``csrc/flash_attention.cu``, ``bwd::tile_kind``): "empty" when no pair
+    is visible (rows at or past Sq and keys at or past Sk are no pair),
+    "full" when every pair of the whole tile is (none past an edge), so
+    the kernel skips the mask, else "edge".  Query row i sits at position
+    ``kv_offset + i``; the rule is :func:`flash_attention_ref`'s."""
+    rq, rk = min(nq, Sq - q0), min(nk, Sk - k0)
+    if rq <= 0 or rk <= 0:
+        return "empty"
+    q_lo = kv_offset + q0
+    q_hi, k_hi = q_lo + rq - 1, k0 + rk - 1
+    if (causal and k0 > q_hi) or (window > 0 and k_hi <= q_lo - window):
+        return "empty"
+    full = (rq == nq and rk == nk and (not causal or k_hi <= q_lo)
+            and (window <= 0 or k0 > q_hi - window))
+    return "full" if full else "edge"
+
+
+def query_range(k0: int, n: int, Sq: int, causal: bool, window: int,
+                kv_offset: int) -> tuple:
+    """The query rows [lo, hi) that can see a key of [k0, k0 + n) (none
+    when hi <= lo): the rows a dK/dV block walks, as the kernel's
+    ``query_range``."""
+    lo = max(0, k0 - kv_offset) if causal else 0
+    hi = min(Sq, k0 + n - 1 + window - kv_offset) if window > 0 else Sq
+    return lo, hi
+
+
+def key_tiles(q0: int, rows: int, Sk: int, bk: int, causal: bool,
+              window: int, kv_offset: int) -> tuple:
+    """The key tiles [begin, end) of ``bk`` keys that query rows [q0, q0 +
+    rows) can see: the tiles a dQ block walks, as the kernel's
+    ``key_tiles``."""
+    q_lo, q_hi = kv_offset + q0, kv_offset + q0 + rows - 1
+    k_end = min(Sk, q_hi + 1) if causal else Sk
+    k_begin = max(0, q_lo - window + 1) if window > 0 else 0
+    begin = k_begin // bk
+    return begin, (-(-k_end // bk) if k_end > k_begin else begin)
 
 
 def _conditions(q, k, v):
@@ -227,8 +278,9 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
     type: q/out/dout [B, H, Sq, D] and k/v [B, Kh, Sk, D] (any strides,
     head dim contiguous), lse [B, H, Sq] f32 from
     :func:`flash_attention_fwd`; see :func:`flash_attention_bwd_ref`.
-    bf16 runs on ``mma.sync`` tensor-core tiles, f32 on CUDA cores.  Rows
-    that see no key get zero gradients."""
+    bf16 runs on ``wgmma`` tiles fed by TMA (the head-split views read
+    in place), f32 on CUDA cores; both give the same bits on every call.
+    Rows that see no key get zero gradients."""
     if K.on_cpu(q, k, v, out, lse, dout):
         return flash_attention_bwd_ref(q, k, v, out, lse, dout,
                                        causal=causal, window=window,

@@ -19,6 +19,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from _hyp import given, settings, st
 
 from repro.kernels.flash_attention.ref import \
     flash_attention_ref as jax_flash_ref
@@ -163,3 +164,111 @@ def test_blockwise_attention_grad_matches_jax(causal, window, G):
     for x, y in zip(a, want):
         np.testing.assert_allclose(x.grad.numpy(), np.asarray(y), atol=ATOL,
                                    rtol=0)
+
+
+# The bf16 backward's host-side copies (``ops.tile_kind``, ``query_range``,
+# ``key_tiles``): exact integer logic, held to the mask that
+# flash_attention_ref applies.
+TILES = ((64, 64), (64, 128), (128, 64), (128, 128))
+
+
+def _jax_mask(Sq, Sk, causal, window, kv_offset):
+    """[Sq, Sk] bool: the pairs the JAX oracle's flash_attention_ref lets
+    through, read from its output: q = 0 gives every visible key the same
+    weight, and v = one-hot key rows make out[i, j] > 0 exactly where row
+    i sees key j."""
+    q = jnp.zeros((1, 1, Sq, Sk), jnp.float32)
+    k = jnp.zeros((1, 1, Sk, Sk), jnp.float32)
+    v = jnp.eye(Sk, dtype=jnp.float32)[None, None]
+    out = jax_flash_ref(q, k, v, causal=causal, window=window,
+                        kv_offset=kv_offset)
+    return torch.from_numpy(np.asarray(out[0, 0]) > 0)
+
+
+def _tile_kinds_hold(Sq, Sk, causal, window, kv_offset, nq, nk, mask):
+    """Every (query tile, key tile) of nq x nk over a grid that runs one
+    tile past each edge: "full" has every pair inside Sq x Sk and visible,
+    "empty" none visible, "edge" the rest."""
+    for q0 in range(0, Sq + nq, nq):
+        for k0 in range(0, Sk + nk, nk):
+            kind = tfa.tile_kind(q0, nq, k0, nk, Sq, Sk, causal, window,
+                                 kv_offset)
+            sub = mask[q0:q0 + nq, k0:k0 + nk]
+            inside = q0 + nq <= Sq and k0 + nk <= Sk
+            want = ("empty" if not sub.any() else
+                    "full" if inside and sub.all() else "edge")
+            assert kind == want, (q0, k0, nq, nk, kind, want)
+
+
+def _visits_cover(Sq, Sk, causal, window, kv_offset, mask):
+    """Every visible pair lies in a (query tile, warpgroup's keys) a dK/dV
+    block walks and a (warpgroup's rows, key tile) a dQ block walks, and
+    neither kernel calls such a tile empty."""
+    blk, t = tfa.BWD_BLOCK, tfa.BWD_TILE
+    seen_kv = torch.zeros_like(mask)
+    for k0 in range(0, Sk, blk):
+        lo, hi = tfa.query_range(k0, blk, Sq, causal, window, kv_offset)
+        if hi <= lo:
+            continue
+        for q0 in range(lo // t * t, -(-hi // t) * t, t):
+            for kw in (k0, k0 + t):
+                if tfa.tile_kind(q0, t, kw, t, Sq, Sk, causal, window,
+                                 kv_offset) != "empty":
+                    seen_kv[q0:q0 + t, kw:kw + t] = True
+    seen_q = torch.zeros_like(mask)
+    for q0 in range(0, Sq, blk):
+        begin, end = tfa.key_tiles(q0, min(blk, Sq - q0), Sk, t, causal,
+                                   window, kv_offset)
+        for kt in range(begin, end):
+            for qw in (q0, q0 + t):
+                if tfa.tile_kind(qw, t, kt * t, t, Sq, Sk, causal, window,
+                                 kv_offset) != "empty":
+                    seen_q[qw:qw + t, kt * t:kt * t + t] = True
+    assert not (mask & ~seen_kv).any() and not (mask & ~seen_q).any()
+
+
+@pytest.mark.parametrize("case", CASES, ids=[c[0] for c in CASES])
+def test_bwd_tile_kinds_and_visits_match_the_mask(case):
+    """The backward's tile classification and the tiles its blocks walk,
+    against the mask of the JAX oracle (which the port's plain version
+    applies too), at every tile size of 64 and 128, for each shape of
+    CASES."""
+    _, _, _, Sq, Sk, causal, window, off = case
+    mask = _jax_mask(Sq, Sk, causal, window, off)
+    from repro_torch.kernels.flash_attention.ref import _visible
+    assert torch.equal(mask, _visible(Sq, Sk, causal, window, off, "cpu"))
+    for nq, nk in TILES:
+        _tile_kinds_hold(Sq, Sk, causal, window, off, nq, nk, mask)
+    _visits_cover(Sq, Sk, causal, window, off, mask)
+
+
+@settings(max_examples=60, deadline=None)
+@given(Sq=st.integers(1, 300), Sk=st.integers(1, 300), causal=st.booleans(),
+       window=st.sampled_from([0, 1, 5, 64, 100, 200]),
+       kv_offset=st.integers(-80, 200), tiles=st.sampled_from(TILES))
+def test_bwd_tile_kinds_property(Sq, Sk, causal, window, kv_offset, tiles):
+    """Drawn shapes, masks and tile sizes: the classification against the
+    brute-force mask of the plain version (flash_attention_ref's), and
+    every visible pair in a tile both kernels walk."""
+    from repro_torch.kernels.flash_attention.ref import _visible
+    mask = _visible(Sq, Sk, causal, window, kv_offset, "cpu")
+    _tile_kinds_hold(Sq, Sk, causal, window, kv_offset, *tiles, mask)
+    _visits_cover(Sq, Sk, causal, window, kv_offset, mask)
+
+
+@pytest.mark.parametrize("Sq,Sk,causal,window,off", [
+    (320, 320, True, 0, 0), (300, 330, True, 100, 30), (200, 130, False, 0, 0),
+    (77, 200, True, 0, 123), (70, 100, True, 8, -20)])
+def test_bwd_tile_kinds_at_larger_shapes(Sq, Sk, causal, window, off):
+    """Shapes of several tiles each (the card tests' ragged and offset
+    ones among them): the classification and the walks hold against the
+    JAX oracle's mask, and a causal square grid meets all three kinds."""
+    mask = _jax_mask(Sq, Sk, causal, window, off)
+    kinds = set()
+    for nq, nk in TILES:
+        _tile_kinds_hold(Sq, Sk, causal, window, off, nq, nk, mask)
+        kinds |= {tfa.tile_kind(q0, nq, k0, nk, Sq, Sk, causal, window, off)
+                  for q0 in range(0, Sq, nq) for k0 in range(0, Sk, nk)}
+    _visits_cover(Sq, Sk, causal, window, off, mask)
+    if (Sq, causal, window) == (320, True, 0):
+        assert kinds == {"full", "edge", "empty"}

@@ -37,8 +37,21 @@ first chunk, each with its largest error against the plain version's f32
 output; then this tree's decode at every split count from 1 to 8 beside
 the card's cluster capacity for it (``latent_max_clusters``).  The parent is a tree whose ``paged_attention.cu`` still serves
 bf16 at D = 576 through ``paged_attention`` and
-``paged_prefill_attention``.  Needs a CUDA card and nvcc; prints one JSON
-object per line.
+``paged_prefill_attention``.
+
+    python3 tools/kernel_ab.py --flash-bwd --parent DIR
+
+times only flash attention's backward (``flash_attention_bwd``, bf16) of
+both trees' ``flash_attention.cu`` at LLaVA-1.5-7B's training shape (B =
+2, H = Kh = 32, S = 2,624, D = 128, causal), llama3-8b's GQA (B = 1, H =
+32, Kh = 8, S = 2,048, causal) and whisper's encoder (B = 4, H = Kh = 12,
+S = 1,500, D = 64, non-causal), parent, change, change, parent, beside
+each shape's bound (the five products at the bf16 tensor-core peak) and
+SDPA's backward (autograd over ``scaled_dot_product_attention``: eager,
+timed with CUDA events, and its kernels' device time from torch.profiler)
+on the same inputs, with each tree's largest error against the plain
+version's f32 gradients.  Needs a CUDA card and
+nvcc; prints one JSON object per line.
 """
 from __future__ import annotations
 
@@ -362,6 +375,120 @@ def flash_ab(libs, gen, sms, parent_plan):
                     for r, n in sweep[tag]}}), flush=True)
 
 
+def event_ms(fn, reps: int = 20) -> float:
+    """Eager time of one call: CUDA events around ``reps`` calls, median
+    of 7 (after a warm-up call)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(7):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        b.synchronize()
+        out.append(a.elapsed_time(b) / reps)
+    return statistics.median(out)
+
+
+def profiled_ms(fn, reps: int = 5) -> float:
+    """Device time of one call of ``fn``: the summed time of every kernel
+    it launches, from a torch.profiler trace of ``reps`` calls (after a
+    warm-up call)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / reps / 1e3
+
+
+def flash_bwd_ab(libs, gen):
+    """bf16 flash attention backward of both trees through their C entry
+    ``flash_attention_bwd`` (the same interface), at three training
+    shapes, beside the bound and SDPA's backward."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.ops import flash_attention_fwd
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_ref, flash_attention_fwd_ref)
+    fns = {}
+    for n in ("parent_fa", "fa"):
+        fns[n] = libs[n].flash_attention_bwd
+        fns[n].argtypes = [_P] * 10 + [_I] * 10 + [
+            ctypes.POINTER(ctypes.c_int64), _P]
+        fns[n].restype = _I
+    # (tag, B, H, Kh, S, D, causal)
+    for tag, B, H, Kh, S, D, causal in [
+            ("llava-train", 2, 32, 32, 2624, 128, True),
+            ("llama3-gqa", 1, 32, 8, 2048, 128, True),
+            ("whisper-enc", 4, 12, 12, 1500, 64, False)]:
+        q, do = (torch.randn((B, H, S, D), generator=gen,
+                             device="cuda").bfloat16() for _ in range(2))
+        k, v = (torch.randn((B, Kh, S, D), generator=gen,
+                            device="cuda").bfloat16() for _ in range(2))
+        out, lse = flash_attention_fwd(q, k, v, causal=causal)
+        grads = {n: (torch.empty_like(q), torch.empty_like(k),
+                     torch.empty_like(v)) for n in fns}
+        delta = torch.empty((B, H, S), device="cuda")
+        strides = (ctypes.c_int64 * 24)(*(
+            st for t in (q, k, v, out, do, *grads["fa"])
+            for st in t.stride()[:3]))
+
+        def call(n):
+            dq, dk, dv = grads[n]
+            return lambda: fns[n](
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), 1, B, H, Kh, S,
+                S, D, int(causal), 0, 0, strides,
+                torch.cuda.current_stream().cuda_stream)
+        errs = {}
+        want_o, want_lse = flash_attention_fwd_ref(q.float(), k.float(),
+                                                   v.float(), causal=causal)
+        want = flash_attention_bwd_ref(q.float(), k.float(), v.float(),
+                                       want_o, want_lse, do.float(),
+                                       causal=causal)
+        for n in fns:
+            if call(n)() != 0:
+                raise RuntimeError(f"{n}: flash_attention_bwd failed")
+            torch.cuda.synchronize()
+            errs[n] = max((g.float() - w).abs().max().item()
+                          for g, w in zip(grads[n], want))
+        del want, want_o, want_lse
+        ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
+        gqa = {"enable_gqa": True} if Kh != H else {}
+        so = F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal,
+                                            **gqa)
+        pairs = B * H * (S * (S + 1) // 2 if causal else S * S)
+
+        def sdpa_bwd():
+            torch.autograd.grad(so, (ql, kl, vl), do, retain_graph=True)
+        print(json.dumps({
+            "flash_bwd": f"{tag}: B={B} H={H} Kh={Kh} S={S} D={D} "
+                         f"{'causal' if causal else 'non-causal'} bf16",
+            "device_ms": alternate(call("parent_fa"), call("fa"), graph_ms),
+            "eager_ms": alternate(call("parent_fa"), call("fa"), event_ms),
+            "order": "parent, change, change, parent",
+            "max_abs_err": {"parent": errs["parent_fa"],
+                            "change": errs["fa"]},
+            "bound_ms": 10 * pairs * D / 989e12 * 1e3,
+            "bound_by": "operations (5 products, 10 * pairs * D FLOP at "
+                        "989 TFLOP/s bf16)",
+            "pairs": pairs,
+            "sdpa_bwd_ms": event_ms(sdpa_bwd),
+            "sdpa_bwd_device_ms": profiled_ms(sdpa_bwd)}), flush=True)
+        del q, k, v, do, out, lse, grads, delta, ql, kl, vl, so
+        torch.cuda.empty_cache()
+
+
 def cache_write_ab(libs, gen):
     """The write of one layer's K and V rows into a 513-block pool (32
     layers of w = 4096 for LLaVA, 12 of w = 768 for whisper; bf16): the
@@ -503,6 +630,8 @@ def main() -> int:
     ap.add_argument("--parent", required=True, type=Path)
     ap.add_argument("--mla", action="store_true",
                     help="only MLA's decode and chunked prefill at D = 576")
+    ap.add_argument("--flash-bwd", action="store_true",
+                    help="only flash attention's backward (bf16)")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -522,6 +651,12 @@ def main() -> int:
         print(json.dumps({"card": card}), flush=True)
         mla_ab(libs, gen, sms, parent_function(
             args.parent, "kernels/paged_attention/ops.py", "decode_plan"))
+        return 0
+    if args.flash_bwd:
+        libs = build({"fa": (csrc / "flash_attention.cu", csrc),
+                      "parent_fa": (pcsrc / "flash_attention.cu", pcsrc)})
+        print(json.dumps({"card": card}), flush=True)
+        flash_bwd_ab(libs, gen)
         return 0
     scan = (csrc / "selective_scan.cu").read_text()
     old = "expf(dtv * a[i])"
