@@ -14,8 +14,9 @@ on failure:
             (HMMA instructions; HGMMA, wgmma, in the latent-row kernel
             and in flash attention's bf16 backward) and from ptxas that
             the latent-row kernel, every flash backward kernel, the scan's
-            per-head mode and the D = 160 instances of decode and the
-            chunked-prefill tile do not spill;
+            per-head mode, its backward kernels (both modes) and the D =
+            160 instances of decode and the chunked-prefill tile do not
+            spill;
 3. kernels- each kernel against its plain PyTorch version on the card: the
             attention and cache-write kernels at full-width LLaVA-1.5-7B
             shapes (H = Kh = 32, D = 128, page 16, w = 4096), in f32 and
@@ -80,6 +81,13 @@ on failure:
             LLaVA's, llama3-8b's and whisper's shapes beside each one's
             bound and SDPA's backward, and the forward with lse beside the
             forward row and SDPA's forward at the training shape;
+            the selective scan's backward kernels against their plain
+            backward: Mamba-1 at falcon-mamba-7b's training shape (B = 2,
+            S = 2048, d = 8192, N = 16, bf16), in f32, and with h0 and
+            dh_final at a ragged S; the per-head mode at zamba2-7b's
+            widths (S = 2048, bf16; f32 with h0 and dh_final, ragged S);
+            every call twice, bit-equal; the bf16 training shapes timed
+            beside their bound and the plain backward;
 4. model  - the port's runner on the card against the same runner on the
             CPU (plain versions) on reduced LLaVA, reduced falcon-mamba
             (batched chunks of different lengths) and reduced whisper-small
@@ -87,16 +95,24 @@ on failure:
             reduced granite-moe-1b-a400m, reduced DeepSeek-V2 (latent
             pool, D = 80), reduced zamba2-7b (Mamba-2 + shared attention)
             and reduced gemma3-4b (sliding window): logits per step;
-   train  - reduced LLaVA-1.5-7B in f32: the loss and every gradient leaf
+   train  - reduced LLaVA-1.5-7B, falcon-mamba-7b, zamba2-7b and
+            granite-moe-1b-a400m in f32: the loss and every gradient leaf
             of a training step on the card against the CPU (within 1e-4
-            of the leaf's largest magnitude), and one train_step; then
+            of the leaf's largest magnitude), each kernel's launches as
+            remat makes them, and one train_step; then
             full-width LLaVA-1.5-7B cut to 16 layers, random bf16
             weights, 4 AdamW steps (lr 1e-4 after a 100-step warmup)
             with remat on one batch of B = 2 x
             (2048 text + 576 image) from train.data.batches: finite
             losses that fall, step time, tokens/s, peak memory, the
             flash forward (32) and backward (16) launches a step and no
-            plain-version call on a CUDA tensor; then the main of
+            plain-version call on a CUDA tensor; then falcon-mamba-7b at
+            full width cut to 32 layers and granite-moe-1b-a400m (24
+            layers, not cut) the same way on B = 2 x 2048 text tokens:
+            the scan forward (64) and backward (32) launches a step and
+            the backward's share of a profiled step; the flash forward
+            (48) and backward (24) launches, the aux loss and the share
+            of dropped (token, expert) pairs a step; then the main of
             ``python -m repro_torch.train.train_mm`` at its mini config
             for 20 steps, its loss falling;
 5. serve  - three main paths through ``repro_torch.engine.api.Engine``,
@@ -156,7 +172,10 @@ on failure:
             ``*_zamba2`` rows at zamba2-7b's widths, their launches the
             zamba2 path's; the ``*_d160`` rows at stablelm-12b's attention,
             their launches its CLI path's, ``cli_max_abs_err`` their error
-            at the shapes of that path), then the final status line.
+            at the shapes of that path; ``selective_scan_bwd`` with the
+            falcon-mamba training step's launches, and
+            ``selective_scan_heads_bwd`` with the reduced zamba2 step's),
+            then the final status line.
 
 Exits non-zero (and prints no status line) without a card or outside the
 repository.
@@ -1201,6 +1220,140 @@ def heads_bound(B, S, isz, fma, rate, Hh=ZH, P=ZP, N=ZN) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+# The scan's backward against its plain backward on the same inputs,
+# upcast, per output (ddt, dx, dA, dB, dC, dh0): f32 within 1e-4 of the
+# output's largest magnitude (the same sums in another order: dB and dC
+# over 8192 or 7168 channels, dA over B x S steps and lanes, the reverse
+# recurrence with another rounding of its FMAs); bf16 the same plus
+# |want| / 128 per element (ddt, dx, dB and dC are rounded once to bf16,
+# 2^-8 relative at most, with a factor 2 of margin; dA and dh0 stay f32).
+SCAN_BWD_TOL = {"float32": (1e-4, 0.0), "bfloat16": (1e-4, 1 / 128)}
+SCAN_GRADS = ("ddt", "dx", "dA", "dB", "dC", "dh0")
+
+
+def scan_bwd_check(name, dtype, got, want) -> float:
+    """Each gradient's largest error against its largest magnitude; fails
+    unless every element is within the bar.  Returns the largest absolute
+    error."""
+    import torch
+    tol, rtol = SCAN_BWD_TOL[dname(dtype)]
+    errs = {}
+    for part, g, w in zip(SCAN_GRADS, got, want):
+        g, w = g.float(), w.float()
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"{name}/{part}: non-finite kernel output")
+        err = (g - w).abs()
+        top = w.abs().max().item()
+        over = (err - tol * top - rtol * w.abs()).max().item()
+        errs[part] = {"max_abs_err": err.max().item(), "max_abs_want": top,
+                      "rel_to_max": err.max().item() / max(top, 1e-30)}
+        if not over <= 0:
+            raise AssertionError(f"{name}/{part} {dname(dtype)}: max abs err "
+                                 f"{err.max().item()} against max |want| "
+                                 f"{top}: over the bar by {over}")
+    log({"check": name, "dtype": dname(dtype), "tol_rel_to_max": tol,
+         "rtol": rtol, **errs})
+    return max(e["max_abs_err"] for e in errs.values())
+
+
+def scan_bwd_bound(B, S, d, N, isz, H=None, with_state=False) -> tuple:
+    """The least time of one backward call: dt, x, B, C (inputs' type), A
+    and dy (f32) read once, ddt, dx, dB, dC (inputs' type), dA and dh0
+    (f32) written once (h0 and dh_final read once when given); against
+    the larger of about 12 f32 instructions per (step, channel, state)
+    over the f32 lanes (the state rebuilt: dt x B and its FMA; the reverse
+    step: g, dC, dB, dx, dA h_{t-1}, ddt's three, dA's two, g dA) and one
+    exponential per (step, channel, state) (Mamba-1; per-head mode: per
+    step and head) over the special-function units."""
+    w = d if H is None else H
+    a = d * N if H is None else H
+    nbytes = 2 * (B * S * w + B * S * d + 2 * B * S * N) * isz \
+        + 2 * a * 4 + B * S * d * 4 + B * d * N * 4 * (3 if with_state else 1)
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = max(12 * B * S * d * N / fma_rate(),
+                B * S * (d * N if H is None else H) / exp_rate()) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def scan_bwd_cases(gen, dev, results):
+    """Both backward kernels against their plain backward: Mamba-1 at
+    falcon-mamba-7b's training shape (B = 2, S = 2048, d = 8192, N = 16,
+    bf16), in f32 (S = 512), and with h0 and dh_final given at a ragged S;
+    the per-head mode at zamba2-7b's widths (H = 112, P = 64, N = 64, S =
+    2048, B = 1, bf16) and in f32 with h0 and dh_final at a ragged S.
+    Every call twice, bit-equal; the bf16 training shapes timed (eager and
+    CUDA-graph replay) beside the bound and the plain backward (no single
+    PyTorch call computes this gradient: library none)."""
+    import torch
+    from repro_torch.kernels.selective_scan import ops as so
+    from repro_torch.kernels.selective_scan import ref as sr
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+    # (row, tag, B, S, H or None, dtype, h0 and dh_final given, timed)
+    cases = [("selective_scan_bwd", "falcon-train", 2, TRAIN_S, None,
+              torch.bfloat16, False, True),
+             ("selective_scan_bwd", "f32", 1, 512, None, torch.float32,
+              False, False),
+             ("selective_scan_bwd", "h0-dhf-ragged", 2, 300, None,
+              torch.bfloat16, True, False),
+             ("selective_scan_heads_bwd", "zamba2-train", 1, TRAIN_S, ZH,
+              torch.bfloat16, False, True),
+             ("selective_scan_heads_bwd", "f32-h0-dhf-ragged", 1, 203, ZH,
+              torch.float32, True, False)]
+    errs = {}
+    for row, tag, B, S, Hh, dtype, given, timed in cases:
+        d, N = (D_INNER, N_STATE) if Hh is None else (ZH * ZP, ZN)
+        w = d if Hh is None else Hh
+        h_shape = (B, d, N) if Hh is None else (B, Hh, ZP, N)
+        dt = (rnd(B, S, w).abs() * 0.1).to(dtype)
+        x, Bm, Cm = rnd(B, S, d).to(dtype), rnd(B, S, N).to(dtype), \
+            rnd(B, S, N).to(dtype)
+        A = -(rnd(d, N) if Hh is None else rnd(Hh)).abs()
+        dy = rnd(B, S, d)
+        h0, dhf = (rnd(*h_shape), rnd(*h_shape)) if given else (None, None)
+        fn = so.selective_scan_bwd if Hh is None else \
+            so.selective_scan_heads_bwd
+        ref = sr.selective_scan_bwd_ref if Hh is None else \
+            sr.selective_scan_heads_bwd_ref
+
+        def call():
+            return fn(dt, x, A, Bm, Cm, h0, dy, dhf)
+        got = call()
+        torch.cuda.synchronize()
+        want = ref(dt.float(), x.float(), A, Bm.float(), Cm.float(), h0, dy,
+                   dhf)
+        errs.setdefault(row, []).append(
+            scan_bwd_check(f"{row}/{tag}", dtype, got, want))
+        again = call()
+        if not all(torch.equal(p, q) for p, q in zip(got, again)):
+            raise AssertionError(f"{row}/{tag}: not the same bits twice")
+        log({"check": f"{row}/{tag}", "bit_equal_repeat": True})
+        del got, want, again
+        if timed:
+            b_ms, b_by = scan_bwd_bound(B, S, d, N, dt.element_size(),
+                                        Hh, given)
+            r = {"shape": (f"B={B} S={S} d={d} N={N}" if Hh is None else
+                           f"B={B} S={S} H={Hh} P={ZP} N={N}")
+                 + f" {dname(dtype)} inputs, f32 dy ({tag})",
+                 "ms": time_ms(call, reps=5, rounds=3),
+                 "device_ms": time_ms_graph(call, reps=5, rounds=3),
+                 "plain_ms": time_ms(lambda: ref(dt, x, A, Bm, Cm, h0, dy,
+                                                 dhf), reps=1, rounds=2),
+                 "library_ms": None, "library": "none: no single PyTorch "
+                                                "call computes this gradient",
+                 "bound_ms": b_ms, "bound_by": b_by}
+            r["bound_share"] = b_ms / r["device_ms"]
+            r["device_ms_by_kernel"] = device_ms_by_kernel(
+                call, ("selective_scan_bwd_kernel", "fold_kernel"))
+            results[row] = r
+            log({"timing": f"{row}/{tag}", **r})
+        del dt, x, Bm, Cm, A, dy, h0, dhf
+        torch.cuda.empty_cache()
+    for row, e in errs.items():
+        results[row]["max_abs_err"] = max(e)
+
+
 def width_attention_cases(gen, dev, results, tag, Hq, Kh, Dh, cli=False):
     """The paged kernels at one model's attention widths (``Hq`` query
     heads over ``Kh`` KV heads of ``Dh``; rows ``*_{tag}``): decode at B =
@@ -1501,7 +1654,9 @@ def check_ptxas(logs: dict):
     chunked-prefill tile (stablelm-12b's head dim: ``paged_decode_kernel``
     or ``paged_prefill_mma_kernel`` with template argument ``Li160E`` in
     the mangled name) spills, or when no D = 160 instance of either was
-    built; and when a flash backward kernel spills or one of its ten
+    built; when a scan backward kernel (``selective_scan_bwd_kernel`` x 2
+    types x 4 state sizes, ``fold_kernel`` x 2) spills or was not built;
+    and when a flash backward kernel spills or one of its ten
     instances was not built (the delta kernel x 2 types; the bf16 wgmma
     kernels ``flash_bwd_dkdv_wgmma_kernel`` and ``flash_bwd_dq_wgmma_kernel``
     and the f32 ones x D = 64, 128)."""
@@ -1529,6 +1684,14 @@ def check_ptxas(logs: dict):
                 d160.add(kind)
     if d160 != {"decode", "prefill"}:
         raise AssertionError(f"D = 160 instances built: {sorted(d160)}")
+    scan_bwd = [k for text in logs.values() for k in ptxas_report(text)
+                if "selective_scan_bwd_kernel" in k["fn"]
+                or "fold_kernel" in k["fn"]]
+    log({"ptxas_scan_bwd": scan_bwd})
+    if any(k["spill_bytes"] for k in scan_bwd) or len(scan_bwd) != 10:
+        # the backward x 2 types x (N = 4, 8, 16 and the per-head N = 64),
+        # the fold x 2 output types
+        raise AssertionError(f"scan backward kernels built: {scan_bwd}")
     log({"ptxas_flash_bwd": bwd})
     names = {k["fn"] for k in bwd}
     if len(names) != 10 or sum("wgmma_kernel" in n for n in names) != 4:
@@ -1553,6 +1716,7 @@ def check_ptxas(logs: dict):
 BWD_TOL = {"float32": (1e-4, 0.0), "bfloat16": (2e-2, 1 / 128)}
 LSE_TOL = {"float32": 1e-4, "bfloat16": 4e-3}
 TRAIN_LAYERS = 16        # LLaVA-1.5-7B's depth cut for one card (PERF.md)
+FM_TRAIN_LAYERS = 32     # falcon-mamba-7b's depth cut for one card (PERF.md)
 TRAIN_B, TRAIN_S = 2, 2048
 
 
@@ -1757,11 +1921,40 @@ def grads_of(cfg, params, batch):
     return loss.detach(), dict(zip(leaves, grads))
 
 
-def train_check(seed: int):
-    """Reduced LLaVA-1.5-7B in f32: the loss and every gradient leaf of one
-    training step on the card (the f32 flash forward and backward kernels)
+# (arch, {kernel: launches a remat'd step on the reduced config as a
+# function of its layer counts}) of the reduced f32 card-vs-CPU check
+TRAIN_CHECKS = (
+    ("llava-1.5-7b", lambda n: {"flash_attention": 2 * n["attn"],
+                                "flash_attention_bwd": n["attn"]}),
+    ("falcon-mamba-7b", lambda n: {"selective_scan": 2 * n["mamba1"],
+                                   "selective_scan_bwd": n["mamba1"]}),
+    ("zamba2-7b", lambda n: {"selective_scan_heads": 2 * n["mamba2"],
+                             "selective_scan_heads_bwd": n["mamba2"],
+                             "flash_attention": 2 * n["attn"],
+                             "flash_attention_bwd": n["attn"]}),
+    ("granite-moe-1b-a400m", lambda n: {"flash_attention": 2 * n["attn"],
+                                        "flash_attention_bwd": n["attn"]}))
+
+
+def layer_counts(cfg) -> dict:
+    """Layers by what they launch: attention (ATTN_*, SHARED_ATTN),
+    Mamba-1, Mamba-2."""
+    kinds = cfg.layer_kinds()
+    return {"attn": sum(k.startswith("attn") or k == "shared_attn"
+                        for k in kinds),
+            "mamba1": kinds.count("mamba1"), "mamba2": kinds.count("mamba2")}
+
+
+def train_check(seed: int) -> dict:
+    """Reduced LLaVA-1.5-7B, falcon-mamba-7b (Mamba-1), zamba2-7b (Mamba-2
+    and shared attention) and granite-moe-1b-a400m (the MoE FFN's capacity
+    path, which drops pairs at its capacity factor of 1.25, and its aux
+    loss) in f32: the loss and every gradient leaf of one training step on
+    the card (the f32 flash and scan kernels, forward and backward)
     against the same on the CPU (their plain versions), within 1e-4 of the
-    leaf's largest magnitude; then one train_step on the card."""
+    leaf's largest magnitude; each kernel launched as often as remat makes
+    it; then one train_step on the card.  Returns zamba2's launches (the
+    per-head backward's main path)."""
     import torch
     from repro_torch import kernels as K
     from repro_torch.configs import get_config
@@ -1769,67 +1962,73 @@ def train_check(seed: int):
     from repro_torch.train.data import DataConfig, batches, to_device
     from repro_torch.train.optim import AdamWConfig, init_opt_state
     from repro_torch.train.train import train_step
-    cfg = get_config("llava-1.5-7b").reduced()
-    b = next(batches(cfg, DataConfig(batch_size=2, seq_len=64, seed=seed)))
-    out = {}
-    for dev in ("cpu", "cuda"):
+    runs = {}
+    for arch, expect in TRAIN_CHECKS:
+        cfg = get_config(arch).reduced()
+        b = next(batches(cfg, DataConfig(batch_size=2, seq_len=64,
+                                         seed=seed)))
+        out = {}
+        for dev in ("cpu", "cuda"):
+            params = M.init_params(cfg, torch.Generator().manual_seed(seed),
+                                   trainable=True).to(dev)
+            K.reset_launches()
+            out[dev] = grads_of(cfg, params, to_device(b, dev))
+            if dev == "cuda":
+                launches = {n: c for n, c in K.launches.items() if c}
+        (lc, gc_), (lg, gg) = out["cpu"], out["cuda"]
+        loss_err = abs(float(lg) - float(lc)) / abs(float(lc))
+        worst, worst_leaf = 0.0, None
+        for k, want in gc_.items():
+            rel = ((gg[k].cpu() - want).abs().max()
+                   / want.abs().max().clamp_min(1e-30)).item()
+            if rel > worst:
+                worst, worst_leaf = rel, k
+        if not (loss_err <= 1e-4 and worst <= 1e-4):
+            raise AssertionError(f"train check {arch}: loss off by "
+                                 f"{loss_err}, grad leaf {worst_leaf} by "
+                                 f"{worst} (rel)")
+        want = expect(layer_counts(cfg))
+        if any(launches.get(n, 0) != c for n, c in want.items()):
+            raise AssertionError(f"train check {arch} launches {launches}, "
+                                 f"expected {want}")
         params = M.init_params(cfg, torch.Generator().manual_seed(seed),
-                               trainable=True).to(dev)
-        K.reset_launches()
-        out[dev] = grads_of(cfg, params, to_device(b, dev))
-        if dev == "cuda":
-            launches = {n: K.launches[n] for n in ("flash_attention",
-                                                   "flash_attention_bwd")}
-    (lc, gc_), (lg, gg) = out["cpu"], out["cuda"]
-    loss_err = abs(float(lg) - float(lc)) / abs(float(lc))
-    worst, worst_leaf = 0.0, None
-    for k, want in gc_.items():
-        rel = ((gg[k].cpu() - want).abs().max()
-               / want.abs().max().clamp_min(1e-30)).item()
-        if rel > worst:
-            worst, worst_leaf = rel, k
-    if not (loss_err <= 1e-4 and worst <= 1e-4):
-        raise AssertionError(f"train check: loss off by {loss_err}, grad "
-                             f"leaf {worst_leaf} by {worst} (rel)")
-    if not (launches["flash_attention"] >= 2 * cfg.num_layers
-            and launches["flash_attention_bwd"] == cfg.num_layers):
-        raise AssertionError(f"train check launches {launches}")
-    params = M.init_params(cfg, torch.Generator().manual_seed(seed),
-                           trainable=True).to("cuda")
-    opt = AdamWConfig(lr=1e-3, warmup_steps=0, total_steps=10)
-    _, _, stats = train_step(cfg, opt, params, init_opt_state(params),
-                             to_device(b, "cuda"))
-    if not torch.isfinite(stats["loss"]):
-        raise AssertionError("train check: train_step loss not finite")
-    log({"train_check": "reduced llava-1.5-7b f32, loss and gradients on "
-                        "cuda vs cpu", "loss": float(lc),
-         "loss_rel_err": loss_err, "max_rel_grad_err": worst,
-         "worst_leaf": worst_leaf, "tol": 1e-4, "launches": launches,
-         "train_step_loss": float(stats["loss"])})
+                               trainable=True).to("cuda")
+        opt = AdamWConfig(lr=1e-3, warmup_steps=0, total_steps=10)
+        _, _, stats = train_step(cfg, opt, params, init_opt_state(params),
+                                 to_device(b, "cuda"))
+        if not torch.isfinite(stats["loss"]):
+            raise AssertionError(f"train check {arch}: train_step loss not "
+                                 f"finite")
+        log({"train_check": f"reduced {arch} f32, loss and gradients on "
+                            f"cuda vs cpu", "loss": float(lc),
+             "loss_rel_err": loss_err, "max_rel_grad_err": worst,
+             "worst_leaf": worst_leaf, "tol": 1e-4, "launches": launches,
+             "aux": float(stats["aux"]),
+             "train_step_loss": float(stats["loss"])})
+        runs[arch] = launches
+    return runs["zamba2-7b"]
 
 
-def train_full(seed: int, card: str) -> dict:
-    """LLaVA-1.5-7B at full width, depth cut to 16 layers, random bf16
-    weights: 4 AdamW steps with remat on one fixed batch of B = 2 rows of
-    2048 tokens and 576 image positions from ``train.data.batches``, lr
-    1e-4 after the schedule's linear warmup over 100 steps (so 1e-6 to
-    4e-6 here).  Without warmup, Adam's first steps move every weight by
-    lr * sign(g), a change that adds up coherently over a 4096-wide
-    layer's inputs: at 1e-4 the loss rises (tools/train_lr_sweep.py).
-    The loss must be finite and fall; the step must run the flash forward
-    (twice a layer: remat) and backward kernels on every layer and never
-    their plain versions.  Returns the launch counts of one step."""
-    import dataclasses
+def train_run(cfg, label: str, card: str, seed: int, want: dict,
+              plain: tuple, watch=None) -> dict:
+    """4 AdamW steps at full width with remat on one fixed batch of B = 2
+    rows of 2048 tokens (and the model's media positions) from
+    ``train.data.batches``, random bf16 weights, lr 1e-4 after the
+    schedule's linear warmup over 100 steps (so 1e-6 to 4e-6 here).
+    Without warmup, Adam's first steps move every weight by lr * sign(g),
+    a change that adds up coherently over a 4096-wide layer's inputs: at
+    1e-4 the loss rises (tools/train_lr_sweep.py).  The loss must be
+    finite and fall; every step must launch each kernel of ``want`` as
+    often as it says, and no plain version named in ``plain`` ((module,
+    function name) pairs) may be handed a CUDA tensor.  Then one more
+    step, profiled.  ``watch()``, when given, returns extra numbers to log
+    after each step.  Returns (launches of one step, profile summary)."""
     import torch
     from repro_torch import kernels as K
-    from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.models import model as M
     from repro_torch.train.data import DataConfig, batches, to_device
     from repro_torch.train.optim import AdamWConfig, init_opt_state
     from repro_torch.train.train import make_train_step
-    cfg = dataclasses.replace(get_config("llava-1.5-7b"),
-                              num_layers=TRAIN_LAYERS)
     torch.cuda.reset_peak_memory_stats()
     params = M.init_params(cfg, torch.Generator(device="cuda").manual_seed(
         seed), dtype=torch.bfloat16, trainable=True)
@@ -1842,20 +2041,18 @@ def train_full(seed: int, card: str) -> dict:
         torch.bfloat16)
     # the plain versions, counted when handed CUDA tensors (never, if the
     # wrappers dispatch right)
-    names = ("flash_attention_ref", "flash_attention_fwd_ref",
-             "flash_attention_bwd_ref")
-    saved = {n: getattr(fa, n) for n in names}
-    plain = dict.fromkeys(names, 0)
+    saved = {(m, n): getattr(m, n) for m, n in plain}
+    counts = {n: 0 for _, n in plain}
 
     def count(name, fn):
         def wrapped(*a, **k):
             if a[0].is_cuda:
-                plain[name] += 1
+                counts[name] += 1
             return fn(*a, **k)
         return wrapped
-    for n in names:
-        setattr(fa, n, count(n, saved[n]))
-    losses, times, per_step = [], [], []
+    for (m, n), fn in saved.items():
+        setattr(m, n, count(n, fn))
+    losses, times, per_step, extra = [], [], [], []
     try:
         for _ in range(4):
             torch.cuda.synchronize()
@@ -1865,16 +2062,18 @@ def train_full(seed: int, card: str) -> dict:
             losses.append(float(stats["loss"]))
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t)
-            per_step.append({n: K.launches[n] for n in (
-                "flash_attention", "flash_attention_split",
-                "flash_attention_bwd")})
-            log({"train_full_step": len(losses), "loss": losses[-1],
+            per_step.append({n: K.launches[n] for n in K.launches
+                             if K.launches[n]})
+            extra.append({"aux": float(stats["aux"]),
+                          **(watch() if watch else {})})
+            log({"train_step": len(losses), "path": label,
+                 "loss": losses[-1], **extra[-1],
                  "grad_norm": float(stats["grad_norm"]),
                  "lr": float(stats["lr"]), "s": times[-1],
                  "launches": per_step[-1]})
     finally:
-        for n in names:
-            setattr(fa, n, saved[n])
+        for (m, n), fn in saved.items():
+            setattr(m, n, fn)
     peak = torch.cuda.max_memory_allocated()
     # where a step's device time goes: one more step, profiled, with the
     # optimizer update in a range of its own
@@ -1886,32 +2085,127 @@ def train_full(seed: int, card: str) -> dict:
             return update(*a, **k)
     T.adamw_update = annotated
     try:
-        profile_calls(lambda: step(params, state, batch), "train step", card,
-                      f"train_full, {TRAIN_LAYERS} layers", steps=1,
-                      ranges=("adamw_update",))
+        prof = profile_calls(lambda: step(params, state, batch),
+                             "train step", card, label, steps=1,
+                             ranges=("adamw_update",))
     finally:
         T.adamw_update = update
     positions = TRAIN_B * (TRAIN_S + cfg.media_tokens)
     steady = statistics.median(times[1:])
-    log({"train_full": f"llava-1.5-7b, {TRAIN_LAYERS} of 32 layers, full "
-                       f"width, bf16, remat, B={TRAIN_B} x ({TRAIN_S} text + "
-                       f"{cfg.media_tokens} image)",
-         "params": n_params, "losses": losses, "step_s": times,
-         "steady_step_s": steady, "text_tokens_per_s": TRAIN_B * TRAIN_S
-         / steady, "positions_per_s": positions / steady,
-         "max_memory_allocated_gb": peak / 1e9, "reckoned_gb": "47-50",
-         "launches_per_step": per_step[-1], "plain_calls_on_cuda": plain,
+    log({"train_full": label, "params": n_params, "losses": losses,
+         "per_step": extra, "step_s": times, "steady_step_s": steady,
+         "text_tokens_per_s": TRAIN_B * TRAIN_S / steady,
+         "positions_per_s": positions / steady,
+         "max_memory_allocated_gb": peak / 1e9,
+         "launches_per_step": per_step[-1], "plain_calls_on_cuda": counts,
          "card": card})
     if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]):
-        raise AssertionError(f"train_full: losses {losses}")
-    want = {"flash_attention": 2 * TRAIN_LAYERS,
-            "flash_attention_bwd": TRAIN_LAYERS}
-    if any(s[n] != c for s in per_step for n, c in want.items()) \
-            or any(plain.values()):
-        raise AssertionError(f"train_full launches {per_step}, plain "
-                             f"versions on CUDA tensors {plain}")
+        raise AssertionError(f"{label}: losses {losses}")
+    if any(s.get(n, 0) != c for s in per_step for n, c in want.items()) \
+            or any(counts.values()):
+        raise AssertionError(f"{label}: launches {per_step}, want {want}; "
+                             f"plain versions on CUDA tensors {counts}")
     del params, state, batch, stats
-    return per_step[-1]
+    return per_step[-1], prof
+
+
+def train_full(seed: int, card: str) -> dict:
+    """LLaVA-1.5-7B at full width, depth cut to 16 layers, B = 2 rows of
+    2048 tokens and 576 image positions (:func:`train_run`): the step must
+    run the flash forward (twice a layer: remat) and backward kernels on
+    every layer and never their plain versions.  Returns the launch counts
+    of one step."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fa
+    cfg = dataclasses.replace(get_config("llava-1.5-7b"),
+                              num_layers=TRAIN_LAYERS)
+    launches, _ = train_run(
+        cfg, f"llava-1.5-7b, {TRAIN_LAYERS} of 32 layers, full width, bf16, "
+             f"remat, B={TRAIN_B} x ({TRAIN_S} text + {cfg.media_tokens} "
+             f"image)", card, seed,
+        {"flash_attention": 2 * TRAIN_LAYERS,
+         "flash_attention_bwd": TRAIN_LAYERS},
+        tuple((fa, n) for n in ("flash_attention_ref",
+                                "flash_attention_fwd_ref",
+                                "flash_attention_bwd_ref")))
+    return launches
+
+
+def train_full_mamba(seed: int, card: str) -> dict:
+    """falcon-mamba-7b at full width (d 4096, d_inner 8192, N 16, vocab
+    65,024), depth cut from 64 to FM_TRAIN_LAYERS, B = 2 rows of 2048
+    tokens (:func:`train_run`): every step must run the scan's forward
+    twice a layer (remat) and its backward kernel once, never their plain
+    versions.  Also the backward's share of the profiled step's device
+    time.  Returns the launch counts of one step."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.selective_scan import ops as so
+    cfg = dataclasses.replace(get_config("falcon-mamba-7b"),
+                              num_layers=FM_TRAIN_LAYERS)
+    label = (f"falcon-mamba-7b, {FM_TRAIN_LAYERS} of 64 layers, full width, "
+             f"bf16, remat, B={TRAIN_B} x {TRAIN_S} text")
+    launches, prof = train_run(
+        cfg, label, card, seed,
+        {"selective_scan": 2 * FM_TRAIN_LAYERS,
+         "selective_scan_bwd": FM_TRAIN_LAYERS},
+        tuple((so, n) for n in ("selective_scan_ref",
+                                "selective_scan_bwd_ref")))
+    by = prof["device_ms_by_kernel"]
+    bwd = sum(ms for k, ms in by.items() if "selective_scan_bwd_kernel" in k
+              or "fold_kernel" in k)
+    fwd = sum(ms for k, ms in by.items() if "selective_scan_kernel" in k)
+    log({"train_full_mamba_profile": label, "card": card,
+         "step_device_ms": prof["device_ms_per_call"],
+         "scan_bwd_device_ms": bwd,
+         "scan_bwd_share": bwd / prof["device_ms_per_call"],
+         "scan_fwd_device_ms": fwd,
+         "scan_fwd_share": fwd / prof["device_ms_per_call"]})
+    return launches
+
+
+def train_full_moe(seed: int, card: str) -> dict:
+    """granite-moe-1b-a400m at full width and depth (24 layers, 32 experts
+    top-8 at capacity factor 1.25), B = 2 rows of 2048 tokens
+    (:func:`train_run`): every step must run the flash forward twice a
+    layer and its backward once at D = 64, never their plain versions;
+    the loss, the aux loss and the share of (token, expert) pairs the
+    capacity dropped, per step.  Returns the launch counts of one step."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.models import moe
+    cfg = get_config("granite-moe-1b-a400m")
+    if cfg.head_dim != GD or cfg.num_layers != GL:
+        raise AssertionError("granite-moe's widths moved")
+    dropped = []
+    inner = moe._capacity_dropping
+
+    def recording(p, xt, gates, flat, counts, cfg_, act):
+        C = moe.capacity(cfg_, xt.shape[0])
+        dropped.append(((counts - C).clamp(min=0).sum()
+                        / flat.numel()).item())
+        return inner(p, xt, gates, flat, counts, cfg_, act)
+
+    def watch():
+        share = statistics.fmean(dropped) if dropped else None
+        dropped.clear()
+        return {"dropped_pair_share": share}
+    moe._capacity_dropping = recording
+    try:
+        launches, _ = train_run(
+            cfg, f"granite-moe-1b-a400m, 24 layers (not cut), bf16, remat, "
+                 f"B={TRAIN_B} x {TRAIN_S} text, capacity factor "
+                 f"{cfg.moe_capacity_factor}", card, seed,
+            {"flash_attention": 2 * GL, "flash_attention_bwd": GL},
+            tuple((fa, n) for n in ("flash_attention_ref",
+                                    "flash_attention_fwd_ref",
+                                    "flash_attention_bwd_ref")), watch)
+    finally:
+        moe._capacity_dropping = inner
+    torch.cuda.empty_cache()
+    return launches
 
 
 def train_mm_run(card: str):
@@ -2232,7 +2526,9 @@ def profile_calls(fn, what: str, card: str, tag: str, steps: int = 3,
     torch.cat, casts and copies).  For each name in ``ranges`` (a
     ``record_function`` range that ``fn`` opens) also the device time of
     the kernels launched inside it, and of the matrix products
-    (``aten::mm``) among them, as shares of the busy time."""
+    (``aten::mm``) among them, as shares of the busy time.  Returns
+    {"device_ms_per_call", "device_ms_by_kernel": {kernel name: ms a
+    call}}."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -2271,6 +2567,9 @@ def profile_calls(fn, what: str, card: str, tag: str, steps: int = 3,
                        "share": us / busy if busy else None,
                        "matmul_share": sum(map(mm_us, inside)) / busy
                        if busy else None}
+    summary = {"device_ms_per_call": busy / steps / 1e3,
+               "device_ms_by_kernel": {k: us / steps / 1e3
+                                       for us, k, _ in rows}}
     log({"profile": f"{what}, {steps} calls",
          "path": tag, "card": card, "wall_ms_per_call": wall_us / steps / 1e3,
          "device_ms_per_call": busy / steps / 1e3,
@@ -2283,6 +2582,7 @@ def profile_calls(fn, what: str, card: str, tag: str, steps: int = 3,
          "top": [{"kernel": k[:80], "ms_per_call": us / steps / 1e3,
                   "launches_per_call": n / steps}
                  for us, k, n in rows[:12]]})
+    return summary
 
 
 def steady_decode(d, add, release, card: str, tag: str, ranges: tuple = ()):
@@ -3061,6 +3361,8 @@ def main() -> int:
     torch.cuda.empty_cache()
     flash_bwd_cases(gen, dev, results, rate)
     torch.cuda.empty_cache()
+    scan_bwd_cases(gen, dev, results)
+    torch.cuda.empty_cache()
     latent_cases(gen, dev, results)
     torch.cuda.empty_cache()
     for name, r in results.items():
@@ -3073,12 +3375,19 @@ def main() -> int:
     for arch in ("granite-moe-1b-a400m", "deepseek-v2-236b", "zamba2-7b",
                  "gemma3-4b"):
         arch_model_check(arch, args.seed)
-    # training: reduced f32 card vs CPU, then full-width LLaVA (16 layers)
-    # and train_mm
-    train_check(args.seed)
+    # training: reduced f32 card vs CPU (LLaVA, falcon-mamba, zamba2,
+    # granite-moe), then full-width LLaVA (16 layers), falcon-mamba-7b (32
+    # layers) and granite-moe-1b-a400m, and train_mm
+    zamba_train = train_check(args.seed)
     gc.collect()
     torch.cuda.empty_cache()
     trained = train_full(args.seed, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    trained_mamba = train_full_mamba(args.seed, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_full_moe(args.seed, card)
     gc.collect()
     torch.cuda.empty_cache()
     train_mm_run(card)
@@ -3142,8 +3451,13 @@ def main() -> int:
             raise AssertionError(f"the {name} merge kernel launched on its "
                                  f"own on a main path")
         launches[f"{name}_merge"] = launches[f"{name}_split"]
-    # the backward's launches: one train_full step's
+    # the backward's launches: one train_full step's; the scan's backward:
+    # one falcon-mamba train_full step's, and the per-head mode's the
+    # reduced zamba2 step's (its only training path on the card)
     launches["flash_attention_bwd"] = trained["flash_attention_bwd"]
+    launches["selective_scan_bwd"] = trained_mamba["selective_scan_bwd"]
+    launches["selective_scan_heads_bwd"] = \
+        zamba_train["selective_scan_heads_bwd"]
 
     src = {"cache_write": ("src/repro_torch/csrc/cache_write.cu",
                            "src/repro/kernels/cache_write/kernel.py:25"),
@@ -3170,6 +3484,14 @@ def main() -> int:
            "flash_attention_bwd": (
                "src/repro_torch/csrc/flash_attention.cu",
                "src/repro/kernels/flash_attention/kernel.py:65"),
+           # the scan's gradient, both modes (the JAX package
+           # differentiates lax.scan over _ssm1_step / _ssm2_step)
+           "selective_scan_bwd": (
+               "src/repro_torch/csrc/selective_scan.cu",
+               "src/repro/kernels/selective_scan/kernel.py:51"),
+           "selective_scan_heads_bwd": (
+               "src/repro_torch/csrc/selective_scan.cu",
+               "src/repro/kernels/selective_scan/kernel.py:51"),
            # MLA's latent rows (bf16, D = 576, one KV head, K = V)
            "paged_attention_latent": (
                "src/repro_torch/csrc/attn_latent.cuh",

@@ -504,6 +504,371 @@ cudaError_t launch_heads(const void* dt, const void* x, const void* A,
   return cudaGetLastError();
 }
 
+
+// ---------------------------------------------------------------------------
+// Backward of both modes (training): selective_scan_bwd and
+// selective_scan_heads_bwd.  The JAX package differentiates lax.scan over
+// _ssm1_step / _ssm2_step (repro/models/mamba.py) with jax.grad; these
+// kernels compute that gradient as the reverse recurrence.  With g_t the
+// gradient with respect to h_t (from dh_final):
+//
+//   g_t   = dA_{t+1} g_{t+1} + dy_t C_t
+//   dC_t  = sum_c dy_t h_t          dB_t = sum_c g_t dt_t x_t
+//   dx_t  = sum_n g_t dt_t B_t      ddt_t = sum_n g_t (A dA_t h_{t-1} + x_t B_t)
+//   dA    = sum_{b,t} g_t dt_t dA_t h_{t-1}      dh0 = dA_0 g_0
+//
+// (per-head mode: ddt and dA also sum over the head's P channels).
+//
+// Bound: operations.  Per (t, c, n) the gradient needs one exponential
+// (Mamba-1; the per-head mode one a step and head) and about 20 f32
+// operations; the bytes are dt, x, B, C and dy read once, ddt, dx, dB and
+// dC written once.  This kernel takes each exponential three times (the
+// forward pass below, the chunk's recomputation, the reverse step) and
+// moves its saved states and partials besides.
+//
+// Design, simple before fast.  A thread holds CPT channels by 4 states
+// (Mamba-1: 1 channel, the forward's N / 4 lanes a channel; the per-head
+// mode: 2 channels, 16 lanes a channel pair), a block 32 channels, grid
+// (d / 32, B).  The states are never rebuilt by inverting the recurrence
+// (h_{t-1} = (h_t - dt x B) / dA): dA = exp(dt A) underflows to 0 at
+// Mamba-1's A down to -N.  Instead:
+//   1. the block runs the recurrence forward from h0 and writes the state
+//      at the start of every chunk of BT = 8 steps to a scratch buffer
+//      hs [B, ceil(S / BT), d, N] (each thread its own states);
+//   2. it walks the chunks in reverse: from the chunk's saved state it
+//      recomputes the chunk's BT + 1 states into registers (the loops are
+//      unrolled, so the history stays in registers), then runs the
+//      reverse recurrence over them with g in registers.
+// Sums over the 4..16 lanes of a channel (dx, Mamba-1's ddt) are xor
+// shuffles.  Sums across channels (dB, dC over all d; the per-head ddt
+// over a head's channels) and across lanes b (dA) go through f32
+// partials: shuffles over the channels of a warp, then the block's warps
+// summed in order through shared memory, one partial per block, which
+// fold_kernel sums over blocks (or lanes) in a fixed order.  No atomics:
+// every call gives the same bits.  ddt, dx, dB and dC are rounded once to
+// the inputs' type; dA and dh0 are f32.  Exponentials are expf, as in the
+// forward, and the states are recomputed with the forward's arithmetic
+// (fmaf(dA, h, (dt * x) * B)).  All offsets are 64-bit.
+constexpr int BT = 8;            // steps per backward chunk
+constexpr int BBLOCK_C = 32;     // channels per block
+
+template <int N, bool HEADS>
+struct BwdShape {
+  static constexpr int CPT = HEADS ? 2 : 1;           // channels per thread
+  static constexpr int L = N / SPL;                   // lanes per channel group
+  static constexpr int NT = BBLOCK_C / CPT * L;       // threads per block
+  static constexpr int NW = NT / 32;                  // warps per block
+};
+
+template <typename T> __device__ __forceinline__ T from_f(float v);
+template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
+  return __float2bfloat16(v);
+}
+
+// pB / pC [d / 32, B, S, N]: each block's sums of dB / dC over its
+// channels; pdt [B, S, H, P / 32] (per-head mode): each block's ddt; pA
+// [B, d, N] (Mamba-1) or [H, B, P / 32] (per-head mode): each lane's or
+// block's dA.  ddt (Mamba-1 only) [B, S, d] and dx [B, S, d] in T, dh0
+// [B, d, N] f32.  H: heads (per-head mode), else unused.
+template <typename T, int N, bool HEADS>
+__global__ void __launch_bounds__(BwdShape<N, HEADS>::NT)
+selective_scan_bwd_kernel(const T* __restrict__ dt, const T* __restrict__ x,
+                          const float* __restrict__ A, const T* __restrict__ Bm,
+                          const T* __restrict__ Cm, const float* __restrict__ h0,
+                          const float* __restrict__ dy,
+                          const float* __restrict__ dhf, float* __restrict__ hs,
+                          T* __restrict__ ddt, T* __restrict__ dx,
+                          float* __restrict__ dh0, float* __restrict__ pB,
+                          float* __restrict__ pC, float* __restrict__ pdt,
+                          float* __restrict__ pA, int S, int d, int H) {
+  using Sh = BwdShape<N, HEADS>;
+  constexpr int CPT = Sh::CPT, L = Sh::L, NT = Sh::NT, NW = Sh::NW;
+  __shared__ float s_b[BT][NW][N], s_c[BT][NW][N];
+  __shared__ float s_dt[BT][NW];
+  __shared__ float s_a[NW];
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int l = tid % L, n0 = l * SPL;
+  const int c0 = blockIdx.x * BBLOCK_C, c = c0 + tid / L * CPT;
+  const int64_t b = blockIdx.y, nb = gridDim.y;
+  const int P = HEADS ? d / H : 1;
+  const int hh = HEADS ? c0 / P : 0;                    // the block's head
+  const int bph = HEADS ? P / BBLOCK_C : 1;             // blocks per head
+  const int jb = HEADS ? (c0 % P) / BBLOCK_C : 0;       // block in its head
+  const int nck = (S + BT - 1) / BT;
+  const int64_t row0 = b * S;
+
+  float a[SPL];
+#pragma unroll
+  for (int i = 0; i < SPL; ++i)
+    a[i] = HEADS ? A[hh] : A[(int64_t)c * N + n0 + i];
+
+  // one step's dt, x (CPT channels), B (4 states) and dA = exp(dt A)
+  auto load = [&](int64_t row, float& dtv, float (&xv)[CPT], float (&bv)[SPL],
+                  float (&e)[SPL]) {
+    dtv = to_f(HEADS ? dt[row * H + hh] : dt[row * d + c]);
+#pragma unroll
+    for (int j = 0; j < CPT; ++j) xv[j] = to_f(x[row * d + c + j]);
+#pragma unroll
+    for (int i = 0; i < SPL; ++i) bv[i] = to_f(Bm[row * N + n0 + i]);
+    if (HEADS) {
+      const float e0 = expf(dtv * a[0]);
+#pragma unroll
+      for (int i = 0; i < SPL; ++i) e[i] = e0;
+    } else {
+#pragma unroll
+      for (int i = 0; i < SPL; ++i) e[i] = expf(dtv * a[i]);
+    }
+  };
+  auto hs_at = [&](int k, int j) {
+    return hs + ((b * nck + k) * d + c + j) * N + n0;
+  };
+
+  // 1. forward: the state at the start of every chunk
+  float h[CPT][SPL];
+#pragma unroll
+  for (int j = 0; j < CPT; ++j)
+#pragma unroll
+    for (int i = 0; i < SPL; ++i)
+      h[j][i] = h0 != nullptr ? h0[(b * d + c + j) * N + n0 + i] : 0.f;
+  for (int k = 0; k < nck; ++k) {
+#pragma unroll
+    for (int j = 0; j < CPT; ++j)
+      *reinterpret_cast<float4*>(hs_at(k, j)) =
+          make_float4(h[j][0], h[j][1], h[j][2], h[j][3]);
+    const int t0 = k * BT, nt = min(BT, S - t0);
+    for (int u = 0; u < nt; ++u) {
+      float dtv, xv[CPT], bv[SPL], e[SPL];
+      load(row0 + t0 + u, dtv, xv, bv, e);
+#pragma unroll
+      for (int j = 0; j < CPT; ++j)
+#pragma unroll
+        for (int i = 0; i < SPL; ++i)
+          h[j][i] = fmaf(e[i], h[j][i], (dtv * xv[j]) * bv[i]);
+    }
+  }
+
+  // 2. the chunks in reverse
+  float g[CPT][SPL], accA[SPL];
+#pragma unroll
+  for (int j = 0; j < CPT; ++j)
+#pragma unroll
+    for (int i = 0; i < SPL; ++i)
+      g[j][i] = dhf != nullptr ? dhf[(b * d + c + j) * N + n0 + i] : 0.f;
+#pragma unroll
+  for (int i = 0; i < SPL; ++i) accA[i] = 0.f;
+
+  for (int k = nck - 1; k >= 0; --k) {
+    const int t0 = k * BT, nt = min(BT, S - t0);
+    float hist[BT + 1][CPT][SPL];            // hist[u]: the state before step u
+#pragma unroll
+    for (int j = 0; j < CPT; ++j) {
+      const float4 v = *reinterpret_cast<const float4*>(hs_at(k, j));
+      hist[0][j][0] = v.x; hist[0][j][1] = v.y; hist[0][j][2] = v.z; hist[0][j][3] = v.w;
+    }
+#pragma unroll
+    for (int u = 0; u < BT; ++u) {
+      if (u < nt) {
+        float dtv, xv[CPT], bv[SPL], e[SPL];
+        load(row0 + t0 + u, dtv, xv, bv, e);
+#pragma unroll
+        for (int j = 0; j < CPT; ++j)
+#pragma unroll
+          for (int i = 0; i < SPL; ++i)
+            hist[u + 1][j][i] = fmaf(e[i], hist[u][j][i], (dtv * xv[j]) * bv[i]);
+      }
+    }
+#pragma unroll
+    for (int u = BT - 1; u >= 0; --u) {
+      if (u < nt) {                          // nt is the same for the whole block
+        const int64_t row = row0 + t0 + u;
+        float dtv, xv[CPT], bv[SPL], e[SPL], cv[SPL], dyv[CPT];
+        load(row, dtv, xv, bv, e);
+#pragma unroll
+        for (int i = 0; i < SPL; ++i) cv[i] = to_f(Cm[row * N + n0 + i]);
+#pragma unroll
+        for (int j = 0; j < CPT; ++j) dyv[j] = dy[row * d + c + j];
+        float rb[SPL], rc[SPL], rdx[CPT], rdt = 0.f;
+#pragma unroll
+        for (int i = 0; i < SPL; ++i) rb[i] = rc[i] = 0.f;
+#pragma unroll
+        for (int j = 0; j < CPT; ++j) {
+          rdx[j] = 0.f;
+          const float dxj = dtv * xv[j];
+#pragma unroll
+          for (int i = 0; i < SPL; ++i) {
+            g[j][i] = fmaf(dyv[j], cv[i], g[j][i]);                  // g_t
+            rc[i] = fmaf(dyv[j], hist[u + 1][j][i], rc[i]);
+            rb[i] = fmaf(g[j][i], dxj, rb[i]);
+            rdx[j] = fmaf(g[j][i], bv[i], rdx[j]);
+            const float eh = e[i] * hist[u][j][i];                   // dA_t h_{t-1}
+            rdt = fmaf(g[j][i], fmaf(a[i], eh, xv[j] * bv[i]), rdt);
+            accA[i] = fmaf(g[j][i] * dtv, eh, accA[i]);
+            g[j][i] *= e[i];                                         // to h_{t-1}
+          }
+          rdx[j] *= dtv;
+        }
+        // the lanes of a channel group: dx (and Mamba-1's ddt)
+#pragma unroll
+        for (int o = 1; o < L; o <<= 1) {
+#pragma unroll
+          for (int j = 0; j < CPT; ++j) rdx[j] += __shfl_xor_sync(0xffffffffu, rdx[j], o);
+          if (!HEADS) rdt += __shfl_xor_sync(0xffffffffu, rdt, o);
+        }
+        if (l == 0) {
+#pragma unroll
+          for (int j = 0; j < CPT; ++j) dx[row * d + c + j] = from_f<T>(rdx[j]);
+          if (!HEADS) ddt[row * d + c] = from_f<T>(rdt);
+        }
+        // the channel groups of the warp: dB, dC (and the per-head ddt)
+#pragma unroll
+        for (int o = L; o < 32; o <<= 1) {
+#pragma unroll
+          for (int i = 0; i < SPL; ++i) {
+            rb[i] += __shfl_xor_sync(0xffffffffu, rb[i], o);
+            rc[i] += __shfl_xor_sync(0xffffffffu, rc[i], o);
+          }
+        }
+        if (lane < L) {
+#pragma unroll
+          for (int i = 0; i < SPL; ++i) {
+            s_b[u][warp][n0 + i] = rb[i];
+            s_c[u][warp][n0 + i] = rc[i];
+          }
+        }
+        if (HEADS) {
+#pragma unroll
+          for (int o = 1; o < 32; o <<= 1) rdt += __shfl_xor_sync(0xffffffffu, rdt, o);
+          if (lane == 0) s_dt[u][warp] = rdt;
+        }
+      }
+    }
+    __syncthreads();
+    // the block's partials of the chunk: its warps summed in order
+    for (int j = tid; j < nt * N; j += NT) {
+      const int u = j / N, n = j % N;
+      float sb = 0.f, sc = 0.f;
+#pragma unroll
+      for (int w = 0; w < NW; ++w) {
+        sb += s_b[u][w][n];
+        sc += s_c[u][w][n];
+      }
+      const int64_t o = (((int64_t)blockIdx.x * nb + b) * S + t0 + u) * N + n;
+      pB[o] = sb;
+      pC[o] = sc;
+    }
+    if (HEADS && tid < nt) {
+      float s = 0.f;
+#pragma unroll
+      for (int w = 0; w < NW; ++w) s += s_dt[tid][w];
+      pdt[((row0 + t0 + tid) * H + hh) * bph + jb] = s;
+    }
+    __syncthreads();                         // before the next chunk's writes
+  }
+
+#pragma unroll
+  for (int j = 0; j < CPT; ++j)
+#pragma unroll
+    for (int i = 0; i < SPL; ++i) dh0[(b * d + c + j) * N + n0 + i] = g[j][i];
+  if (!HEADS) {
+#pragma unroll
+    for (int i = 0; i < SPL; ++i) pA[(b * d + c) * N + n0 + i] = accA[i];
+  } else {
+    float s = accA[0] + accA[1] + accA[2] + accA[3];
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
+    if (lane == 0) s_a[warp] = s;
+    __syncthreads();
+    if (tid == 0) {
+      float t = 0.f;
+#pragma unroll
+      for (int w = 0; w < NW; ++w) t += s_a[w];
+      pA[((int64_t)hh * nb + b) * bph + jb] = t;
+    }
+  }
+}
+
+// out[i] = sum_{j < m} in[i * si + j * sj] in order, for i < n: the fixed
+// order fold of the backward's partials
+template <typename TO>
+__global__ void __launch_bounds__(256)
+fold_kernel(const float* __restrict__ in, TO* __restrict__ out, int64_t n,
+            int m, int64_t si, int64_t sj) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const float* p = in + i * si;
+  float s = 0.f;
+  for (int j = 0; j < m; ++j) s += p[j * sj];
+  out[i] = from_f<TO>(s);
+}
+
+template <typename TO>
+cudaError_t fold(const float* in, void* out, int64_t n, int m, int64_t si,
+                 int64_t sj, cudaStream_t stream) {
+  const int64_t blocks = (n + 255) / 256;
+  fold_kernel<TO><<<(unsigned)blocks, 256, 0, stream>>>(
+      in, static_cast<TO*>(out), n, m, si, sj);
+  return cudaGetLastError();
+}
+
+// ws: hs, pB, pC, pdt (per-head mode; else null), pA, as above
+template <typename T, int N, bool HEADS>
+cudaError_t launch_bwd(const void* dt, const void* x, const void* A,
+                       const void* Bm, const void* Cm, const void* h0,
+                       const void* dy, const void* dhf, void* ddt, void* dx,
+                       void* dA, void* dB, void* dC, void* dh0, void* hs,
+                       void* pB, void* pC, void* pdt, void* pA, int B, int S,
+                       int d, int H, cudaStream_t stream) {
+  const int nblk = d / BBLOCK_C;
+  dim3 grid(nblk, B);
+  selective_scan_bwd_kernel<T, N, HEADS><<<grid, BwdShape<N, HEADS>::NT, 0, stream>>>(
+      static_cast<const T*>(dt), static_cast<const T*>(x),
+      static_cast<const float*>(A), static_cast<const T*>(Bm),
+      static_cast<const T*>(Cm), static_cast<const float*>(h0),
+      static_cast<const float*>(dy), static_cast<const float*>(dhf),
+      static_cast<float*>(hs), static_cast<T*>(ddt), static_cast<T*>(dx),
+      static_cast<float*>(dh0), static_cast<float*>(pB),
+      static_cast<float*>(pC), static_cast<float*>(pdt),
+      static_cast<float*>(pA), S, d, H);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int64_t bsn = (int64_t)B * S * N;
+  if ((err = fold<T>(static_cast<const float*>(pB), dB, bsn, nblk, 1, bsn, stream)))
+    return err;
+  if ((err = fold<T>(static_cast<const float*>(pC), dC, bsn, nblk, 1, bsn, stream)))
+    return err;
+  if (!HEADS)        // dA [d, N]: the lanes' in order
+    return fold<float>(static_cast<const float*>(pA), dA, (int64_t)d * N, B, 1,
+                       (int64_t)d * N, stream);
+  const int bph = d / H / BBLOCK_C;
+  // ddt [B, S, H]: a head's blocks in order; dA [H]: its lanes' and blocks'
+  if ((err = fold<T>(static_cast<const float*>(pdt), ddt, (int64_t)B * S * H, bph,
+                     bph, 1, stream)))
+    return err;
+  return fold<float>(static_cast<const float*>(pA), dA, H, B * bph,
+                     (int64_t)B * bph, 1, stream);
+}
+
+template <typename T>
+cudaError_t dispatch_bwd(const void* dt, const void* x, const void* A,
+                         const void* Bm, const void* Cm, const void* h0,
+                         const void* dy, const void* dhf, void* ddt, void* dx,
+                         void* dA, void* dB, void* dC, void* dh0, void* hs,
+                         void* pB, void* pC, void* pA, int B, int S, int d,
+                         int N, cudaStream_t s) {
+#define BWD(NN) launch_bwd<T, NN, false>(dt, x, A, Bm, Cm, h0, dy, dhf, ddt, dx, \
+                                         dA, dB, dC, dh0, hs, pB, pC, nullptr, pA, \
+                                         B, S, d, 0, s)
+  switch (N) {
+    case 4: return BWD(4);
+    case 8: return BWD(8);
+    case 16: return BWD(16);
+    default: return cudaErrorInvalidValue;
+  }
+#undef BWD
+}
+
 }  // namespace
 
 // dtype: 0 = f32, 1 = bf16 (dt, x, B and C).  h0 may be null (zeros).
@@ -540,5 +905,65 @@ extern "C" int selective_scan_heads(const void* dt, const void* x,
   if (dtype == 1)
     return (int)launch_heads<__nv_bfloat16>(dt, x, A, Bm, Cm, h0, y, hout, B,
                                             S, H, P, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// Mamba-1's backward.  dy [B, S, d] f32 (the gradient of y), dh_final
+// [B, d, N] f32 or null (zeros); h0 as in the forward.  Writes ddt, dx
+// [B, S, d] and dB, dC [B, S, N] in the inputs' type (dtype as above), dA
+// [d, N] and dh0 [B, d, N] in f32.  Scratch, all f32: hs [B, ceil(S / 8),
+// d, N], pB and pC [d / 32, B, S, N], pA [B, d, N].  d must be a multiple
+// of 32.  Returns the first failing launch's cudaError_t; nothing
+// synchronises.
+extern "C" int selective_scan_bwd(const void* dt, const void* x, const void* A,
+                                  const void* Bm, const void* Cm,
+                                  const void* h0, const void* dy,
+                                  const void* dhf, void* ddt, void* dx,
+                                  void* dA, void* dB, void* dC, void* dh0,
+                                  void* hs, void* pB, void* pC, void* pA,
+                                  int dtype, int B, int S, int d, int N,
+                                  void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (B <= 0 || S <= 0 || d <= 0 || d % BBLOCK_C != 0)
+    return (int)cudaErrorInvalidValue;
+  if (dtype == 0)
+    return (int)dispatch_bwd<float>(dt, x, A, Bm, Cm, h0, dy, dhf, ddt, dx, dA,
+                                    dB, dC, dh0, hs, pB, pC, pA, B, S, d, N, s);
+  if (dtype == 1)
+    return (int)dispatch_bwd<__nv_bfloat16>(dt, x, A, Bm, Cm, h0, dy, dhf, ddt,
+                                            dx, dA, dB, dC, dh0, hs, pB, pC, pA,
+                                            B, S, d, N, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The per-head mode's backward: dt [B, S, H], x and dy [B, S, H * P], A
+// [H], B/C [B, S, N], h0 and dh_final [B, H, P, N] (either may be null).
+// Writes ddt [B, S, H], dx [B, S, H * P], dB and dC [B, S, N] in the
+// inputs' type, dA [H] and dh0 [B, H, P, N] in f32.  Scratch, all f32: hs
+// [B, ceil(S / 8), H * P, N], pB and pC [H * P / 32, B, S, N], pdt [B, S,
+// H, P / 32], pA [H, B, P / 32].  P a multiple of 32, N 64.  Returns the
+// first failing launch's cudaError_t; nothing synchronises.
+extern "C" int selective_scan_heads_bwd(const void* dt, const void* x,
+                                        const void* A, const void* Bm,
+                                        const void* Cm, const void* h0,
+                                        const void* dy, const void* dhf,
+                                        void* ddt, void* dx, void* dA,
+                                        void* dB, void* dC, void* dh0,
+                                        void* hs, void* pB, void* pC,
+                                        void* pdt, void* pA, int dtype, int B,
+                                        int S, int H, int P, int N,
+                                        void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (B <= 0 || S <= 0 || H <= 0 || P <= 0 || P % BBLOCK_C != 0 || N != HN ||
+      (int64_t)H * P > INT32_MAX)
+    return (int)cudaErrorInvalidValue;
+  if (dtype == 0)
+    return (int)launch_bwd<float, HN, true>(dt, x, A, Bm, Cm, h0, dy, dhf, ddt,
+                                            dx, dA, dB, dC, dh0, hs, pB, pC,
+                                            pdt, pA, B, S, H * P, H, s);
+  if (dtype == 1)
+    return (int)launch_bwd<__nv_bfloat16, HN, true>(
+        dt, x, A, Bm, Cm, h0, dy, dhf, ddt, dx, dA, dB, dC, dh0, hs, pB, pC,
+        pdt, pA, B, S, H * P, H, s);
   return (int)cudaErrorInvalidValue;
 }

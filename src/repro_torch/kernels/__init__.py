@@ -8,7 +8,8 @@ TPU kernel of the JAX package:
                      bf16 MLA latent rows (D = 576) on the wgmma tiles of
                      csrc/attn_latent.cuh
   selective_scan   - the Mamba-1 recurrence (falcon-mamba prefill and decode)
-                     and its per-head mode, the Mamba-2 recurrence (zamba2)
+                     and its per-head mode, the Mamba-2 recurrence (zamba2);
+                     and the backward of both (training)
   flash_attention  - full-sequence attention over contiguous K/V (whisper's
                      audio encoder and cross-attention, the training
                      forward), with split-KV for short query tiles, merged
@@ -36,7 +37,8 @@ launches = {"cache_write": 0, "paged_attention": 0,
             "paged_attention_split": 0, "paged_attention_merge": 0,
             "paged_prefill_attention": 0, "paged_attention_latent": 0,
             "paged_prefill_attention_latent": 0, "selective_scan": 0,
-            "selective_scan_heads": 0, "flash_attention": 0,
+            "selective_scan_heads": 0, "selective_scan_bwd": 0,
+            "selective_scan_heads_bwd": 0, "flash_attention": 0,
             "flash_attention_split": 0, "flash_attention_merge": 0,
             "flash_attention_bwd": 0}
 

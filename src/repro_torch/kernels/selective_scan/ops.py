@@ -15,6 +15,17 @@ takes one exponential per (step, head) when the chunk is staged, and a
 lane holds 4 channels by 4 states, so its bound is the three f32
 instructions per (step, channel, state) of the recurrence and y.  The
 inputs and ``y`` are read and written once.
+
+Training: ``selective_scan_bwd`` / ``selective_scan_heads_bwd`` launch the
+same file's backward kernels (the gradient the JAX package takes with
+``jax.grad`` through its ``lax.scan``): each block reruns the recurrence
+forward to save the state every 8 steps, then walks those chunks in
+reverse, rebuilding a chunk's states in registers and running the reverse
+recurrence over them; sums across channels and lanes go through per-block
+f32 partials folded in a fixed order, so every call gives the same bits.
+With grad on and an input that requires it, ``selective_scan`` and
+``selective_scan_heads`` run :class:`SelectiveScanFn` /
+:class:`SelectiveScanHeadsFn`, which save only the inputs.
 """
 from __future__ import annotations
 
@@ -24,8 +35,9 @@ import torch
 
 from repro_torch import kernels as K
 from repro_torch.kernels import _build
-from repro_torch.kernels.selective_scan.ref import (selective_scan_heads_ref,
-                                                    selective_scan_ref)
+from repro_torch.kernels.selective_scan.ref import (
+    selective_scan_bwd_ref, selective_scan_heads_bwd_ref,
+    selective_scan_heads_ref, selective_scan_ref)
 
 _P, _I = ct.c_void_p, ct.c_int
 _ARGS = [_P] * 8 + [_I] * 5 + [_P]      # dt x A B C h0 y h, dtype B S d N
@@ -33,6 +45,10 @@ _HEAD_ARGS = [_P] * 8 + [_I] * 6 + [_P]  # ..., dtype B S H P N
 STATE_SIZES = (4, 8, 16)                # N the Mamba-1 kernel is built for
 HEAD_STATE_SIZES = (64,)                # N the per-head mode is built for
 HEAD_CHANNELS = 32                      # P must be a multiple of this
+_BWD_ARGS = [_P] * 18 + [_I] * 5 + [_P]       # ... hs pB pC pA, dtype B S d N
+_HEAD_BWD_ARGS = [_P] * 19 + [_I] * 6 + [_P]  # ... pdt pA, dtype B S H P N
+BWD_CHUNK = 8          # the backward saves the state every this many steps
+BWD_CHANNELS = 32      # channels a backward block sums dB and dC over
 
 
 def _check_types(dt, x, Bmat, Cmat, h0, h0_shape, ins):
@@ -90,12 +106,28 @@ def _check_heads(dt, x, A, Bmat, Cmat, h0):
     return Bsz, S, Hh, P, N
 
 
+def _wants_grad(*ts) -> bool:
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in ts)
+
+
 def selective_scan(dt, x, A, Bmat, Cmat, h0=None):
     """dt/x: [B, S, d]; A: [d, N] f32; Bmat/Cmat: [B, S, N]; h0: [B, d, N]
     f32 or None (zeros).  Returns (y [B, S, d] f32, h_final [B, d, N] f32).
-    A position with dt = 0 leaves h exactly as it was."""
-    ins = (dt, x, A, Bmat, Cmat) + (() if h0 is None else (h0,))
-    if K.on_cpu(*ins):
+    A position with dt = 0 leaves h exactly as it was.  With grad on and
+    an input that requires it, runs :class:`SelectiveScanFn`."""
+    _inputs_on_cpu(dt, x, A, Bmat, Cmat, h0)   # raises: CUDA without a card
+    if _wants_grad(dt, x, A, Bmat, Cmat, h0):
+        return SelectiveScanFn.apply(dt, x, A, Bmat, Cmat, h0)
+    return _scan(dt, x, A, Bmat, Cmat, h0)
+
+
+def _inputs_on_cpu(*ts) -> bool:
+    return K.on_cpu(*(t for t in ts if t is not None))
+
+
+def _scan(dt, x, A, Bmat, Cmat, h0):
+    if _inputs_on_cpu(dt, x, A, Bmat, Cmat, h0):
         return selective_scan_ref(dt, x, A, Bmat, Cmat, h0)
     Bsz, S, d, N = _check(dt, x, A, Bmat, Cmat, h0)
     y = torch.empty((Bsz, S, d), dtype=torch.float32, device=x.device)
@@ -114,9 +146,16 @@ def selective_scan_heads(dt, x, A, Bmat, Cmat, h0=None):
     """Mamba-2's scan.  dt: [B, S, H]; x: [B, S, H*P]; A: [H] f32;
     Bmat/Cmat: [B, S, N] (one group); h0: [B, H, P, N] f32 or None
     (zeros).  Returns (y [B, S, H*P] f32, h_final [B, H, P, N] f32).  A
-    position with dt = 0 leaves h exactly as it was."""
-    ins = (dt, x, A, Bmat, Cmat) + (() if h0 is None else (h0,))
-    if K.on_cpu(*ins):
+    position with dt = 0 leaves h exactly as it was.  With grad on and an
+    input that requires it, runs :class:`SelectiveScanHeadsFn`."""
+    _inputs_on_cpu(dt, x, A, Bmat, Cmat, h0)   # raises: CUDA without a card
+    if _wants_grad(dt, x, A, Bmat, Cmat, h0):
+        return SelectiveScanHeadsFn.apply(dt, x, A, Bmat, Cmat, h0)
+    return _scan_heads(dt, x, A, Bmat, Cmat, h0)
+
+
+def _scan_heads(dt, x, A, Bmat, Cmat, h0):
+    if _inputs_on_cpu(dt, x, A, Bmat, Cmat, h0):
         return selective_scan_heads_ref(dt, x, A, Bmat, Cmat, h0)
     Bsz, S, Hh, P, N = _check_heads(dt, x, A, Bmat, Cmat, h0)
     y = torch.empty((Bsz, S, Hh * P), dtype=torch.float32, device=x.device)
@@ -130,3 +169,131 @@ def selective_scan_heads(dt, x, A, Bmat, Cmat, h0=None):
     K.check_launch(err, "selective_scan_heads")
     K.launches["selective_scan_heads"] += 1
     return y, h
+
+
+# ---------------------------------------------------------------------------
+# backward (training)
+# ---------------------------------------------------------------------------
+def _check_grads(dy, dh_final, y_shape, h_shape):
+    K.require(dy.dtype == torch.float32 and dy.is_contiguous()
+              and tuple(dy.shape) == y_shape,
+              f"dy must be contiguous f32 {list(y_shape)}, got "
+              f"{tuple(dy.shape)} {dy.dtype}")
+    if dh_final is not None:
+        K.require(dh_final.dtype == torch.float32 and dh_final.is_contiguous()
+                  and tuple(dh_final.shape) == h_shape,
+                  f"dh_final must be contiguous f32 {list(h_shape)}, got "
+                  f"{tuple(dh_final.shape)} {dh_final.dtype}")
+
+
+def _typed(grads, dt, x, Bmat):
+    """The plain backward's f32 gradients in the kernels' types: ddt, dx,
+    dB and dC in their inputs' type, dA and dh0 f32."""
+    ddt, dx, dA, dB, dC, dh0 = grads
+    return (ddt.to(dt.dtype), dx.to(x.dtype), dA, dB.to(Bmat.dtype),
+            dC.to(Bmat.dtype), dh0)
+
+
+def _ptr(t):
+    return 0 if t is None else t.data_ptr()
+
+
+def selective_scan_bwd(dt, x, A, Bmat, Cmat, h0, dy, dh_final=None):
+    """Gradient of :func:`selective_scan`: dy [B, S, d] f32 (of y),
+    dh_final [B, d, N] f32 (of h_final) or None (zeros).  Returns (ddt, dx
+    [B, S, d], dA [d, N], dB, dC [B, S, N], dh0 [B, d, N]): ddt, dx, dB and
+    dC in the inputs' type (summed in f32, rounded once), dA and dh0 f32.
+    d must be a multiple of 32.  The same bits on every call."""
+    if _inputs_on_cpu(dt, x, A, Bmat, Cmat, h0, dy, dh_final):
+        return _typed(selective_scan_bwd_ref(dt, x, A, Bmat, Cmat, h0, dy,
+                                             dh_final), dt, x, Bmat)
+    Bsz, S, d, N = _check(dt, x, A, Bmat, Cmat, h0)
+    K.require(d % BWD_CHANNELS == 0,
+              f"the backward needs d={d} a multiple of {BWD_CHANNELS}")
+    _check_grads(dy, dh_final, (Bsz, S, d), (Bsz, d, N))
+    f32 = dict(dtype=torch.float32, device=x.device)
+    ddt, dx = torch.empty_like(dt), torch.empty_like(x)
+    dB, dC = torch.empty_like(Bmat), torch.empty_like(Cmat)
+    dA = torch.empty((d, N), **f32)
+    dh0 = torch.empty((Bsz, d, N), **f32)
+    hs = torch.empty((Bsz, -(-S // BWD_CHUNK), d, N), **f32)
+    pB = torch.empty((d // BWD_CHANNELS, Bsz, S, N), **f32)
+    pC = torch.empty_like(pB)
+    pA = torch.empty((Bsz, d, N), **f32)
+    fn = _build.function("selective_scan", "selective_scan_bwd", _BWD_ARGS)
+    err = fn(dt.data_ptr(), x.data_ptr(), A.data_ptr(), Bmat.data_ptr(),
+             Cmat.data_ptr(), _ptr(h0), dy.data_ptr(), _ptr(dh_final),
+             ddt.data_ptr(), dx.data_ptr(), dA.data_ptr(), dB.data_ptr(),
+             dC.data_ptr(), dh0.data_ptr(), hs.data_ptr(), pB.data_ptr(),
+             pC.data_ptr(), pA.data_ptr(), K.DTYPE_CODES[x.dtype], Bsz, S, d,
+             N, K.stream_ptr(x))
+    K.check_launch(err, "selective_scan_bwd")
+    K.launches["selective_scan_bwd"] += 1
+    return ddt, dx, dA, dB, dC, dh0
+
+
+def selective_scan_heads_bwd(dt, x, A, Bmat, Cmat, h0, dy, dh_final=None):
+    """Gradient of :func:`selective_scan_heads`: dy [B, S, H*P] f32,
+    dh_final [B, H, P, N] f32 or None (zeros).  Returns (ddt [B, S, H], dx
+    [B, S, H*P], dA [H], dB, dC [B, S, N], dh0 [B, H, P, N]), typed as
+    :func:`selective_scan_bwd`'s.  The same bits on every call."""
+    if _inputs_on_cpu(dt, x, A, Bmat, Cmat, h0, dy, dh_final):
+        return _typed(selective_scan_heads_bwd_ref(dt, x, A, Bmat, Cmat, h0,
+                                                   dy, dh_final),
+                      dt, x, Bmat)
+    Bsz, S, Hh, P, N = _check_heads(dt, x, A, Bmat, Cmat, h0)
+    d = Hh * P
+    _check_grads(dy, dh_final, (Bsz, S, d), (Bsz, Hh, P, N))
+    f32 = dict(dtype=torch.float32, device=x.device)
+    ddt, dx = torch.empty_like(dt), torch.empty_like(x)
+    dB, dC = torch.empty_like(Bmat), torch.empty_like(Cmat)
+    dA = torch.empty((Hh,), **f32)
+    dh0 = torch.empty((Bsz, Hh, P, N), **f32)
+    bph = P // BWD_CHANNELS
+    hs = torch.empty((Bsz, -(-S // BWD_CHUNK), d, N), **f32)
+    pB = torch.empty((d // BWD_CHANNELS, Bsz, S, N), **f32)
+    pC = torch.empty_like(pB)
+    pdt = torch.empty((Bsz, S, Hh, bph), **f32)
+    pA = torch.empty((Hh, Bsz, bph), **f32)
+    fn = _build.function("selective_scan", "selective_scan_heads_bwd",
+                         _HEAD_BWD_ARGS)
+    err = fn(dt.data_ptr(), x.data_ptr(), A.data_ptr(), Bmat.data_ptr(),
+             Cmat.data_ptr(), _ptr(h0), dy.data_ptr(), _ptr(dh_final),
+             ddt.data_ptr(), dx.data_ptr(), dA.data_ptr(), dB.data_ptr(),
+             dC.data_ptr(), dh0.data_ptr(), hs.data_ptr(), pB.data_ptr(),
+             pC.data_ptr(), pdt.data_ptr(), pA.data_ptr(),
+             K.DTYPE_CODES[x.dtype], Bsz, S, Hh, P, N, K.stream_ptr(x))
+    K.check_launch(err, "selective_scan_heads_bwd")
+    K.launches["selective_scan_heads_bwd"] += 1
+    return ddt, dx, dA, dB, dC, dh0
+
+
+class _ScanFn(torch.autograd.Function):
+    """The scan with its gradient.  Saves only the inputs (under remat
+    ``torch.utils.checkpoint`` keeps none of them across layers); the
+    backward kernel rebuilds the states itself."""
+    fwd = bwd = None
+
+    @classmethod
+    def forward(cls, ctx, dt, x, A, Bmat, Cmat, h0):
+        ctx.save_for_backward(dt, x, A, Bmat, Cmat, h0)
+        return cls.fwd(dt, x, A, Bmat, Cmat, h0)
+
+    @classmethod
+    def backward(cls, ctx, dy, dh):
+        dt, x, A, Bmat, Cmat, h0 = ctx.saved_tensors
+        ddt, dx, dA, dB, dC, dh0 = cls.bwd(
+            dt, x, A, Bmat, Cmat, h0, dy.float().contiguous(),
+            None if dh is None else dh.float().contiguous())
+        return ddt, dx, dA, dB, dC, None if h0 is None else dh0
+
+
+class SelectiveScanFn(_ScanFn):
+    """:func:`selective_scan` with :func:`selective_scan_bwd`."""
+    fwd, bwd = staticmethod(_scan), staticmethod(selective_scan_bwd)
+
+
+class SelectiveScanHeadsFn(_ScanFn):
+    """:func:`selective_scan_heads` with :func:`selective_scan_heads_bwd`."""
+    fwd = staticmethod(_scan_heads)
+    bwd = staticmethod(selective_scan_heads_bwd)

@@ -9,6 +9,10 @@ prefill chunks and decode steps alike: Mamba-1's per-channel scan, and
 for Mamba-2 the same kernel's per-head mode (one dt and one scalar A per
 head of ``mamba2_head_dim`` channels, one exponential per step and head).
 The recurrent state is f32; the conv prefix stays in the weights' type.
+Both blocks are differentiable end to end (training): everything around
+the scan is PyTorch under autograd, and with grad on the scan runs the
+wrappers' autograd Functions, whose backward is the scan's backward
+kernel; serving (no grad) launches only the forward kernel.
 """
 from __future__ import annotations
 

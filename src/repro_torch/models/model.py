@@ -25,12 +25,14 @@ plane of the KV pool.  A Mamba model with a media frontend raises
 ``NotImplementedError`` (ROADMAP, queue 1: other families).
 Training runs the full-sequence :func:`forward` (``repro.models.model``'s
 ``forward`` with its ``_embed``, ``_block_full``, ``_attn_full`` and
-``_cross_full``) over dense attention + MLP layers, with the vision
-projector or the audio encoder in front; its attention goes through the
-flash kernel and its gradient.  The other layer kinds raise there
-(ROADMAP queue 1 item 15).  The JAX package's dense ``decode_step``/
-``prefill_chunk`` serving paths are not ported (ROADMAP, queue 1: dense
-fallbacks).
+``_cross_full``) over attention + MLP or MoE layers (the MoE FFN's
+capacity-dropping path and its load-balance loss), Mamba-1 and Mamba-2
+layers and shared attention, with the vision projector or the audio
+encoder in front; its attention goes through the flash kernel and its
+gradient, the scans through the selective-scan kernels and theirs.  The
+MLA kinds raise there (ROADMAP queue 1 item 15).  The JAX package's dense
+``decode_step``/``prefill_chunk`` serving paths are not ported (ROADMAP,
+queue 1: dense fallbacks).
 """
 from __future__ import annotations
 
@@ -203,15 +205,36 @@ def _embed(cfg, params, tokens, media_emb, positions):
     return h
 
 
-def _block_full(cfg, p, h, positions, enc_out, window, collect_cache):
-    """One ``ATTN_MLP`` block over the full sequence (cross-attention over
-    ``enc_out`` when the model has it).  Returns (h, cache entry, aux
-    loss): {"k", "v"} (and {"xk", "xv"}) with ``collect_cache``, and no
-    aux loss (0.0) without MoE."""
+def _block_full(cfg, kind, p, shared, h, positions, enc_out, window,
+                collect_cache):
+    """One block over the full sequence, as the reference's
+    ``_block_full``.  Returns (h, cache entry, aux loss): Mamba layers'
+    {"state", "conv"}, shared-attention and attention layers' {"k", "v"}
+    (and {"xk", "xv"} with cross-attention) with ``collect_cache``; the
+    MoE FFN's load-balance loss (its capacity-dropping training path), 0.0
+    without MoE."""
+    cache, aux = {}, 0.0
+    if kind in (MAMBA1, MAMBA2):
+        fn = mamba.mamba1_seq if kind == MAMBA1 else mamba.mamba2_seq
+        y, (state, conv) = fn(p, rmsnorm(h, p.norm, cfg.norm_eps), cfg)
+        h = h + y
+        if collect_cache:
+            cache = {"state": state, "conv": conv}
+        return h, cache, aux
+    if kind == SHARED_ATTN:
+        a, (k, v) = _attn_full(shared, rmsnorm(h, p.norm, cfg.norm_eps), cfg,
+                               positions, window=0)
+        h = h + a
+        h = h + layers.mlp(shared, rmsnorm(h, shared.norm2, cfg.norm_eps),
+                           cfg.act)
+        if collect_cache:
+            cache = {"k": k, "v": v}
+        return h, cache, aux
     a, (k, v) = _attn_full(p, rmsnorm(h, p.norm1, cfg.norm_eps), cfg,
                            positions, window)
     h = h + a
-    cache = {"k": k, "v": v} if collect_cache else {}
+    if collect_cache:
+        cache = {"k": k, "v": v}
     if cfg.cross_attention:
         # the reference's _cross_full: the same function as a chunk's
         c, (xk, xv) = _cross_chunk(p, rmsnorm(h, p.xnorm, cfg.norm_eps),
@@ -219,8 +242,12 @@ def _block_full(cfg, p, h, positions, enc_out, window, collect_cache):
         h = h + c
         if collect_cache:
             cache.update({"xk": xk, "xv": xv})
-    h = h + layers.mlp(p, rmsnorm(h, p.norm2, cfg.norm_eps), cfg.act)
-    return h, cache, 0.0
+    x = rmsnorm(h, p.norm2, cfg.norm_eps)
+    if kind == ATTN_MOE:
+        f, aux = moe.moe_ffn(p, x, cfg, lossless=False)
+    else:
+        f = layers.mlp(p, x, cfg.act)
+    return h + f, cache, aux
 
 
 def forward(cfg: ModelConfig, params, tokens, media=None, frames=None, *,
@@ -230,10 +257,11 @@ def forward(cfg: ModelConfig, params, tokens, media=None, frames=None, *,
     d] goes through the vision projector and before the tokens; ``frames``
     [B, T, d] through the audio encoder, for cross-attention.  ``remat``
     recomputes each block in the backward (``torch.utils.checkpoint``,
-    non-reentrant), which changes no number.  Layer kinds other than
-    ``ATTN_MLP`` raise ``NotImplementedError`` (ROADMAP queue 1 item 15)."""
+    non-reentrant), which changes no number.  Takes attention + MLP or
+    MoE layers, Mamba-1 and Mamba-2 layers and shared attention; the MLA
+    kinds raise ``NotImplementedError`` (ROADMAP queue 1 item 15)."""
     check_supported(cfg)
-    untrained = sorted(set(cfg.layer_kinds()) - {ATTN_MLP})
+    untrained = sorted(set(cfg.layer_kinds()) & {MLA_MLP, MLA_MOE})
     if untrained:
         raise NotImplementedError(
             f"{cfg.name}: the full-sequence forward over layer kinds "
@@ -247,11 +275,12 @@ def forward(cfg: ModelConfig, params, tokens, media=None, frames=None, *,
                                  else media_emb.shape[1])
     positions = torch.arange(S_total, device=tokens.device)
     h = _embed(cfg, params, tokens, media_emb, positions)
+    shared = getattr(params, "shared", None)
     caches, aux_total = [], 0.0
-    for i in range(cfg.num_layers):
+    for i, kind in enumerate(cfg.layer_kinds()):
         window = cfg.sliding_window if cfg.is_local_layer(i) else 0
-        args = (cfg, params.layers[i], h, positions, enc_out, window,
-                collect_cache)
+        args = (cfg, kind, params.layers[i], shared, h, positions, enc_out,
+                window, collect_cache)
         h, cache, aux = checkpoint(_block_full, *args, use_reentrant=False) \
             if remat else _block_full(*args)
         aux_total = aux_total + aux
@@ -382,7 +411,7 @@ def _attn_decode_paged(p, x, cfg, data, layer, kv, lens, lengths, window):
 def _ffn(p, x, cfg, kind):
     """The layer's FFN: the lossless MoE for MoE kinds, else the MLP."""
     if kind in (ATTN_MOE, MLA_MOE):
-        return moe.moe_ffn(p, x, cfg)
+        return moe.moe_ffn(p, x, cfg, lossless=True)[0]
     return layers.mlp(p, x, cfg.act)
 
 

@@ -1,20 +1,33 @@
-"""Mixture-of-Experts FFN, the serving (lossless) path.
+"""Mixture-of-Experts FFN: the serving (lossless) path and the
+capacity-dropping training path.
 
-The PyTorch counterpart of ``repro.models.moe``'s ``init_moe`` and of
-``moe_ffn(..., lossless=True)``, the path the JAX package's decode and
-chunked-prefill steps take (granite-moe and DeepSeek-V2): an f32 router
-over the f32-cast input, softmax, top-k, the k gates renormalised by their
-sum, each token's k expert outputs weighted by its gates and summed, then
-the shared experts' gated MLP (DeepSeek-V2) added.
+The PyTorch counterpart of ``repro.models.moe``'s ``init_moe`` and
+``moe_ffn``: an f32 router over the f32-cast input, softmax, top-k, the k
+gates renormalised by their sum, each token's k expert outputs weighted by
+its gates and summed, then the shared experts' gated MLP (DeepSeek-V2)
+added; and the Switch-style load-balance loss.
 
-The JAX package scatters tokens into an [E, T + 1, d] buffer and multiplies
-every expert by every row of it.  Here only the routed (token, expert)
-pairs are computed: a stable sort groups them by expert (arrival order
-within an expert, as the reference ranks them), and each expert with work
-runs its gated MLP as plain matrix products on its rows.  The per-expert
-row counts are read on the host to cut the sorted rows (one sync per MoE
-layer; ROADMAP queue 1 item 10 lists it as a CUDA-graph blocker).  The
-capacity-dropping training path and the shard-map dispatch are not ported.
+``lossless=True`` (the JAX package's decode and chunked-prefill steps):
+the JAX package scatters tokens into an [E, T + 1, d] buffer and
+multiplies every expert by every row of it.  Here only the routed (token,
+expert) pairs are computed: a stable sort groups them by expert (arrival
+order within an expert, as the reference ranks them), and each expert with
+work runs its gated MLP as plain matrix products on its rows.  The
+per-expert row counts are read on the host to cut the sorted rows (one
+sync per MoE layer; ROADMAP queue 1 item 10 lists it as a CUDA-graph
+blocker).
+
+``lossless=False`` (training) is the reference's capacity path as it is:
+capacity C = min(max(1, int(cf T k / E)), T), each (token, slot) ranked
+in its expert by a stable sort, pairs past C sent to an overflow row C,
+the kept ones scattered into fixed-shape [E, C + 1, d] buffers (no host
+read), the experts run as batched matrix products over them, the outputs
+written back to their pairs and gate-weighted.  Kept pairs have unique
+(expert, slot) indices, so each scatter writes each kept row once,
+whatever the order; only the discarded overflow row and the row of
+empty slots take several writes.
+The shard-map dispatch and the data-sharded dispatch are not ported
+(ROADMAP queue 1 item 16).
 """
 from __future__ import annotations
 
@@ -42,31 +55,69 @@ def init_moe(gen: torch.Generator, cfg, dtype) -> dict:
     return p
 
 
-def route(p, xt, cfg):
+def _probs(p, xt):
+    """Softmax of the f32 router logits of tokens xt [T, d]: [T, E]."""
+    return torch.softmax(xt.float() @ p.router, dim=-1)
+
+
+def route(p, xt, cfg, probs=None):
     """(gates [T, k] f32, expert ids [T, k]) of tokens xt [T, d]: softmax
     of the f32 router logits, top-k, gates renormalised by their sum."""
-    probs = torch.softmax(xt.float() @ p.router, dim=-1)
+    probs = _probs(p, xt) if probs is None else probs
     gates, ids = torch.topk(probs, cfg.experts_per_token, dim=-1)
     gates = gates / gates.sum(-1, keepdim=True).clamp(min=1e-9)
     return gates, ids
 
 
-def moe_ffn(p, x, cfg):
-    """x [B, S, d] -> [B, S, d]: what ``repro.models.moe.moe_ffn(...,
-    lossless=True)`` returns first (its load-balance loss is a training
-    term and is not computed)."""
+def aux_loss(probs, counts, cfg):
+    """The Switch-style load-balance loss E * sum(me sg(ce) + sg(me) ce) / 2
+    of the reference: me the mean router probability of each expert, ce
+    the share of (token, slot) pairs routed to it (``counts`` [E])."""
+    E, k = cfg.num_experts, cfg.experts_per_token
+    me = probs.mean(0)
+    ce = counts.float() / (probs.shape[0] * k)
+    return E * (me * ce.detach() + me.detach() * ce).sum() * 0.5
+
+
+def capacity(cfg, T: int) -> int:
+    """Expert capacity of the training path at T tokens."""
+    E, k = cfg.num_experts, cfg.experts_per_token
+    return min(max(1, int(cfg.moe_capacity_factor * T * k / E)), T)
+
+
+def _shared(p, xt, act):
+    return (act(xt @ p.sh_w_gate) * (xt @ p.sh_w_up)) @ p.sh_w_down
+
+
+def moe_ffn(p, x, cfg, *, lossless: bool = False):
+    """x [B, S, d] -> ([B, S, d], aux load-balance loss), as
+    ``repro.models.moe.moe_ffn``: ``lossless`` keeps every (token, slot)
+    pair (serving); otherwise each expert takes at most
+    :func:`capacity` pairs, in arrival order, and drops the rest
+    (training)."""
     B, S, d = x.shape
-    k = cfg.experts_per_token
     xt = x.reshape(-1, d)
-    gates, ids = route(p, xt, cfg)
+    probs = _probs(p, xt)
+    gates, ids = route(p, xt, cfg, probs)
     flat = ids.reshape(-1)
+    counts = torch.bincount(flat, minlength=cfg.num_experts)
+    aux = aux_loss(probs, counts, cfg)
+    act = layers.act_fn(cfg.act)
+    out = (_routed if lossless else _capacity_dropping)(
+        p, xt, gates, flat, counts, cfg, act).to(x.dtype)
+    if hasattr(p, "sh_w_gate"):
+        out = out + _shared(p, xt, act)
+    return out.reshape(B, S, d), aux
+
+
+def _routed(p, xt, gates, flat, counts, cfg, act):
+    """Every routed pair through its expert (the serving path)."""
+    k, d = cfg.experts_per_token, xt.shape[1]
     order = torch.argsort(flat, stable=True)     # pairs grouped by expert
-    counts = torch.bincount(flat, minlength=cfg.num_experts).tolist()
     xs = xt[order // k]                          # each pair's token row
     ys = torch.empty_like(xs)
-    act = layers.act_fn(cfg.act)
     start = 0
-    for e, n in enumerate(counts):
+    for e, n in enumerate(counts.tolist()):
         if n:
             xe = xs[start:start + n]
             h = act(xe @ p.moe_w_gate[e]) * (xe @ p.moe_w_up[e])
@@ -74,8 +125,35 @@ def moe_ffn(p, x, cfg):
             start += n
     y = torch.empty_like(ys)
     y[order] = ys                                # back to (token, slot)
-    out = (y.view(-1, k, d) * gates[..., None].to(y.dtype)).sum(1)
-    out = out.to(x.dtype)
-    if hasattr(p, "sh_w_gate"):
-        out = out + (act(xt @ p.sh_w_gate) * (xt @ p.sh_w_up)) @ p.sh_w_down
-    return out.reshape(B, S, d)
+    return (y.view(-1, k, d) * gates[..., None].to(y.dtype)).sum(1)
+
+
+def _capacity_dropping(p, xt, gates, flat, counts, cfg, act):
+    """The reference's capacity path, every shape fixed by T."""
+    T, d = xt.shape
+    E, k = cfg.num_experts, cfg.experts_per_token
+    C = capacity(cfg, T)
+    # each pair's rank in its expert: its place in the stable sort less
+    # the expert's first place
+    order = torch.argsort(flat, stable=True)
+    starts = torch.cumsum(counts, 0) - counts
+    ranks = torch.arange(T * k, device=xt.device) - starts[flat[order]]
+    pos = torch.empty_like(flat).scatter_(0, order, ranks)
+    slot = torch.where(pos < C, pos, torch.full_like(pos, C))  # C: overflow
+    xrep = xt.repeat_interleave(k, dim=0)                      # [T*k, d]
+    buf = xt.new_zeros((E, C + 1, d)).index_put((flat, slot), xrep)
+    xe = buf[:, :C]                                            # [E, C, d]
+    h = act(torch.bmm(xe, p.moe_w_gate)) * torch.bmm(xe, p.moe_w_up)
+    ye = torch.bmm(h, p.moe_w_down)                            # [E, C, d]
+    # combine: each kept slot's output written back to its pair (the pair
+    # a slot holds, T*k for an empty slot: a row that is dropped), so
+    # dropped pairs read zeros.  The reference gathers ye[flat, slot]
+    # instead; this is the same sum, and its gradient is a gather rather
+    # than the scatter-add of an index whose overflow rows repeat
+    # thousands of times
+    pair = torch.full((E, C + 1), T * k, dtype=flat.dtype, device=xt.device)
+    pair = pair.index_put((flat, slot), torch.arange(T * k, device=xt.device))
+    y = ye.new_zeros((T * k + 1, d)).index_put(
+        (pair[:, :C].reshape(-1),), ye.reshape(E * C, d))
+    y = y[:T * k].view(T, k, d)
+    return (y * gates[..., None].to(y.dtype)).sum(1)

@@ -1,6 +1,6 @@
 """Training step, as ``repro.train.train``: next-token cross-entropy over
-the text segment (+ the MoE aux loss, 0 for the layer kinds trained so
-far), remat'd blocks, AdamW."""
+the text segment plus ``AUX_LOSS_WEIGHT`` times the MoE layers' summed
+load-balance loss (0 for models without MoE), remat'd blocks, AdamW."""
 from __future__ import annotations
 
 import functools

@@ -16,7 +16,12 @@ under 1, where one rounding is at most 2^-9; a lane of one key returns
 the key's value exactly.  The
 selective scan (both modes) computes in f32 from the same inputs on both
 sides and returns f32, so bf16 inputs keep the f32 bar of 1e-4.  Flash attention
-keeps the attention bars (f32 1e-4, bf16 2e-2).
+keeps the attention bars (f32 1e-4, bf16 2e-2).  The scan's backward
+(both modes) is held against its plain backward on the same inputs,
+upcast, per output: f32 within 1e-4 of the output's largest magnitude
+(sums over channels, lanes and steps in another order); bf16 the same
+plus |want| / 128 per element (ddt, dx, dB and dC come out rounded once to
+bf16, 2^-8 relative at most, with a factor 2 of margin).
 """
 import numpy as np
 import pytest
@@ -32,8 +37,9 @@ from repro_torch.kernels.paged_attention import ops as tpa
 from repro_torch.kernels.paged_attention.ref import (
     paged_attention_ref, paged_prefill_attention_ref)
 from repro_torch.kernels.selective_scan import ops as tss
-from repro_torch.kernels.selective_scan.ref import (selective_scan_heads_ref,
-                                                    selective_scan_ref)
+from repro_torch.kernels.selective_scan.ref import (
+    selective_scan_bwd_ref, selective_scan_heads_bwd_ref,
+    selective_scan_heads_ref, selective_scan_ref)
 
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
@@ -1170,3 +1176,116 @@ def test_flash_attention_autograd_on_card_matches_cpu(cuda):
         grads[str(dev)] = [t.grad.cpu() for t in (q, k, v)]
     for a, b in zip(grads["cpu"], grads[str(cuda)]):
         assert (a - b).abs().max().item() <= 1e-4
+
+
+# ---------------------------------------------------------------------------
+# the selective scan's backward
+# ---------------------------------------------------------------------------
+SCAN_BWD_TOL = {torch.float32: (1e-4, 0.0), torch.bfloat16: (1e-4, 1 / 128)}
+SCAN_GRADS = ("ddt", "dx", "dA", "dB", "dC", "dh0")
+
+
+def _scan_bwd_inputs(gen, dev, dtype, B, S, d, N, heads=None):
+    w = d if heads is None else heads
+    r = lambda *s: torch.randn(s, generator=gen)  # noqa: E731
+    h_shape = (B, d, N) if heads is None else (B, heads, d // heads, N)
+    dt = (r(B, S, w).abs() * 0.1)
+    dt[:, S // 3] = 0.0                         # a padded step
+    ins = [dt.to(dev, dtype), r(B, S, d).to(dev, dtype),
+           -(r(d, N) if heads is None else r(heads)).abs().to(dev),
+           r(B, S, N).to(dev, dtype), r(B, S, N).to(dev, dtype),
+           r(*h_shape).to(dev)]
+    return ins, r(B, S, d).to(dev), r(*h_shape).to(dev)
+
+
+def _scan_bwd_check(got, want, dtype):
+    tol, rtol = SCAN_BWD_TOL[dtype]
+    for name, g, w in zip(SCAN_GRADS, got, want):
+        g, w = g.float(), w.float()
+        assert torch.isfinite(g).all(), name
+        bar = tol * w.abs().max() + rtol * w.abs()
+        assert ((g - w).abs() <= bar).all(), \
+            (name, (g - w).abs().max().item(), w.abs().max().item())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("N", [4, 8, 16])
+@pytest.mark.parametrize("S,given", [(64, "none"), (37, "h0"),
+                                     (1, "dhf"), (83, "both")])
+def test_selective_scan_bwd_matches_plain(cuda, dtype, N, S, given):
+    """Mamba-1's backward kernel over each built N, h0 and dh_final given
+    or not, S a multiple of the 8-step chunk or ragged; the same bits on a
+    second call."""
+    gen = torch.Generator().manual_seed(N * 100 + S)
+    (dt, x, A, Bm, Cm, h0), dy, dhf = _scan_bwd_inputs(gen, cuda, dtype, 2,
+                                                       S, 96, N)
+    h0 = h0 if given in ("h0", "both") else None
+    dhf = dhf if given in ("dhf", "both") else None
+    before = K.launches["selective_scan_bwd"]
+    got = tss.selective_scan_bwd(dt, x, A, Bm, Cm, h0, dy, dhf)
+    assert K.launches["selective_scan_bwd"] == before + 1
+    for g, t in zip(got, (dt, x, A, Bm, Cm)):
+        assert g.dtype == t.dtype and g.shape == t.shape
+    want = selective_scan_bwd_ref(*_f32(dt, x), A, *_f32(Bm, Cm), h0, dy, dhf)
+    _scan_bwd_check(got, want, dtype)
+    again = tss.selective_scan_bwd(dt, x, A, Bm, Cm, h0, dy, dhf)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("H,P,S,given", [(3, 64, 40, "both"),
+                                         (2, 32, 9, "none"),
+                                         (4, 96, 64, "h0"),
+                                         (1, 64, 17, "dhf")])
+def test_selective_scan_heads_bwd_matches_plain(cuda, dtype, H, P, S, given):
+    """The per-head mode's backward kernel: one or several 32-channel
+    blocks a head, h0 and dh_final given or not, ragged S; the same bits
+    on a second call."""
+    gen = torch.Generator().manual_seed(H * 1000 + P + S)
+    (dt, x, A, Bm, Cm, h0), dy, dhf = _scan_bwd_inputs(
+        gen, cuda, dtype, 2, S, H * P, 64, heads=H)
+    h0 = h0 if given in ("h0", "both") else None
+    dhf = dhf if given in ("dhf", "both") else None
+    before = K.launches["selective_scan_heads_bwd"]
+    got = tss.selective_scan_heads_bwd(dt, x, A, Bm, Cm, h0, dy, dhf)
+    assert K.launches["selective_scan_heads_bwd"] == before + 1
+    want = selective_scan_heads_bwd_ref(*_f32(dt, x), A, *_f32(Bm, Cm), h0,
+                                        dy, dhf)
+    _scan_bwd_check(got, want, dtype)
+    again = tss.selective_scan_heads_bwd(dt, x, A, Bm, Cm, h0, dy, dhf)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_selective_scan_bwd_refuses_what_it_does_not_take(cuda):
+    gen = torch.Generator().manual_seed(0)
+    (dt, x, A, Bm, Cm, h0), dy, _ = _scan_bwd_inputs(gen, cuda,
+                                                     torch.float32, 1, 8,
+                                                     40, 4)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        tss.selective_scan_bwd(dt, x, A, Bm, Cm, h0, dy)
+    with pytest.raises(ValueError, match="dy must be"):
+        tss.selective_scan_bwd(dt[:, :, :32].contiguous(),
+                               x[:, :, :32].contiguous(), A[:32], Bm, Cm,
+                               None, dy[:, :, :32].contiguous().bfloat16())
+
+
+@pytest.mark.parametrize("mode", ["mamba1", "heads"])
+def test_selective_scan_autograd_on_card_matches_cpu(cuda, mode):
+    """The autograd Functions on the card (forward and backward kernels)
+    give the CPU's gradients (plain versions), f32."""
+    gen = torch.Generator().manual_seed(3)
+    heads = None if mode == "mamba1" else 2
+    ins, dy, dhf = _scan_bwd_inputs(gen, "cpu", torch.float32, 2, 29,
+                                    64 if heads is None else 128,
+                                    16 if heads is None else 64, heads)
+    fn = tss.selective_scan if heads is None else tss.selective_scan_heads
+    grads = {}
+    for dev in ("cpu", cuda):
+        xs = [t.clone().to(dev).requires_grad_() for t in ins]
+        y, h = fn(*xs)
+        ((y * dy.to(dev)).sum() + (h * dhf.to(dev)).sum()).backward()
+        grads[str(dev)] = [t.grad.cpu() for t in xs]
+    for a, b in zip(grads["cpu"], grads[str(cuda)]):
+        assert (a - b).abs().max().item() <= 1e-4 * a.abs().max().item()

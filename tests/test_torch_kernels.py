@@ -165,6 +165,10 @@ def test_cpu_calls_take_plain_versions_and_count_no_launch(rng):
     xh = _t(rng.standard_normal((1, 2, 64)).astype(np.float32))
     tss.selective_scan_heads(xh[:, :, :2].abs(), xh, -xh[0, 0, :2].abs(),
                              xh, xh)
+    tss.selective_scan_bwd(q, q, -q[0].abs().T, q[:, :, :2], q[:, :, :2],
+                           None, q)
+    tss.selective_scan_heads_bwd(xh[:, :, :2].abs(), xh, -xh[0, 0, :2].abs(),
+                                 xh, xh, None, xh)
     x = _t(rng.standard_normal((1, 2, 3, 64)).astype(np.float32))
     tfa.flash_attention(x, x, x, causal=False)
     out, lse = tfa.flash_attention_fwd(x, x, x, causal=False)
@@ -176,6 +180,8 @@ def test_cpu_calls_take_plain_versions_and_count_no_launch(rng):
                           "paged_attention_latent": 0,
                           "paged_prefill_attention_latent": 0,
                           "selective_scan": 0, "selective_scan_heads": 0,
+                          "selective_scan_bwd": 0,
+                          "selective_scan_heads_bwd": 0,
                           "flash_attention": 0, "flash_attention_split": 0,
                           "flash_attention_merge": 0,
                           "flash_attention_bwd": 0}

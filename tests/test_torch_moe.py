@@ -6,7 +6,9 @@ Tolerances: expert ids identical, then the FFN output within 1e-5
 (per-expert products over the routed rows sum in another order than the
 reference's [E, T + 1, d] buffer products); model logits within 2e-4 of
 the largest logit, the reference's own bar; greedy Engine streams
-identical.
+identical.  The capacity-dropping training path: output and aux loss
+within 1e-5, gradients within 1e-5 of each one's largest magnitude (the
+same products, summed in another order).
 """
 import jax
 import jax.numpy as jnp
@@ -59,10 +61,53 @@ def test_moe_ffn_matches_jax_lossless(rng, arch, shape):
     np.testing.assert_allclose(gates.numpy(), np.asarray(want_gates),
                                atol=1e-6, rtol=0)
     want, _ = JMoE.moe_ffn(jp, jnp.asarray(x), cfg, lossless=True)
-    got = moe.moe_ffn(tp, t(x), cfg)
+    got = moe.moe_ffn(tp, t(x), cfg, lossless=True)[0]
     assert got.shape == x.shape
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
                                rtol=0)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("cf", [0.5, 1.0, 16.0],
+                         ids=["cf0.5", "cf1", "cf16"])
+def test_moe_ffn_capacity_path_matches_jax(rng, arch, cf):
+    """lossless=False at capacity factors that drop pairs (0.5, 1.0) and
+    one that does not (16): the output, the aux loss and the gradients of
+    a random projection of the output plus the aux loss with respect to
+    x, the router and every expert weight (shared experts too), against
+    jax.grad of the reference's moe_ffn."""
+    import dataclasses
+    cfg = dataclasses.replace(reduced_cfg(arch), moe_capacity_factor=cf)
+    jp = JMoE.init_moe(jax.random.PRNGKey(11), cfg, jnp.float32)
+    x = rng.standard_normal((2, 13, cfg.d_model)).astype(np.float32)
+    w = rng.standard_normal(x.shape).astype(np.float32)
+    T, k, E = 26, cfg.experts_per_token, cfg.num_experts
+    C = moe.capacity(cfg, T)
+    assert C == min(max(1, int(cf * T * k / E)), T)
+
+    def jloss(p, xx):
+        y, aux = JMoE.moe_ffn(p, xx, cfg, lossless=False)
+        return (y * w).sum() + aux, (y, aux)
+    (_, (jy, jaux)), (jgp, jgx) = jax.value_and_grad(
+        jloss, argnums=(0, 1), has_aux=True)(jp, jnp.asarray(x))
+    tp = ParamTree({k_: t(np.asarray(v)) for k_, v in jp.items()},
+                   trainable=True)
+    tx = t(x).requires_grad_()
+    y, aux = moe.moe_ffn(tp, tx, cfg, lossless=False)
+    np.testing.assert_allclose(y.detach().numpy(), np.asarray(jy), atol=1e-5,
+                               rtol=0)
+    assert float(aux) == pytest.approx(float(jaux), abs=1e-5)
+    names = sorted(jp)
+    grads = torch.autograd.grad((y * t(w)).sum() + aux,
+                                [tx] + [getattr(tp, n) for n in names])
+    want = [np.asarray(jgx)] + [np.asarray(jgp[n]) for n in names]
+    for name, g, wg in zip(["x"] + names, grads, want):
+        scale = max(np.abs(wg).max(), 1e-30)
+        assert np.abs(g.numpy() - wg).max() <= 1e-5 * scale, name
+    # drops happen at cf < 16: some (token, slot) pairs find a full expert
+    ids = moe.route(tp, tx.detach().reshape(T, -1), cfg)[1]
+    counts = torch.bincount(ids.reshape(-1), minlength=E)
+    assert (counts > C).any() == (cf < 16)
 
 
 def test_moe_ffn_runs_only_routed_experts(rng, monkeypatch):
@@ -75,11 +120,12 @@ def test_moe_ffn_runs_only_routed_experts(rng, monkeypatch):
     _, ids = moe.route(tp, x.reshape(1, -1), cfg)
     idle = sorted(set(range(cfg.num_experts)) - set(ids[0].tolist()))
     assert idle
-    want = moe.moe_ffn(tp, x, cfg)
+    want = moe.moe_ffn(tp, x, cfg, lossless=True)[0]
     with torch.no_grad():
         for name in ("moe_w_gate", "moe_w_up", "moe_w_down"):
             getattr(tp, name)[idle] = float("nan")
-    torch.testing.assert_close(moe.moe_ffn(tp, x, cfg), want, rtol=0, atol=0)
+    torch.testing.assert_close(moe.moe_ffn(tp, x, cfg, lossless=True)[0],
+                               want, rtol=0, atol=0)
 
 
 def test_moe_params_carry_across_leaf_for_leaf(granite):
