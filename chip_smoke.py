@@ -311,49 +311,95 @@ def time_ms_graph(fn, reps: int = 20, rounds: int = 5) -> float:
     return statistics.median(out)
 
 
+PROFILER_TRIES = 3
+
+
+def kernel_trace(run, found, cpu: bool = False):
+    """A torch.profiler trace (CUDA activity, and CPU with ``cpu``) of
+    ``run()`` in which ``found(prof)`` holds.  Now and then the profiler
+    hands back a trace without the device events of kernels that did run;
+    the trace is then taken anew, up to PROFILER_TRIES times.  Returns the
+    profile and the wall seconds of ``run()``, or (None, None) when no try
+    saw the kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU] if cpu else []
+    for attempt in range(PROFILER_TRIES):
+        torch.cuda.synchronize()
+        with profile(activities=acts + [ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        if found(prof):
+            return prof, wall
+        log({"profiler_miss": attempt + 1, "of": PROFILER_TRIES})
+    return None, None
+
+
+def device_us(prof, names: tuple) -> dict:
+    """Summed device microseconds of the kernels whose names contain each
+    of ``names``, in ``prof``."""
+    import torch
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    return {n: sum(e.self_device_time_total for e in events if n in e.key)
+            for n in names}
+
+
 def time_ms_cold(fn, kernels: tuple, reps: int = 20) -> float:
     """Device time of one call with the 50 MB L2 flushed before it (a 64 MB
     buffer is written before each call): the mean over ``reps`` calls of
     the summed time of the kernels whose names contain one of
     ``kernels``, from a torch.profiler trace, so neither the flush nor the
-    host's issue time falls inside it."""
+    host's issue time falls inside it.  Where no trace shows those
+    kernels, CUDA events around each call after its flush time it (the
+    host's issue time then falls inside)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+
+    def run():
         for _ in range(reps):
             flush.zero_()
             fn()
-        torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == torch.autograd.DeviceType.CUDA
-             and any(k in e.key for k in kernels))
-    if us <= 0:
-        raise AssertionError(f"no device time of {kernels} in the trace")
-    return us / reps / 1e3
+
+    def total(prof):
+        return sum(device_us(prof, kernels).values())
+    prof, _ = kernel_trace(run, lambda p: total(p) > 0)
+    if prof is not None:
+        return total(prof) / reps / 1e3
+    ms = 0.0
+    for _ in range(reps):
+        flush.zero_()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        ms += a.elapsed_time(b)
+    log({"timed_by_events": f"{kernels}, L2 flushed: no trace showed them"})
+    return ms / reps
 
 
 def device_ms_by_kernel(fn, names: tuple, reps: int = 5) -> dict:
     """Device time of one call of ``fn``, split by kernel: for each of
     ``names``, the summed time of the kernels whose names contain it, from
-    a torch.profiler trace of ``reps`` calls (after a warm-up call)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+    a torch.profiler trace of ``reps`` calls (after a warm-up call).  A
+    name that no trace showed reads None: not measured."""
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+
+    def run():
         for _ in range(reps):
             fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-    out = {n: sum(e.self_device_time_total for e in events if n in e.key)
-           / reps / 1e3 for n in names}
-    if not all(out.values()):
-        raise AssertionError(f"no device time of some of {names}: {out}")
-    return out
+    prof, _ = kernel_trace(
+        run, lambda p: all(device_us(p, names).values()))
+    if prof is None:
+        log({"not_measured": f"device time of {names}: no trace showed "
+                             "them"})
+        return dict.fromkeys(names)
+    return {n: us / reps / 1e3 for n, us in device_us(prof, names).items()}
 
 
 def bound(nbytes: float, flops: float, dtype: str) -> tuple:
@@ -1229,6 +1275,37 @@ def heads_bound(B, S, isz, fma, rate, Hh=ZH, P=ZP, N=ZN) -> tuple:
 # 2^-8 relative at most, with a factor 2 of margin; dA and dh0 stay f32).
 SCAN_BWD_TOL = {"float32": (1e-4, 0.0), "bfloat16": (1e-4, 1 / 128)}
 SCAN_GRADS = ("ddt", "dx", "dA", "dB", "dC", "dh0")
+# the scan backward's kernels, as ptxas and the profiler name them:
+# Mamba-1's, the per-head mode's, and the fold of their partials
+SCAN_BWD_KERNELS = ("selective_scan_bwd_kernel",
+                    "selective_scan_heads_bwd_kernel", "fold_kernel")
+
+
+def scan_bwd_occupancy(heads: bool, dtype, grid_blocks=None,
+                       N=None) -> dict:
+    """One backward instance as the card runs it (the library's
+    ``selective_scan_bwd_info``: threads and dynamic shared bytes a block,
+    registers and local (spilled) bytes a thread, resident blocks an SM
+    from the occupancy API; Mamba-1 at state size ``N`` (N_STATE when
+    None), the per-head mode at ZN), and the waves a grid of
+    ``grid_blocks`` takes on this card's SMs."""
+    import ctypes
+    import torch
+    from repro_torch.kernels import _build
+    fn = _build.function("selective_scan", "selective_scan_bwd_info",
+                         [ctypes.c_int] * 3 + [ctypes.c_void_p])
+    out = (ctypes.c_int * 5)()
+    err = fn(int(heads), 1 if dtype == torch.bfloat16 else 0,
+             ZN if heads else (N or N_STATE), ctypes.addressof(out))
+    if err:
+        raise AssertionError(f"selective_scan_bwd_info failed: {err}")
+    info = dict(zip(("threads", "smem_bytes", "registers", "local_bytes",
+                     "blocks_per_sm"), out))
+    if grid_blocks is not None:
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        info.update(grid_blocks=grid_blocks, sms=sms,
+                    waves=-(-grid_blocks // (info["blocks_per_sm"] * sms)))
+    return info
 
 
 def scan_bwd_check(name, dtype, got, want) -> float:
@@ -1260,17 +1337,22 @@ def scan_bwd_bound(B, S, d, N, isz, H=None, with_state=False) -> tuple:
     """The least time of one backward call: dt, x, B, C (inputs' type), A
     and dy (f32) read once, ddt, dx, dB, dC (inputs' type), dA and dh0
     (f32) written once (h0 and dh_final read once when given); against
-    the larger of about 12 f32 instructions per (step, channel, state)
-    over the f32 lanes (the state rebuilt: dt x B and its FMA; the reverse
-    step: g, dC, dB, dx, dA h_{t-1}, ddt's three, dA's two, g dA) and one
-    exponential per (step, channel, state) (Mamba-1; per-head mode: per
-    step and head) over the special-function units."""
+    the larger of the f32 instructions per (step, channel, state) over
+    the f32 lanes and one exponential per (step, channel, state) (Mamba-1;
+    per-head mode: per step and head) over the special-function units.
+    The instructions are the least the gradient needs, the state rebuilt
+    from h_{t-1}: dt x B and its FMA into h_t (2), g a_{t+1} and its FMA
+    with dy C into g_t (2), dC += dy h_t, dB += g dt x, dx += g B (3);
+    then Mamba-1 takes q = g a h_{t-1} and adds dt q into dA and A q into
+    ddt (3: 10 in all), the per-head mode, whose dA and ddt factor
+    through one sum a step and head, adds g a h_{t-1} into it (1: 8)."""
     w = d if H is None else H
     a = d * N if H is None else H
     nbytes = 2 * (B * S * w + B * S * d + 2 * B * S * N) * isz \
         + 2 * a * 4 + B * S * d * 4 + B * d * N * 4 * (3 if with_state else 1)
     t_bytes = nbytes / PEAK_BYTES * 1e3
-    t_ops = max(12 * B * S * d * N / fma_rate(),
+    ops = 10 if H is None else 8
+    t_ops = max(ops * B * S * d * N / fma_rate(),
                 B * S * (d * N if H is None else H) / exp_rate()) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
@@ -1283,10 +1365,20 @@ def scan_bwd_cases(gen, dev, results):
     2048, B = 1, bf16) and in f32 with h0 and dh_final at a ragged S.
     Every call twice, bit-equal; the bf16 training shapes timed (eager and
     CUDA-graph replay) beside the bound and the plain backward (no single
-    PyTorch call computes this gradient: library none)."""
+    PyTorch call computes this gradient: library none), with their
+    instance's registers and blocks an SM and the waves of their grid.
+    First logs every backward instance's occupancy (fails on local
+    memory: a spill)."""
     import torch
     from repro_torch.kernels.selective_scan import ops as so
     from repro_torch.kernels.selective_scan import ref as sr
+    for heads, N in ((False, 4), (False, 8), (False, 16), (True, ZN)):
+        for dtype in (torch.float32, torch.bfloat16):
+            info = scan_bwd_occupancy(heads, dtype, N=N)
+            log({"scan_bwd_occupancy": "heads" if heads else "mamba1",
+                 "N": N, "dtype": dname(dtype), **info})
+            if info["local_bytes"]:
+                raise AssertionError(f"scan backward spills: {info}")
 
     def rnd(*shape):
         return torch.randn(shape, generator=gen, device=dev)
@@ -1345,7 +1437,10 @@ def scan_bwd_cases(gen, dev, results):
                  "bound_ms": b_ms, "bound_by": b_by}
             r["bound_share"] = b_ms / r["device_ms"]
             r["device_ms_by_kernel"] = device_ms_by_kernel(
-                call, ("selective_scan_bwd_kernel", "fold_kernel"))
+                call, (SCAN_BWD_KERNELS[Hh is not None], "fold_kernel"))
+            r["occupancy"] = scan_bwd_occupancy(
+                Hh is not None, dtype,
+                so.bwd_plan(B, S, d, N, Hh)["grid"][0] * B)
             results[row] = r
             log({"timing": f"{row}/{tag}", **r})
         del dt, x, Bm, Cm, A, dy, h0, dhf
@@ -1655,7 +1750,8 @@ def check_ptxas(logs: dict):
     or ``paged_prefill_mma_kernel`` with template argument ``Li160E`` in
     the mangled name) spills, or when no D = 160 instance of either was
     built; when a scan backward kernel (``selective_scan_bwd_kernel`` x 2
-    types x 4 state sizes, ``fold_kernel`` x 2) spills or was not built;
+    types x 3 state sizes, ``selective_scan_heads_bwd_kernel`` x 2 types,
+    ``fold_kernel`` x 2) spills or was not built;
     and when a flash backward kernel spills or one of its ten
     instances was not built (the delta kernel x 2 types; the bf16 wgmma
     kernels ``flash_bwd_dkdv_wgmma_kernel`` and ``flash_bwd_dq_wgmma_kernel``
@@ -1685,12 +1781,11 @@ def check_ptxas(logs: dict):
     if d160 != {"decode", "prefill"}:
         raise AssertionError(f"D = 160 instances built: {sorted(d160)}")
     scan_bwd = [k for text in logs.values() for k in ptxas_report(text)
-                if "selective_scan_bwd_kernel" in k["fn"]
-                or "fold_kernel" in k["fn"]]
+                if any(n in k["fn"] for n in SCAN_BWD_KERNELS)]
     log({"ptxas_scan_bwd": scan_bwd})
     if any(k["spill_bytes"] for k in scan_bwd) or len(scan_bwd) != 10:
-        # the backward x 2 types x (N = 4, 8, 16 and the per-head N = 64),
-        # the fold x 2 output types
+        # Mamba-1's backward x 2 types x N = 4, 8, 16; the per-head
+        # mode's x 2 types (N = 64); the fold x 2 output types
         raise AssertionError(f"scan backward kernels built: {scan_bwd}")
     log({"ptxas_flash_bwd": bwd})
     names = {k["fn"] for k in bwd}
@@ -2152,16 +2247,16 @@ def train_full_mamba(seed: int, card: str) -> dict:
          "selective_scan_bwd": FM_TRAIN_LAYERS},
         tuple((so, n) for n in ("selective_scan_ref",
                                 "selective_scan_bwd_ref")))
-    by = prof["device_ms_by_kernel"]
-    bwd = sum(ms for k, ms in by.items() if "selective_scan_bwd_kernel" in k
-              or "fold_kernel" in k)
+    by, step = prof["device_ms_by_kernel"], prof["device_ms_per_call"]
+    bwd = sum(ms for k, ms in by.items()
+              if any(n in k for n in SCAN_BWD_KERNELS))
     fwd = sum(ms for k, ms in by.items() if "selective_scan_kernel" in k)
     log({"train_full_mamba_profile": label, "card": card,
-         "step_device_ms": prof["device_ms_per_call"],
+         "step_device_ms": step,
          "scan_bwd_device_ms": bwd,
-         "scan_bwd_share": bwd / prof["device_ms_per_call"],
+         "scan_bwd_share": step and bwd / step,
          "scan_fwd_device_ms": fwd,
-         "scan_fwd_share": fwd / prof["device_ms_per_call"]})
+         "scan_fwd_share": step and fwd / step})
     return launches
 
 
@@ -2530,15 +2625,21 @@ def profile_calls(fn, what: str, card: str, tag: str, steps: int = 3,
     {"device_ms_per_call", "device_ms_by_kernel": {kernel name: ms a
     call}}."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+
+    def run():
         for _ in range(steps):
             fn()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
+
+    def kernels_seen(p):
+        return any(e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.key not in ranges and e.self_device_time_total > 0
+                   for e in p.key_averages())
+    prof, wall_s = kernel_trace(run, kernels_seen, cpu=True)
+    if prof is None:
+        log({"profile": f"{what}, {steps} calls", "path": tag, "card": card,
+             "not_measured": "no trace showed a kernel"})
+        return {"device_ms_per_call": None, "device_ms_by_kernel": {}}
+    wall_us = wall_s * 1e6
     rows = []                    # device-side kernel events only: the
     for e in prof.key_averages():  # host ops above them carry the same time
         if e.device_type != torch.autograd.DeviceType.CUDA or e.key in ranges:
@@ -3534,7 +3635,8 @@ def main() -> int:
                             "fwd_lse_ms", "fwd_lse_device_ms",
                             "fwd_device_ms", "pairs", "library",
                             "device_ms_by_kernel", "library_fwd_ms",
-                            "library_fwd_device_ms", "other_shapes")
+                            "library_fwd_device_ms", "other_shapes",
+                            "occupancy")
                            if key in r}})
     log({"total_s": time.perf_counter() - t_start, "card": card})
     print(json.dumps({"kernels": kernels}), flush=True)

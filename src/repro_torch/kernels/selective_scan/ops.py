@@ -18,11 +18,15 @@ inputs and ``y`` are read and written once.
 
 Training: ``selective_scan_bwd`` / ``selective_scan_heads_bwd`` launch the
 same file's backward kernels (the gradient the JAX package takes with
-``jax.grad`` through its ``lax.scan``): each block reruns the recurrence
-forward to save the state every 8 steps, then walks those chunks in
-reverse, rebuilding a chunk's states in registers and running the reverse
-recurrence over them; sums across channels and lanes go through per-block
-f32 partials folded in a fixed order, so every call gives the same bits.
+``jax.grad`` through its ``lax.scan``): blocks of 64 channels stage the
+sequence in shared memory 16 steps at a time by ``cp.async``, rerun the
+recurrence forward to save the state every 8 (Mamba-1) or 16 (per-head)
+steps, then walk backward, rebuilding each interval's states in
+registers and running the reverse recurrence over them, each exponential
+taken at most twice; sums across lanes are transposed shuffle reductions,
+across warps and blocks fixed-order sums (f32 partials folded by a second
+kernel), so every call gives the same bits.  :func:`bwd_plan` is the
+host's side of that layout: grid and scratch.
 With grad on and an input that requires it, ``selective_scan`` and
 ``selective_scan_heads`` run :class:`SelectiveScanFn` /
 :class:`SelectiveScanHeadsFn`, which save only the inputs.
@@ -47,8 +51,11 @@ HEAD_STATE_SIZES = (64,)                # N the per-head mode is built for
 HEAD_CHANNELS = 32                      # P must be a multiple of this
 _BWD_ARGS = [_P] * 18 + [_I] * 5 + [_P]       # ... hs pB pC pA, dtype B S d N
 _HEAD_BWD_ARGS = [_P] * 19 + [_I] * 6 + [_P]  # ... pdt pA, dtype B S H P N
-BWD_CHUNK = 8          # the backward saves the state every this many steps
-BWD_CHANNELS = 32      # channels a backward block sums dB and dC over
+BWD_CHUNK = 8          # Mamba-1's backward saves the state every this many steps
+HEAD_BWD_CHUNK = 16    # the per-head backward's (its staged chunk)
+BWD_CHANNELS = 64      # channels a backward block holds and sums dB, dC over
+BWD_MULTIPLE = 32      # d (Mamba-1) must be a multiple of this: a tail block's
+                       # dead channels are whole warps
 
 
 def _check_types(dt, x, Bmat, Cmat, h0, h0_shape, ins):
@@ -198,6 +205,43 @@ def _ptr(t):
     return 0 if t is None else t.data_ptr()
 
 
+def _aligned(t):
+    """``t``, copied when its data does not start on 16 bytes: the
+    backward kernels stage their inputs by 16-byte ``cp.async``."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def bwd_plan(Bsz: int, S: int, d: int, N: int, heads: int | None = None
+             ) -> dict:
+    """The backward kernels' grid and f32 scratch for a call: ``grid``
+    (blocks over channels, lanes b; the last block of a row (Mamba-1) or
+    of each head masks the channels past its end); ``saved``, the states
+    hs keeps a lane; and the scratch shapes ``hs``, ``pB`` (= ``pC``),
+    ``pA`` and, per head, ``pdt``."""
+    if heads is None:
+        blocks, width, chunk = -(-d // BWD_CHANNELS), d, BWD_CHUNK
+    else:
+        width, chunk = d // heads, HEAD_BWD_CHUNK
+        blocks = heads * -(-width // BWD_CHANNELS)
+    per = -(-width // BWD_CHANNELS)            # blocks a row or head
+    saved = -(-S // chunk)
+    plan = dict(grid=(blocks, Bsz), saved=saved, hs=(Bsz, saved, d, N),
+                pB=(blocks, Bsz, S, N),
+                pA=(Bsz, d, N) if heads is None else (heads, Bsz, per))
+    if heads is not None:
+        plan["pdt"] = (Bsz, S, heads, per)
+    return plan
+
+
+def _scratch(plan, device) -> dict:
+    """Empty f32 scratch of a :func:`bwd_plan`, by name."""
+    f32 = dict(dtype=torch.float32, device=device)
+    out = {k: torch.empty(plan[k], **f32)
+           for k in ("hs", "pB", "pdt", "pA") if k in plan}
+    out["pC"] = torch.empty_like(out["pB"])
+    return out
+
+
 def selective_scan_bwd(dt, x, A, Bmat, Cmat, h0, dy, dh_final=None):
     """Gradient of :func:`selective_scan`: dy [B, S, d] f32 (of y),
     dh_final [B, d, N] f32 (of h_final) or None (zeros).  Returns (ddt, dx
@@ -208,25 +252,22 @@ def selective_scan_bwd(dt, x, A, Bmat, Cmat, h0, dy, dh_final=None):
         return _typed(selective_scan_bwd_ref(dt, x, A, Bmat, Cmat, h0, dy,
                                              dh_final), dt, x, Bmat)
     Bsz, S, d, N = _check(dt, x, A, Bmat, Cmat, h0)
-    K.require(d % BWD_CHANNELS == 0,
-              f"the backward needs d={d} a multiple of {BWD_CHANNELS}")
+    K.require(d % BWD_MULTIPLE == 0,
+              f"the backward needs d={d} a multiple of {BWD_MULTIPLE}")
     _check_grads(dy, dh_final, (Bsz, S, d), (Bsz, d, N))
-    f32 = dict(dtype=torch.float32, device=x.device)
+    dt, x, Bmat, Cmat, dy = map(_aligned, (dt, x, Bmat, Cmat, dy))
     ddt, dx = torch.empty_like(dt), torch.empty_like(x)
     dB, dC = torch.empty_like(Bmat), torch.empty_like(Cmat)
-    dA = torch.empty((d, N), **f32)
-    dh0 = torch.empty((Bsz, d, N), **f32)
-    hs = torch.empty((Bsz, -(-S // BWD_CHUNK), d, N), **f32)
-    pB = torch.empty((d // BWD_CHANNELS, Bsz, S, N), **f32)
-    pC = torch.empty_like(pB)
-    pA = torch.empty((Bsz, d, N), **f32)
+    dA = torch.empty((d, N), dtype=torch.float32, device=x.device)
+    dh0 = torch.empty((Bsz, d, N), dtype=torch.float32, device=x.device)
+    ws = _scratch(bwd_plan(Bsz, S, d, N), x.device)
     fn = _build.function("selective_scan", "selective_scan_bwd", _BWD_ARGS)
     err = fn(dt.data_ptr(), x.data_ptr(), A.data_ptr(), Bmat.data_ptr(),
              Cmat.data_ptr(), _ptr(h0), dy.data_ptr(), _ptr(dh_final),
              ddt.data_ptr(), dx.data_ptr(), dA.data_ptr(), dB.data_ptr(),
-             dC.data_ptr(), dh0.data_ptr(), hs.data_ptr(), pB.data_ptr(),
-             pC.data_ptr(), pA.data_ptr(), K.DTYPE_CODES[x.dtype], Bsz, S, d,
-             N, K.stream_ptr(x))
+             dC.data_ptr(), dh0.data_ptr(), ws["hs"].data_ptr(),
+             ws["pB"].data_ptr(), ws["pC"].data_ptr(), ws["pA"].data_ptr(),
+             K.DTYPE_CODES[x.dtype], Bsz, S, d, N, K.stream_ptr(x))
     K.check_launch(err, "selective_scan_bwd")
     K.launches["selective_scan_bwd"] += 1
     return ddt, dx, dA, dB, dC, dh0
@@ -244,25 +285,21 @@ def selective_scan_heads_bwd(dt, x, A, Bmat, Cmat, h0, dy, dh_final=None):
     Bsz, S, Hh, P, N = _check_heads(dt, x, A, Bmat, Cmat, h0)
     d = Hh * P
     _check_grads(dy, dh_final, (Bsz, S, d), (Bsz, Hh, P, N))
-    f32 = dict(dtype=torch.float32, device=x.device)
+    x, Bmat, Cmat, dy = map(_aligned, (x, Bmat, Cmat, dy))
     ddt, dx = torch.empty_like(dt), torch.empty_like(x)
     dB, dC = torch.empty_like(Bmat), torch.empty_like(Cmat)
-    dA = torch.empty((Hh,), **f32)
-    dh0 = torch.empty((Bsz, Hh, P, N), **f32)
-    bph = P // BWD_CHANNELS
-    hs = torch.empty((Bsz, -(-S // BWD_CHUNK), d, N), **f32)
-    pB = torch.empty((d // BWD_CHANNELS, Bsz, S, N), **f32)
-    pC = torch.empty_like(pB)
-    pdt = torch.empty((Bsz, S, Hh, bph), **f32)
-    pA = torch.empty((Hh, Bsz, bph), **f32)
+    dA = torch.empty((Hh,), dtype=torch.float32, device=x.device)
+    dh0 = torch.empty((Bsz, Hh, P, N), dtype=torch.float32, device=x.device)
+    ws = _scratch(bwd_plan(Bsz, S, d, N, Hh), x.device)
     fn = _build.function("selective_scan", "selective_scan_heads_bwd",
                          _HEAD_BWD_ARGS)
     err = fn(dt.data_ptr(), x.data_ptr(), A.data_ptr(), Bmat.data_ptr(),
              Cmat.data_ptr(), _ptr(h0), dy.data_ptr(), _ptr(dh_final),
              ddt.data_ptr(), dx.data_ptr(), dA.data_ptr(), dB.data_ptr(),
-             dC.data_ptr(), dh0.data_ptr(), hs.data_ptr(), pB.data_ptr(),
-             pC.data_ptr(), pdt.data_ptr(), pA.data_ptr(),
-             K.DTYPE_CODES[x.dtype], Bsz, S, Hh, P, N, K.stream_ptr(x))
+             dC.data_ptr(), dh0.data_ptr(), ws["hs"].data_ptr(),
+             ws["pB"].data_ptr(), ws["pC"].data_ptr(), ws["pdt"].data_ptr(),
+             ws["pA"].data_ptr(), K.DTYPE_CODES[x.dtype], Bsz, S, Hh, P, N,
+             K.stream_ptr(x))
     K.check_launch(err, "selective_scan_heads_bwd")
     K.launches["selective_scan_heads_bwd"] += 1
     return ddt, dx, dA, dB, dC, dh0

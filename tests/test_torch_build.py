@@ -47,3 +47,22 @@ def test_nested_headers_are_followed(csrc):
     before = _build._lib_path("flash_attention")
     (csrc / "inner.cuh").write_text("#pragma once\n// edited\n")
     assert _build._lib_path("flash_attention") != before
+
+
+# include cp_async.cuh: the attention tile's two libraries through
+# attn_mma.cuh, the scan directly
+CP_ASYNC_INCLUDERS = INCLUDERS + ("selective_scan",)
+
+
+@pytest.mark.parametrize("name", CP_ASYNC_INCLUDERS)
+def test_cp_async_header_is_hashed_with_its_includers(csrc, name):
+    assert csrc / "cp_async.cuh" in _build._sources(name)
+
+
+def test_editing_cp_async_header_renames_its_includers_only(csrc):
+    before = {n: _build._lib_path(n) for n in _build.KERNELS}
+    header = csrc / "cp_async.cuh"
+    header.write_bytes(header.read_bytes() + b"\n// edited\n")
+    for name in _build.KERNELS:
+        changed = _build._lib_path(name) != before[name]
+        assert changed == (name in CP_ASYNC_INCLUDERS), name

@@ -8,6 +8,8 @@ autograd Functions on CPU tensors.
 Tolerance: f32, each gradient within 1e-5 of that output's largest
 magnitude (the same sums in another order: autograd's and XLA's).
 """
+import math
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -191,3 +193,132 @@ def test_function_without_h0_returns_no_dh0():
                                   Bm.detach(), Cm.detach(), None,
                                   torch.ones_like(y))
     _close(got, [w.numpy() for w in want[:5]], NAMES[:5])
+
+
+# ---------------------------------------------------------------------------
+# what the backward kernels lean on
+# ---------------------------------------------------------------------------
+def _factored_heads_ddt_dA(dt, x, A, Bm, Cm, h0, dy, dhf):
+    """The per-head mode's ddt and dA as its kernel computes them: through
+    s_t = sum_{c,n} g_t h_{t-1} (A and dA_t are one a head), ddt_t = A dA_t
+    s_t + sum_c x_c sum_n g_t B_n and dA = sum_t dt_t dA_t s_t; plain f32
+    PyTorch, the states rebuilt forward."""
+    Bsz, S, H = dt.shape
+    P, N = x.shape[2] // H, Bm.shape[2]
+    x, dy = x.reshape(Bsz, S, H, P), dy.reshape(Bsz, S, H, P)
+    dA_t = torch.exp(dt * A)                                   # [B, S, H]
+    h = torch.zeros((Bsz, H, P, N)) if h0 is None else h0.clone()
+    hs = [h]
+    for t in range(S):
+        h = dA_t[:, t, :, None, None] * h + \
+            (dt[:, t, :, None] * x[:, t])[..., None] * Bm[:, t, None, None]
+        hs.append(h)
+    g = torch.zeros_like(h) if dhf is None else dhf.clone()
+    ddt, dA = torch.empty_like(dt), torch.zeros_like(A)
+    for t in range(S - 1, -1, -1):
+        g = g + dy[:, t, ..., None] * Cm[:, t, None, None]
+        s = (g * hs[t]).sum((2, 3))                            # [B, H]
+        gB = (g * Bm[:, t, None, None]).sum(-1)                # [B, H, P]
+        ddt[:, t] = A * dA_t[:, t] * s + (x[:, t] * gB).sum(-1)
+        dA += (dt[:, t] * dA_t[:, t] * s).sum(0)
+        g = g * dA_t[:, t, :, None, None]
+    return ddt, dA
+
+
+def _factored_close(a, heads, with_h0, with_dhf):
+    dt, x, A, Bm, Cm, dy = _torch(a, "dt", "x", "A", "B", "C", "dy")
+    h0 = torch.from_numpy(a["h0"]) if with_h0 else None
+    dhf = torch.from_numpy(a["dhf"]) if with_dhf else None
+    got = _factored_heads_ddt_dA(dt, x, A, Bm, Cm, h0, dy, dhf)
+    plain = selective_scan_heads_bwd_ref(dt, x, A, Bm, Cm, h0, dy, dhf)
+    _close(got, (plain[0].numpy(), plain[2].numpy()), ("ddt", "dA"))
+    want = _jax_grads(a, heads, with_h0, with_dhf)
+    _close(got, (want[0], want[2]), ("ddt", "dA"))
+
+
+@pytest.mark.parametrize("heads,with_h0,with_dhf",
+                         [c for c in CASES if c[0] is not None],
+                         ids=[i for c, i in zip(CASES, CASE_IDS)
+                              if c[0] is not None])
+def test_factored_heads_ddt_dA_matches_plain_and_jax(heads, with_h0,
+                                                     with_dhf):
+    """The per-head kernel's algebra: ddt and dA through s_t equal the
+    plain backward's per-element sums and jax.grad's."""
+    a = _inputs(6, 2, 11, 8, 8, heads, zero_dt=(3, 10))
+    _factored_close(a, heads, with_h0, with_dhf)
+
+
+@settings(max_examples=10, deadline=None)
+@given(heads=st.sampled_from([1, 2, 4]), B=st.integers(1, 3),
+       S=st.integers(1, 13), P=st.sampled_from([2, 4, 8]),
+       seed=st.integers(0, 2 ** 16))
+def test_factored_heads_ddt_dA_matches_drawn(heads, B, S, P, seed):
+    a = _inputs(seed, B, S, heads * P, 8, heads, zero_dt=range(0, S, 5))
+    _factored_close(a, heads, True, True)
+
+
+def _scratch_bytes(plan):
+    """What a plan's f32 scratch moves: each byte written once, read once."""
+    return 8 * sum(math.prod(plan[k]) for k in ("hs", "pA", "pdt")
+                   if k in plan) + 16 * math.prod(plan["pB"])
+
+
+def _old_scratch_bytes(B, S, d, N, heads=None):
+    """The scratch of the first backward kernels (states every 8 steps,
+    32-channel blocks): hs, pB, pC, pA and the per-head pdt, f32, written
+    and read once."""
+    blocks = d // 32
+    elems = B * -(-S // 8) * d * N + 2 * blocks * B * S * N
+    elems += B * d * N if heads is None else \
+        heads * B * (blocks // heads) + B * S * heads * (blocks // heads)
+    return 2 * 4 * elems
+
+
+@pytest.mark.parametrize("B,S,d,N,heads", [
+    (2, 2048, 8192, 16, None), (1, 512, 8192, 16, None),
+    (2, 83, 96, 4, None), (2, 1, 96, 8, None), (2, 37, 64, 16, None),
+    (1, 2048, 7168, 64, 112), (2, 9, 64, 64, 2), (2, 64, 384, 64, 4),
+    (1, 203, 7168, 64, 112), (2, 40, 192, 64, 3)],
+    ids=["falcon-train", "falcon-512", "d96-N4", "S1", "one-block",
+         "zamba2-train", "P32", "P96", "zamba2-ragged", "P64-H3"])
+def test_bwd_plan_matches_its_formula(B, S, d, N, heads):
+    """The wrapper's plan: 64-channel blocks over each row (Mamba-1) or
+    head, the last one masking its tail (d = 96, P = 32 or 96 leave 32
+    live), states saved every 8 (Mamba-1) or 16 (per-head) steps, the
+    scratch shapes the kernels index, and scratch bytes no more than the
+    first kernels' (states every 8 steps, 32-channel blocks)."""
+    plan = ops.bwd_plan(B, S, d, N, heads)
+    width = d if heads is None else d // heads
+    per = -(-width // 64)
+    assert plan["grid"] == (per * (1 if heads is None else heads), B)
+    chunk = 8 if heads is None else 16
+    assert plan["saved"] == -(-S // chunk)
+    assert plan["hs"] == (B, plan["saved"], d, N)
+    assert plan["pB"] == (plan["grid"][0], B, S, N)
+    if heads is None:
+        assert plan["pA"] == (B, d, N) and "pdt" not in plan
+    else:
+        assert plan["pA"] == (heads, B, per)
+        assert plan["pdt"] == (B, S, heads, per)
+    assert _scratch_bytes(plan) <= _old_scratch_bytes(B, S, d, N, heads)
+
+
+def test_bwd_plan_reckons_the_timed_shapes():
+    """The scratch the source comment reckons: 0.67 GB at falcon-mamba's
+    training shape, 0.71 GB at zamba2's widths (0.81 and 1.41 GB before)."""
+    falcon = ops.bwd_plan(2, 2048, 8192, 16)
+    zamba = ops.bwd_plan(1, 2048, 7168, 64, 112)
+    assert falcon["grid"] == (128, 2) and zamba["grid"] == (112, 1)
+    assert round(_scratch_bytes(falcon) / 1e9, 2) == 0.67
+    assert round(_scratch_bytes(zamba) / 1e9, 2) == 0.71
+    assert round(_old_scratch_bytes(2, 2048, 8192, 16) / 1e9, 2) == 0.81
+    assert round(_old_scratch_bytes(1, 2048, 7168, 64, 112) / 1e9, 2) == 1.41
+
+
+def test_aligned_copies_only_an_unaligned_start():
+    t = torch.arange(40, dtype=torch.bfloat16)
+    assert ops._aligned(t) is t
+    view = t[1:33]
+    assert view.data_ptr() % 16 != 0
+    got = ops._aligned(view)
+    assert got.data_ptr() % 16 == 0 and torch.equal(got, view)

@@ -52,6 +52,20 @@ timed with CUDA events, and its kernels' device time from torch.profiler)
 on the same inputs, with each tree's largest error against the plain
 version's f32 gradients.  Needs a CUDA card and
 nvcc; prints one JSON object per line.
+
+    python3 tools/kernel_ab.py --scan-bwd --parent DIR
+
+times only the selective scan's two backward kernels (``selective_scan_bwd``
+and ``selective_scan_heads_bwd``, bf16 inputs, f32 dy) of both trees'
+``selective_scan.cu`` through their C entries (the same interface; the
+scratch is sized for the larger of the two layouts, states saved every 8
+steps over 32-channel blocks) at falcon-mamba-7b's training shape (B = 2,
+S = 2,048, d = 8,192, N = 16) and zamba2-7b's widths (B = 1, S = 2,048, H
+= 112, P = 64, N = 64), parent, change, change, parent: CUDA-graph
+replays of 5 calls, medians of 7, and eager calls, beside each shape's
+bound (``chip_smoke.py::scan_bwd_bound``), with each tree's largest error
+against the plain backward's f32 gradients on the same inputs and each
+backward instance's registers and resident blocks an SM.
 """
 from __future__ import annotations
 
@@ -489,6 +503,121 @@ def flash_bwd_ab(libs, gen):
         torch.cuda.empty_cache()
 
 
+def scan_bwd_case(gen, B, S, Hh):
+    """Inputs of one backward call (bf16, as the smoke's kernel cases draw
+    them), the f32 plain backward's gradients, and ``call(lib)``: a
+    function that runs ``lib``'s backward entry on them into that tree's
+    own outputs (returned) and scratch."""
+    import torch
+    from repro_torch.kernels.selective_scan import ref as sr
+    d, N = (8192, 16) if Hh is None else (Hh * 64, 64)
+    P = None if Hh is None else d // Hh
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    dt = (rnd(B, S, d if Hh is None else Hh).abs() * 0.1).bfloat16()
+    x, Bm, Cm = rnd(B, S, d).bfloat16(), rnd(B, S, N).bfloat16(), \
+        rnd(B, S, N).bfloat16()
+    A = -(rnd(d, N) if Hh is None else rnd(Hh)).abs()
+    dy = rnd(B, S, d)
+    want = (sr.selective_scan_bwd_ref if Hh is None else
+            sr.selective_scan_heads_bwd_ref)(dt.float(), x.float(), A,
+                                             Bm.float(), Cm.float(), None,
+                                             dy, None)
+    f32 = dict(dtype=torch.float32, device="cuda")
+    blocks = d // 32
+    ws = [torch.empty((B, -(-S // 8), d, N), **f32),
+          torch.empty((blocks, B, S, N), **f32),
+          torch.empty((blocks, B, S, N), **f32)]
+    if Hh is not None:
+        ws.append(torch.empty((B, S, Hh, P // 32), **f32))
+    ws.append(torch.empty((B, d, N) if Hh is None else (Hh, B, P // 32),
+                          **f32))
+
+    def call(lib):
+        outs = (torch.empty_like(dt), torch.empty_like(x), torch.empty_like(A),
+                torch.empty_like(Bm), torch.empty_like(Cm),
+                torch.empty(((B, d, N) if Hh is None else (B, Hh, P, N)),
+                            **f32))
+        if Hh is None:
+            fn, shape = lib.selective_scan_bwd, (B, S, d, N)
+            fn.argtypes = [_P] * 18 + [_I] * 5 + [_P]
+        else:
+            fn, shape = lib.selective_scan_heads_bwd, (B, S, Hh, P, N)
+            fn.argtypes = [_P] * 19 + [_I] * 6 + [_P]
+        args = [t.data_ptr() for t in (dt, x, A, Bm, Cm)] + [None] + \
+            [dy.data_ptr(), None] + [t.data_ptr() for t in outs + tuple(ws)] \
+            + [1, *shape]
+
+        def run():
+            if fn(*args, torch.cuda.current_stream().cuda_stream) != 0:
+                raise RuntimeError("scan backward launch failed")
+        return run, outs
+    return call, want, (B, S, d, N, Hh)
+
+
+def max_err(got, want) -> float:
+    """Largest of each output's max abs error over its max |want|."""
+    return max(((g.float() - w).abs().max() / w.abs().max()).item()
+               for g, w in zip(got, want))
+
+
+def bwd_info(lib) -> dict:
+    """Each backward instance's threads, shared bytes, registers, local
+    bytes and resident blocks an SM (``selective_scan_bwd_info``), where
+    the library exports it."""
+    fn = getattr(lib, "selective_scan_bwd_info", None)
+    if fn is None:
+        return {}
+    fn.argtypes = [_I] * 3 + [_P]
+    out = {}
+    for heads, N in ((0, 4), (0, 8), (0, 16), (1, 64)):
+        for dtype in (0, 1):
+            v = (ctypes.c_int * 5)()
+            if fn(heads, dtype, N, ctypes.addressof(v)) == 0:
+                out[f"{'heads' if heads else 'mamba1'}_N{N}_"
+                    f"{'bf16' if dtype else 'f32'}"] = dict(zip(
+                        ("threads", "smem", "regs", "local_bytes",
+                         "blocks_per_sm"), v))
+    return out
+
+
+def scan_bwd_ab(libs, gen, sms):
+    """The scan's backward of both trees at the two training shapes."""
+    import torch
+    from repro_torch.kernels.selective_scan.ops import bwd_plan
+    sys.path.insert(0, str(ROOT))
+    from chip_smoke import scan_bwd_bound
+    print(json.dumps({"scan_bwd_info": {n: bwd_info(libs[n]) for n in
+                                        ("parent_ss", "ss")}}), flush=True)
+    for tag, B, S, Hh in (("falcon-train", 2, 2048, None),
+                          ("zamba2-train", 1, 2048, 112)):
+        call, want, (B, S, d, N, Hh) = scan_bwd_case(gen, B, S, Hh)
+        runs = {n: call(libs[n]) for n in ("parent_ss", "ss")}
+        errs = {}
+        for n, (run, outs) in runs.items():
+            run()
+            torch.cuda.synchronize()
+            errs[n] = max_err(outs, want)
+        b_ms, b_by = scan_bwd_bound(B, S, d, N, 2, Hh)
+        grid = bwd_plan(B, S, d, N, Hh)["grid"]
+        print(json.dumps({
+            "scan_bwd": f"{tag}: B={B} S={S} " + (
+                f"d={d} N={N}" if Hh is None else f"H={Hh} P={d // Hh} N={N}")
+            + " bf16 inputs, f32 dy",
+            "device_ms": alternate(runs["parent_ss"][0], runs["ss"][0],
+                                   lambda f: graph_ms(f, reps=5)),
+            "eager_ms": alternate(runs["parent_ss"][0], runs["ss"][0],
+                                  lambda f: event_ms(f, reps=5)),
+            "order": "parent, change, change, parent",
+            "max_rel_err": {"parent": errs["parent_ss"], "change": errs["ss"]},
+            "bound_ms": b_ms, "bound_by": b_by,
+            "change_grid_blocks": grid[0] * grid[1],
+            "sms": sms}), flush=True)
+        del runs, want
+        torch.cuda.empty_cache()
+
+
 def cache_write_ab(libs, gen):
     """The write of one layer's K and V rows into a 513-block pool (32
     layers of w = 4096 for LLaVA, 12 of w = 768 for whisper; bf16): the
@@ -632,6 +761,8 @@ def main() -> int:
                     help="only MLA's decode and chunked prefill at D = 576")
     ap.add_argument("--flash-bwd", action="store_true",
                     help="only flash attention's backward (bf16)")
+    ap.add_argument("--scan-bwd", action="store_true",
+                    help="only the selective scan's backward (bf16)")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -657,6 +788,12 @@ def main() -> int:
                       "parent_fa": (pcsrc / "flash_attention.cu", pcsrc)})
         print(json.dumps({"card": card}), flush=True)
         flash_bwd_ab(libs, gen)
+        return 0
+    if args.scan_bwd:
+        libs = build({"ss": (csrc / "selective_scan.cu", csrc),
+                      "parent_ss": (pcsrc / "selective_scan.cu", pcsrc)})
+        print(json.dumps({"card": card}), flush=True)
+        scan_bwd_ab(libs, gen, sms)
         return 0
     scan = (csrc / "selective_scan.cu").read_text()
     old = "expf(dtv * a[i])"
