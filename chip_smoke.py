@@ -12,7 +12,8 @@ on failure:
             csrc`` (all nvcc processes at once), and read from ``cuobjdump
             -sass`` that the bf16 attention kernels run on tensor cores
             (HMMA instructions; HGMMA, wgmma, in the latent-row kernel
-            and in flash attention's bf16 backward) and from ptxas that
+            and in flash attention's bf16 backward, both bodies, all six
+            (D, Dv) pairs) and from ptxas that
             the latent-row kernel, every flash backward kernel, the scan's
             per-head mode, its backward kernels (both modes) and the D =
             160 instances of decode and the chunked-prefill tile do not
@@ -88,6 +89,14 @@ on failure:
             widths (S = 2048, bf16; f32 with h0 and dh_final, ragged S);
             every call twice, bit-equal; the bf16 training shapes timed
             beside their bound and the plain backward;
+            flash attention forward and backward at the other training
+            widths, (D, Dv) = (112, 112), (160, 160), (256, 256) and MLA's
+            (192, 128), f32 and bf16, causal GQA, window and kv_offset
+            cases and the split path at D = 112 and 160 (every call twice,
+            bit-equal), and each at its model's training shape (zamba2-7b,
+            stablelm-12b, gemma3-4b global and local layers, DeepSeek-V2;
+            B = 2, S = 2048, bf16) timed beside the bound and SDPA's
+            forward and backward;
 4. model  - the port's runner on the card against the same runner on the
             CPU (plain versions) on reduced LLaVA, reduced falcon-mamba
             (batched chunks of different lengths) and reduced whisper-small
@@ -96,7 +105,10 @@ on failure:
             pool, D = 80), reduced zamba2-7b (Mamba-2 + shared attention)
             and reduced gemma3-4b (sliding window): logits per step;
    train  - reduced LLaVA-1.5-7B, falcon-mamba-7b, zamba2-7b and
-            granite-moe-1b-a400m in f32: the loss and every gradient leaf
+            granite-moe-1b-a400m, and reduced DeepSeek-V2 (MLA at (192,
+            128), an MLA + MLP and an MLA + MoE layer), zamba2-7b,
+            stablelm-12b and gemma3-4b at their full head dims (112, 160,
+            256) in f32: the loss and every gradient leaf
             of a training step on the card against the CPU (within 1e-4
             of the leaf's largest magnitude), each kernel's launches as
             remat makes them, and one train_step; then
@@ -112,7 +124,13 @@ on failure:
             the scan forward (64) and backward (32) launches a step and
             the backward's share of a profiled step; the flash forward
             (48) and backward (24) launches, the aux loss and the share
-            of dropped (token, expert) pairs a step; then the main of
+            of dropped (token, expert) pairs a step; then zamba2-7b cut
+            to 42 layers (35 Mamba-2, 7 shared-attention uses at D =
+            112), gemma3-4b (34 layers, not cut, D = 256, 29 layers with a
+            1,024-key window) and DeepSeek-V2 cut to its first layer (MLA
+            at (192, 128) and the dense FFN) the same way, each step's
+            flash (and zamba2's per-head scan) launches asserted; each
+            phase's seconds logged; then the main of
             ``python -m repro_torch.train.train_mm`` at its mini config
             for 20 steps, its loss falling;
 5. serve  - three main paths through ``repro_torch.engine.api.Engine``,
@@ -136,6 +154,9 @@ on failure:
             copy of every encoder output); then full-width 24-layer
             granite-moe-1b-a400m and full-width DeepSeek-V2 cut to 4
             layers (MLA + MoE on a latent pool), each on P/D instances
+            (granite-moe's decode step must launch fewer kernels than
+            the same step computing the MoE FFN's aux loss, which
+            serving drops)
             (five greedy/sampled text requests of 200-600 tokens as for
             falcon-mamba; every attention and cache-write kernel must
             launch (DeepSeek-V2's attention on the latent-row kernels,
@@ -174,8 +195,12 @@ on failure:
             their launches its CLI path's, ``cli_max_abs_err`` their error
             at the shapes of that path; ``selective_scan_bwd`` with the
             falcon-mamba training step's launches, and
-            ``selective_scan_heads_bwd`` with the reduced zamba2 step's),
-            then the final status line.
+            ``selective_scan_heads_bwd`` with the reduced zamba2 step's;
+            ``flash_attention[_bwd]_d112``, ``_d160``, ``_d256`` and
+            ``_mla`` at the wider training widths, their launches a
+            training step's: zamba2-7b's, the reduced stablelm-12b
+            step's, gemma3-4b's and DeepSeek-V2's), then the final status
+            line.
 
 Exits non-zero (and prints no status line) without a card or outside the
 repository.
@@ -1279,6 +1304,18 @@ SCAN_GRADS = ("ddt", "dx", "dA", "dB", "dC", "dh0")
 # Mamba-1's, the per-head mode's, and the fold of their partials
 SCAN_BWD_KERNELS = ("selective_scan_bwd_kernel",
                     "selective_scan_heads_bwd_kernel", "fold_kernel")
+# flash attention's forward instances that spill, keyed by (kernel, D,
+# DV, NW or TM) as ptxas names them, with the bytes (stores + loads) it
+# reported when they were built first (PERF.md run X2): the bf16 one-warp
+# tiles above D = 128, the bf16 four-warp tile at D = 256, and the f32
+# two-row tiles at D = 192 and 256.  Every other forward instance has none
+FLASH_FWD_SPILL = {("flash_mma_kernel", 112, 112, 1): 568,
+                   ("flash_mma_kernel", 160, 160, 1): 16,
+                   ("flash_mma_kernel", 192, 128, 1): 32,
+                   ("flash_mma_kernel", 256, 256, 1): 32,
+                   ("flash_mma_kernel", 256, 256, 4): 192,
+                   ("flash_kernel", 192, 128, 2): 8,
+                   ("flash_kernel", 256, 256, 2): 16}
 
 
 def scan_bwd_occupancy(heads: bool, dtype, grid_blocks=None,
@@ -1737,8 +1774,9 @@ def sass_hmma(card: str):
     if not hgmma or not all(hgmma.values()):
         raise AssertionError(f"wgmma kernels without HGMMA: {hgmma}")
     bwd = [n for n in hgmma if "flash_bwd" in n]
-    if len(bwd) != 4:
-        # dK/dV and dQ x D = 64, 128
+    if len(bwd) != 12:
+        # dK/dV and dQ x (D, Dv) = 64, 112, 128 (narrow body), 160, MLA's
+        # (192, 128), 256 (wide body)
         raise AssertionError(f"flash backward wgmma kernels in SASS: {bwd}")
 
 
@@ -1752,16 +1790,31 @@ def check_ptxas(logs: dict):
     built; when a scan backward kernel (``selective_scan_bwd_kernel`` x 2
     types x 3 state sizes, ``selective_scan_heads_bwd_kernel`` x 2 types,
     ``fold_kernel`` x 2) spills or was not built;
-    and when a flash backward kernel spills or one of its ten
-    instances was not built (the delta kernel x 2 types; the bf16 wgmma
-    kernels ``flash_bwd_dkdv_wgmma_kernel`` and ``flash_bwd_dq_wgmma_kernel``
-    and the f32 ones x D = 64, 128)."""
+    when a flash backward kernel spills or one of its 26 instances
+    was not built (the delta kernel x 2 types; the bf16 wgmma kernels,
+    ``flash_bwd_dkdv_wgmma_kernel`` and ``flash_bwd_dq_wgmma_kernel`` at D
+    = 64, 112, 128 and their ``_wide_`` body at (160, 160), (192, 128) and
+    (256, 256); the f32 ones at all six (D, Dv) pairs); and when a flash
+    forward instance spills more than :data:`FLASH_FWD_SPILL` allows it,
+    or one of its 36 was not built (``flash_mma_kernel<D, NW, DV>`` at NW
+    1 and 4, ``flash_kernel<D, DV, TM>`` at TM 1, 2, 4 and 8, each at the
+    six pairs)."""
+    import re
     d160 = set()
     bwd = []
+    fwd = {}
     for name, text in logs.items():
         report = ptxas_report(text)
         log({"ptxas": name, "kernels": report})
         for k in report:
+            m = re.search(r"(flash_mma_kernel|flash_kernel)ILi(\d+)ELi(\d+)"
+                          r"ELi(\d+)EE", k["fn"])
+            if m:
+                a, b, c = (int(g) for g in m.groups()[1:])
+                # flash_mma_kernel<D, NW, DV>, flash_kernel<D, DV, TM>
+                key = ((m[1], a, c, b) if m[1] == "flash_mma_kernel" else
+                       (m[1], a, b, c))
+                fwd[key] = k["spill_bytes"]
             if "flash_bwd" in k["fn"]:
                 bwd.append(k)
                 if k["spill_bytes"]:
@@ -1789,10 +1842,19 @@ def check_ptxas(logs: dict):
         raise AssertionError(f"scan backward kernels built: {scan_bwd}")
     log({"ptxas_flash_bwd": bwd})
     names = {k["fn"] for k in bwd}
-    if len(names) != 10 or sum("wgmma_kernel" in n for n in names) != 4:
-        # delta x 2 types; dK/dV and dQ x 2 bodies (bf16 wgmma, f32) x 2
-        # head dims
+    if len(names) != 26 or sum("wgmma_kernel" in n for n in names) != 12:
+        # delta x 2 types; dK/dV and dQ x 2 types (bf16 wgmma, f32) x 6
+        # (D, Dv) pairs
         raise AssertionError(f"flash backward kernels built: {bwd}")
+    worse = {str(key): (n, FLASH_FWD_SPILL.get(key, 0))
+             for key, n in fwd.items() if n > FLASH_FWD_SPILL.get(key, 0)}
+    log({"ptxas_flash_fwd_spills": {str(key): n for key, n in fwd.items()
+                                    if n},
+         "over_run_x2": worse})
+    if len(fwd) != 36 or worse:
+        # (spill bytes, the most allowed) of each instance over its amount
+        raise AssertionError(f"flash forward instances: {len(fwd)} built "
+                             f"of 36; spilling more than before: {worse}")
 
 
 # ---------------------------------------------------------------------------
@@ -1955,6 +2017,10 @@ def flash_bwd_cases(gen, dev, results, rate):
                         lambda: flash_attention_fwd(q, k, v, **kw), reps=5),
                     "fwd_device_ms": time_ms_graph(
                         lambda: flash_attention(q, k, v, **kw), reps=5),
+                    # the forward's two products (Q K^T, P V) at the bf16
+                    # peak, or one exponential a pair
+                    "fwd_bound_ms": max(4 * pairs * Dh / PEAK_OPS["bfloat16"],
+                                        pairs / rate) * 1e3,
                     # SDPA's forward at the training shape, beside the
                     # flash forward's row
                     "library_fwd_ms": time_ms(
@@ -2005,6 +2071,218 @@ def flash_bwd_cases(gen, dev, results, rate):
          "device_ms": fwd["device_ms"]})
 
 
+# the training attention widths beyond 64 and 128: (tag, row suffix,
+# model, B, H, Kh, S, D, Dv, window); gemma3-4b's local layers (window
+# 1,024) are the d256 rows' second shape
+WIDTHS = [("zamba2-train", "d112", "zamba2-7b's shared attention", 2, 32, 32,
+           2048, 112, 112, 0),
+          ("stablelm-train", "d160", "stablelm-12b", 2, 32, 8, 2048, 160, 160,
+           0),
+          ("gemma3-global", "d256", "gemma3-4b's global layers", 2, 8, 4, 2048,
+           256, 256, 0),
+          ("gemma3-local", "d256", "gemma3-4b's local layers", 2, 8, 4, 2048,
+           256, 256, 1024),
+          ("mla-train", "mla", "DeepSeek-V2's MLA, queries and keys 128 + 64 "
+           "wide, values 128", 2, 128, 128, 2048, 192, 128, 0)]
+# (B, H, Kh, Sq, Sk, causal, window, kv_offset): GQA, a window, a ragged
+# chunk after cached keys; f32 and bf16 at every width
+WIDTH_MASKS = [(1, 4, 2, 200, 200, True, 0, 0), (2, 4, 4, 130, 130, True, 40, 0),
+               (1, 4, 1, 77, 200, True, 0, 123), (1, 2, 2, 150, 150, False, 0, 0)]
+
+
+def width_bounds(pairs, B, H, Kh, Sq, Sk, D, Dv, rate) -> dict:
+    """Forward and backward bounds of bf16 flash attention over ``pairs``
+    visible (query, key) pairs: the products at the bf16 tensor-core peak
+    (forward Q K^T at D and P V at Dv; backward S and dQ and dK at D, dP
+    and dV at Dv; 2 FLOP a multiply-add) or one exponential a pair,
+    against the bytes (forward: q k v read, out and lse written;
+    backward: q k v out dout lse read, dq dk dv written)."""
+    fwd_ops = max(2 * pairs * (D + Dv) / PEAK_OPS["bfloat16"], pairs / rate)
+    bwd_ops = max(2 * pairs * (3 * D + 2 * Dv) / PEAK_OPS["bfloat16"],
+                  pairs / rate)
+    q, k, v, o = B * H * Sq * D, B * Kh * Sk * D, B * Kh * Sk * Dv, \
+        B * H * Sq * Dv
+    fwd_bytes = 2 * (q + k + v + o) + 4 * B * H * Sq
+    bwd_bytes = 2 * (2 * q + 2 * k + 2 * v + 2 * o) + 4 * B * H * Sq
+    out = {}
+    for tag, nbytes, ops in (("fwd", fwd_bytes, fwd_ops),
+                             ("bwd", bwd_bytes, bwd_ops)):
+        t_bytes = nbytes / PEAK_BYTES * 1e3
+        out[tag] = (max(t_bytes, ops * 1e3),
+                    "bytes" if t_bytes >= ops * 1e3 else "operations")
+    return out
+
+
+def width_flash_cases(gen, dev, results, rate):
+    """Flash attention's forward and backward at the (D, Dv) pairs the
+    repo's other configs train at: against their plain versions (bf16
+    held against the f32 plain output, f32 at the masks' small shapes),
+    every call twice and bit-equal, at each model's training shape (bf16,
+    timed beside the bound and SDPA's forward and backward where SDPA takes
+    the shape) and at GQA, window and kv_offset shapes; the split path at
+    a decode row and a 64-row chunk at D = 112 and 160."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention.ops import (
+        flash_attention, flash_attention_bwd, flash_attention_fwd,
+        split_plan)
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_ref, flash_attention_fwd_ref,
+        flash_attention_ref)
+
+    def run_checks(tag, dtype, B, Hq, Kh, Sq, Sk, Dqk, Dv, kw):
+        """(fwd err, bwd err, tensors) of one case, checked and bit-equal."""
+        q = torch.randn((B, Hq, Sq, Dqk), generator=gen, device=dev).to(dtype)
+        k = torch.randn((B, Kh, Sk, Dqk), generator=gen, device=dev).to(dtype)
+        v = torch.randn((B, Kh, Sk, Dv), generator=gen, device=dev).to(dtype)
+        do = torch.randn((B, Hq, Sq, Dv), generator=gen, device=dev).to(dtype)
+        out, lse = flash_attention_fwd(q, k, v, **kw)
+        out2, lse2 = flash_attention_fwd(q, k, v, **kw)
+        want_o, want_lse = flash_attention_fwd_ref(q.float(), k.float(),
+                                                   v.float(), **kw)
+        seen = torch.isfinite(want_lse)
+        lse_err = (lse[seen] - want_lse[seen]).abs().max().item()
+        if not (lse_err <= LSE_TOL[dname(dtype)]
+                and torch.equal(torch.isposinf(lse), ~seen)):
+            raise AssertionError(f"flash lse/{tag} {dname(dtype)}: {lse_err}")
+        f_err = check(f"flash_attention/{tag}", dtype, out, want_o)
+        got = flash_attention_bwd(q, k, v, out, lse, do, **kw)
+        again = flash_attention_bwd(q, k, v, out, lse, do, **kw)
+        want = flash_attention_bwd_ref(q.float(), k.float(), v.float(),
+                                       want_o, want_lse, do.float(), **kw)
+        b_err = bwd_check(f"flash_attention_bwd/{tag}", dtype, got, want)
+        if not (torch.equal(out, out2) and torch.equal(lse, lse2)
+                and all(torch.equal(a, b) for a, b in zip(got, again))):
+            raise AssertionError(f"flash/{tag} {dname(dtype)}: two calls "
+                                 f"differ")
+        log({"check": f"flash_attention_fwd_lse/{tag}", "dtype": dname(dtype),
+             "max_abs_err": lse_err, "tol": LSE_TOL[dname(dtype)],
+             "bit_equal_across_calls": True})
+        del got, again, want, want_o, want_lse, out2, lse2
+        return f_err, b_err, (q, k, v, do, out, lse)
+
+    errs = {}
+    for Dqk, Dv in sorted({(w[7], w[8]) for w in WIDTHS}):
+        for B, Hq, Kh, Sq, Sk, causal, window, off in WIDTH_MASKS:
+            kw = dict(causal=causal, window=window, kv_offset=off)
+            for dtype in (torch.float32, torch.bfloat16):
+                tag = (f"D{Dqk}x{Dv}-B{B}-H{Hq}-Kh{Kh}-{Sq}x{Sk}-c{int(causal)}"
+                       f"-w{window}-o{off}")
+                f_err, b_err, _ = run_checks(tag, dtype, B, Hq, Kh, Sq, Sk,
+                                             Dqk, Dv, kw)
+                errs.setdefault((Dqk, Dv), []).append((f_err, b_err))
+    # the split path where the grid is short: a decode row and a 64-row
+    # chunk over 1,500 keys, at the widths whose merge was added
+    for Dqk in (112, 160):
+        for B, Sq in ((8, 1), (4, 64)):
+            Hq = 8
+            q = torch.randn((B, Hq, Sq, Dqk), generator=gen,
+                            device=dev).bfloat16()
+            k = torch.randn((B, Hq, 1500, Dqk), generator=gen,
+                            device=dev).bfloat16()
+            v = torch.randn((B, Hq, 1500, Dqk), generator=gen,
+                            device=dev).bfloat16()
+            n_split = split_plan(B, Hq, Sq, 1500, Dqk, 0)[1]
+            out, lse = flash_attention_fwd(q, k, v, causal=False)
+            want_o, want_lse = flash_attention_fwd_ref(
+                q.float(), k.float(), v.float(), causal=False)
+            err = check(f"flash_attention/split-D{Dqk}-B{B}-Sq{Sq}",
+                        torch.bfloat16, out, want_o)
+            lse_err = (lse - want_lse).abs().max().item()
+            log({"check": f"flash_attention_fwd_lse/split-D{Dqk}-Sq{Sq}",
+                 "n_split": n_split, "max_abs_err": lse_err,
+                 "tol": LSE_TOL["bfloat16"]})
+            if n_split <= 1 or not lse_err <= LSE_TOL["bfloat16"]:
+                raise AssertionError(f"flash split D={Dqk} Sq={Sq}: {n_split} "
+                                     f"splits, lse err {lse_err}")
+            errs[(Dqk, Dqk)].append((err, 0.0))
+
+    # the training shapes: checked, then timed beside the bound and SDPA
+    for tag, sfx, model, B, Hq, Kh, S, Dqk, Dv, window in WIDTHS:
+        kw = dict(causal=True, window=window)
+        f_err, b_err, (q, k, v, do, out, lse) = run_checks(
+            tag, torch.bfloat16, B, Hq, Kh, S, S, Dqk, Dv, kw)
+        errs[(Dqk, Dv)].append((f_err, b_err))
+        qpos = torch.arange(S, device=dev)[:, None]
+        kpos = torch.arange(S, device=dev)[None, :]
+        mask = kpos <= qpos
+        if window:
+            mask &= kpos > qpos - window
+        pairs = int(mask.sum()) * B * Hq
+        bnd = width_bounds(pairs, B, Hq, Kh, S, S, Dqk, Dv, rate)
+        shape = (f"B={B} H={Hq} Kh={Kh} S={S} D={Dqk} Dv={Dv} causal "
+                 f"window={window} bf16 ({model} training)")
+        sdpa_kw = {"enable_gqa": Kh != Hq}
+        if window:
+            sdpa_kw["attn_mask"] = mask
+        else:
+            sdpa_kw["is_causal"] = True
+
+        def sdpa():
+            return F.scaled_dot_product_attention(q, k, v, **sdpa_kw)
+        ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
+        lib, so = {}, None
+        try:
+            so = F.scaled_dot_product_attention(ql, kl, vl, **sdpa_kw)
+
+            def sdpa_bwd():
+                torch.autograd.grad(so, (ql, kl, vl), do, retain_graph=True)
+            lib = {"library_ms": time_ms(sdpa),
+                   "library_device_ms": time_ms_graph(sdpa, reps=5),
+                   "library_bwd_ms": time_ms(sdpa_bwd),
+                   "library_bwd_device_ms": device_ms_by_kernel(
+                       sdpa_bwd, ("",))[""]}
+        except RuntimeError as e:          # a shape SDPA does not take
+            lib = {"library_ms": None, "library_error": str(e)[:200]}
+        fwd = {"shape": shape,
+               "ms": time_ms(lambda: flash_attention(q, k, v, **kw)),
+               "device_ms": time_ms_graph(
+                   lambda: flash_attention(q, k, v, **kw), reps=5),
+               "lse_device_ms": time_ms_graph(
+                   lambda: flash_attention_fwd(q, k, v, **kw), reps=5),
+               "plain_ms": time_ms(lambda: flash_attention_ref(
+                   q, k, v, **kw), reps=1, rounds=3),
+               "bound_ms": bnd["fwd"][0], "bound_by": bnd["fwd"][1],
+               "pairs": pairs, "library": "F.scaled_dot_product_attention",
+               "library_ms": lib.get("library_ms"),
+               "library_device_ms": lib.get("library_device_ms")}
+        fwd["bound_share"] = fwd["bound_ms"] / fwd["device_ms"]
+
+        def bwd():
+            return flash_attention_bwd(q, k, v, out, lse, do, **kw)
+        bwd_row = {"shape": shape, "ms": time_ms(bwd),
+                   "device_ms": time_ms_graph(bwd, reps=5),
+                   "plain_ms": time_ms(lambda: flash_attention_bwd_ref(
+                       q, k, v, out, lse, do, **kw), reps=1, rounds=3),
+                   "bound_ms": bnd["bwd"][0], "bound_by": bnd["bwd"][1],
+                   "pairs": pairs,
+                   "library": "autograd over F.scaled_dot_product_attention "
+                              "(its backward only)",
+                   "library_ms": lib.get("library_bwd_ms"),
+                   "library_device_ms": lib.get("library_bwd_device_ms")}
+        bwd_row["bound_share"] = bwd_row["bound_ms"] / bwd_row["device_ms"]
+        bwd_row["device_ms_by_kernel"] = device_ms_by_kernel(
+            bwd, ("flash_bwd_delta", "flash_bwd_dkdv", "flash_bwd_dq"))
+        if "library_error" in lib:
+            fwd["library_error"] = bwd_row["library_error"] = \
+                lib["library_error"]
+        for name, row in ((f"flash_attention_{sfx}", fwd),
+                          (f"flash_attention_bwd_{sfx}", bwd_row)):
+            log({"timing": f"{name}/{tag}", "card_kernel": name, **row})
+            if name in results:            # gemma3's local layers
+                results[name].setdefault("other_shapes", []).append(row)
+            else:
+                results[name] = row
+        del q, k, v, do, out, lse, ql, kl, vl, so
+        torch.cuda.empty_cache()
+    for tag, sfx, *_rest in WIDTHS:
+        Dqk, Dv = _rest[5], _rest[6]
+        results[f"flash_attention_{sfx}"]["max_abs_err"] = max(
+            e[0] for e in errs[(Dqk, Dv)])
+        results[f"flash_attention_bwd_{sfx}"]["max_abs_err"] = max(
+            e[1] for e in errs[(Dqk, Dv)])
+
+
 def grads_of(cfg, params, batch):
     """(loss, {path: gradient}) of the port's loss_fn, remat on."""
     import torch
@@ -2016,26 +2294,38 @@ def grads_of(cfg, params, batch):
     return loss.detach(), dict(zip(leaves, grads))
 
 
-# (arch, {kernel: launches a remat'd step on the reduced config as a
-# function of its layer counts}) of the reduced f32 card-vs-CPU check
+def _flash_launches(n):
+    return {"flash_attention": 2 * n["attn"], "flash_attention_bwd": n["attn"]}
+
+
+def _zamba_launches(n):
+    return {"selective_scan_heads": 2 * n["mamba2"],
+            "selective_scan_heads_bwd": n["mamba2"], **_flash_launches(n)}
+
+
+# (arch, overrides of its reduced config, {kernel: launches a remat'd step
+# as a function of its layer counts}) of the reduced f32 card-vs-CPU check;
+# the last four run the widths the full models train at: MLA's (192, 128)
+# with both MLA layer kinds, zamba2-7b's 112, stablelm-12b's 160 and
+# gemma3-4b's 256 (its reduced window of 16 on the local layers)
 TRAIN_CHECKS = (
-    ("llava-1.5-7b", lambda n: {"flash_attention": 2 * n["attn"],
-                                "flash_attention_bwd": n["attn"]}),
-    ("falcon-mamba-7b", lambda n: {"selective_scan": 2 * n["mamba1"],
-                                   "selective_scan_bwd": n["mamba1"]}),
-    ("zamba2-7b", lambda n: {"selective_scan_heads": 2 * n["mamba2"],
-                             "selective_scan_heads_bwd": n["mamba2"],
-                             "flash_attention": 2 * n["attn"],
-                             "flash_attention_bwd": n["attn"]}),
-    ("granite-moe-1b-a400m", lambda n: {"flash_attention": 2 * n["attn"],
-                                        "flash_attention_bwd": n["attn"]}))
+    ("llava-1.5-7b", {}, _flash_launches),
+    ("falcon-mamba-7b", {}, lambda n: {"selective_scan": 2 * n["mamba1"],
+                                       "selective_scan_bwd": n["mamba1"]}),
+    ("zamba2-7b", {}, _zamba_launches),
+    ("granite-moe-1b-a400m", {}, _flash_launches),
+    ("deepseek-v2-236b", {"qk_nope_head_dim": 128, "qk_rope_head_dim": 64,
+                          "v_head_dim": 128}, _flash_launches),
+    ("zamba2-7b", {"head_dim": ZD}, _zamba_launches),
+    ("stablelm-12b", {"head_dim": SD}, _flash_launches),
+    ("gemma3-4b", {"head_dim": 256}, _flash_launches))
 
 
 def layer_counts(cfg) -> dict:
-    """Layers by what they launch: attention (ATTN_*, SHARED_ATTN),
+    """Layers by what they launch: attention (ATTN_*, MLA_*, SHARED_ATTN),
     Mamba-1, Mamba-2."""
     kinds = cfg.layer_kinds()
-    return {"attn": sum(k.startswith("attn") or k == "shared_attn"
+    return {"attn": sum(k.startswith(("attn", "mla")) or k == "shared_attn"
                         for k in kinds),
             "mamba1": kinds.count("mamba1"), "mamba2": kinds.count("mamba2")}
 
@@ -2044,12 +2334,17 @@ def train_check(seed: int) -> dict:
     """Reduced LLaVA-1.5-7B, falcon-mamba-7b (Mamba-1), zamba2-7b (Mamba-2
     and shared attention) and granite-moe-1b-a400m (the MoE FFN's capacity
     path, which drops pairs at its capacity factor of 1.25, and its aux
-    loss) in f32: the loss and every gradient leaf of one training step on
-    the card (the f32 flash and scan kernels, forward and backward)
-    against the same on the CPU (their plain versions), within 1e-4 of the
-    leaf's largest magnitude; each kernel launched as often as remat makes
-    it; then one train_step on the card.  Returns zamba2's launches (the
-    per-head backward's main path)."""
+    loss), then DeepSeek-V2 (MLA + MLP and MLA + MoE at MLA's full (192,
+    128) attention widths), zamba2-7b, stablelm-12b and gemma3-4b at their
+    full head dims (112, 160, 256) in f32: the loss and every gradient
+    leaf of one training step on the card (the f32 flash and scan kernels,
+    forward and backward) against the same on the CPU (their plain
+    versions), within 1e-4 of the leaf's largest magnitude; each kernel
+    launched as often as remat makes it; then one train_step on the card.
+    Returns each row's launches by its label (the arch, then any
+    overrides: "zamba2-7b" is the per-head backward's main path,
+    "stablelm-12b head_dim=160" the D = 160 instances')."""
+    import dataclasses
     import torch
     from repro_torch import kernels as K
     from repro_torch.configs import get_config
@@ -2058,8 +2353,9 @@ def train_check(seed: int) -> dict:
     from repro_torch.train.optim import AdamWConfig, init_opt_state
     from repro_torch.train.train import train_step
     runs = {}
-    for arch, expect in TRAIN_CHECKS:
-        cfg = get_config(arch).reduced()
+    for arch, overrides, expect in TRAIN_CHECKS:
+        cfg = dataclasses.replace(get_config(arch).reduced(), **overrides)
+        label = " ".join([arch] + [f"{k}={v}" for k, v in overrides.items()])
         b = next(batches(cfg, DataConfig(batch_size=2, seq_len=64,
                                          seed=seed)))
         out = {}
@@ -2079,12 +2375,12 @@ def train_check(seed: int) -> dict:
             if rel > worst:
                 worst, worst_leaf = rel, k
         if not (loss_err <= 1e-4 and worst <= 1e-4):
-            raise AssertionError(f"train check {arch}: loss off by "
+            raise AssertionError(f"train check {label}: loss off by "
                                  f"{loss_err}, grad leaf {worst_leaf} by "
                                  f"{worst} (rel)")
         want = expect(layer_counts(cfg))
         if any(launches.get(n, 0) != c for n, c in want.items()):
-            raise AssertionError(f"train check {arch} launches {launches}, "
+            raise AssertionError(f"train check {label} launches {launches}, "
                                  f"expected {want}")
         params = M.init_params(cfg, torch.Generator().manual_seed(seed),
                                trainable=True).to("cuda")
@@ -2092,16 +2388,16 @@ def train_check(seed: int) -> dict:
         _, _, stats = train_step(cfg, opt, params, init_opt_state(params),
                                  to_device(b, "cuda"))
         if not torch.isfinite(stats["loss"]):
-            raise AssertionError(f"train check {arch}: train_step loss not "
+            raise AssertionError(f"train check {label}: train_step loss not "
                                  f"finite")
-        log({"train_check": f"reduced {arch} f32, loss and gradients on "
+        log({"train_check": f"reduced {label} f32, loss and gradients on "
                             f"cuda vs cpu", "loss": float(lc),
              "loss_rel_err": loss_err, "max_rel_grad_err": worst,
              "worst_leaf": worst_leaf, "tol": 1e-4, "launches": launches,
              "aux": float(stats["aux"]),
              "train_step_loss": float(stats["loss"])})
-        runs[arch] = launches
-    return runs["zamba2-7b"]
+        runs[label] = launches
+    return runs
 
 
 def train_run(cfg, label: str, card: str, seed: int, want: dict,
@@ -2300,6 +2596,85 @@ def train_full_moe(seed: int, card: str) -> dict:
     finally:
         moe._capacity_dropping = inner
     torch.cuda.empty_cache()
+    return launches
+
+
+ZAMBA_TRAIN_LAYERS = 42  # zamba2-7b's depth cut for one card (PERF.md)
+FLASH_PLAIN = ("flash_attention_ref", "flash_attention_fwd_ref",
+               "flash_attention_bwd_ref")
+
+
+def train_full_zamba2(seed: int, card: str) -> dict:
+    """zamba2-7b at full width (d 3,584, 112 Mamba-2 heads of 64, N 64;
+    the shared block's attention H = Kh = 32 at D = 112), depth cut from
+    81 to ZAMBA_TRAIN_LAYERS (35 Mamba-2 layers and 7 uses of the shared
+    block), B = 2 rows of 2048 tokens (:func:`train_run`): every step must
+    run the per-head scan forward twice a Mamba-2 layer and its backward
+    once, and the flash forward twice a shared-attention use and its
+    backward once at D = 112, never their plain versions.  Returns the
+    launch counts of one step."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.selective_scan import ops as so
+    cfg = dataclasses.replace(get_config("zamba2-7b"),
+                              num_layers=ZAMBA_TRAIN_LAYERS)
+    n = layer_counts(cfg)
+    if cfg.head_dim != ZD or (n["attn"], n["mamba2"]) != (7, 35):
+        raise AssertionError(f"zamba2-7b's cut: {n}, head dim {cfg.head_dim}")
+    launches, _ = train_run(
+        cfg, f"zamba2-7b, {ZAMBA_TRAIN_LAYERS} of 81 layers (35 Mamba-2, 7 "
+             f"shared-attention uses), full width, bf16, remat, B={TRAIN_B} "
+             f"x {TRAIN_S} text", card, seed, _zamba_launches(n),
+        tuple((fa, f) for f in FLASH_PLAIN)
+        + tuple((so, f) for f in ("selective_scan_heads_ref",
+                                  "selective_scan_heads_bwd_ref")))
+    return launches
+
+
+def train_full_gemma3(seed: int, card: str) -> dict:
+    """gemma3-4b at full width and depth (34 layers: 29 local with a
+    1,024-key window and 5 global; H 8, Kh 4, D 256; d 2,560; a tied
+    vocabulary of 262,144), B = 2 rows of 2048 tokens (:func:`train_run`):
+    every step must run the flash forward twice a layer and its backward
+    once at D = 256, never their plain versions.  Returns the launch
+    counts of one step."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fa
+    cfg = get_config("gemma3-4b")
+    n = layer_counts(cfg)
+    local = sum(cfg.is_local_layer(i) for i in range(cfg.num_layers))
+    if (cfg.head_dim, n["attn"], local, cfg.sliding_window) != \
+            (256, 34, 29, 1024):
+        raise AssertionError(f"gemma3-4b's widths moved: {n}, {local} local")
+    launches, _ = train_run(
+        cfg, f"gemma3-4b, 34 layers (not cut; 29 local, window 1024), bf16, "
+             f"remat, B={TRAIN_B} x {TRAIN_S} text", card, seed,
+        _flash_launches(n), tuple((fa, f) for f in FLASH_PLAIN))
+    return launches
+
+
+def train_full_mla(seed: int, card: str) -> dict:
+    """DeepSeek-V2 at full width, depth cut from 60 to its first layer (MLA
+    with 128 heads, queries and keys 128 + 64 wide, values 128, and the
+    dense FFN of width 12,288; the MLA + MoE layers' 160 experts do not fit
+    one card with their moments), B = 2 rows of 2048 tokens
+    (:func:`train_run`): every step must run the flash forward twice and
+    its backward once at (192, 128), never their plain versions.  Returns
+    the launch counts of one step."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import ops as fa
+    cfg = dataclasses.replace(get_config("deepseek-v2-236b"), num_layers=1)
+    if cfg.layer_kinds() != ["mla_mlp"] or (
+            cfg.qk_nope_head_dim + cfg.qk_rope_head_dim,
+            cfg.v_head_dim) != (192, 128):
+        raise AssertionError("DeepSeek-V2's first layer moved")
+    launches, _ = train_run(
+        cfg, f"deepseek-v2-236b, 1 of 60 layers (MLA + dense FFN), full "
+             f"width, bf16, remat, B={TRAIN_B} x {TRAIN_S} text", card, seed,
+        _flash_launches(layer_counts(cfg)),
+        tuple((fa, f) for f in FLASH_PLAIN))
     return launches
 
 
@@ -2622,8 +2997,8 @@ def profile_calls(fn, what: str, card: str, tag: str, steps: int = 3,
     ``record_function`` range that ``fn`` opens) also the device time of
     the kernels launched inside it, and of the matrix products
     (``aten::mm``) among them, as shares of the busy time.  Returns
-    {"device_ms_per_call", "device_ms_by_kernel": {kernel name: ms a
-    call}}."""
+    {"device_ms_per_call", "launches_per_call", "device_ms_by_kernel":
+    {kernel name: ms a call}}."""
     import torch
 
     def run():
@@ -2638,7 +3013,8 @@ def profile_calls(fn, what: str, card: str, tag: str, steps: int = 3,
     if prof is None:
         log({"profile": f"{what}, {steps} calls", "path": tag, "card": card,
              "not_measured": "no trace showed a kernel"})
-        return {"device_ms_per_call": None, "device_ms_by_kernel": {}}
+        return {"device_ms_per_call": None, "launches_per_call": None,
+                "device_ms_by_kernel": {}}
     wall_us = wall_s * 1e6
     rows = []                    # device-side kernel events only: the
     for e in prof.key_averages():  # host ops above them carry the same time
@@ -2669,6 +3045,7 @@ def profile_calls(fn, what: str, card: str, tag: str, steps: int = 3,
                        "matmul_share": sum(map(mm_us, inside)) / busy
                        if busy else None}
     summary = {"device_ms_per_call": busy / steps / 1e3,
+               "launches_per_call": sum(n for _, _, n in rows) / steps,
                "device_ms_by_kernel": {k: us / steps / 1e3
                                        for us, k, _ in rows}}
     log({"profile": f"{what}, {steps} calls",
@@ -2946,20 +3323,40 @@ def serve_moe(arch: str, seed: int, card: str):
                                       spec.width), device="cuda")
                     .to(torch.bfloat16))
     toks = rng.integers(0, cfg.vocab_size, len(rids)).astype(np.int32)
-    ffn = moe.moe_ffn
+    # serving drops the MoE FFN's aux loss, so its step must not compute
+    # it: every call of moe_ffn and of aux_loss in the profiled step is
+    # counted, and the step must make some of the first and none of the
+    # second.  The step's launches are logged beside an earlier run's
+    # (5,248, PERF.md run Z4) as a reading only: they follow the routing
+    # of the random rows (an expert with no pair launches nothing)
+    ffn, aux = moe.moe_ffn, moe.aux_loss
+    calls = {"moe_ffn": 0, "aux_loss": 0}
 
     def annotated(*a, **k):
+        calls["moe_ffn"] += 1
         with torch.profiler.record_function("moe_ffn"):
             return ffn(*a, **k)
+
+    def counted_aux(*a, **k):
+        calls["aux_loss"] += 1
+        return aux(*a, **k)
     d.runner.decode(rids, toks)
-    moe.moe_ffn = annotated
+    moe.moe_ffn, moe.aux_loss = annotated, counted_aux
     try:
-        profile_calls(lambda: d.runner.decode(rids, toks),
-                      "decode step, B=4", card,
-                      f"{arch}, {cfg.num_layers} layers, context {ctx}",
-                      ranges=("moe_ffn",))
+        step = profile_calls(lambda: d.runner.decode(rids, toks),
+                             "decode step, B=4", card,
+                             f"{arch}, {cfg.num_layers} layers, context {ctx}",
+                             ranges=("moe_ffn",))
     finally:
-        moe.moe_ffn = ffn
+        moe.moe_ffn, moe.aux_loss = ffn, aux
+    log({"decode_launches_per_step": step["launches_per_call"],
+         **({} if mla else {"run_z4": 5248}),
+         "moe_ffn_calls": calls["moe_ffn"],
+         "aux_loss_calls": calls["aux_loss"], "path": arch, "card": card})
+    if not calls["moe_ffn"] or calls["aux_loss"]:
+        raise AssertionError(f"{arch}: the decode steps called moe_ffn "
+                             f"{calls['moe_ffn']} times and aux_loss "
+                             f"{calls['aux_loss']} times")
     for rid in rids:
         d.caches.release(rid)
     return launches
@@ -3398,6 +3795,14 @@ def serve_sim(card: str):
 
 
 # ---------------------------------------------------------------------------
+def timed(label: str, fn, *args):
+    """fn(*args), its wall seconds logged under ``label``."""
+    t = time.perf_counter()
+    out = fn(*args)
+    log({"phase_s": label, "s": time.perf_counter() - t})
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3436,90 +3841,106 @@ def main() -> int:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     results: dict = {}
-    decode_cases(gen, dev, results)
-    prefill_cases(gen, dev, results)
-    cache_write_cases(gen, dev, results)
+    timed("decode_cases", decode_cases, gen, dev, results)
+    timed("prefill_cases", prefill_cases, gen, dev, results)
+    timed("cache_write_cases", cache_write_cases, gen, dev, results)
     from repro_torch.kernels.selective_scan import ops as scan_ops
     from repro_torch.kernels.selective_scan import ref as scan_ref
     rate, fma = exp_rate(), fma_rate()
-    scan_cases(gen, dev, results, "selective_scan", scan_ops.selective_scan,
-               scan_ref.selective_scan_ref, scan_inputs,
-               lambda B, S, isz: scan_bound(B, S, isz, rate),
-               f"d={D_INNER} N={N_STATE}", torch.float32)
+    timed("scan_cases", scan_cases, gen, dev, results, "selective_scan",
+          scan_ops.selective_scan, scan_ref.selective_scan_ref, scan_inputs,
+          lambda B, S, isz: scan_bound(B, S, isz, rate),
+          f"d={D_INNER} N={N_STATE}", torch.float32)
     torch.cuda.empty_cache()
     # the per-head mode (Mamba-2) at zamba2-7b's widths
-    scan_cases(gen, dev, results, "selective_scan_heads",
-               scan_ops.selective_scan_heads,
-               scan_ref.selective_scan_heads_ref, heads_inputs,
-               lambda B, S, isz: heads_bound(B, S, isz, fma, rate),
-               f"H={ZH} P={ZP} N={ZN}", torch.bfloat16)
+    timed("scan_heads_cases", scan_cases, gen, dev, results,
+          "selective_scan_heads", scan_ops.selective_scan_heads,
+          scan_ref.selective_scan_heads_ref, heads_inputs,
+          lambda B, S, isz: heads_bound(B, S, isz, fma, rate),
+          f"H={ZH} P={ZP} N={ZN}", torch.bfloat16)
     torch.cuda.empty_cache()
-    width_attention_cases(gen, dev, results, "zamba2", ZAH, ZAH, ZD)
+    timed("width_attention_zamba2", width_attention_cases, gen, dev, results,
+          "zamba2", ZAH, ZAH, ZD)
     torch.cuda.empty_cache()
-    width_attention_cases(gen, dev, results, "d160", SH, SKH, SD, cli=True)
+    timed("width_attention_d160", width_attention_cases, gen, dev, results,
+          "d160", SH, SKH, SD, True)
     torch.cuda.empty_cache()
-    flash_cases(gen, dev, results, rate)
+    timed("flash_cases", flash_cases, gen, dev, results, rate)
     torch.cuda.empty_cache()
-    flash_bwd_cases(gen, dev, results, rate)
+    timed("flash_bwd_cases", flash_bwd_cases, gen, dev, results, rate)
     torch.cuda.empty_cache()
-    scan_bwd_cases(gen, dev, results)
+    timed("width_flash_cases", width_flash_cases, gen, dev, results, rate)
     torch.cuda.empty_cache()
-    latent_cases(gen, dev, results)
+    timed("scan_bwd_cases", scan_bwd_cases, gen, dev, results)
+    torch.cuda.empty_cache()
+    timed("latent_cases", latent_cases, gen, dev, results)
     torch.cuda.empty_cache()
     for name, r in results.items():
         log({"kernel": name, "card": card, **r})
     log({"phase": "kernels", "s": time.perf_counter() - t0})
 
-    model_check(args.seed)
-    mamba_model_check(args.seed)
-    whisper_model_check(args.seed)
+    timed("model_check", model_check, args.seed)
+    timed("mamba_model_check", mamba_model_check, args.seed)
+    timed("whisper_model_check", whisper_model_check, args.seed)
     for arch in ("granite-moe-1b-a400m", "deepseek-v2-236b", "zamba2-7b",
                  "gemma3-4b"):
-        arch_model_check(arch, args.seed)
+        timed(f"arch_model_check {arch}", arch_model_check, arch, args.seed)
     # training: reduced f32 card vs CPU (LLaVA, falcon-mamba, zamba2,
-    # granite-moe), then full-width LLaVA (16 layers), falcon-mamba-7b (32
-    # layers) and granite-moe-1b-a400m, and train_mm
-    zamba_train = train_check(args.seed)
+    # granite-moe; DeepSeek-V2, zamba2, stablelm-12b and gemma3-4b at their
+    # full attention widths), then full-width LLaVA (16 layers),
+    # falcon-mamba-7b (32 layers), granite-moe-1b-a400m, zamba2-7b (42
+    # layers), gemma3-4b and DeepSeek-V2 (1 layer), and train_mm
+    checks = timed("train_check", train_check, args.seed)
     gc.collect()
     torch.cuda.empty_cache()
-    trained = train_full(args.seed, card)
+    trained = timed("train_full", train_full, args.seed, card)
     gc.collect()
     torch.cuda.empty_cache()
-    trained_mamba = train_full_mamba(args.seed, card)
+    trained_mamba = timed("train_full_mamba", train_full_mamba, args.seed,
+                          card)
     gc.collect()
     torch.cuda.empty_cache()
-    train_full_moe(args.seed, card)
+    timed("train_full_moe", train_full_moe, args.seed, card)
     gc.collect()
     torch.cuda.empty_cache()
-    train_mm_run(card)
+    trained_widths = {}
+    for sfx, fn in (("d112", train_full_zamba2), ("d256", train_full_gemma3),
+                    ("mla", train_full_mla)):
+        trained_widths[sfx] = timed(fn.__name__, fn, args.seed, card)
+        gc.collect()
+        torch.cuda.empty_cache()
+    trained_widths["d160"] = checks[f"stablelm-12b head_dim={SD}"]
+    timed("train_mm", train_mm_run, card)
     gc.collect()
     torch.cuda.empty_cache()
-    launches = serve(args.seed, card)
+    launches = timed("serve", serve, args.seed, card)
     gc.collect()                      # LLaVA's weights and pools go first
     torch.cuda.empty_cache()
-    launches["selective_scan"] = serve_mamba(args.seed,
-                                             card)["selective_scan"]
+    launches["selective_scan"] = timed("serve_mamba", serve_mamba, args.seed,
+                                       card)["selective_scan"]
     gc.collect()
     torch.cuda.empty_cache()
-    whisper = serve_whisper(args.seed, card)
+    whisper = timed("serve_whisper", serve_whisper, args.seed, card)
     for name in ("flash_attention", "flash_attention_split",
                  "flash_attention_merge"):
         launches[name] = whisper[name]
     gc.collect()
     torch.cuda.empty_cache()
-    serve_moe("granite-moe-1b-a400m", args.seed, card)
+    timed("serve_moe granite", serve_moe, "granite-moe-1b-a400m", args.seed,
+          card)
     gc.collect()
     torch.cuda.empty_cache()
     # the latent-row kernels and the 576-wide write count the DeepSeek-V2
     # path's launches
-    deepseek = serve_moe("deepseek-v2-236b", args.seed, card)
+    deepseek = timed("serve_moe deepseek", serve_moe, "deepseek-v2-236b",
+                     args.seed, card)
     for name in ("paged_attention_latent", "paged_prefill_attention_latent"):
         launches[name] = deepseek[name]
     launches["cache_write_mla"] = deepseek["cache_write"]
     gc.collect()
     torch.cuda.empty_cache()
     # the per-head scan and the D = 112 attention rows count zamba2's
-    zamba = serve_zamba(args.seed, card)
+    zamba = timed("serve_zamba", serve_zamba, args.seed, card)
     launches["selective_scan_heads"] = zamba["selective_scan_heads"]
     for name in ("paged_attention", "paged_prefill_attention"):
         launches[f"{name}_zamba2"] = zamba[name]
@@ -3528,23 +3949,24 @@ def main() -> int:
     # the serving entry point: the CLI and the HTTP front on full-width
     # LLaVA-1.5-7B (the JAX CLI's defaults), then the CLI on full-width
     # stablelm-12b, whose every attention call runs a D = 160 instance
-    serve_cli(["--arch", "llava-1.5-7b", "--disagg", "E1,P1,D1",
-               "--requests", "6", "--max-new-tokens", "12"], card)
+    timed("serve_cli llava", serve_cli,
+          ["--arch", "llava-1.5-7b", "--disagg", "E1,P1,D1", "--requests",
+           "6", "--max-new-tokens", "12"], card)
     gc.collect()
     torch.cuda.empty_cache()
-    serve_http(card)
+    timed("serve_http", serve_http, card)
     gc.collect()
     torch.cuda.empty_cache()
     from repro_torch.configs import get_config
     if get_config("stablelm-12b").head_dim != SD:
         raise AssertionError("stablelm-12b's head dim is not 160")
-    stablelm = serve_cli(["--arch", "stablelm-12b", "--disagg", "P1,D1"],
-                         card)
+    stablelm = timed("serve_cli stablelm", serve_cli,
+                     ["--arch", "stablelm-12b", "--disagg", "P1,D1"], card)
     for name in ("paged_attention", "paged_prefill_attention"):
         launches[f"{name}_d160"] = stablelm[name]
     gc.collect()
     torch.cuda.empty_cache()
-    serve_sim(card)
+    timed("serve_sim", serve_sim, card)
     # a merge row's launches: the split calls, each merging in its last
     # blocks (the merge kernel alone never runs on the main paths)
     for name in ("paged_attention", "flash_attention"):
@@ -3558,7 +3980,13 @@ def main() -> int:
     launches["flash_attention_bwd"] = trained["flash_attention_bwd"]
     launches["selective_scan_bwd"] = trained_mamba["selective_scan_bwd"]
     launches["selective_scan_heads_bwd"] = \
-        zamba_train["selective_scan_heads_bwd"]
+        checks["zamba2-7b"]["selective_scan_heads_bwd"]
+    # the wider flash instances: a training step of the model that runs
+    # them (stablelm-12b's D = 160: the reduced f32 step, its only
+    # training path on the card)
+    for sfx, counts in trained_widths.items():
+        launches[f"flash_attention_{sfx}"] = counts["flash_attention"]
+        launches[f"flash_attention_bwd_{sfx}"] = counts["flash_attention_bwd"]
 
     src = {"cache_write": ("src/repro_torch/csrc/cache_write.cu",
                            "src/repro/kernels/cache_write/kernel.py:25"),
@@ -3615,7 +4043,15 @@ def main() -> int:
                "src/repro/kernels/paged_attention/kernel.py:78"),
            "paged_prefill_attention_d160": (
                "src/repro_torch/csrc/paged_attention.cu",
-               "src/repro/kernels/paged_attention/kernel.py:162")}
+               "src/repro/kernels/paged_attention/kernel.py:162"),
+           # flash attention and its gradient at the other training widths:
+           # zamba2-7b's D = 112, stablelm-12b's 160, gemma3-4b's 256 and
+           # DeepSeek-V2's MLA (192, 128)
+           **{f"flash_attention{part}_{sfx}": (
+               "src/repro_torch/csrc/flash_attention.cu",
+               "src/repro/kernels/flash_attention/kernel.py:65")
+              for sfx in ("d112", "d160", "d256", "mla")
+              for part in ("", "_bwd")}}
     kernels = []
     for name, (source, replaces) in src.items():
         r = results[name]
@@ -3636,7 +4072,7 @@ def main() -> int:
                             "fwd_device_ms", "pairs", "library",
                             "device_ms_by_kernel", "library_fwd_ms",
                             "library_fwd_device_ms", "other_shapes",
-                            "occupancy")
+                            "occupancy", "fwd_bound_ms", "library_error")
                            if key in r}})
     log({"total_s": time.perf_counter() - t_start, "card": card})
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -162,7 +162,8 @@ merge_kernel(const float* __restrict__ part_m, const float* __restrict__ part_l,
   });
 }
 
-// D = 32, 64, 128 or 256; out of type T (float or bf16): the merge alone.
+// D = 32, 64, 112, 128, 160 or 256; out of type T (float or bf16): the
+// merge alone.
 template <typename T>
 cudaError_t launch_merge(const float* pm, const float* pl, const float* pa, void* out,
                          Strides ost, int n_split, int B, int H, int Sq, int D,
@@ -178,7 +179,9 @@ cudaError_t launch_merge(const float* pm, const float* pl, const float* pa, void
   switch (D) {
     case 32: run(std::integral_constant<int, 32>()); break;
     case 64: run(std::integral_constant<int, 64>()); break;
+    case 112: run(std::integral_constant<int, 112>()); break;
     case 128: run(std::integral_constant<int, 128>()); break;
+    case 160: run(std::integral_constant<int, 160>()); break;
     case 256: run(std::integral_constant<int, 256>()); break;
     default: return cudaErrorInvalidValue;
   }

@@ -2,7 +2,9 @@
 // chunked-prefill paged attention (paged_attention.cu) and flash attention
 // (flash_attention.cu).
 //
-// A block of NW warps owns 16 query rows per warp.  The caller's
+// A block of NW warps owns 16 query rows per warp.  Queries and keys are
+// D wide and values DV wide (DV <= D; DV = D but for MLA's training
+// attention, 192 / 128).  The caller's
 // problem object says where each query row and each key's K and V rows
 // live and at which position each query row sits; this tile walks the
 // caller's range of key tiles and leaves each warp's rows as an f32 online
@@ -13,7 +15,8 @@
 //   - K and V rows are staged as bf16 in a ring of STAGES shared-memory
 //     buffers by 16-byte cp.async.cg copies (commit_group / wait_group), so
 //     the next tile's copies fly while this one is computed.  Rows are
-//     padded by 16 bytes (LD = D + 8), so the eight rows an ldmatrix phase
+//     padded by 16 bytes (LD = D + 8, LDV = DV + 8), so the eight rows an
+//     ldmatrix phase
 //     reads fall in eight different bank groups.  Keys past the caller's
 //     limit are zero-filled (cp.async with source size 0), never read.
 //   - S = Q K^T on mma.sync m16n8k16 (bf16 in, f32 accumulate): Q's
@@ -51,6 +54,7 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+#include <type_traits>
 
 namespace attn {
 
@@ -64,17 +68,21 @@ constexpr int MAX_WARPS = 4;
 // Tile shape per head dim: keys per tile, ring depth, Q kept in registers.
 // Any D that is a multiple of 16 up to 256 (the products step 16 deep and
 // 16 wide); above that the O accumulators no longer fit a warp's registers
-// (MLA's 576-wide latent rows run on attn_latent.cuh instead).
-template <int D>
+// (MLA's 576-wide latent rows run on attn_latent.cuh instead).  DV, the
+// value width, is a multiple of 16 up to D; the shape follows D.
+template <int D, int DV = D>
 struct Cfg {
   static_assert(D % 16 == 0 && D >= 32 && D <= 256, "head dim 16k, 32 <= D <= 256");
+  static_assert(DV % 16 == 0 && DV >= 32 && DV <= D, "value width 16k, 32 <= DV <= D");
   static constexpr int BK = D <= 128 ? 64 : 32;
   static constexpr int STAGES = D <= 64 ? 3 : 2;
   static constexpr bool Q_REGS = D <= 128;
   static constexpr int LD = D + 8;          // padded row, in elements
+  static constexpr int LDV = DV + 8;        // padded V row
   static constexpr int CH = D / 8;          // 16-byte chunks per row
+  static constexpr int CHV = DV / 8;        // ... per V row
   static size_t smem_bytes(int rows) {       // rows: the block's query rows
-    return (size_t)(rows + STAGES * 2 * BK) * LD * sizeof(bf16);
+    return (size_t)(rows * LD + STAGES * BK * (LD + LDV)) * sizeof(bf16);
   }
 };
 
@@ -136,7 +144,8 @@ __device__ __forceinline__ float pair_sum(uint32_t x) {
   return __uint_as_float(x << 16) + __uint_as_float(x & 0xffff0000u);
 }
 
-// One key tile's online-softmax update of a lane's two rows: s holds the
+// One key tile's online-softmax update of a lane's two rows (a state DV
+// wide): s holds the
 // raw scores; p gets the probabilities as bf16 pairs, (s[n][0], s[n][1])
 // in p[n][0] and (s[n][2], s[n][3]) in p[n][1], the A-fragment halves P V
 // takes, and l sums those rounded values.  Scores are scaled after the
@@ -144,9 +153,9 @@ __device__ __forceinline__ float pair_sum(uint32_t x) {
 // MASKED, bit n * 4 + e of vis says whether key (n, e) is visible, and a
 // masked key counts as the finite NEG_INF for the row max and gets p = 0
 // exactly.
-template <int D, int BK, bool MASKED>
+template <int DV, int BK, bool MASKED>
 __device__ __forceinline__ void softmax_tile(const float (&s)[BK / 8][4], uint32_t vis,
-                                             float scale_log2, RowState<D>& st,
+                                             float scale_log2, RowState<DV>& st,
                                              uint32_t (&p)[BK / 8][2]) {
   auto visible = [&](int n, int e) { return !MASKED || ((vis >> (n * 4 + e)) & 1u); };
   float mx[2] = {NEG_INF, NEG_INF};
@@ -177,7 +186,7 @@ __device__ __forceinline__ void softmax_tile(const float (&s)[BK / 8][4], uint32
 #pragma unroll
   for (int i = 0; i < 2; ++i) st.l[i] = alpha[i] * st.l[i] + rs[i];
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n) {
+  for (int n = 0; n < DV / 8; ++n) {
     st.acc[n][0] *= alpha[0];
     st.acc[n][1] *= alpha[0];
     st.acc[n][2] *= alpha[1];
@@ -196,26 +205,28 @@ __device__ __forceinline__ void softmax_tile(const float (&s)[BK / 8][4], uint32
 //                       for a key at or past kv_limit (m < N)
 //   kv_row(j)           the same for one key (needed only when D / 8 does
 //                       not divide the block's threads; FlashProb has none)
-//   k_at(i), v_at(i)    the K and V rows of row index i
+//   k_at(i), v_at(i)    the K (D wide) and V (DV wide) rows of row index i
 //   kv_limit, causal, window
 // Key j is visible to a row at qpos when j < kv_limit, (!causal or j <=
 // qpos) and (window <= 0 or j > qpos - window).  Every thread of the block
-// calls this with blockDim.x = 32 * NW; smem holds Cfg<D>::smem_bytes(16
+// calls this with blockDim.x = 32 * NW; smem holds Cfg<D, DV>::smem_bytes(16
 // * NW).  The block size is a template argument so that the copy loops
 // unroll and a thread's row indices (for paged K/V, table lookups) are all
 // looked up before its copies are issued.
-template <int D, int NW, class Prob>
+template <int D, int NW, int DV = D, class Prob>
 __device__ __forceinline__ void attend(const Prob& P, int kt_begin, int kt_end,
-                                       float scale_log2, RowState<D>& st, bf16* smem) {
-  using C = Cfg<D>;
-  constexpr int BK = C::BK, LD = C::LD, CH = C::CH, STAGES = C::STAGES;
+                                       float scale_log2, RowState<DV>& st, bf16* smem) {
+  using C = Cfg<D, DV>;
+  constexpr int BK = C::BK, LD = C::LD, LDV = C::LDV, CH = C::CH, STAGES = C::STAGES;
   constexpr int NTHR = 32 * NW, ROWS = 16 * NW;
-  static_assert((BK * CH) % NTHR == 0 && (ROWS * CH) % NTHR == 0, "copy split");
+  static_assert((BK * CH) % NTHR == 0 && (ROWS * CH) % NTHR == 0 &&
+                    (BK * C::CHV) % NTHR == 0,
+                "copy split");
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int r0 = warp * 16, g = lane / 4, tig = lane % 4;
 
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n)
+  for (int n = 0; n < DV / 8; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) st.acc[n][e] = 0.f;
   st.m[0] = st.m[1] = NEG_INF;
@@ -223,7 +234,7 @@ __device__ __forceinline__ void attend(const Prob& P, int kt_begin, int kt_end,
   if (kt_begin >= kt_end) return;
 
   bf16* sQ = smem;
-  bf16* sKV = sQ + ROWS * LD;          // stage s: K at s * 2 * BK * LD, then V
+  bf16* sKV = sQ + ROWS * LD;          // stage s: K at s * BK * (LD + LDV), then V
 
   // When CH divides the block, thread tid copies chunk tid % CH of keys
   // tid / CH + m * NTHR / CH, their rows found with one division a tile;
@@ -231,11 +242,42 @@ __device__ __forceinline__ void attend(const Prob& P, int kt_begin, int kt_end,
   // looked up on its own (P.kv_row).  The second path would serve every
   // D, but costs a division by the page size per chunk: 18% and 22% more
   // device time at D = 64 and 128 on an H100 (tools/kernel_ab.py --mla).
+  //
+  // With DV < D, K's and V's rows are copied by two such loops, each at
+  // its own width.
+  auto copy_rows = [&](int kt, bf16* dst, auto width, auto at) {
+    constexpr int W = decltype(width)::value, CW = W / 8, PER = BK * CW / NTHR;
+    if constexpr (NTHR % CW == 0) {
+      constexpr int STEP = NTHR / CW;
+      const int c = tid % CW;
+      int row[PER];
+      P.template kv_rows<PER, STEP>(kt * BK + tid / CW, row);
+#pragma unroll
+      for (int m = 0; m < PER; ++m) {
+        const int j = tid / CW + m * STEP;
+        const bool ok = row[m] >= 0;
+        cp_async16(dst + j * (W + 8) + c * 8, ok ? at(row[m]) + c * 8 : P.k_base, ok);
+      }
+    } else {
+#pragma unroll
+      for (int m = 0; m < PER; ++m) {
+        const int i = tid + m * NTHR, j = i / CW, c = i % CW;
+        const int row = P.kv_row(kt * BK + j);
+        const bool ok = row >= 0;
+        cp_async16(dst + j * (W + 8) + c * 8, ok ? at(row) + c * 8 : P.k_base, ok);
+      }
+    }
+  };
   auto load_tile = [&](int kt, int stage) {
     constexpr int PER = BK * CH / NTHR;
-    bf16* kd = sKV + stage * 2 * BK * LD;
+    bf16* kd = sKV + stage * BK * (LD + LDV);
     bf16* vd = kd + BK * LD;
-    if constexpr (NTHR % CH == 0) {
+    if constexpr (DV != D) {
+      copy_rows(kt, kd, std::integral_constant<int, D>(),
+                [&](int r) { return P.k_at(r); });
+      copy_rows(kt, vd, std::integral_constant<int, DV>(),
+                [&](int r) { return P.v_at(r); });
+    } else if constexpr (NTHR % CH == 0) {
       constexpr int STEP = NTHR / CH;
       const int c = tid % CH;
       int row[PER];
@@ -286,7 +328,7 @@ __device__ __forceinline__ void attend(const Prob& P, int kt_begin, int kt_end,
     cp_async_commit();
     if (!active) continue;
 
-    const bf16* sK = sKV + (it % STAGES) * 2 * BK * LD;
+    const bf16* sK = sKV + (it % STAGES) * BK * (LD + LDV);
     const bf16* sV = sK + BK * LD;
     if constexpr (C::Q_REGS) {
       if (it == 0) {
@@ -326,7 +368,7 @@ __device__ __forceinline__ void attend(const Prob& P, int kt_begin, int kt_end,
     uint32_t pb[BK / 8][2];
     if (k0 + BK <= P.kv_limit && (!P.causal || k0 + BK - 1 <= qlo) &&
         (P.window <= 0 || k0 > qhi - P.window)) {
-      softmax_tile<D, BK, false>(s, 0u, scale_log2, st, pb);
+      softmax_tile<DV, BK, false>(s, 0u, scale_log2, st, pb);
     } else {
       uint32_t vis = 0u;             // bit n * 4 + e: the key is visible
 #pragma unroll
@@ -339,7 +381,7 @@ __device__ __forceinline__ void attend(const Prob& P, int kt_begin, int kt_end,
               (P.window <= 0 || key > qp - P.window))
             vis |= 1u << (n * 4 + e);
         }
-      softmax_tile<D, BK, true>(s, vis, scale_log2, st, pb);
+      softmax_tile<DV, BK, true>(s, vis, scale_log2, st, pb);
     }
 
     // O += P V: P's bf16 pairs, laid out as its C-fragments, are the
@@ -349,9 +391,9 @@ __device__ __forceinline__ void attend(const Prob& P, int kt_begin, int kt_end,
       const uint32_t a[4] = {pb[2 * kk][0], pb[2 * kk][1], pb[2 * kk + 1][0],
                              pb[2 * kk + 1][1]};
 #pragma unroll
-      for (int dd = 0; dd < D / 16; ++dd) {
+      for (int dd = 0; dd < DV / 16; ++dd) {
         uint32_t b[4];
-        ldsm_x4_t(b, sV + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + dd * 16 +
+        ldsm_x4_t(b, sV + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDV + dd * 16 +
                          (lane >> 4) * 8);
         mma16816(st.acc[2 * dd], a, b[0], b[1]);
         mma16816(st.acc[2 * dd + 1], a, b[2], b[3]);

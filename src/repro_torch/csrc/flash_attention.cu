@@ -17,10 +17,14 @@
 // _flash_kernel gives it, and a row that sees none comes out 0, as the
 // JAX oracle (flash_attention_ref) gives it.
 //
-// Layouts: q/out [B, H, Sq, D], k/v [B, Kh, Sk, D], addressed through the
-// (batch, head, sequence) strides in elements the caller passes, the last
-// dimension contiguous; so a [B, S, H, D] projection viewed as [B, H, S, D]
-// is read and written in place.  D = 64 or 128.
+// Layouts: q [B, H, Sq, D], k [B, Kh, Sk, D], v [B, Kh, Sk, DV], out [B,
+// H, Sq, DV], addressed through the (batch, head, sequence) strides in
+// elements the caller passes, the last dimension contiguous; so a [B, S, H,
+// D] projection viewed as [B, H, S, D] is read and written in place.
+// (D, DV) = (64, 64), (112, 112), (128, 128), (160, 160), (256, 256):
+// every head dim of the repo's configs; and (192, 128), DeepSeek-V2's MLA
+// in training (queries and keys 128 + 64 wide, values 128), scaled by
+// 1/sqrt(D).
 //
 // The TPU grid walks (b, h, q block, kv block) with the kv block innermost
 // and the softmax state carried in VMEM scratch across grid steps.  CUDA
@@ -37,9 +41,10 @@
 //   to finish combines them by log-sum-exp (partials with l = 0, ranges
 //   that saw no key, weigh nothing) into out, in the same launch
 //   (attn_merge.cuh's arrive_last; a one-warp tile then runs merge_rows,
-//   a four-warp tile folds the other splits into the state its lanes
-//   hold).  The plan keeps every block in one wave.  Blocks are ordered
-//   with the split slowest.
+//   a four-warp tile folds every split, in split order, into a state in
+//   its lanes' registers; either way the bits do not depend on which
+//   block merged).  The plan keeps every block in one wave.  Blocks are
+//   ordered with the split slowest.
 // - f32: CUDA-core products in f32, by design, not as a fallback: the
 //   port's f32 model checks hold the card to the CPU within 2e-4 and the
 //   f32 kernel checks to 1e-4, which TF32 or bf16 tensor-core products
@@ -94,6 +99,7 @@ struct FlashProb {
 #pragma unroll
     for (int m = 0; m < N; ++m) row[m] = j + m * STEP < kv_limit ? j + m * STEP : -1;
   }
+  __device__ int kv_row(int j) const { return j < kv_limit ? j : -1; }
   __device__ const bf16* k_at(int j) const { return k_base + j * ks; }
   __device__ const bf16* v_at(int j) const { return v_base + j * vs; }
 };
@@ -102,12 +108,12 @@ struct FlashProb {
 // tile), split slowest; block 32 * NW, 16 rows per warp.  part_m ==
 // nullptr: one range, out written; else split s covers key tiles
 // [s * split_tiles, (s + 1) * split_tiles) and writes partials [n_split, B,
-// H, Sq] (m in natural units, l) and [n_split, B, H, Sq, D], and the last
+// H, Sq] (m in natural units, l) and [n_split, B, H, Sq, DV], and the last
 // split block of the (b, h, query tile) merges the
 // tile's rows into out, with the tile's counter in `counters`.
 // A block whose range holds no key runs no tile and writes l = 0: it
 // still counts in.
-template <int D, int NW>
+template <int D, int NW, int DV = D>
 __global__ void __launch_bounds__(32 * NW, D == 128 ? 2 : 1)
 flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, bf16* __restrict__ out, Strides qst,
@@ -116,7 +122,7 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  int split_tiles, float* __restrict__ part_m, float* __restrict__ part_l,
                  float* __restrict__ part_acc, unsigned* __restrict__ counters,
                  float* __restrict__ lse) {
-  constexpr int BK = attn::Cfg<D>::BK;
+  constexpr int BK = attn::Cfg<D, DV>::BK;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   constexpr int rows = 16 * NW;
   // causal: the last query tiles see the most keys, so they start first
@@ -152,9 +158,9 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     kt_end = min(kt_end, (split + 1) * split_tiles);
   }
 
-  attn::RowState<D> st;
-  attn::attend<D, NW>(P, kt_begin, kt_end, scale_log2, st,
-                      reinterpret_cast<bf16*>(smem_raw));
+  attn::RowState<DV> st;
+  attn::attend<D, NW, DV>(P, kt_begin, kt_end, scale_log2, st,
+                          reinterpret_cast<bf16*>(smem_raw));
 
   const int lane = threadIdx.x % 32, r0 = threadIdx.x / 32 * 16;
   const int g = lane / 4, tig = lane % 4;
@@ -168,7 +174,7 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         lse[((int64_t)b * H + h) * Sq + i] = row_lse(st.m[half] * attn::LN2, st.l[half]);
       bf16* o = out + b * ost.b + h * ost.h + i * ost.s + 2 * tig;
 #pragma unroll
-      for (int n = 0; n < D / 8; ++n)
+      for (int n = 0; n < DV / 8; ++n)
         *reinterpret_cast<__nv_bfloat162*>(o + 8 * n) = __floats2bfloat162_rn(
             st.acc[n][2 * half] * inv, st.acc[n][2 * half + 1] * inv);
     } else {
@@ -177,9 +183,9 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         part_m[row] = st.l[half] > 0.f ? st.m[half] * attn::LN2 : NEG_INF;
         part_l[row] = st.l[half];
       }
-      float* a = part_acc + row * D + 2 * tig;
+      float* a = part_acc + row * DV + 2 * tig;
 #pragma unroll
-      for (int n = 0; n < D / 8; ++n)
+      for (int n = 0; n < DV / 8; ++n)
         *reinterpret_cast<float2*>(a + 8 * n) =
             make_float2(st.acc[n][2 * half], st.acc[n][2 * half + 1]);
     }
@@ -192,52 +198,64 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   if constexpr (NW == 1) {
     // a warp's tile (decode rows: few valid rows): one 4-column chunk a
     // thread, 4 splits' loads at a time
-    attn::merge_rows<bf16, D>(
+    attn::merge_rows<bf16, DV>(
         part_m, part_l, part_acc, n_rows, row0, P.rows_valid, n_split,
         [&](int r) { return out + b * ost.b + h * ost.h + (q0 + r) * ost.s; }, lse);
   } else {
     // 64 rows: one block pulling every chunk of them through merge_rows
     // pays a chain of round trips to L2 per thread.  Instead each lane
-    // folds the other splits' partials of the two rows and D / 4 columns
-    // that it already holds (its own split's, in registers) into its own
-    // softmax state, all of a split's loads for both rows in flight at
-    // once, and writes out as an unsplit block does.
+    // folds the splits' partials of the two rows and DV / 4 columns that
+    // it holds in registers into a softmax state there, all of a split's
+    // loads for both rows in flight at once, and writes out as an unsplit
+    // block does.  Every split is folded from memory in split order, its
+    // own too (it is in L2 already), from an empty state: the bits do not
+    // depend on which split block arrived last.
     float M[2], L[2];
     int64_t row[2];
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
       const int i = min(q0 + r0 + g + 8 * half, Sq - 1);    // rows past Sq: not written
       row[half] = ((int64_t)b * H + h) * Sq + i;
-      M[half] = st.l[half] > 0.f ? st.m[half] * attn::LN2 : NEG_INF;
-      L[half] = st.l[half];
+      M[half] = NEG_INF;
+      L[half] = 0.f;
     }
+#pragma unroll
+    for (int n = 0; n < DV / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st.acc[n][e] = 0.f;
+    // both rows' loads at once up to DV = 128; above, one row's at a time
+    // (DV / 4 more registers beside the DV / 2 of acc would spill)
+    constexpr int AT_ONCE = DV <= 128 ? 2 : 1;
 #pragma unroll 2
     for (int s = 0; s < n_split; ++s) {
-      if (s == split) continue;
-      float ls[2], ms[2];
-      float2 x[2][D / 8];
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int64_t pr = s * n_rows + row[half];
-        ls[half] = __ldcg(part_l + pr);
-        ms[half] = __ldcg(part_m + pr);
-        const float* a = part_acc + pr * D + 2 * tig;
+      for (int h0 = 0; h0 < 2; h0 += AT_ONCE) {
+        float ls[AT_ONCE], ms[AT_ONCE];
+        float2 x[AT_ONCE][DV / 8];
 #pragma unroll
-        for (int n = 0; n < D / 8; ++n)
-          x[half][n] = __ldcg(reinterpret_cast<const float2*>(a + 8 * n));
-      }
+        for (int j = 0; j < AT_ONCE; ++j) {
+          const int64_t pr = s * n_rows + row[h0 + j];
+          ls[j] = __ldcg(part_l + pr);
+          ms[j] = __ldcg(part_m + pr);
+          const float* a = part_acc + pr * DV + 2 * tig;
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const bool seen = ls[half] > 0.f;  // a split that saw no key weighs nothing
-        const float Mn = seen ? fmaxf(M[half], ms[half]) : M[half];
-        const float sc = expf(M[half] - Mn), w = seen ? expf(ms[half] - Mn) : 0.f;
-        L[half] = fmaf(w, ls[half], L[half] * sc);
-#pragma unroll
-        for (int n = 0; n < D / 8; ++n) {
-          st.acc[n][2 * half] = fmaf(w, x[half][n].x, st.acc[n][2 * half] * sc);
-          st.acc[n][2 * half + 1] = fmaf(w, x[half][n].y, st.acc[n][2 * half + 1] * sc);
+          for (int n = 0; n < DV / 8; ++n)
+            x[j][n] = __ldcg(reinterpret_cast<const float2*>(a + 8 * n));
         }
-        M[half] = Mn;
+#pragma unroll
+        for (int j = 0; j < AT_ONCE; ++j) {
+          const int half = h0 + j;
+          const bool seen = ls[j] > 0.f;  // a split that saw no key weighs nothing
+          const float Mn = seen ? fmaxf(M[half], ms[j]) : M[half];
+          const float sc = expf(M[half] - Mn), w = seen ? expf(ms[j] - Mn) : 0.f;
+          L[half] = fmaf(w, ls[j], L[half] * sc);
+#pragma unroll
+          for (int n = 0; n < DV / 8; ++n) {
+            st.acc[n][2 * half] = fmaf(w, x[j][n].x, st.acc[n][2 * half] * sc);
+            st.acc[n][2 * half + 1] = fmaf(w, x[j][n].y, st.acc[n][2 * half + 1] * sc);
+          }
+          M[half] = Mn;
+        }
       }
     }
 #pragma unroll
@@ -248,7 +266,7 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       if (lse != nullptr && tig == 0) lse[row[half]] = row_lse(M[half], L[half]);
       bf16* o = out + b * ost.b + h * ost.h + i * ost.s + 2 * tig;
 #pragma unroll
-      for (int n = 0; n < D / 8; ++n)
+      for (int n = 0; n < DV / 8; ++n)
         *reinterpret_cast<__nv_bfloat162*>(o + 8 * n) = __floats2bfloat162_rn(
             st.acc[n][2 * half] * inv, st.acc[n][2 * half + 1] * inv);
     }
@@ -257,27 +275,27 @@ flash_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 // The shared-memory limit of the bf16 kernel raised to what its tile
 // needs, once per process and instantiation.
-template <int D, int NW>
+template <int D, int NW, int DV>
 cudaError_t tile_ready() {
-  static const cudaError_t attr =
-      attn::allow_smem(flash_mma_kernel<D, NW>, attn::Cfg<D>::smem_bytes(16 * NW));
+  static const cudaError_t attr = attn::allow_smem(flash_mma_kernel<D, NW, DV>,
+                                                   attn::Cfg<D, DV>::smem_bytes(16 * NW));
   return attr;
 }
 
-template <int D, int NW>
+template <int D, int NW, int DV>
 cudaError_t launch_tile(const void* q, const void* k, const void* v, void* out,
                         const Strides* st, int B, int H, int Kh, int Sq, int Sk,
                         int causal, int window, int kv_offset, int n_split, float* pm,
                         float* pl, float* pacc, unsigned* counters, float* lse,
                         cudaStream_t stream) {
-  using C = attn::Cfg<D>;
+  using C = attn::Cfg<D, DV>;
   constexpr int rows = 16 * NW;
-  if (const cudaError_t attr = tile_ready<D, NW>()) return attr;
+  if (const cudaError_t attr = tile_ready<D, NW, DV>()) return attr;
   const int n_qt = (Sq + rows - 1) / rows;
   const int tiles = (Sk + C::BK - 1) / C::BK;
   const int split_tiles = n_split > 1 ? (tiles + n_split - 1) / n_split : tiles;
   const dim3 grid(n_qt * n_split, H, B);
-  flash_mma_kernel<D, NW><<<grid, 32 * NW, C::smem_bytes(rows), stream>>>(
+  flash_mma_kernel<D, NW, DV><<<grid, 32 * NW, C::smem_bytes(rows), stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), static_cast<bf16*>(out), st[0], st[1], st[2], st[3],
       H, Kh, Sq, Sk, causal, window, kv_offset, attn::LOG2E / sqrtf((float)D), n_qt,
@@ -286,7 +304,7 @@ cudaError_t launch_tile(const void* q, const void* k, const void* v, void* out,
 }
 
 // rows: 16 (one warp) or 64 (four warps)
-template <int D>
+template <int D, int DV>
 cudaError_t launch_mma(const void* q, const void* k, const void* v, void* out,
                        const Strides* st, int B, int H, int Kh, int Sq, int Sk,
                        int causal, int window, int kv_offset, int rows, int n_split,
@@ -296,11 +314,11 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* out,
       (n_split > 1 && (pm == nullptr || pl == nullptr || pacc == nullptr || counters == nullptr)))
     return cudaErrorInvalidValue;
   if (rows == 16)
-    return launch_tile<D, 1>(q, k, v, out, st, B, H, Kh, Sq, Sk, causal, window,
-                             kv_offset, n_split, pm, pl, pacc, counters, lse, stream);
+    return launch_tile<D, 1, DV>(q, k, v, out, st, B, H, Kh, Sq, Sk, causal, window,
+                                 kv_offset, n_split, pm, pl, pacc, counters, lse, stream);
   if (rows == 64)
-    return launch_tile<D, 4>(q, k, v, out, st, B, H, Kh, Sq, Sk, causal, window,
-                             kv_offset, n_split, pm, pl, pacc, counters, lse, stream);
+    return launch_tile<D, 4, DV>(q, k, v, out, st, B, H, Kh, Sq, Sk, causal, window,
+                                 kv_offset, n_split, pm, pl, pacc, counters, lse, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -336,13 +354,13 @@ __device__ __forceinline__ bool visible(int qpos, int kpos, int Sk, int causal,
          (window <= 0 || kpos > qpos - window);
 }
 
-template <int D, int TM>
+template <int D, int DV, int TM>
 constexpr size_t smem_bytes() {
-  return (size_t)(D * (8 * TM + PAD) + D * (BK + PAD) + BK * D +
+  return (size_t)(D * (8 * TM + PAD) + D * (BK + PAD) + BK * DV +
                   8 * TM * (BK + PAD)) * sizeof(float);
 }
 
-template <int D, int TM>
+template <int D, int DV, int TM>
 __global__ void __launch_bounds__(THREADS)
 flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
              const float* __restrict__ v, float* __restrict__ out, Strides qst,
@@ -352,12 +370,12 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
   constexpr int BQ = 8 * TM;
   constexpr int BQP = BQ + PAD;
   constexpr int BKP = BK + PAD;
-  constexpr int DC = D / 16;          // output columns per thread
+  constexpr int DC = DV / 16;         // output columns per thread
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);   // [D][BQP]  Q^T
   float* Ks = Qs + D * BQP;                      // [D][BKP]  K^T
-  float* Vs = Ks + D * BKP;                      // [BK][D]
-  float* Ps = Vs + BK * D;                       // [BQ][BKP] probabilities
+  float* Vs = Ks + D * BKP;                      // [BK][DV]
+  float* Ps = Vs + BK * DV;                      // [BQ][BKP] probabilities
 
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
   const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * BQ;
@@ -388,15 +406,26 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   for (int k0 = k_begin; k0 < k_end; k0 += BK) {
     __syncthreads();           // Q staged / the previous tile's readers done
-    for (int i = tid; i < BK * D; i += THREADS) {
-      const int j = i / D, d = i % D;
-      float kx = 0.f, vx = 0.f;  // keys past Sk: zero, so p * v stays finite
-      if (k0 + j < Sk) {
-        kx = kb[(k0 + j) * kst.s + d];
-        vx = vb[(k0 + j) * vst.s + d];
+    if constexpr (DV == D) {
+      for (int i = tid; i < BK * D; i += THREADS) {
+        const int j = i / D, d = i % D;
+        float kx = 0.f, vx = 0.f;  // keys past Sk: zero, so p * v stays finite
+        if (k0 + j < Sk) {
+          kx = kb[(k0 + j) * kst.s + d];
+          vx = vb[(k0 + j) * vst.s + d];
+        }
+        Ks[d * BKP + j] = kx;
+        Vs[j * D + d] = vx;
       }
-      Ks[d * BKP + j] = kx;
-      Vs[j * D + d] = vx;
+    } else {
+      for (int i = tid; i < BK * D; i += THREADS) {
+        const int j = i / D, d = i % D;
+        Ks[d * BKP + j] = k0 + j < Sk ? kb[(k0 + j) * kst.s + d] : 0.f;
+      }
+      for (int i = tid; i < BK * DV; i += THREADS) {
+        const int j = i / DV, d = i % DV;
+        Vs[j * DV + d] = k0 + j < Sk ? vb[(k0 + j) * vst.s + d] : 0.f;
+      }
     }
     __syncthreads();
 
@@ -462,7 +491,7 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int jj = 0; jj < 4; ++jj) {
         float vv[DC];
-        load_vec<DC>(Vs + (j + jj) * D + tx * DC, vv);
+        load_vec<DC>(Vs + (j + jj) * DV + tx * DC, vv);
 #pragma unroll
         for (int i = 0; i < TM; ++i)
 #pragma unroll
@@ -485,23 +514,23 @@ flash_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <int D, int TM>
+template <int D, int DV, int TM>
 cudaError_t launch_tm(const void* q, const void* k, const void* v, void* out,
                       const Strides* st, int B, int H, int Kh, int Sq, int Sk,
                       int causal, int window, int kv_offset, float* lse,
                       cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D, TM>();
-  static const cudaError_t attr = attn::allow_smem(flash_kernel<D, TM>, smem);
+  constexpr size_t smem = smem_bytes<D, DV, TM>();
+  static const cudaError_t attr = attn::allow_smem(flash_kernel<D, DV, TM>, smem);
   if (attr != cudaSuccess) return attr;
   const dim3 grid((Sq + 8 * TM - 1) / (8 * TM), H, B);
-  flash_kernel<D, TM><<<grid, THREADS, smem, stream>>>(
+  flash_kernel<D, DV, TM><<<grid, THREADS, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out), st[0], st[1], st[2], st[3],
       H, Kh, Sq, Sk, causal, window, kv_offset, 1.0f / sqrtf((float)D), lse);
   return cudaGetLastError();
 }
 
-template <int D>
+template <int D, int DV>
 cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out,
                        const Strides* st, int B, int H, int Kh, int Sq, int Sk,
                        int causal, int window, int kv_offset, float* lse,
@@ -511,10 +540,10 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out,
   int tm = 8;
   while (tm > 1 && (int64_t)B * H * ((Sq + 8 * tm - 1) / (8 * tm)) < sms) tm /= 2;
   switch (tm) {
-    case 8: return launch_tm<D, 8>(q, k, v, out, st, B, H, Kh, Sq, Sk, causal, window, kv_offset, lse, stream);
-    case 4: return launch_tm<D, 4>(q, k, v, out, st, B, H, Kh, Sq, Sk, causal, window, kv_offset, lse, stream);
-    case 2: return launch_tm<D, 2>(q, k, v, out, st, B, H, Kh, Sq, Sk, causal, window, kv_offset, lse, stream);
-    default: return launch_tm<D, 1>(q, k, v, out, st, B, H, Kh, Sq, Sk, causal, window, kv_offset, lse, stream);
+    case 8: return launch_tm<D, DV, 8>(q, k, v, out, st, B, H, Kh, Sq, Sk, causal, window, kv_offset, lse, stream);
+    case 4: return launch_tm<D, DV, 4>(q, k, v, out, st, B, H, Kh, Sq, Sk, causal, window, kv_offset, lse, stream);
+    case 2: return launch_tm<D, DV, 2>(q, k, v, out, st, B, H, Kh, Sq, Sk, causal, window, kv_offset, lse, stream);
+    default: return launch_tm<D, DV, 1>(q, k, v, out, st, B, H, Kh, Sq, Sk, causal, window, kv_offset, lse, stream);
   }
 }
 
@@ -544,8 +573,12 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out,
 // with no atomic add and no wait on another block, so every call gives the
 // same bits.
 //
-// bf16 (D = 64 or 128), sm_90a: each block is two consumer warpgroups of
-// 64 own rows (keys or query rows) and a producer warpgroup.  The own rows
+// bf16, sm_90a, D = 64, 112 or 128 (the narrow body; D = 112 runs the D =
+// 128 body on tiles whose columns 112-127 TMA fills with zeros, its
+// 7,168-byte rows at zamba2's [B, S, 32, 112] being whole multiples of 16
+// bytes as TMA needs; only the first 112 columns are stored): each block is
+// two consumer warpgroups of 64 own rows (keys or query rows) and a
+// producer warpgroup.  The own rows
 // (K and V; Q and dO) are loaded once; tiles of 64 rows of the other side
 // (Q, dO and their lse and delta; K and V) stream through a ring of
 // STAGES = 3 shared-memory stages filled by TMA from 4-D tensor maps over
@@ -569,9 +602,9 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out,
 // cp.async, a mask on every score) took 2.660 ms at LLaVA-1.5-7B's
 // training shape on an H100 80GB HBM3 at 700 W (dK/dV 1.395, dQ 1.180,
 // delta 0.035); this design 0.91-0.94 ms (PERF.md, tools/kernel_ab.py
-// --flash-bwd).
+// --flash-bwd).  Above D = 128 the wide body (below) runs instead.
 // f32: CUDA-core products in f32, as the forward's f32 body (the f32
-// training checks hold the card to the CPU within 1e-4).
+// training checks hold the card to the CPU within 1e-4), at every (D, DV).
 
 template <typename T>
 __device__ __forceinline__ float to_f32(T x);
@@ -664,22 +697,29 @@ struct Params {
   float scale, scale_log2;
 };
 
+// The narrow body's padded width: D rounded up to whole 64-column chunks
+// (D = 112 runs the D = 128 body, TMA filling columns 112-127 with zeros)
+template <int D>
+constexpr int PADDED = (D + 63) / 64 * 64;
+
 template <int D>
 struct alignas(1024) DkdvSmem {
-  bf16 k[D / 64][BLOCK * 64];          // chunk c: [128 keys][64 columns], swizzled
-  bf16 v[D / 64][BLOCK * 64];
-  bf16 q[STAGES][D / 64][BN * 64];     // chunk c of a stage: [64 query rows][64]
-  bf16 dout[STAGES][D / 64][BN * 64];
+  static constexpr int DC = PADDED<D> / 64;
+  bf16 k[DC][BLOCK * 64];              // chunk c: [128 keys][64 columns], swizzled
+  bf16 v[DC][BLOCK * 64];
+  bf16 q[STAGES][DC][BN * 64];         // chunk c of a stage: [64 query rows][64]
+  bf16 dout[STAGES][DC][BN * 64];
   float lse[STAGES][BN], delta[STAGES][BN];   // lse in log2 units
   uint64_t full[STAGES], empty[STAGES], kv_full;
 };
 
 template <int D>
 struct alignas(1024) DqSmem {
-  bf16 q[D / 64][BLOCK * 64];          // chunk c: [128 query rows][64 columns], swizzled
-  bf16 dout[D / 64][BLOCK * 64];
-  bf16 k[STAGES][D / 64][BN * 64];     // chunk c of a stage: [64 keys][64]
-  bf16 v[STAGES][D / 64][BN * 64];
+  static constexpr int DC = PADDED<D> / 64;
+  bf16 q[DC][BLOCK * 64];              // chunk c: [128 query rows][64 columns], swizzled
+  bf16 dout[DC][BLOCK * 64];
+  bf16 k[STAGES][DC][BN * 64];         // chunk c of a stage: [64 keys][64]
+  bf16 v[STAGES][DC][BN * 64];
   uint64_t full[STAGES], empty[STAGES], qd_full;
 };
 
@@ -690,9 +730,9 @@ __device__ __forceinline__ Smem& smem() {
                                   ~uintptr_t(1023));
 }
 
-// acc[64 x 64] = A B^T over D: A's 64 rows at a (chunks a_chunk bytes
-// apart), B's 64 rows at bm (chunks BOX apart), both K-major, swizzled;
-// issued, not waited for
+// acc[64 x 64] = A B^T over D (a multiple of 16; columns past D may be
+// padding): A's 64 rows at a (chunks a_chunk bytes apart), B's 64 rows at
+// bm (chunks BOX apart), both K-major, swizzled; issued, not waited for
 template <int D>
 __device__ __forceinline__ void issue_abt(float* acc, uint32_t a, uint32_t a_chunk, uint32_t bm) {
 #pragma unroll
@@ -703,7 +743,8 @@ __device__ __forceinline__ void issue_abt(float* acc, uint32_t a, uint32_t a_chu
 
 // acc[64 x D] += A B: A [64 x 64] as bf16 pairs in the accumulator layout
 // (f[n][i]: row g + 8 i, columns 8 n + 2 t4 and + 1), B's 64 rows of D at bm
-// (chunks BOX apart), read MN-major; issued, not waited for
+// (chunks BOX apart), read MN-major; issued, not waited for.  D = 64 or
+// 128.
 template <int D>
 __device__ __forceinline__ void issue_ab(float* acc, const uint32_t (&f)[8][2], uint32_t bm) {
 #pragma unroll
@@ -754,8 +795,9 @@ __device__ __forceinline__ void dscores(const float* pr, const float* dp, const 
     }
 }
 
-// A lane's rows r0 and r0 + 8 of a [64 x D] f32 accumulator, times scale,
-// as bf16 at row(i) (skipped when nullptr)
+// A lane's rows r0 and r0 + 8 of a [64 x N] f32 accumulator (N >= D),
+// its first D columns times scale, as bf16 at row(i) (skipped when
+// nullptr)
 template <int D, class Row>
 __device__ __forceinline__ void store_rows(const float* acc, float scale, Row row) {
   const int t4 = threadIdx.x % 4;
@@ -780,7 +822,7 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                             const __grid_constant__ CUtensorMap k_map,
                             const __grid_constant__ CUtensorMap v_map,
                             const __grid_constant__ CUtensorMap do_map, const Params p) {
-  constexpr int DC = D / 64;
+  constexpr int DP = PADDED<D>, DC = DP / 64;
   auto& sm = smem<DkdvSmem<D>>();
   const int G = p.H / p.Kh, per = p.Kh * p.B;
   const int k0 = (int)(blockIdx.x / per) * BLOCK;
@@ -850,9 +892,9 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   const int key0 = kw + warp * 16 + g;   // this lane's keys: key0 and key0 + 8
   const uint32_t k_addr = smem_u32(sm.k) + wg * BM * 128;
   const uint32_t v_addr = smem_u32(sm.v) + wg * BM * 128;
-  float dK[D / 2], dV[D / 2];            // [64 keys x D] f32 in wgmma's layout
+  float dK[DP / 2], dV[DP / 2];          // [64 keys x DP] f32 in wgmma's layout
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) dK[i] = dV[i] = 0.f;
+  for (int i = 0; i < DP / 2; ++i) dK[i] = dV[i] = 0.f;
   if (n_iter > 0) mbar_wait(&sm.kv_full, 0);
 
   for (int it = 0; it < n_iter; ++it) {
@@ -891,20 +933,20 @@ flash_bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                     },
                     pf);
       }
-      fence_regs<D / 2>(dV);
+      fence_regs<DP / 2>(dV);
       wg_fence();
-      issue_ab<D>(dV, pf, do_addr);
+      issue_ab<DP>(dV, pf, do_addr);
       wg_commit();
       wg_wait<1>();
       fence_regs<32>(dpt);
       dscores(st, dpt, dl, df);
-      fence_regs<D / 2>(dK);
+      fence_regs<DP / 2>(dK);
       wg_fence();
-      issue_ab<D>(dK, df, q_addr);
+      issue_ab<DP>(dK, df, q_addr);
       wg_commit();
       wg_wait<0>();
-      fence_regs<D / 2>(dV);
-      fence_regs<D / 2>(dK);
+      fence_regs<DP / 2>(dV);
+      fence_regs<DP / 2>(dK);
     }
     __syncwarp();
     if (lane == 0) mbar_arrive(&sm.empty[s]);
@@ -929,7 +971,7 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                           const __grid_constant__ CUtensorMap k_map,
                           const __grid_constant__ CUtensorMap v_map,
                           const __grid_constant__ CUtensorMap do_map, const Params p) {
-  constexpr int DC = D / 64;
+  constexpr int DP = PADDED<D>, DC = DP / 64;
   auto& sm = smem<DqSmem<D>>();
   const int per = p.H * p.B, n_qb = (int)gridDim.x / per, qb = (int)(blockIdx.x / per);
   const int q0 = (p.causal ? n_qb - 1 - qb : qb) * BLOCK;
@@ -993,9 +1035,9 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   }
   const uint32_t q_addr = smem_u32(sm.q) + wg * BM * 128;
   const uint32_t do_addr = smem_u32(sm.dout) + wg * BM * 128;
-  float dQ[D / 2];                       // [64 rows x D] f32 in wgmma's layout
+  float dQ[DP / 2];                      // [64 rows x DP] f32 in wgmma's layout
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) dQ[i] = 0.f;
+  for (int i = 0; i < DP / 2; ++i) dQ[i] = 0.f;
   if (n_iter > 0) mbar_wait(&sm.qd_full, 0);
 
   for (int it = 0; it < n_iter; ++it) {
@@ -1033,12 +1075,12 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
       wg_wait<0>();
       fence_regs<32>(dp);
       dscores(sc, dp, d2, df);
-      fence_regs<D / 2>(dQ);
+      fence_regs<DP / 2>(dQ);
       wg_fence();
-      issue_ab<D>(dQ, df, k_addr);
+      issue_ab<DP>(dQ, df, k_addr);
       wg_commit();
       wg_wait<0>();
-      fence_regs<D / 2>(dQ);
+      fence_regs<DP / 2>(dQ);
     }
     __syncwarp();
     if (lane == 0) mbar_arrive(&sm.empty[s]);
@@ -1049,39 +1091,490 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   });
 }
 
+// ---------------------------------------------------------------------------
+// The wide body: D = 160 (stablelm-12b), 256 (gemma) and MLA's (192, 128)
+// ---------------------------------------------------------------------------
+// The narrow body does not fit above D = 128: each consumer warpgroup
+// would hold dK and dV of its 64 keys at every column (2 x 96 f32
+// registers a thread at D = 160 padded to 192, 2 x 128 at 256: with S^T
+// and dP^T, over the 240 setmaxnreg gives), and K and V of 128 keys plus
+// three 64-row Q/dO stages are 320 KB at D = 256.  So a block owns 64 keys
+// (dK/dV) or 64 query rows (dQ), and its two consumer warpgroups split
+// each tile's work: warpgroup 0 computes S^T = K Q^T (S = Q K^T) and P,
+// warpgroup 1 dP^T = V dO^T (dP = dO V^T); P goes to warpgroup 1 through
+// shared memory in f32, and dS = P (dP - delta), which warpgroup 1 forms,
+// comes back to warpgroup 0 as bf16 pairs, both in the accumulator layout
+// (thread t of one warpgroup holds the entries that thread t of the other
+// does, so neither needs a swizzle or a transpose); two named barriers
+// pass them.  Each warpgroup then owns ceil(C / 2) or the rest of the
+// gradient's 64-column chunks and runs their products with P and dS as
+// register A-fragments (dV += P^T dO, dK += dS^T Q; dQ += dS K): at D =
+// 256, 2 x 2 x 32 accumulator registers beside the 32 of S^T or dP^T.
+// Shared memory: the block's own K/V (Q/dO), two stages of the streamed
+// tiles and the 24 KB exchange, 217 KB at D = 256 for dK/dV.  Columns past
+// D in the last chunk (160: 160-191) are TMA's zero fill, never stored.
+// Each gradient element is still one block's sum in a fixed order.
+constexpr int WIDE_STAGES = 2;
+constexpr int BAR_P = 1, BAR_DS = 2;   // named barriers of the two consumer warpgroups
+
+template <int D, int DV>
+struct WideShape {
+  static constexpr int CK = (D + 63) / 64;   // 64-column chunks of Q, K, dQ, dK
+  static constexpr int CV = (DV + 63) / 64;  // ... of V, dO, dV
+  static constexpr int HK = (CK + 1) / 2;    // warpgroup 0's chunks (1's: the rest)
+  static constexpr int HV = (CV + 1) / 2;
+};
+
+// The exchange: P (f32) and dS (bf16 pairs), entry e of consumer thread t
+// at [e][t]
+struct Exchange {
+  float p[32][128];
+  uint32_t ds[16][128];
+};
+
+template <int D, int DV>
+struct alignas(1024) WideDkdvSmem {
+  using S = WideShape<D, DV>;
+  bf16 k[S::CK][BN * 64];              // chunk c: [64 keys][64 columns], swizzled
+  bf16 v[S::CV][BN * 64];
+  bf16 q[WIDE_STAGES][S::CK][BN * 64]; // chunk c of a stage: [64 query rows][64]
+  bf16 dout[WIDE_STAGES][S::CV][BN * 64];
+  Exchange x;
+  float lse[WIDE_STAGES][BN], delta[WIDE_STAGES][BN];   // lse in log2 units
+  uint64_t full[WIDE_STAGES], empty[WIDE_STAGES], kv_full;
+};
+
+template <int D, int DV>
+struct alignas(1024) WideDqSmem {
+  using S = WideShape<D, DV>;
+  bf16 q[S::CK][BN * 64];              // chunk c: [64 query rows][64 columns], swizzled
+  bf16 dout[S::CV][BN * 64];
+  bf16 k[WIDE_STAGES][S::CK][BN * 64]; // chunk c of a stage: [64 keys][64]
+  bf16 v[WIDE_STAGES][S::CV][BN * 64];
+  Exchange x;
+  uint64_t full[WIDE_STAGES], empty[WIDE_STAGES], qd_full;
+};
+
+// Warpgroup 0's half of the exchange: P (in x, f32) out, dS back as pairs
+__device__ __forceinline__ void hand_p_take_ds(Exchange& ex, const float (&x)[32],
+                                               uint32_t (&df)[8][2]) {
+  const int t = threadIdx.x % 128;
+#pragma unroll
+  for (int e = 0; e < 32; ++e) ex.p[e][t] = x[e];
+  bar_arrive(BAR_P, CONSUMERS);
+  bar_sync(BAR_DS, CONSUMERS);
+#pragma unroll
+  for (int j = 0; j < 16; ++j) df[j / 2][j % 2] = ex.ds[j][t];
+}
+
+// Warpgroup 1's half: P in (also rounded to pairs, pf), dS = P (dP -
+// delta) from the raw dP in x formed and handed back; dl(i, n, c): the
+// entry's delta
+template <class Dl>
+__device__ __forceinline__ void take_p_hand_ds(Exchange& ex, const float (&x)[32], const Dl& dl,
+                                               uint32_t (&pf)[8][2], uint32_t (&df)[8][2]) {
+  const int t = threadIdx.x % 128;
+  bar_sync(BAR_P, CONSUMERS);
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int e = 4 * n + 2 * i;
+      const float p0 = ex.p[e][t], p1 = ex.p[e + 1][t];
+      pf[n][i] = attn::pack_bf16(p0, p1);
+      df[n][i] = attn::pack_bf16(p0 * (x[e] - dl(i, n, 0)), p1 * (x[e + 1] - dl(i, n, 1)));
+      ex.ds[2 * n + i][t] = df[n][i];
+    }
+  bar_arrive(BAR_DS, CONSUMERS);
+}
+
+// The first `cols` columns of a lane's rows of one [64 x 64] f32
+// accumulator chunk, times scale, as bf16 at row(i) (skipped when nullptr)
+template <class Row>
+__device__ __forceinline__ void store_chunk(const float* acc, int cols, float scale, Row row) {
+  const int t4 = threadIdx.x % 4;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    bf16* o = row(i);
+    if (o == nullptr) continue;
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+      if (8 * n < cols)
+        *reinterpret_cast<__nv_bfloat162*>(o + 8 * n + 2 * t4) =
+            __floats2bfloat162_rn(acc[4 * n + 2 * i] * scale, acc[4 * n + 2 * i + 1] * scale);
+  }
+}
+
+// grid: ceil(Sk / 64) key blocks x Kh x B, the key block slowest.  Step it
+// is query head kh * G + it / nq, query tile qt_begin + it % nq.
+template <int D, int DV>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_bwd_dkdv_wide_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                                 const __grid_constant__ CUtensorMap k_map,
+                                 const __grid_constant__ CUtensorMap v_map,
+                                 const __grid_constant__ CUtensorMap do_map, const Params p) {
+  using S = WideShape<D, DV>;
+  auto& sm = smem<WideDkdvSmem<D, DV>>();
+  const int G = p.H / p.Kh, per = p.Kh * p.B;
+  const int k0 = (int)(blockIdx.x / per) * BN;
+  const int kh = (int)(blockIdx.x % per) % p.Kh, b = (int)(blockIdx.x % per) / p.Kh;
+  int q_lo, q_hi;
+  query_range(k0, BN, p.Sq, p.causal, p.window, p.kv_offset, q_lo, q_hi);
+  const int qt_begin = q_lo / BN;
+  const int nq = q_hi > q_lo ? (q_hi + BN - 1) / BN - qt_begin : 0;
+  const int n_iter = G * nq;
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < WIDE_STAGES; ++s) {
+      mbar_init(&sm.full[s], 32);                // the producer warp's lanes
+      mbar_init(&sm.empty[s], CONSUMERS / 32);   // each consumer warp releases
+    }
+    mbar_init(&sm.kv_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const int lane = threadIdx.x % 32;
+  if (threadIdx.x >= CONSUMERS) {        // the producer warpgroup; its first warp loads
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x >= CONSUMERS + 32 || n_iter == 0) return;
+    if (lane == 0) {
+      mbar_expect(&sm.kv_full, (S::CK + S::CV) * BOX);
+#pragma unroll
+      for (int c = 0; c < S::CK; ++c)
+        tma_load4(sm.k[c], &k_map, c * 64, k0, kh, b, &sm.kv_full);
+#pragma unroll
+      for (int c = 0; c < S::CV; ++c)
+        tma_load4(sm.v[c], &v_map, c * 64, k0, kh, b, &sm.kv_full);
+    }
+    for (int it = 0; it < n_iter; ++it) {
+      const int s = it % WIDE_STAGES;
+      if (it >= WIDE_STAGES) mbar_wait(&sm.empty[s], ((it / WIDE_STAGES) & 1) ^ 1);
+      const int h = kh * G + it / nq, q0 = (qt_begin + it % nq) * BN;
+      const int64_t row0 = ((int64_t)b * p.H + h) * p.Sq;
+#pragma unroll
+      for (int r = lane; r < BN; r += 32) {
+        const bool in = q0 + r < p.Sq;
+        sm.lse[s][r] = in ? p.lse[row0 + q0 + r] * attn::LOG2E : attn::inf_f32();
+        sm.delta[s][r] = in ? p.delta[row0 + q0 + r] : 0.f;
+      }
+      if (lane == 0) {
+        mbar_expect(&sm.full[s], (S::CK + S::CV) * BOX);
+#pragma unroll
+        for (int c = 0; c < S::CK; ++c)
+          tma_load4(sm.q[s][c], &q_map, c * 64, q0, h, b, &sm.full[s]);
+#pragma unroll
+        for (int c = 0; c < S::CV; ++c)
+          tma_load4(sm.dout[s][c], &do_map, c * 64, q0, h, b, &sm.full[s]);
+      } else {
+        mbar_arrive(&sm.full[s]);
+      }
+    }
+    return;
+  }
+  setmaxnreg_inc<CONSUMER_REGS>();
+
+  const int wg = threadIdx.x / 128, warp = threadIdx.x % 128 / 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int key0 = k0 + warp * 16 + g;   // this lane's keys: key0 and key0 + 8
+  // this warpgroup's chunks: dK [kc0, kc0 + nk), dV [vc0, vc0 + nv)
+  const int kc0 = wg ? S::HK : 0, nk = wg ? S::CK - S::HK : S::HK;
+  const int vc0 = wg ? S::HV : 0, nv = wg ? S::CV - S::HV : S::HV;
+  const uint32_t k_addr = smem_u32(sm.k), v_addr = smem_u32(sm.v);
+  float dK[S::HK][32], dV[S::HV][32];    // [64 keys x 64] chunks in wgmma's layout
+#pragma unroll
+  for (int c = 0; c < S::HK; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dK[c][i] = 0.f;
+#pragma unroll
+  for (int c = 0; c < S::HV; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dV[c][i] = 0.f;
+  if (n_iter > 0) mbar_wait(&sm.kv_full, 0);
+
+  for (int it = 0; it < n_iter; ++it) {
+    const int s = it % WIDE_STAGES;
+    const int q0 = (qt_begin + it % nq) * BN;
+    mbar_wait(&sm.full[s], (it / WIDE_STAGES) & 1);
+    const int kind = tile_kind(q0, BN, k0, BN, p.Sq, p.Sk, p.causal, p.window, p.kv_offset);
+    if (kind != EMPTY) {               // the same for both warpgroups
+      const uint32_t q_addr = smem_u32(sm.q[s]), do_addr = smem_u32(sm.dout[s]);
+      const float* L = sm.lse[s];
+      const float* Dl = sm.delta[s];
+      float x[32];                     // S^T, then P^T (warpgroup 0); dP^T (1)
+      uint32_t pf[8][2], df[8][2];
+      wg_fence();
+      if (wg == 0)
+        issue_abt<D>(x, k_addr, BOX, q_addr);
+      else
+        issue_abt<DV>(x, v_addr, BOX, do_addr);
+      wg_commit();
+      wg_wait<0>();
+      fence_regs<32>(x);
+      if (wg == 0) {
+        auto lse2 = [&](int, int n, int c) { return L[8 * n + 2 * t4 + c]; };
+        if (kind == FULL) {
+          probs<false>(x, p.scale_log2, lse2, [](int, int, int) { return true; }, pf);
+        } else {
+          probs<true>(x, p.scale_log2, lse2,
+                      [&](int i, int n, int c) {
+                        const int key = key0 + 8 * i, qi = q0 + 8 * n + 2 * t4 + c;
+                        return key < p.Sk && qi < p.Sq &&
+                               sees(p.kv_offset + qi, key, p.causal, p.window);
+                      },
+                      pf);
+        }
+        hand_p_take_ds(sm.x, x, df);
+      } else {
+        take_p_hand_ds(sm.x, x, [&](int, int n, int c) { return Dl[8 * n + 2 * t4 + c]; },
+                       pf, df);
+      }
+      // dV += P^T dO and dK += dS^T Q on this warpgroup's chunks, dO and Q
+      // read MN-major where they lie
+#pragma unroll
+      for (int c = 0; c < S::HV; ++c) fence_regs<32>(dV[c]);
+#pragma unroll
+      for (int c = 0; c < S::HK; ++c) fence_regs<32>(dK[c]);
+      wg_fence();
+#pragma unroll
+      for (int c = 0; c < S::HV; ++c)
+        if (c < nv) issue_ab<64>(dV[c], pf, do_addr + (vc0 + c) * BOX);
+#pragma unroll
+      for (int c = 0; c < S::HK; ++c)
+        if (c < nk) issue_ab<64>(dK[c], df, q_addr + (kc0 + c) * BOX);
+      wg_commit();
+      wg_wait<0>();
+#pragma unroll
+      for (int c = 0; c < S::HV; ++c) fence_regs<32>(dV[c]);
+#pragma unroll
+      for (int c = 0; c < S::HK; ++c) fence_regs<32>(dK[c]);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&sm.empty[s]);
+  }
+
+#pragma unroll
+  for (int c = 0; c < S::HK; ++c) {
+    if (c >= nk) continue;
+    const int col = (kc0 + c) * 64;
+    store_chunk(dK[c], min(64, D - col), p.scale, [&](int i) -> bf16* {
+      const int key = key0 + 8 * i;
+      return key < p.Sk ? p.dk + b * p.dkst.b + kh * p.dkst.h + key * p.dkst.s + col : nullptr;
+    });
+  }
+#pragma unroll
+  for (int c = 0; c < S::HV; ++c) {
+    if (c >= nv) continue;
+    const int col = (vc0 + c) * 64;
+    store_chunk(dV[c], min(64, DV - col), 1.f, [&](int i) -> bf16* {
+      const int key = key0 + 8 * i;
+      return key < p.Sk ? p.dv + b * p.dvst.b + kh * p.dvst.h + key * p.dvst.s + col : nullptr;
+    });
+  }
+}
+
+// grid: ceil(Sq / 64) query blocks x H x B, the query block slowest; a
+// causal grid starts with the last rows.  Step it is key tile kt_begin +
+// it.
+template <int D, int DV>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_bwd_dq_wide_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                               const __grid_constant__ CUtensorMap k_map,
+                               const __grid_constant__ CUtensorMap v_map,
+                               const __grid_constant__ CUtensorMap do_map, const Params p) {
+  using S = WideShape<D, DV>;
+  auto& sm = smem<WideDqSmem<D, DV>>();
+  const int per = p.H * p.B, n_qb = (int)gridDim.x / per, qb = (int)(blockIdx.x / per);
+  const int q0 = (p.causal ? n_qb - 1 - qb : qb) * BN;
+  const int h = (int)(blockIdx.x % per) % p.H, b = (int)(blockIdx.x % per) / p.H;
+  const int kh = h / (p.H / p.Kh);
+  int kt_begin, kt_end;
+  key_tiles(q0, min(BN, p.Sq - q0), p.Sk, BN, p.causal, p.window, p.kv_offset, kt_begin,
+            kt_end);
+  const int n_iter = kt_end - kt_begin;
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < WIDE_STAGES; ++s) {
+      mbar_init(&sm.full[s], 1);
+      mbar_init(&sm.empty[s], CONSUMERS / 32);
+    }
+    mbar_init(&sm.qd_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const int lane = threadIdx.x % 32;
+  if (threadIdx.x >= CONSUMERS) {        // the producer warpgroup; one thread loads
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x != CONSUMERS || n_iter == 0) return;
+    mbar_expect(&sm.qd_full, (S::CK + S::CV) * BOX);
+#pragma unroll
+    for (int c = 0; c < S::CK; ++c) tma_load4(sm.q[c], &q_map, c * 64, q0, h, b, &sm.qd_full);
+#pragma unroll
+    for (int c = 0; c < S::CV; ++c)
+      tma_load4(sm.dout[c], &do_map, c * 64, q0, h, b, &sm.qd_full);
+    for (int it = 0; it < n_iter; ++it) {
+      const int s = it % WIDE_STAGES, key = (kt_begin + it) * BN;
+      if (it >= WIDE_STAGES) mbar_wait(&sm.empty[s], ((it / WIDE_STAGES) & 1) ^ 1);
+      mbar_expect(&sm.full[s], (S::CK + S::CV) * BOX);
+#pragma unroll
+      for (int c = 0; c < S::CK; ++c)
+        tma_load4(sm.k[s][c], &k_map, c * 64, key, kh, b, &sm.full[s]);
+#pragma unroll
+      for (int c = 0; c < S::CV; ++c)
+        tma_load4(sm.v[s][c], &v_map, c * 64, key, kh, b, &sm.full[s]);
+    }
+    return;
+  }
+  setmaxnreg_inc<CONSUMER_REGS>();
+
+  const int wg = threadIdx.x / 128, warp = threadIdx.x % 128 / 32;
+  const int g = lane / 4, t4 = lane % 4;
+  int row[2];                            // this lane's rows, their lse (log2 units), delta
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    row[i] = q0 + warp * 16 + g + 8 * i;
+    const int64_t idx = ((int64_t)b * p.H + h) * p.Sq + row[i];
+    lse2[i] = row[i] < p.Sq ? p.lse[idx] * attn::LOG2E : attn::inf_f32();
+    dl[i] = row[i] < p.Sq ? p.delta[idx] : 0.f;
+  }
+  const int kc0 = wg ? S::HK : 0, nk = wg ? S::CK - S::HK : S::HK;
+  const uint32_t q_addr = smem_u32(sm.q), do_addr = smem_u32(sm.dout);
+  float dQ[S::HK][32];                   // [64 rows x 64] chunks in wgmma's layout
+#pragma unroll
+  for (int c = 0; c < S::HK; ++c)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dQ[c][i] = 0.f;
+  if (n_iter > 0) mbar_wait(&sm.qd_full, 0);
+
+  for (int it = 0; it < n_iter; ++it) {
+    const int s = it % WIDE_STAGES, kt = kt_begin + it;
+    mbar_wait(&sm.full[s], (it / WIDE_STAGES) & 1);
+    const int kind = tile_kind(q0, BN, kt * BN, BN, p.Sq, p.Sk, p.causal, p.window, p.kv_offset);
+    if (kind != EMPTY) {
+      const uint32_t k_addr = smem_u32(sm.k[s]), v_addr = smem_u32(sm.v[s]);
+      float x[32];                     // S, then P (warpgroup 0); dP (1)
+      uint32_t pf[8][2], df[8][2];     // pf unused: dQ needs dS only
+      wg_fence();
+      if (wg == 0)
+        issue_abt<D>(x, q_addr, BOX, k_addr);
+      else
+        issue_abt<DV>(x, do_addr, BOX, v_addr);
+      wg_commit();
+      wg_wait<0>();
+      fence_regs<32>(x);
+      if (wg == 0) {
+        auto l2 = [&](int i, int, int) { return lse2[i]; };
+        if (kind == FULL) {
+          probs<false>(x, p.scale_log2, l2, [](int, int, int) { return true; }, pf);
+        } else {
+          probs<true>(x, p.scale_log2, l2,
+                      [&](int i, int n, int c) {
+                        const int key = kt * BN + 8 * n + 2 * t4 + c;
+                        return key < p.Sk && row[i] < p.Sq &&
+                               sees(p.kv_offset + row[i], key, p.causal, p.window);
+                      },
+                      pf);
+        }
+        hand_p_take_ds(sm.x, x, df);
+      } else {
+        take_p_hand_ds(sm.x, x, [&](int i, int, int) { return dl[i]; }, pf, df);
+      }
+      // dQ += dS K on this warpgroup's chunks, K read MN-major where it lies
+#pragma unroll
+      for (int c = 0; c < S::HK; ++c) fence_regs<32>(dQ[c]);
+      wg_fence();
+#pragma unroll
+      for (int c = 0; c < S::HK; ++c)
+        if (c < nk) issue_ab<64>(dQ[c], df, k_addr + (kc0 + c) * BOX);
+      wg_commit();
+      wg_wait<0>();
+#pragma unroll
+      for (int c = 0; c < S::HK; ++c) fence_regs<32>(dQ[c]);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&sm.empty[s]);
+  }
+
+#pragma unroll
+  for (int c = 0; c < S::HK; ++c) {
+    if (c >= nk) continue;
+    const int col = (kc0 + c) * 64;
+    store_chunk(dQ[c], min(64, D - col), p.scale, [&](int i) -> bf16* {
+      return row[i] < p.Sq ? p.dq + b * p.dqst.b + h * p.dqst.h + row[i] * p.dqst.s + col
+                           : nullptr;
+    });
+  }
+}
+
 template <int D>
 constexpr size_t dkdv_smem() { return sizeof(DkdvSmem<D>) + 1024; }   // + the base's alignment
 template <int D>
 constexpr size_t dq_smem() { return sizeof(DqSmem<D>) + 1024; }
 
+template <int D, int DV>
+constexpr size_t wide_dkdv_smem() { return sizeof(WideDkdvSmem<D, DV>) + 1024; }
+template <int D, int DV>
+constexpr size_t wide_dq_smem() { return sizeof(WideDqSmem<D, DV>) + 1024; }
+
+// The shared-memory limits of the two kernels raised, once per process and
+// instantiation
+template <int D, int DV>
+cudaError_t kernels_ready() {
+  if constexpr (D <= 128) {
+    static const cudaError_t a1 = attn::allow_smem(flash_bwd_dkdv_wgmma_kernel<D>, dkdv_smem<D>());
+    static const cudaError_t a2 = attn::allow_smem(flash_bwd_dq_wgmma_kernel<D>, dq_smem<D>());
+    return a1 != cudaSuccess ? a1 : a2;
+  } else {
+    static const cudaError_t a1 = attn::allow_smem(flash_bwd_dkdv_wide_wgmma_kernel<D, DV>,
+                                                   wide_dkdv_smem<D, DV>());
+    static const cudaError_t a2 =
+        attn::allow_smem(flash_bwd_dq_wide_wgmma_kernel<D, DV>, wide_dq_smem<D, DV>());
+    return a1 != cudaSuccess ? a1 : a2;
+  }
+}
+
 // The two kernels on q/k/v/dout (strides st[0], st[1], st[2], st[4]),
-// writing dq/dk/dv (st[5], st[6], st[7]); delta already computed.
-template <int D>
+// writing dq/dk/dv (st[5], st[6], st[7]); delta already computed.  D <=
+// 128 (DV = D) runs the narrow body, wider ones the wide body.
+template <int D, int DV>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* dout,
                    const float* lse, const float* delta, void* dq, void* dk, void* dv,
                    const Strides* st, int B, int H, int Kh, int Sq, int Sk, int causal,
                    int window, int kv_offset, cudaStream_t s) {
-  static const cudaError_t a1 = attn::allow_smem(flash_bwd_dkdv_wgmma_kernel<D>, dkdv_smem<D>());
-  static const cudaError_t a2 = attn::allow_smem(flash_bwd_dq_wgmma_kernel<D>, dq_smem<D>());
-  if (a1 != cudaSuccess) return a1;
-  if (a2 != cudaSuccess) return a2;
+  constexpr bool narrow = D <= 128;
+  static_assert(!narrow || DV == D, "the narrow body takes DV = D");
+  if (const cudaError_t e = kernels_ready<D, DV>()) return e;
   CUtensorMap qm, km, vm, dom;
   if (!heads_map(&qm, q, B, H, Sq, D, st[0].b, st[0].h, st[0].s, BN) ||
       !heads_map(&km, k, B, Kh, Sk, D, st[1].b, st[1].h, st[1].s, BN) ||
-      !heads_map(&vm, v, B, Kh, Sk, D, st[2].b, st[2].h, st[2].s, BN) ||
-      !heads_map(&dom, dout, B, H, Sq, D, st[4].b, st[4].h, st[4].s, BN))
+      !heads_map(&vm, v, B, Kh, Sk, DV, st[2].b, st[2].h, st[2].s, BN) ||
+      !heads_map(&dom, dout, B, H, Sq, DV, st[4].b, st[4].h, st[4].s, BN))
     return cudaErrorInvalidValue;
   const float scale = 1.0f / sqrtf((float)D);
   const Params p{lse, delta, static_cast<bf16*>(dq), static_cast<bf16*>(dk),
                  static_cast<bf16*>(dv), st[5], st[6], st[7], B, H, Kh, Sq, Sk, causal, window,
                  kv_offset, scale, attn::LOG2E * scale};
-  flash_bwd_dkdv_wgmma_kernel<D>
-      <<<(unsigned)((Sk + BLOCK - 1) / BLOCK * Kh * B), THREADS, dkdv_smem<D>(), s>>>(
-          qm, km, vm, dom, p);
-  if (const cudaError_t e = cudaGetLastError()) return e;
-  flash_bwd_dq_wgmma_kernel<D>
-      <<<(unsigned)((Sq + BLOCK - 1) / BLOCK * H * B), THREADS, dq_smem<D>(), s>>>(
-          qm, km, vm, dom, p);
+  if constexpr (narrow) {
+    flash_bwd_dkdv_wgmma_kernel<D>
+        <<<(unsigned)((Sk + BLOCK - 1) / BLOCK * Kh * B), THREADS, dkdv_smem<D>(), s>>>(
+            qm, km, vm, dom, p);
+    if (const cudaError_t e = cudaGetLastError()) return e;
+    flash_bwd_dq_wgmma_kernel<D>
+        <<<(unsigned)((Sq + BLOCK - 1) / BLOCK * H * B), THREADS, dq_smem<D>(), s>>>(
+            qm, km, vm, dom, p);
+  } else {
+    flash_bwd_dkdv_wide_wgmma_kernel<D, DV>
+        <<<(unsigned)((Sk + BN - 1) / BN * Kh * B), THREADS, wide_dkdv_smem<D, DV>(), s>>>(
+            qm, km, vm, dom, p);
+    if (const cudaError_t e = cudaGetLastError()) return e;
+    flash_bwd_dq_wide_wgmma_kernel<D, DV>
+        <<<(unsigned)((Sq + BN - 1) / BN * H * B), THREADS, wide_dq_smem<D, DV>(), s>>>(
+            qm, km, vm, dom, p);
+  }
   return cudaGetLastError();
 }
 
@@ -1091,12 +1584,14 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* dout
 // 32 query rows (dQ) and steps over 32 rows of the other side, staged in
 // shared memory as f32 rows padded by one (conflict-free column reads).
 // Thread t computes 8 entries (row t / 4, columns t % 4 + 4c) of S and dP,
-// then D / 4 columns (t % 4 + 4c) of its row of the gradients.
+// then D / 4 (DV / 4 for dV) columns (t % 4 + 4c) of its row of the
+// gradients.
 constexpr int BT = 32;
 
-template <int D>
+template <int D, int DV>
 constexpr size_t bwd_f32_smem() {
-  return (size_t)(4 * BT * (D + 1) + 2 * BT * (BT + 1) + 2 * BT) * sizeof(float);
+  return (size_t)(2 * BT * (D + 1) + 2 * BT * (DV + 1) + 2 * BT * (BT + 1) + 2 * BT) *
+         sizeof(float);
 }
 
 // n rows of D floats from `src` (rows at or past `limit`: zeros) into
@@ -1110,22 +1605,37 @@ __device__ __forceinline__ void stage_f32(float* dst, const float* src, int64_t 
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(128)
-flash_bwd_dkdv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                          const float* __restrict__ v, const float* __restrict__ dout,
-                          const float* __restrict__ lse, const float* __restrict__ delta,
-                          float* __restrict__ dk, float* __restrict__ dv, Strides qst,
-                          Strides kst, Strides vst, Strides dost, Strides dkst, Strides dvst,
-                          int H, int Kh, int Sq, int Sk, int causal, int window, int kv_offset,
-                          float scale) {
-  constexpr int LF = D + 1, LP = BT + 1;
+// Each body is a device function under two kernels: __launch_bounds__(128)
+// up to D = 128, and (128, 1) above, where the compiler's own register
+// choice for the wider accumulators spilled (D = 160's dK/dV)
+#define DKDV_F32_PARAMS                                                                      \
+  const float *__restrict__ q, const float *__restrict__ k, const float *__restrict__ v,     \
+      const float *__restrict__ dout, const float *__restrict__ lse,                         \
+      const float *__restrict__ delta, float *__restrict__ dk, float *__restrict__ dv,       \
+      Strides qst, Strides kst, Strides vst, Strides dost, Strides dkst, Strides dvst, int H, \
+      int Kh, int Sq, int Sk, int causal, int window, int kv_offset, float scale
+#define DKDV_F32_ARGS                                                                         \
+  q, k, v, dout, lse, delta, dk, dv, qst, kst, vst, dost, dkst, dvst, H, Kh, Sq, Sk, causal, \
+      window, kv_offset, scale
+#define DQ_F32_PARAMS                                                                        \
+  const float *__restrict__ q, const float *__restrict__ k, const float *__restrict__ v,     \
+      const float *__restrict__ dout, const float *__restrict__ lse,                         \
+      const float *__restrict__ delta, float *__restrict__ dq, Strides qst, Strides kst,     \
+      Strides vst, Strides dost, Strides dqst, int H, int Kh, int Sq, int Sk, int causal,    \
+      int window, int kv_offset, float scale
+#define DQ_F32_ARGS                                                                          \
+  q, k, v, dout, lse, delta, dq, qst, kst, vst, dost, dqst, H, Kh, Sq, Sk, causal, window, \
+      kv_offset, scale
+
+template <int D, int DV>
+__device__ __forceinline__ void dkdv_f32(DKDV_F32_PARAMS) {
+  constexpr int LF = D + 1, LV = DV + 1, LP = BT + 1;
   extern __shared__ float4 smem4[];
   float* Ks = reinterpret_cast<float*>(smem4);
   float* Vs = Ks + BT * LF;
-  float* Qs = Vs + BT * LF;
+  float* Qs = Vs + BT * LV;
   float* dOs = Qs + BT * LF;
-  float* Ps = dOs + BT * LF;     // [key][query] P^T
+  float* Ps = dOs + BT * LV;     // [key][query] P^T
   float* dSs = Ps + BT * LP;     // [key][query] dS^T
   float* Ls = dSs + BT * LP;
   float* Dls = Ls + BT;
@@ -1133,20 +1643,22 @@ flash_bwd_dkdv_f32_kernel(const float* __restrict__ q, const float* __restrict__
   const int tid = threadIdx.x, jr = tid / 4, cc = tid % 4;
   const int k0 = blockIdx.x * BT, kh = blockIdx.y, b = blockIdx.z, G = H / Kh;
   stage_f32<D>(Ks, k + b * kst.b + kh * kst.h, kst.s, k0, BT, Sk);
-  stage_f32<D>(Vs, v + b * vst.b + kh * vst.h, vst.s, k0, BT, Sk);
+  stage_f32<DV>(Vs, v + b * vst.b + kh * vst.h, vst.s, k0, BT, Sk);
   int q_lo, q_hi;
   query_range(k0, BT, Sq, causal, window, kv_offset, q_lo, q_hi);
   const int key = k0 + jr;
 
-  float aK[D / 4], aV[D / 4];
+  float aK[D / 4], aV[DV / 4];
 #pragma unroll
-  for (int c = 0; c < D / 4; ++c) aK[c] = aV[c] = 0.f;
+  for (int c = 0; c < D / 4; ++c) aK[c] = 0.f;
+#pragma unroll
+  for (int c = 0; c < DV / 4; ++c) aV[c] = 0.f;
   for (int gh = 0; gh < G; ++gh) {
     const int h = kh * G + gh;
     for (int q0 = q_lo / BT * BT; q0 < q_hi; q0 += BT) {
       __syncthreads();   // the previous step's readers are done
       stage_f32<D>(Qs, q + b * qst.b + h * qst.h, qst.s, q0, BT, Sq);
-      stage_f32<D>(dOs, dout + b * dost.b + h * dost.h, dost.s, q0, BT, Sq);
+      stage_f32<DV>(dOs, dout + b * dost.b + h * dost.h, dost.s, q0, BT, Sq);
       if (tid < BT) {
         const int i = q0 + tid;
         const int64_t row = ((int64_t)b * H + h) * Sq + i;
@@ -1157,13 +1669,28 @@ flash_bwd_dkdv_f32_kernel(const float* __restrict__ q, const float* __restrict__
       float s[8], dp[8];
 #pragma unroll
       for (int c = 0; c < 8; ++c) s[c] = dp[c] = 0.f;
+      if constexpr (DV == D) {
 #pragma unroll 4
-      for (int d = 0; d < D; ++d) {
-        const float kx = Ks[jr * LF + d], vx = Vs[jr * LF + d];
+        for (int d = 0; d < D; ++d) {
+          const float kx = Ks[jr * LF + d], vx = Vs[jr * LF + d];
 #pragma unroll
-        for (int c = 0; c < 8; ++c) {
-          s[c] = fmaf(kx, Qs[(cc + 4 * c) * LF + d], s[c]);
-          dp[c] = fmaf(vx, dOs[(cc + 4 * c) * LF + d], dp[c]);
+          for (int c = 0; c < 8; ++c) {
+            s[c] = fmaf(kx, Qs[(cc + 4 * c) * LF + d], s[c]);
+            dp[c] = fmaf(vx, dOs[(cc + 4 * c) * LF + d], dp[c]);
+          }
+        }
+      } else {
+#pragma unroll 4
+        for (int d = 0; d < D; ++d) {
+          const float kx = Ks[jr * LF + d];
+#pragma unroll
+          for (int c = 0; c < 8; ++c) s[c] = fmaf(kx, Qs[(cc + 4 * c) * LF + d], s[c]);
+        }
+#pragma unroll 4
+        for (int d = 0; d < DV; ++d) {
+          const float vx = Vs[jr * LV + d];
+#pragma unroll
+          for (int c = 0; c < 8; ++c) dp[c] = fmaf(vx, dOs[(cc + 4 * c) * LV + d], dp[c]);
         }
       }
 #pragma unroll
@@ -1178,10 +1705,17 @@ flash_bwd_dkdv_f32_kernel(const float* __restrict__ q, const float* __restrict__
 #pragma unroll 4
       for (int i = 0; i < BT; ++i) {
         const float p = Ps[jr * LP + i], d = dSs[jr * LP + i];
+        if constexpr (DV == D) {
 #pragma unroll
-        for (int c = 0; c < D / 4; ++c) {
-          aV[c] = fmaf(p, dOs[i * LF + cc + 4 * c], aV[c]);
-          aK[c] = fmaf(d, Qs[i * LF + cc + 4 * c], aK[c]);
+          for (int c = 0; c < D / 4; ++c) {
+            aV[c] = fmaf(p, dOs[i * LF + cc + 4 * c], aV[c]);
+            aK[c] = fmaf(d, Qs[i * LF + cc + 4 * c], aK[c]);
+          }
+        } else {
+#pragma unroll
+          for (int c = 0; c < DV / 4; ++c) aV[c] = fmaf(p, dOs[i * LV + cc + 4 * c], aV[c]);
+#pragma unroll
+          for (int c = 0; c < D / 4; ++c) aK[c] = fmaf(d, Qs[i * LF + cc + 4 * c], aK[c]);
         }
       }
     }
@@ -1190,33 +1724,35 @@ flash_bwd_dkdv_f32_kernel(const float* __restrict__ q, const float* __restrict__
     float* ok = dk + b * dkst.b + kh * dkst.h + key * dkst.s;
     float* ov = dv + b * dvst.b + kh * dvst.h + key * dvst.s;
 #pragma unroll
-    for (int c = 0; c < D / 4; ++c) {
-      ok[cc + 4 * c] = aK[c] * scale;
-      ov[cc + 4 * c] = aV[c];
-    }
+    for (int c = 0; c < D / 4; ++c) ok[cc + 4 * c] = aK[c] * scale;
+#pragma unroll
+    for (int c = 0; c < DV / 4; ++c) ov[cc + 4 * c] = aV[c];
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(128)
-flash_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                        const float* __restrict__ v, const float* __restrict__ dout,
-                        const float* __restrict__ lse, const float* __restrict__ delta,
-                        float* __restrict__ dq, Strides qst, Strides kst, Strides vst,
-                        Strides dost, Strides dqst, int H, int Kh, int Sq, int Sk, int causal,
-                        int window, int kv_offset, float scale) {
-  constexpr int LF = D + 1, LP = BT + 1;
+template <int D, int DV>
+__global__ void __launch_bounds__(128) flash_bwd_dkdv_f32_kernel(DKDV_F32_PARAMS) {
+  dkdv_f32<D, DV>(DKDV_F32_ARGS);
+}
+template <int D, int DV>
+__global__ void __launch_bounds__(128, 1) flash_bwd_dkdv_f32_wide_kernel(DKDV_F32_PARAMS) {
+  dkdv_f32<D, DV>(DKDV_F32_ARGS);
+}
+
+template <int D, int DV>
+__device__ __forceinline__ void dq_f32(DQ_F32_PARAMS) {
+  constexpr int LF = D + 1, LV = DV + 1, LP = BT + 1;
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);
   float* dOs = Qs + BT * LF;
-  float* Ks = dOs + BT * LF;
+  float* Ks = dOs + BT * LV;
   float* Vs = Ks + BT * LF;
-  float* dSs = Vs + BT * LF;     // [query][key] dS
+  float* dSs = Vs + BT * LV;     // [query][key] dS
 
   const int tid = threadIdx.x, ir = tid / 4, cc = tid % 4;
   const int q0 = blockIdx.x * BT, h = blockIdx.y, b = blockIdx.z, kh = h / (H / Kh);
   stage_f32<D>(Qs, q + b * qst.b + h * qst.h, qst.s, q0, BT, Sq);
-  stage_f32<D>(dOs, dout + b * dost.b + h * dost.h, dost.s, q0, BT, Sq);
+  stage_f32<DV>(dOs, dout + b * dost.b + h * dost.h, dost.s, q0, BT, Sq);
   const int qi = q0 + ir;
   const int64_t row = ((int64_t)b * H + h) * Sq + qi;
   const float L = qi < Sq ? lse[row] : attn::inf_f32(), Dl = qi < Sq ? delta[row] : 0.f;
@@ -1230,18 +1766,33 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k
     const int k0 = kt * BT;
     __syncthreads();   // Q and dO staged / the previous tile's readers done
     stage_f32<D>(Ks, k + b * kst.b + kh * kst.h, kst.s, k0, BT, Sk);
-    stage_f32<D>(Vs, v + b * vst.b + kh * vst.h, vst.s, k0, BT, Sk);
+    stage_f32<DV>(Vs, v + b * vst.b + kh * vst.h, vst.s, k0, BT, Sk);
     __syncthreads();
     float s[8], dp[8];
 #pragma unroll
     for (int c = 0; c < 8; ++c) s[c] = dp[c] = 0.f;
+    if constexpr (DV == D) {
 #pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      const float qx = Qs[ir * LF + d], ox = dOs[ir * LF + d];
+      for (int d = 0; d < D; ++d) {
+        const float qx = Qs[ir * LF + d], ox = dOs[ir * LF + d];
 #pragma unroll
-      for (int c = 0; c < 8; ++c) {
-        s[c] = fmaf(qx, Ks[(cc + 4 * c) * LF + d], s[c]);
-        dp[c] = fmaf(ox, Vs[(cc + 4 * c) * LF + d], dp[c]);
+        for (int c = 0; c < 8; ++c) {
+          s[c] = fmaf(qx, Ks[(cc + 4 * c) * LF + d], s[c]);
+          dp[c] = fmaf(ox, Vs[(cc + 4 * c) * LF + d], dp[c]);
+        }
+      }
+    } else {
+#pragma unroll 4
+      for (int d = 0; d < D; ++d) {
+        const float qx = Qs[ir * LF + d];
+#pragma unroll
+        for (int c = 0; c < 8; ++c) s[c] = fmaf(qx, Ks[(cc + 4 * c) * LF + d], s[c]);
+      }
+#pragma unroll 4
+      for (int d = 0; d < DV; ++d) {
+        const float ox = dOs[ir * LV + d];
+#pragma unroll
+        for (int c = 0; c < 8; ++c) dp[c] = fmaf(ox, Vs[(cc + 4 * c) * LV + d], dp[c]);
       }
     }
 #pragma unroll
@@ -1266,38 +1817,66 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k
   }
 }
 
+template <int D, int DV>
+__global__ void __launch_bounds__(128) flash_bwd_dq_f32_kernel(DQ_F32_PARAMS) {
+  dq_f32<D, DV>(DQ_F32_ARGS);
+}
+template <int D, int DV>
+__global__ void __launch_bounds__(128, 1) flash_bwd_dq_f32_wide_kernel(DQ_F32_PARAMS) {
+  dq_f32<D, DV>(DQ_F32_ARGS);
+}
+#undef DKDV_F32_PARAMS
+#undef DKDV_F32_ARGS
+#undef DQ_F32_PARAMS
+#undef DQ_F32_ARGS
+
+// The f32 pair of kernels up to D = 128, or above
+template <int D, int DV>
+cudaError_t launch_bwd_f32(const float* q, const float* k, const float* v, const float* dout,
+                           const float* lse, const float* delta, float* dq, float* dk,
+                           float* dv, const Strides* st, int B, int H, int Kh, int Sq, int Sk,
+                           int causal, int window, int kv_offset, cudaStream_t s) {
+  const float scale = 1.0f / sqrtf((float)D);
+  constexpr size_t smem = bwd_f32_smem<D, DV>();
+  const auto run = [&](auto dkdv_kernel, auto dq_kernel) {
+    static const cudaError_t a1 = attn::allow_smem(dkdv_kernel, smem);
+    static const cudaError_t a2 = attn::allow_smem(dq_kernel, smem);
+    if (a1 != cudaSuccess) return a1;
+    if (a2 != cudaSuccess) return a2;
+    dkdv_kernel<<<dim3((Sk + BT - 1) / BT, Kh, B), 128, smem, s>>>(
+        q, k, v, dout, lse, delta, dk, dv, st[0], st[1], st[2], st[4], st[6], st[7], H, Kh,
+        Sq, Sk, causal, window, kv_offset, scale);
+    if (const cudaError_t e = cudaGetLastError()) return e;
+    dq_kernel<<<dim3((Sq + BT - 1) / BT, H, B), 128, smem, s>>>(
+        q, k, v, dout, lse, delta, dq, st[0], st[1], st[2], st[4], st[5], H, Kh, Sq, Sk,
+        causal, window, kv_offset, scale);
+    return cudaGetLastError();
+  };
+  if constexpr (D <= 128)
+    return run(flash_bwd_dkdv_f32_kernel<D, DV>, flash_bwd_dq_f32_kernel<D, DV>);
+  else
+    return run(flash_bwd_dkdv_f32_wide_kernel<D, DV>, flash_bwd_dq_f32_wide_kernel<D, DV>);
+}
+
 // Strides, in order: q, k, v, out, dout, dq, dk, dv
-template <typename T, int D>
+template <typename T, int D, int DV>
 cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* out,
                        const void* dout, const float* lse, float* delta, void* dq, void* dk,
                        void* dv, const Strides* st, int B, int H, int Kh, int Sq, int Sk,
                        int causal, int window, int kv_offset, cudaStream_t s) {
   const int64_t rows = (int64_t)B * H * Sq;
   flash_bwd_delta_kernel<T><<<(unsigned)((rows + 7) / 8), 256, 0, s>>>(
-      static_cast<const T*>(out), static_cast<const T*>(dout), delta, st[3], st[4], H, Sq, D,
+      static_cast<const T*>(out), static_cast<const T*>(dout), delta, st[3], st[4], H, Sq, DV,
       rows);
   if (const cudaError_t e = cudaGetLastError()) return e;
   if constexpr (std::is_same<T, bf16>::value) {
-    return bwd::launch<D>(q, k, v, dout, lse, delta, dq, dk, dv, st, B, H, Kh, Sq, Sk, causal,
+    return bwd::launch<D, DV>(q, k, v, dout, lse, delta, dq, dk, dv, st, B, H, Kh, Sq, Sk, causal,
                           window, kv_offset, s);
   } else {
-    const T *tq = static_cast<const T*>(q), *tk = static_cast<const T*>(k),
-            *tv = static_cast<const T*>(v), *tdo = static_cast<const T*>(dout);
-    T *tdq = static_cast<T*>(dq), *tdk = static_cast<T*>(dk), *tdv = static_cast<T*>(dv);
-    const float scale = 1.0f / sqrtf((float)D);
-    constexpr size_t smem = bwd_f32_smem<D>();
-    static const cudaError_t a1 = attn::allow_smem(flash_bwd_dkdv_f32_kernel<D>, smem);
-    static const cudaError_t a2 = attn::allow_smem(flash_bwd_dq_f32_kernel<D>, smem);
-    if (a1 != cudaSuccess) return a1;
-    if (a2 != cudaSuccess) return a2;
-    flash_bwd_dkdv_f32_kernel<D><<<dim3((Sk + BT - 1) / BT, Kh, B), 128, smem, s>>>(
-        tq, tk, tv, tdo, lse, delta, tdk, tdv, st[0], st[1], st[2], st[4], st[6], st[7], H, Kh,
-        Sq, Sk, causal, window, kv_offset, scale);
-    if (const cudaError_t e = cudaGetLastError()) return e;
-    flash_bwd_dq_f32_kernel<D><<<dim3((Sq + BT - 1) / BT, H, B), 128, smem, s>>>(
-        tq, tk, tv, tdo, lse, delta, tdq, st[0], st[1], st[2], st[4], st[5], H, Kh, Sq, Sk,
-        causal, window, kv_offset, scale);
-    return cudaGetLastError();
+    return launch_bwd_f32<D, DV>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<const T*>(dout), lse, delta, static_cast<T*>(dq), static_cast<T*>(dk),
+        static_cast<T*>(dv), st, B, H, Kh, Sq, Sk, causal, window, kv_offset, s);
   }
 }
 
@@ -1307,8 +1886,8 @@ void unpack(const int64_t* strides, Strides* st, int n) {
 }
 
 // The split kernel's scratch: one f32 buffer of n_split * B * H * Sq *
-// (D + 2) values, m [n_split, B, H, Sq], then l (the same shape), then acc
-// [n_split, B, H, Sq, D].
+// (DV + 2) values, m [n_split, B, H, Sq], then l (the same shape), then acc
+// [n_split, B, H, Sq, DV].
 struct Parts {
   float *m, *l, *acc;
   Parts(void* buf, int n_split, int B, int H, int Sq) {
@@ -1319,51 +1898,62 @@ struct Parts {
   }
 };
 
+// The (D, DV) pairs every body is built for; X(D, DV) for each
+#define FLASH_HEAD_DIMS(X) X(64, 64) X(112, 112) X(128, 128) X(160, 160) X(192, 128) X(256, 256)
+
 int run(const void* q, const void* k, const void* v, void* out, int dtype, int B, int H,
-        int Kh, int Sq, int Sk, int D, int causal, int window, int kv_offset,
+        int Kh, int Sq, int Sk, int D, int DV, int causal, int window, int kv_offset,
         const int64_t* strides, int rows, int n_split, void* parts, unsigned* counters,
         float* lse, cudaStream_t s) {
   if (B == 0 || H == 0 || Sq == 0) return (int)cudaSuccess;
   if (Kh <= 0 || H % Kh != 0) return (int)cudaErrorInvalidValue;
   Strides st[4];
   unpack(strides, st, 4);
-  if (dtype == 0 && D == 64)
-    return (int)launch_f32<64>(q, k, v, out, st, B, H, Kh, Sq, Sk, causal, window, kv_offset, lse, s);
-  if (dtype == 0 && D == 128)
-    return (int)launch_f32<128>(q, k, v, out, st, B, H, Kh, Sq, Sk, causal, window, kv_offset, lse,
-                                s);
-  if (dtype != 1 || (D != 64 && D != 128) || (n_split > 1 && parts == nullptr))
-    return (int)cudaErrorInvalidValue;
+  if (dtype == 1 && n_split > 1 && parts == nullptr) return (int)cudaErrorInvalidValue;
   const Parts P(parts, n_split, B, H, Sq);
-  return (int)(D == 64 ? launch_mma<64>(q, k, v, out, st, B, H, Kh, Sq, Sk, causal, window,
-                                        kv_offset, rows, n_split, P.m, P.l, P.acc, counters, lse, s)
-                       : launch_mma<128>(q, k, v, out, st, B, H, Kh, Sq, Sk, causal, window,
-                                         kv_offset, rows, n_split, P.m, P.l, P.acc, counters,
-                                         lse, s));
+#define FLASH_FWD(DD, DDV)                                                                   \
+  if (D == DD && DV == DDV) {                                                                \
+    if (dtype == 0)                                                                          \
+      return (int)launch_f32<DD, DDV>(q, k, v, out, st, B, H, Kh, Sq, Sk, causal, window,    \
+                                      kv_offset, lse, s);                                    \
+    if (dtype == 1)                                                                          \
+      return (int)launch_mma<DD, DDV>(q, k, v, out, st, B, H, Kh, Sq, Sk, causal, window,    \
+                                      kv_offset, rows, n_split, P.m, P.l, P.acc, counters,   \
+                                      lse, s);                                               \
+  }
+  FLASH_HEAD_DIMS(FLASH_FWD)
+#undef FLASH_FWD
+  return (int)cudaErrorInvalidValue;
 }
 
 int run_bwd(const void* q, const void* k, const void* v, const void* out, const void* dout,
             const float* lse, float* delta, void* dq, void* dk, void* dv, int dtype, int B,
-            int H, int Kh, int Sq, int Sk, int D, int causal, int window, int kv_offset,
-            const int64_t* strides, cudaStream_t s) {
+            int H, int Kh, int Sq, int Sk, int D, int DV, int causal, int window,
+            int kv_offset, const int64_t* strides, cudaStream_t s) {
   if (B == 0 || H == 0 || Sq == 0 || Sk == 0) return (int)cudaSuccess;
   if (Kh <= 0 || H % Kh != 0) return (int)cudaErrorInvalidValue;
   Strides st[8];
   unpack(strides, st, 8);
-#define FLASH_BWD(T, DD)                                                                  \
-  return (int)launch_bwd<T, DD>(q, k, v, out, dout, lse, delta, dq, dk, dv, st, B, H, Kh, \
-                                Sq, Sk, causal, window, kv_offset, s)
-  if (dtype == 0 && D == 64) FLASH_BWD(float, 64);
-  if (dtype == 0 && D == 128) FLASH_BWD(float, 128);
-  if (dtype == 1 && D == 64) FLASH_BWD(bf16, 64);
-  if (dtype == 1 && D == 128) FLASH_BWD(bf16, 128);
+#define FLASH_BWD(DD, DDV)                                                                  \
+  if (D == DD && DV == DDV) {                                                               \
+    if (dtype == 0)                                                                         \
+      return (int)launch_bwd<float, DD, DDV>(q, k, v, out, dout, lse, delta, dq, dk, dv,    \
+                                             st, B, H, Kh, Sq, Sk, causal, window,          \
+                                             kv_offset, s);                                 \
+    if (dtype == 1)                                                                         \
+      return (int)launch_bwd<bf16, DD, DDV>(q, k, v, out, dout, lse, delta, dq, dk, dv, st, \
+                                            B, H, Kh, Sq, Sk, causal, window, kv_offset,    \
+                                            s);                                             \
+  }
+  FLASH_HEAD_DIMS(FLASH_BWD)
 #undef FLASH_BWD
   return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype codes: 0 = float32, 1 = bfloat16.  strides: 12 int64 values, the
+// dtype codes: 0 = float32, 1 = bfloat16.  (D, DV): q/k's and v/out's
+// head dims, a pair of FLASH_HEAD_DIMS.  strides: 12 int64 values, the
 // (batch, head, sequence) strides in elements of q, k, v and out, in that
 // order.  bf16 only: rows (16 or 64) is the query tile, and
 // n_split > 1 splits the keys into that many ranges of ceil(tiles /
@@ -1376,39 +1966,41 @@ int run_bwd(const void* q, const void* k, const void* v, const void* out, const 
 // no key), which the backward reads.  Each returns a
 // cudaError_t, checked after every launch.
 extern "C" int flash_attention(const void* q, const void* k, const void* v, void* out,
-                               int dtype, int B, int H, int Kh, int Sq, int Sk, int D,
+                               int dtype, int B, int H, int Kh, int Sq, int Sk, int D, int DV,
                                int causal, int window, int kv_offset,
                                const int64_t* strides, int rows, int n_split,
                                void* parts, void* counters, void* lse, void* stream) {
-  return run(q, k, v, out, dtype, B, H, Kh, Sq, Sk, D, causal, window, kv_offset, strides,
+  return run(q, k, v, out, dtype, B, H, Kh, Sq, Sk, D, DV, causal, window, kv_offset, strides,
              rows, n_split, parts, static_cast<unsigned*>(counters), static_cast<float*>(lse),
              static_cast<cudaStream_t>(stream));
 }
 
-// Blocks of the bf16 kernel with query tile `rows` (16 or 64) at head dim
-// D (64 or 128) that one SM holds at once (shared memory, registers and
-// threads, from the occupancy calculator), into *blocks: the planner's
-// wave.  Returns a cudaError_t.
-extern "C" int flash_blocks_per_sm(int rows, int D, int* blocks) {
+// Blocks of the bf16 kernel with query tile `rows` (16 or 64) at head dims
+// (D, DV) (a pair of FLASH_HEAD_DIMS) that one SM holds at once (shared
+// memory, registers and threads, from the occupancy calculator), into
+// *blocks: the planner's wave.  Returns a cudaError_t.
+extern "C" int flash_blocks_per_sm(int rows, int D, int DV, int* blocks) {
   const auto ask = [&](auto kernel, cudaError_t ready, int threads, size_t smem) {
     if (ready != cudaSuccess) return (int)ready;
     return (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, threads, smem);
   };
-  if (rows == 16 && D == 64)
-    return ask(flash_mma_kernel<64, 1>, tile_ready<64, 1>(), 32, attn::Cfg<64>::smem_bytes(16));
-  if (rows == 64 && D == 64)
-    return ask(flash_mma_kernel<64, 4>, tile_ready<64, 4>(), 128, attn::Cfg<64>::smem_bytes(64));
-  if (rows == 16 && D == 128)
-    return ask(flash_mma_kernel<128, 1>, tile_ready<128, 1>(), 32,
-               attn::Cfg<128>::smem_bytes(16));
-  if (rows == 64 && D == 128)
-    return ask(flash_mma_kernel<128, 4>, tile_ready<128, 4>(), 128,
-               attn::Cfg<128>::smem_bytes(64));
+#define FLASH_OCC(DD, DDV)                                                              \
+  if (D == DD && DV == DDV) {                                                           \
+    if (rows == 16)                                                                     \
+      return ask(flash_mma_kernel<DD, 1, DDV>, tile_ready<DD, 1, DDV>(), 32,            \
+                 attn::Cfg<DD, DDV>::smem_bytes(16));                                   \
+    if (rows == 64)                                                                     \
+      return ask(flash_mma_kernel<DD, 4, DDV>, tile_ready<DD, 4, DDV>(), 128,           \
+                 attn::Cfg<DD, DDV>::smem_bytes(64));                                   \
+  }
+  FLASH_HEAD_DIMS(FLASH_OCC)
+#undef FLASH_OCC
   return (int)cudaErrorInvalidValue;
 }
 
-// The gradient of flash_attention (same mask, GQA and D): q/out/dout/dq
-// [B, H, Sq, D], k/v/dk/dv [B, Kh, Sk, D] of type dtype, addressed through
+// The gradient of flash_attention (same mask, GQA and head dims): q/dq [B,
+// H, Sq, D], out/dout [B, H, Sq, DV], k/dk [B, Kh, Sk, D], v/dv [B, Kh,
+// Sk, DV] of type dtype, addressed through
 // strides (24 int64 values: the (batch, head, sequence) strides in elements
 // of q, k, v, out, dout, dq, dk and dv, in that order; head dim
 // contiguous, bf16 rows 16-byte aligned); lse [B, H, Sq] f32 from the
@@ -1418,10 +2010,10 @@ extern "C" int flash_blocks_per_sm(int rows, int D, int* blocks) {
 extern "C" int flash_attention_bwd(const void* q, const void* k, const void* v,
                                    const void* out, const void* dout, const void* lse,
                                    void* delta, void* dq, void* dk, void* dv, int dtype, int B,
-                                   int H, int Kh, int Sq, int Sk, int D, int causal,
+                                   int H, int Kh, int Sq, int Sk, int D, int DV, int causal,
                                    int window, int kv_offset, const int64_t* strides,
                                    void* stream) {
   return run_bwd(q, k, v, out, dout, static_cast<const float*>(lse),
-                 static_cast<float*>(delta), dq, dk, dv, dtype, B, H, Kh, Sq, Sk, D, causal,
+                 static_cast<float*>(delta), dq, dk, dv, dtype, B, H, Kh, Sq, Sk, D, DV, causal,
                  window, kv_offset, strides, static_cast<cudaStream_t>(stream));
 }

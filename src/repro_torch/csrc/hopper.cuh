@@ -223,15 +223,16 @@ inline EncodeTiled encoder() {
 }
 
 // A bf16 [B, heads, S, D] view at ptr (element strides sb, sh, ss of its
-// batch, head and sequence dimensions, D contiguous), read in boxes of 64
-// columns x box_rows rows of one (batch, head) with the 128-byte swizzle
-// wgmma reads; rows past S read as 0.  The strides are the tensor's own, so
+// batch, head and sequence dimensions, D contiguous, a multiple of 8), read
+// in boxes of 64 columns x box_rows rows of one (batch, head) with the
+// 128-byte swizzle wgmma reads; rows past S and columns past D (the last
+// box of D = 112 or 160) read as 0.  The strides are the tensor's own, so
 // a head-split view of a projection is read in place.  A dimension of one
 // is never stepped, so its stride is set to one TMA takes.
 inline bool heads_map(CUtensorMap* map, const void* ptr, int B, int heads, int S, int D,
                       int64_t sb, int64_t sh, int64_t ss, int box_rows) {
   const EncodeTiled enc = encoder();
-  if (enc == nullptr || B < 1 || heads < 1 || S < 1 || D % 64 != 0) return false;
+  if (enc == nullptr || B < 1 || heads < 1 || S < 1 || D % 8 != 0) return false;
   if (S == 1) ss = D;
   if (heads == 1) sh = ss * S;
   if (B == 1) sb = sh * heads;

@@ -14,7 +14,10 @@ chunks), :func:`plan` splits the keys: the kernel writes per-split f32
 partials and the last block of each (b, h, query tile) to finish merges
 them in the same launch (``launches`` counts such calls as
 ``flash_attention_split``).  f32 runs on CUDA-core f32 products, which
-keep the f32 model checks' tolerances.
+keep the f32 model checks' tolerances.  The kernels are built for the
+(Dqk, Dv) pairs of :data:`HEAD_DIMS`: every attention width of the repo's
+configs, V as wide as Q and K except MLA's (queries and keys 192 wide,
+values 128).
 
 Training differentiates it: :func:`flash_attention` goes through
 :class:`FlashAttentionFn` when grad is on and an input requires it.  Its
@@ -23,7 +26,9 @@ kernel ``flash_attention_bwd`` of the same file (δ = rowsum(dO ∘ O), a
 dK/dV kernel over blocks of 128 keys and a dQ kernel over blocks of 128
 query rows; bf16 on ``wgmma`` fed by TMA, each gradient element one
 block's sum in a fixed order, with no atomic add, so every call gives the
-same bits); the JAX package differentiates its jnp attention instead.
+same bits; above D = 128 a second bf16 body of 64-row blocks, whose two
+warpgroups split the products and each own half of the gradient's
+columns); the JAX package differentiates its jnp attention instead.
 :func:`tile_kind`, :func:`query_range` and :func:`key_tiles` are the
 host's copies of how the backward classifies its tiles and which tiles
 its blocks walk.
@@ -43,19 +48,24 @@ from repro_torch.kernels.flash_attention.ref import (
 
 _P, _I = ct.c_void_p, ct.c_int
 _STRIDES = ct.POINTER(ct.c_int64)
-# q k v out, dtype B H Kh Sq Sk D causal window kv_offset, strides,
+# q k v out, dtype B H Kh Sq Sk D Dv causal window kv_offset, strides,
 # rows n_split, parts, counters, lse, stream
-_ARGS = [_P] * 4 + [_I] * 10 + [_STRIDES] + [_I] * 2 + [_P] * 4
-# q k v out dout lse delta dq dk dv, dtype B H Kh Sq Sk D causal window
+_ARGS = [_P] * 4 + [_I] * 11 + [_STRIDES] + [_I] * 2 + [_P] * 4
+# q k v out dout lse delta dq dk dv, dtype B H Kh Sq Sk D Dv causal window
 # kv_offset, strides, stream
-_BWD_ARGS = [_P] * 10 + [_I] * 10 + [_STRIDES, _P]
+_BWD_ARGS = [_P] * 10 + [_I] * 11 + [_STRIDES, _P]
 # part_m part_l part_acc out, dtype n_split B H Sq D, strides, stream
 _MERGE_ARGS = [_P] * 4 + [_I] * 6 + [_STRIDES, _P]
-HEAD_DIMS = (64, 128)                   # D the kernel is built for
+# (Dqk, Dv) the kernels are built for: llama/LLaVA/whisper/granite (64,
+# 128), zamba2-7b (112), stablelm-12b (160), gemma (256), DeepSeek-V2's MLA
+# (queries and keys 128 + 64 wide, values 128)
+HEAD_DIMS = ((64, 64), (112, 112), (128, 128), (160, 160), (192, 128),
+             (256, 256))
 BWD_BLOCK = 128     # the bf16 backward's own rows a block: keys (dK/dV) or
-#                     query rows (dQ), two warpgroups of 64
+#                     query rows (dQ), two warpgroups of 64 (up to D = 128;
+#                     above, 64 rows whose tiles the two warpgroups split)
 BWD_TILE = 64       # rows of a tile it streams: query rows (dK/dV) or keys (dQ)
-MERGE_HEAD_DIMS = (32, 64, 128, 256)    # D the merge is built for
+MERGE_HEAD_DIMS = (32, 64, 112, 128, 160, 256)    # D the merge is built for
 MAX_WARPS = 4                           # warps of a block
 MAX_SPLITS_64 = 4   # splits of a 64-row tile, whose last block folds in the
 #                     others' partials one round trip to L2 each
@@ -90,21 +100,24 @@ def plan(B: int, H: int, Sq: int, Sk: int, n_sms: int, per_sm: int) -> tuple:
 
 
 @functools.lru_cache(maxsize=None)
-def blocks_per_sm(rows: int, D: int) -> int:
-    """Blocks of the bf16 kernel's ``rows``-row tile at head dim D that one
-    SM holds at once (the CUDA occupancy calculator; asked once per
-    process)."""
+def blocks_per_sm(rows: int, D: int, Dv: int | None = None) -> int:
+    """Blocks of the bf16 kernel's ``rows``-row tile at head dims (D, Dv)
+    (Dv = D when not given) that one SM holds at once (the CUDA occupancy
+    calculator; asked once per process)."""
     n = ct.c_int()
     fn = _build.function("flash_attention", "flash_blocks_per_sm",
-                         [_I, _I, _P])
-    K.check_launch(fn(rows, D, ct.byref(n)), "flash_attention occupancy")
+                         [_I, _I, _I, _P])
+    K.check_launch(fn(rows, D, D if Dv is None else Dv, ct.byref(n)),
+                   "flash_attention occupancy")
     return n.value
 
 
-def split_plan(B: int, H: int, Sq: int, Sk: int, D: int, index: int) -> tuple:
+def split_plan(B: int, H: int, Sq: int, Sk: int, D: int, index: int,
+               Dv: int | None = None) -> tuple:
     """:func:`plan` on CUDA device ``index``: its SMs, and the blocks of
-    the tile that one of them holds."""
-    return plan(B, H, Sq, Sk, K.n_sms(index), blocks_per_sm(tile_rows(Sq), D))
+    the tile at head dims (D, Dv) that one of them holds."""
+    return plan(B, H, Sq, Sk, K.n_sms(index),
+                blocks_per_sm(tile_rows(Sq), D, Dv))
 
 
 def tile_kind(q0: int, nq: int, k0: int, nk: int, Sq: int, Sk: int,
@@ -154,13 +167,16 @@ def _conditions(q, k, v):
     """(holds, message) for each condition on the kernels' inputs, in an
     order where each may assume the ones before it; a message is a lambda,
     formatted only for a condition that fails."""
-    yield (q.ndim == 4 and k.ndim == 4 and k.shape == v.shape,
+    yield (q.ndim == 4 and k.ndim == 4 and v.ndim == 4
+           and k.shape[:3] == v.shape[:3],
            lambda: f"q {tuple(q.shape)} / k {tuple(k.shape)} / v "
-                   f"{tuple(v.shape)} must be [B, H, Sq, D] / [B, Kh, Sk, D]")
+                   f"{tuple(v.shape)} must be [B, H, Sq, D] / [B, Kh, Sk, D] "
+                   f"/ [B, Kh, Sk, Dv]")
     yield (k.shape[0] == q.shape[0] and k.shape[3] == q.shape[3],
            lambda: f"k {tuple(k.shape)} does not match q {tuple(q.shape)}")
-    yield q.shape[3] in HEAD_DIMS, lambda: (f"head dim {q.shape[3]} not in "
-                                            f"{HEAD_DIMS}")
+    yield ((q.shape[3], v.shape[3]) in HEAD_DIMS,
+           lambda: f"head dims (D, Dv) = {(q.shape[3], v.shape[3])} not in "
+                   f"{HEAD_DIMS}")
     yield (k.shape[1] > 0 and q.shape[1] % k.shape[1] == 0,
            lambda: f"{q.shape[1]} query heads over {k.shape[1]} KV heads")
     yield (q.dtype in K.DTYPE_CODES and k.dtype == v.dtype == q.dtype,
@@ -179,12 +195,26 @@ def _conditions(q, k, v):
 
 
 def _check(q, k, v):
-    """(B, H, Kh, Sq, Sk, D) of inputs the kernels take; raises otherwise."""
+    """(B, H, Kh, Sq, Sk, D, Dv) of inputs the kernels take; raises
+    otherwise."""
     for holds, message in _conditions(q, k, v):
         if not holds:
             raise ValueError(message())
     return q.shape[0], q.shape[1], k.shape[1], q.shape[2], k.shape[2], \
-        q.shape[3]
+        q.shape[3], v.shape[3]
+
+
+def _check_like(t, q):
+    """Raises unless t shares q's type and device and the layout the
+    kernels read: head dim contiguous, bf16 rows 16-byte aligned."""
+    K.require(t.dtype == q.dtype and t.device == q.device
+              and t.stride(-1) == 1,
+              "out/dout must share q's type and device, head dim contiguous")
+    K.require(t.dtype != torch.bfloat16
+              or (t.data_ptr() % 16 == 0
+                  and not any(s % 8 for s in t.stride()[:3])),
+              "bf16 flash attention needs 16-byte aligned rows (base and "
+              "batch/head/sequence strides multiples of 8)")
 
 
 def _strides(*tensors):
@@ -232,22 +262,22 @@ def merge_partials(m, l, acc, out, *, kernel: str = "flash_attention"):
 
 def _forward(q, k, v, causal, window, kv_offset, with_lse: bool):
     """The kernel on CUDA tensors: (out, lse or None)."""
-    B, H, Kh, Sq, Sk, D = _check(q, k, v)
+    B, H, Kh, Sq, Sk, D, Dv = _check(q, k, v)
     K.require(window >= 0, f"window {window} < 0")
-    out = torch.empty_like(q)
+    out = q.new_empty((B, H, Sq, Dv)) if Dv != D else torch.empty_like(q)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device) \
         if with_lse else None
     if out.numel() == 0:
         return out, lse
     rows, n_split, buf = 0, 1, None
     if q.dtype == torch.bfloat16:
-        rows, n_split = split_plan(B, H, Sq, Sk, D, q.device.index or 0)
+        rows, n_split = split_plan(B, H, Sq, Sk, D, q.device.index or 0, Dv)
         if n_split > 1:
-            buf = _parts(n_split, B, H, Sq, D, q.device)
+            buf = _parts(n_split, B, H, Sq, Dv, q.device)
     fn = _build.function("flash_attention", "flash_attention", _ARGS)
     stream = K.stream_ptr(q)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-             K.DTYPE_CODES[q.dtype], B, H, Kh, Sq, Sk, D, int(causal),
+             K.DTYPE_CODES[q.dtype], B, H, Kh, Sq, Sk, D, Dv, int(causal),
              int(window), int(kv_offset), _strides(q, k, v, out), rows,
              n_split, None if buf is None else buf.data_ptr(),
              K.tile_counters(q, stream, B * H * -(-Sq // rows),
@@ -275,8 +305,9 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, window: int = 0,
 def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
                         window: int = 0, kv_offset: int = 0):
     """(dq, dk, dv) of flash attention, each contiguous in its input's
-    type: q/out/dout [B, H, Sq, D] and k/v [B, Kh, Sk, D] (any strides,
-    head dim contiguous), lse [B, H, Sq] f32 from
+    type: q [B, H, Sq, D], out/dout [B, H, Sq, Dv], k [B, Kh, Sk, D] and v
+    [B, Kh, Sk, Dv] (any strides, head dim contiguous), lse [B, H, Sq] f32
+    from
     :func:`flash_attention_fwd`; see :func:`flash_attention_bwd_ref`.
     bf16 runs on ``wgmma`` tiles fed by TMA (the head-split views read
     in place), f32 on CUDA cores; both give the same bits on every call.
@@ -285,13 +316,14 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
         return flash_attention_bwd_ref(q, k, v, out, lse, dout,
                                        causal=causal, window=window,
                                        kv_offset=kv_offset)
-    B, H, Kh, Sq, Sk, D = _check(q, k, v)
+    B, H, Kh, Sq, Sk, D, Dv = _check(q, k, v)
     K.require(window >= 0, f"window {window} < 0")
     if dout.stride(-1) != 1 or any(s % 8 for s in dout.stride()[:3]):
         dout = dout.contiguous()
-    _check(out, k, v)
-    _check(dout, k, v)
-    K.require(out.shape == dout.shape == q.shape, "out/dout must be q's shape")
+    K.require(out.shape == dout.shape == (B, H, Sq, Dv),
+              f"out/dout must be [B, H, Sq, Dv] = {(B, H, Sq, Dv)}")
+    _check_like(out, q)
+    _check_like(dout, q)
     K.require(lse.dtype == torch.float32 and lse.is_contiguous()
               and lse.shape == (B, H, Sq), "lse must be contiguous f32 "
               "[B, H, Sq]")
@@ -306,7 +338,7 @@ def flash_attention_bwd(q, k, v, out, lse, dout, *, causal: bool = True,
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
              dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-             K.DTYPE_CODES[q.dtype], B, H, Kh, Sq, Sk, D, int(causal),
+             K.DTYPE_CODES[q.dtype], B, H, Kh, Sq, Sk, D, Dv, int(causal),
              int(window), int(kv_offset),
              _strides(q, k, v, out, dout, dq, dk, dv), K.stream_ptr(q))
     K.check_launch(err, "flash_attention_bwd")
@@ -339,10 +371,11 @@ class FlashAttentionFn(torch.autograd.Function):
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     kv_offset: int = 0):
-    """q: [B, H, Sq, D]; k/v: [B, Kh, Sk, D] (any strides, head dim
-    contiguous).  Query row i sits at position ``kv_offset + i``; see
-    :func:`flash_attention_ref` for the mask.  Returns [B, H, Sq, D] in
-    q's type, laid out in memory as q is.  bf16 with a split (see
+    """q: [B, H, Sq, D]; k: [B, Kh, Sk, D]; v: [B, Kh, Sk, Dv] (any
+    strides, head dim contiguous; (D, Dv) in :data:`HEAD_DIMS` on the
+    card).  Query row i sits at position ``kv_offset + i``; see
+    :func:`flash_attention_ref` for the mask.  Returns [B, H, Sq, Dv] in
+    q's type, laid out in memory as q is when Dv = D (else contiguous).  bf16 with a split (see
     :func:`plan`) merges the splits in the kernel's last blocks.  With
     grad on and an input that requires it, runs :class:`FlashAttentionFn`
     (the same forward, plus its log-sum-exp, and the backward kernel)."""

@@ -3,7 +3,12 @@
 each row's log-sum-exp (``flash_attention_fwd_ref``); its gradient by the
 explicit formulas the backward kernel computes (``flash_attention_bwd_ref``);
 and the split-KV pair the bf16 kernel uses for short query tiles:
-per-split partials (m, l, acc) and their log-sum-exp merge."""
+per-split partials (m, l, acc) and their log-sum-exp merge.
+
+V may be narrower than Q and K (MLA: queries and keys 192 wide, values
+128): q/k [..., Dqk], v [..., Dv], the output and every value-side
+tensor Dv wide, the scores scaled by 1/sqrt(Dqk), as the reference's
+``blockwise_attention`` does."""
 from __future__ import annotations
 
 import math
@@ -36,20 +41,21 @@ def _scores(q, k):
 
 def flash_attention_ref(q, k, v, *, causal: bool = True, window: int = 0,
                         kv_offset: int = 0):
-    """q: [B, H, Sq, D]; k/v: [B, Kh, Sk, D] -> [B, H, Sq, D] in q's type.
+    """q: [B, H, Sq, D]; k: [B, Kh, Sk, D]; v: [B, Kh, Sk, Dv] -> [B, H, Sq,
+    Dv] in q's type.
 
     Query row i sits at position ``kv_offset + i`` and sees key position
     ``kpos`` when ``kpos <= qpos`` (causal) and ``kpos > qpos - window``
     (``window`` > 0).  Query head h reads KV head ``h // (H // Kh)``.  A
     row that sees no key comes out 0.
     """
-    B, H, Sq, D = q.shape
+    B, H, Sq, _ = q.shape
     Sk = k.shape[2]
     mask = _visible(Sq, Sk, causal, window, kv_offset, q.device)
     scores = _scores(q, k).masked_fill(~mask, float("-inf"))
     probs = torch.softmax(scores, dim=-1).nan_to_num(0.0)  # empty rows
     out = torch.einsum("bkgqs,bksd->bkgqd", probs, v.float())
-    return out.reshape(B, H, Sq, D).to(q.dtype)
+    return out.reshape(B, H, Sq, v.shape[-1]).to(q.dtype)
 
 
 def flash_attention_fwd_ref(q, k, v, *, causal: bool = True, window: int = 0,
@@ -58,14 +64,15 @@ def flash_attention_fwd_ref(q, k, v, *, causal: bool = True, window: int = 0,
     log-sum-exp [B, H, Sq] of each row's scaled, masked scores, ``+inf``
     for a row that sees no key (so its probabilities exp(s - lse) are 0
     in the backward)."""
-    B, H, Sq, D = q.shape
+    B, H, Sq, _ = q.shape
     mask = _visible(Sq, k.shape[2], causal, window, kv_offset, q.device)
     scores = _scores(q, k).masked_fill(~mask, float("-inf"))
     lse = torch.logsumexp(scores, dim=-1)
     lse = torch.where(torch.isneginf(lse), float("inf"), lse)
     probs = torch.exp(scores - lse[..., None])
     out = torch.einsum("bkgqs,bksd->bkgqd", probs, v.float())
-    return out.reshape(B, H, Sq, D).to(q.dtype), lse.reshape(B, H, Sq)
+    return (out.reshape(B, H, Sq, v.shape[-1]).to(q.dtype),
+            lse.reshape(B, H, Sq))
 
 
 def flash_attention_bwd_ref(q, k, v, out, lse, dout, *, causal: bool = True,
@@ -78,17 +85,18 @@ def flash_attention_bwd_ref(q, k, v, out, lse, dout, *, causal: bool = True,
         dV = P^T dO,  dP = dO V^T,  dS = P * (dP - delta),
         dQ = dS K * scale,  dK = dS^T Q * scale,
 
-    dK and dV summed over the G = H / Kh query heads of each KV head.
-    ``lse`` [B, H, Sq] is :func:`flash_attention_fwd_ref`'s; a row that
-    sees no key (lse = +inf) has P = 0 and gets zero gradients."""
+    dK and dV summed over the G = H / Kh query heads of each KV head; out,
+    dout and dV Dv wide as v.  ``lse`` [B, H, Sq] is
+    :func:`flash_attention_fwd_ref`'s; a row that sees no key (lse = +inf)
+    has P = 0 and gets zero gradients."""
     B, H, Sq, D = q.shape
-    Kh, Sk = k.shape[1], k.shape[2]
+    Kh, Sk, Dv = k.shape[1], k.shape[2], v.shape[-1]
     G = H // Kh
     scale = 1.0 / math.sqrt(D)
     mask = _visible(Sq, Sk, causal, window, kv_offset, q.device)
     qf = q.float().reshape(B, Kh, G, Sq, D)
-    of = out.float().reshape(B, Kh, G, Sq, D)
-    dof = dout.float().reshape(B, Kh, G, Sq, D)
+    of = out.float().reshape(B, Kh, G, Sq, Dv)
+    dof = dout.float().reshape(B, Kh, G, Sq, Dv)
     kf, vf = k.float(), v.float()
     lse5 = lse.float().reshape(B, Kh, G, Sq, 1)
     delta = (dof * of).sum(-1, keepdim=True)
@@ -117,9 +125,10 @@ def flash_attention_partials_ref(q, k, v, n_split: int, *, causal: bool = True,
     (:func:`split_ranges`), the f32 softmax state of every query row over
     the keys of that split it sees — m [n_split, B, H, Sq] (the largest
     scaled score, NEG_INF where the split sees no key), l (the sum of
-    exp(score - m)) and acc [n_split, B, H, Sq, D] (the sum of
+    exp(score - m)) and acc [n_split, B, H, Sq, Dv] (the sum of
     exp(score - m) * v).  A masked key adds exactly 0."""
-    B, H, Sq, D = q.shape
+    B, H, Sq, _ = q.shape
+    Dv = v.shape[-1]
     Sk = k.shape[2]
     scores = _scores(q, k)
     mask = _visible(Sq, Sk, causal, window, kv_offset, q.device)
@@ -135,7 +144,7 @@ def flash_attention_partials_ref(q, k, v, n_split: int, *, causal: bool = True,
         ms.append(torch.where(l > 0, m, NEG_INF).reshape(B, H, Sq))
         ls.append(l.reshape(B, H, Sq))
         accs.append(torch.einsum("bkgqs,bksd->bkgqd", p, vf[:, :, lo:hi])
-                    .reshape(B, H, Sq, D))
+                    .reshape(B, H, Sq, Dv))
     return torch.stack(ms), torch.stack(ls), torch.stack(accs)
 
 

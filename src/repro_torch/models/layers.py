@@ -74,7 +74,8 @@ def lengths_vector(cache_len, B, device=None):
 # ---------------------------------------------------------------------------
 def blockwise_attention(q, k, v, *, causal: bool = True, window: int = 0,
                         kv_offset: int = 0):
-    """q: [B, Sq, H, D]; k/v: [B, Sk, Kh, D] -> [B, Sq, H, D].  GQA by
+    """q: [B, Sq, H, D]; k: [B, Sk, Kh, D]; v: [B, Sk, Kh, Dv] -> [B, Sq,
+    H, Dv], scaled by 1/sqrt(D) (V may be narrower, as MLA's).  GQA by
     ``h // (H // Kh)``.
 
     ``kv_offset``: absolute position of q[0] minus that of k[0]; ``window``

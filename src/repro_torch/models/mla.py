@@ -1,8 +1,12 @@
-"""Multi-head Latent Attention (DeepSeek-V2) over a paged latent pool.
+"""Multi-head Latent Attention (DeepSeek-V2): the full-sequence path of
+training and the absorbed path over a paged latent pool.
 
 The PyTorch counterpart of ``repro.models.mla``'s ``init_mla``,
-``_queries``, ``_latent_kv``, ``mla_decode_paged`` and ``mla_chunk_paged``:
-the *absorbed* path.  The pool stores one row per token, the post-norm
+``_queries``, ``_latent_kv``, ``mla_full``, ``mla_decode_paged`` and
+``mla_chunk_paged``.  ``mla_full`` (training) expands the latent through
+``kv_b`` into per-head keys and values and runs flash attention with
+queries and keys nope + rope wide (192 for DeepSeek-V2) and values
+v_head_dim wide (128).  The serving steps take the *absorbed* path.  The pool stores one row per token, the post-norm
 latent ``ckv`` (kv_lora_rank wide) and the rotated shared key ``k_rope``
 side by side, R + rope wide (576 for DeepSeek-V2).  Absorbing ``kv_b``'s
 key half into the query makes attention exactly 1-KV-head MQA over those
@@ -11,8 +15,8 @@ first R features of the output are the latent context, which ``kv_b``'s
 value half lifts to the heads.  So the paged decode and chunked-prefill
 kernels serve MLA with ``k_pages is v_pages`` at head dim R + rope.  They
 scale scores by 1/sqrt(R + rope); MLA wants 1/sqrt(nope + rope), so the
-query is pre-scaled by the ratio.  The dense paths (``mla_full``,
-``mla_decode``, ``mla_chunk``) are not ported (ROADMAP queue 1: dense
+query is pre-scaled by the ratio.  The dense serving paths
+(``mla_decode``, ``mla_chunk``) are not ported (ROADMAP queue 1: dense
 fallbacks).
 """
 from __future__ import annotations
@@ -66,15 +70,40 @@ def _queries(p, x, cfg, positions):
     return q_nope, layers.rope(q_rope, positions, cfg.rope_theta)
 
 
-def _latent_rows(p, x, cfg, positions):
-    """The pool rows of x's tokens: [post-norm ckv, rotated k_rope],
-    [B, S, R + rope]."""
+def _latent_kv(p, x, cfg, positions):
+    """(ckv [B, S, R] post-norm, k_rope [B, S, rope] rotated)."""
     R = cfg.kv_lora_rank
     ckv_full = x @ p.kv_a
     ckv = rmsnorm(ckv_full[..., :R], p.kv_norm, cfg.norm_eps)
     k_rope = layers.rope(ckv_full[..., None, R:], positions,
                          cfg.rope_theta)[..., 0, :]
-    return torch.cat([ckv, k_rope], dim=-1)
+    return ckv, k_rope
+
+
+def _latent_rows(p, x, cfg, positions):
+    """The pool rows of x's tokens: [post-norm ckv, rotated k_rope],
+    [B, S, R + rope]."""
+    return torch.cat(_latent_kv(p, x, cfg, positions), dim=-1)
+
+
+def mla_full(p, x, cfg, positions):
+    """The uncompressed path of training over all S positions of x [B, S,
+    d]: ``kv_b`` lifts the latent to per-head k_nope and v, the shared
+    k_rope is broadcast over the heads, and causal flash attention runs
+    with queries and keys nope + rope wide and values v_head_dim wide.
+    Returns (out [B, S, d], (ckv [B, S, R], k_rope [B, S, rope]))."""
+    B, S, _ = x.shape
+    H, nope, rope_d, vd = (cfg.num_heads, cfg.qk_nope_head_dim,
+                           cfg.qk_rope_head_dim, cfg.v_head_dim)
+    q_nope, q_rope = _queries(p, x, cfg, positions)
+    ckv, k_rope = _latent_kv(p, x, cfg, positions)
+    kv = (ckv @ p.kv_b).view(B, S, H, nope + vd)
+    k_nope, v = kv[..., :nope], kv[..., nope:]
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, S, H, rope_d)],
+                  dim=-1)
+    o = layers.blockwise_attention(q, k, v, causal=True)
+    return o.reshape(B, S, H * vd) @ p.wo, (ckv, k_rope)
 
 
 def _absorbed_query(p, q_nope, q_rope, cfg):

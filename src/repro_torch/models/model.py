@@ -25,14 +25,15 @@ plane of the KV pool.  A Mamba model with a media frontend raises
 ``NotImplementedError`` (ROADMAP, queue 1: other families).
 Training runs the full-sequence :func:`forward` (``repro.models.model``'s
 ``forward`` with its ``_embed``, ``_block_full``, ``_attn_full`` and
-``_cross_full``) over attention + MLP or MoE layers (the MoE FFN's
-capacity-dropping path and its load-balance loss), Mamba-1 and Mamba-2
-layers and shared attention, with the vision projector or the audio
-encoder in front; its attention goes through the flash kernel and its
-gradient, the scans through the selective-scan kernels and theirs.  The
-MLA kinds raise there (ROADMAP queue 1 item 15).  The JAX package's dense
-``decode_step``/``prefill_chunk`` serving paths are not ported (ROADMAP,
-queue 1: dense fallbacks).
+``_cross_full``) over every layer kind: attention + MLP or MoE layers
+(the MoE FFN's capacity-dropping path and its load-balance loss), MLA +
+MLP or MoE (``mla.mla_full``, queries and keys 192 wide and values 128
+for DeepSeek-V2), Mamba-1 and Mamba-2 layers and shared attention, with
+the vision projector or the audio encoder in front; its attention goes
+through the flash kernel and its gradient at every width the configs
+have, the scans through the selective-scan kernels and theirs.  The JAX
+package's dense ``decode_step``/``prefill_chunk`` serving paths are not
+ported (ROADMAP, queue 1: dense fallbacks).
 """
 from __future__ import annotations
 
@@ -210,9 +211,9 @@ def _block_full(cfg, kind, p, shared, h, positions, enc_out, window,
     """One block over the full sequence, as the reference's
     ``_block_full``.  Returns (h, cache entry, aux loss): Mamba layers'
     {"state", "conv"}, shared-attention and attention layers' {"k", "v"}
-    (and {"xk", "xv"} with cross-attention) with ``collect_cache``; the
-    MoE FFN's load-balance loss (its capacity-dropping training path), 0.0
-    without MoE."""
+    (and {"xk", "xv"} with cross-attention), MLA layers' {"ckv", "krope"}
+    with ``collect_cache``; the MoE FFN's load-balance loss (its
+    capacity-dropping training path), 0.0 without MoE."""
     cache, aux = {}, 0.0
     if kind in (MAMBA1, MAMBA2):
         fn = mamba.mamba1_seq if kind == MAMBA1 else mamba.mamba2_seq
@@ -230,11 +231,18 @@ def _block_full(cfg, kind, p, shared, h, positions, enc_out, window,
         if collect_cache:
             cache = {"k": k, "v": v}
         return h, cache, aux
-    a, (k, v) = _attn_full(p, rmsnorm(h, p.norm1, cfg.norm_eps), cfg,
-                           positions, window)
-    h = h + a
-    if collect_cache:
-        cache = {"k": k, "v": v}
+    if kind in (MLA_MLP, MLA_MOE):
+        a, (ckv, krope) = mla.mla_full(p, rmsnorm(h, p.norm1, cfg.norm_eps),
+                                       cfg, positions)
+        h = h + a
+        if collect_cache:
+            cache = {"ckv": ckv, "krope": krope}
+    else:
+        a, (k, v) = _attn_full(p, rmsnorm(h, p.norm1, cfg.norm_eps), cfg,
+                               positions, window)
+        h = h + a
+        if collect_cache:
+            cache = {"k": k, "v": v}
     if cfg.cross_attention:
         # the reference's _cross_full: the same function as a chunk's
         c, (xk, xv) = _cross_chunk(p, rmsnorm(h, p.xnorm, cfg.norm_eps),
@@ -243,7 +251,7 @@ def _block_full(cfg, kind, p, shared, h, positions, enc_out, window,
         if collect_cache:
             cache.update({"xk": xk, "xv": xv})
     x = rmsnorm(h, p.norm2, cfg.norm_eps)
-    if kind == ATTN_MOE:
+    if kind in (ATTN_MOE, MLA_MOE):
         f, aux = moe.moe_ffn(p, x, cfg, lossless=False)
     else:
         f = layers.mlp(p, x, cfg.act)
@@ -257,16 +265,10 @@ def forward(cfg: ModelConfig, params, tokens, media=None, frames=None, *,
     d] goes through the vision projector and before the tokens; ``frames``
     [B, T, d] through the audio encoder, for cross-attention.  ``remat``
     recomputes each block in the backward (``torch.utils.checkpoint``,
-    non-reentrant), which changes no number.  Takes attention + MLP or
-    MoE layers, Mamba-1 and Mamba-2 layers and shared attention; the MLA
-    kinds raise ``NotImplementedError`` (ROADMAP queue 1 item 15)."""
+    non-reentrant), which changes no number.  Takes every layer kind:
+    attention or MLA + MLP or MoE, Mamba-1 and Mamba-2 layers and shared
+    attention."""
     check_supported(cfg)
-    untrained = sorted(set(cfg.layer_kinds()) & {MLA_MLP, MLA_MOE})
-    if untrained:
-        raise NotImplementedError(
-            f"{cfg.name}: the full-sequence forward over layer kinds "
-            f"{untrained} is not ported yet (ROADMAP queue 1 item 15: "
-            f"training)")
     enc_out = encode_media(cfg, params, frames) if frames is not None \
         else None
     media_emb = encode_media(cfg, params, media) if media is not None \
@@ -409,7 +411,8 @@ def _attn_decode_paged(p, x, cfg, data, layer, kv, lens, lengths, window):
 
 
 def _ffn(p, x, cfg, kind):
-    """The layer's FFN: the lossless MoE for MoE kinds, else the MLP."""
+    """The layer's FFN: the lossless MoE for MoE kinds (serving: no aux
+    loss), else the MLP."""
     if kind in (ATTN_MOE, MLA_MOE):
         return moe.moe_ffn(p, x, cfg, lossless=True)[0]
     return layers.mlp(p, x, cfg.act)

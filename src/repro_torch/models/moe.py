@@ -94,14 +94,15 @@ def moe_ffn(p, x, cfg, *, lossless: bool = False):
     ``repro.models.moe.moe_ffn``: ``lossless`` keeps every (token, slot)
     pair (serving); otherwise each expert takes at most
     :func:`capacity` pairs, in arrival order, and drops the rest
-    (training)."""
+    (training).  The serving steps drop the aux loss, so ``lossless``
+    skips its kernels and returns None in its place."""
     B, S, d = x.shape
     xt = x.reshape(-1, d)
     probs = _probs(p, xt)
     gates, ids = route(p, xt, cfg, probs)
     flat = ids.reshape(-1)
     counts = torch.bincount(flat, minlength=cfg.num_experts)
-    aux = aux_loss(probs, counts, cfg)
+    aux = None if lossless else aux_loss(probs, counts, cfg)
     act = layers.act_fn(cfg.act)
     out = (_routed if lossless else _capacity_dropping)(
         p, xt, gates, flat, counts, cfg, act).to(x.dtype)

@@ -1179,6 +1179,123 @@ def test_flash_attention_autograd_on_card_matches_cpu(cuda):
 
 
 # ---------------------------------------------------------------------------
+# flash attention at the other training widths: zamba2-7b's D = 112,
+# stablelm-12b's 160, gemma's 256 (the backward's wide body above 128) and
+# MLA's queries and keys 192 wide with values 128; the same bars
+# ---------------------------------------------------------------------------
+WIDE_PAIRS = [(112, 112), (160, 160), (256, 256), (192, 128)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("D,Dv", WIDE_PAIRS,
+                         ids=[f"{a}x{b}" for a, b in WIDE_PAIRS])
+@pytest.mark.parametrize("B,H,Kh,Sq,Sk,causal,window,off", [
+    (1, 4, 2, 200, 200, True, 0, 0),          # causal GQA
+    (2, 4, 4, 130, 130, True, 40, 0),         # a window
+    (1, 4, 1, 77, 200, True, 0, 123),         # ragged, after cached keys
+    (1, 2, 2, 150, 150, False, 0, 0),         # non-causal
+    (1, 2, 2, 70, 100, True, 8, -20),         # rows that see no key
+], ids=["gqa", "window", "offset", "full", "empty-rows"])
+def test_flash_attention_widths_match_plain(cuda, dtype, D, Dv, B, H, Kh, Sq,
+                                            Sk, causal, window, off):
+    """Forward (output and lse) and backward of each new (D, Dv) instance
+    against the plain versions; two calls give the same bits."""
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_ref, flash_attention_fwd_ref)
+    gen = torch.Generator().manual_seed(D + Dv + Sq)
+    q, k, v, do = (torch.randn(s, generator=gen).to(cuda, dtype) for s in (
+        (B, H, Sq, D), (B, Kh, Sk, D), (B, Kh, Sk, Dv), (B, H, Sq, Dv)))
+    kw = dict(causal=causal, window=window, kv_offset=off)
+    before = dict(K.launches)
+    out, lse = tfa.flash_attention_fwd(q, k, v, **kw)
+    out2, lse2 = tfa.flash_attention_fwd(q, k, v, **kw)
+    got = tfa.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    again = tfa.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    want_o, want_lse = flash_attention_fwd_ref(*_f32(q, k, v), **kw)
+    want = flash_attention_bwd_ref(*_f32(q, k, v), want_o, want_lse,
+                                   do.float(), **kw)
+    torch.cuda.synchronize()
+    assert K.launches["flash_attention"] == before["flash_attention"] + 2
+    assert K.launches["flash_attention_bwd"] == \
+        before["flash_attention_bwd"] + 2
+    assert out.shape == (B, H, Sq, Dv)
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+    seen = torch.isfinite(want_lse)
+    assert torch.equal(torch.isposinf(lse), ~seen)
+    assert (lse[seen] - want_lse[seen]).abs().max().item() <= LSE_TOL[dtype]
+    assert (out.float() - want_o).abs().max().item() <= TOL[dtype]
+    tol, rtol = BWD_TOL[dtype]
+    for g, w, g2, x in zip(got, want, again, (q, k, v)):
+        assert g.dtype == dtype and g.shape == x.shape and g.is_contiguous()
+        assert torch.equal(g, g2)
+        assert ((g.float() - w).abs() - rtol * w.abs()).max().item() <= tol
+
+
+@pytest.mark.parametrize("D,Dv", WIDE_PAIRS,
+                         ids=[f"{a}x{b}" for a, b in WIDE_PAIRS])
+def test_flash_attention_widths_replay_in_a_cuda_graph(cuda, D, Dv):
+    """The bf16 forward of each new instance captures in a CUDA graph; a
+    replay on new inputs gives the eager call's bits."""
+    gen = torch.Generator().manual_seed(D * Dv)
+    q, k, v = (torch.randn(s, generator=gen).to(cuda, torch.bfloat16)
+               for s in ((2, 8, 160, D), (2, 4, 160, D), (2, 4, 160, Dv)))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tfa.flash_attention(q, k, v, causal=True)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = tfa.flash_attention(q, k, v, causal=True)
+    for t in (q, k, v):
+        t.copy_(torch.randn(t.shape, generator=gen).to(cuda, torch.bfloat16))
+    graph.replay()
+    want = tfa.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+    assert (out.float() - flash_attention_ref(*_f32(q, k, v))).abs().max() \
+        .item() <= TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("D", [112, 160])
+@pytest.mark.parametrize("B,Sq", [(8, 1), (4, 64)], ids=["row", "chunk"])
+def test_flash_split_path_at_new_widths(cuda, D, B, Sq):
+    """A decode row (one-warp tiles, merge_rows) and a 64-row chunk (the
+    last block's registers) over 1,500 keys take split-KV at D = 112 and
+    160: output and lse against the plain version."""
+    from repro_torch.kernels.flash_attention.ref import flash_attention_fwd_ref
+    gen = torch.Generator().manual_seed(D + Sq)
+    q = torch.randn((B, 8, Sq, D), generator=gen).to(cuda, torch.bfloat16)
+    k, v = (torch.randn((B, 8, 1500, D), generator=gen).to(cuda,
+                                                            torch.bfloat16)
+            for _ in range(2))
+    assert tfa.split_plan(B, 8, Sq, 1500, D, 0)[1] > 1
+    before = K.launches["flash_attention_split"]
+    out, lse = tfa.flash_attention_fwd(q, k, v, causal=False)
+    want_o, want_lse = flash_attention_fwd_ref(*_f32(q, k, v), causal=False)
+    torch.cuda.synchronize()
+    assert K.launches["flash_attention_split"] == before + 1
+    assert (out.float() - want_o).abs().max().item() <= TOL[torch.bfloat16]
+    assert (lse - want_lse).abs().max().item() <= LSE_TOL[torch.bfloat16]
+
+
+@pytest.mark.parametrize("D,Dv", [(96, 96), (192, 192), (128, 64)])
+def test_flash_attention_unbuilt_widths_raise_on_the_card(cuda, D, Dv):
+    """A (D, Dv) pair the kernels are not built for raises, forward and
+    backward (never a silent route to the plain version)."""
+    q = torch.zeros((1, 2, 8, D), device=cuda)
+    k = torch.zeros((1, 2, 8, D), device=cuda)
+    v = torch.zeros((1, 2, 8, Dv), device=cuda)
+    before = dict(K.launches)
+    with pytest.raises(ValueError, match="head dims"):
+        tfa.flash_attention(q, k, v)
+    with pytest.raises(ValueError, match="head dims"):
+        tfa.flash_attention_bwd(q, k, v, v[:, :, :8], q[:, :, :, 0], v)
+    assert K.launches == before
+
+
+# ---------------------------------------------------------------------------
 # the selective scan's backward
 # ---------------------------------------------------------------------------
 SCAN_BWD_TOL = {torch.float32: (1e-4, 0.0), torch.bfloat16: (1e-4, 1 / 128)}

@@ -248,8 +248,11 @@ def test_stablelm_paged_steps_match_jax():
 def test_every_served_head_dim_is_built(arch):
     """Every config is admitted, and has its paged attention width (the
     head dim, or MLA's latent row) among the widths the decode and bf16
-    chunked-prefill kernels are built for, and a cross-attention model's
-    head dim among flash attention's: a gap fails here, not on the card."""
+    chunked-prefill kernels are built for, and its training attention pair
+    (Dqk, Dv) among flash attention's (forward and backward): (head_dim,
+    head_dim), or (qk_nope + qk_rope, v_head_dim) for MLA; a
+    cross-attention model's head dim among them too.  A gap fails here,
+    not on the card."""
     cfg = get_config(arch)
     M.check_supported(cfg)
     attn, mla = _seq_layers(cfg)
@@ -258,5 +261,10 @@ def test_every_served_head_dim_is_built(arch):
     for D in widths:
         assert D in tpa.DECODE_HEAD_DIMS, (arch, D)
         assert D in tpa.PREFILL_BF16_HEAD_DIMS, (arch, D)
+    pairs = ([(cfg.head_dim, cfg.head_dim)] if attn else []) + \
+        ([(cfg.qk_nope_head_dim + cfg.qk_rope_head_dim, cfg.v_head_dim)]
+         if mla else [])
+    for pair in pairs:
+        assert pair in tfa.HEAD_DIMS, (arch, pair)
     if cfg.cross_attention:
-        assert cfg.head_dim in tfa.HEAD_DIMS, arch
+        assert (cfg.head_dim, cfg.head_dim) in tfa.HEAD_DIMS, arch

@@ -152,18 +152,6 @@ def test_forward_collects_mamba_caches(arch):
     assert (("k", "v") in kinds) == (arch == "zamba2-7b")
 
 
-@pytest.mark.parametrize("arch,kind", [("deepseek-v2-236b", "mla")])
-def test_untrained_layer_kinds_raise(arch, kind):
-    """Layer kinds the port does not train yet (MLA) raise in forward,
-    naming ROADMAP; the serving side (check_supported, init_params) still
-    takes them."""
-    cfg = get_config(arch).reduced()
-    M.check_supported(cfg)
-    params = M.init_params(cfg, torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 15"):
-        M.forward(cfg, params, torch.zeros((1, 4), dtype=torch.int64))
-
-
 # ---------------------------------------------------------------------------
 # optimizer
 # ---------------------------------------------------------------------------

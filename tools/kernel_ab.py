@@ -53,6 +53,20 @@ on the same inputs, with each tree's largest error against the plain
 version's f32 gradients.  Needs a CUDA card and
 nvcc; prints one JSON object per line.
 
+    python3 tools/kernel_ab.py --widths --parent DIR
+
+checks that a change that added instances beside the existing ones left
+those as they were: flash attention's forward (bf16, with lse) at
+whisper's encoder (D = 64), its split decode row and 64-row chunk, llama3's
+GQA and LLaVA-1.5-7B's training shape (D = 128); its backward at LLaVA's,
+llama3's and whisper's training shapes; and the bf16 chunked prefill at
+each of its six widths (64, 80, 112, 128, 160, 256; a 512-row first chunk,
+H = Kh = 32), both trees' C entries on the same inputs at the same plan:
+whether their outputs are the same bits, and their device times parent,
+change, change, parent (CUDA-graph replays, medians of 7) with the change
+of the medians in percent.  A tree whose flash entries take the value
+width (D, Dv) is called with Dv = D.
+
     python3 tools/kernel_ab.py --scan-bwd --parent DIR
 
 times only the selective scan's two backward kernels (``selective_scan_bwd``
@@ -340,7 +354,7 @@ def mla_ab(libs, gen, sms, parent_plan):
         "order": "parent, change, change, parent"}), flush=True)
 
 
-def flash_ab(libs, gen, sms, parent_plan):
+def flash_ab(libs, gen, sms, parent_plan, srcs):
     """bf16 flash attention at whisper's shapes: the encoder (one split)
     and the cross-attention of a 64-row chunk and of a decode row, each
     tree at its own plan (``parent_plan``: the parent's ``plan``; the
@@ -349,10 +363,10 @@ def flash_ab(libs, gen, sms, parent_plan):
     shapes, timed once each, to compare the planner's choice with."""
     import torch
     from repro_torch.kernels.flash_attention.ops import split_plan
-    par, new = (libs[n].flash_attention for n in ("parent_fa", "fa"))
-    head = [_P] * 4 + [_I] * 10 + [ctypes.POINTER(ctypes.c_int64)] + [_I] * 2
-    par.argtypes = head + [_P] * 2
-    new.argtypes = head + [_P] * 3
+    fl = flash_entries(libs, ("parent_fa", "fa"), srcs)
+    par, new = fl["parent_fa"][0], fl["fa"][0]
+    dims = {f: (64, 64) if fl[n][2] else (64,)
+            for f, n in ((par, "parent_fa"), (new, "fa"))}
     counters = torch.zeros(4096, dtype=torch.int32, device="cuda")
     sweep = {"cross-prefill-b4-c64": [(64, n) for n in (2, 3, 4, 6, 8, 12)],
              "cross-decode-b8": [(16, n) for n in (2, 3, 4, 6, 8, 12)]}
@@ -370,8 +384,9 @@ def flash_ab(libs, gen, sms, parent_plan):
         ptrs = [t.data_ptr() for t in (q, k, v, out)]
 
         def call(f, rows, n_split, *x):
-            return lambda: f(*ptrs, 1, B, H, H, Sq, Sk, D, 0, 0, 0, strides,
-                             rows, n_split, parts.data_ptr(), *x,
+            tail = x + (None,) * (2 - len(x))        # counters, lse
+            return lambda: f(*ptrs, 1, B, H, H, Sq, Sk, *dims[f], 0, 0, 0,
+                             strides, rows, n_split, parts.data_ptr(), *tail,
                              torch.cuda.current_stream().cuda_stream)
         pplan = parent_plan(B, H, Sq, Sk, sms)
         nplan = split_plan(B, H, Sq, Sk, D, 0)
@@ -424,7 +439,7 @@ def profiled_ms(fn, reps: int = 5) -> float:
                if e.device_type == torch.autograd.DeviceType.CUDA) / reps / 1e3
 
 
-def flash_bwd_ab(libs, gen):
+def flash_bwd_ab(libs, gen, srcs):
     """bf16 flash attention backward of both trees through their C entry
     ``flash_attention_bwd`` (the same interface), at three training
     shapes, beside the bound and SDPA's backward."""
@@ -433,12 +448,8 @@ def flash_bwd_ab(libs, gen):
     from repro_torch.kernels.flash_attention.ops import flash_attention_fwd
     from repro_torch.kernels.flash_attention.ref import (
         flash_attention_bwd_ref, flash_attention_fwd_ref)
-    fns = {}
-    for n in ("parent_fa", "fa"):
-        fns[n] = libs[n].flash_attention_bwd
-        fns[n].argtypes = [_P] * 10 + [_I] * 10 + [
-            ctypes.POINTER(ctypes.c_int64), _P]
-        fns[n].restype = _I
+    fl = flash_entries(libs, ("parent_fa", "fa"), srcs)
+    fns = {n: fl[n][1] for n in fl}
     # (tag, B, H, Kh, S, D, causal)
     for tag, B, H, Kh, S, D, causal in [
             ("llava-train", 2, 32, 32, 2624, 128, True),
@@ -462,8 +473,8 @@ def flash_bwd_ab(libs, gen):
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                 dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), 1, B, H, Kh, S,
-                S, D, int(causal), 0, 0, strides,
-                torch.cuda.current_stream().cuda_stream)
+                S, *((D, D) if fl[n][2] else (D,)), int(causal), 0, 0,
+                strides, torch.cuda.current_stream().cuda_stream)
         errs = {}
         want_o, want_lse = flash_attention_fwd_ref(q.float(), k.float(),
                                                    v.float(), causal=causal)
@@ -743,6 +754,171 @@ def scan_ab(libs, gen):
                           "tol": 1e-4}), flush=True)
 
 
+def takes_dv(src: Path) -> bool:
+    """Whether a tree's flash_attention.cu entries take the value width
+    (``int D, int DV``) after the head dim."""
+    return "int D, int DV" in src.read_text()
+
+
+def flash_entries(libs, names, srcs):
+    """{name: (forward, backward, takes_dv)} of each tree's flash library,
+    their argument types declared."""
+    out = {}
+    for n, src in zip(names, srcs):
+        dv = takes_dv(src)
+        ints = 11 if dv else 10
+        f = libs[n].flash_attention
+        f.argtypes = [_P] * 4 + [_I] * ints + [
+            ctypes.POINTER(ctypes.c_int64)] + [_I] * 2 + [_P] * 4
+        f.restype = _I
+        b = libs[n].flash_attention_bwd
+        b.argtypes = [_P] * 10 + [_I] * ints + [
+            ctypes.POINTER(ctypes.c_int64), _P]
+        b.restype = _I
+        out[n] = (f, b, dv)
+    return out
+
+
+def shared_ab(libs, gen, srcs):
+    """Both trees' instances that existed before the change: the same
+    inputs and plan through each tree's C entry; bits and device times."""
+    import torch
+    from repro_torch.kernels.flash_attention.ops import split_plan
+    from repro_torch.kernels.flash_attention.ref import \
+        flash_attention_fwd_ref
+    names = ("parent_fa", "fa")
+    fl = flash_entries(libs, names, srcs)
+    counters = torch.zeros(1 << 16, dtype=torch.int32, device="cuda")
+
+    def row(kind, shape, outs, calls, err=None):
+        """outs: each tree's outputs after one call; the timing's replays
+        of the same calls then show whether each tree repeats its own
+        bits.  A row counts against the trees only where the parent
+        repeats itself, and the change must repeat its own."""
+        torch.cuda.synchronize()
+        first = [[t.clone() for t in o] for o in outs]
+        same = all(torch.equal(a, b) for a, b in zip(*outs))
+        t = alternate(*calls, graph_ms)
+        torch.cuda.synchronize()
+        repeats = [all(torch.equal(a, b) for a, b in zip(f, o))
+                   for f, o in zip(first, outs)]
+        par, chg = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+        print(json.dumps({kind: shape, "bits_equal": same,
+                          "repeats_own_bits": {"parent": repeats[0],
+                                               "change": repeats[1]},
+                          "device_ms": t,
+                          "order": "parent, change, change, parent",
+                          "change_pct": 100 * (chg - par) / par,
+                          **({"max_abs_err_vs_plain": err} if err else {})}),
+              flush=True)
+        return (same or not repeats[0]) and repeats[1]
+
+    ok = True
+    # flash forward (with lse), each tree at this tree's plan
+    for tag, B, H, Kh, Sq, Sk, D, causal in [
+            ("whisper-enc", 4, 12, 12, 1500, 1500, 64, False),
+            ("whisper-cross-decode", 8, 12, 12, 1, 1500, 64, False),
+            ("whisper-cross-chunk", 4, 12, 12, 64, 1500, 64, False),
+            ("llama3-gqa", 1, 32, 8, 1024, 1024, 128, True),
+            ("llava-train", 2, 32, 32, 2624, 2624, 128, True)]:
+        q = torch.randn((B, H, Sq, D), generator=gen, device="cuda").bfloat16()
+        k, v = (torch.randn((B, Kh, Sk, D), generator=gen,
+                            device="cuda").bfloat16() for _ in range(2))
+        rows, n_split = split_plan(B, H, Sq, Sk, D, 0)
+        outs = {n: (torch.empty_like(q), torch.empty((B, H, Sq),
+                                                     device="cuda"))
+                for n in names}
+        parts = torch.empty(max(n_split, 1) * B * H * Sq * (D + 2),
+                            device="cuda")
+        strides = (ctypes.c_int64 * 12)(*(st for t in (q, k, v, q)
+                                          for st in t.stride()[:3]))
+
+        def call(n):
+            f, _, dv = fl[n]
+            o, lse = outs[n]
+            dims = (D, D) if dv else (D,)
+            return lambda: f(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                             o.data_ptr(), 1, B, H, Kh, Sq, Sk, *dims,
+                             int(causal), 0, 0, strides, rows, n_split,
+                             parts.data_ptr(), counters.data_ptr(),
+                             lse.data_ptr(),
+                             torch.cuda.current_stream().cuda_stream)
+        for n in names:
+            if call(n)() != 0:
+                raise RuntimeError(f"{n}: flash_attention failed")
+        want, _ = flash_attention_fwd_ref(q.float(), k.float(), v.float(),
+                                          causal=causal)
+        err = (outs["fa"][0].float() - want).abs().max().item()
+        ok &= row("flash_fwd", f"{tag}: B={B} H={H} Kh={Kh} Sq={Sq} Sk={Sk} "
+                  f"D={D} rows={rows} n_split={n_split} bf16",
+                  [outs[n] for n in names], [call(n) for n in names], err)
+        del q, k, v, outs, parts, want
+        torch.cuda.empty_cache()
+    # flash backward
+    for tag, B, H, Kh, S, D, causal in [
+            ("llava-train", 2, 32, 32, 2624, 128, True),
+            ("llama3-gqa", 1, 32, 8, 2048, 128, True),
+            ("whisper-enc", 4, 12, 12, 1500, 64, False)]:
+        from repro_torch.kernels.flash_attention.ops import \
+            flash_attention_fwd
+        q, do = (torch.randn((B, H, S, D), generator=gen,
+                             device="cuda").bfloat16() for _ in range(2))
+        k, v = (torch.randn((B, Kh, S, D), generator=gen,
+                            device="cuda").bfloat16() for _ in range(2))
+        out, lse = flash_attention_fwd(q, k, v, causal=causal)
+        grads = {n: (torch.empty_like(q), torch.empty_like(k),
+                     torch.empty_like(v)) for n in names}
+        delta = torch.empty((B, H, S), device="cuda")
+        strides = (ctypes.c_int64 * 24)(*(
+            st for t in (q, k, v, out, do, *grads["fa"])
+            for st in t.stride()[:3]))
+
+        def bcall(n):
+            _, b, dv = fl[n]
+            dq, dk, dvv = grads[n]
+            dims = (D, D) if dv else (D,)
+            return lambda: b(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+                dq.data_ptr(), dk.data_ptr(), dvv.data_ptr(), 1, B, H, Kh, S,
+                S, *dims, int(causal), 0, 0, strides,
+                torch.cuda.current_stream().cuda_stream)
+        for n in names:
+            if bcall(n)() != 0:
+                raise RuntimeError(f"{n}: flash_attention_bwd failed")
+        ok &= row("flash_bwd", f"{tag}: B={B} H={H} Kh={Kh} S={S} D={D} "
+                  f"bf16", [grads[n] for n in names],
+                  [bcall(n) for n in names])
+        del q, k, v, do, out, lse, grads, delta
+        torch.cuda.empty_cache()
+    # bf16 chunked prefill at its six widths
+    fns = {n: libs[n].paged_prefill_attention for n in ("parent_pa", "pa")}
+    for f in fns.values():
+        f.argtypes = [_P] * 6 + [_I] * 9 + [_P]
+    H = Kh = 32
+    C, n_pages = 512, 40
+    for D in (64, 80, 112, 128, 160, 256):
+        kp, vp = (torch.randn((n_pages, PAGE, Kh, D), generator=gen,
+                              device="cuda").bfloat16() for _ in range(2))
+        tables = torch.arange(C // PAGE, dtype=torch.int32,
+                              device="cuda")[None]
+        q = torch.randn((1, C, H, D), generator=gen, device="cuda").bfloat16()
+        ctx = torch.zeros(1, dtype=torch.int32, device="cuda")
+        outs = {n: (torch.empty_like(q),) for n in fns}
+
+        def pcall(n):
+            ptrs = [t.data_ptr() for t in (q, kp, vp, tables, ctx,
+                                           outs[n][0])]
+            return lambda: fns[n](*ptrs, 1, 1, C, H, Kh, D, PAGE, C // PAGE,
+                                  0, torch.cuda.current_stream().cuda_stream)
+        for n in fns:
+            pcall(n)()
+        ok &= row("prefill", f"first chunk: B=1 C={C} H=Kh={H} D={D} bf16",
+                  [outs[n] for n in fns], [pcall(n) for n in fns])
+    print(json.dumps({"all_bits_equal": bool(ok)}), flush=True)
+    return ok
+
+
 def parent_function(parent: Path, module: str, name: str):
     """Function ``name`` of the parent tree's ``src/repro_torch/<module>``,
     loaded from its file (its imports resolve to this tree's package)."""
@@ -763,6 +939,9 @@ def main() -> int:
                     help="only flash attention's backward (bf16)")
     ap.add_argument("--scan-bwd", action="store_true",
                     help="only the selective scan's backward (bf16)")
+    ap.add_argument("--widths", action="store_true",
+                    help="only the flash and chunked-prefill instances both "
+                         "trees have: bits and device times")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -787,8 +966,18 @@ def main() -> int:
         libs = build({"fa": (csrc / "flash_attention.cu", csrc),
                       "parent_fa": (pcsrc / "flash_attention.cu", pcsrc)})
         print(json.dumps({"card": card}), flush=True)
-        flash_bwd_ab(libs, gen)
+        flash_bwd_ab(libs, gen, (pcsrc / "flash_attention.cu",
+                                 csrc / "flash_attention.cu"))
         return 0
+    if args.widths:
+        libs = build({"fa": (csrc / "flash_attention.cu", csrc),
+                      "parent_fa": (pcsrc / "flash_attention.cu", pcsrc),
+                      "pa": (csrc / "paged_attention.cu", csrc),
+                      "parent_pa": (pcsrc / "paged_attention.cu", pcsrc)})
+        print(json.dumps({"card": card}), flush=True)
+        return 0 if shared_ab(libs, gen, (pcsrc / "flash_attention.cu",
+                                          csrc / "flash_attention.cu")) \
+            else 1
     if args.scan_bwd:
         libs = build({"ss": (csrc / "selective_scan.cu", csrc),
                       "parent_ss": (pcsrc / "selective_scan.cu", pcsrc)})
@@ -820,7 +1009,8 @@ def main() -> int:
     decode_ab(libs, gen, sms)
     prefill_ab(libs, gen)
     flash_ab(libs, gen, sms, parent_function(
-        args.parent, "kernels/flash_attention/ops.py", "plan"))
+        args.parent, "kernels/flash_attention/ops.py", "plan"),
+        (pcsrc / "flash_attention.cu", csrc / "flash_attention.cu"))
     scan_ab(libs, gen)
     return 0
 
