@@ -1728,11 +1728,18 @@ def split_merge_case(q, k, v, kw, fused, results):
 
 
 def ptxas_report(text: str) -> list:
-    """[{"fn", "registers", "spill_bytes"}] for each kernel in an nvcc
-    ``-Xptxas -v`` log (spill_bytes: stores + loads)."""
+    """[{"fn", "registers", "spill_bytes", "notes"}] for each kernel in an
+    nvcc ``-Xptxas -v`` log (spill_bytes: stores + loads; notes: the count
+    of each of ptxas's ``(C75xx)`` performance notes that names the
+    kernel, such as C7520, ``wgmma.mma_async`` serialized)."""
     import re
-    out, fn = [], None
+    out, fn, notes = [], None, {}
     for line in text.splitlines():
+        m = re.search(r"\((C75\d\d)\).*function '([^']+)'", line)
+        if m:
+            per = notes.setdefault(m.group(2), {})
+            per[m.group(1)] = per.get(m.group(1), 0) + 1
+            continue
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
             fn = {"fn": m.group(1), "registers": None, "spill_bytes": 0}
@@ -1744,6 +1751,8 @@ def ptxas_report(text: str) -> list:
         m = re.search(r"Used (\d+) registers", line)
         if m and fn is not None:
             fn["registers"] = int(m.group(1))
+    for k in out:
+        k["notes"] = notes.get(k["fn"], {})
     return out
 
 
@@ -1790,11 +1799,14 @@ def check_ptxas(logs: dict):
     built; when a scan backward kernel (``selective_scan_bwd_kernel`` x 2
     types x 3 state sizes, ``selective_scan_heads_bwd_kernel`` x 2 types,
     ``fold_kernel`` x 2) spills or was not built;
-    when a flash backward kernel spills or one of its 26 instances
+    when a flash backward kernel spills, a flash backward ``wgmma`` kernel
+    carries ptxas's note C7520 (its ``wgmma`` serialized), or one of its 26
+    instances
     was not built (the delta kernel x 2 types; the bf16 wgmma kernels,
     ``flash_bwd_dkdv_wgmma_kernel`` and ``flash_bwd_dq_wgmma_kernel`` at D
-    = 64, 112, 128 and their ``_wide_`` body at (160, 160), (192, 128) and
-    (256, 256); the f32 ones at all six (D, Dv) pairs); and when a flash
+    = 64, 112, 128 and the wide body's at (160, 160), (192, 128) and (256,
+    256): ``_rows_`` (dQ at 160 and (192, 128), dK/dV at (192, 128)) or
+    ``_wide_``; the f32 ones at all six (D, Dv) pairs); and when a flash
     forward instance spills more than :data:`FLASH_FWD_SPILL` allows it,
     or one of its 36 was not built (``flash_mma_kernel<D, NW, DV>`` at NW
     1 and 4, ``flash_kernel<D, DV, TM>`` at TM 1, 2, 4 and 8, each at the
@@ -1819,6 +1831,9 @@ def check_ptxas(logs: dict):
                 bwd.append(k)
                 if k["spill_bytes"]:
                     raise AssertionError(f"{k['fn']} spills: {k}")
+                if "wgmma_kernel" in k["fn"] and "C7520" in k["notes"]:
+                    raise AssertionError(f"{k['fn']}: ptxas serializes its "
+                                         f"wgmma (C7520): {k}")
             heads = "selective_scan_heads_kernel" in k["fn"]
             kind = ("decode" if "paged_decode_kernel" in k["fn"] else
                     "prefill" if "paged_prefill_mma_kernel" in k["fn"]

@@ -266,8 +266,8 @@ __device__ __forceinline__ void issue_scores(float (&sc)[BK / 8][4], uint32_t q_
   for (int c = 0; c < DC; ++c)
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
-      mma_ss_n32(scf, desc(q_addr + c * CHUNK_Q + kk * 32, 16, 1024),
-                 desc(kv_addr + c * CHUNK_KV + kk * 32, 16, 1024));
+      mma_ss<32, 0>(scf, desc(q_addr + c * CHUNK_Q + kk * 32, 16, 1024),
+                    desc(kv_addr + c * CHUNK_KV + kk * 32, 16, 1024), 1);
   wg_commit();
 }
 

@@ -72,6 +72,8 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include <algorithm>
+
 namespace {
 
 using attn::bf16;
@@ -695,6 +697,7 @@ struct Params {
   Strides dqst, dkst, dvst;
   int B, H, Kh, Sq, Sk, causal, window, kv_offset;
   float scale, scale_log2;
+  int chunk;                           // the wide body's heads a chunk of its grid (wide_block)
 };
 
 // The narrow body's padded width: D rounded up to whole 64-column chunks
@@ -737,8 +740,8 @@ template <int D>
 __device__ __forceinline__ void issue_abt(float* acc, uint32_t a, uint32_t a_chunk, uint32_t bm) {
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk)
-    mma_ss_n64(acc, desc(a + (kk / 4) * a_chunk + (kk % 4) * 32, 16, 1024),
-               desc(bm + (kk / 4) * BOX + (kk % 4) * 32, 16, 1024), kk);
+    mma_ss<64, 0>(acc, desc(a + (kk / 4) * a_chunk + (kk % 4) * 32, 16, 1024),
+                  desc(bm + (kk / 4) * BOX + (kk % 4) * 32, 16, 1024), kk);
 }
 
 // acc[64 x D] += A B: A [64 x 64] as bf16 pairs in the accumulator layout
@@ -758,35 +761,41 @@ __device__ __forceinline__ void issue_ab(float* acc, const uint32_t (&f)[8][2], 
   }
 }
 
-// P of a lane's 2 x 16 entries of a tile, in place of the raw scores s
-// (wgmma's accumulator layout: s[4 n + e] is row g + 8 (e >> 1) of the
-// lane's warp, column 8 n + 2 t4 + (e & 1)): P = 2^(s scale_log2 - lse2),
-// exactly 0 where vis says the pair is hidden (MASKED only); pf gets P as
-// bf16 pairs in that layout, the A fragments of a product.  lse2(i, n, c):
-// the log2-unit lse of entry (row g + 8 i, column 8 n + 2 t4 + c).
-template <bool MASKED, class Lse, class Vis>
-__device__ __forceinline__ void probs(float* s, float scale_log2, const Lse& lse2,
-                                      const Vis& vis, uint32_t (&pf)[8][2]) {
+// P of a lane's 2 x 2 NG entries of a tile of 8 NG columns, in place of
+// the raw scores s (wgmma's accumulator layout: s[4 n + e] is row g + 8 (e
+// >> 1) of the lane's warp, column 8 n + 2 t4 + (e & 1)): P = 2^(s
+// scale_log2 - lse2), exactly 0 where vis says the pair is hidden (MASKED
+// only); pf gets P as bf16 pairs in that layout, the A fragments of a
+// product.  lse2(i, n, c): the log2-unit lse of entry (row g + 8 i, column
+// 8 n + 2 t4 + c).  probs_to leaves s as it is and writes P to pr.
+template <bool MASKED, int NG = 8, class Lse, class Vis>
+__device__ __forceinline__ void probs_to(const float* s, float* pr, float scale_log2,
+                                         const Lse& lse2, const Vis& vis, uint32_t (&pf)[NG][2]) {
 #pragma unroll
-  for (int n = 0; n < 8; ++n)
+  for (int n = 0; n < NG; ++n)
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
 #pragma unroll
       for (int c = 0; c < 2; ++c) {
-        float& x = s[4 * n + 2 * i + c];
-        x = !MASKED || vis(i, n, c) ? attn::ex2(fmaf(x, scale_log2, -lse2(i, n, c))) : 0.f;
+        const int e = 4 * n + 2 * i + c;
+        pr[e] = !MASKED || vis(i, n, c) ? attn::ex2(fmaf(s[e], scale_log2, -lse2(i, n, c))) : 0.f;
       }
-      pf[n][i] = attn::pack_bf16(s[4 * n + 2 * i], s[4 * n + 2 * i + 1]);
+      pf[n][i] = attn::pack_bf16(pr[4 * n + 2 * i], pr[4 * n + 2 * i + 1]);
     }
+}
+template <bool MASKED, int NG = 8, class Lse, class Vis>
+__device__ __forceinline__ void probs(float* s, float scale_log2, const Lse& lse2,
+                                      const Vis& vis, uint32_t (&pf)[NG][2]) {
+  probs_to<MASKED>(s, s, scale_log2, lse2, vis, pf);
 }
 
 // dS = P (dP - delta) of the same entries as bf16 pairs in that layout,
 // from probs' P and the raw dP; dl(i, n, c): the entry's delta
-template <class Dl>
+template <int NG = 8, class Dl>
 __device__ __forceinline__ void dscores(const float* pr, const float* dp, const Dl& dl,
-                                        uint32_t (&df)[8][2]) {
+                                        uint32_t (&df)[NG][2]) {
 #pragma unroll
-  for (int n = 0; n < 8; ++n)
+  for (int n = 0; n < NG; ++n)
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int e = 4 * n + 2 * i;
@@ -1094,118 +1103,272 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
 // ---------------------------------------------------------------------------
 // The wide body: D = 160 (stablelm-12b), 256 (gemma) and MLA's (192, 128)
 // ---------------------------------------------------------------------------
-// The narrow body does not fit above D = 128: each consumer warpgroup
-// would hold dK and dV of its 64 keys at every column (2 x 96 f32
-// registers a thread at D = 160 padded to 192, 2 x 128 at 256: with S^T
-// and dP^T, over the 240 setmaxnreg gives), and K and V of 128 keys plus
-// three 64-row Q/dO stages are 320 KB at D = 256.  So a block owns 64 keys
-// (dK/dV) or 64 query rows (dQ), and its two consumer warpgroups split
-// each tile's work: warpgroup 0 computes S^T = K Q^T (S = Q K^T) and P,
-// warpgroup 1 dP^T = V dO^T (dP = dO V^T); P goes to warpgroup 1 through
-// shared memory in f32, and dS = P (dP - delta), which warpgroup 1 forms,
-// comes back to warpgroup 0 as bf16 pairs, both in the accumulator layout
-// (thread t of one warpgroup holds the entries that thread t of the other
-// does, so neither needs a swizzle or a transpose); two named barriers
-// pass them.  Each warpgroup then owns ceil(C / 2) or the rest of the
-// gradient's 64-column chunks and runs their products with P and dS as
-// register A-fragments (dV += P^T dO, dK += dS^T Q; dQ += dS K): at D =
-// 256, 2 x 2 x 32 accumulator registers beside the 32 of S^T or dP^T.
-// Shared memory: the block's own K/V (Q/dO), two stages of the streamed
-// tiles and the 24 KB exchange, 217 KB at D = 256 for dK/dV.  Columns past
-// D in the last chunk (160: 160-191) are TMA's zero fill, never stored.
-// Each gradient element is still one block's sum in a fixed order.
-constexpr int WIDE_STAGES = 2;
-constexpr int BAR_P = 1, BAR_DS = 2;   // named barriers of the two consumer warpgroups
+// The narrow body does not fit above D = 128: a consumer warpgroup holding
+// dK and dV of its 64 keys at every column beside S^T and dP^T of a whole
+// 64-row tile needs over the 240 registers setmaxnreg gives, and K and V
+// of 128 keys plus three 64-row Q/dO stages are 320 KB at D = 256.  The
+// wide body has two designs, each kernel taking the first that fits its
+// widths (DKDV_ROWS, DQ_ROWS; the grid in L2-sized chunks of heads,
+// wide_block):
+// - Row-split (dQ at D <= 192, dK/dV at MLA's (192, 128)): 128-row blocks
+//   whose consumer warpgroups each own 64 of the rows (keys) and all of
+//   the gradient's columns, as in the narrow body, taking S^T / dP^T in
+//   32-row halves of each tile where needed; each streamed tile then
+//   serves 128 rows, half the L2 traffic of 64-row blocks (which bounded
+//   DeepSeek-V2's shape), and no P / dS crosses warpgroups
+//   (flash_bwd_dkdv_rows_wgmma_kernel, flash_bwd_dq_rows_wgmma_kernel).
+// - Halves (dK/dV at D = 160 and 256, dQ at D = 256): a block owns 64 keys
+//   (dK/dV) or 64 query rows (dQ), and its two consumer warpgroups split
+//   each tile by halves, both issuing the same wgmma stream on their own
+//   addresses (no wgmma in warpgroup-divergent code, which ptxas would
+//   serialize):
+//   1. warpgroup w computes S^T = K Q^T and dP^T = V dO^T for the tile's
+//      query rows [32 w, 32 w + 32) (dQ: S = Q K^T and dP = dO V^T for the
+//      tile's keys [32 w, 32 w + 32)) on m64n32k16, forms P and dS = P (dP
+//      - delta) in f32 from its own registers, and writes them as bf16
+//      into shared memory: P^T and dS^T as [64 keys][64 query rows] (dQ:
+//      dS as [64 rows][64 keys]) in the 128-byte swizzle wgmma reads
+//      K-major;
+//   2. each warpgroup tells the other on a named barrier that its half is
+//      written, and waits for the other's;
+//   3. each warpgroup owns half of the gradient's columns: dV += P^T dO and
+//      dK += dS^T Q (dQ += dS K), A = P^T / dS^T over all 64 query rows
+//      (keys) from shared memory, B the dO / Q (K) tile read MN-major
+//      where it lies.  A half of W columns (Half<W>) is 64 M whole chunks
+//      at chunk M w (M = W / 128), then N2 = W / 2 - 64 M columns of chunk
+//      2 M at its column N2 w: 160 = 2 (64 + 16), 256 = 2 x 128, so no
+//      column of TMA's zero fill past D is multiplied.
+//   The streamed tiles (Q and dO; K and V) take three stages where shared
+//   memory holds them (D = 160), two at D = 256, and the tiles pipeline as
+//   wide_walk says; each consumer thread reads its query rows' lse and
+//   delta from global memory while its scores run (a producer warp that
+//   stored them held every tile's copy back by a load's latency).  P^T /
+//   dS^T alternate between two buffers, so one warpgroup writes tile it +
+//   1's while the other may still read tile it's.  Registers a consumer
+//   thread: dK and dV W / 4 each (64 + 64 at D = 256), S^T and dP^T 16
+//   each, P 16 in f32, P and dS 8 bf16 pairs each, and in dK/dV the lse
+//   and delta of 8 query rows.  A tile no pair of which is visible is
+//   computed with the mask (P = dS = 0) instead of skipped, so every
+//   thread runs the same wgmma stream; the walk's ranges (query_range,
+//   key_tiles) give no such tile.
+// In both, each product keeps the k order of the first wide body (S^T / S
+// over D in 16-column steps, the gradients over each tile's 64 query rows
+// or keys in order), P and dS round once to bf16 from the same f32 values,
+// and each gradient element is one block's sum over the tiles in a fixed
+// order: the first body's bits.
+constexpr int BAR_HALF = 1;  // named barriers 1-4: a warpgroup's half of P / dS is written
+constexpr size_t SMEM_MAX = 232448;   // a block's shared memory on Hopper
 
-template <int D, int DV>
-struct WideShape {
-  static constexpr int CK = (D + 63) / 64;   // 64-column chunks of Q, K, dQ, dK
-  static constexpr int CV = (DV + 63) / 64;  // ... of V, dO, dV
-  static constexpr int HK = (CK + 1) / 2;    // warpgroup 0's chunks (1's: the rest)
-  static constexpr int HV = (CV + 1) / 2;
+template <int W>
+struct Half {                          // a consumer warpgroup's columns of a W-wide gradient
+  static constexpr int M = W / 128;    // whole 64-column chunks, from chunk M w
+  static constexpr int N1 = 64 * M;
+  static constexpr int N2 = W / 2 - N1;   // then columns N2 w .. of chunk 2 M
+  static_assert(W % 32 == 0 && N2 % 16 == 0 && 2 * N2 <= 64, "Half: W");
 };
 
-// The exchange: P (f32) and dS (bf16 pairs), entry e of consumer thread t
-// at [e][t]
-struct Exchange {
-  float p[32][128];
-  uint32_t ds[16][128];
-};
-
-template <int D, int DV>
+template <int D, int DV, int ST>
 struct alignas(1024) WideDkdvSmem {
-  using S = WideShape<D, DV>;
-  bf16 k[S::CK][BN * 64];              // chunk c: [64 keys][64 columns], swizzled
-  bf16 v[S::CV][BN * 64];
-  bf16 q[WIDE_STAGES][S::CK][BN * 64]; // chunk c of a stage: [64 query rows][64]
-  bf16 dout[WIDE_STAGES][S::CV][BN * 64];
-  Exchange x;
-  float lse[WIDE_STAGES][BN], delta[WIDE_STAGES][BN];   // lse in log2 units
-  uint64_t full[WIDE_STAGES], empty[WIDE_STAGES], kv_full;
+  static constexpr int CK = (D + 63) / 64, CV = (DV + 63) / 64;   // 64-column chunks
+  bf16 k[CK][BN * 64];                 // chunk c: [64 keys][64 columns], swizzled
+  bf16 v[CV][BN * 64];
+  bf16 q[ST][CK][BN * 64];             // chunk c of a stage: [64 query rows][64]
+  bf16 dout[ST][CV][BN * 64];
+  bf16 pt[2][BN * 64];                 // P^T, dS^T of alternate tiles: [64 keys][64 rows]
+  bf16 dst[2][BN * 64];
+  uint64_t full[ST], empty[ST], kv_full;
 };
 
-template <int D, int DV>
+template <int D, int DV, int ST>
 struct alignas(1024) WideDqSmem {
-  using S = WideShape<D, DV>;
-  bf16 q[S::CK][BN * 64];              // chunk c: [64 query rows][64 columns], swizzled
-  bf16 dout[S::CV][BN * 64];
-  bf16 k[WIDE_STAGES][S::CK][BN * 64]; // chunk c of a stage: [64 keys][64]
-  bf16 v[WIDE_STAGES][S::CV][BN * 64];
-  Exchange x;
-  uint64_t full[WIDE_STAGES], empty[WIDE_STAGES], qd_full;
+  static constexpr int CK = (D + 63) / 64, CV = (DV + 63) / 64;
+  bf16 q[CK][BN * 64];                 // chunk c: [64 query rows][64 columns], swizzled
+  bf16 dout[CV][BN * 64];
+  bf16 k[ST][CK][BN * 64];             // chunk c of a stage: [64 keys][64]
+  bf16 v[ST][CV][BN * 64];
+  bf16 ds[2][BN * 64];                 // dS of alternate tiles: [64 rows][64 keys]
+  uint64_t full[ST], empty[ST], qd_full;
 };
 
-// Warpgroup 0's half of the exchange: P (in x, f32) out, dS back as pairs
-__device__ __forceinline__ void hand_p_take_ds(Exchange& ex, const float (&x)[32],
-                                               uint32_t (&df)[8][2]) {
-  const int t = threadIdx.x % 128;
-#pragma unroll
-  for (int e = 0; e < 32; ++e) ex.p[e][t] = x[e];
-  bar_arrive(BAR_P, CONSUMERS);
-  bar_sync(BAR_DS, CONSUMERS);
-#pragma unroll
-  for (int j = 0; j < 16; ++j) df[j / 2][j % 2] = ex.ds[j][t];
-}
+// three stages where they fit the block's shared memory (+ the base's alignment)
+template <template <int, int, int> class Smem, int D, int DV>
+constexpr int WIDE_STAGES = sizeof(Smem<D, DV, 3>) + 1024 <= SMEM_MAX ? 3 : 2;
 
-// Warpgroup 1's half: P in (also rounded to pairs, pf), dS = P (dP -
-// delta) from the raw dP in x formed and handed back; dl(i, n, c): the
-// entry's delta
-template <class Dl>
-__device__ __forceinline__ void take_p_hand_ds(Exchange& ex, const float (&x)[32], const Dl& dl,
-                                               uint32_t (&pf)[8][2], uint32_t (&df)[8][2]) {
-  const int t = threadIdx.x % 128;
-  bar_sync(BAR_P, CONSUMERS);
+// A lane's 2 x 8 entries of a tile's 32-column half as bf16 pairs f
+// (wgmma's accumulator layout, the half's columns from col0) into a
+// [64 rows][64 columns] buffer in the 128-byte swizzle (16-byte group j
+// of row r at j ^ (r % 8)); conflict-free
+__device__ __forceinline__ void put_half(bf16* buf, const uint32_t (&f)[4][2], int col0) {
+  const int lane = threadIdx.x % 32, warp = threadIdx.x % 128 / 32;
+  const int g = lane / 4, t4 = lane % 4;
+  uint32_t* w = reinterpret_cast<uint32_t*>(buf);
 #pragma unroll
-  for (int n = 0; n < 8; ++n)
+  for (int i = 0; i < 2; ++i)
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int e = 4 * n + 2 * i;
-      const float p0 = ex.p[e][t], p1 = ex.p[e + 1][t];
-      pf[n][i] = attn::pack_bf16(p0, p1);
-      df[n][i] = attn::pack_bf16(p0 * (x[e] - dl(i, n, 0)), p1 * (x[e + 1] - dl(i, n, 1)));
-      ex.ds[2 * n + i][t] = df[n][i];
+    for (int n = 0; n < 4; ++n) {
+      const int r = warp * 16 + g + 8 * i;   // r % 8 == g
+      w[r * 32 + (((col0 / 8 + n) ^ g) << 2) + t4] = f[n][i];
     }
-  bar_arrive(BAR_DS, CONSUMERS);
 }
 
-// The first `cols` columns of a lane's rows of one [64 x 64] f32
-// accumulator chunk, times scale, as bf16 at row(i) (skipped when nullptr)
-template <class Row>
-__device__ __forceinline__ void store_chunk(const float* acc, int cols, float scale, Row row) {
-  const int t4 = threadIdx.x % 4;
+// x, as a value the compiler cannot carry from one step of the tile loop to
+// the next: it keeps the products' descriptors (two registers each, 32 for
+// the scores at D = 256) from being hoisted out of the loop and held
+__device__ __forceinline__ uint32_t opaque(uint32_t x) {
+  asm volatile("" : "+r"(x));
+  return x;
+}
+
+// acc[64 x 32] = A B^T over KD columns: A's 64 rows at a (chunks of 64
+// columns a_chunk bytes apart), B's 32 rows at b (chunks BOX apart), both
+// K-major, swizzled; issued, not waited for
+template <int KD>
+__device__ __forceinline__ void issue_half_scores(float* acc, uint32_t a, uint32_t a_chunk,
+                                                  uint32_t b) {
+  a = opaque(a);
+  b = opaque(b);
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    bf16* o = row(i);
-    if (o == nullptr) continue;
+  for (int kk = 0; kk < KD / 16; ++kk)
+    mma_ss<32, 0>(acc, desc(a + (kk / 4) * a_chunk + (kk % 4) * 32, 16, 1024),
+                  desc(b + (kk / 4) * BOX + (kk % 4) * 32, 16, 1024), kk);
+}
+
+// Warpgroup wg's half of a W-wide gradient += A B over 64 rows of k: A
+// [64 x 64] at a (K-major, swizzled), B the tile at b ([64 rows][W] in
+// chunks BOX apart) read MN-major; issued, not waited for
+template <int W>
+__device__ __forceinline__ void issue_half_grad(float* acc1, float* acc2, uint32_t a, uint32_t b,
+                                                int wg) {
+  using H = Half<W>;
+  a = opaque(a);
+  b = opaque(b);
 #pragma unroll
-    for (int n = 0; n < 8; ++n)
-      if (8 * n < cols)
-        *reinterpret_cast<__nv_bfloat162*>(o + 8 * n + 2 * t4) =
-            __floats2bfloat162_rn(acc[4 * n + 2 * i] * scale, acc[4 * n + 2 * i + 1] * scale);
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t da = desc(a + kk * 32, 16, 1024);
+    mma_ss<H::N1, 1>(acc1, da, desc(b + H::M * wg * BOX + kk * 16 * 128, BOX, 1024), 1);
+    if constexpr (H::N2 > 0)
+      mma_ss<H::N2, 1>(acc2, da,
+                       desc(b + 2 * H::M * BOX + H::N2 * wg * 2 + kk * 16 * 128, BOX, 1024), 1);
   }
 }
 
-// grid: ceil(Sk / 64) key blocks x Kh x B, the key block slowest.  Step it
+// Warpgroup wg's half of a W-wide gradient of a lane's rows, times scale,
+// as bf16 at row(i) (skipped when nullptr)
+template <int W, class Row>
+__device__ __forceinline__ void store_half(const float* acc1, const float* acc2, int wg,
+                                           float scale, Row row) {
+  using H = Half<W>;
+  store_rows<H::N1>(acc1, scale, [&](int i) -> bf16* {
+    bf16* o = row(i);
+    return o == nullptr ? nullptr : o + H::N1 * wg;
+  });
+  if constexpr (H::N2 > 0)
+    store_rows<H::N2>(acc2, scale, [&](int i) -> bf16* {
+      bf16* o = row(i);
+      return o == nullptr ? nullptr : o + 2 * H::N1 + H::N2 * wg;
+    });
+}
+
+// The wide body's grid: n_groups groups (a KV head's query heads for dK /
+// dV, a query head for dQ; each batch entry its own) of n_blk blocks,
+// walked in chunks of `chunk` groups whose streamed tiles fit in L2
+// together (wide_chunk), each chunk block-major: every group's first block
+// (the longest under a causal mask), then every group's second.  Group
+// and block of this block.
+__device__ __forceinline__ void wide_block(int n_groups, int chunk, int& group, int& blk) {
+  const int n_blk = (int)gridDim.x / n_groups, id = (int)blockIdx.x;
+  const int c = id / (chunk * n_blk), r = id % (chunk * n_blk);
+  const int in_c = min(chunk, n_groups - c * chunk);
+  blk = r / in_c;
+  group = c * chunk + r % in_c;
+}
+
+// The consumers' walk over n_iter tiles streamed through ST stages
+// (full / empty: the stages' mbarriers).  s_scores(it) and dp_scores(it)
+// issue tile it's S^T and dP^T (S and dP) products, form_p(it) and
+// form_ds(it) turn them into this half's P and dS in registers, put(it)
+// writes those to shared memory, grads(it) issues the gradient products.
+// Step it issues tile it's scores and tile it - 1's gradients and waits
+// for all of them before it ends, so no product is in flight across the
+// loop's back edge (ptxas would serialize them).  With three stages the
+// scores go first: P is formed while the tensor cores do dP^T and the
+// gradients, and tile it + 1's stage loads meanwhile (its slot was tile it
+// - 2's, free since step it - 1).  With two (D = 256) tile it + 1's slot
+// is tile it - 1's, free only once those gradients are done, so they go
+// first.  Each warpgroup tells the other that its half of a tile's P / dS
+// is written on its own named barrier, one of two by the tile's parity (a
+// warpgroup may run a tile ahead), and waits on the other's before the
+// gradients read both halves.
+template <int ST, class SScores, class DpScores, class FormP, class FormDs, class Put,
+          class Grads>
+__device__ __forceinline__ void wide_walk(int n_iter, uint64_t* full, uint64_t* empty,
+                                          const SScores& s_scores, const DpScores& dp_scores,
+                                          const FormP& form_p, const FormDs& form_ds,
+                                          const Put& put, const Grads& grads) {
+  const int lane = threadIdx.x % 32, wg = threadIdx.x / 128;
+  auto release = [&](int it) {         // each consumer warp is done with tile it's stage
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[it % ST]);
+  };
+  auto share = [&](int it) {           // this half of tile it's P / dS, for both warpgroups
+    put(it);
+    fence_async_smem();
+    bar_arrive(BAR_HALF + 2 * (it & 1) + wg, CONSUMERS);
+  };
+  auto other_half = [&](int it) { bar_sync(BAR_HALF + 2 * (it & 1) + 1 - wg, CONSUMERS); };
+  if (n_iter == 0) return;
+  mbar_wait(&full[0], 0);
+  wg_fence();
+  s_scores(0);
+  wg_commit();
+  dp_scores(0);
+  wg_commit();
+  wg_wait<1>();
+  form_p(0);
+  wg_wait<0>();
+  form_ds(0);
+  share(0);
+  for (int it = 1; it < n_iter; ++it) {
+    mbar_wait(&full[it % ST], (it / ST) & 1);
+    wg_fence();
+    if constexpr (ST >= 3) {
+      s_scores(it);
+      wg_commit();
+      dp_scores(it);
+      wg_commit();
+      other_half(it - 1);
+      grads(it - 1);
+      wg_commit();
+      wg_wait<2>();                      // S^T: P while dP^T and the gradients run
+      form_p(it);
+      wg_wait<1>();
+      form_ds(it);
+      wg_wait<0>();
+      release(it - 1);
+    } else {
+      other_half(it - 1);
+      grads(it - 1);
+      wg_commit();
+      s_scores(it);
+      wg_commit();
+      dp_scores(it);
+      wg_commit();
+      wg_wait<1>();                      // the gradients and S^T: P while dP^T runs
+      release(it - 1);
+      form_p(it);
+      wg_wait<0>();
+      form_ds(it);
+    }
+    share(it);
+  }
+  other_half(n_iter - 1);
+  wg_fence();
+  grads(n_iter - 1);
+  wg_commit();
+  wg_wait<0>();
+}
+
+// grid: ceil(Sk / 64) key blocks x Kh x B in wide_block's order.  Step it
 // is query head kh * G + it / nq, query tile qt_begin + it % nq.
 template <int D, int DV>
 __global__ void __launch_bounds__(THREADS, 1)
@@ -1213,11 +1376,14 @@ flash_bwd_dkdv_wide_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                                  const __grid_constant__ CUtensorMap k_map,
                                  const __grid_constant__ CUtensorMap v_map,
                                  const __grid_constant__ CUtensorMap do_map, const Params p) {
-  using S = WideShape<D, DV>;
-  auto& sm = smem<WideDkdvSmem<D, DV>>();
-  const int G = p.H / p.Kh, per = p.Kh * p.B;
-  const int k0 = (int)(blockIdx.x / per) * BN;
-  const int kh = (int)(blockIdx.x % per) % p.Kh, b = (int)(blockIdx.x % per) / p.Kh;
+  constexpr int ST = WIDE_STAGES<WideDkdvSmem, D, DV>;
+  using Sm = WideDkdvSmem<D, DV, ST>;
+  constexpr int CK = Sm::CK, CV = Sm::CV;
+  auto& sm = smem<Sm>();
+  const int G = p.H / p.Kh;
+  int group, kb;
+  wide_block(p.Kh * p.B, p.chunk, group, kb);
+  const int k0 = kb * BN, kh = group % p.Kh, b = group / p.Kh;
   int q_lo, q_hi;
   query_range(k0, BN, p.Sq, p.causal, p.window, p.kv_offset, q_lo, q_hi);
   const int qt_begin = q_lo / BN;
@@ -1226,7 +1392,307 @@ flash_bwd_dkdv_wide_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
 
   if (threadIdx.x == 0) {
 #pragma unroll
-    for (int s = 0; s < WIDE_STAGES; ++s) {
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(&sm.full[s], 1);
+      mbar_init(&sm.empty[s], CONSUMERS / 32);   // each consumer warp releases
+    }
+    mbar_init(&sm.kv_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const int lane = threadIdx.x % 32;
+  if (threadIdx.x >= CONSUMERS) {        // the producer warpgroup; one thread loads
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x != CONSUMERS || n_iter == 0) return;
+    mbar_expect(&sm.kv_full, (CK + CV) * BOX);
+#pragma unroll
+    for (int c = 0; c < CK; ++c) tma_load4(sm.k[c], &k_map, c * 64, k0, kh, b, &sm.kv_full);
+#pragma unroll
+    for (int c = 0; c < CV; ++c) tma_load4(sm.v[c], &v_map, c * 64, k0, kh, b, &sm.kv_full);
+    for (int it = 0; it < n_iter; ++it) {
+      const int s = it % ST, h = kh * G + it / nq, q0 = (qt_begin + it % nq) * BN;
+      if (it >= ST) mbar_wait(&sm.empty[s], ((it / ST) & 1) ^ 1);
+      mbar_expect(&sm.full[s], (CK + CV) * BOX);
+#pragma unroll
+      for (int c = 0; c < CK; ++c) tma_load4(sm.q[s][c], &q_map, c * 64, q0, h, b, &sm.full[s]);
+#pragma unroll
+      for (int c = 0; c < CV; ++c) tma_load4(sm.dout[s][c], &do_map, c * 64, q0, h, b, &sm.full[s]);
+    }
+    return;
+  }
+  setmaxnreg_inc<CONSUMER_REGS>();
+
+  using HK = Half<D>;
+  using HV = Half<DV>;
+  const int wg = threadIdx.x / 128, warp = threadIdx.x % 128 / 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int key0 = k0 + warp * 16 + g;   // this lane's keys: key0 and key0 + 8
+  const uint32_t k_addr = smem_u32(sm.k), v_addr = smem_u32(sm.v);
+  float dK1[HK::N1 / 2], dK2[HK::N2 ? HK::N2 / 2 : 1];   // this warpgroup's half of dK
+  float dV1[HV::N1 / 2], dV2[HV::N2 ? HV::N2 / 2 : 1];   // ... and of dV
+  float st[16], dpt[16];                 // S^T, dP^T: 64 keys x this half's 32 query rows
+#pragma unroll
+  for (int i = 0; i < HK::N1 / 2; ++i) dK1[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < HV::N1 / 2; ++i) dV1[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < (HK::N2 ? HK::N2 / 2 : 1); ++i) dK2[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < (HV::N2 ? HV::N2 / 2 : 1); ++i) dV2[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 16; ++i) st[i] = dpt[i] = 0.f;
+  float pr[16];                          // P^T in f32 (S^T stays as the products left it)
+  uint32_t pf[4][2], df[4][2];           // P^T, dS^T of this half as bf16 pairs
+  float lse2[8], dl[8];                  // the lane's query rows' lse (log2 units) and delta
+  auto s_scores = [&](int it) {
+    // this tile's lse and delta, read while the products run
+    const int h = kh * G + it / nq, q0 = (qt_begin + it % nq) * BN + 32 * wg + 2 * t4;
+    const int64_t row0 = ((int64_t)b * p.H + h) * p.Sq;
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const int qi = q0 + 8 * (e / 2) + e % 2;
+      lse2[e] = qi < p.Sq ? p.lse[row0 + qi] * attn::LOG2E : attn::inf_f32();
+      dl[e] = qi < p.Sq ? p.delta[row0 + qi] : 0.f;
+    }
+    issue_half_scores<D>(st, k_addr, BOX, smem_u32(sm.q[it % ST]) + wg * 32 * 128);
+  };
+  auto dp_scores = [&](int it) {
+    issue_half_scores<DV>(dpt, v_addr, BOX, smem_u32(sm.dout[it % ST]) + wg * 32 * 128);
+  };
+  // P^T and dS^T (row = key, column = query row)
+  auto form_p = [&](int it) {
+    const int q0 = (qt_begin + it % nq) * BN;
+    const int kind = tile_kind(q0, BN, k0, BN, p.Sq, p.Sk, p.causal, p.window, p.kv_offset);
+    auto l2 = [&](int, int n, int c) { return lse2[2 * n + c]; };
+    fence_regs<16>(st);
+    if (kind == FULL) {
+      probs_to<false>(st, pr, p.scale_log2, l2, [](int, int, int) { return true; }, pf);
+    } else {
+      probs_to<true>(st, pr, p.scale_log2, l2,
+                  [&](int i, int n, int c) {
+                    const int key = key0 + 8 * i, qi = q0 + 32 * wg + 8 * n + 2 * t4 + c;
+                    return key < p.Sk && qi < p.Sq &&
+                           sees(p.kv_offset + qi, key, p.causal, p.window);
+                  },
+                  pf);
+    }
+  };
+  auto form_ds = [&](int) {
+    fence_regs<16>(dpt);
+    dscores(pr, dpt, [&](int, int n, int c) { return dl[2 * n + c]; }, df);
+  };
+  auto put = [&](int it) {               // after the wait on tile it - 1's gradients
+    fence_regs<HK::N1 / 2>(dK1);
+    fence_regs<HK::N2 ? HK::N2 / 2 : 1>(dK2);
+    fence_regs<HV::N1 / 2>(dV1);
+    fence_regs<HV::N2 ? HV::N2 / 2 : 1>(dV2);
+    put_half(sm.pt[it & 1], pf, 32 * wg);
+    put_half(sm.dst[it & 1], df, 32 * wg);
+  };
+  // dV += P^T dO and dK += dS^T Q on this warpgroup's columns
+  auto grads = [&](int it) {
+    const int s = it % ST;
+    issue_half_grad<DV>(dV1, dV2, smem_u32(sm.pt[it & 1]), smem_u32(sm.dout[s]), wg);
+    issue_half_grad<D>(dK1, dK2, smem_u32(sm.dst[it & 1]), smem_u32(sm.q[s]), wg);
+  };
+  if (n_iter > 0) mbar_wait(&sm.kv_full, 0);
+  wide_walk<ST>(n_iter, sm.full, sm.empty, s_scores, dp_scores, form_p, form_ds, put, grads);
+  fence_regs<HK::N1 / 2>(dK1);
+  fence_regs<HK::N2 ? HK::N2 / 2 : 1>(dK2);
+  fence_regs<HV::N1 / 2>(dV1);
+  fence_regs<HV::N2 ? HV::N2 / 2 : 1>(dV2);
+
+  store_half<D>(dK1, dK2, wg, p.scale, [&](int i) -> bf16* {
+    const int key = key0 + 8 * i;
+    return key < p.Sk ? p.dk + b * p.dkst.b + kh * p.dkst.h + key * p.dkst.s : nullptr;
+  });
+  store_half<DV>(dV1, dV2, wg, 1.f, [&](int i) -> bf16* {
+    const int key = key0 + 8 * i;
+    return key < p.Sk ? p.dv + b * p.dvst.b + kh * p.dvst.h + key * p.dvst.s : nullptr;
+  });
+}
+
+// grid: ceil(Sq / 64) query blocks x H x B in wide_block's order; a causal
+// head starts with its last rows.  Step it is key tile kt_begin + it.
+template <int D, int DV>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_bwd_dq_wide_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                               const __grid_constant__ CUtensorMap k_map,
+                               const __grid_constant__ CUtensorMap v_map,
+                               const __grid_constant__ CUtensorMap do_map, const Params p) {
+  constexpr int ST = WIDE_STAGES<WideDqSmem, D, DV>;
+  using Sm = WideDqSmem<D, DV, ST>;
+  constexpr int CK = Sm::CK, CV = Sm::CV;
+  auto& sm = smem<Sm>();
+  int group, qb;
+  wide_block(p.H * p.B, p.chunk, group, qb);
+  const int n_qb = (int)gridDim.x / (p.H * p.B);
+  const int q0 = (p.causal ? n_qb - 1 - qb : qb) * BN;
+  const int h = group % p.H, b = group / p.H;
+  const int kh = h / (p.H / p.Kh);
+  int kt_begin, kt_end;
+  key_tiles(q0, min(BN, p.Sq - q0), p.Sk, BN, p.causal, p.window, p.kv_offset, kt_begin,
+            kt_end);
+  const int n_iter = kt_end - kt_begin;
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(&sm.full[s], 1);
+      mbar_init(&sm.empty[s], CONSUMERS / 32);
+    }
+    mbar_init(&sm.qd_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const int lane = threadIdx.x % 32;
+  if (threadIdx.x >= CONSUMERS) {        // the producer warpgroup; one thread loads
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x != CONSUMERS || n_iter == 0) return;
+    mbar_expect(&sm.qd_full, (CK + CV) * BOX);
+#pragma unroll
+    for (int c = 0; c < CK; ++c) tma_load4(sm.q[c], &q_map, c * 64, q0, h, b, &sm.qd_full);
+#pragma unroll
+    for (int c = 0; c < CV; ++c) tma_load4(sm.dout[c], &do_map, c * 64, q0, h, b, &sm.qd_full);
+    for (int it = 0; it < n_iter; ++it) {
+      const int s = it % ST, key = (kt_begin + it) * BN;
+      if (it >= ST) mbar_wait(&sm.empty[s], ((it / ST) & 1) ^ 1);
+      mbar_expect(&sm.full[s], (CK + CV) * BOX);
+#pragma unroll
+      for (int c = 0; c < CK; ++c) tma_load4(sm.k[s][c], &k_map, c * 64, key, kh, b, &sm.full[s]);
+#pragma unroll
+      for (int c = 0; c < CV; ++c) tma_load4(sm.v[s][c], &v_map, c * 64, key, kh, b, &sm.full[s]);
+    }
+    return;
+  }
+  setmaxnreg_inc<CONSUMER_REGS>();
+
+  using HK = Half<D>;
+  const int wg = threadIdx.x / 128, warp = threadIdx.x % 128 / 32;
+  const int g = lane / 4, t4 = lane % 4;
+  int row[2];                            // this lane's rows, their lse (log2 units), delta
+  float lse2[2], dl[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    row[i] = q0 + warp * 16 + g + 8 * i;
+    const int64_t idx = ((int64_t)b * p.H + h) * p.Sq + row[i];
+    lse2[i] = row[i] < p.Sq ? p.lse[idx] * attn::LOG2E : attn::inf_f32();
+    dl[i] = row[i] < p.Sq ? p.delta[idx] : 0.f;
+  }
+  const uint32_t q_addr = smem_u32(sm.q), do_addr = smem_u32(sm.dout);
+  float dQ1[HK::N1 / 2], dQ2[HK::N2 ? HK::N2 / 2 : 1];   // this warpgroup's half of dQ
+  float sc[16], dp[16];                  // S, dP: 64 rows x this half's 32 keys
+#pragma unroll
+  for (int i = 0; i < HK::N1 / 2; ++i) dQ1[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < (HK::N2 ? HK::N2 / 2 : 1); ++i) dQ2[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 16; ++i) sc[i] = dp[i] = 0.f;
+  float pr[16];                          // P in f32 (S stays as the products left it)
+  uint32_t pf[4][2], df[4][2];           // P, dS of this half as bf16 pairs (pf unused)
+  auto s_scores = [&](int it) {
+    issue_half_scores<D>(sc, q_addr, BOX, smem_u32(sm.k[it % ST]) + wg * 32 * 128);
+  };
+  auto dp_scores = [&](int it) {
+    issue_half_scores<DV>(dp, do_addr, BOX, smem_u32(sm.v[it % ST]) + wg * 32 * 128);
+  };
+  auto form_p = [&](int it) {
+    const int kt = kt_begin + it;
+    const int kind = tile_kind(q0, BN, kt * BN, BN, p.Sq, p.Sk, p.causal, p.window, p.kv_offset);
+    auto l2 = [&](int i, int, int) { return lse2[i]; };
+    fence_regs<16>(sc);
+    if (kind == FULL) {
+      probs_to<false>(sc, pr, p.scale_log2, l2, [](int, int, int) { return true; }, pf);
+    } else {
+      probs_to<true>(sc, pr, p.scale_log2, l2,
+                  [&](int i, int n, int c) {
+                    const int key = kt * BN + 32 * wg + 8 * n + 2 * t4 + c;
+                    return key < p.Sk && row[i] < p.Sq &&
+                           sees(p.kv_offset + row[i], key, p.causal, p.window);
+                  },
+                  pf);
+    }
+  };
+  auto form_ds = [&](int) {
+    fence_regs<16>(dp);
+    dscores(pr, dp, [&](int i, int, int) { return dl[i]; }, df);
+  };
+  auto put = [&](int it) {               // after the wait on tile it - 1's product
+    fence_regs<HK::N1 / 2>(dQ1);
+    fence_regs<HK::N2 ? HK::N2 / 2 : 1>(dQ2);
+    put_half(sm.ds[it & 1], df, 32 * wg);
+  };
+  // dQ += dS K on this warpgroup's columns
+  auto grads = [&](int it) {
+    issue_half_grad<D>(dQ1, dQ2, smem_u32(sm.ds[it & 1]), smem_u32(sm.k[it % ST]), wg);
+  };
+  if (n_iter > 0) mbar_wait(&sm.qd_full, 0);
+  wide_walk<ST>(n_iter, sm.full, sm.empty, s_scores, dp_scores, form_p, form_ds, put, grads);
+  fence_regs<HK::N1 / 2>(dQ1);
+  fence_regs<HK::N2 ? HK::N2 / 2 : 1>(dQ2);
+
+  store_half<D>(dQ1, dQ2, wg, p.scale, [&](int i) -> bf16* {
+    return row[i] < p.Sq ? p.dq + b * p.dqst.b + h * p.dqst.h + row[i] * p.dqst.s : nullptr;
+  });
+}
+
+// acc[64 x W] += A B over one k-step: A register fragments a, B rows of
+// W columns at b (chunks BOX apart) read MN-major: W = 128, 160 or 192
+template <int W>
+__device__ __forceinline__ void issue_rows_grad(float* acc, const uint32_t (&a)[4], uint32_t b) {
+  if constexpr (W == 128)
+    mma_rs_n128(acc, a, desc(b, BOX, 1024));
+  else
+    mma_rs<W>(acc, a, desc(b, BOX, 1024));
+}
+
+// The row-split dK / dV (MLA): 128-key blocks, warpgroup w owning keys
+// [64 w, 64 w + 64) and all of dK's and dV's columns.  It takes each 64-row
+// tile in two halves of 32 query rows: S^T and dP^T of its keys and the
+// half (m64n32k16, A its K / V rows, B the half's Q / dO rows, K-major),
+// P^T and dS^T in registers, then dV += P^T dO and dK += dS^T Q with them
+// as register A fragments and dO / Q read MN-major (m64n{DV,D}k16).
+// Registers a consumer thread: dK D / 2, dV DV / 2, S^T and dP^T 16 each.
+// The tile's lse and delta come with it from the producer warp.  grid:
+// ceil(Sk / 128) key blocks x Kh x B in wide_block's order.  Step it is
+// query head kh * G + it / nq, query tile qt_begin + it % nq.
+template <int D, int DV, int ST>
+struct alignas(1024) RowsDkdvSmem {
+  static constexpr int CK = (D + 63) / 64, CV = (DV + 63) / 64;
+  bf16 k[CK][BLOCK * 64];              // chunk c: [128 keys][64 columns], swizzled
+  bf16 v[CV][BLOCK * 64];
+  bf16 q[ST][CK][BN * 64];             // chunk c of a stage: [64 query rows][64]
+  bf16 dout[ST][CV][BN * 64];
+  float lse[ST][BN], delta[ST][BN];    // lse in log2 units
+  uint64_t full[ST], empty[ST], kv_full;
+};
+
+template <int D, int DV>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_bwd_dkdv_rows_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                                 const __grid_constant__ CUtensorMap k_map,
+                                 const __grid_constant__ CUtensorMap v_map,
+                                 const __grid_constant__ CUtensorMap do_map, const Params p) {
+  constexpr int ST = WIDE_STAGES<RowsDkdvSmem, D, DV>;
+  using Sm = RowsDkdvSmem<D, DV, ST>;
+  constexpr int CK = Sm::CK, CV = Sm::CV;
+  static_assert(D > 128 && D <= 192 && DV >= 128 && DV <= 192, "the row-split dK/dV's D");
+  auto& sm = smem<Sm>();
+  const int G = p.H / p.Kh;
+  int group, kb;
+  wide_block(p.Kh * p.B, p.chunk, group, kb);
+  const int k0 = kb * BLOCK, kh = group % p.Kh, b = group / p.Kh;
+  int q_lo, q_hi;
+  query_range(k0, BLOCK, p.Sq, p.causal, p.window, p.kv_offset, q_lo, q_hi);
+  const int qt_begin = q_lo / BN;
+  const int nq = q_hi > q_lo ? (q_hi + BN - 1) / BN - qt_begin : 0;
+  const int n_iter = G * nq;
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < ST; ++s) {
       mbar_init(&sm.full[s], 32);                // the producer warp's lanes
       mbar_init(&sm.empty[s], CONSUMERS / 32);   // each consumer warp releases
     }
@@ -1240,17 +1706,22 @@ flash_bwd_dkdv_wide_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     setmaxnreg_dec<PRODUCER_REGS>();
     if (threadIdx.x >= CONSUMERS + 32 || n_iter == 0) return;
     if (lane == 0) {
-      mbar_expect(&sm.kv_full, (S::CK + S::CV) * BOX);
+      mbar_expect(&sm.kv_full, (CK + CV) * 2 * BOX);
 #pragma unroll
-      for (int c = 0; c < S::CK; ++c)
-        tma_load4(sm.k[c], &k_map, c * 64, k0, kh, b, &sm.kv_full);
+      for (int r = 0; r < 2; ++r) {
 #pragma unroll
-      for (int c = 0; c < S::CV; ++c)
-        tma_load4(sm.v[c], &v_map, c * 64, k0, kh, b, &sm.kv_full);
+        for (int c = 0; c < CK; ++c)
+          tma_load4(reinterpret_cast<unsigned char*>(sm.k[c]) + r * BOX, &k_map, c * 64,
+                    k0 + r * BN, kh, b, &sm.kv_full);
+#pragma unroll
+        for (int c = 0; c < CV; ++c)
+          tma_load4(reinterpret_cast<unsigned char*>(sm.v[c]) + r * BOX, &v_map, c * 64,
+                    k0 + r * BN, kh, b, &sm.kv_full);
+      }
     }
     for (int it = 0; it < n_iter; ++it) {
-      const int s = it % WIDE_STAGES;
-      if (it >= WIDE_STAGES) mbar_wait(&sm.empty[s], ((it / WIDE_STAGES) & 1) ^ 1);
+      const int s = it % ST;
+      if (it >= ST) mbar_wait(&sm.empty[s], ((it / ST) & 1) ^ 1);
       const int h = kh * G + it / nq, q0 = (qt_begin + it % nq) * BN;
       const int64_t row0 = ((int64_t)b * p.H + h) * p.Sq;
 #pragma unroll
@@ -1260,12 +1731,11 @@ flash_bwd_dkdv_wide_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
         sm.delta[s][r] = in ? p.delta[row0 + q0 + r] : 0.f;
       }
       if (lane == 0) {
-        mbar_expect(&sm.full[s], (S::CK + S::CV) * BOX);
+        mbar_expect(&sm.full[s], (CK + CV) * BOX);
 #pragma unroll
-        for (int c = 0; c < S::CK; ++c)
-          tma_load4(sm.q[s][c], &q_map, c * 64, q0, h, b, &sm.full[s]);
+        for (int c = 0; c < CK; ++c) tma_load4(sm.q[s][c], &q_map, c * 64, q0, h, b, &sm.full[s]);
 #pragma unroll
-        for (int c = 0; c < S::CV; ++c)
+        for (int c = 0; c < CV; ++c)
           tma_load4(sm.dout[s][c], &do_map, c * 64, q0, h, b, &sm.full[s]);
       } else {
         mbar_arrive(&sm.full[s]);
@@ -1277,126 +1747,137 @@ flash_bwd_dkdv_wide_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
 
   const int wg = threadIdx.x / 128, warp = threadIdx.x % 128 / 32;
   const int g = lane / 4, t4 = lane % 4;
-  const int key0 = k0 + warp * 16 + g;   // this lane's keys: key0 and key0 + 8
-  // this warpgroup's chunks: dK [kc0, kc0 + nk), dV [vc0, vc0 + nv)
-  const int kc0 = wg ? S::HK : 0, nk = wg ? S::CK - S::HK : S::HK;
-  const int vc0 = wg ? S::HV : 0, nv = wg ? S::CV - S::HV : S::HV;
-  const uint32_t k_addr = smem_u32(sm.k), v_addr = smem_u32(sm.v);
-  float dK[S::HK][32], dV[S::HV][32];    // [64 keys x 64] chunks in wgmma's layout
+  const int kw = k0 + wg * BM;           // this warpgroup's keys [kw, kw + 64)
+  const int key0 = kw + warp * 16 + g;   // this lane's keys: key0 and key0 + 8
+  const uint32_t k_addr = smem_u32(sm.k) + wg * BM * 128;
+  const uint32_t v_addr = smem_u32(sm.v) + wg * BM * 128;
+  float dK[D / 2], dV[DV / 2];           // [64 keys x D], [64 x DV] f32 in wgmma's layout
 #pragma unroll
-  for (int c = 0; c < S::HK; ++c)
+  for (int i = 0; i < D / 2; ++i) dK[i] = 0.f;
 #pragma unroll
-    for (int i = 0; i < 32; ++i) dK[c][i] = 0.f;
-#pragma unroll
-  for (int c = 0; c < S::HV; ++c)
-#pragma unroll
-    for (int i = 0; i < 32; ++i) dV[c][i] = 0.f;
+  for (int i = 0; i < DV / 2; ++i) dV[i] = 0.f;
   if (n_iter > 0) mbar_wait(&sm.kv_full, 0);
 
   for (int it = 0; it < n_iter; ++it) {
-    const int s = it % WIDE_STAGES;
+    const int s = it % ST;
     const int q0 = (qt_begin + it % nq) * BN;
-    mbar_wait(&sm.full[s], (it / WIDE_STAGES) & 1);
-    const int kind = tile_kind(q0, BN, k0, BN, p.Sq, p.Sk, p.causal, p.window, p.kv_offset);
-    if (kind != EMPTY) {               // the same for both warpgroups
+    mbar_wait(&sm.full[s], (it / ST) & 1);
+    const int kind = tile_kind(q0, BN, kw, BM, p.Sq, p.Sk, p.causal, p.window, p.kv_offset);
+    if (kind != EMPTY) {
       const uint32_t q_addr = smem_u32(sm.q[s]), do_addr = smem_u32(sm.dout[s]);
-      const float* L = sm.lse[s];
-      const float* Dl = sm.delta[s];
-      float x[32];                     // S^T, then P^T (warpgroup 0); dP^T (1)
-      uint32_t pf[8][2], df[8][2];
-      wg_fence();
-      if (wg == 0)
-        issue_abt<D>(x, k_addr, BOX, q_addr);
-      else
-        issue_abt<DV>(x, v_addr, BOX, do_addr);
-      wg_commit();
-      wg_wait<0>();
-      fence_regs<32>(x);
-      if (wg == 0) {
+      // kept a loop: unrolled, the two halves' registers overlap and spill
+#pragma unroll 1
+      for (int half = 0; half < 2; ++half) {
+        float st[16], dpt[16];           // S^T, dP^T: this warpgroup's keys x the half's rows
+        wg_fence();
+        issue_half_scores<D>(st, k_addr, 2 * BOX, q_addr + half * 32 * 128);
+        wg_commit();
+        issue_half_scores<DV>(dpt, v_addr, 2 * BOX, do_addr + half * 32 * 128);
+        wg_commit();
+        // P^T while dP^T is computed, then dV += P^T dO while dS^T is
+        // formed, then dK += dS^T Q
+        const float* L = sm.lse[s] + 32 * half;
+        const float* Dl = sm.delta[s] + 32 * half;
         auto lse2 = [&](int, int n, int c) { return L[8 * n + 2 * t4 + c]; };
+        auto dl = [&](int, int n, int c) { return Dl[8 * n + 2 * t4 + c]; };
+        uint32_t pf[4][2], df[4][2];
+        wg_wait<1>();
+        fence_regs<16>(st);
         if (kind == FULL) {
-          probs<false>(x, p.scale_log2, lse2, [](int, int, int) { return true; }, pf);
+          probs<false>(st, p.scale_log2, lse2, [](int, int, int) { return true; }, pf);
         } else {
-          probs<true>(x, p.scale_log2, lse2,
+          probs<true>(st, p.scale_log2, lse2,
                       [&](int i, int n, int c) {
-                        const int key = key0 + 8 * i, qi = q0 + 8 * n + 2 * t4 + c;
+                        const int key = key0 + 8 * i, qi = q0 + 32 * half + 8 * n + 2 * t4 + c;
                         return key < p.Sk && qi < p.Sq &&
                                sees(p.kv_offset + qi, key, p.causal, p.window);
                       },
                       pf);
         }
-        hand_p_take_ds(sm.x, x, df);
-      } else {
-        take_p_hand_ds(sm.x, x, [&](int, int n, int c) { return Dl[8 * n + 2 * t4 + c]; },
-                       pf, df);
+        fence_regs<DV / 2>(dV);
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk) {
+          const uint32_t a[4] = {pf[2 * kk][0], pf[2 * kk][1], pf[2 * kk + 1][0],
+                                 pf[2 * kk + 1][1]};
+          issue_rows_grad<DV>(dV, a, do_addr + (2 * half + kk) * 16 * 128);
+        }
+        wg_commit();
+        wg_wait<1>();
+        fence_regs<16>(dpt);
+        dscores(st, dpt, dl, df);
+        fence_regs<D / 2>(dK);
+        wg_fence();
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk) {
+          const uint32_t a[4] = {df[2 * kk][0], df[2 * kk][1], df[2 * kk + 1][0],
+                                 df[2 * kk + 1][1]};
+          issue_rows_grad<D>(dK, a, q_addr + (2 * half + kk) * 16 * 128);
+        }
+        wg_commit();
+        wg_wait<0>();
+        fence_regs<DV / 2>(dV);
+        fence_regs<D / 2>(dK);
       }
-      // dV += P^T dO and dK += dS^T Q on this warpgroup's chunks, dO and Q
-      // read MN-major where they lie
-#pragma unroll
-      for (int c = 0; c < S::HV; ++c) fence_regs<32>(dV[c]);
-#pragma unroll
-      for (int c = 0; c < S::HK; ++c) fence_regs<32>(dK[c]);
-      wg_fence();
-#pragma unroll
-      for (int c = 0; c < S::HV; ++c)
-        if (c < nv) issue_ab<64>(dV[c], pf, do_addr + (vc0 + c) * BOX);
-#pragma unroll
-      for (int c = 0; c < S::HK; ++c)
-        if (c < nk) issue_ab<64>(dK[c], df, q_addr + (kc0 + c) * BOX);
-      wg_commit();
-      wg_wait<0>();
-#pragma unroll
-      for (int c = 0; c < S::HV; ++c) fence_regs<32>(dV[c]);
-#pragma unroll
-      for (int c = 0; c < S::HK; ++c) fence_regs<32>(dK[c]);
     }
     __syncwarp();
     if (lane == 0) mbar_arrive(&sm.empty[s]);
   }
 
-#pragma unroll
-  for (int c = 0; c < S::HK; ++c) {
-    if (c >= nk) continue;
-    const int col = (kc0 + c) * 64;
-    store_chunk(dK[c], min(64, D - col), p.scale, [&](int i) -> bf16* {
-      const int key = key0 + 8 * i;
-      return key < p.Sk ? p.dk + b * p.dkst.b + kh * p.dkst.h + key * p.dkst.s + col : nullptr;
-    });
-  }
-#pragma unroll
-  for (int c = 0; c < S::HV; ++c) {
-    if (c >= nv) continue;
-    const int col = (vc0 + c) * 64;
-    store_chunk(dV[c], min(64, DV - col), 1.f, [&](int i) -> bf16* {
-      const int key = key0 + 8 * i;
-      return key < p.Sk ? p.dv + b * p.dvst.b + kh * p.dvst.h + key * p.dvst.s + col : nullptr;
-    });
-  }
+  store_rows<D>(dK, p.scale, [&](int i) -> bf16* {
+    const int key = key0 + 8 * i;
+    return key < p.Sk ? p.dk + b * p.dkst.b + kh * p.dkst.h + key * p.dkst.s : nullptr;
+  });
+  store_rows<DV>(dV, 1.f, [&](int i) -> bf16* {
+    const int key = key0 + 8 * i;
+    return key < p.Sk ? p.dv + b * p.dvst.b + kh * p.dvst.h + key * p.dvst.s : nullptr;
+  });
 }
 
-// grid: ceil(Sq / 64) query blocks x H x B, the query block slowest; a
-// causal grid starts with the last rows.  Step it is key tile kt_begin +
-// it.
+// The row-split dQ (MLA, D = 160): 128-row blocks, warpgroup w owning rows
+// [64 w, 64 w + 64): S = Q K^T and dP = dO V^T for its rows and the tile's
+// 64 keys (m64n64k16, A its Q / dO rows, B the K / V tile, both K-major in
+// shared memory), dS = P (dP - delta) in registers, and dQ += dS K with dS
+// as register A fragments and K read MN-major (m64n{D}k16).  Registers a
+// consumer thread: dQ D / 2, S and dP 32 each.  Shared memory: the block's
+// Q / dO and ST stages of K / V (three at MLA, two at D = 160).  grid:
+// ceil(Sq / 128) query blocks x H x B in wide_block's order; a causal head
+// starts with its last rows.
+template <int D, int DV, int ST>
+struct alignas(1024) RowsDqSmem {
+  static constexpr int CK = (D + 63) / 64, CV = (DV + 63) / 64;
+  bf16 q[CK][BLOCK * 64];              // chunk c: [128 query rows][64 columns], swizzled
+  bf16 dout[CV][BLOCK * 64];
+  bf16 k[ST][CK][BN * 64];             // chunk c of a stage: [64 keys][64]
+  bf16 v[ST][CV][BN * 64];
+  uint64_t full[ST], empty[ST], qd_full;
+};
+
 template <int D, int DV>
 __global__ void __launch_bounds__(THREADS, 1)
-flash_bwd_dq_wide_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+flash_bwd_dq_rows_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                                const __grid_constant__ CUtensorMap k_map,
                                const __grid_constant__ CUtensorMap v_map,
                                const __grid_constant__ CUtensorMap do_map, const Params p) {
-  using S = WideShape<D, DV>;
-  auto& sm = smem<WideDqSmem<D, DV>>();
-  const int per = p.H * p.B, n_qb = (int)gridDim.x / per, qb = (int)(blockIdx.x / per);
-  const int q0 = (p.causal ? n_qb - 1 - qb : qb) * BN;
-  const int h = (int)(blockIdx.x % per) % p.H, b = (int)(blockIdx.x % per) / p.H;
+  constexpr int ST = WIDE_STAGES<RowsDqSmem, D, DV>;
+  using Sm = RowsDqSmem<D, DV, ST>;
+  constexpr int CK = Sm::CK, CV = Sm::CV;
+  static_assert(D > 128 && D <= 192, "the row-split dQ kernel's D");
+  auto& sm = smem<Sm>();
+  int group, qb;
+  wide_block(p.H * p.B, p.chunk, group, qb);
+  const int n_qb = (int)gridDim.x / (p.H * p.B);
+  const int q0 = (p.causal ? n_qb - 1 - qb : qb) * BLOCK;
+  const int h = group % p.H, b = group / p.H;
   const int kh = h / (p.H / p.Kh);
   int kt_begin, kt_end;
-  key_tiles(q0, min(BN, p.Sq - q0), p.Sk, BN, p.causal, p.window, p.kv_offset, kt_begin,
+  key_tiles(q0, min(BLOCK, p.Sq - q0), p.Sk, BN, p.causal, p.window, p.kv_offset, kt_begin,
             kt_end);
   const int n_iter = kt_end - kt_begin;
 
   if (threadIdx.x == 0) {
 #pragma unroll
-    for (int s = 0; s < WIDE_STAGES; ++s) {
+    for (int s = 0; s < ST; ++s) {
       mbar_init(&sm.full[s], 1);
       mbar_init(&sm.empty[s], CONSUMERS / 32);
     }
@@ -1409,22 +1890,26 @@ flash_bwd_dq_wide_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   if (threadIdx.x >= CONSUMERS) {        // the producer warpgroup; one thread loads
     setmaxnreg_dec<PRODUCER_REGS>();
     if (threadIdx.x != CONSUMERS || n_iter == 0) return;
-    mbar_expect(&sm.qd_full, (S::CK + S::CV) * BOX);
+    mbar_expect(&sm.qd_full, (CK + CV) * 2 * BOX);
 #pragma unroll
-    for (int c = 0; c < S::CK; ++c) tma_load4(sm.q[c], &q_map, c * 64, q0, h, b, &sm.qd_full);
+    for (int r = 0; r < 2; ++r) {
 #pragma unroll
-    for (int c = 0; c < S::CV; ++c)
-      tma_load4(sm.dout[c], &do_map, c * 64, q0, h, b, &sm.qd_full);
+      for (int c = 0; c < CK; ++c)
+        tma_load4(reinterpret_cast<unsigned char*>(sm.q[c]) + r * BOX, &q_map, c * 64,
+                  q0 + r * BN, h, b, &sm.qd_full);
+#pragma unroll
+      for (int c = 0; c < CV; ++c)
+        tma_load4(reinterpret_cast<unsigned char*>(sm.dout[c]) + r * BOX, &do_map, c * 64,
+                  q0 + r * BN, h, b, &sm.qd_full);
+    }
     for (int it = 0; it < n_iter; ++it) {
-      const int s = it % WIDE_STAGES, key = (kt_begin + it) * BN;
-      if (it >= WIDE_STAGES) mbar_wait(&sm.empty[s], ((it / WIDE_STAGES) & 1) ^ 1);
-      mbar_expect(&sm.full[s], (S::CK + S::CV) * BOX);
+      const int s = it % ST, key = (kt_begin + it) * BN;
+      if (it >= ST) mbar_wait(&sm.empty[s], ((it / ST) & 1) ^ 1);
+      mbar_expect(&sm.full[s], (CK + CV) * BOX);
 #pragma unroll
-      for (int c = 0; c < S::CK; ++c)
-        tma_load4(sm.k[s][c], &k_map, c * 64, key, kh, b, &sm.full[s]);
+      for (int c = 0; c < CK; ++c) tma_load4(sm.k[s][c], &k_map, c * 64, key, kh, b, &sm.full[s]);
 #pragma unroll
-      for (int c = 0; c < S::CV; ++c)
-        tma_load4(sm.v[s][c], &v_map, c * 64, key, kh, b, &sm.full[s]);
+      for (int c = 0; c < CV; ++c) tma_load4(sm.v[s][c], &v_map, c * 64, key, kh, b, &sm.full[s]);
     }
     return;
   }
@@ -1432,82 +1917,75 @@ flash_bwd_dq_wide_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
 
   const int wg = threadIdx.x / 128, warp = threadIdx.x % 128 / 32;
   const int g = lane / 4, t4 = lane % 4;
+  const int qw = q0 + wg * BM;           // this warpgroup's rows [qw, qw + 64)
   int row[2];                            // this lane's rows, their lse (log2 units), delta
   float lse2[2], dl[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    row[i] = q0 + warp * 16 + g + 8 * i;
+    row[i] = qw + warp * 16 + g + 8 * i;
     const int64_t idx = ((int64_t)b * p.H + h) * p.Sq + row[i];
     lse2[i] = row[i] < p.Sq ? p.lse[idx] * attn::LOG2E : attn::inf_f32();
     dl[i] = row[i] < p.Sq ? p.delta[idx] : 0.f;
   }
-  const int kc0 = wg ? S::HK : 0, nk = wg ? S::CK - S::HK : S::HK;
-  const uint32_t q_addr = smem_u32(sm.q), do_addr = smem_u32(sm.dout);
-  float dQ[S::HK][32];                   // [64 rows x 64] chunks in wgmma's layout
+  const uint32_t q_addr = smem_u32(sm.q) + wg * BM * 128;
+  const uint32_t do_addr = smem_u32(sm.dout) + wg * BM * 128;
+  float dQ[D / 2];                       // [64 rows x D] f32 in wgmma's layout
 #pragma unroll
-  for (int c = 0; c < S::HK; ++c)
-#pragma unroll
-    for (int i = 0; i < 32; ++i) dQ[c][i] = 0.f;
+  for (int i = 0; i < D / 2; ++i) dQ[i] = 0.f;
   if (n_iter > 0) mbar_wait(&sm.qd_full, 0);
 
   for (int it = 0; it < n_iter; ++it) {
-    const int s = it % WIDE_STAGES, kt = kt_begin + it;
-    mbar_wait(&sm.full[s], (it / WIDE_STAGES) & 1);
-    const int kind = tile_kind(q0, BN, kt * BN, BN, p.Sq, p.Sk, p.causal, p.window, p.kv_offset);
+    const int s = it % ST, kt = kt_begin + it;
+    mbar_wait(&sm.full[s], (it / ST) & 1);
+    const int kind = tile_kind(qw, BM, kt * BN, BN, p.Sq, p.Sk, p.causal, p.window, p.kv_offset);
     if (kind != EMPTY) {
       const uint32_t k_addr = smem_u32(sm.k[s]), v_addr = smem_u32(sm.v[s]);
-      float x[32];                     // S, then P (warpgroup 0); dP (1)
-      uint32_t pf[8][2], df[8][2];     // pf unused: dQ needs dS only
+      float sc[32], dp[32];              // S = Q K^T, dP = dO V^T: query rows x keys
       wg_fence();
-      if (wg == 0)
-        issue_abt<D>(x, q_addr, BOX, k_addr);
-      else
-        issue_abt<DV>(x, do_addr, BOX, v_addr);
+      issue_abt<D>(sc, q_addr, 2 * BOX, k_addr);
       wg_commit();
-      wg_wait<0>();
-      fence_regs<32>(x);
-      if (wg == 0) {
-        auto l2 = [&](int i, int, int) { return lse2[i]; };
-        if (kind == FULL) {
-          probs<false>(x, p.scale_log2, l2, [](int, int, int) { return true; }, pf);
-        } else {
-          probs<true>(x, p.scale_log2, l2,
-                      [&](int i, int n, int c) {
-                        const int key = kt * BN + 8 * n + 2 * t4 + c;
-                        return key < p.Sk && row[i] < p.Sq &&
-                               sees(p.kv_offset + row[i], key, p.causal, p.window);
-                      },
-                      pf);
-        }
-        hand_p_take_ds(sm.x, x, df);
+      issue_abt<DV>(dp, do_addr, 2 * BOX, v_addr);
+      wg_commit();
+      // P while dP is computed, then dS, then dQ += dS K: K read MN-major
+      // where it lies
+      auto l2 = [&](int i, int, int) { return lse2[i]; };
+      auto d2 = [&](int i, int, int) { return dl[i]; };
+      uint32_t pf[8][2], df[8][2];       // pf unused: dQ needs dS only
+      wg_wait<1>();
+      fence_regs<32>(sc);
+      if (kind == FULL) {
+        probs<false>(sc, p.scale_log2, l2, [](int, int, int) { return true; }, pf);
       } else {
-        take_p_hand_ds(sm.x, x, [&](int i, int, int) { return dl[i]; }, pf, df);
+        probs<true>(sc, p.scale_log2, l2,
+                    [&](int i, int n, int c) {
+                      const int key = kt * BN + 8 * n + 2 * t4 + c;
+                      return key < p.Sk && row[i] < p.Sq &&
+                             sees(p.kv_offset + row[i], key, p.causal, p.window);
+                    },
+                    pf);
       }
-      // dQ += dS K on this warpgroup's chunks, K read MN-major where it lies
-#pragma unroll
-      for (int c = 0; c < S::HK; ++c) fence_regs<32>(dQ[c]);
+      wg_wait<0>();
+      fence_regs<32>(dp);
+      dscores(sc, dp, d2, df);
+      fence_regs<D / 2>(dQ);
       wg_fence();
 #pragma unroll
-      for (int c = 0; c < S::HK; ++c)
-        if (c < nk) issue_ab<64>(dQ[c], df, k_addr + (kc0 + c) * BOX);
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint32_t a[4] = {df[2 * kk][0], df[2 * kk][1], df[2 * kk + 1][0],
+                               df[2 * kk + 1][1]};
+        issue_rows_grad<D>(dQ, a, k_addr + kk * 16 * 128);
+      }
       wg_commit();
       wg_wait<0>();
-#pragma unroll
-      for (int c = 0; c < S::HK; ++c) fence_regs<32>(dQ[c]);
+      fence_regs<D / 2>(dQ);
     }
     __syncwarp();
     if (lane == 0) mbar_arrive(&sm.empty[s]);
   }
 
-#pragma unroll
-  for (int c = 0; c < S::HK; ++c) {
-    if (c >= nk) continue;
-    const int col = (kc0 + c) * 64;
-    store_chunk(dQ[c], min(64, D - col), p.scale, [&](int i) -> bf16* {
-      return row[i] < p.Sq ? p.dq + b * p.dqst.b + h * p.dqst.h + row[i] * p.dqst.s + col
-                           : nullptr;
-    });
-  }
+  store_rows<D>(dQ, p.scale, [&](int i) -> bf16* {
+    return row[i] < p.Sq ? p.dq + b * p.dqst.b + h * p.dqst.h + row[i] * p.dqst.s : nullptr;
+  });
 }
 
 template <int D>
@@ -1516,9 +1994,28 @@ template <int D>
 constexpr size_t dq_smem() { return sizeof(DqSmem<D>) + 1024; }
 
 template <int D, int DV>
-constexpr size_t wide_dkdv_smem() { return sizeof(WideDkdvSmem<D, DV>) + 1024; }
+constexpr size_t wide_dkdv_smem() {
+  return sizeof(WideDkdvSmem<D, DV, WIDE_STAGES<WideDkdvSmem, D, DV>>) + 1024;
+}
 template <int D, int DV>
-constexpr size_t wide_dq_smem() { return sizeof(WideDqSmem<D, DV>) + 1024; }
+constexpr size_t wide_dq_smem() {
+  return sizeof(WideDqSmem<D, DV, WIDE_STAGES<WideDqSmem, D, DV>>) + 1024;
+}
+template <int D, int DV>
+constexpr size_t rows_dq_smem() {
+  return sizeof(RowsDqSmem<D, DV, WIDE_STAGES<RowsDqSmem, D, DV>>) + 1024;
+}
+template <int D, int DV>
+constexpr size_t rows_dkdv_smem() {
+  return sizeof(RowsDkdvSmem<D, DV, WIDE_STAGES<RowsDkdvSmem, D, DV>>) + 1024;
+}
+// The row-split kernels where the gradient's registers a thread leave room:
+// dQ's D / 2 up to D = 192; dK and dV's (D + DV) / 2 at MLA's (192, 128)
+// (at (160, 160), the same 160 registers, ptxas spills 52 bytes)
+template <int D>
+constexpr bool DQ_ROWS = D <= 192;
+template <int D, int DV>
+constexpr bool DKDV_ROWS = D <= 192 && DV <= 128;
 
 // The shared-memory limits of the two kernels raised, once per process and
 // instantiation
@@ -1529,12 +2026,39 @@ cudaError_t kernels_ready() {
     static const cudaError_t a2 = attn::allow_smem(flash_bwd_dq_wgmma_kernel<D>, dq_smem<D>());
     return a1 != cudaSuccess ? a1 : a2;
   } else {
-    static const cudaError_t a1 = attn::allow_smem(flash_bwd_dkdv_wide_wgmma_kernel<D, DV>,
-                                                   wide_dkdv_smem<D, DV>());
-    static const cudaError_t a2 =
-        attn::allow_smem(flash_bwd_dq_wide_wgmma_kernel<D, DV>, wide_dq_smem<D, DV>());
+    cudaError_t a1, a2;
+    if constexpr (DKDV_ROWS<D, DV>) {
+      static_assert(rows_dkdv_smem<D, DV>() <= SMEM_MAX, "the row-split dK/dV's shared memory");
+      static const cudaError_t a =
+          attn::allow_smem(flash_bwd_dkdv_rows_wgmma_kernel<D, DV>, rows_dkdv_smem<D, DV>());
+      a1 = a;
+    } else {
+      static_assert(wide_dkdv_smem<D, DV>() <= SMEM_MAX, "the wide body's shared memory");
+      static const cudaError_t a =
+          attn::allow_smem(flash_bwd_dkdv_wide_wgmma_kernel<D, DV>, wide_dkdv_smem<D, DV>());
+      a1 = a;
+    }
+    if constexpr (DQ_ROWS<D>) {
+      static_assert(rows_dq_smem<D, DV>() <= SMEM_MAX, "the row-split dQ's shared memory");
+      static const cudaError_t a =
+          attn::allow_smem(flash_bwd_dq_rows_wgmma_kernel<D, DV>, rows_dq_smem<D, DV>());
+      a2 = a;
+    } else {
+      static_assert(wide_dq_smem<D, DV>() <= SMEM_MAX, "the wide body's shared memory");
+      static const cudaError_t a =
+          attn::allow_smem(flash_bwd_dq_wide_wgmma_kernel<D, DV>, wide_dq_smem<D, DV>());
+      a2 = a;
+    }
     return a1 != cudaSuccess ? a1 : a2;
   }
+}
+
+// The wide body's chunk (wide_block): as many of the n_groups groups as
+// fit their streamed tiles (`bytes` each: Q and dO of a KV head's query
+// heads, or K and V of a head) in 40 MB of the H100's 50 MB L2; all of
+// them where they fit, so the grid is then one longest-first walk.
+inline int wide_chunk(int64_t bytes, int n_groups) {
+  return (int)std::max<int64_t>(1, std::min<int64_t>(n_groups, (int64_t(40) << 20) / bytes));
 }
 
 // The two kernels on q/k/v/dout (strides st[0], st[1], st[2], st[4]),
@@ -1555,9 +2079,9 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* dout
       !heads_map(&dom, dout, B, H, Sq, DV, st[4].b, st[4].h, st[4].s, BN))
     return cudaErrorInvalidValue;
   const float scale = 1.0f / sqrtf((float)D);
-  const Params p{lse, delta, static_cast<bf16*>(dq), static_cast<bf16*>(dk),
-                 static_cast<bf16*>(dv), st[5], st[6], st[7], B, H, Kh, Sq, Sk, causal, window,
-                 kv_offset, scale, attn::LOG2E * scale};
+  Params p{lse, delta, static_cast<bf16*>(dq), static_cast<bf16*>(dk),
+           static_cast<bf16*>(dv), st[5], st[6], st[7], B, H, Kh, Sq, Sk, causal, window,
+           kv_offset, scale, attn::LOG2E * scale, 0};
   if constexpr (narrow) {
     flash_bwd_dkdv_wgmma_kernel<D>
         <<<(unsigned)((Sk + BLOCK - 1) / BLOCK * Kh * B), THREADS, dkdv_smem<D>(), s>>>(
@@ -1567,13 +2091,25 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* dout
         <<<(unsigned)((Sq + BLOCK - 1) / BLOCK * H * B), THREADS, dq_smem<D>(), s>>>(
             qm, km, vm, dom, p);
   } else {
-    flash_bwd_dkdv_wide_wgmma_kernel<D, DV>
-        <<<(unsigned)((Sk + BN - 1) / BN * Kh * B), THREADS, wide_dkdv_smem<D, DV>(), s>>>(
-            qm, km, vm, dom, p);
+    p.chunk = wide_chunk((int64_t)(H / Kh) * Sq * (D + DV) * 2, Kh * B);
+    if constexpr (DKDV_ROWS<D, DV>)
+      flash_bwd_dkdv_rows_wgmma_kernel<D, DV>
+          <<<(unsigned)((Sk + BLOCK - 1) / BLOCK * Kh * B), THREADS, rows_dkdv_smem<D, DV>(),
+             s>>>(qm, km, vm, dom, p);
+    else
+      flash_bwd_dkdv_wide_wgmma_kernel<D, DV>
+          <<<(unsigned)((Sk + BN - 1) / BN * Kh * B), THREADS, wide_dkdv_smem<D, DV>(), s>>>(
+              qm, km, vm, dom, p);
     if (const cudaError_t e = cudaGetLastError()) return e;
-    flash_bwd_dq_wide_wgmma_kernel<D, DV>
-        <<<(unsigned)((Sq + BN - 1) / BN * H * B), THREADS, wide_dq_smem<D, DV>(), s>>>(
-            qm, km, vm, dom, p);
+    p.chunk = wide_chunk((int64_t)Sk * (D + DV) * 2, H * B);
+    if constexpr (DQ_ROWS<D>)
+      flash_bwd_dq_rows_wgmma_kernel<D, DV>
+          <<<(unsigned)((Sq + BLOCK - 1) / BLOCK * H * B), THREADS, rows_dq_smem<D, DV>(), s>>>(
+              qm, km, vm, dom, p);
+    else
+      flash_bwd_dq_wide_wgmma_kernel<D, DV>
+          <<<(unsigned)((Sq + BN - 1) / BN * H * B), THREADS, wide_dq_smem<D, DV>(), s>>>(
+              qm, km, vm, dom, p);
   }
   return cudaGetLastError();
 }

@@ -127,28 +127,6 @@ __device__ __forceinline__ void fence_regs(float* d) {
 #define HOP_F16(d, i) HOP_F4(d, i), HOP_F4(d, i + 4), HOP_F4(d, i + 8), HOP_F4(d, i + 12)
 #define HOP_F64(d, i) HOP_F16(d, i), HOP_F16(d, i + 16), HOP_F16(d, i + 32), HOP_F16(d, i + 48)
 
-// d[64 x 32] += A[64 x 16] B[16 x 32]: A and B K-major in shared memory
-__device__ __forceinline__ void mma_ss_n32(float* d, uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-      "%16, %17, p, 1, 1, 0, 0;\n}\n"
-      : HOP_F16(d, 0)
-      : "l"(da), "l"(db), "r"(1));
-}
-// d[64 x 64] = A[64 x 16] B[16 x 64] (+ d when accumulate != 0): A and B
-// K-major in shared memory
-__device__ __forceinline__ void mma_ss_n64(float* d, uint64_t da, uint64_t db, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 0;\n}\n"
-      : HOP_F16(d, 0), HOP_F16(d, 16)
-      : "l"(da), "l"(db), "r"(accumulate));
-}
 // d[64 x 64] += A[64 x 16] B[16 x 64]: A in registers, B MN-major in shared memory
 __device__ __forceinline__ void mma_rs_n64(float* d, const uint32_t (&a)[4], uint64_t db) {
   asm volatile(
@@ -173,6 +151,40 @@ __device__ __forceinline__ void mma_rs_n128(float* d, const uint32_t (&a)[4], ui
       : HOP_F64(d, 0)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
+// d[64 x N] += A[64 x 16] B[16 x N], N = 160 or 192: A in registers, B
+// MN-major in shared memory
+template <int N>
+__device__ __forceinline__ void mma_rs(float* d, const uint32_t (&a)[4], uint64_t db) {
+  static_assert(N == 160 || N == 192, "mma_rs: N");
+  if constexpr (N == 160) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %85, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+        "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79"
+        "}, {%80, %81, %82, %83}, %84, p, 1, 1, 1;\n}\n"
+        : HOP_F64(d, 0), HOP_F16(d, 64)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+        "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+        "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95"
+        "}, {%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+        : HOP_F64(d, 0), HOP_F16(d, 64), HOP_F16(d, 80)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  }
+}
 // d[64 x 256] += A[64 x 16] B[16 x 256]: A in registers, B MN-major in shared memory
 __device__ __forceinline__ void mma_rs_n256(float* d, const uint32_t (&a)[4], uint64_t db) {
   asm volatile(
@@ -191,9 +203,58 @@ __device__ __forceinline__ void mma_rs_n256(float* d, const uint32_t (&a)[4], ui
       : HOP_F64(d, 0), HOP_F64(d, 64)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
+// d[64 x N] = A[64 x 16] B[16 x N] (+ d when accumulate != 0), N = 16, 32,
+// 64 or 128: A K-major in shared memory, B K-major (TB = 0) or MN-major
+// (TB = 1) in shared memory
+template <int N, int TB>
+__device__ __forceinline__ void mma_ss(float* d, uint64_t da, uint64_t db, int accumulate) {
+  static_assert(N == 16 || N == 32 || N == 64 || N == 128, "mma_ss: N");
+  if constexpr (N == 16) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 0, %11;\n}\n"
+        : HOP_F4(d, 0), HOP_F4(d, 4)
+        : "l"(da), "l"(db), "r"(accumulate), "n"(TB));
+  } else if constexpr (N == 32) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "%16, %17, p, 1, 1, 0, %19;\n}\n"
+        : HOP_F16(d, 0)
+        : "l"(da), "l"(db), "r"(accumulate), "n"(TB));
+  } else if constexpr (N == 64) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1, 0, %35;\n}\n"
+        : HOP_F16(d, 0), HOP_F16(d, 16)
+        : "l"(da), "l"(db), "r"(accumulate), "n"(TB));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "%64, %65, p, 1, 1, 0, %67;\n}\n"
+        : HOP_F64(d, 0)
+        : "l"(da), "l"(db), "r"(accumulate), "n"(TB));
+  }
+}
 #undef HOP_F4
 #undef HOP_F16
 #undef HOP_F64
+
+// orders this thread's shared-memory stores before later wgmma (async
+// proxy) reads of them, once a barrier has passed them to the warpgroups
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
 
 // ---------------------------------------------------------------------------
 // host side: tensor maps

@@ -1232,6 +1232,48 @@ def test_flash_attention_widths_match_plain(cuda, dtype, D, Dv, B, H, Kh, Sq,
         assert ((g.float() - w).abs() - rtol * w.abs()).max().item() <= tol
 
 
+WIDE_BWD_PAIRS = [(160, 160), (256, 256), (192, 128)]
+
+
+@pytest.mark.parametrize("D,Dv", WIDE_BWD_PAIRS,
+                         ids=[f"{a}x{b}" for a, b in WIDE_BWD_PAIRS])
+@pytest.mark.parametrize("B,H,Kh,Sq,Sk,causal,window,off", [
+    (1, 2, 2, 97, 97, True, 0, 0),       # a tile's second half partly past Sq
+    (1, 2, 2, 33, 150, False, 0, 0),     # the first query half live, row 32 too
+    (1, 4, 2, 45, 173, True, 0, 128),    # a ragged chunk after cached keys
+    (1, 4, 2, 161, 161, True, 40, 0),    # a window crossing the halves
+    (1, 8, 2, 140, 140, True, 0, 0),     # GQA, four query heads a KV head
+    (1, 2, 2, 320, 320, False, 0, 0),    # five tiles a block: not whole stages
+], ids=["half-past-end", "first-half", "offset", "window", "gqa",
+        "five-tiles"])
+def test_flash_attention_wide_bwd_edges_match_plain(cuda, D, Dv, B, H, Kh, Sq,
+                                                    Sk, causal, window, off):
+    """The bf16 backward's wide body where its tiles, halves and stages
+    meet the edges (64-row blocks splitting each tile by halves: dK/dV at
+    160 and 256, dQ at 256; 128-row blocks split by warpgroup rows: dQ at
+    160 and (192, 128), dK/dV at (192, 128)): dq, dk and dv against the
+    plain version at BWD_TOL, and the same bits on a second call."""
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_ref, flash_attention_fwd_ref)
+    gen = torch.Generator().manual_seed(3 * D + Dv + Sq + Sk)
+    q, k, v, do = (torch.randn(s, generator=gen).to(cuda, torch.bfloat16)
+                   for s in ((B, H, Sq, D), (B, Kh, Sk, D), (B, Kh, Sk, Dv),
+                             (B, H, Sq, Dv)))
+    kw = dict(causal=causal, window=window, kv_offset=off)
+    out, lse = tfa.flash_attention_fwd(q, k, v, **kw)
+    got = tfa.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    again = tfa.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    want_o, want_lse = flash_attention_fwd_ref(*_f32(q, k, v), **kw)
+    want = flash_attention_bwd_ref(*_f32(q, k, v), want_o, want_lse,
+                                   do.float(), **kw)
+    torch.cuda.synchronize()
+    tol, rtol = BWD_TOL[torch.bfloat16]
+    for g, w, g2, x in zip(got, want, again, (q, k, v)):
+        assert g.shape == x.shape
+        assert torch.equal(g, g2)
+        assert ((g.float() - w).abs() - rtol * w.abs()).max().item() <= tol
+
+
 @pytest.mark.parametrize("D,Dv", WIDE_PAIRS,
                          ids=[f"{a}x{b}" for a, b in WIDE_PAIRS])
 def test_flash_attention_widths_replay_in_a_cuda_graph(cuda, D, Dv):

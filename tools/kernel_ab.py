@@ -55,11 +55,13 @@ nvcc; prints one JSON object per line.
 
     python3 tools/kernel_ab.py --widths --parent DIR
 
-checks that a change that added instances beside the existing ones left
-those as they were: flash attention's forward (bf16, with lse) at
-whisper's encoder (D = 64), its split decode row and 64-row chunk, llama3's
-GQA and LLaVA-1.5-7B's training shape (D = 128); its backward at LLaVA's,
-llama3's and whisper's training shapes; and the bf16 chunked prefill at
+checks that a change left the instances both trees have as they were:
+flash attention's forward (bf16, with lse) at whisper's encoder (D = 64),
+its split decode row and 64-row chunk, llama3's GQA and LLaVA-1.5-7B's
+training shape (D = 128); its backward at LLaVA's, llama3's and whisper's
+training shapes (the narrow body) and at stablelm-12b's (D = 160),
+gemma3-4b's global and local (D = 256, window 1,024) and DeepSeek-V2's
+MLA (D = 192, Dv = 128) (the wide body); and the bf16 chunked prefill at
 each of its six widths (64, 80, 112, 128, 160, 256; a 512-row first chunk,
 H = Kh = 32), both trees' C entries on the same inputs at the same plan:
 whether their outputs are the same bits, and their device times parent,
@@ -854,18 +856,25 @@ def shared_ab(libs, gen, srcs):
                   [outs[n] for n in names], [call(n) for n in names], err)
         del q, k, v, outs, parts, want
         torch.cuda.empty_cache()
-    # flash backward
-    for tag, B, H, Kh, S, D, causal in [
-            ("llava-train", 2, 32, 32, 2624, 128, True),
-            ("llama3-gqa", 1, 32, 8, 2048, 128, True),
-            ("whisper-enc", 4, 12, 12, 1500, 64, False)]:
+    # flash backward: the narrow body at D = 64 and 128, the wide body at
+    # the smoke's wide training shapes (chip_smoke.py WIDTHS)
+    for tag, B, H, Kh, S, D, Dv, causal, window in [
+            ("llava-train", 2, 32, 32, 2624, 128, 128, True, 0),
+            ("llama3-gqa", 1, 32, 8, 2048, 128, 128, True, 0),
+            ("whisper-enc", 4, 12, 12, 1500, 64, 64, False, 0),
+            ("stablelm-train", 2, 32, 8, 2048, 160, 160, True, 0),
+            ("gemma3-global", 2, 8, 4, 2048, 256, 256, True, 0),
+            ("gemma3-local", 2, 8, 4, 2048, 256, 256, True, 1024),
+            ("mla-train", 2, 128, 128, 2048, 192, 128, True, 0)]:
         from repro_torch.kernels.flash_attention.ops import \
             flash_attention_fwd
-        q, do = (torch.randn((B, H, S, D), generator=gen,
-                             device="cuda").bfloat16() for _ in range(2))
-        k, v = (torch.randn((B, Kh, S, D), generator=gen,
-                            device="cuda").bfloat16() for _ in range(2))
-        out, lse = flash_attention_fwd(q, k, v, causal=causal)
+        q = torch.randn((B, H, S, D), generator=gen, device="cuda").bfloat16()
+        do = torch.randn((B, H, S, Dv), generator=gen,
+                         device="cuda").bfloat16()
+        k = torch.randn((B, Kh, S, D), generator=gen, device="cuda").bfloat16()
+        v = torch.randn((B, Kh, S, Dv), generator=gen,
+                        device="cuda").bfloat16()
+        out, lse = flash_attention_fwd(q, k, v, causal=causal, window=window)
         grads = {n: (torch.empty_like(q), torch.empty_like(k),
                      torch.empty_like(v)) for n in names}
         delta = torch.empty((B, H, S), device="cuda")
@@ -876,19 +885,19 @@ def shared_ab(libs, gen, srcs):
         def bcall(n):
             _, b, dv = fl[n]
             dq, dk, dvv = grads[n]
-            dims = (D, D) if dv else (D,)
+            dims = (D, Dv) if dv else (D,)
             return lambda: b(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                 do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
                 dq.data_ptr(), dk.data_ptr(), dvv.data_ptr(), 1, B, H, Kh, S,
-                S, *dims, int(causal), 0, 0, strides,
+                S, *dims, int(causal), window, 0, strides,
                 torch.cuda.current_stream().cuda_stream)
         for n in names:
             if bcall(n)() != 0:
                 raise RuntimeError(f"{n}: flash_attention_bwd failed")
         ok &= row("flash_bwd", f"{tag}: B={B} H={H} Kh={Kh} S={S} D={D} "
-                  f"bf16", [grads[n] for n in names],
-                  [bcall(n) for n in names])
+                  f"Dv={Dv} window={window} bf16",
+                  [grads[n] for n in names], [bcall(n) for n in names])
         del q, k, v, do, out, lse, grads, delta
         torch.cuda.empty_cache()
     # bf16 chunked prefill at its six widths
