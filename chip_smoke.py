@@ -11,10 +11,12 @@ on failure:
 2. build  - compile every kernel of the serving paths from ``src/repro_torch/
             csrc`` (all nvcc processes at once), and read from ``cuobjdump
             -sass`` that the bf16 attention kernels run on tensor cores
-            (HMMA instructions; HGMMA, wgmma, in the latent-row kernel
-            and in flash attention's bf16 backward, both bodies, all six
-            (D, Dv) pairs) and from ptxas that
-            the latent-row kernel, every flash backward kernel, the scan's
+            (HMMA instructions; HGMMA, wgmma, in the latent-row kernel,
+            in flash attention's bf16 backward, both bodies, all six
+            (D, Dv) pairs, and in its bf16 forward's wgmma body at the
+            four wide pairs) and from ptxas that
+            the latent-row kernel, every flash backward kernel, the
+            forward's wgmma body, the scan's
             per-head mode, its backward kernels (both modes) and the D =
             160 instances of decode and the chunked-prefill tile do not
             spill;
@@ -92,11 +94,15 @@ on failure:
             flash attention forward and backward at the other training
             widths, (D, Dv) = (112, 112), (160, 160), (256, 256) and MLA's
             (192, 128), f32 and bf16, causal GQA, window and kv_offset
-            cases and the split path at D = 112 and 160 (every call twice,
-            bit-equal), and each at its model's training shape (zamba2-7b,
-            stablelm-12b, gemma3-4b global and local layers, DeepSeek-V2;
-            B = 2, S = 2048, bf16) timed beside the bound and SDPA's
-            forward and backward;
+            cases, the same in bf16 at head counts the plan sends to the
+            forward's wgmma body, and the split path at D = 112 and 160
+            (every call twice, bit-equal), and each at its model's
+            training shape (zamba2-7b, stablelm-12b, gemma3-4b global and
+            local layers, DeepSeek-V2; B = 2, S = 2048, bf16) timed beside
+            the bound and SDPA's forward and backward; the profiler's
+            kernel names show that the training shapes' and the wgmma
+            cases' forward calls ran ``flash_fwd_wgmma_kernel`` and the
+            split and decode-row calls ``flash_mma_kernel``;
 4. model  - the port's runner on the card against the same runner on the
             CPU (plain versions) on reduced LLaVA, reduced falcon-mamba
             (batched chunks of different lengths) and reduced whisper-small
@@ -129,7 +135,8 @@ on failure:
             112), gemma3-4b (34 layers, not cut, D = 256, 29 layers with a
             1,024-key window) and DeepSeek-V2 cut to its first layer (MLA
             at (192, 128) and the dense FFN) the same way, each step's
-            flash (and zamba2's per-head scan) launches asserted; each
+            flash (and zamba2's per-head scan) launches asserted, every
+            flash forward call on the wgmma body; each
             phase's seconds logged; then the main of
             ``python -m repro_torch.train.train_mm`` at its mini config
             for 20 steps, its loss falling;
@@ -1759,9 +1766,10 @@ def ptxas_report(text: str) -> list:
 def sass_hmma(card: str):
     """Count the tensor-core instructions in each bf16 attention kernel's
     SASS (``cuobjdump -sass`` of the built libraries): HMMA (mma.sync) in
-    the attn_mma.cuh tiles, HGMMA (wgmma) in the latent-row kernel and in
-    flash attention's backward (``flash_bwd_*_wgmma_kernel``); fails when
-    one has none of its kind."""
+    the attn_mma.cuh tiles, HGMMA (wgmma) in the latent-row kernel, in
+    flash attention's backward (``flash_bwd_*_wgmma_kernel``) and in its
+    forward's wgmma body (``flash_fwd_wgmma_kernel``); fails when one has
+    none of its kind, or when a backward or forward instance is missing."""
     import shutil
     from repro_torch.kernels import _build
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -1787,6 +1795,10 @@ def sass_hmma(card: str):
         # dK/dV and dQ x (D, Dv) = 64, 112, 128 (narrow body), 160, MLA's
         # (192, 128), 256 (wide body)
         raise AssertionError(f"flash backward wgmma kernels in SASS: {bwd}")
+    fwd = [n for n in hgmma if "flash_fwd_wgmma_kernel" in n]
+    if len(fwd) != 4:
+        # (D, Dv) = (112, 112), (160, 160), (192, 128), (256, 256)
+        raise AssertionError(f"flash forward wgmma kernels in SASS: {fwd}")
 
 
 def check_ptxas(logs: dict):
@@ -1806,14 +1818,17 @@ def check_ptxas(logs: dict):
     ``flash_bwd_dkdv_wgmma_kernel`` and ``flash_bwd_dq_wgmma_kernel`` at D
     = 64, 112, 128 and the wide body's at (160, 160), (192, 128) and (256,
     256): ``_rows_`` (dQ at 160 and (192, 128), dK/dV at (192, 128)) or
-    ``_wide_``; the f32 ones at all six (D, Dv) pairs); and when a flash
-    forward instance spills more than :data:`FLASH_FWD_SPILL` allows it,
-    or one of its 36 was not built (``flash_mma_kernel<D, NW, DV>`` at NW
-    1 and 4, ``flash_kernel<D, DV, TM>`` at TM 1, 2, 4 and 8, each at the
-    six pairs)."""
+    ``_wide_``; the f32 ones at all six (D, Dv) pairs); when the flash
+    forward's wgmma body (``flash_fwd_wgmma_kernel`` at (112, 112), (160,
+    160), (192, 128) and (256, 256)) spills, carries C7520 or lacks one of
+    its four instances; and when a flash forward instance of the mma.sync
+    tile or the f32 body spills more than :data:`FLASH_FWD_SPILL` allows
+    it, or one of its 36 was not built (``flash_mma_kernel<D, NW, DV>`` at
+    NW 1 and 4, ``flash_kernel<D, DV, TM>`` at TM 1, 2, 4 and 8, each at
+    the six pairs)."""
     import re
     d160 = set()
-    bwd = []
+    bwd, fwd_wgmma = [], []
     fwd = {}
     for name, text in logs.items():
         report = ptxas_report(text)
@@ -1827,8 +1842,9 @@ def check_ptxas(logs: dict):
                 key = ((m[1], a, c, b) if m[1] == "flash_mma_kernel" else
                        (m[1], a, b, c))
                 fwd[key] = k["spill_bytes"]
-            if "flash_bwd" in k["fn"]:
-                bwd.append(k)
+            if "flash_bwd" in k["fn"] or \
+                    "flash_fwd_wgmma_kernel" in k["fn"]:
+                (bwd if "flash_bwd" in k["fn"] else fwd_wgmma).append(k)
                 if k["spill_bytes"]:
                     raise AssertionError(f"{k['fn']} spills: {k}")
                 if "wgmma_kernel" in k["fn"] and "C7520" in k["notes"]:
@@ -1855,7 +1871,10 @@ def check_ptxas(logs: dict):
         # Mamba-1's backward x 2 types x N = 4, 8, 16; the per-head
         # mode's x 2 types (N = 64); the fold x 2 output types
         raise AssertionError(f"scan backward kernels built: {scan_bwd}")
-    log({"ptxas_flash_bwd": bwd})
+    log({"ptxas_flash_bwd": bwd, "ptxas_flash_fwd_wgmma": fwd_wgmma})
+    if len({k["fn"] for k in fwd_wgmma}) != 4:
+        raise AssertionError(f"flash forward wgmma kernels built: "
+                             f"{fwd_wgmma}")
     names = {k["fn"] for k in bwd}
     if len(names) != 26 or sum("wgmma_kernel" in n for n in names) != 12:
         # delta x 2 types; dK/dV and dQ x 2 types (bf16 wgmma, f32) x 6
@@ -2103,6 +2122,59 @@ WIDTHS = [("zamba2-train", "d112", "zamba2-7b's shared attention", 2, 32, 32,
 # chunk after cached keys; f32 and bf16 at every width
 WIDTH_MASKS = [(1, 4, 2, 200, 200, True, 0, 0), (2, 4, 4, 130, 130, True, 40, 0),
                (1, 4, 1, 77, 200, True, 0, 123), (1, 2, 2, 150, 150, False, 0, 0)]
+# the same masks (and rows that see no key) with enough heads that the
+# plan sends the bf16 forward to its wgmma body (no split): bf16 at every
+# width
+WGMMA_MASKS = [(2, 64, 16, 200, 200, True, 0, 0),
+               (2, 64, 64, 130, 130, True, 40, 0),
+               (1, 128, 32, 77, 200, True, 0, 123),
+               (2, 64, 64, 150, 150, False, 0, 0),
+               (1, 128, 64, 70, 100, True, 8, -20)]
+
+
+def flash_kernels_run(fn, reps: int = 5) -> set:
+    """Names of the flash attention kernels that ``fn`` launches, from a
+    torch.profiler trace of ``reps`` calls (after a warm-up call), as
+    :func:`device_ms_by_kernel` traces them: within the smoke's run, traces
+    of one call came back without their kernel every time.  None when no
+    try of :func:`kernel_trace` showed a flash kernel."""
+    import torch
+
+    def names(prof):
+        return {e.key for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and "flash" in e.key}
+
+    def run():
+        for _ in range(reps):
+            fn()
+    fn()
+    prof, _ = kernel_trace(run, lambda p: bool(names(p)))
+    return None if prof is None else names(prof)
+
+
+def check_body(tag: str, fn, wgmma: bool) -> dict:
+    """Which forward body ``fn`` (a bf16 flash forward) runs, by the launch
+    counter ``flash_attention_wgmma`` over one call and by the profiler's
+    kernel names (:func:`flash_kernels_run`): ``flash_fwd_wgmma_kernel``
+    when ``wgmma``, else ``flash_mma_kernel``; fails otherwise, and when
+    no trace showed a flash kernel."""
+    from repro_torch import kernels as K
+    n = K.launches["flash_attention_wgmma"]
+    fn()
+    routed = K.launches["flash_attention_wgmma"] - n
+    ran = flash_kernels_run(fn)
+    want, other = (("flash_fwd_wgmma_kernel", "flash_mma_kernel") if wgmma
+                   else ("flash_mma_kernel", "flash_fwd_wgmma_kernel"))
+    seen = ran is not None and (any(want in k for k in ran)
+                                and not any(other in k for k in ran))
+    row = {"flash_body": tag, "want": want, "wgmma_launches": routed,
+           "kernels": None if ran is None else sorted(ran)}
+    log(row)
+    if routed != int(wgmma) or not seen:
+        raise AssertionError(f"flash forward {tag}: ran {ran}, wgmma "
+                             f"launches {routed}, want {want}")
+    return row
 
 
 def width_bounds(pairs, B, H, Kh, Sq, Sk, D, Dv, rate) -> dict:
@@ -2134,13 +2206,17 @@ def width_flash_cases(gen, dev, results, rate):
     held against the f32 plain output, f32 at the masks' small shapes),
     every call twice and bit-equal, at each model's training shape (bf16,
     timed beside the bound and SDPA's forward and backward where SDPA takes
-    the shape) and at GQA, window and kv_offset shapes; the split path at
-    a decode row and a 64-row chunk at D = 112 and 160."""
+    the shape) and at GQA, window and kv_offset shapes (WIDTH_MASKS, and in
+    bf16 WGMMA_MASKS, whose forward the plan sends to the wgmma body); the
+    split path at a decode row and a 64-row chunk at D = 112 and 160.  The
+    training shapes' and WGMMA_MASKS' forward calls must run
+    ``flash_fwd_wgmma_kernel``, the split calls ``flash_mma_kernel``
+    (:func:`check_body`)."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention.ops import (
-        flash_attention, flash_attention_bwd, flash_attention_fwd,
-        split_plan)
+        WGMMA_ROWS, flash_attention, flash_attention_bwd,
+        flash_attention_fwd, split_plan)
     from repro_torch.kernels.flash_attention.ref import (
         flash_attention_bwd_ref, flash_attention_fwd_ref,
         flash_attention_ref)
@@ -2186,6 +2262,19 @@ def width_flash_cases(gen, dev, results, rate):
                 f_err, b_err, _ = run_checks(tag, dtype, B, Hq, Kh, Sq, Sk,
                                              Dqk, Dv, kw)
                 errs.setdefault((Dqk, Dv), []).append((f_err, b_err))
+        # the wgmma body at the same masks (and rows without keys)
+        for B, Hq, Kh, Sq, Sk, causal, window, off in WGMMA_MASKS:
+            kw = dict(causal=causal, window=window, kv_offset=off)
+            tag = (f"wgmma-D{Dqk}x{Dv}-B{B}-H{Hq}-Kh{Kh}-{Sq}x{Sk}-"
+                   f"c{int(causal)}-w{window}-o{off}")
+            plan = split_plan(B, Hq, Sq, Sk, Dqk, 0, Dv)
+            if plan != (WGMMA_ROWS, 1):
+                raise AssertionError(f"flash {tag}: plan {plan}")
+            f_err, b_err, (q, k, v, *_r) = run_checks(
+                tag, torch.bfloat16, B, Hq, Kh, Sq, Sk, Dqk, Dv, kw)
+            check_body(tag, lambda: flash_attention_fwd(q, k, v, **kw), True)
+            errs[(Dqk, Dv)].append((f_err, b_err))
+            del q, k, v, _r
     # the split path where the grid is short: a decode row and a 64-row
     # chunk over 1,500 keys, at the widths whose merge was added
     for Dqk in (112, 160):
@@ -2210,6 +2299,9 @@ def width_flash_cases(gen, dev, results, rate):
             if n_split <= 1 or not lse_err <= LSE_TOL["bfloat16"]:
                 raise AssertionError(f"flash split D={Dqk} Sq={Sq}: {n_split} "
                                      f"splits, lse err {lse_err}")
+            check_body(f"split-D{Dqk}-B{B}-Sq{Sq}",
+                       lambda: flash_attention_fwd(q, k, v, causal=False),
+                       False)
             errs[(Dqk, Dqk)].append((err, 0.0))
 
     # the training shapes: checked, then timed beside the bound and SDPA
@@ -2218,6 +2310,8 @@ def width_flash_cases(gen, dev, results, rate):
         f_err, b_err, (q, k, v, do, out, lse) = run_checks(
             tag, torch.bfloat16, B, Hq, Kh, S, S, Dqk, Dv, kw)
         errs[(Dqk, Dv)].append((f_err, b_err))
+        body = check_body(tag, lambda: flash_attention_fwd(q, k, v, **kw),
+                          True)
         qpos = torch.arange(S, device=dev)[:, None]
         kpos = torch.arange(S, device=dev)[None, :]
         mask = kpos <= qpos
@@ -2260,7 +2354,9 @@ def width_flash_cases(gen, dev, results, rate):
                "bound_ms": bnd["fwd"][0], "bound_by": bnd["fwd"][1],
                "pairs": pairs, "library": "F.scaled_dot_product_attention",
                "library_ms": lib.get("library_ms"),
-               "library_device_ms": lib.get("library_device_ms")}
+               "library_device_ms": lib.get("library_device_ms"),
+               "body": "flash_fwd_wgmma_kernel",
+               "body_kernels": body["kernels"]}
         fwd["bound_share"] = fwd["bound_ms"] / fwd["device_ms"]
 
         def bwd():
@@ -2316,6 +2412,15 @@ def _flash_launches(n):
 def _zamba_launches(n):
     return {"selective_scan_heads": 2 * n["mamba2"],
             "selective_scan_heads_bwd": n["mamba2"], **_flash_launches(n)}
+
+
+def _wide_launches(launches):
+    """A full-width bf16 step's launches at a wide head dim: every flash
+    forward call on the wgmma body too."""
+    def want(n):
+        out = launches(n)
+        return {**out, "flash_attention_wgmma": out["flash_attention"]}
+    return want
 
 
 # (arch, overrides of its reduced config, {kernel: launches a remat'd step
@@ -2531,7 +2636,7 @@ def train_full(seed: int, card: str) -> dict:
              f"remat, B={TRAIN_B} x ({TRAIN_S} text + {cfg.media_tokens} "
              f"image)", card, seed,
         {"flash_attention": 2 * TRAIN_LAYERS,
-         "flash_attention_bwd": TRAIN_LAYERS},
+         "flash_attention_bwd": TRAIN_LAYERS, "flash_attention_wgmma": 0},
         tuple((fa, n) for n in ("flash_attention_ref",
                                 "flash_attention_fwd_ref",
                                 "flash_attention_bwd_ref")))
@@ -2604,7 +2709,8 @@ def train_full_moe(seed: int, card: str) -> dict:
             cfg, f"granite-moe-1b-a400m, 24 layers (not cut), bf16, remat, "
                  f"B={TRAIN_B} x {TRAIN_S} text, capacity factor "
                  f"{cfg.moe_capacity_factor}", card, seed,
-            {"flash_attention": 2 * GL, "flash_attention_bwd": GL},
+            {"flash_attention": 2 * GL, "flash_attention_bwd": GL,
+             "flash_attention_wgmma": 0},
             tuple((fa, n) for n in ("flash_attention_ref",
                                     "flash_attention_fwd_ref",
                                     "flash_attention_bwd_ref")), watch)
@@ -2640,7 +2746,8 @@ def train_full_zamba2(seed: int, card: str) -> dict:
     launches, _ = train_run(
         cfg, f"zamba2-7b, {ZAMBA_TRAIN_LAYERS} of 81 layers (35 Mamba-2, 7 "
              f"shared-attention uses), full width, bf16, remat, B={TRAIN_B} "
-             f"x {TRAIN_S} text", card, seed, _zamba_launches(n),
+             f"x {TRAIN_S} text", card, seed,
+        _wide_launches(_zamba_launches)(n),
         tuple((fa, f) for f in FLASH_PLAIN)
         + tuple((so, f) for f in ("selective_scan_heads_ref",
                                   "selective_scan_heads_bwd_ref")))
@@ -2665,7 +2772,8 @@ def train_full_gemma3(seed: int, card: str) -> dict:
     launches, _ = train_run(
         cfg, f"gemma3-4b, 34 layers (not cut; 29 local, window 1024), bf16, "
              f"remat, B={TRAIN_B} x {TRAIN_S} text", card, seed,
-        _flash_launches(n), tuple((fa, f) for f in FLASH_PLAIN))
+        _wide_launches(_flash_launches)(n),
+        tuple((fa, f) for f in FLASH_PLAIN))
     return launches
 
 
@@ -2688,7 +2796,7 @@ def train_full_mla(seed: int, card: str) -> dict:
     launches, _ = train_run(
         cfg, f"deepseek-v2-236b, 1 of 60 layers (MLA + dense FFN), full "
              f"width, bf16, remat, B={TRAIN_B} x {TRAIN_S} text", card, seed,
-        _flash_launches(layer_counts(cfg)),
+        _wide_launches(_flash_launches)(layer_counts(cfg)),
         tuple((fa, f) for f in FLASH_PLAIN))
     return launches
 
@@ -4002,6 +4110,10 @@ def main() -> int:
     for sfx, counts in trained_widths.items():
         launches[f"flash_attention_{sfx}"] = counts["flash_attention"]
         launches[f"flash_attention_bwd_{sfx}"] = counts["flash_attention_bwd"]
+        # of those, the bf16 calls on the wgmma body (the full-width
+        # steps'; stablelm-12b's reduced step is f32: none)
+        results[f"flash_attention_{sfx}"]["wgmma_launches"] = counts.get(
+            "flash_attention_wgmma", 0)
 
     src = {"cache_write": ("src/repro_torch/csrc/cache_write.cu",
                            "src/repro/kernels/cache_write/kernel.py:25"),
@@ -4087,7 +4199,8 @@ def main() -> int:
                             "fwd_device_ms", "pairs", "library",
                             "device_ms_by_kernel", "library_fwd_ms",
                             "library_fwd_device_ms", "other_shapes",
-                            "occupancy", "fwd_bound_ms", "library_error")
+                            "occupancy", "fwd_bound_ms", "library_error",
+                            "body", "wgmma_launches")
                            if key in r}})
     log({"total_s": time.perf_counter() - t_start, "card": card})
     print(json.dumps({"kernels": kernels}), flush=True)

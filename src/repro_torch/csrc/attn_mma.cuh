@@ -45,8 +45,12 @@
 // flash attention).  mma.sync, not wgmma: its 16-row M fits the short
 // tiles of the serving path (decode rows, 32-row text chunks, folded GQA
 // rows), and paged K/V rows (2 * D bytes, strided by Kh * D across pages)
-// are not one TMA box.  A wgmma + TMA + warp-specialised version of this
-// tile is later work.
+// are not one TMA box.  Flash attention's long bf16 calls at the wide
+// head dims (D = 112, 160, 256 and MLA's 192 / 128, whose grids need no
+// split) run a wgmma + TMA + warp-specialised body instead
+// (flash_attention.cu, fwd::flash_fwd_wgmma_kernel), which reuses this
+// file's softmax_tile; this tile keeps paged prefill, flash's decode rows
+// and split grids, and D = 64 and 128.
 #pragma once
 
 #include "cp_async.cuh"

@@ -29,9 +29,17 @@
 // The TPU grid walks (b, h, q block, kv block) with the kv block innermost
 // and the softmax state carried in VMEM scratch across grid steps.  CUDA
 // blocks run in no order, so a block owns (b, h, a tile of query rows) and
-// loops over tiles of 64 keys.  Two bodies, chosen by the input type:
+// loops over tiles of 64 keys.  Three bodies, chosen by the input type
+// and the wrapper's plan:
 //
-// - bf16: the tensor-core tile of attn_mma.cuh (mma.sync, bf16 K/V staged
+// - bf16 at (D, DV) = (112, 112), (160, 160), (192, 128) and (256, 256),
+//   when the grid needs no split (training's full-sequence calls): the
+//   wgmma body (fwd::flash_fwd_wgmma_kernel, below the backward): 128-row
+//   blocks of two consumer warpgroups on wgmma, K and V tiles streamed by
+//   TMA through an mbarrier ring from a producer warp, P kept in
+//   registers as the A operand of P V.
+// - bf16 otherwise (D = 64 and 128, decode rows, split grids): the
+//   tensor-core tile of attn_mma.cuh (mma.sync, bf16 K/V staged
 //   by cp.async in a ring, online softmax in registers), blocks of one
 //   warp of 16 rows or four warps of 16 rows, as the wrapper's plan says.  Short query tiles (decode rows,
 //   whisper's prefill chunks) would leave most SMs idle with one block per
@@ -54,12 +62,12 @@
 //   and sum are half-warp shuffles).  TM shrinks from 8 towards 1 while the
 //   grid would not fill the card once.
 //
-// Both skip tiles wholly after the tile's last causal key or before its
+// All skip tiles wholly after the tile's last causal key or before its
 // first window key.  Bound: operations for long sequences (4 * Sq * Sk * D
 // per head on the tensor cores, and Sq * Sk exponentials), bytes for short
 // query tiles (each K/V row is read once per query tile).
 //
-// Training: both bodies (and the split path's merge) can also write each
+// Training: every body (and the split path's merge) can also write each
 // row's log-sum-exp, and flash_attention_bwd computes the gradient from it
 // (see "Backward" below).  The JAX package has no Pallas backward: it
 // differentiates its jnp attention (repro/models/layers.py,
@@ -2116,6 +2124,291 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* dout
 
 }  // namespace bwd
 
+// ---------------------------------------------------------------------------
+// bf16 forward at the wide pairs: 128-row blocks on wgmma fed by a TMA ring
+// ---------------------------------------------------------------------------
+// flash_fwd_wgmma_kernel<D, DV> takes the bf16 calls at (D, DV) = (112,
+// 112), (160, 160), MLA's (192, 128) and (256, 256) whose 128-row blocks
+// need no split (ops.py's plan; its full-sequence calls: training's
+// blockwise_attention and mla_full), and computes what the mma.sync tile
+// computes there (the contract at the top of this file): the same walk
+// of key tiles, the same mask, online softmax and P rounded to bf16 with
+// l summing the rounded P.  The tile's bits are not kept (the products sum
+// in another order).
+//
+// A block owns (b, h, 128 query rows): two consumer warpgroups of 64 rows
+// and a producer warpgroup, one thread of which issues every copy.  Q is
+// loaded once; K and V tiles of BN = 64 keys stream through a ring of ST
+// shared-memory stages by TMA from 4-D tensor maps over the tensors' own
+// strides (heads_map: rows past Sq / Sk and columns past D read as zeros,
+// so D = 112's second and D = 160's third 64-column box are part zeros),
+// each stage's arrival counted on its mbarrier and its release by the 8
+// consumer warps on another.  setmaxnreg gives the producer warpgroup's
+// registers to the consumers (256 x 240 + 128 x 24).  Per key tile, each
+// consumer warpgroup
+//   1. computes S = Q K^T [64 rows x 64 keys] on wgmma m64n64k16, both
+//      operands K-major in shared memory (the maps' 128-byte swizzle),
+//      over the D real columns only (7 k-steps at 112, 10 at 160);
+//   2. runs the online softmax in f32 registers in log2 units (the mma.sync
+//      tile's softmax_tile: exp2 with the 1/sqrt(D) log2(e) scale folded
+//      into its FMA, a mask only on tiles bwd::tile_kind calls EDGE, EMPTY
+//      tiles skipped), rescales O and rounds P to bf16 A fragments;
+//   3. adds P V [64 x DV] on wgmma m64n{DV}k16 with P in registers and the
+//      V tile read MN-major where it lies: no transposed copy of V and no
+//      round trip of P through shared memory.
+// Registers a consumer thread: O DV / 2 f32 (56, 80, 64, 128), S 32, P 16
+// bf16 pairs, the two rows' m and l.  Shared memory (1 block an SM): Q
+// 128 x D bf16 in 64-column chunks (32, 48, 48, 64 KB) + ST stages of 64
+// x (D + DV) (32, 48, 40, 64 KB): ST = 4, 3, 4, 2 (160, 192, 208, 192 KB
+// of the 227).  The grid runs in bwd::wide_block's order over (b, KV
+// head) groups: chunks of groups whose K and V fit 40 MB of L2 together,
+// each chunk block-major, a causal head's last (longest) query blocks
+// first.  Bound: operations, the two products (2 (D + DV) FLOP a visible
+// pair) at the bf16 tensor-core peak, and one exponential a pair.
+namespace fwd {
+
+using namespace hopper;
+using bwd::BM;
+using bwd::BLOCK;
+using bwd::BN;
+using bwd::BOX;
+using bwd::CONSUMERS;
+using bwd::EMPTY;
+using bwd::FULL;
+
+constexpr int THREADS = bwd::THREADS;
+
+// the pairs this body is built for; the rest run the mma.sync tile (attn_mma.cuh)
+template <int D, int DV>
+constexpr bool WIDE = (D == 112 && DV == 112) || (D == 160 && DV == 160) ||
+                      (D == 192 && DV == 128) || (D == 256 && DV == 256);
+
+struct Params {
+  bf16* out;
+  Strides ost;
+  float* lse;                          // nullptr, or [B, H, Sq] f32
+  int B, H, Kh, Sq, Sk, causal, window, kv_offset;
+  float scale_log2;
+  int chunk;                           // (b, KV head) groups a chunk of the grid (wide_block)
+};
+
+template <int D, int DV, int ST>
+struct alignas(1024) FwdSmem {
+  static constexpr int CK = (D + 63) / 64, CV = (DV + 63) / 64;   // 64-column chunks
+  bf16 q[CK][BLOCK * 64];              // chunk c: [128 query rows][64 columns], swizzled
+  bf16 k[ST][CK][BN * 64];             // chunk c of a stage: [64 keys][64]
+  bf16 v[ST][CV][BN * 64];
+  uint64_t full[ST], empty[ST], q_full;
+};
+
+// the most stages (up to 4) that fit a block's shared memory (+ the base's alignment)
+template <int D, int DV>
+constexpr int STAGES = sizeof(FwdSmem<D, DV, 4>) + 1024 <= bwd::SMEM_MAX   ? 4
+                       : sizeof(FwdSmem<D, DV, 3>) + 1024 <= bwd::SMEM_MAX ? 3
+                                                                           : 2;
+template <int D, int DV>
+constexpr size_t smem_bytes() {
+  return sizeof(FwdSmem<D, DV, STAGES<D, DV>>) + 1024;
+}
+
+// s [64 x 64] = Q K^T over D columns: the warpgroup's 64 rows of Q at q
+// (64-column chunks 2 BOX apart), the tile's 64 keys at k (chunks BOX
+// apart), both K-major, swizzled; issued, not waited for
+template <int D>
+__device__ __forceinline__ void issue_scores(float* s, uint32_t q, uint32_t k) {
+  q = bwd::opaque(q);
+  k = bwd::opaque(k);
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    mma_ss<64, 0>(s, desc(q + (kk / 4) * 2 * BOX + (kk % 4) * 32, 16, 1024),
+                  desc(k + (kk / 4) * BOX + (kk % 4) * 32, 16, 1024), kk);
+}
+
+// o [64 x DV] += P V: P's bf16 pairs in the accumulator layout (pf[n][i]:
+// row g + 8 i, keys 8 n + 2 t4 and + 1) as register A fragments, the
+// tile's 64 V rows at v (chunks BOX apart) read MN-major; issued, not
+// waited for
+template <int DV>
+__device__ __forceinline__ void issue_pv(float* o, const uint32_t (&pf)[8][2], uint32_t v) {
+  v = bwd::opaque(v);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint32_t a[4] = {pf[2 * kk][0], pf[2 * kk][1], pf[2 * kk + 1][0], pf[2 * kk + 1][1]};
+    const uint64_t db = desc(v + kk * 16 * 128, BOX, 1024);
+    if constexpr (DV == 128)
+      mma_rs_n128(o, a, db);
+    else if constexpr (DV == 256)
+      mma_rs_n256(o, a, db);
+    else
+      mma_rs<DV>(o, a, db);
+  }
+}
+
+// grid: ceil(Sq / 128) query blocks x H x B in wide_block's order over
+// the Kh x B (b, KV head) groups; a group's blocks are (query block,
+// query head of the group), the query block slowest.  Step it is key
+// tile kt_begin + it.
+template <int D, int DV>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                       const __grid_constant__ CUtensorMap k_map,
+                       const __grid_constant__ CUtensorMap v_map, const Params p) {
+  constexpr int ST = STAGES<D, DV>;
+  using Sm = FwdSmem<D, DV, ST>;
+  constexpr int CK = Sm::CK, CV = Sm::CV;
+  static_assert(WIDE<D, DV>, "the wgmma forward's widths");
+  auto& sm = bwd::smem<Sm>();
+  const int G = p.H / p.Kh;
+  int group, blk;
+  bwd::wide_block(p.Kh * p.B, p.chunk, group, blk);
+  const int n_qb = (p.Sq + BLOCK - 1) / BLOCK, qi = blk / G;
+  const int q0 = (p.causal ? n_qb - 1 - qi : qi) * BLOCK;
+  const int kh = group % p.Kh, b = group / p.Kh, h = kh * G + blk % G;
+  int kt_begin, kt_end;
+  key_tiles(q0, min(BLOCK, p.Sq - q0), p.Sk, BN, p.causal, p.window, p.kv_offset, kt_begin,
+            kt_end);
+  const int n_iter = kt_end - kt_begin;
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(&sm.full[s], 1);
+      mbar_init(&sm.empty[s], CONSUMERS / 32);   // each consumer warp releases
+    }
+    mbar_init(&sm.q_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const int lane = threadIdx.x % 32;
+  if (threadIdx.x >= CONSUMERS) {        // the producer warpgroup; one thread loads
+    setmaxnreg_dec<bwd::PRODUCER_REGS>();
+    if (threadIdx.x != CONSUMERS || n_iter == 0) return;
+    mbar_expect(&sm.q_full, CK * 2 * BOX);
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+#pragma unroll
+      for (int c = 0; c < CK; ++c)
+        tma_load4(reinterpret_cast<unsigned char*>(sm.q[c]) + r * BOX, &q_map, c * 64,
+                  q0 + r * BM, h, b, &sm.q_full);
+    for (int it = 0; it < n_iter; ++it) {
+      const int s = it % ST, key = (kt_begin + it) * BN;
+      if (it >= ST) mbar_wait(&sm.empty[s], ((it / ST) & 1) ^ 1);
+      mbar_expect(&sm.full[s], (CK + CV) * BOX);
+#pragma unroll
+      for (int c = 0; c < CK; ++c) tma_load4(sm.k[s][c], &k_map, c * 64, key, kh, b, &sm.full[s]);
+#pragma unroll
+      for (int c = 0; c < CV; ++c) tma_load4(sm.v[s][c], &v_map, c * 64, key, kh, b, &sm.full[s]);
+    }
+    return;
+  }
+  setmaxnreg_inc<bwd::CONSUMER_REGS>();
+
+  const int wg = threadIdx.x / 128, warp = threadIdx.x % 128 / 32;
+  const int g = lane / 4, t4 = lane % 4;
+  const int qw = q0 + wg * BM;           // this warpgroup's rows [qw, qw + 64)
+  const int row0 = qw + warp * 16 + g;   // this lane's rows: row0 and row0 + 8
+  const int qp0 = p.kv_offset + row0, qp1 = qp0 + 8;
+  const uint32_t q_addr = smem_u32(sm.q) + wg * BM * 128;
+  attn::RowState<DV> st;                 // acc: O [64 x DV] in wgmma's layout
+  float* const o = &st.acc[0][0];
+#pragma unroll
+  for (int i = 0; i < DV / 2; ++i) o[i] = 0.f;
+  st.m[0] = st.m[1] = NEG_INF;
+  st.l[0] = st.l[1] = 0.f;
+  if (n_iter > 0) mbar_wait(&sm.q_full, 0);
+
+  for (int it = 0; it < n_iter; ++it) {
+    const int s = it % ST;
+    mbar_wait(&sm.full[s], (uint32_t)((it / ST) & 1));
+    const int k0 = (kt_begin + it) * BN;
+    const int kind = bwd::tile_kind(qw, BM, k0, BN, p.Sq, p.Sk, p.causal, p.window, p.kv_offset);
+    if (kind != EMPTY) {
+      float sc[8][4];                    // S [64 x 64] in wgmma's layout: softmax_tile's s[n][e]
+      wg_fence();
+      issue_scores<D>(&sc[0][0], q_addr, smem_u32(sm.k[s]));
+      wg_commit();
+      wg_wait<0>();
+      fence_regs<32>(&sc[0][0]);
+      uint32_t pf[8][2];                 // the online softmax (O rescaled), P as bf16
+      if (kind == FULL) {
+        attn::softmax_tile<DV, BN, false>(sc, 0u, p.scale_log2, st, pf);
+      } else {
+        uint32_t vis = 0u;               // bit 4 n + e: the entry's key is visible
+#pragma unroll
+        for (int n = 0; n < 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int key = k0 + 8 * n + 2 * t4 + (e & 1);
+            if (key < p.Sk && sees(e < 2 ? qp0 : qp1, key, p.causal, p.window))
+              vis |= 1u << (4 * n + e);
+          }
+        attn::softmax_tile<DV, BN, true>(sc, vis, p.scale_log2, st, pf);
+      }
+      fence_regs<DV / 2>(o);
+      wg_fence();
+      issue_pv<DV>(o, pf, smem_u32(sm.v[s]));
+      wg_commit();
+      wg_wait<0>();
+      fence_regs<DV / 2>(o);
+    }
+    __syncwarp();                        // each consumer warp is done with the stage
+    if (lane == 0) mbar_arrive(&sm.empty[s]);
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    st.l[i] += __shfl_xor_sync(0xffffffffu, st.l[i], 1);
+    st.l[i] += __shfl_xor_sync(0xffffffffu, st.l[i], 2);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + 8 * i;
+    if (row >= p.Sq) continue;
+    const float inv = 1.f / fmaxf(st.l[i], 1e-30f);
+    if (p.lse != nullptr && t4 == 0)
+      p.lse[((int64_t)b * p.H + h) * p.Sq + row] = row_lse(st.m[i] * attn::LN2, st.l[i]);
+    bf16* out = p.out + b * p.ost.b + h * p.ost.h + row * p.ost.s + 2 * t4;
+#pragma unroll
+    for (int n = 0; n < DV / 8; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(out + 8 * n) =
+          __floats2bfloat162_rn(o[4 * n + 2 * i] * inv, o[4 * n + 2 * i + 1] * inv);
+  }
+}
+
+// The kernel on q/k/v (strides st[0], st[1], st[2]) writing out (st[3])
+// and, when lse is not nullptr, each row's log-sum-exp; a pair it is not
+// built for (WIDE) returns cudaErrorInvalidValue
+template <int D, int DV>
+cudaError_t launch(const void* q, const void* k, const void* v, void* out, const Strides* st,
+                   int B, int H, int Kh, int Sq, int Sk, int causal, int window, int kv_offset,
+                   float* lse, cudaStream_t s) {
+  if constexpr (!WIDE<D, DV>) {
+    return cudaErrorInvalidValue;
+  } else {
+    static_assert(smem_bytes<D, DV>() <= bwd::SMEM_MAX, "the wgmma forward's shared memory");
+    static const cudaError_t attr = attn::allow_smem(flash_fwd_wgmma_kernel<D, DV>,
+                                                     smem_bytes<D, DV>());
+    if (attr != cudaSuccess) return attr;
+    // no key (Sk = 0): no tile is walked, so the maps' one row is never read
+    const int rows_k = std::max(Sk, 1);
+    CUtensorMap qm, km, vm;
+    if (!heads_map(&qm, q, B, H, Sq, D, st[0].b, st[0].h, st[0].s, BN) ||
+        !heads_map(&km, k, B, Kh, rows_k, D, st[1].b, st[1].h, st[1].s, BN) ||
+        !heads_map(&vm, v, B, Kh, rows_k, DV, st[2].b, st[2].h, st[2].s, BN))
+      return cudaErrorInvalidValue;
+    const Params p{static_cast<bf16*>(out), st[3], lse, B, H, Kh, Sq, Sk, causal, window,
+                   kv_offset, attn::LOG2E / sqrtf((float)D),
+                   bwd::wide_chunk((int64_t)rows_k * (D + DV) * 2, Kh * B)};
+    flash_fwd_wgmma_kernel<D, DV>
+        <<<(unsigned)((Sq + BLOCK - 1) / BLOCK * H * B), THREADS, smem_bytes<D, DV>(), s>>>(
+            qm, km, vm, p);
+    return cudaGetLastError();
+  }
+}
+
+}  // namespace fwd
+
 // f32: CUDA-core products.  128 threads; a block owns 32 keys (dK/dV) or
 // 32 query rows (dQ) and steps over 32 rows of the other side, staged in
 // shared memory as f32 rows padded by one (conflict-free column reads).
@@ -2452,6 +2745,10 @@ int run(const void* q, const void* k, const void* v, void* out, int dtype, int B
     if (dtype == 0)                                                                          \
       return (int)launch_f32<DD, DDV>(q, k, v, out, st, B, H, Kh, Sq, Sk, causal, window,    \
                                       kv_offset, lse, s);                                    \
+    if (dtype == 1 && rows == fwd::BLOCK)                                                    \
+      return n_split == 1 ? (int)fwd::launch<DD, DDV>(q, k, v, out, st, B, H, Kh, Sq, Sk,    \
+                                                      causal, window, kv_offset, lse, s)     \
+                          : (int)cudaErrorInvalidValue;                                      \
     if (dtype == 1)                                                                          \
       return (int)launch_mma<DD, DDV>(q, k, v, out, st, B, H, Kh, Sq, Sk, causal, window,    \
                                       kv_offset, rows, n_split, P.m, P.l, P.acc, counters,   \
@@ -2491,13 +2788,15 @@ int run_bwd(const void* q, const void* k, const void* v, const void* out, const 
 // dtype codes: 0 = float32, 1 = bfloat16.  (D, DV): q/k's and v/out's
 // head dims, a pair of FLASH_HEAD_DIMS.  strides: 12 int64 values, the
 // (batch, head, sequence) strides in elements of q, k, v and out, in that
-// order.  bf16 only: rows (16 or 64) is the query tile, and
+// order.  bf16 only: rows (16 or 64) is the mma.sync tile's query tile, and
 // n_split > 1 splits the keys into that many ranges of ceil(tiles /
 // n_split) whole 64-key tiles, whose f32 partials go to parts (see Parts)
 // and are merged into out in the same launch, with one counter of
 // counters (B * H * ceil(Sq / rows) of them, zero, left zero; see
-// attn_merge.cuh) per output tile.  f32 ignores rows, n_split, parts and
-// counters.  lse: nullptr, or contiguous f32 [B, H, Sq] that gets each
+// attn_merge.cuh) per output tile; rows = 128 (n_split 1) runs the wgmma
+// body (fwd::flash_fwd_wgmma_kernel) at the pairs it is built for
+// (fwd::WIDE; any other pair returns cudaErrorInvalidValue).  f32 ignores
+// rows, n_split, parts and counters.  lse: nullptr, or contiguous f32 [B, H, Sq] that gets each
 // row's log-sum-exp of its scaled, masked scores (+inf for a row that sees
 // no key), which the backward reads.  Each returns a
 // cudaError_t, checked after every launch.

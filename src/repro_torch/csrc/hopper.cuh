@@ -2,7 +2,8 @@
 // TMA loads, named barriers, the thread-block cluster's shared memory,
 // setmaxnreg, wgmma descriptors and products, and the tensor-map encoder.
 // Included by attn_latent.cuh (MLA's latent-row attention) and
-// flash_attention.cu (flash attention's backward).
+// flash_attention.cu (flash attention's bf16 backward and its wide bf16
+// forward).
 #pragma once
 
 #include "attn_mma.cuh"
@@ -151,12 +152,24 @@ __device__ __forceinline__ void mma_rs_n128(float* d, const uint32_t (&a)[4], ui
       : HOP_F64(d, 0)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
-// d[64 x N] += A[64 x 16] B[16 x N], N = 160 or 192: A in registers, B
-// MN-major in shared memory
+// d[64 x N] += A[64 x 16] B[16 x N], N = 112, 160 or 192: A in registers,
+// B MN-major in shared memory
 template <int N>
 __device__ __forceinline__ void mma_rs(float* d, const uint32_t (&a)[4], uint64_t db) {
-  static_assert(N == 160 || N == 192, "mma_rs: N");
-  if constexpr (N == 160) {
+  static_assert(N == 112 || N == 160 || N == 192, "mma_rs: N");
+  if constexpr (N == 112) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %61, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n112k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55"
+        "}, {%56, %57, %58, %59}, %60, p, 1, 1, 1;\n}\n"
+        : HOP_F16(d, 0), HOP_F16(d, 16), HOP_F16(d, 32), HOP_F4(d, 48), HOP_F4(d, 52)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  } else if constexpr (N == 160) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %85, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 "

@@ -13,7 +13,8 @@ TPU kernel of the JAX package:
   flash_attention  - full-sequence attention over contiguous K/V (whisper's
                      audio encoder and cross-attention, the training
                      forward), with split-KV for short query tiles, merged
-                     the same way; and its backward (training)
+                     the same way, and bf16 at the wide head dims on
+                     wgmma; and its backward (training)
 
 Each subpackage: ``ref.py`` (plain PyTorch version, also the CPU path) and
 ``ops.py`` (the wrapper).  The CUDA sources live in ``repro_torch/csrc``
@@ -23,7 +24,9 @@ no fallback.  ``launches`` counts kernel launches (only real launches, never
 plain-version calls), so a run can show which kernels its path went
 through: ``*_split`` counts the split calls among them, each of which
 merges its splits in its own last blocks, ``*_merge`` the merge kernel
-launched alone (to check it), and ``*_latent`` the latent-row kernels.
+launched alone (to check it), ``*_latent`` the latent-row kernels, and
+``flash_attention_wgmma`` the flash calls that ran the bf16 forward's
+``wgmma`` body.
 """
 from __future__ import annotations
 
@@ -40,7 +43,7 @@ launches = {"cache_write": 0, "paged_attention": 0,
             "selective_scan_heads": 0, "selective_scan_bwd": 0,
             "selective_scan_heads_bwd": 0, "flash_attention": 0,
             "flash_attention_split": 0, "flash_attention_merge": 0,
-            "flash_attention_bwd": 0}
+            "flash_attention_wgmma": 0, "flash_attention_bwd": 0}
 
 
 def reset_launches():

@@ -8,9 +8,16 @@ ragged Sq and Sk are bounded inside the kernel, and q/k/v/out are
 addressed through their strides, so head-split views of a projection are
 read and written without a copy.
 
-bf16 runs on the tensor-core tile of ``csrc/attn_mma.cuh``.  When the grid
-of query tiles is too small to fill the card (decode rows, short prefill
-chunks), :func:`plan` splits the keys: the kernel writes per-split f32
+bf16 runs on one of two bodies, as :func:`plan` says.  At the wide head
+dims (:data:`WGMMA_DIMS`: D = 112, 160, 256 and MLA's (192, 128)) a call
+whose grid needs no split (training's full-sequence calls) runs
+``flash_fwd_wgmma_kernel``: 128-row blocks of two consumer warpgroups on
+``wgmma``, K and V streamed by TMA through a ring of shared-memory stages,
+P kept in registers (``launches`` counts these calls as
+``flash_attention_wgmma`` too).  Every other bf16 call runs the
+``mma.sync`` tile of ``csrc/attn_mma.cuh``: when the grid of query tiles
+is too small to fill the card (decode rows, short prefill chunks),
+:func:`plan` splits the keys, and the kernel writes per-split f32
 partials and the last block of each (b, h, query tile) to finish merges
 them in the same launch (``launches`` counts such calls as
 ``flash_attention_split``).  f32 runs on CUDA-core f32 products, which
@@ -31,7 +38,8 @@ warpgroups split the products and each own half of the gradient's
 columns); the JAX package differentiates its jnp attention instead.
 :func:`tile_kind`, :func:`query_range` and :func:`key_tiles` are the
 host's copies of how the backward classifies its tiles and which tiles
-its blocks walk.
+its blocks walk; :func:`wgmma_walk` the tiles a block of the forward's
+``wgmma`` body walks.
 """
 from __future__ import annotations
 
@@ -65,6 +73,10 @@ BWD_BLOCK = 128     # the bf16 backward's own rows a block: keys (dK/dV) or
 #                     query rows (dQ), two warpgroups of 64 (up to D = 128;
 #                     above, 64 rows whose tiles the two warpgroups split)
 BWD_TILE = 64       # rows of a tile it streams: query rows (dK/dV) or keys (dQ)
+# (Dqk, Dv) of the bf16 forward's wgmma body; 64 and 128 stay on the
+# mma.sync tile
+WGMMA_DIMS = ((112, 112), (160, 160), (192, 128), (256, 256))
+WGMMA_ROWS = 128    # its query rows a block: two warpgroups of 64
 MERGE_HEAD_DIMS = (32, 64, 112, 128, 160, 256)    # D the merge is built for
 MAX_WARPS = 4                           # warps of a block
 MAX_SPLITS_64 = 4   # splits of a 64-row tile, whose last block folds in the
@@ -77,8 +89,10 @@ def tile_rows(Sq: int) -> int:
     return 16 if Sq <= 16 else 16 * MAX_WARPS
 
 
-def plan(B: int, H: int, Sq: int, Sk: int, n_sms: int, per_sm: int) -> tuple:
-    """(rows, n_split) for the bf16 kernel: rows = :func:`tile_rows`, and
+def plan(B: int, H: int, Sq: int, Sk: int, n_sms: int, per_sm: int,
+         D: int, Dv: int) -> tuple:
+    """(rows, n_split) for a bf16 call at head dims (D, Dv).  The mma.sync
+    tile's: rows = :func:`tile_rows`, and
     n_split, how many ranges of whole ``BLOCK_K``-key tiles the keys are
     split into, the most that keeps every block of the call in one wave
     of ``per_sm`` blocks of that tile on each of ``n_sms`` SMs (see
@@ -86,7 +100,13 @@ def plan(B: int, H: int, Sq: int, Sk: int, n_sms: int, per_sm: int) -> tuple:
     ``MAX_SPLITS_64``; 1 when the (b, h, query tile) blocks alone fill half
     a wave, or there is one tile.  A second wave of split blocks, or a
     64-row tile's fifth split, costs more than the shorter key ranges save
-    (``tools/kernel_ab.py``'s plan sweep; PERF.md)."""
+    (``tools/kernel_ab.py``'s plan sweep; PERF.md).  A call of 64-row
+    tiles that needs no split at a pair of :data:`WGMMA_DIMS` runs the
+    wgmma body instead: (``WGMMA_ROWS``, 1).  Decode rows (Sq <= 16) and
+    split grids keep the tile.  The threshold is the tile's, though the
+    body runs half as many blocks: just past it the body still beats the
+    unsplit tile at each pair (``kernel_ab.py --widths``,
+    ``flash_fwd_threshold`` rows; PERF.md)."""
     rows = tile_rows(Sq)
     blocks = B * H * -(-Sq // rows)
     tiles = -(-Sk // BLOCK_K)
@@ -94,9 +114,28 @@ def plan(B: int, H: int, Sq: int, Sk: int, n_sms: int, per_sm: int) -> tuple:
     if rows == 64:
         most = min(most, MAX_SPLITS_64)
     if most <= 1:
-        return rows, 1
+        wide = rows == 64 and (D, Dv) in WGMMA_DIMS
+        return (WGMMA_ROWS, 1) if wide else (rows, 1)
     per = -(-tiles // most)
     return rows, -(-tiles // per)
+
+
+def wgmma_walk(q0: int, Sq: int, Sk: int, causal: bool, window: int,
+               kv_offset: int) -> list:
+    """The ``BLOCK_K``-key tiles that the forward's wgmma block of query
+    rows [q0, q0 + ``WGMMA_ROWS``) walks, in order, each as (k0, (kind of
+    warpgroup 0's 64 rows, kind of warpgroup 1's)): :func:`key_tiles` over
+    the block's rows, and :func:`tile_kind` of each warpgroup's rows and
+    the tile (an "empty" tile the warpgroup skips, an "edge" one it
+    masks), as ``csrc/flash_attention.cu``'s kernel walks them."""
+    begin, end = key_tiles(q0, min(WGMMA_ROWS, Sq - q0), Sk, BLOCK_K,
+                           causal, window, kv_offset)
+    half = WGMMA_ROWS // 2
+    return [(kt * BLOCK_K,
+             tuple(tile_kind(q0 + w * half, half, kt * BLOCK_K, BLOCK_K, Sq,
+                             Sk, causal, window, kv_offset)
+                   for w in (0, 1)))
+            for kt in range(begin, end)]
 
 
 @functools.lru_cache(maxsize=None)
@@ -115,9 +154,10 @@ def blocks_per_sm(rows: int, D: int, Dv: int | None = None) -> int:
 def split_plan(B: int, H: int, Sq: int, Sk: int, D: int, index: int,
                Dv: int | None = None) -> tuple:
     """:func:`plan` on CUDA device ``index``: its SMs, and the blocks of
-    the tile at head dims (D, Dv) that one of them holds."""
+    the mma.sync tile at head dims (D, Dv) that one of them holds."""
+    Dv = D if Dv is None else Dv
     return plan(B, H, Sq, Sk, K.n_sms(index),
-                blocks_per_sm(tile_rows(Sq), D, Dv))
+                blocks_per_sm(tile_rows(Sq), D, Dv), D, Dv)
 
 
 def tile_kind(q0: int, nq: int, k0: int, nk: int, Sq: int, Sk: int,
@@ -287,6 +327,8 @@ def _forward(q, k, v, causal, window, kv_offset, with_lse: bool):
     K.launches["flash_attention"] += 1
     if n_split > 1:
         K.launches["flash_attention_split"] += 1
+    if rows == WGMMA_ROWS:
+        K.launches["flash_attention_wgmma"] += 1
     return out, lse
 
 

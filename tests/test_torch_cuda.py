@@ -32,7 +32,8 @@ from repro_torch.kernels.cache_write import ops as tcw
 from repro_torch.kernels.cache_write.ref import cache_write_ref
 from repro_torch.kernels.flash_attention import ops as tfa
 from repro_torch.kernels.flash_attention.ref import (
-    flash_attention_partials_ref, flash_attention_ref, merge_partials_ref)
+    flash_attention_fwd_ref, flash_attention_partials_ref,
+    flash_attention_ref, merge_partials_ref)
 from repro_torch.kernels.paged_attention import ops as tpa
 from repro_torch.kernels.paged_attention.ref import (
     paged_attention_ref, paged_prefill_attention_ref)
@@ -721,7 +722,7 @@ def test_flash_fused_merge_at_forced_splits(cuda, monkeypatch, n_split, Sq,
     1500 keys (24 tiles; 30 splits leave six ranges with no tile), GQA of
     4 query heads on 2 KV heads: windows leave most splits without a key,
     and rows before the first key come out 0."""
-    monkeypatch.setattr(tfa, "plan", lambda B, H, Sq, Sk, n, per_sm: (
+    monkeypatch.setattr(tfa, "plan", lambda B, H, Sq, Sk, n, per_sm, *dims: (
         16 if Sq <= 16 else 64, n_split))
     gen = torch.Generator().manual_seed(n_split + Sq)
     B, H, Kh, Sk, D = 2, 4, 2, 1500, 64
@@ -1335,6 +1336,90 @@ def test_flash_attention_unbuilt_widths_raise_on_the_card(cuda, D, Dv):
     with pytest.raises(ValueError, match="head dims"):
         tfa.flash_attention_bwd(q, k, v, v[:, :, :8], q[:, :, :, 0], v)
     assert K.launches == before
+
+
+# ---------------------------------------------------------------------------
+# the bf16 forward's wgmma body at the wide pairs: 128-row blocks that the
+# plan picks when no split is needed (enough heads here); the same bars,
+# the backward run on its (out, lse)
+# ---------------------------------------------------------------------------
+WGMMA_CASES = [(2, 64, 16, 200, 200, True, 0, 0),     # GQA, causal
+               (2, 64, 64, 130, 130, True, 40, 0),    # a window
+               (1, 128, 32, 77, 200, True, 0, 123),   # after cached keys
+               (2, 64, 64, 150, 150, False, 0, 0),    # non-causal
+               (1, 128, 64, 70, 100, True, 8, -20),   # rows that see no key
+               (1, 64, 16, 321, 321, True, 0, 0)]     # a ragged last block
+
+
+@pytest.mark.parametrize("D,Dv", WIDE_PAIRS,
+                         ids=[f"{a}x{b}" for a, b in WIDE_PAIRS])
+@pytest.mark.parametrize("B,H,Kh,Sq,Sk,causal,window,off", WGMMA_CASES,
+                         ids=["gqa", "window", "offset", "full", "empty-rows",
+                              "ragged-block"])
+def test_flash_wgmma_forward_matches_plain(cuda, D, Dv, B, H, Kh, Sq, Sk,
+                                           causal, window, off):
+    """The wgmma body's output and lse against the plain version's f32
+    ones (rows without keys 0, lse +inf), the same bits on a second call,
+    and the backward on its (out, lse) within BWD_TOL."""
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_ref, flash_attention_fwd_ref)
+    assert tfa.split_plan(B, H, Sq, Sk, D, 0, Dv) == (tfa.WGMMA_ROWS, 1)
+    gen = torch.Generator().manual_seed(5 * D + Dv + Sq + H)
+    q, k, v, do = (torch.randn(s, generator=gen).to(cuda, torch.bfloat16)
+                   for s in ((B, H, Sq, D), (B, Kh, Sk, D), (B, Kh, Sk, Dv),
+                             (B, H, Sq, Dv)))
+    kw = dict(causal=causal, window=window, kv_offset=off)
+    before = dict(K.launches)
+    out, lse = tfa.flash_attention_fwd(q, k, v, **kw)
+    out2, lse2 = tfa.flash_attention_fwd(q, k, v, **kw)
+    want_o, want_lse = flash_attention_fwd_ref(*_f32(q, k, v), **kw)
+    got = tfa.flash_attention_bwd(q, k, v, out, lse, do, **kw)
+    want = flash_attention_bwd_ref(*_f32(q, k, v), want_o, want_lse,
+                                   do.float(), **kw)
+    torch.cuda.synchronize()
+    assert K.launches["flash_attention_wgmma"] == \
+        before["flash_attention_wgmma"] + 2
+    assert K.launches["flash_attention_split"] == \
+        before["flash_attention_split"]
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+    seen = torch.isfinite(want_lse)
+    assert torch.equal(torch.isposinf(lse), ~seen)
+    assert (lse[seen] - want_lse[seen]).abs().max().item() <= \
+        LSE_TOL[torch.bfloat16]
+    assert (out.float() - want_o).abs().max().item() <= TOL[torch.bfloat16]
+    if off < 0:
+        assert not out[:, :, :-off].any()
+    tol, rtol = BWD_TOL[torch.bfloat16]
+    for g, w in zip(got, want):
+        assert ((g.float() - w).abs() - rtol * w.abs()).max().item() <= tol
+
+
+@pytest.mark.parametrize("D,Dv", WIDE_PAIRS,
+                         ids=[f"{a}x{b}" for a, b in WIDE_PAIRS])
+def test_flash_wgmma_forward_reads_head_split_views(cuda, D, Dv):
+    """[B, S, H, D] projections viewed as [B, H, S, D] (K and V halves of
+    one projection): the wgmma body reads them through their strides by
+    TMA and writes its output (q's layout when Dv = D) in place; the same
+    bits as on contiguous copies."""
+    gen = torch.Generator().manual_seed(D + 2 * Dv)
+    B, S, H, Kh = 2, 300, 64, 16
+    q = torch.randn((B, S, H, D), generator=gen).to(
+        cuda, torch.bfloat16).transpose(1, 2)
+    kv = torch.randn((B, S, Kh, D + Dv), generator=gen).to(cuda,
+                                                             torch.bfloat16)
+    k, v = kv[..., :D].transpose(1, 2), kv[..., D:].transpose(1, 2)
+    before = K.launches["flash_attention_wgmma"]
+    out, lse = tfa.flash_attention_fwd(q, k, v, causal=True)
+    flat, flat_lse = tfa.flash_attention_fwd(
+        q.contiguous(), k.contiguous(), v.contiguous(), causal=True)
+    want, want_lse = flash_attention_fwd_ref(*_f32(q, k, v), causal=True)
+    torch.cuda.synchronize()
+    assert K.launches["flash_attention_wgmma"] == before + 2
+    if Dv == D:
+        assert out.stride() == q.stride()
+    assert torch.equal(out, flat) and torch.equal(lse, flat_lse)
+    assert (out.float() - want).abs().max().item() <= TOL[torch.bfloat16]
+    assert (lse - want_lse).abs().max().item() <= LSE_TOL[torch.bfloat16]
 
 
 # ---------------------------------------------------------------------------

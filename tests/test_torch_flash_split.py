@@ -126,7 +126,7 @@ PLAN_CASES = [(4, 12, 1500, 1500), (1, 12, 1500, 1500), (8, 12, 1, 1500),
 @pytest.mark.parametrize("n_sms,per_sm", [(132, 3), (114, 2)])
 def test_plan_fills_the_card_with_whole_tile_splits(B, H, Sq, Sk, n_sms,
                                                     per_sm):
-    rows, n_split = tfa.plan(B, H, Sq, Sk, n_sms, per_sm)
+    rows, n_split = tfa.plan(B, H, Sq, Sk, n_sms, per_sm, 64, 64)
     assert rows == (16 if Sq <= 16 else 64)     # one warp or four
     tiles = -(-Sk // BLOCK_K)
     cap = tiles if rows == 16 else min(tiles, tfa.MAX_SPLITS_64)
@@ -148,9 +148,9 @@ def test_plan_fills_the_card_with_whole_tile_splits(B, H, Sq, Sk, n_sms,
 
 def test_plan_splits_short_tiles_and_not_the_encoder():
     # whisper-small on an H100: 3 blocks of either tile per SM
-    assert tfa.plan(4, 12, 1500, 1500, 132, 3) == (64, 1)
-    assert tfa.plan(1, 12, 1500, 1500, 132, 3) == (64, 1)
-    rows, n_split = tfa.plan(8, 12, 1, 1500, 132, 3)    # decode rows
+    assert tfa.plan(4, 12, 1500, 1500, 132, 3, 64, 64) == (64, 1)
+    assert tfa.plan(1, 12, 1500, 1500, 132, 3, 64, 64) == (64, 1)
+    rows, n_split = tfa.plan(8, 12, 1, 1500, 132, 3, 64, 64)    # decode rows
     assert rows == 16 and n_split > 1
-    rows, n_split = tfa.plan(4, 12, 64, 1500, 132, 3)   # a 64-row chunk
+    rows, n_split = tfa.plan(4, 12, 64, 1500, 132, 3, 64, 64)   # a 64-row chunk
     assert rows == 64 and n_split > 1

@@ -184,4 +184,5 @@ def test_cpu_calls_take_plain_versions_and_count_no_launch(rng):
                           "selective_scan_heads_bwd": 0,
                           "flash_attention": 0, "flash_attention_split": 0,
                           "flash_attention_merge": 0,
+                          "flash_attention_wgmma": 0,
                           "flash_attention_bwd": 0}

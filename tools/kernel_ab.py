@@ -67,7 +67,18 @@ H = Kh = 32), both trees' C entries on the same inputs at the same plan:
 whether their outputs are the same bits, and their device times parent,
 change, change, parent (CUDA-graph replays, medians of 7) with the change
 of the medians in percent.  A tree whose flash entries take the value
-width (D, Dv) is called with Dv = D.
+width (D, Dv) is called with Dv = D.  Then flash attention's bf16 forward
+(with lse) at the wide training shapes (``chip_smoke.py``'s ``WIDTHS``:
+zamba2-7b's D = 112, stablelm-12b's 160, gemma3-4b's 256 global and with
+window 1,024, DeepSeek-V2's (192, 128)), each tree at its own plan (the
+parent's ``plan`` loaded from its tree): device times parent, change,
+change, parent, each tree's largest error against the plain version's f32
+output and whether each tree repeats its own bits.  These rows do not
+count toward ``all_bits_equal``: the trees' bodies there may differ by
+design.  The backward rows feed both trees one ``(out, lse)``, this
+tree's.  Last, at each wide pair's shortest causal sequence whose 64-row
+grid needs no split (B = 1), this tree's wgmma body against its mma.sync
+tile unsplit (rows ``flash_fwd_threshold``).
 
     python3 tools/kernel_ab.py --scan-bwd --parent DIR
 
@@ -928,6 +939,142 @@ def shared_ab(libs, gen, srcs):
     return ok
 
 
+# the wide training shapes of chip_smoke.py's WIDTHS: (tag, B, H, Kh, S, D,
+# Dv, window), causal
+WIDE_TRAIN = [("zamba2-train", 2, 32, 32, 2048, 112, 112, 0),
+              ("stablelm-train", 2, 32, 8, 2048, 160, 160, 0),
+              ("gemma3-global", 2, 8, 4, 2048, 256, 256, 0),
+              ("gemma3-local", 2, 8, 4, 2048, 256, 256, 1024),
+              ("mla-train", 2, 128, 128, 2048, 192, 128, 0)]
+
+
+def wide_fwd_inputs(gen, B, H, Kh, S, D, Dv, window):
+    """q, k, v of a wide training shape, the plain version's f32 output and
+    the C entries' strides."""
+    import torch
+    from repro_torch.kernels.flash_attention.ref import \
+        flash_attention_fwd_ref
+    q = torch.randn((B, H, S, D), generator=gen, device="cuda").bfloat16()
+    k = torch.randn((B, Kh, S, D), generator=gen, device="cuda").bfloat16()
+    v = torch.randn((B, Kh, S, Dv), generator=gen, device="cuda").bfloat16()
+    want, _ = flash_attention_fwd_ref(q.float(), k.float(), v.float(),
+                                      causal=True, window=window)
+    out = torch.empty((B, H, S, Dv), device="cuda", dtype=torch.bfloat16)
+    strides = (ctypes.c_int64 * 12)(*(st for t in (q, k, v, out)
+                                      for st in t.stride()[:3]))
+    return q, k, v, want, strides
+
+
+def fwd_call(f, q, k, v, out, lse, strides, plan, window, parts, counters):
+    """A closure of one bf16 forward call through a tree's C entry (which
+    takes the value width) at plan (rows, n_split)."""
+    import torch
+    B, H, S, D = q.shape
+    Kh, Dv = k.shape[1], v.shape[3]
+    return lambda: f(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                     1, B, H, Kh, S, S, D, Dv, 1, window, 0, strides, *plan,
+                     parts.data_ptr(), counters.data_ptr(), lse.data_ptr(),
+                     torch.cuda.current_stream().cuda_stream)
+
+
+def wide_fwd_ab(libs, gen, srcs, parent_plan):
+    """The bf16 forward at the wide training shapes, each tree at its own
+    plan: device times, each tree's error against the plain version and
+    whether it repeats its own bits."""
+    import torch
+    from repro_torch.kernels.flash_attention.ops import (
+        blocks_per_sm, split_plan, tile_rows)
+    names = ("parent_fa", "fa")
+    fl = flash_entries(libs, names, srcs)
+    counters = torch.zeros(1 << 16, dtype=torch.int32, device="cuda")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for tag, B, H, Kh, S, D, Dv, window in WIDE_TRAIN:
+        q, k, v, want, strides = wide_fwd_inputs(gen, B, H, Kh, S, D, Dv,
+                                                 window)
+        plans = {"parent_fa": parent_plan(B, H, S, S, sms, blocks_per_sm(
+                     tile_rows(S), D, Dv)),
+                 "fa": split_plan(B, H, S, S, D, 0, Dv)}
+        parts = torch.empty(max(p[1] for p in plans.values()) * B * H * S
+                            * (Dv + 2), device="cuda")
+        outs = {n: (torch.empty((B, H, S, Dv), device="cuda",
+                                dtype=torch.bfloat16),
+                    torch.empty((B, H, S), device="cuda")) for n in names}
+        calls = [fwd_call(fl[n][0], q, k, v, *outs[n], strides, plans[n],
+                          window, parts, counters) for n in names]
+        for n, c in zip(names, calls):
+            if c() != 0:
+                raise RuntimeError(f"{n}: flash_attention failed")
+        torch.cuda.synchronize()
+        first = {n: [t.clone() for t in outs[n]] for n in names}
+        errs = {n: (outs[n][0].float() - want).abs().max().item()
+                for n in names}
+        t = alternate(*calls, graph_ms)
+        torch.cuda.synchronize()
+        print(json.dumps({
+            "flash_fwd_wide": f"{tag}: B={B} H={H} Kh={Kh} S={S} D={D} "
+                              f"Dv={Dv} window={window} causal bf16",
+            "plan_rows_n_split": {"parent": plans["parent_fa"],
+                                  "change": plans["fa"]},
+            "device_ms": t, "order": "parent, change, change, parent",
+            "change_pct": 100 * ((t[1] + t[2]) - (t[0] + t[3]))
+            / (t[0] + t[3]),
+            "max_abs_err_vs_plain": {"parent": errs["parent_fa"],
+                                     "change": errs["fa"]},
+            "repeats_own_bits": {
+                "parent": all(torch.equal(a, b) for a, b in zip(
+                    first["parent_fa"], outs["parent_fa"])),
+                "change": all(torch.equal(a, b) for a, b in zip(
+                    first["fa"], outs["fa"]))},
+            "counts_toward_all_bits_equal": False}), flush=True)
+        del q, k, v, want, parts, outs, first
+        torch.cuda.empty_cache()
+    threshold_fwd_ab(fl["fa"][0], gen, counters, sms)
+
+
+def threshold_fwd_ab(f, gen, counters, sms):
+    """This tree's bf16 forward at each wide pair's shortest causal
+    sequence whose 64-row grid needs no split (B = 1, the training shape's
+    heads): the wgmma body (the plan's choice) against the mma.sync tile
+    unsplit, tile, body, body, tile."""
+    import torch
+    from repro_torch.kernels.flash_attention.ops import (
+        WGMMA_ROWS, blocks_per_sm, split_plan)
+    for tag, _, H, Kh, _, D, Dv, window in WIDE_TRAIN:
+        if window:
+            continue
+        per_sm = blocks_per_sm(64, D, Dv)
+        S = 64 * (sms * per_sm // (2 * H) + 1)
+        if split_plan(1, H, S, S, D, 0, Dv) != (WGMMA_ROWS, 1):
+            raise RuntimeError(f"{tag}: S={S} is not past the split threshold")
+        q, k, v, want, strides = wide_fwd_inputs(gen, 1, H, Kh, S, D, Dv, 0)
+        parts = torch.empty(1, device="cuda")
+        plans = {"tile": (64, 1), "wgmma": (WGMMA_ROWS, 1)}
+        outs = {n: (torch.empty((1, H, S, Dv), device="cuda",
+                                dtype=torch.bfloat16),
+                    torch.empty((1, H, S), device="cuda")) for n in plans}
+        calls = [fwd_call(f, q, k, v, *outs[n], strides, plans[n], 0, parts,
+                          counters) for n in plans]
+        for n, c in zip(plans, calls):
+            if c() != 0:
+                raise RuntimeError(f"{n}: flash_attention failed")
+        torch.cuda.synchronize()
+        errs = {n: (outs[n][0].float() - want).abs().max().item()
+                for n in plans}
+        t = alternate(*calls, graph_ms)
+        print(json.dumps({
+            "flash_fwd_threshold": f"{tag}: B=1 H={H} Kh={Kh} S={S} D={D} "
+                                   f"Dv={Dv} causal bf16",
+            "tile_blocks_per_sm": per_sm,
+            "blocks": {"tile": H * (S // 64),
+                       "wgmma": H * -(-S // WGMMA_ROWS)},
+            "device_ms": t, "order": "tile, wgmma, wgmma, tile",
+            "wgmma_pct": 100 * ((t[1] + t[2]) - (t[0] + t[3]))
+            / (t[0] + t[3]),
+            "max_abs_err_vs_plain": errs}), flush=True)
+        del q, k, v, want, outs
+        torch.cuda.empty_cache()
+
+
 def parent_function(parent: Path, module: str, name: str):
     """Function ``name`` of the parent tree's ``src/repro_torch/<module>``,
     loaded from its file (its imports resolve to this tree's package)."""
@@ -950,7 +1097,8 @@ def main() -> int:
                     help="only the selective scan's backward (bf16)")
     ap.add_argument("--widths", action="store_true",
                     help="only the flash and chunked-prefill instances both "
-                         "trees have: bits and device times")
+                         "trees have: bits and device times; and the wide "
+                         "bf16 forward of each tree at its own plan")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -984,9 +1132,11 @@ def main() -> int:
                       "pa": (csrc / "paged_attention.cu", csrc),
                       "parent_pa": (pcsrc / "paged_attention.cu", pcsrc)})
         print(json.dumps({"card": card}), flush=True)
-        return 0 if shared_ab(libs, gen, (pcsrc / "flash_attention.cu",
-                                          csrc / "flash_attention.cu")) \
-            else 1
+        srcs = (pcsrc / "flash_attention.cu", csrc / "flash_attention.cu")
+        ok = shared_ab(libs, gen, srcs)
+        wide_fwd_ab(libs, gen, srcs, parent_function(
+            args.parent, "kernels/flash_attention/ops.py", "plan"))
+        return 0 if ok else 1
     if args.scan_bwd:
         libs = build({"ss": (csrc / "selective_scan.cu", csrc),
                       "parent_ss": (pcsrc / "selective_scan.cu", pcsrc)})
