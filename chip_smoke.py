@@ -190,6 +190,19 @@ on failure:
             over HTTP), the CLI on full-width 40-layer stablelm-12b P1+D1
             (every attention call a D = 160 instance), and ``--sim`` once
             (the simulator on the host);
+   dense  - (right after LLaVA's main path) the dense host-cache fallback
+            (``device_cache=False``) on the same full-width LLaVA-1.5-7B:
+            its runner against a paged runner on the same weights (3
+            requests: encode, the image chunk, 32 prompt tokens, 8 decode
+            steps fed the paged runner's greedy tokens; each step's
+            logits within 2e-2 of the paged ones' largest), then
+            ``Engine(..., device_cache=False)`` E1+P1+D1 with the main
+            path's five requests, its TTFT, TPOT, wall and launches logged
+            beside the main path's (the cache write, paged decode and
+            flash attention must launch, the paged-prefill kernels never),
+            then reduced f32 dense runners on the card against the CPU
+            (LLaVA, gemma3-4b, whisper-small, falcon-mamba-7b, zamba2-7b,
+            granite-moe-1b-a400m, DeepSeek-V2 at (192, 128)), 2e-4;
 6. report - one JSON line of kernels (each split-KV merge keeps its own
             row: fused into its split kernel, its launches are the split
             calls, ``ms`` and ``standalone_*`` time the merge kernel alone,
@@ -206,8 +219,10 @@ on failure:
             ``flash_attention[_bwd]_d112``, ``_d160``, ``_d256`` and
             ``_mla`` at the wider training widths, their launches a
             training step's: zamba2-7b's, the reduced stablelm-12b
-            step's, gemma3-4b's and DeepSeek-V2's), then the final status
-            line.
+            step's, gemma3-4b's and DeepSeek-V2's; ``launches_dense`` on
+            the rows of the kernels the dense phase runs: its Engine
+            run's, the scans' its reduced falcon-mamba and zamba2
+            checks'), then the final status line.
 
 Exits non-zero (and prints no status line) without a card or outside the
 repository.
@@ -3214,13 +3229,30 @@ def steady_decode(d, add, release, card: str, tag: str, ranges: tuple = ()):
     log({"steady_decode_ms_per_step": steady, "path": tag, "card": card})
 
 
-def serve(seed: int, card: str):
-    """LLaVA-1.5-7B, E1+P1+D1; returns the launch counts of its run."""
+def llava_requests(cfg, seed: int) -> list:
+    """The LLaVA paths' mix: five requests of one image (576 x 4096
+    pseudo-embedding) and 32 prompt tokens, 16 new tokens, four greedy and
+    one seeded sampled; [(prompt, media, params)]."""
     import numpy as np
+    from repro_torch.core.request import SamplingParams
+    rng = np.random.default_rng(seed)
+    reqs = []
+    for i in range(5):
+        media = (rng.standard_normal((cfg.media_tokens, cfg.d_model))
+                 * 0.1).astype(np.float32)
+        prompt = rng.integers(0, cfg.vocab_size, 32).astype(np.int32)
+        sp = SamplingParams(max_tokens=16) if i < 4 else SamplingParams(
+            temperature=0.8, top_k=50, top_p=0.95, seed=seed, max_tokens=16)
+        reqs.append((prompt, media, sp))
+    return reqs
+
+
+def serve(seed: int, card: str):
+    """LLaVA-1.5-7B, E1+P1+D1; returns the launch counts of its run and
+    its end-to-end reading (for the dense path's line)."""
     import torch
     from repro_torch import kernels as K
     from repro_torch.configs import get_config
-    from repro_torch.core.request import SamplingParams
     from repro_torch.core.simulator import DisaggConfig
     from repro_torch.engine.api import Engine
     from repro_torch.models import model as M
@@ -3234,16 +3266,7 @@ def serve(seed: int, card: str):
                  kv_blocks=256, img_blocks=8, device="cuda")
     log({"setup": "llava-1.5-7b full width, 32 layers, random bf16 weights",
          "weight_bytes": n_bytes, "setup_s": time.perf_counter() - t0})
-    rng = np.random.default_rng(seed)
-    reqs = []
-    for i in range(5):
-        media = (rng.standard_normal((cfg.media_tokens, cfg.d_model))
-                 * 0.1).astype(np.float32)
-        prompt = rng.integers(0, cfg.vocab_size, 32).astype(np.int32)
-        sp = SamplingParams(max_tokens=16) if i < 4 else SamplingParams(
-            temperature=0.8, top_k=50, top_p=0.95, seed=seed, max_tokens=16)
-        reqs.append((prompt, media, sp))
-
+    reqs = llava_requests(cfg, seed)
     with timed_calls(wall_split_targets()) as split:
         K.reset_launches()
         rs, outs, wall = run_requests(eng, reqs, cfg.vocab_size)
@@ -3257,12 +3280,13 @@ def serve(seed: int, card: str):
     if srv.n_migrations < 2 * len(reqs):
         raise AssertionError(f"only {srv.n_migrations} migrations")
     check_reclaimed(srv)
+    reading = {"wall_s": wall, **request_metrics(rs),
+               "migrations": srv.n_migrations,
+               "migrated_bytes": srv.migrated_bytes, "launches": launches,
+               "greedy_tokens_req0": outs[0]}
     log({"main_path": "Engine E1+P1+D1, llava-1.5-7b bf16, 5 requests x "
                       "(576 image tokens + 32 prompt tokens), 16 new tokens",
-         "card": card, "wall_s": wall, **request_metrics(rs),
-         "migrations": srv.n_migrations, "migrated_bytes": srv.migrated_bytes,
-         "launches": launches, "wall_split": split,
-         "greedy_tokens_req0": outs[0]})
+         "card": card, **reading, "wall_split": split})
 
     d = next(i for i in srv.instances if i.role_name == "D")
     ctx = cfg.media_tokens + 32
@@ -3270,6 +3294,242 @@ def serve(seed: int, card: str):
         (2, cfg.num_layers, ctx, cfg.num_kv_heads * cfg.head_dim),
         dtype=torch.bfloat16, device="cuda")), d.caches.release, card,
         f"llava-1.5-7b, context {ctx}")
+    return launches, reading
+
+
+# ---------------------------------------------------------------------------
+# phase 5b: the dense host-cache fallback (``device_cache=False``)
+# ---------------------------------------------------------------------------
+DENSE_REL = 2e-2       # full-width bf16 dense vs paged runner, per step
+DENSE_ATTN = ("cache_write", "paged_attention", "flash_attention")
+PAGED_PREFILL = ("paged_prefill_attention", "paged_prefill_attention_latent")
+DENSE_CHECKS = (("llava-1.5-7b", {}), ("gemma3-4b", {}),
+                ("whisper-small", {}), ("falcon-mamba-7b", {}),
+                ("zamba2-7b", {}), ("granite-moe-1b-a400m", {}),
+                ("deepseek-v2-236b", {"qk_nope_head_dim": 128,
+                                      "qk_rope_head_dim": 64,
+                                      "v_head_dim": 128}))
+
+
+def rss_gb() -> float:
+    """This process's resident memory (VmRSS), GB."""
+    with open("/proc/self/status") as f:
+        kb = next(int(ln.split()[1]) for ln in f if ln.startswith("VmRSS"))
+    return kb * 1024 / 1e9
+
+
+def dense_launched(launches: dict, what: str, scan: bool, attn: bool):
+    """Fail unless the dense path launched its kernels: with attention
+    layers the cache write, paged decode (or its latent-row kernel) and
+    flash attention, with Mamba layers the scan (either mode); and never a
+    paged-prefill kernel (a dense chunk attends through flash)."""
+    need = [("cache_write",), ("paged_attention", "paged_attention_latent"),
+            ("flash_attention",)] if attn else []
+    if scan:
+        need.append(("selective_scan", "selective_scan_heads"))
+    for names in need:
+        if not sum(launches[n] for n in names):
+            raise AssertionError(f"{what}: {' / '.join(names)} never "
+                                 f"launched")
+    if any(launches[n] for n in PAGED_PREFILL):
+        raise AssertionError(f"{what}: a paged-prefill kernel launched on "
+                             f"the dense path: {launches}")
+
+
+def dense_model_check(arch: str, overrides: dict, seed: int) -> dict:
+    """Reduced ``arch`` in f32 through the dense host-cache runner on the
+    card against the same runner on the CPU: media first (encode, then a
+    media chunk on vision models, encoder clips on whisper), a first chunk
+    of three prompts of different lengths, a second chunk for two of
+    them, four decode steps; logits within 2e-4 of the CPU's largest each
+    step.  Returns the card run's launches."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_config
+    from repro_torch.engine import runner as R
+    from repro_torch.models import model as M
+    cfg = dataclasses.replace(get_config(arch).reduced(), **overrides)
+    runners = {}
+    for dev in ("cpu", "cuda"):
+        p = M.init_params(cfg, torch.Generator().manual_seed(seed)).to(dev)
+        runners[dev] = R.ModelRunner(cfg, p, R.RunnerCaches(
+            cfg, kv_blocks=32, img_blocks=4, device=dev,
+            device_cache=False), device=dev)
+    rng = np.random.default_rng(seed)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in (13, 6, 9)]
+    worst, steps = 0.0, 0
+
+    def compare(fn):
+        nonlocal worst, steps
+        want, got = fn(runners["cpu"]), fn(runners["cuda"])
+        rel = float(np.abs(got - want).max() / (np.abs(want).max() + 1e-9))
+        worst, steps = max(worst, rel), steps + 1
+        if not rel < 2e-4:
+            raise AssertionError(f"dense {arch} check: logits off by {rel}")
+        return want
+
+    K.reset_launches()
+    if cfg.frontend != "none":
+        for rid in range(3):
+            media = (rng.standard_normal((cfg.media_tokens, cfg.d_model))
+                     * 0.1).astype(np.float32)
+            for r in runners.values():
+                r.encode([(rid, media)])
+        if not cfg.cross_attention:
+            compare(lambda r: r.prefill_chunks([(i, None, True)
+                                                for i in range(3)]))
+    first = compare(lambda r: r.prefill_chunks([(0, prompts[0][:8], False),
+                                                (1, prompts[1], False),
+                                                (2, prompts[2][:5], False)]))
+    last = compare(lambda r: r.prefill_chunks([(0, prompts[0][8:], False),
+                                               (2, prompts[2][5:], False)]))
+    toks = np.argmax(np.stack([last[0], first[1], last[1]]), -1)
+    for _ in range(4):
+        toks = np.argmax(compare(lambda r: r.decode([0, 1, 2], toks)), -1)
+    torch.cuda.synchronize()
+    launches = {n: c for n, c in K.launches.items() if c}
+    kinds = cfg.layer_kinds()
+    dense_launched(K.launches, f"dense {arch} check",
+                   scan=any(k.startswith("mamba") for k in kinds),
+                   attn=any(not k.startswith("mamba") for k in kinds))
+    label = " ".join([arch] + [f"{k}={v}" for k, v in overrides.items()])
+    log({"dense_check": f"reduced {label} f32, dense host-cache runner on "
+                        f"cuda vs cpu", "steps": steps,
+         "max_rel_logit_err": worst, "tol": 2e-4, "launches": launches})
+    return launches
+
+
+def dense_vs_paged(cfg, params, seed: int, card: str) -> dict:
+    """Full-width LLaVA-1.5-7B, bf16: a paged and a dense (host-cache)
+    runner on the same weights take the same encode, two prefill chunks
+    (the image, then 32 prompt tokens) and 8 decode steps for 3 requests,
+    each step fed the paged runner's greedy tokens; the dense logits held
+    within ``DENSE_REL`` of the paged ones' largest magnitude each step.
+    Returns the dense runner's launches; logs each step's error and both
+    runners' wall time a call."""
+    import numpy as np
+    import torch
+    from repro_torch import kernels as K
+    from repro_torch.engine import runner as R
+    runners = {dc: R.ModelRunner(cfg, params, R.RunnerCaches(
+        cfg, kv_blocks=128, img_blocks=4, dtype=torch.bfloat16,
+        device="cuda", device_cache=dc), device="cuda")
+        for dc in (True, False)}      # 3 requests of 40 blocks at most
+    reqs = llava_requests(cfg, seed)[:3]
+    rids = list(range(len(reqs)))
+    launches = dict.fromkeys(K.launches, 0)
+    errs, wall = [], {"paged": {}, "dense": {}}
+
+    def step(label, fn):
+        outs = {}
+        for dc in (True, False):
+            before = dict(K.launches)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            outs[dc] = fn(runners[dc])
+            torch.cuda.synchronize()
+            w = wall["paged" if dc else "dense"]
+            w[label] = w.get(label, 0.0) + time.perf_counter() - t
+            if not dc:
+                for n in launches:
+                    launches[n] += K.launches[n] - before[n]
+        if outs[True] is None:
+            return None
+        rel = float(np.abs(outs[False] - outs[True]).max()
+                    / np.abs(outs[True]).max())
+        errs.append(rel)
+        if not rel <= DENSE_REL:
+            raise AssertionError(f"dense vs paged, {label}: logits off by "
+                                 f"{rel} (rel), bar {DENSE_REL}")
+        return outs[True]
+
+    step("encode", lambda r: r.encode([(i, m) for i, (_, m, _) in
+                                       enumerate(reqs)]))
+    step("prefill_image", lambda r: r.prefill_chunks(
+        [(i, None, True) for i in rids]))
+    toks = np.argmax(step("prefill_text", lambda r: r.prefill_chunks(
+        [(i, p, False) for i, (p, _, _) in enumerate(reqs)])), -1)
+    for _ in range(8):
+        toks = np.argmax(step("decode", lambda r: r.decode(rids, toks)), -1)
+    dense_launched(launches, "dense runner", scan=False, attn=True)
+    log({"dense_vs_paged": "llava-1.5-7b bf16 full width, 3 requests: "
+                           "encode, image chunk, 32-token chunk, 8 decode "
+                           "steps teacher-forced by the paged runner",
+         "card": card, "rel_logit_err_by_step": errs,
+         "max_rel_logit_err": max(errs), "bar": DENSE_REL,
+         "wall_s_by_call": wall,
+         "dense_launches": {n: c for n, c in launches.items() if c}})
+    for r in runners.values():
+        for rid in rids:
+            r.caches.release(rid)
+    return launches
+
+
+def serve_dense(seed: int, card: str, paged: dict) -> dict:
+    """The dense host-cache fallback: ``dense_vs_paged`` on full-width
+    LLaVA-1.5-7B, then ``Engine(..., device_cache=False)`` E1+P1+D1 on the
+    same weights with ``serve``'s five requests and its 256 blocks an
+    instance (f32 host pools, 4.3 GB each allocated, committed as rows are
+    written), logged beside the paged main path's reading ``paged``, then the reduced f32 card-vs-CPU checks of
+    ``DENSE_CHECKS``.  Returns the Engine run's launches, with the scan's
+    from the reduced falcon-mamba and zamba2 checks."""
+    import torch
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_config
+    from repro_torch.core.simulator import DisaggConfig
+    from repro_torch.engine.api import Engine
+    from repro_torch.models import model as M
+    t0 = time.perf_counter()
+    cfg = get_config("llava-1.5-7b")
+    params = M.init_params(cfg, torch.Generator(device="cuda")
+                           .manual_seed(seed), dtype=torch.bfloat16)
+    t_pair = time.perf_counter()
+    dense_vs_paged(cfg, params, seed, card)
+    t_eng = time.perf_counter()
+    rss0 = rss_gb()
+    eng = Engine(cfg, params, DisaggConfig({"E": 1, "P": 1, "D": 1}),
+                 kv_blocks=256, img_blocks=8, device="cuda",
+                 device_cache=False)
+    reqs = llava_requests(cfg, seed)
+    with timed_calls(wall_split_targets()) as split:
+        K.reset_launches()
+        rs, outs, wall = run_requests(eng, reqs, cfg.vocab_size)
+        launches = dict(K.launches)
+    dense_launched(launches, "dense llava main path", scan=False, attn=True)
+    srv = eng.server
+    if srv.n_migrations < 2 * len(reqs):
+        raise AssertionError(f"only {srv.n_migrations} migrations")
+    check_reclaimed(srv)
+    # the pools are allocated zero and lazily committed: the rows written
+    # are what the host holds (the process's resident growth)
+    host_gb = {"allocated": sum(c.data.nbytes for i in srv.instances
+                                for c in (i.caches.kv, i.caches.img)) / 1e9,
+               "resident_growth": rss_gb() - rss0}
+    log({"dense_path": "Engine E1+P1+D1 device_cache=False, llava-1.5-7b "
+                       "bf16, serve's 5 requests, host f32 pools",
+         "card": card, "wall_s": wall, **request_metrics(rs),
+         "migrations": srv.n_migrations,
+         "migrated_bytes": srv.migrated_bytes, "launches": launches,
+         "wall_split": split, "greedy_tokens_req0": outs[0],
+         "host_pool_gb": host_gb,
+         "greedy_req0_equal_paged": outs[0] == paged["greedy_tokens_req0"],
+         "paged_main_path": {k: paged[k] for k in (
+             "wall_s", "ttft_mean_s", "tpot_mean_s", "tpot_p90_s",
+             "decode_tok_per_s", "migrations", "launches")}})
+    del eng, srv, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_checks = time.perf_counter()
+    for arch, overrides in DENSE_CHECKS:
+        got = dense_model_check(arch, overrides, seed)
+        for name in ("selective_scan", "selective_scan_heads"):
+            launches[name] += got.get(name, 0)
+    log({"phase_s": "serve_dense parts", "setup_s": t_pair - t0,
+         "dense_vs_paged_s": t_eng - t_pair, "engine_s": t_checks - t_eng,
+         "reduced_checks_s": time.perf_counter() - t_checks})
     return launches
 
 
@@ -4036,8 +4296,12 @@ def main() -> int:
     timed("train_mm", train_mm_run, card)
     gc.collect()
     torch.cuda.empty_cache()
-    launches = timed("serve", serve, args.seed, card)
+    launches, paged_reading = timed("serve", serve, args.seed, card)
     gc.collect()                      # LLaVA's weights and pools go first
+    torch.cuda.empty_cache()
+    dense_launches = timed("serve_dense", serve_dense, args.seed, card,
+                           paged_reading)
+    gc.collect()
     torch.cuda.empty_cache()
     launches["selective_scan"] = timed("serve_mamba", serve_mamba, args.seed,
                                        card)["selective_scan"]
@@ -4179,6 +4443,16 @@ def main() -> int:
                "src/repro/kernels/flash_attention/kernel.py:65")
               for sfx in ("d112", "d160", "d256", "mla")
               for part in ("", "_bwd")}}
+    # the dense phase's launches (its full-width LLaVA Engine run; the
+    # scans' from its reduced falcon-mamba and zamba2 checks), on the rows
+    # of the kernels its path runs
+    dense_rows = {n: dense_launches[n] for n in (
+        "cache_write", "paged_attention", "paged_prefill_attention",
+        "flash_attention", "selective_scan", "selective_scan_heads")}
+    dense_rows["paged_attention_merge"] = dense_launches[
+        "paged_attention_split"]
+    dense_rows["flash_attention_merge"] = dense_launches[
+        "flash_attention_split"]
     kernels = []
     for name, (source, replaces) in src.items():
         r = results[name]
@@ -4188,6 +4462,8 @@ def main() -> int:
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
                         "library_ms": r["library_ms"], "shape": r["shape"],
+                        **({"launches_dense": dense_rows[name]}
+                           if name in dense_rows else {}),
                         **{key: r[key] for key in (
                             "device_ms", "device_ms_cold_l2",
                             "library_device_ms", "bound_share",

@@ -28,8 +28,18 @@ decode batches the cross K/V.
 Batch size, chunk length and page count are bucketed to powers of two as
 in the JAX package, so both packages see identical control tensors.
 
-The JAX package's dense host-cache fallback (``RunnerCaches(device=False)``)
-is not ported: here ``device`` always names the torch device.
+The dense host-cache fallback (``RunnerCaches(device_cache=False)``, the
+JAX package's ``device=False``; here ``device`` names the torch device the
+model computes on): the KV, latent and image pools are host numpy
+``PagedCache``s of f32 rows.  A prefill chunk gathers the request's prior
+rows to the device in the weights' type and runs the dense
+``prefill_chunk`` (flash attention over prefix + chunk), one request at a
+time; a decode step gathers every lane's rows into dense ``[B, S, w]``
+caches (S padded to a multiple of ``KV_BLOCK``, the decode kernel's
+pages), runs the dense ``decode_step`` and copies the one new row per
+lane back to the host.  It is the JAX package's benchmark baseline and
+its migration endpoint.  The state store keeps its device tensors in this
+mode too (Mamba states, encoder output, cross K/V), as the paged path.
 """
 from __future__ import annotations
 
@@ -42,8 +52,9 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import (ATTN_MLP, ATTN_MOE, MAMBA1, MAMBA2,
                                       MLA_MLP, MLA_MOE, SHARED_ATTN,
                                       ModelConfig)
-from repro_torch.engine.paged_cache import (DevicePagedCache, PagedCacheSpec,
-                                            StateStore, migrate_request)
+from repro_torch.engine.paged_cache import (DevicePagedCache, PagedCache,
+                                            PagedCacheSpec, StateStore,
+                                            migrate_request)
 from repro_torch.models import model as M
 
 KV_BLOCK = 16        # paper §5.1
@@ -71,16 +82,31 @@ class RunnerCaches:
     """Per-instance cache pool: paged KV + paged latent (MLA) cache + paged
     image cache + state store, all sharing the unified transfer interface
     (paper §4.5).  ``kv`` is None without attention layers, ``mla``
-    without MLA layers."""
+    without MLA layers.  ``device_cache``: the pools live on ``device`` in
+    ``dtype`` (the weights' type), or, False, on the host as f32 numpy
+    ``PagedCache``s (the dense fallback), gathered to ``device`` in
+    ``dtype``."""
 
     def __init__(self, cfg: ModelConfig, *, kv_blocks: int = 512,
                  img_blocks: int = 16, dtype=torch.float32, device="cuda",
-                 sharing: bool = False):
+                 sharing: bool = False, device_cache: bool = True):
         M.check_supported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
         self.dtype = dtype
+        self.device_cache = device_cache
         self.sharing = sharing
+
+        def pool(n_tensors, n_layers, block_size, width, num_blocks,
+                 share):
+            if device_cache:
+                return DevicePagedCache(PagedCacheSpec(
+                    n_tensors, n_layers, block_size, width, num_blocks,
+                    dtype), sharing=share, device=self.device)
+            return PagedCache(PagedCacheSpec(
+                n_tensors, n_layers, block_size, width, num_blocks,
+                np.float32), sharing=share)
+
         self.attn_layers, self.mla_layers = _seq_layers(cfg)
         # Prefix sharing of the KV cache is unsound for models with
         # recurrent layers: their state at a prefix boundary is not paged or
@@ -92,29 +118,21 @@ class RunnerCaches:
         stores = []
         self.kv = self.mla = self.img = None
         if self.attn_layers:
-            self.kv = DevicePagedCache(PagedCacheSpec(
-                n_tensors=2, n_layers=len(self.attn_layers),
-                block_size=KV_BLOCK, width=cfg.num_kv_heads * cfg.head_dim,
-                num_blocks=kv_blocks, dtype=dtype),
-                sharing=share_seq, device=self.device)
+            self.kv = pool(2, len(self.attn_layers), KV_BLOCK,
+                           cfg.num_kv_heads * cfg.head_dim, kv_blocks,
+                           share_seq)
             stores.append(self.kv)
         if self.mla_layers:
             # one latent row per token, read as both key and value
-            self.mla = DevicePagedCache(PagedCacheSpec(
-                n_tensors=1, n_layers=len(self.mla_layers),
-                block_size=KV_BLOCK,
-                width=cfg.kv_lora_rank + cfg.qk_rope_head_dim,
-                num_blocks=kv_blocks, dtype=dtype),
-                sharing=share_seq, device=self.device)
+            self.mla = pool(1, len(self.mla_layers), KV_BLOCK,
+                            cfg.kv_lora_rank + cfg.qk_rope_head_dim,
+                            kv_blocks, share_seq)
             stores.append(self.mla)
         if cfg.frontend != "none":
             # one image per block so a repeated image shares exactly its
             # own pages (media_tokens when set, the LLaVA default otherwise)
-            self.img = DevicePagedCache(PagedCacheSpec(
-                n_tensors=1, n_layers=1,
-                block_size=cfg.media_tokens or IMG_BLOCK,
-                width=cfg.d_model, num_blocks=img_blocks, dtype=dtype),
-                sharing=sharing, device=self.device)
+            self.img = pool(1, 1, cfg.media_tokens or IMG_BLOCK, cfg.d_model,
+                            img_blocks, sharing)
             stores.append(self.img)
         self.states = StateStore()
         stores.append(self.states)
@@ -219,6 +237,15 @@ class ModelRunner:
             out[name] = v if name in ("seed", "step") else self._dev(v)
         return out
 
+    def _sampled(self, logits, sample) -> np.ndarray:
+        """Host logits [B, V], or with ``sample`` the sampled token ids of
+        the B lanes (the dense paths, which sample after the step)."""
+        greedy = self._all_greedy(sample)
+        if sample is not None and not greedy:
+            logits = M.sample_from_logits(
+                logits, self._sample_ctl(sample, logits.shape[0]))
+        return self._finish(logits, logits.shape[0], greedy)
+
     def _finish(self, out, B: int, greedy: bool) -> np.ndarray:
         """Host copy of the step's first B lanes: token ids when sampling
         (greedy batches take a plain on-device argmax), else logits."""
@@ -253,8 +280,10 @@ class ModelRunner:
         for (rid, _), e in zip(items, embs):
             if self.cfg.cross_attention:
                 self._store_enc_out(rid, e)
-            else:
+            elif self.caches.device_cache:
                 self.caches.img.append(rid, e[None, None])  # [1, 1, T, d]
+            else:
+                self.caches.img.append(rid, self._host(e)[None, None])
 
     def _store_enc_out(self, rid: int, e: torch.Tensor):
         """Cross-attention models keep the encoder output [1, T, d] in the
@@ -357,8 +386,13 @@ class ModelRunner:
 
         ONE ``prefill_chunk_paged`` call per pow2 chunk-length bucket (so a
         whole-image media chunk doesn't pad every short text chunk up to
-        its length), batch-padded to a power of two.
+        its length), batch-padded to a power of two; host caches run the
+        dense path one request at a time.
         """
+        if not self.caches.device_cache:
+            logits = torch.stack([self._prefill_chunk_dense(*item)
+                                  for item in items])
+            return self._sampled(logits, sample)
         out = np.zeros((len(items),) if sample is not None
                        else (len(items), self.cfg.vocab_size),
                        np.int32 if sample is not None else np.float32)
@@ -468,6 +502,8 @@ class ModelRunner:
         """One decode step for a batch.  tokens: [B].  Returns logits [B, V],
         or sampled next-token ids [B] (np int32) when ``sample`` carries
         per-request sampling controls (see ``M.sample_from_logits``)."""
+        if not self.caches.device_cache:
+            return self._decode_dense(rids, tokens, sample)
         data, ctl, lens_arr, lens = self._prepare_paged(rids)
         B_pad = lens_arr.shape[0]
         greedy = self._all_greedy(sample)
@@ -481,6 +517,137 @@ class ModelRunner:
         res = self._finish(out, len(rids), greedy)
         self._commit_paged(rids, new_state, lens)
         return res
+
+    # ------------------------------------------------------------------
+    # the dense host-cache fallback (``RunnerCaches(device_cache=False)``)
+    # ------------------------------------------------------------------
+    def _upload(self, cache, rid: int) -> torch.Tensor:
+        """A request's rows of a host pool on the device, [T, L, n, w] f32:
+        its whole blocks gathered on the host by torch (threaded, 16-row
+        pieces) into pinned memory when the device is a card, one copy to
+        the device, then its n rows."""
+        blocks = torch.as_tensor(cache.tables.get(rid, []), dtype=torch.long)
+        pool = torch.from_numpy(cache.data)
+        T, L, _, bs, w = pool.shape
+        host = torch.empty((T, L, len(blocks), bs, w), dtype=pool.dtype,
+                           pin_memory=self.device.type == "cuda")
+        torch.index_select(pool, 2, blocks, out=host)
+        rows = host.to(self.device, non_blocking=True)
+        return rows.view(T, L, -1, w)[:, :, :cache.lengths.get(rid, 0)]
+
+    def _gathered(self, cache, rid: int) -> torch.Tensor:
+        """A request's rows of a host pool, [T, L, n, w], on the device in
+        the weights' type."""
+        return self._upload(cache, rid).to(self.caches.dtype)
+
+    def _gather_prior(self, rid: int) -> dict:
+        """The request's cache prefix as ``M.prefill_chunk`` takes it:
+        attention layers' {"k", "v"} and MLA layers' {"lat"} [1, n, w]
+        gathered from the host pools, Mamba layers' state/conv (None before
+        the first chunk) and cross-attention layers' cached cross K/V from
+        the state store."""
+        c = self.caches
+        ents = [{} for _ in range(self.cfg.num_layers)]
+        if c.kv is not None:
+            kv = self._gathered(c.kv, rid)
+            for j, li in enumerate(c.attn_layers):
+                ents[li] = {"k": kv[0, j][None], "v": kv[1, j][None]}
+        if c.mla is not None:
+            lat = self._gathered(c.mla, rid)
+            for j, li in enumerate(c.mla_layers):
+                ents[li] = {"lat": lat[0, j][None]}
+        st = c.states.get(rid) or {}
+        for i, kind in enumerate(self.cfg.layer_kinds()):
+            if kind in (MAMBA1, MAMBA2):
+                s = st.get(f"mamba{i}") or {}
+                ents[i] = {"state": s.get("state"), "conv": s.get("conv")}
+            elif f"xk{i}" in st:
+                ents[i].update(xk=st[f"xk{i}"], xv=st[f"xv{i}"])
+        return {"layers": ents}
+
+    def _prefill_chunk_dense(self, rid: int, tokens, use_media: bool):
+        """One chunk of one request on the dense path: its prior gathered
+        from the host, ``M.prefill_chunk``, the chunk's rows appended to the
+        host pools and its Mamba states and cross K/V to the state store.
+        Returns the last-token logits [V] (device)."""
+        c = self.caches
+        offset = self._ctx_len(rid)
+        media_emb = enc_out = None
+        if use_media and c.img is not None:
+            media_emb = self._gathered(c.img, rid)[0]      # [1, T, d]
+        st = c.states.get(rid) or {}
+        if self.cfg.cross_attention and "enc_out" in st:
+            enc_out = st["enc_out"]
+        tok = None if tokens is None else \
+            self._dev(np.asarray(tokens, np.int32))[None]
+        logits, entries = M.prefill_chunk(
+            self.cfg, self.params, tok, self._gather_prior(rid), offset,
+            enc_out=enc_out, media_emb=media_emb)
+        ents = entries["layers"]
+        rows = {}
+        if c.kv is not None:
+            rows["kv"] = torch.stack([
+                torch.stack([ents[li][n][0] for li in c.attn_layers])
+                for n in ("k", "v")])
+        if c.mla is not None:
+            rows["mla"] = torch.stack([ents[li]["lat"][0]
+                                       for li in c.mla_layers])[None]
+        for name, cache in c.seq_pools():
+            cache.append(rid, self._host(rows[name]))
+        n_new = (0 if tokens is None else len(tokens)) + \
+            (0 if media_emb is None else media_emb.shape[1])
+        self._commit_states([rid], entries, [offset + n_new])
+        return logits[0]
+
+    def _batched_cache(self, rids):
+        """Every lane's cache as ``M.decode_step`` takes it: the host rows
+        gathered into dense [B, S, w] caches on the device, zero past each
+        lane's length, S = max length + 1 rounded up to ``KV_BLOCK`` (whole
+        pages for the decode kernel), one [T, L, B, S, w] tensor per pool;
+        with the batched Mamba states and cross K/V.  Returns (cache tree,
+        lengths [B] (np int32), {pool name: that tensor})."""
+        B = len(rids)
+        lens = np.asarray([self._ctx_len(r) for r in rids], np.int32)
+        S = -(-(int(lens.max()) + 1) // KV_BLOCK) * KV_BLOCK
+        seq = {}
+        for name, cache in self.caches.seq_pools():
+            sp = cache.spec
+            buf = torch.zeros((sp.n_tensors, sp.n_layers, B, S, sp.width),
+                              dtype=self.caches.dtype, device=self.device)
+            for b, rid in enumerate(rids):
+                if lens[b]:
+                    buf[:, :, b, :lens[b]] = self._upload(cache, rid)
+            seq[name] = buf
+        ents = self._batched_state(rids, B)["layers"]
+        aj = mj = 0
+        for i, kind in enumerate(self.cfg.layer_kinds()):
+            if kind in (MLA_MLP, MLA_MOE):
+                ents[i]["lat"] = seq["mla"][0, mj]
+                mj += 1
+            elif kind in (ATTN_MLP, ATTN_MOE, SHARED_ATTN):
+                ents[i].update(k=seq["kv"][0, aj], v=seq["kv"][1, aj])
+                aj += 1
+        return {"layers": ents}, lens, seq
+
+    def _decode_dense(self, rids, tokens, sample):
+        """One decode step on the dense path: ``_batched_cache``,
+        ``M.decode_step``, then each lane's new row (at its length) back to
+        the host pools and its Mamba state to the state store."""
+        cache, lens, seq = self._batched_cache(rids)
+        tok = self._dev(np.asarray(tokens, np.int32).reshape(-1, 1))
+        lens_dev = self._dev(lens)
+        logits, cache = M.decode_step(self.cfg, self.params, cache, lens_dev,
+                                      tok)
+        lanes = torch.arange(len(rids), device=self.device)
+        new = {name: self._host(buf[:, :, lanes, lens_dev.long()])
+               for name, buf in seq.items()}              # [T, L, B, w]
+        for b, rid in enumerate(rids):
+            for name, cache_ in self.caches.seq_pools():
+                cache_.append(rid, new[name][:, :, b:b + 1])
+        self._commit_states(rids, {"layers": [
+            e if "state" in e else {} for e in cache["layers"]]},
+            [int(n) + 1 for n in lens])
+        return self._sampled(logits, sample)
 
     # ------------------------------------------------------------------
     # encode + decode in one scheduler iteration (paper §3.1 / Fig 4)

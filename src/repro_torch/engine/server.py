@@ -8,8 +8,9 @@ instance of the server shares it), and wall-clock time.  The host logic
 (admission, routing, migration, prefix and embedding caches, health,
 replay and shedding) is a copy of ``repro.engine.server``; what differs is
 the device: ``device`` (default ``"cuda"``) names it, the cache pools hold
-K/V in the weights' type, and device tensors cross to the host only as
-numpy copies.
+K/V in the weights' type (``device_cache=False``: f32 numpy pools on the
+host, the dense fallback, gathered to the device each step), and device
+tensors cross to the host only as numpy copies.
 
 Fault tolerance (DESIGN.md §15): every instance carries a health state
 machine (healthy → degraded → dead) driven by per-iteration progress
@@ -124,8 +125,8 @@ class RealInstance:
     """
 
     def __init__(self, iid, role_name, cfg, params, budgets, policy,
-                 *, kv_blocks=512, img_blocks=16, device="cuda",
-                 spec=None, sharing=False):
+                 *, kv_blocks=512, img_blocks=16, device_cache=True,
+                 device="cuda", spec=None, sharing=False):
         self.iid = iid
         self.role_name = role_name
         self.role = ROLE_SETS[role_name]
@@ -135,7 +136,8 @@ class RealInstance:
         self.caches = R.RunnerCaches(cfg, kv_blocks=kv_blocks,
                                      img_blocks=img_blocks,
                                      dtype=params.embed.dtype,
-                                     device=device, sharing=sharing)
+                                     device=device, sharing=sharing,
+                                     device_cache=device_cache)
         self.runner = R.ModelRunner(cfg, params, self.caches, device=device)
         self.running: list[Request] = []
         self.waiting: deque = deque()
@@ -234,10 +236,6 @@ class HydraServer:
                  degraded_after: Optional[int] = 8,
                  dead_after: Optional[int] = 32, max_recoveries: int = 5,
                  device="cuda"):
-        if not device_cache:
-            raise NotImplementedError(
-                "the dense host-cache fallback is not ported "
-                "(ROADMAP queue 1: dense fallbacks); serve with device caches")
         self.device = resolve_device(device)
         self.cfg = cfg
         pol = POLICIES[policy]
@@ -250,7 +248,8 @@ class HydraServer:
                 self.instances.append(RealInstance(
                     next(iid), role, cfg, params, budgets, pol,
                     kv_blocks=kv_blocks, img_blocks=img_blocks,
-                    device=self.device, spec=spec, sharing=prefix_cache))
+                    device_cache=device_cache, device=self.device, spec=spec,
+                    sharing=prefix_cache))
         self.items: dict[int, ServeItem] = {}
         self._rid = itertools.count()
         self.slo = slo
@@ -434,7 +433,9 @@ class HydraServer:
                                      enc[0].float().cpu().numpy())
             return
         # host f32 copy (exact for bf16 pools; the install casts back)
-        emb = inst.caches.img.gather(r.rid)[0, 0].float().cpu().numpy()
+        emb = inst.caches.img.gather(r.rid)[0, 0]
+        if isinstance(emb, torch.Tensor):
+            emb = emb.float().cpu().numpy()
         pos = 0
         for h, m in zip(it.media_hashes, it.media):
             n = m.shape[0]

@@ -15,9 +15,14 @@ first R features of the output are the latent context, which ``kv_b``'s
 value half lifts to the heads.  So the paged decode and chunked-prefill
 kernels serve MLA with ``k_pages is v_pages`` at head dim R + rope.  They
 scale scores by 1/sqrt(R + rope); MLA wants 1/sqrt(nope + rope), so the
-query is pre-scaled by the ratio.  The dense serving paths
-(``mla_decode``, ``mla_chunk``) are not ported (ROADMAP queue 1: dense
-fallbacks).
+query is pre-scaled by the ratio.  The dense serving paths keep the same
+rows in one ``[B, S, R + rope]`` tensor per layer (``ckv`` and ``k_rope``
+are its two column ranges): ``mla_decode`` writes the new row with the
+cache-write kernel and runs the same absorbed attention through the
+paged-decode kernel over that tensor seen as pages (the latent-row kernel
+at bf16 D = 576); ``mla_chunk`` lifts the prefix and the chunk through
+``kv_b`` and runs flash attention with ``kv_offset``, as the JAX
+package's.
 """
 from __future__ import annotations
 
@@ -131,6 +136,47 @@ def _pages(data, layer, cfg):
     NB, bs = data.shape[2], data.shape[3]
     return data[0, layer].view(NB, bs, 1,
                                cfg.kv_lora_rank + cfg.qk_rope_head_dim)
+
+
+def mla_decode(p, x, cfg, lat_cache, cache_len):
+    """Absorbed decode over a dense latent cache.  x: [B, 1, d]; lat_cache:
+    [B, S, R + rope] contiguous, the new row written at ``cache_len``
+    (scalar or [B]) in place; lane b attends its first cache_len[b] + 1
+    rows.  Returns (out [B, 1, d], lat_cache)."""
+    B = x.shape[0]
+    pos = layers.lengths_vector(cache_len, B, x.device)[:, None]
+    q_nope, q_rope = _queries(p, x, cfg, pos)
+    layers.cache_write(lat_cache, _latent_rows(p, x, cfg, pos), cache_len)
+    pages, tables = layers.dense_pages(lat_cache, 1)
+    q = _absorbed_query(p, q_nope[:, 0], q_rope[:, 0], cfg)
+    lengths = (pos[:, 0] + 1).to(torch.int32).contiguous()
+    ctx = paged_attention(q.to(pages.dtype), pages, pages, tables, lengths)
+    return _lift(p, ctx, cfg, x)[:, None], lat_cache
+
+
+def mla_chunk(p, x, cfg, lat_prior, offset):
+    """Chunked-prefill MLA over a dense latent prefix: the uncompressed path
+    over concat(prefix, chunk), causal flash attention with ``kv_offset``
+    the prefix length, queries and keys nope + rope wide and values
+    v_head_dim wide.  x: [B, C, d]; lat_prior: [B, P, R + rope] rows of
+    positions [offset - P, offset).  Returns (out [B, C, d], the chunk's
+    rows [B, C, R + rope])."""
+    B, C, _ = x.shape
+    H, R = cfg.num_heads, cfg.kv_lora_rank
+    nope, rope_d, vd = (cfg.qk_nope_head_dim, cfg.qk_rope_head_dim,
+                        cfg.v_head_dim)
+    positions = offset + torch.arange(C, device=x.device)
+    q_nope, q_rope = _queries(p, x, cfg, positions)
+    rows = _latent_rows(p, x, cfg, positions)
+    lat = torch.cat([lat_prior.to(rows.dtype), rows], dim=1)
+    S = lat.shape[1]
+    kv = (lat[..., :R] @ p.kv_b).view(B, S, H, nope + vd)
+    k = torch.cat([kv[..., :nope],
+                   lat[:, :, None, R:].expand(B, S, H, rope_d)], dim=-1)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    o = layers.blockwise_attention(q, k, kv[..., nope:], causal=True,
+                                   kv_offset=lat_prior.shape[1])
+    return o.reshape(B, C, H * vd) @ p.wo, rows
 
 
 def mla_decode_paged(p, x, cfg, data, layer, tables, slots, lens, *,

@@ -31,9 +31,19 @@ MLP or MoE (``mla.mla_full``, queries and keys 192 wide and values 128
 for DeepSeek-V2), Mamba-1 and Mamba-2 layers and shared attention, with
 the vision projector or the audio encoder in front; its attention goes
 through the flash kernel and its gradient at every width the configs
-have, the scans through the selective-scan kernels and theirs.  The JAX
-package's dense ``decode_step``/``prefill_chunk`` serving paths are not
-ported (ROADMAP, queue 1: dense fallbacks).
+have, the scans through the selective-scan kernels and theirs.
+The host-cache fallback serves over dense per-layer caches instead of
+pages, as the JAX package's ``prefill``, ``init_cache``,
+``build_cache_from_prefill``, ``decode_step``, ``prefill_chunk``,
+``empty_prior`` and ``extend_prior``: a decode step writes each layer's
+new K/V (or latent row) into its ``[B, S, w]`` cache with the cache-write
+kernel and attends through the paged-decode kernel over that cache seen
+as pages (``layers.decode_attention``, ``mla.mla_decode``); a prefill
+chunk attends over concat(prefix, chunk) through the flash kernel with
+``kv_offset`` (``mla.mla_chunk`` for MLA), Mamba layers through the scan.
+An MLA layer's dense cache is one ``{"lat": [B, S, R + rope]}`` tensor,
+the latent pool's row layout, where the JAX package keeps ``ckv`` and
+``krope`` apart.
 """
 from __future__ import annotations
 
@@ -291,6 +301,266 @@ def forward(cfg: ModelConfig, params, tokens, media=None, frames=None, *,
         aux_total
 
 
+def prefill(cfg: ModelConfig, params, tokens, media=None, frames=None):
+    """Serving prefill: (last-token logits [B, V], {"layers": per-layer
+    cache entries of :func:`forward`}), the JAX package's ``prefill``."""
+    logits, caches, _ = forward(cfg, params, tokens, media=media,
+                                frames=frames, collect_cache=True)
+    return logits[:, -1], {"layers": caches}
+
+
+# ---------------------------------------------------------------------------
+# dense caches (the host-cache fallback's decode and chunked prefill)
+# ---------------------------------------------------------------------------
+def _lat_width(cfg) -> int:
+    return cfg.kv_lora_rank + cfg.qk_rope_head_dim
+
+
+def _layer_cache_shape(cfg, kind, i, batch, max_len):
+    """The JAX package's dense cache shapes of layer i, except that an MLA
+    layer keeps its rows in one {"lat": [B, S, R + rope]} tensor (``ckv``
+    and ``k_rope`` side by side, as the latent pool stores them)."""
+    if kind in (MAMBA1, MAMBA2):
+        return (mamba.mamba1_cache_shape if kind == MAMBA1
+                else mamba.mamba2_cache_shape)(cfg, batch)
+    if kind in (MLA_MLP, MLA_MOE):
+        return {"lat": (batch, max_len, _lat_width(cfg))}
+    S_c = max_len
+    if cfg.is_local_layer(i) and cfg.sliding_window:
+        S_c = min(max_len, cfg.sliding_window)
+    kvd = cfg.num_kv_heads * cfg.head_dim
+    ent = {"k": (batch, S_c, kvd), "v": (batch, S_c, kvd)}
+    if cfg.cross_attention and kind in (ATTN_MLP, ATTN_MOE):
+        ent["xk"] = (batch, cfg.media_tokens, kvd)
+        ent["xv"] = (batch, cfg.media_tokens, kvd)
+    return ent
+
+
+def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+               dtype=torch.float32, device="cpu") -> dict:
+    """Zero dense caches {"layers": [...]} (Mamba states in f32)."""
+    out = []
+    for i, kind in enumerate(cfg.layer_kinds()):
+        out.append({name: torch.zeros(
+            shape, dtype=torch.float32 if name == "state" else dtype,
+            device=device)
+            for name, shape in _layer_cache_shape(cfg, kind, i, batch,
+                                                  max_len).items()})
+    return {"layers": out}
+
+
+def build_cache_from_prefill(cfg: ModelConfig, prefill_cache, max_len: int):
+    """Pad/arrange :func:`prefill`'s per-layer entries into fixed-size decode
+    caches: sequence entries padded with zeros to ``max_len`` rows, a
+    sliding-window layer's to its window, and one that already holds more
+    rows keeps its last S_c at slot ``pos % S_c`` (the ring's roll).  MLA
+    layers' ``ckv``/``krope`` become one ``lat`` tensor."""
+    out = []
+    for i, (kind, ent) in enumerate(zip(cfg.layer_kinds(),
+                                        prefill_cache["layers"])):
+        if kind in (MAMBA1, MAMBA2):
+            out.append(ent)
+            continue
+        if kind in (MLA_MLP, MLA_MOE):
+            ent = {"lat": torch.cat([ent["ckv"], ent["krope"]], dim=-1)}
+        new = {}
+        for name, arr in ent.items():
+            if name in ("xk", "xv"):
+                new[name] = arr
+                continue
+            S = arr.shape[1]
+            S_c = max_len
+            if name in ("k", "v") and cfg.is_local_layer(i) \
+                    and cfg.sliding_window:
+                S_c = min(max_len, cfg.sliding_window)
+            if S >= S_c:
+                new[name] = torch.roll(arr[:, S - S_c:], S % S_c,
+                                       dims=1).contiguous()
+            else:
+                pad = arr.new_zeros((arr.shape[0], S_c - S) + arr.shape[2:])
+                new[name] = torch.cat([arr, pad], dim=1)
+        out.append(new)
+    return {"layers": out}
+
+
+def _attn_decode(p, x, cfg, ent, cache_len, window):
+    """One token per lane against the layer's dense K/V cache: the new
+    token's K/V written at ``cache_len`` (a ring buffer's at cache_len %
+    S_c, when the cache is no longer than the window) by the cache-write
+    kernel, then decode attention over the cache.  Returns out [B, 1, d];
+    the cache is updated in place."""
+    B = x.shape[0]
+    Kh, Dh = cfg.num_kv_heads, cfg.head_dim
+    pos = layers.lengths_vector(cache_len, B, x.device)[:, None]
+    q, k, v = _qkv(p, x, cfg, pos)
+    ring = bool(window) and ent["k"].shape[1] <= window
+    write = layers.ring_write if ring else layers.cache_write
+    write(ent["k"], k.reshape(B, 1, Kh * Dh), cache_len)
+    write(ent["v"], v.reshape(B, 1, Kh * Dh), cache_len)
+    o = layers.decode_attention(q, ent["k"], ent["v"], cache_len,
+                                n_kv_heads=Kh, ring=ring, window=window)
+    return o @ p.wo
+
+
+def decode_step(cfg: ModelConfig, params, cache, cache_len, token):
+    """One decode step over dense caches (see :func:`init_cache`).  token:
+    [B, 1]; cache_len: scalar or [B] tokens already cached.  Returns
+    (logits [B, V], cache), the caches written in place (the JAX package
+    returns new ones)."""
+    B = token.shape[0]
+    h = _positions(cfg, params.embed[token.long()],
+                   layers.lengths_vector(cache_len, B, token.device)[:, None])
+    for i, kind in enumerate(cfg.layer_kinds()):
+        p = params.layers[i]
+        ent = cache["layers"][i]
+        if kind in (MAMBA1, MAMBA2):
+            fn = mamba.mamba1_decode if kind == MAMBA1 \
+                else mamba.mamba2_decode
+            y, (st, conv) = fn(p, rmsnorm(h, p.norm, cfg.norm_eps), cfg,
+                               ent["state"], ent["conv"])
+            h = h + y
+            ent.update(state=st, conv=conv)
+            continue
+        if kind == SHARED_ATTN:
+            sp = params.shared
+            h = h + _attn_decode(sp, rmsnorm(h, p.norm, cfg.norm_eps), cfg,
+                                 ent, cache_len, 0)
+            h = h + layers.mlp(sp, rmsnorm(h, sp.norm2, cfg.norm_eps),
+                               cfg.act)
+            continue
+        x = rmsnorm(h, p.norm1, cfg.norm_eps)
+        if kind in (MLA_MLP, MLA_MOE):
+            a, _ = mla.mla_decode(p, x, cfg, ent["lat"], cache_len)
+        else:
+            window = cfg.sliding_window if cfg.is_local_layer(i) else 0
+            a = _attn_decode(p, x, cfg, ent, cache_len, window)
+        h = h + a
+        if cfg.cross_attention:
+            h = h + _cross_decode(p, rmsnorm(h, p.xnorm, cfg.norm_eps), cfg,
+                                  ent)
+        h = h + _ffn(p, rmsnorm(h, p.norm2, cfg.norm_eps), cfg, kind)
+    return _logits(cfg, params, h[:, 0]), cache
+
+
+def _attn_chunk(p, x, cfg, prior_k, prior_v, offset, window):
+    """A prefill chunk x [B, C, d] at positions offset.. over its dense
+    prefix prior_k/v [B, P, Kh*Dh] and itself: causal flash attention over
+    concat(prefix, chunk) with ``kv_offset`` P.  Returns (out, (k, v) of
+    the chunk [B, C, Kh*Dh])."""
+    B, C, _ = x.shape
+    Kh, Dh = cfg.num_kv_heads, cfg.head_dim
+    q, k, v = _qkv(p, x, cfg, offset + torch.arange(C, device=x.device))
+    P_len = prior_k.shape[1]
+    k_full = torch.cat([prior_k.view(B, P_len, Kh, Dh).to(k.dtype), k], 1)
+    v_full = torch.cat([prior_v.view(B, P_len, Kh, Dh).to(v.dtype), v], 1)
+    o = layers.blockwise_attention(q, k_full, v_full, causal=True,
+                                   window=window, kv_offset=P_len)
+    return o.reshape(B, C, -1) @ p.wo, (k.reshape(B, C, Kh * Dh),
+                                        v.reshape(B, C, Kh * Dh))
+
+
+def prefill_chunk(cfg: ModelConfig, params, tokens, prior, offset, *,
+                  enc_out=None, media_emb=None):
+    """One prefill chunk against a dense cache prefix, the JAX package's
+    ``prefill_chunk``.  tokens: [B, C] (None for a pure media chunk);
+    media_emb [B, T, d] goes first; ``prior``: {"layers": per-layer
+    prefix entries} of ``offset`` tokens (see :func:`empty_prior`),
+    Mamba layers' {"state", "conv"} (None before the first chunk), a
+    cross-attention layer's {"xk", "xv"} once a chunk has made them.
+    Returns (last-token logits [B, V], {"layers": the chunk's entries to
+    append, new Mamba states, and on the first chunk the cross K/V made
+    from ``enc_out``})."""
+    if media_emb is not None:
+        h = media_emb.to(params.embed.dtype)
+        if tokens is not None:
+            h = torch.cat([h, params.embed[tokens.long()]], dim=1)
+    else:
+        h = params.embed[tokens.long()]
+    C = h.shape[1]
+    h = _positions(cfg, h, offset + torch.arange(C, device=h.device)
+                   .expand(h.shape[0], C))
+    out = []
+    for i, kind in enumerate(cfg.layer_kinds()):
+        p = params.layers[i]
+        ent = prior["layers"][i]
+        if kind in (MAMBA1, MAMBA2):
+            fn = mamba.mamba1_seq if kind == MAMBA1 else mamba.mamba2_seq
+            y, (st, conv) = fn(p, rmsnorm(h, p.norm, cfg.norm_eps), cfg,
+                               ent.get("state"), ent.get("conv"))
+            h = h + y
+            out.append({"state": st, "conv": conv})
+            continue
+        if kind == SHARED_ATTN:
+            sp = params.shared
+            a, (k, v) = _attn_chunk(sp, rmsnorm(h, p.norm, cfg.norm_eps),
+                                    cfg, ent["k"], ent["v"], offset, 0)
+            h = h + a
+            h = h + layers.mlp(sp, rmsnorm(h, sp.norm2, cfg.norm_eps),
+                               cfg.act)
+            out.append({"k": k, "v": v})
+            continue
+        x = rmsnorm(h, p.norm1, cfg.norm_eps)
+        if kind in (MLA_MLP, MLA_MOE):
+            a, lat = mla.mla_chunk(p, x, cfg, ent["lat"], offset)
+            new = {"lat": lat}
+        else:
+            window = cfg.sliding_window if cfg.is_local_layer(i) else 0
+            a, (k, v) = _attn_chunk(p, x, cfg, ent["k"], ent["v"], offset,
+                                    window)
+            new = {"k": k, "v": v}
+        h = h + a
+        if cfg.cross_attention:
+            x = rmsnorm(h, p.xnorm, cfg.norm_eps)
+            if ent.get("xk") is not None:
+                h = h + _cross_decode(p, x, cfg, ent)
+            else:
+                c, (xk, xv) = _cross_chunk(p, x, enc_out, cfg)
+                h = h + c
+                new.update(xk=xk, xv=xv)
+        h = h + _ffn(p, rmsnorm(h, p.norm2, cfg.norm_eps), cfg, kind,
+                     lossless=False)
+        out.append(new)
+    return _logits(cfg, params, h[:, -1]), {"layers": out}
+
+
+def empty_prior(cfg: ModelConfig, batch: int, dtype=torch.float32,
+                device="cpu") -> dict:
+    """Zero-length cache prefix for the first prefill chunk."""
+    out = []
+    kvd = cfg.num_kv_heads * cfg.head_dim
+    for kind in cfg.layer_kinds():
+        if kind in (MAMBA1, MAMBA2):
+            out.append({"state": None, "conv": None})
+        elif kind in (MLA_MLP, MLA_MOE):
+            out.append({"lat": torch.zeros((batch, 0, _lat_width(cfg)),
+                                           dtype=dtype, device=device)})
+        else:
+            out.append({n: torch.zeros((batch, 0, kvd), dtype=dtype,
+                                       device=device) for n in ("k", "v")})
+    return {"layers": out}
+
+
+def extend_prior(cfg: ModelConfig, prior, chunk_entries) -> dict:
+    """Append a chunk's cache entries onto the prefix: sequence entries
+    concatenate, Mamba states and cross K/V are replaced (the cross K/V
+    kept from the prefix when the chunk made none)."""
+    out = []
+    for kind, old, new in zip(cfg.layer_kinds(), prior["layers"],
+                              chunk_entries["layers"]):
+        if kind in (MAMBA1, MAMBA2):
+            out.append(new)
+            continue
+        ent = {}
+        for name in old.keys() | new.keys():
+            if name in ("xk", "xv"):
+                ent[name] = new.get(name, old.get(name))
+            else:
+                ent[name] = torch.cat([old[name].to(new[name].dtype),
+                                       new[name]], dim=1)
+        out.append(ent)
+    return {"layers": out}
+
+
 # ---------------------------------------------------------------------------
 # on-device sampling (DESIGN.md §13)
 # ---------------------------------------------------------------------------
@@ -372,18 +642,19 @@ def _positions(cfg, h, pos):
 
 
 def _cross_decode(p, x, cfg, ent):
-    """Cross-attention of one decode token per lane over the lane's cached
-    cross K/V ``ent["xk"]``/``ent["xv"]`` [B, T, Kh*Dh]: the flash kernel
-    at Sq = 1, non-causal over all T keys (what the JAX package's
-    ``decode_attention(..., cache_len=T-1)`` computes)."""
-    B = x.shape[0]
+    """Cross-attention of x [B, C, d] (a decode token per lane, or a later
+    prefill chunk) over the lane's cached cross K/V ``ent["xk"]``/
+    ``ent["xv"]`` [B, T, Kh*Dh]: the flash kernel, non-causal over all T
+    keys (at C = 1 what the JAX package's ``decode_attention(...,
+    cache_len=T-1)`` computes)."""
+    B, C, _ = x.shape
     H, Kh, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     xk, xv = ent["xk"], ent["xv"]
     T = xk.shape[1]
-    q = (x @ p.xq).view(B, 1, H, Dh).to(xk.dtype)
+    q = (x @ p.xq).view(B, C, H, Dh).to(xk.dtype)
     o = layers.blockwise_attention(q, xk.view(B, T, Kh, Dh),
                                    xv.view(B, T, Kh, Dh), causal=False)
-    return o.reshape(B, 1, H * Dh).to(x.dtype) @ p.xo
+    return o.reshape(B, C, H * Dh).to(x.dtype) @ p.xo
 
 
 def _pages(data, layer, cfg):
@@ -410,11 +681,12 @@ def _attn_decode_paged(p, x, cfg, data, layer, kv, lens, lengths, window):
     return o.reshape(B, 1, -1).to(x.dtype) @ p.wo
 
 
-def _ffn(p, x, cfg, kind):
-    """The layer's FFN: the lossless MoE for MoE kinds (serving: no aux
-    loss), else the MLP."""
+def _ffn(p, x, cfg, kind, lossless: bool = True):
+    """The layer's FFN: the MoE for MoE kinds, lossless in serving (no aux
+    loss), the capacity path where the JAX package takes it (the dense
+    prefill chunk); else the MLP."""
     if kind in (ATTN_MOE, MLA_MOE):
-        return moe.moe_ffn(p, x, cfg, lossless=True)[0]
+        return moe.moe_ffn(p, x, cfg, lossless=lossless)[0]
     return layers.mlp(p, x, cfg.act)
 
 

@@ -1533,3 +1533,110 @@ def test_selective_scan_autograd_on_card_matches_cpu(cuda, mode):
         grads[str(dev)] = [t.grad.cpu() for t in xs]
     for a, b in zip(grads["cpu"], grads[str(cuda)]):
         assert (a - b).abs().max().item() <= 1e-4 * a.abs().max().item()
+
+
+# ---------------------------------------------------------------------------
+# the dense serving path: a dense [B, S, w] cache through the cache-write
+# and paged-decode kernels (models/layers.py), MLA's over latent rows
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("D", [128, 112, 160, 256])
+@pytest.mark.parametrize("ring,window", [(False, 0), (False, 24), (True, 64)],
+                         ids=["full", "window", "ring"])
+def test_dense_decode_attention_matches_plain(cuda, dtype, D, ring, window):
+    """The new row written per lane (one cache-write launch for K, one for
+    V), then one paged-decode launch over the cache seen as 16-row pages
+    with an identity table, against the plain version on the same upcast
+    cache; lanes of 1, 38 and all 64 rows (a full ring)."""
+    from repro_torch.models import layers as L
+    gen = torch.Generator().manual_seed(D)
+    B, S, H, Kh = 3, 64, 8, 2
+    kc, vc = (torch.randn((B, S, Kh * D), generator=gen).to(cuda, dtype)
+              for _ in range(2))
+    q = torch.randn((B, 1, H, D), generator=gen).to(cuda, dtype)
+    new = [torch.randn((B, 1, Kh * D), generator=gen).to(cuda, dtype)
+           for _ in range(2)]
+    cache_len = torch.tensor([0, 37, 63 + 64 * ring], dtype=torch.int32,
+                             device=cuda)
+    write = L.ring_write if ring else L.cache_write
+    want_k, want_v = kc.cpu(), vc.cpu()
+    write(want_k, new[0].cpu(), cache_len.cpu())
+    write(want_v, new[1].cpu(), cache_len.cpu())
+    before = dict(K.launches)
+    write(kc, new[0], cache_len)
+    write(vc, new[1], cache_len)
+    got = L.decode_attention(q, kc, vc, cache_len, n_kv_heads=Kh, ring=ring,
+                             window=window)
+    torch.cuda.synchronize()
+    assert K.launches["cache_write"] == before["cache_write"] + 2
+    assert K.launches["paged_attention"] == before["paged_attention"] + 1
+    assert torch.equal(kc.cpu(), want_k) and torch.equal(vc.cpu(), want_v)
+    kp, tables = L.dense_pages(kc.float(), Kh)
+    vp, _ = L.dense_pages(vc.float(), Kh)
+    lengths = torch.clamp(cache_len + 1, max=S).to(torch.int32)
+    want = paged_attention_ref(q[:, 0].float(), kp, vp, tables, lengths,
+                               window=0 if ring else window)
+    assert got.shape == (B, 1, H * D) and got.dtype == dtype
+    assert (got.float().view(B, H, D) - want).abs().max().item() <= \
+        DECODE_TOL[dtype]
+
+
+def test_dense_cache_write_chunk_rows(cuda):
+    """A scalar index writes T rows of every lane in one launch, cast from
+    f32 rows into a bf16 cache, exactly as the plain version."""
+    from repro_torch.models import layers as L
+    gen = torch.Generator().manual_seed(1)
+    cache = torch.randn((3, 48, 512), generator=gen).to(cuda, torch.bfloat16)
+    new = torch.randn((3, 11, 512), generator=gen).to(cuda)
+    want = L.cache_write(cache.cpu(), new.cpu(), 29)
+    before = K.launches["cache_write"]
+    L.cache_write(cache, new, 29)
+    torch.cuda.synchronize()
+    assert K.launches["cache_write"] == before + 1
+    assert torch.equal(cache.cpu(), want)
+
+
+def test_dense_mla_decode_runs_the_latent_kernel(cuda):
+    """Absorbed MLA decode in bf16 over a dense [B, S, 576] latent cache
+    (DeepSeek-V2's R + rope): one cache-write launch for the new rows and
+    one latent-row decode launch, no other attention kernel; the output
+    against the same step in f32 on the CPU within 2e-2 of its largest
+    magnitude (bf16 weights, projections and cache rows on the card), the
+    written rows within bf16 rounding of the CPU's."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import mla
+    from repro_torch.models import model as M
+    cfg = dataclasses.replace(get_config("deepseek-v2-236b").reduced(),
+                              kv_lora_rank=512, qk_rope_head_dim=64,
+                              num_heads=16)
+    def layer():                     # bf16 weights (Module.to is in place)
+        return M.init_params(cfg, torch.Generator().manual_seed(0),
+                             dtype=torch.bfloat16).layers[0]
+    gen = torch.Generator().manual_seed(2)
+    B, S = 3, 64
+    lat = (torch.randn((B, S, 576), generator=gen) * 0.5).bfloat16()
+    x = (torch.randn((B, 1, cfg.d_model), generator=gen)).bfloat16()
+    cache_len = torch.tensor([0, 30, 63], dtype=torch.int32)
+    want_lat = lat.float()
+    with torch.inference_mode():
+        want, _ = mla.mla_decode(layer().float(), x.float(), cfg, want_lat,
+                                 cache_len)
+        pc = layer().to(cuda)
+        got_lat = lat.to(cuda)
+        before = dict(K.launches)
+        got, _ = mla.mla_decode(pc, x.to(cuda), cfg, got_lat,
+                                cache_len.to(cuda))
+        torch.cuda.synchronize()
+    ran = {n: K.launches[n] - before[n] for n in before
+           if K.launches[n] != before[n]}
+    assert ran == {"cache_write": 1, "paged_attention_latent": 1}
+    assert got.shape == (B, 1, cfg.d_model) and torch.isfinite(
+        got.float()).all()
+    assert (got.float().cpu() - want).abs().max().item() <= \
+        2e-2 * want.abs().max().item()
+    rows = torch.arange(B)
+    assert (got_lat.float().cpu()[rows, cache_len.long()]
+            - want_lat[rows, cache_len.long()]).abs().max().item() <= \
+        2e-2 * want_lat[rows, cache_len.long()].abs().max().item()

@@ -127,10 +127,24 @@ def test_engine_seeded_sampling_is_batch_invariant(rng, llava):
 
 
 def test_server_refuses_dense_host_caches(llava):
+    """Once refused, the dense host-cache fallback is served now: every
+    pool of ``device_cache=False`` is a host numpy ``PagedCache`` of f32
+    rows, and its greedy streams equal the device-cache engine's."""
     cfg, _, tparams = llava
-    with pytest.raises(NotImplementedError, match="not ported"):
-        Engine(cfg, tparams, DisaggConfig({"EPD": 1}), device="cpu",
-               device_cache=False)
+    reqs = _trace(np.random.default_rng(1), cfg, n=2)
+    outs = []
+    for device_cache in (False, True):
+        eng = Engine(cfg, tparams, DisaggConfig({"EPD": 1}), device="cpu",
+                     device_cache=device_cache)
+        pools = [c for _, c in eng.server.instances[0].caches.seq_pools()]
+        assert all(isinstance(c, PagedCache) != device_cache
+                   and (device_cache or c.data.dtype == np.float32)
+                   for c in pools) and pools
+        outs.append([eng.generate(p, media=m,
+                                  sampling=SamplingParams(max_tokens=4))
+                     .tokens() for p, m in reqs])
+        assert_all_reclaimed(eng.server)
+    assert outs[0] == outs[1]
 
 
 # ---------------------------------------------------------------------------
