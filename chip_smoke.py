@@ -13,10 +13,11 @@ on failure:
             -sass`` that the bf16 attention kernels run on tensor cores
             (HMMA instructions; HGMMA, wgmma, in the latent-row kernel,
             in flash attention's bf16 backward, both bodies, all six
-            (D, Dv) pairs, and in its bf16 forward's wgmma body at the
-            four wide pairs) and from ptxas that
+            (D, Dv) pairs, in its bf16 forward's wgmma body at the
+            four wide pairs, and in the chunked prefill's wgmma body at
+            D = 112, 128 and 160) and from ptxas that
             the latent-row kernel, every flash backward kernel, the
-            forward's wgmma body, the scan's
+            forward's and the prefill's wgmma bodies (no C7520 either), the scan's
             per-head mode, its backward kernels (both modes) and the D =
             160 instances of decode and the chunked-prefill tile do not
             spill;
@@ -30,8 +31,15 @@ on failure:
             D = 64, one split) and on one lane of 4096 keys (many splits),
             at B = 8 with L2 flushed too, and captured in a CUDA graph;
             chunked prefill at whisper-small's decoder shape (64-row chunks
-            with ragged valid rows); the selective scan at falcon-mamba-7b
-            widths (d = 8192, N = 16): prefill B = 1 and 4 at S = 512 from
+            with ragged valid rows), each bf16 chunk on the body its plan
+            names (the profiler's kernel names and the wgmma counter;
+            zamba2-7b's and stablelm-12b's 512-token chunks, later
+            chunks of 1, 16, 32 and 64 rows, the CLI's 16-row chunks,
+            and a window over 8-row pages, 32-row pages past the table
+            and a padded lane at their widths, on the wgmma body
+            paged_prefill_wgmma_kernel, bit-equal on repeat); the
+            selective scan at falcon-mamba-7b widths (d = 8192, N = 16):
+            prefill B = 1 and 4 at S = 512 from
             a nonzero state, decode B = 4 and 8, f32 and bf16, and a tail
             of dt = 0 that must leave the state unchanged; flash attention
             at whisper-small shapes (H = 12, D = 64, 1500 frames: encoder
@@ -174,7 +182,8 @@ on failure:
             81-layer zamba2-7b on P/D instances with falcon-mamba's
             request mix (the scan's per-head mode must launch 68 times a
             decode step and in every prefill call, Mamba-1's scan never,
-            every paged attention and cache-write kernel must launch, each
+            every paged attention and cache-write kernel must launch, its
+            512-token chunks on the chunked prefill's wgmma body, each
             request's KV and 127.8 MB of recurrent state must migrate P ->
             D; device time by kernel of a 512-token prefill chunk and of a
             steady decode step at B = 4); then the serving entry point
@@ -189,7 +198,8 @@ on failure:
             pseudo-embedding, ``/v1/models``, an unknown model's 404, TTFT
             over HTTP), the CLI on full-width 40-layer stablelm-12b P1+D1
             (every attention call a D = 160 instance), and ``--sim`` once
-            (the simulator on the host);
+            (the simulator on the host); every path logs its chunked
+            prefill's launches by body (``prefill_bodies``);
    dense  - (right after LLaVA's main path) the dense host-cache fallback
             (``device_cache=False``) on the same full-width LLaVA-1.5-7B:
             its runner against a paged runner on the same weights (3
@@ -795,7 +805,8 @@ def merge_check(name, tag, m, l, acc, results, *, fused_into: str,
 def prefill_cases(gen, dev, results):
     import torch
     import torch.nn.functional as F
-    from repro_torch.kernels.paged_attention.ops import paged_prefill_attention
+    from repro_torch.kernels.paged_attention.ops import (
+        paged_prefill_attention, prefill_plan)
     from repro_torch.kernels.paged_attention.ref import \
         paged_prefill_attention_ref
     # (tag, ctx per lane (None = padded lane), C, valid rows per lane, H,
@@ -811,7 +822,7 @@ def prefill_cases(gen, dev, results):
              ("whisper-c64", [0, 0, 64, 37], 64, [45, 22, 64, 20], WH, WH,
               WD, 0),
              ("granite-c512", [0, 512], 512, [512, 88], GH, GKH, GD, 0)]
-    errs = []
+    errs, body_errs = [], []       # bf16; of those, on the wgmma body
     for tag, ctx, C, n_valid, Hq, kh, Dh, window in cases:
         if isinstance(n_valid, int):
             n_valid = [n_valid] * len(ctx)
@@ -837,6 +848,12 @@ def prefill_cases(gen, dev, results):
                         rows)
             if dtype == torch.bfloat16:
                 errs.append(err)
+                # the body the plan gives the call (its main paths' chunks)
+                wgmma = prefill_plan(Dh, PAGE) == "wgmma"
+                body = prefill_body(tag, lambda: paged_prefill_attention(
+                    q, kp, vp, tables, ctx_t, window=window), wgmma)["want"]
+                if wgmma:
+                    body_errs.append(err)
             if tag == "media-c1024" and dtype == torch.bfloat16:
                 S = tables.shape[1] * PAGE
                 k = kp[tables.long()].reshape(B, S, kh, D).transpose(1, 2)
@@ -873,13 +890,15 @@ def prefill_cases(gen, dev, results):
                         q, kp, vp, tables, ctx_t)),
                     "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
                         qq, k, v, is_causal=True)),
-                    "bound_ms": b_ms, "bound_by": b_by}
+                    "bound_ms": b_ms, "bound_by": b_by, "body": body}
                 results["paged_prefill_attention"].update(
                     device_ms=time_ms_graph(lambda: paged_prefill_attention(
                         q, kp, vp, tables, ctx_t)),
                     library_device_ms=time_ms_graph(
                         lambda: F.scaled_dot_product_attention(
                             qq, k, v, is_causal=True)))
+                row = results["paged_prefill_attention"]
+                row["bound_share"] = row["bound_ms"] / row["device_ms"]
                 log({"timing": "paged_prefill_attention/media-c1024-bf16",
                      **results["paged_prefill_attention"],
                      "library_masked_ms": masked_ms})
@@ -890,7 +909,7 @@ def prefill_cases(gen, dev, results):
                        "plain_ms": time_ms(lambda: paged_prefill_attention_ref(
                            q, kp, vp, tables, ctx_t)),
                        "device_ms": time_ms_graph(lambda: paged_prefill_attention(
-                           q, kp, vp, tables, ctx_t))}
+                           q, kp, vp, tables, ctx_t)), "body": body}
                 if tag == "granite-c512":  # bound and SDPA beside it
                     # as for the image chunk: every row of the padded
                     # chunk is computed, over the keys its table holds
@@ -905,6 +924,9 @@ def prefill_cases(gen, dev, results):
                 log({"timing": f"paged_prefill_attention/{tag}-bf16", **row})
     results.setdefault("paged_prefill_attention", {})["max_abs_err"] = \
         max(errs)
+    if body_errs:
+        results["paged_prefill_attention"]["wgmma_max_abs_err"] = \
+            max(body_errs)
 
 
 def cache_write_cases(gen, dev, results):
@@ -1514,16 +1536,19 @@ def width_attention_cases(gen, dev, results, tag, Hq, Kh, Dh, cli=False):
     8 (ctx 600-700) and a 512-token chunk (a first one and a later one at
     B = 2), f32 and bf16 (bf16 chunked prefill held against the plain
     version's f32 output); the bf16 calls timed beside their bound, plain
-    version and SDPA on pre-gathered K/V.  zamba2-7b's shared attention
-    (H = Kh = 32, D = 112) and stablelm-12b's (H = 32, Kh = 8, D = 160;
-    ``cli``: also at the shapes its CLI run gives the kernels)."""
+    version and SDPA on pre-gathered K/V; later bf16 chunks of
+    ``SHORT_CHUNKS`` rows on the body the plan names.  zamba2-7b's shared
+    attention (H = Kh = 32, D = 112) and stablelm-12b's (H = 32, Kh = 8, D
+    = 160; ``cli``: also at the shapes its CLI run gives the kernels)."""
     import torch
     from repro_torch.kernels.paged_attention.ops import (
-        paged_attention, paged_prefill_attention)
+        PREFILL_WGMMA_DIMS, paged_attention, paged_prefill_attention,
+        prefill_plan)
     from repro_torch.kernels.paged_attention.ref import (
         paged_attention_ref, paged_prefill_attention_ref)
     dec, pre = f"paged_attention_{tag}", f"paged_prefill_attention_{tag}"
     errs = {dec: [], pre: []}
+    body_errs = []                 # bf16 calls on the wgmma prefill body
     for dtype in (torch.float32, torch.bfloat16):
         lens = [600, 615, 631, 648, 656, 671, 689, 700]
         kp, vp, tables, _ = paged_case(gen, dev, dtype, lens=lens,
@@ -1565,9 +1590,16 @@ def width_attention_cases(gen, dev, results, tag, Hq, Kh, Dh, cli=False):
         def chunk_plain():
             return paged_prefill_attention_ref(q.float(), kp.float(),
                                                vp.float(), tables, ctx_t)
+        got = chunk()
         errs[pre].append(check(f"paged_prefill_attention/{tag}-c512", dtype,
-                               chunk(), chunk_plain()))
+                               got, chunk_plain()))
         if dtype == torch.bfloat16:
+            plan = prefill_plan(Dh, PAGE)
+            if not torch.equal(got, chunk()):
+                raise AssertionError(f"{pre} c512: two calls differ")
+            body = prefill_body(f"{tag}-c512", chunk, plan == "wgmma")
+            if plan == "wgmma":
+                body_errs.append(errs[pre][-1])
             # bytes: q and out whole, the keys each table names; products:
             # the valid rows only (row i < n_valid[b] over its c + i + 1
             # keys), the work this chunk's data needs
@@ -1581,14 +1613,109 @@ def width_attention_cases(gen, dev, results, tag, Hq, Kh, Dh, cli=False):
                    "ms": time_ms(chunk), "device_ms": time_ms_graph(chunk),
                    "plain_ms": time_ms(chunk_plain),
                    **paged_yardstick(q, kp, vp, tables, n_keys, qpos,
-                                     4 * pairs * Hq * Dh)}
+                                     4 * pairs * Hq * Dh),
+                   "body": body["want"], "body_kernels": body["kernels"]}
             row["bound_share"] = row["bound_ms"] / row["device_ms"]
             results[pre] = row
+            log({"timing": f"{pre}/c512", **row})
+    # later chunks shorter than a 128-row block (a prompt's tail), on the
+    # body the plan names
+    for C in SHORT_CHUNKS:
+        ctx, n_valid = [300, 500], [C, C // 2 + 1]
+        kp, vp, tables, _ = paged_case(
+            gen, dev, torch.bfloat16,
+            lens=[c + n for c, n in zip(ctx, n_valid)], n_pages_total=400,
+            Kh=Kh, Dh=Dh)
+        q = torch.randn((len(ctx), C, Hq, Dh), generator=gen,
+                        device=dev).bfloat16()
+        ctx_t = torch.tensor(ctx, dtype=torch.int32, device=dev)
+
+        def short():
+            return paged_prefill_attention(q, kp, vp, tables, ctx_t)
+        got = short()
+        err = check(f"paged_prefill_attention/{tag}-c{C}", torch.bfloat16,
+                    got, paged_prefill_attention_ref(
+                        q.float(), kp.float(), vp.float(), tables, ctx_t))
+        if not torch.equal(got, short()):
+            raise AssertionError(f"{pre} c{C}: two calls differ")
+        wgmma = prefill_plan(Dh, PAGE) == "wgmma"
+        prefill_body(f"{tag}-c{C}", short, wgmma)
+        errs[pre].append(err)
+        if wgmma:
+            body_errs.append(err)
+    if Dh in PREFILL_WGMMA_DIMS:
+        body_errs.append(wgmma_prefill_cases(gen, dev, tag, Hq, Kh, Dh))
+        errs[pre].append(body_errs[-1])
+        results[pre]["wgmma_max_abs_err"] = max(body_errs)
     for name, e in errs.items():
         results[name]["max_abs_err"] = max(e)
     if cli:
         for name, e in cli_shape_cases(gen, dev, tag, Hq, Kh, Dh).items():
             results[name]["cli_max_abs_err"] = e
+
+
+# later chunks under one 128-row block at each model's widths (ctx 300 /
+# 500; a prompt's tail pads to a power of two)
+SHORT_CHUNKS = (1, 16, 32, 64)
+
+# bf16 chunks the plan sends to the wgmma body, beyond the timed c512 one:
+# (C, ctx per lane, window, page, max_pages, padded lanes): a window over
+# 8-row pages, 32-row pages with keys past the table, a padded lane and a
+# lane whose window lies past its table
+WGMMA_PREFILL = [(300, [30, 7], 40, 8, 42, ()),
+                 (129, [0, 96], 0, 32, 4, ()),
+                 (150, [10, 300, 0], 25, 16, 10, (2,))]
+
+
+def wgmma_prefill_cases(gen, dev, tag, Hq, Kh, Dh) -> float:
+    """The wgmma prefill body at one model's widths on WGMMA_PREFILL:
+    against the plain version's f32 output (the bf16 bar) on the rows that
+    see a key, exactly 0 on the rest, bit-equal on repeat, on the body
+    (:func:`prefill_body`).  Returns the largest error."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels.paged_attention.ops import (
+        paged_prefill_attention, prefill_plan)
+    from repro_torch.kernels.paged_attention.ref import \
+        paged_prefill_attention_ref
+    worst = 0.0
+    for C, ctx, window, page, max_pages, padded in WGMMA_PREFILL:
+        n_pages = len(ctx) * max_pages + 1
+        kp, vp = (torch.randn((n_pages, page, Kh, Dh), generator=gen,
+                              device=dev).bfloat16() for _ in range(2))
+        tables = np.full((len(ctx), max_pages), n_pages - 1, np.int32)
+        free = list(np.random.default_rng(C).permutation(n_pages - 1))
+        for b, c in enumerate(ctx):
+            if b not in padded:
+                for j in range(min(max_pages, -(-(c + C) // page))):
+                    tables[b, j] = free.pop()
+        tables = torch.from_numpy(tables).to(dev)
+        q = torch.randn((len(ctx), C, Hq, Dh), generator=gen,
+                        device=dev).bfloat16()
+        ctx_t = torch.tensor(ctx, dtype=torch.int32, device=dev)
+        case = f"{tag}-c{C}-p{page}-w{window}"
+        if prefill_plan(Dh, page) != "wgmma":
+            raise AssertionError(f"{case}: not planned on the wgmma body")
+
+        def call():
+            return paged_prefill_attention(q, kp, vp, tables, ctx_t,
+                                           window=window)
+        got = call()
+        want = paged_prefill_attention_ref(q.float(), kp.float(), vp.float(),
+                                           tables, ctx_t, window=window)
+        qpos = ctx_t.long()[:, None] + torch.arange(C, device=dev)
+        key = torch.arange(max_pages * page, device=dev)
+        vis = key[None, None] <= qpos[:, :, None]
+        if window:
+            vis &= key[None, None] > qpos[:, :, None] - window
+        seen = vis.any(-1)
+        if got[~seen].any() or not torch.equal(got, call()):
+            raise AssertionError(f"paged_prefill_attention/{case}: rows "
+                                 f"without keys not 0, or two calls differ")
+        worst = max(worst, check(f"paged_prefill_attention/{case}",
+                                 torch.bfloat16, got[seen], want[seen]))
+        prefill_body(case, call, True)
+    return worst
 
 
 # the shapes stablelm-12b's CLI run (six 16-token prompts, 12 new tokens)
@@ -1642,6 +1769,11 @@ def cli_shape_cases(gen, dev, tag, Hq, Kh, Dh):
                 ops.paged_prefill_attention(q, kp, vp, tables, ctx_t),
                 paged_prefill_attention_ref(q.float(), kp.float(),
                                             vp.float(), tables, ctx_t)))
+            if dtype == torch.bfloat16:
+                prefill_body(f"{tag}-cli-b{B}-c16",
+                             lambda: ops.paged_prefill_attention(
+                                 q, kp, vp, tables, ctx_t),
+                             ops.prefill_plan(Dh, PAGE) == "wgmma")
     return {name: max(e) for name, e in errs.items()}
 
 
@@ -1782,9 +1914,11 @@ def sass_hmma(card: str):
     """Count the tensor-core instructions in each bf16 attention kernel's
     SASS (``cuobjdump -sass`` of the built libraries): HMMA (mma.sync) in
     the attn_mma.cuh tiles, HGMMA (wgmma) in the latent-row kernel, in
-    flash attention's backward (``flash_bwd_*_wgmma_kernel``) and in its
-    forward's wgmma body (``flash_fwd_wgmma_kernel``); fails when one has
-    none of its kind, or when a backward or forward instance is missing."""
+    flash attention's backward (``flash_bwd_*_wgmma_kernel``), in its
+    forward's wgmma body (``flash_fwd_wgmma_kernel``) and in the chunked
+    prefill's (``paged_prefill_wgmma_kernel``, D = 112, 128 and 160);
+    fails when one has none of its kind, or when a backward or forward or
+    prefill instance is missing."""
     import shutil
     from repro_torch.kernels import _build
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -1814,6 +1948,10 @@ def sass_hmma(card: str):
     if len(fwd) != 4:
         # (D, Dv) = (112, 112), (160, 160), (192, 128), (256, 256)
         raise AssertionError(f"flash forward wgmma kernels in SASS: {fwd}")
+    pre = [n for n in hgmma if "paged_prefill_wgmma_kernel" in n]
+    if len(pre) != 3:
+        # D = 112, 128, 160
+        raise AssertionError(f"paged prefill wgmma kernels in SASS: {pre}")
 
 
 def check_ptxas(logs: dict):
@@ -1836,14 +1974,17 @@ def check_ptxas(logs: dict):
     ``_wide_``; the f32 ones at all six (D, Dv) pairs); when the flash
     forward's wgmma body (``flash_fwd_wgmma_kernel`` at (112, 112), (160,
     160), (192, 128) and (256, 256)) spills, carries C7520 or lacks one of
-    its four instances; and when a flash forward instance of the mma.sync
+    its four instances; when the chunked prefill's wgmma body
+    (``paged_prefill_wgmma_kernel`` at D = 112, 128 and 160) spills,
+    carries C7520 or lacks one of its three; and when a flash forward
+    instance of the mma.sync
     tile or the f32 body spills more than :data:`FLASH_FWD_SPILL` allows
     it, or one of its 36 was not built (``flash_mma_kernel<D, NW, DV>`` at
     NW 1 and 4, ``flash_kernel<D, DV, TM>`` at TM 1, 2, 4 and 8, each at
     the six pairs)."""
     import re
     d160 = set()
-    bwd, fwd_wgmma = [], []
+    bwd, fwd_wgmma, pre_wgmma = [], [], []
     fwd = {}
     for name, text in logs.items():
         report = ptxas_report(text)
@@ -1857,6 +1998,11 @@ def check_ptxas(logs: dict):
                 key = ((m[1], a, c, b) if m[1] == "flash_mma_kernel" else
                        (m[1], a, b, c))
                 fwd[key] = k["spill_bytes"]
+            if "paged_prefill_wgmma_kernel" in k["fn"]:
+                pre_wgmma.append(k)
+                if k["spill_bytes"] or "C7520" in k["notes"]:
+                    raise AssertionError(f"{k['fn']} spills or ptxas "
+                                         f"serializes its wgmma: {k}")
             if "flash_bwd" in k["fn"] or \
                     "flash_fwd_wgmma_kernel" in k["fn"]:
                 (bwd if "flash_bwd" in k["fn"] else fwd_wgmma).append(k)
@@ -1886,7 +2032,11 @@ def check_ptxas(logs: dict):
         # Mamba-1's backward x 2 types x N = 4, 8, 16; the per-head
         # mode's x 2 types (N = 64); the fold x 2 output types
         raise AssertionError(f"scan backward kernels built: {scan_bwd}")
-    log({"ptxas_flash_bwd": bwd, "ptxas_flash_fwd_wgmma": fwd_wgmma})
+    log({"ptxas_flash_bwd": bwd, "ptxas_flash_fwd_wgmma": fwd_wgmma,
+         "ptxas_paged_prefill_wgmma": pre_wgmma})
+    if len({k["fn"] for k in pre_wgmma}) != 3:
+        raise AssertionError(f"paged prefill wgmma kernels built: "
+                             f"{pre_wgmma}")
     if len({k["fn"] for k in fwd_wgmma}) != 4:
         raise AssertionError(f"flash forward wgmma kernels built: "
                              f"{fwd_wgmma}")
@@ -2147,18 +2297,19 @@ WGMMA_MASKS = [(2, 64, 16, 200, 200, True, 0, 0),
                (1, 128, 64, 70, 100, True, 8, -20)]
 
 
-def flash_kernels_run(fn, reps: int = 5) -> set:
-    """Names of the flash attention kernels that ``fn`` launches, from a
-    torch.profiler trace of ``reps`` calls (after a warm-up call), as
-    :func:`device_ms_by_kernel` traces them: within the smoke's run, traces
-    of one call came back without their kernel every time.  None when no
-    try of :func:`kernel_trace` showed a flash kernel."""
+def kernels_run(fn, reps: int = 5, part: str = "flash") -> set:
+    """Names of the kernels whose names hold ``part`` (flash attention's by
+    default) that ``fn`` launches, from a torch.profiler trace of ``reps``
+    calls (after a warm-up call), as :func:`device_ms_by_kernel` traces
+    them: within the smoke's run, traces of one call came back without
+    their kernel every time.  None when no try of :func:`kernel_trace`
+    showed such a kernel."""
     import torch
 
     def names(prof):
         return {e.key for e in prof.key_averages()
                 if e.device_type == torch.autograd.DeviceType.CUDA
-                and "flash" in e.key}
+                and part in e.key}
 
     def run():
         for _ in range(reps):
@@ -2171,14 +2322,14 @@ def flash_kernels_run(fn, reps: int = 5) -> set:
 def check_body(tag: str, fn, wgmma: bool) -> dict:
     """Which forward body ``fn`` (a bf16 flash forward) runs, by the launch
     counter ``flash_attention_wgmma`` over one call and by the profiler's
-    kernel names (:func:`flash_kernels_run`): ``flash_fwd_wgmma_kernel``
+    kernel names (:func:`kernels_run`): ``flash_fwd_wgmma_kernel``
     when ``wgmma``, else ``flash_mma_kernel``; fails otherwise, and when
     no trace showed a flash kernel."""
     from repro_torch import kernels as K
     n = K.launches["flash_attention_wgmma"]
     fn()
     routed = K.launches["flash_attention_wgmma"] - n
-    ran = flash_kernels_run(fn)
+    ran = kernels_run(fn)
     want, other = (("flash_fwd_wgmma_kernel", "flash_mma_kernel") if wgmma
                    else ("flash_mma_kernel", "flash_fwd_wgmma_kernel"))
     seen = ran is not None and (any(want in k for k in ran)
@@ -2188,6 +2339,39 @@ def check_body(tag: str, fn, wgmma: bool) -> dict:
     log(row)
     if routed != int(wgmma) or not seen:
         raise AssertionError(f"flash forward {tag}: ran {ran}, wgmma "
+                             f"launches {routed}, want {want}")
+    return row
+
+
+def prefill_split(launches: dict) -> dict:
+    """A path's bf16 chunked-prefill launches by body: the wgmma body's
+    (``paged_prefill_attention_wgmma``) and the rest of
+    ``paged_prefill_attention``'s (the mma.sync tile, or f32)."""
+    w = launches.get("paged_prefill_attention_wgmma", 0)
+    return {"wgmma": w, "tile_or_f32": launches["paged_prefill_attention"] - w}
+
+
+def prefill_body(tag: str, fn, wgmma: bool) -> dict:
+    """Which body ``fn`` (a bf16 chunked prefill) runs, by the launch
+    counter ``paged_prefill_attention_wgmma`` over one call and by the
+    profiler's kernel names: ``paged_prefill_wgmma_kernel`` when
+    ``wgmma``, else ``paged_prefill_mma_kernel``; fails otherwise, and when
+    no trace showed a paged-prefill kernel."""
+    from repro_torch import kernels as K
+    n = K.launches["paged_prefill_attention_wgmma"]
+    fn()
+    routed = K.launches["paged_prefill_attention_wgmma"] - n
+    ran = kernels_run(fn, part="paged_prefill")
+    want, other = (("paged_prefill_wgmma_kernel", "paged_prefill_mma_kernel")
+                   if wgmma else
+                   ("paged_prefill_mma_kernel", "paged_prefill_wgmma_kernel"))
+    seen = ran is not None and (any(want in k for k in ran)
+                                and not any(other in k for k in ran))
+    row = {"prefill_body": tag, "want": want, "wgmma_launches": routed,
+           "kernels": None if ran is None else sorted(ran)}
+    log(row)
+    if routed != int(wgmma) or not seen:
+        raise AssertionError(f"paged prefill {tag}: ran {ran}, wgmma "
                              f"launches {routed}, want {want}")
     return row
 
@@ -3283,6 +3467,7 @@ def serve(seed: int, card: str):
     reading = {"wall_s": wall, **request_metrics(rs),
                "migrations": srv.n_migrations,
                "migrated_bytes": srv.migrated_bytes, "launches": launches,
+               "prefill_bodies": prefill_split(launches),
                "greedy_tokens_req0": outs[0]}
     log({"main_path": "Engine E1+P1+D1, llava-1.5-7b bf16, 5 requests x "
                       "(576 image tokens + 32 prompt tokens), 16 new tokens",
@@ -3402,20 +3587,22 @@ def dense_model_check(arch: str, overrides: dict, seed: int) -> dict:
     return launches
 
 
-def dense_vs_paged(cfg, params, seed: int, card: str) -> dict:
-    """Full-width LLaVA-1.5-7B, bf16: a paged and a dense (host-cache)
-    runner on the same weights take the same encode, two prefill chunks
-    (the image, then 32 prompt tokens) and 8 decode steps for 3 requests,
-    each step fed the paged runner's greedy tokens; the dense logits held
-    within ``DENSE_REL`` of the paged ones' largest magnitude each step.
-    Returns the dense runner's launches; logs each step's error and both
-    runners' wall time a call."""
+def dense_vs_paged(cfg, params, seed: int, card: str, dtype=None) -> dict:
+    """Full-width LLaVA-1.5-7B, bf16 (or ``dtype``, the weights' type): a
+    paged and a dense (host-cache) runner on the same weights take the
+    same encode, two prefill chunks (the image, then 32 prompt tokens) and
+    8 decode steps for 3 requests, each step fed the paged runner's greedy
+    tokens; the dense logits held within ``DENSE_REL`` of the paged ones'
+    largest magnitude each step (and, in f32, logged against the f32
+    model checks' bar of 2e-4).  Returns the dense runner's launches; logs
+    each step's error and both runners' wall time a call."""
     import numpy as np
     import torch
     from repro_torch import kernels as K
     from repro_torch.engine import runner as R
+    dtype = dtype or torch.bfloat16
     runners = {dc: R.ModelRunner(cfg, params, R.RunnerCaches(
-        cfg, kv_blocks=128, img_blocks=4, dtype=torch.bfloat16,
+        cfg, kv_blocks=128, img_blocks=4, dtype=dtype,
         device="cuda", device_cache=dc), device="cuda")
         for dc in (True, False)}      # 3 requests of 40 blocks at most
     reqs = llava_requests(cfg, seed)[:3]
@@ -3455,11 +3642,14 @@ def dense_vs_paged(cfg, params, seed: int, card: str) -> dict:
     for _ in range(8):
         toks = np.argmax(step("decode", lambda r: r.decode(rids, toks)), -1)
     dense_launched(launches, "dense runner", scan=False, attn=True)
-    log({"dense_vs_paged": "llava-1.5-7b bf16 full width, 3 requests: "
+    log({"dense_vs_paged": f"llava-1.5-7b {dname(dtype)} full width "
+                           f"({cfg.num_layers} layers), 3 requests: "
                            "encode, image chunk, 32-token chunk, 8 decode "
                            "steps teacher-forced by the paged runner",
          "card": card, "rel_logit_err_by_step": errs,
          "max_rel_logit_err": max(errs), "bar": DENSE_REL,
+         **({"within_f32_bar_2e-4": max(errs) <= 2e-4}
+            if dtype == torch.float32 else {}),
          "wall_s_by_call": wall,
          "dense_launches": {n: c for n, c in launches.items() if c}})
     for r in runners.values():
@@ -3513,6 +3703,7 @@ def serve_dense(seed: int, card: str, paged: dict) -> dict:
          "card": card, "wall_s": wall, **request_metrics(rs),
          "migrations": srv.n_migrations,
          "migrated_bytes": srv.migrated_bytes, "launches": launches,
+         "prefill_bodies": prefill_split(launches),
          "wall_split": split, "greedy_tokens_req0": outs[0],
          "host_pool_gb": host_gb,
          "greedy_req0_equal_paged": outs[0] == paged["greedy_tokens_req0"],
@@ -3596,6 +3787,7 @@ def serve_mamba(seed: int, card: str):
          "prompt_tokens": [len(p) for p, _, _ in reqs],
          "migrations": srv.n_migrations, "migrated_bytes": srv.migrated_bytes,
          "state_bytes_per_request": state_bytes, "launches": launches,
+         "prefill_bodies": prefill_split(launches),
          "scan_calls_by_shape": scan_shapes, "wall_split": split,
          "greedy_tokens_req0": outs[0]})
 
@@ -3694,7 +3886,8 @@ def serve_moe(arch: str, seed: int, card: str):
          "card": card, "wall_s": wall, **request_metrics(rs),
          "prompt_tokens": [len(p) for p, _, _ in reqs],
          "migrations": srv.n_migrations, "migrated_bytes": srv.migrated_bytes,
-         "launches": launches, "wall_split": split,
+         "launches": launches,
+         "prefill_bodies": prefill_split(launches), "wall_split": split,
          "greedy_tokens_req0": outs[0]})
 
     # one decode step at B = 4 over random cached rows (context 400) and
@@ -3810,7 +4003,7 @@ def serve_zamba(seed: int, card: str):
             for n, fn in saved.items():
                 setattr(runner.ModelRunner, n, fn)
     for name in ("selective_scan_heads", "cache_write", "paged_attention",
-                 "paged_prefill_attention"):
+                 "paged_prefill_attention", "paged_prefill_attention_wgmma"):
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} never launched on the "
                                  f"zamba2-7b main path")
@@ -3845,6 +4038,7 @@ def serve_zamba(seed: int, card: str):
          "migrations": srv.n_migrations, "migrated_bytes": srv.migrated_bytes,
          "state_bytes_per_request": state_bytes,
          "kv_bytes_per_token": row_bytes, "launches": launches,
+         "prefill_bodies": prefill_split(launches),
          "scan_heads_by_stage": stages, "wall_split": split,
          "greedy_tokens_req0": outs[0]})
 
@@ -3957,7 +4151,8 @@ def serve_whisper(seed: int, card: str):
          "migrations": srv.n_migrations, "migrated_bytes": srv.migrated_bytes,
          "migrated_bytes_per_request": srv.migrated_bytes / len(reqs),
          "cross_state_bytes_per_request": cross_bytes,
-         "launches": launches, "wall_split": split,
+         "launches": launches,
+         "prefill_bodies": prefill_split(launches), "wall_split": split,
          "greedy_tokens_req0": outs[0]})
 
     d = next(i for i in srv.instances if i.role_name == "D")
@@ -4034,7 +4229,8 @@ def serve_cli(argv: list, card: str) -> dict:
          "kv_heads": cfg.num_kv_heads, "head_dim": cfg.head_dim,
          "wall_s_with_weights": wall, "serve_wall_s": float(m[2]),
          "migrations": int(m[3]), "migrated_mb": float(m[4]),
-         "launches": launches})
+         "launches": launches,
+         "prefill_bodies": prefill_split(launches)})
     return launches
 
 
@@ -4158,7 +4354,8 @@ def serve_http(card: str) -> dict:
                        "E1+P1+D1 bf16, one image + 3 words, 12 greedy tokens",
          "card": card, "setup_s": setup_s, "complete_s": complete_s,
          "ttft_http_s": ttft, "stream_s": stream_s, "tokens": toks,
-         "launches": launches})
+         "launches": launches,
+         "prefill_bodies": prefill_split(launches)})
     return launches
 
 
@@ -4331,6 +4528,12 @@ def main() -> int:
     launches["selective_scan_heads"] = zamba["selective_scan_heads"]
     for name in ("paged_attention", "paged_prefill_attention"):
         launches[f"{name}_zamba2"] = zamba[name]
+    # the wgmma prefill body: its launches on each main path
+    wgmma_by_path = {"llava-1.5-7b": launches["paged_prefill_attention_wgmma"],
+                     "zamba2-7b": zamba["paged_prefill_attention_wgmma"]}
+    if not all(wgmma_by_path.values()):
+        raise AssertionError(f"the wgmma prefill body did not launch on a "
+                             f"main path: {wgmma_by_path}")
     gc.collect()
     torch.cuda.empty_cache()
     # the serving entry point: the CLI and the HTTP front on full-width
@@ -4351,6 +4554,20 @@ def main() -> int:
                      ["--arch", "stablelm-12b", "--disagg", "P1,D1"], card)
     for name in ("paged_attention", "paged_prefill_attention"):
         launches[f"{name}_d160"] = stablelm[name]
+    wgmma_by_path["stablelm-12b cli"] = stablelm["paged_prefill_attention_wgmma"]
+    launches["paged_prefill_attention_wgmma"] = sum(wgmma_by_path.values())
+    for sfx, path in (("zamba2", zamba), ("d160", stablelm)):
+        results[f"paged_prefill_attention_{sfx}"]["wgmma_launches"] = \
+            path["paged_prefill_attention_wgmma"]
+    # the body's row: zamba2-7b's timed chunk, stablelm-12b's and LLaVA's
+    # image chunk beside it
+    rows = [results[f"paged_prefill_attention{sfx}"]
+            for sfx in ("_zamba2", "_d160", "")]
+    results["paged_prefill_attention_wgmma"] = {
+        **rows[0], "launches_by_path": wgmma_by_path,
+        "max_abs_err": max(r["wgmma_max_abs_err"] for r in rows
+                           if "wgmma_max_abs_err" in r),
+        "other_shapes": rows[1:]}
     gc.collect()
     torch.cuda.empty_cache()
     timed("serve_sim", serve_sim, card)
@@ -4435,6 +4652,11 @@ def main() -> int:
            "paged_prefill_attention_d160": (
                "src/repro_torch/csrc/paged_attention.cu",
                "src/repro/kernels/paged_attention/kernel.py:162"),
+           # bf16 chunks at D = 112, 128 and 160 (pages of 8-32 rows) on the
+           # wgmma body (attn_wgmma.cuh), K/V read from the pages by TMA
+           "paged_prefill_attention_wgmma": (
+               "src/repro_torch/csrc/paged_attention.cu",
+               "src/repro/kernels/paged_attention/kernel.py:162"),
            # flash attention and its gradient at the other training widths:
            # zamba2-7b's D = 112, stablelm-12b's 160, gemma3-4b's 256 and
            # DeepSeek-V2's MLA (192, 128)
@@ -4476,7 +4698,8 @@ def main() -> int:
                             "device_ms_by_kernel", "library_fwd_ms",
                             "library_fwd_device_ms", "other_shapes",
                             "occupancy", "fwd_bound_ms", "library_error",
-                            "body", "wgmma_launches")
+                            "body", "wgmma_launches", "body_kernels",
+                            "launches_by_path", "wgmma_max_abs_err")
                            if key in r}})
     log({"total_s": time.perf_counter() - t_start, "card": card})
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -44,13 +44,16 @@
 // bytes of K and V, which the callers attack with more blocks (split-KV in
 // flash attention).  mma.sync, not wgmma: its 16-row M fits the short
 // tiles of the serving path (decode rows, 32-row text chunks, folded GQA
-// rows), and paged K/V rows (2 * D bytes, strided by Kh * D across pages)
-// are not one TMA box.  Flash attention's long bf16 calls at the wide
-// head dims (D = 112, 160, 256 and MLA's 192 / 128, whose grids need no
-// split) run a wgmma + TMA + warp-specialised body instead
-// (flash_attention.cu, fwd::flash_fwd_wgmma_kernel), which reuses this
-// file's softmax_tile; this tile keeps paged prefill, flash's decode rows
-// and split grids, and D = 64 and 128.
+// rows).  Long bf16 calls at the wide head dims run the wgmma + TMA +
+// warp-specialised body of attn_wgmma.cuh instead, which reuses this
+// file's softmax_tile: flash attention's at D = 112, 160, 256 and MLA's
+// 192 / 128 whose grids need no split (flash_attention.cu,
+// fwd::flash_fwd_wgmma_kernel), and paged prefill's chunks of 128 rows or
+// more at D = 112, 128 and 160 (paged_attention.cu,
+// pwg::paged_prefill_wgmma_kernel, whose TMA boxes are one page of one KV
+// head each).  This tile keeps shorter paged chunks, paged prefill at D =
+// 64, 80 and 256, flash's decode rows and split grids, and flash's D = 64
+// and 128.
 #pragma once
 
 #include "cp_async.cuh"

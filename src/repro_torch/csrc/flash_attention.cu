@@ -74,6 +74,7 @@
 // blockwise_attention) with jax.value_and_grad.
 #include "attn_mma.cuh"
 #include "attn_merge.cuh"
+#include "attn_wgmma.cuh"
 #include "hopper.cuh"
 
 #include <cuda_runtime.h>
@@ -642,9 +643,8 @@ flash_bwd_delta_kernel(const T* __restrict__ out, const T* __restrict__ dout,
   if (lane == 0) delta[row] = sum;
 }
 
-__device__ __forceinline__ bool sees(int qpos, int key, int causal, int window) {
-  return (!causal || key <= qpos) && (window <= 0 || key > qpos - window);
-}
+using wgattn::key_tiles;
+using wgattn::sees;
 
 // The query rows [lo, hi) that can see a key of [k0, k0 + n): none when
 // hi <= lo.
@@ -654,49 +654,27 @@ __device__ __forceinline__ void query_range(int k0, int n, int Sq, int causal, i
   hi = window > 0 ? min(Sq, k0 + n - 1 + window - kv_offset) : Sq;
 }
 
-// The key tiles [kt_begin, kt_end) of `bk` keys that query rows [q0, q0 +
-// rows) can see, as the forward walks them.
-__device__ __forceinline__ void key_tiles(int q0, int rows, int Sk, int bk, int causal,
-                                          int window, int kv_offset, int& kt_begin,
-                                          int& kt_end) {
-  const int q_lo = kv_offset + q0, q_hi = kv_offset + q0 + rows - 1;
-  const int k_end = causal ? min(Sk, q_hi + 1) : Sk;
-  const int k_begin = window > 0 ? max(0, q_lo - window + 1) : 0;
-  kt_begin = k_begin / bk;
-  kt_end = k_end > k_begin ? (k_end + bk - 1) / bk : kt_begin;
-}
-
 namespace bwd {
 
 using namespace hopper;
-
-constexpr int BM = 64;                 // a consumer warpgroup's own rows (wgmma's M)
-constexpr int BLOCK = 2 * BM;          // a block's own rows: keys (dK/dV) or query rows (dQ)
-constexpr int BN = 64;                 // rows of a streamed tile
+// a block's own rows (BLOCK = 2 BM): keys (dK/dV) or query rows (dQ); the
+// rest as the forward body's (attn_wgmma.cuh)
+using wgattn::BLOCK;
+using wgattn::BM;
+using wgattn::BN;
+using wgattn::BOX;
+using wgattn::CONSUMER_REGS;
+using wgattn::CONSUMERS;
+using wgattn::EDGE;
+using wgattn::EMPTY;
+using wgattn::FULL;
+using wgattn::opaque;
+using wgattn::PRODUCER_REGS;
+using wgattn::SMEM_MAX;
+using wgattn::smem;
+using wgattn::THREADS;
+using wgattn::tile_kind;
 constexpr int STAGES = 3;
-constexpr int THREADS = 384;           // two consumer warpgroups and a producer warpgroup
-constexpr int CONSUMERS = 256;
-constexpr int CONSUMER_REGS = 240;     // setmaxnreg: 256 x 240 + 128 x 24 = 64,512
-constexpr int PRODUCER_REGS = 24;
-constexpr int BOX = BN * 128;          // bytes of 64 rows of one 64-column chunk
-enum Kind { EMPTY = 0, EDGE = 1, FULL = 2 };
-
-// How the mask meets the tile of query rows [q0, q0 + nq) and keys [k0,
-// k0 + nk), by the rule of sees(): EMPTY when no pair is visible (rows at
-// or past Sq and keys at or past Sk are no pair), FULL when every pair of
-// the whole tile is (none past an edge), else EDGE.  Only EDGE tiles
-// compute a mask.  kernels/flash_attention/ops.py keeps a copy
-// (tile_kind) that the CPU tests hold against the mask.
-__device__ __forceinline__ int tile_kind(int q0, int nq, int k0, int nk, int Sq, int Sk,
-                                         int causal, int window, int kv_offset) {
-  const int rq = min(nq, Sq - q0), rk = min(nk, Sk - k0);
-  if (rq <= 0 || rk <= 0) return EMPTY;
-  const int q_lo = kv_offset + q0, q_hi = q_lo + rq - 1, k_hi = k0 + rk - 1;
-  if ((causal && k0 > q_hi) || (window > 0 && k_hi <= q_lo - window)) return EMPTY;
-  const bool all = rq == nq && rk == nk && (!causal || k_hi <= q_lo) &&
-                   (window <= 0 || k0 > q_hi - window);
-  return all ? FULL : EDGE;
-}
 
 struct Params {
   const float* lse;                    // [B, H, Sq] f32, natural units
@@ -733,13 +711,6 @@ struct alignas(1024) DqSmem {
   bf16 v[STAGES][DC][BN * 64];
   uint64_t full[STAGES], empty[STAGES], qd_full;
 };
-
-template <class Smem>
-__device__ __forceinline__ Smem& smem() {
-  extern __shared__ unsigned char smem_raw[];
-  return *reinterpret_cast<Smem*>((reinterpret_cast<uintptr_t>(smem_raw) + 1023) &
-                                  ~uintptr_t(1023));
-}
 
 // acc[64 x 64] = A B^T over D (a multiple of 16; columns past D may be
 // padding): A's 64 rows at a (chunks a_chunk bytes apart), B's 64 rows at
@@ -1165,7 +1136,6 @@ flash_bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
 // and each gradient element is one block's sum over the tiles in a fixed
 // order: the first body's bits.
 constexpr int BAR_HALF = 1;  // named barriers 1-4: a warpgroup's half of P / dS is written
-constexpr size_t SMEM_MAX = 232448;   // a block's shared memory on Hopper
 
 template <int W>
 struct Half {                          // a consumer warpgroup's columns of a W-wide gradient
@@ -1217,14 +1187,6 @@ __device__ __forceinline__ void put_half(bf16* buf, const uint32_t (&f)[4][2], i
       const int r = warp * 16 + g + 8 * i;   // r % 8 == g
       w[r * 32 + (((col0 / 8 + n) ^ g) << 2) + t4] = f[n][i];
     }
-}
-
-// x, as a value the compiler cannot carry from one step of the tile loop to
-// the next: it keeps the products' descriptors (two registers each, 32 for
-// the scores at D = 256) from being hoisted out of the loop and held
-__device__ __forceinline__ uint32_t opaque(uint32_t x) {
-  asm volatile("" : "+r"(x));
-  return x;
 }
 
 // acc[64 x 32] = A B^T over KD columns: A's 64 rows at a (chunks of 64
@@ -2136,47 +2098,35 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* dout
 // l summing the rounded P.  The tile's bits are not kept (the products sum
 // in another order).
 //
-// A block owns (b, h, 128 query rows): two consumer warpgroups of 64 rows
-// and a producer warpgroup, one thread of which issues every copy.  Q is
-// loaded once; K and V tiles of BN = 64 keys stream through a ring of ST
-// shared-memory stages by TMA from 4-D tensor maps over the tensors' own
-// strides (heads_map: rows past Sq / Sk and columns past D read as zeros,
-// so D = 112's second and D = 160's third 64-column box are part zeros),
-// each stage's arrival counted on its mbarrier and its release by the 8
-// consumer warps on another.  setmaxnreg gives the producer warpgroup's
-// registers to the consumers (256 x 240 + 128 x 24).  Per key tile, each
-// consumer warpgroup
-//   1. computes S = Q K^T [64 rows x 64 keys] on wgmma m64n64k16, both
-//      operands K-major in shared memory (the maps' 128-byte swizzle),
-//      over the D real columns only (7 k-steps at 112, 10 at 160);
-//   2. runs the online softmax in f32 registers in log2 units (the mma.sync
-//      tile's softmax_tile: exp2 with the 1/sqrt(D) log2(e) scale folded
-//      into its FMA, a mask only on tiles bwd::tile_kind calls EDGE, EMPTY
-//      tiles skipped), rescales O and rounds P to bf16 A fragments;
-//   3. adds P V [64 x DV] on wgmma m64n{DV}k16 with P in registers and the
-//      V tile read MN-major where it lies: no transposed copy of V and no
-//      round trip of P through shared memory.
-// Registers a consumer thread: O DV / 2 f32 (56, 80, 64, 128), S 32, P 16
-// bf16 pairs, the two rows' m and l.  Shared memory (1 block an SM): Q
-// 128 x D bf16 in 64-column chunks (32, 48, 48, 64 KB) + ST stages of 64
-// x (D + DV) (32, 48, 40, 64 KB): ST = 4, 3, 4, 2 (160, 192, 208, 192 KB
-// of the 227).  The grid runs in bwd::wide_block's order over (b, KV
-// head) groups: chunks of groups whose K and V fit 40 MB of L2 together,
-// each chunk block-major, a causal head's last (longest) query blocks
-// first.  Bound: operations, the two products (2 (D + DV) FLOP a visible
-// pair) at the bf16 tensor-core peak, and one exponential a pair.
+// A block owns (b, h, 128 query rows) and runs attn_wgmma.cuh's body: two
+// consumer warpgroups of 64 rows (wgattn::consume: S = Q K^T on wgmma
+// m64n64k16 over the D real columns, the online softmax with a mask only
+// on EDGE tiles and EMPTY tiles skipped, O += P V with P in registers and
+// V read MN-major) and a producer warpgroup, one thread of which issues
+// every copy: Q once, then K and V tiles of BN = 64 keys through the
+// ring, from 4-D tensor maps over the tensors' own strides (heads_map:
+// rows past Sq / Sk and columns past D read as zeros).  setmaxnreg gives
+// the producer warpgroup's registers to the consumers (256 x 240 + 128 x
+// 24).  Registers a consumer thread: O DV / 2 f32 (56, 80, 64, 128), S
+// 32, P 16 bf16 pairs, the two rows' m and l.  Shared memory (1 block an
+// SM): Q 128 x D bf16 in 64-column chunks (32, 48, 48, 64 KB) + ST stages
+// of 64 x (D + DV) (32, 48, 40, 64 KB): ST = 4, 3, 4, 2 (160, 192, 208,
+// 192 KB of the 227).  The grid runs in bwd::wide_block's order over (b,
+// KV head) groups: chunks of groups whose K and V fit 40 MB of L2
+// together, each chunk block-major, a causal head's last (longest) query
+// blocks first.  Bound: operations, the two products (2 (D + DV) FLOP a
+// visible pair) at the bf16 tensor-core peak, and one exponential a pair.
 namespace fwd {
 
 using namespace hopper;
-using bwd::BM;
-using bwd::BLOCK;
-using bwd::BN;
-using bwd::BOX;
-using bwd::CONSUMERS;
-using bwd::EMPTY;
-using bwd::FULL;
+using wgattn::BLOCK;
+using wgattn::BM;
+using wgattn::BN;
+using wgattn::BOX;
+using wgattn::CONSUMERS;
+using wgattn::FwdSmem;
 
-constexpr int THREADS = bwd::THREADS;
+constexpr int THREADS = wgattn::THREADS;
 
 // the pairs this body is built for; the rest run the mma.sync tile (attn_mma.cuh)
 template <int D, int DV>
@@ -2192,58 +2142,6 @@ struct Params {
   int chunk;                           // (b, KV head) groups a chunk of the grid (wide_block)
 };
 
-template <int D, int DV, int ST>
-struct alignas(1024) FwdSmem {
-  static constexpr int CK = (D + 63) / 64, CV = (DV + 63) / 64;   // 64-column chunks
-  bf16 q[CK][BLOCK * 64];              // chunk c: [128 query rows][64 columns], swizzled
-  bf16 k[ST][CK][BN * 64];             // chunk c of a stage: [64 keys][64]
-  bf16 v[ST][CV][BN * 64];
-  uint64_t full[ST], empty[ST], q_full;
-};
-
-// the most stages (up to 4) that fit a block's shared memory (+ the base's alignment)
-template <int D, int DV>
-constexpr int STAGES = sizeof(FwdSmem<D, DV, 4>) + 1024 <= bwd::SMEM_MAX   ? 4
-                       : sizeof(FwdSmem<D, DV, 3>) + 1024 <= bwd::SMEM_MAX ? 3
-                                                                           : 2;
-template <int D, int DV>
-constexpr size_t smem_bytes() {
-  return sizeof(FwdSmem<D, DV, STAGES<D, DV>>) + 1024;
-}
-
-// s [64 x 64] = Q K^T over D columns: the warpgroup's 64 rows of Q at q
-// (64-column chunks 2 BOX apart), the tile's 64 keys at k (chunks BOX
-// apart), both K-major, swizzled; issued, not waited for
-template <int D>
-__device__ __forceinline__ void issue_scores(float* s, uint32_t q, uint32_t k) {
-  q = bwd::opaque(q);
-  k = bwd::opaque(k);
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
-    mma_ss<64, 0>(s, desc(q + (kk / 4) * 2 * BOX + (kk % 4) * 32, 16, 1024),
-                  desc(k + (kk / 4) * BOX + (kk % 4) * 32, 16, 1024), kk);
-}
-
-// o [64 x DV] += P V: P's bf16 pairs in the accumulator layout (pf[n][i]:
-// row g + 8 i, keys 8 n + 2 t4 and + 1) as register A fragments, the
-// tile's 64 V rows at v (chunks BOX apart) read MN-major; issued, not
-// waited for
-template <int DV>
-__device__ __forceinline__ void issue_pv(float* o, const uint32_t (&pf)[8][2], uint32_t v) {
-  v = bwd::opaque(v);
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const uint32_t a[4] = {pf[2 * kk][0], pf[2 * kk][1], pf[2 * kk + 1][0], pf[2 * kk + 1][1]};
-    const uint64_t db = desc(v + kk * 16 * 128, BOX, 1024);
-    if constexpr (DV == 128)
-      mma_rs_n128(o, a, db);
-    else if constexpr (DV == 256)
-      mma_rs_n256(o, a, db);
-    else
-      mma_rs<DV>(o, a, db);
-  }
-}
-
 // grid: ceil(Sq / 128) query blocks x H x B in wide_block's order over
 // the Kh x B (b, KV head) groups; a group's blocks are (query block,
 // query head of the group), the query block slowest.  Step it is key
@@ -2253,11 +2151,11 @@ __global__ void __launch_bounds__(THREADS, 1)
 flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
                        const __grid_constant__ CUtensorMap k_map,
                        const __grid_constant__ CUtensorMap v_map, const Params p) {
-  constexpr int ST = STAGES<D, DV>;
+  constexpr int ST = wgattn::FWD_STAGES<D, DV>;
   using Sm = FwdSmem<D, DV, ST>;
   constexpr int CK = Sm::CK, CV = Sm::CV;
   static_assert(WIDE<D, DV>, "the wgmma forward's widths");
-  auto& sm = bwd::smem<Sm>();
+  auto& sm = wgattn::smem<Sm>();
   const int G = p.H / p.Kh;
   int group, blk;
   bwd::wide_block(p.Kh * p.B, p.chunk, group, blk);
@@ -2268,21 +2166,10 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
   key_tiles(q0, min(BLOCK, p.Sq - q0), p.Sk, BN, p.causal, p.window, p.kv_offset, kt_begin,
             kt_end);
   const int n_iter = kt_end - kt_begin;
+  wgattn::ring_init<Sm, ST>(sm);
 
-  if (threadIdx.x == 0) {
-#pragma unroll
-    for (int s = 0; s < ST; ++s) {
-      mbar_init(&sm.full[s], 1);
-      mbar_init(&sm.empty[s], CONSUMERS / 32);   // each consumer warp releases
-    }
-    mbar_init(&sm.q_full, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  }
-  __syncthreads();
-
-  const int lane = threadIdx.x % 32;
   if (threadIdx.x >= CONSUMERS) {        // the producer warpgroup; one thread loads
-    setmaxnreg_dec<bwd::PRODUCER_REGS>();
+    setmaxnreg_dec<wgattn::PRODUCER_REGS>();
     if (threadIdx.x != CONSUMERS || n_iter == 0) return;
     mbar_expect(&sm.q_full, CK * 2 * BOX);
 #pragma unroll
@@ -2292,9 +2179,8 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
         tma_load4(reinterpret_cast<unsigned char*>(sm.q[c]) + r * BOX, &q_map, c * 64,
                   q0 + r * BM, h, b, &sm.q_full);
     for (int it = 0; it < n_iter; ++it) {
-      const int s = it % ST, key = (kt_begin + it) * BN;
-      if (it >= ST) mbar_wait(&sm.empty[s], ((it / ST) & 1) ^ 1);
-      mbar_expect(&sm.full[s], (CK + CV) * BOX);
+      const int s = wgattn::stage_acquire<ST>(sm, it, (CK + CV) * BOX);
+      const int key = (kt_begin + it) * BN;
 #pragma unroll
       for (int c = 0; c < CK; ++c) tma_load4(sm.k[s][c], &k_map, c * 64, key, kh, b, &sm.full[s]);
 #pragma unroll
@@ -2302,65 +2188,16 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
     }
     return;
   }
-  setmaxnreg_inc<bwd::CONSUMER_REGS>();
+  setmaxnreg_inc<wgattn::CONSUMER_REGS>();
 
-  const int wg = threadIdx.x / 128, warp = threadIdx.x % 128 / 32;
-  const int g = lane / 4, t4 = lane % 4;
+  const int lane = threadIdx.x % 32, wg = threadIdx.x / 128, warp = threadIdx.x % 128 / 32;
+  const int t4 = lane % 4;
   const int qw = q0 + wg * BM;           // this warpgroup's rows [qw, qw + 64)
-  const int row0 = qw + warp * 16 + g;   // this lane's rows: row0 and row0 + 8
-  const int qp0 = p.kv_offset + row0, qp1 = qp0 + 8;
-  const uint32_t q_addr = smem_u32(sm.q) + wg * BM * 128;
-  attn::RowState<DV> st;                 // acc: O [64 x DV] in wgmma's layout
-  float* const o = &st.acc[0][0];
-#pragma unroll
-  for (int i = 0; i < DV / 2; ++i) o[i] = 0.f;
-  st.m[0] = st.m[1] = NEG_INF;
-  st.l[0] = st.l[1] = 0.f;
-  if (n_iter > 0) mbar_wait(&sm.q_full, 0);
-
-  for (int it = 0; it < n_iter; ++it) {
-    const int s = it % ST;
-    mbar_wait(&sm.full[s], (uint32_t)((it / ST) & 1));
-    const int k0 = (kt_begin + it) * BN;
-    const int kind = bwd::tile_kind(qw, BM, k0, BN, p.Sq, p.Sk, p.causal, p.window, p.kv_offset);
-    if (kind != EMPTY) {
-      float sc[8][4];                    // S [64 x 64] in wgmma's layout: softmax_tile's s[n][e]
-      wg_fence();
-      issue_scores<D>(&sc[0][0], q_addr, smem_u32(sm.k[s]));
-      wg_commit();
-      wg_wait<0>();
-      fence_regs<32>(&sc[0][0]);
-      uint32_t pf[8][2];                 // the online softmax (O rescaled), P as bf16
-      if (kind == FULL) {
-        attn::softmax_tile<DV, BN, false>(sc, 0u, p.scale_log2, st, pf);
-      } else {
-        uint32_t vis = 0u;               // bit 4 n + e: the entry's key is visible
-#pragma unroll
-        for (int n = 0; n < 8; ++n)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int key = k0 + 8 * n + 2 * t4 + (e & 1);
-            if (key < p.Sk && sees(e < 2 ? qp0 : qp1, key, p.causal, p.window))
-              vis |= 1u << (4 * n + e);
-          }
-        attn::softmax_tile<DV, BN, true>(sc, vis, p.scale_log2, st, pf);
-      }
-      fence_regs<DV / 2>(o);
-      wg_fence();
-      issue_pv<DV>(o, pf, smem_u32(sm.v[s]));
-      wg_commit();
-      wg_wait<0>();
-      fence_regs<DV / 2>(o);
-    }
-    __syncwarp();                        // each consumer warp is done with the stage
-    if (lane == 0) mbar_arrive(&sm.empty[s]);
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    st.l[i] += __shfl_xor_sync(0xffffffffu, st.l[i], 1);
-    st.l[i] += __shfl_xor_sync(0xffffffffu, st.l[i], 2);
-  }
+  const int row0 = qw + warp * 16 + lane / 4;   // this lane's rows: row0 and row0 + 8
+  attn::RowState<DV> st;
+  wgattn::consume<D, DV, ST>(sm, st, kt_begin, n_iter, qw, p.Sq, p.Sk, p.causal, p.window,
+                             p.kv_offset, p.scale_log2);
+  const float* const o = &st.acc[0][0];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int row = row0 + 8 * i;
@@ -2386,9 +2223,9 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, const
   if constexpr (!WIDE<D, DV>) {
     return cudaErrorInvalidValue;
   } else {
-    static_assert(smem_bytes<D, DV>() <= bwd::SMEM_MAX, "the wgmma forward's shared memory");
-    static const cudaError_t attr = attn::allow_smem(flash_fwd_wgmma_kernel<D, DV>,
-                                                     smem_bytes<D, DV>());
+    constexpr size_t smem = wgattn::fwd_smem_bytes<D, DV>();
+    static_assert(smem <= wgattn::SMEM_MAX, "the wgmma forward's shared memory");
+    static const cudaError_t attr = attn::allow_smem(flash_fwd_wgmma_kernel<D, DV>, smem);
     if (attr != cudaSuccess) return attr;
     // no key (Sk = 0): no tile is walked, so the maps' one row is never read
     const int rows_k = std::max(Sk, 1);
@@ -2401,8 +2238,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, const
                    kv_offset, attn::LOG2E / sqrtf((float)D),
                    bwd::wide_chunk((int64_t)rows_k * (D + DV) * 2, Kh * B)};
     flash_fwd_wgmma_kernel<D, DV>
-        <<<(unsigned)((Sq + BLOCK - 1) / BLOCK * H * B), THREADS, smem_bytes<D, DV>(), s>>>(
-            qm, km, vm, p);
+        <<<(unsigned)((Sq + BLOCK - 1) / BLOCK * H * B), THREADS, smem, s>>>(qm, km, vm, p);
     return cudaGetLastError();
   }
 }

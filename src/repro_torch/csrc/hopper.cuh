@@ -1,9 +1,9 @@
 // Hopper (sm_90a) building blocks of the port's wgmma kernels: mbarriers,
 // TMA loads, named barriers, the thread-block cluster's shared memory,
 // setmaxnreg, wgmma descriptors and products, and the tensor-map encoder.
-// Included by attn_latent.cuh (MLA's latent-row attention) and
-// flash_attention.cu (flash attention's bf16 backward and its wide bf16
-// forward).
+// Included by attn_latent.cuh (MLA's latent-row attention), attn_wgmma.cuh
+// (the wgmma forward body of flash's wide forward and of paged chunked
+// prefill) and flash_attention.cu (flash attention's bf16 backward).
 #pragma once
 
 #include "attn_mma.cuh"

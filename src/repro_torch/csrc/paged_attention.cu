@@ -23,7 +23,7 @@
 // the softmax state carried in scratch across grid steps.  CUDA blocks run
 // in no order, so here a block owns a slice of the work and walks its pages
 // in a loop, reading its own table row; pages wholly outside the rows'
-// visible keys are skipped.  Three bodies:
+// visible keys are skipped.  The bodies:
 //
 // - decode (f32 and bf16, D = 32, 64, 80, 112, 128, 160 or 256; f32 also 576): bound by
 //   the bytes of the cached K/V it reads once per step (LLaVA at B = 8, ctx 600-700:
@@ -53,8 +53,14 @@
 //   (see DecCfg).  One split writes out; more write f32 partials, and the
 //   last of a (b, head group) tile's split blocks to finish merges them
 //   into out (attn_merge.cuh's arrive_last and merge_rows): one launch.
-// - bf16 chunked prefill, D = 64, 80, 112, 128, 160 or 256: the tensor-core
-//   tile of attn_mma.cuh.  The block's rows are
+// - bf16 chunked prefill at D = 112, 128 and 160 over pages of 8, 16 or
+//   32 rows (the wrapper's prefill_plan): the wgmma body of
+//   attn_wgmma.cuh, which flash attention's wide forward runs too, its
+//   producer reading K/V by TMA a page at a time
+//   (pwg::paged_prefill_wgmma_kernel, exported as
+//   paged_prefill_attention_wgmma).
+// - bf16 chunked prefill otherwise, D = 64, 80, 112, 128, 160 or 256: the
+//   tensor-core tile of attn_mma.cuh.  The block's rows are
 //   (chunk row c, query head g) pairs of its KV head, r = c * G + g, cut
 //   into tiles of 64 rows, 16 per warp
 //   (GQA folds into the M dimension of the products); blocks of the last
@@ -76,6 +82,7 @@
 #include "attn_mma.cuh"
 #include "attn_merge.cuh"
 #include "attn_latent.cuh"
+#include "attn_wgmma.cuh"
 
 #include <atomic>
 #include <cuda_runtime.h>
@@ -725,6 +732,166 @@ int prefill(const void* q, const void* k, const void* v, const void* tables,
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 chunked prefill on wgmma: attn_wgmma.cuh's body walking the pages
+// ---------------------------------------------------------------------------
+// paged_prefill_wgmma_kernel<D> takes the bf16 chunks the wrapper's
+// prefill_plan sends it (D = 112, 128 and 160, pages of 8, 16 or 32 rows)
+// and computes what the tile above computes there: the chunk-causal mask
+// (key j visible to chunk row c when j < max_pages * page, j <= ctx_b + c
+// and j inside the window), the 1/sqrt(D) scale after the product, P
+// rounded to bf16 with l summing the rounded P, rows with no visible key
+// 0, every row of the padded chunk computed.  The tile's bits are not kept
+// (the products sum in another order).
+//
+// A block owns (b, query head h, 128 chunk rows) and runs the body of
+// flash attention's wide forward (wgattn::consume): the chunk as Sq = C
+// rows at positions ctx_b + c, causal, against Sk = max_pages * page keys.
+// Only its producer differs.  Q comes once by TMA from a 4-D map over q
+// [B, C, H, D] (rows past C read as zeros).  A 64-key tile is 64 / page
+// pages (page 8, 16 or 32): lane i of each producer warp looks up page i
+// of the tile in the block table, and the four producer warps issue the
+// tile's boxes side by side (one box: 64 columns x page rows of one KV
+// head, from a map over the layer's pool [n_pages * page, Kh, D] as B =
+// 1), a page past the table read as rows past the pool, which TMA fills
+// with zeros.  K and V are read where they lie: no gather, no 16-byte
+// copies a thread, no per-row table lookup.  setmaxnreg: 256 x 232 + 128
+// x 40 (the producer's lookups and shuffles need more than the single
+// issuing thread of flash's producer).  One query head a block: each
+// K/V tile in shared memory serves 128 query rows either way; packing a
+// GQA group's (c, g) rows into one block, as the tile does, would only
+// move the sharing of a KV head's tiles among its G heads from L2 into
+// the block, at the price of a 5-D map for Q and masks by row / G.  The G
+// heads of a KV head are neighbouring blocks.  The grid runs the chunk's
+// last row blocks (which walk the most keys) first.  Bound: at the served
+// 512-row chunks the bytes of q, out and the K/V rows the tables name
+// (PERF.md).
+namespace pwg {
+
+using namespace hopper;
+using wgattn::BLOCK;
+using wgattn::BM;
+using wgattn::BN;
+using wgattn::BOX;
+using wgattn::CONSUMERS;
+using wgattn::FwdSmem;
+constexpr int THREADS = wgattn::THREADS;
+constexpr int CONSUMER_REGS = 232;     // setmaxnreg: 256 x 232 + 128 x 40 = 64,512
+constexpr int PRODUCER_REGS = 40;
+constexpr int LOAD_WARPS = 4;          // producer warps issuing a tile's copies
+constexpr int BAR_LOAD = 1;            // named barrier: the producer warps, a stage acquired
+
+// the head dims this body is built for
+template <int D>
+constexpr bool BUILT = D == 112 || D == 128 || D == 160;
+
+struct Params {
+  const int32_t* tables;               // [B, max_pages]
+  const int32_t* ctx_lens;             // [B] tokens cached before the chunk
+  bf16* out;                           // [B, C, H, D]
+  int B, C, H, Kh, page, max_pages, window, pool_rows;
+  float scale_log2;
+};
+
+// grid: ceil(C / 128) row blocks x B x H, the row block slowest (the last
+// one first), then b, then h (a KV head's G query heads side by side)
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+paged_prefill_wgmma_kernel(const __grid_constant__ CUtensorMap q_map,
+                           const __grid_constant__ CUtensorMap k_map,
+                           const __grid_constant__ CUtensorMap v_map, const Params p) {
+  constexpr int ST = wgattn::FWD_STAGES<D, D>;
+  using Sm = FwdSmem<D, D, ST>;
+  constexpr int CK = Sm::CK;
+  static_assert(BUILT<D>, "the paged wgmma prefill's widths");
+  auto& sm = wgattn::smem<Sm>();
+  const int n_qb = (p.C + BLOCK - 1) / BLOCK, bh = p.B * p.H, id = (int)blockIdx.x;
+  const int q0 = (n_qb - 1 - id / bh) * BLOCK;
+  const int b = id % bh / p.H, h = id % p.H, kh = h / (p.H / p.Kh);
+  const int ctx = p.ctx_lens[b], n_keys = p.max_pages * p.page;
+  int kt_begin, kt_end;
+  wgattn::key_tiles(q0, min(BLOCK, p.C - q0), n_keys, BN, 1, p.window, ctx, kt_begin, kt_end);
+  const int n_iter = kt_end - kt_begin;
+  wgattn::ring_init<Sm, ST>(sm);
+
+  const int lane = threadIdx.x % 32;
+  if (threadIdx.x >= CONSUMERS) {        // the producer warpgroup
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (n_iter == 0) return;
+    const int w = (threadIdx.x - CONSUMERS) / 32;
+    if (w == 0 && lane == 0) {
+      mbar_expect(&sm.q_full, CK * 2 * BOX);
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int c = 0; c < CK; ++c)
+          tma_load4(reinterpret_cast<unsigned char*>(sm.q[c]) + r * BOX, &q_map, c * 64,
+                    q0 + r * BM, h, b, &sm.q_full);
+    }
+    const int per = BN / p.page;         // pages a tile
+    const int32_t* table = p.tables + (int64_t)b * p.max_pages;
+    for (int it = 0; it < n_iter; ++it) {
+      const int pg = (kt_begin + it) * BN / p.page + lane;
+      const int my_row = lane < per && pg < p.max_pages ? table[pg] * p.page : p.pool_rows;
+      int s = it % ST;
+      if (w == 0 && lane == 0) s = wgattn::stage_acquire<ST>(sm, it, 2 * CK * BOX);
+      bar_sync(BAR_LOAD, 32 * LOAD_WARPS);   // the stage is free and its bytes expected
+      for (int i = 0; i < per; ++i) {
+        const int row = __shfl_sync(0xffffffffu, my_row, i);
+        if (lane == 0)
+#pragma unroll
+          for (int c = w; c < 2 * CK; c += LOAD_WARPS) {
+            bf16* dst = c < CK ? sm.k[s][c] : sm.v[s][c - CK];
+            tma_load4(reinterpret_cast<unsigned char*>(dst) + i * p.page * 128,
+                      c < CK ? &k_map : &v_map, (c % CK) * 64, row, kh, 0, &sm.full[s]);
+          }
+      }
+      __syncwarp();
+    }
+    return;
+  }
+  setmaxnreg_inc<CONSUMER_REGS>();
+
+  const int qw = q0 + threadIdx.x / 128 * BM;   // this warpgroup's rows [qw, qw + 64)
+  const int row0 = qw + threadIdx.x % 128 / 32 * 16 + lane / 4;   // and row0 + 8
+  attn::RowState<D> st;
+  wgattn::consume<D, D, ST>(sm, st, kt_begin, n_iter, qw, p.C, n_keys, 1, p.window, ctx,
+                            p.scale_log2);
+  const float* const o = &st.acc[0][0];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int row = row0 + 8 * i;
+    if (row >= p.C) continue;
+    const float inv = 1.f / fmaxf(st.l[i], 1e-30f);
+    bf16* out = p.out + (((int64_t)b * p.C + row) * p.H + h) * D + 2 * (lane % 4);
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<__nv_bfloat162*>(out + 8 * n) =
+          __floats2bfloat162_rn(o[4 * n + 2 * i] * inv, o[4 * n + 2 * i + 1] * inv);
+  }
+}
+
+template <int D>
+cudaError_t launch(const void* q, const void* k, const void* v, Params p, cudaStream_t s) {
+  constexpr size_t smem = wgattn::fwd_smem_bytes<D, D>();
+  static_assert(smem <= wgattn::SMEM_MAX, "the paged wgmma prefill's shared memory");
+  static const cudaError_t attr = attn::allow_smem(paged_prefill_wgmma_kernel<D>, smem);
+  if (attr != cudaSuccess) return attr;
+  if (p.B == 0 || p.C == 0 || p.H == 0) return cudaSuccess;
+  const int64_t pool_ss = (int64_t)p.Kh * D;   // a pool row: Kh heads of D
+  CUtensorMap qm, km, vm;
+  if (!heads_map(&qm, q, p.B, p.H, p.C, D, (int64_t)p.C * p.H * D, D, (int64_t)p.H * D, BN) ||
+      !heads_map(&km, k, 1, p.Kh, p.pool_rows, D, 0, D, pool_ss, p.page) ||
+      !heads_map(&vm, v, 1, p.Kh, p.pool_rows, D, 0, D, pool_ss, p.page))
+    return cudaErrorInvalidValue;
+  p.scale_log2 = attn::LOG2E / sqrtf((float)D);
+  const int64_t blocks = (int64_t)(p.C + BLOCK - 1) / BLOCK * p.B * p.H;
+  paged_prefill_wgmma_kernel<D><<<(unsigned)blocks, THREADS, smem, s>>>(qm, km, vm, p);
+  return cudaGetLastError();
+}
+
+}  // namespace pwg
+
 }  // namespace
 
 // dtype codes: 0 = float32, 1 = bfloat16.  Both return a cudaError_t.
@@ -763,6 +930,29 @@ extern "C" int paged_prefill_attention(const void* q, const void* k, const void*
                                        int window, void* stream) {
   return prefill(q, k, v, tables, ctx_lens, out, dtype, B, C, H, Kh, D, page, max_pages,
                  window, static_cast<cudaStream_t>(stream));
+}
+
+// Chunked prefill on the wgmma body (pwg::paged_prefill_wgmma_kernel):
+// bf16, D = 112, 128 or 160, page 8, 16 or 32, K and V pools of pool_rows
+// = n_pages * page rows (fewer than 2^31) each 16-byte aligned; otherwise
+// cudaErrorInvalidValue.  The rest as paged_prefill_attention.
+extern "C" int paged_prefill_attention_wgmma(const void* q, const void* k, const void* v,
+                                             const void* tables, const void* ctx_lens,
+                                             void* out, int B, int C, int H, int Kh, int D,
+                                             int page, int max_pages, int window,
+                                             int pool_rows, void* stream) {
+  if (Kh <= 0 || H % Kh != 0 || (page != 8 && page != 16 && page != 32) || pool_rows < 1)
+    return (int)cudaErrorInvalidValue;
+  const pwg::Params p{static_cast<const int32_t*>(tables), static_cast<const int32_t*>(ctx_lens),
+                      static_cast<bf16*>(out), B, C, H, Kh, page, max_pages, window, pool_rows,
+                      0.f};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 112: return (int)pwg::launch<112>(q, k, v, p, s);
+    case 128: return (int)pwg::launch<128>(q, k, v, p, s);
+    case 160: return (int)pwg::launch<160>(q, k, v, p, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // MLA's latent rows (attn_latent.cuh): bf16, D = 576, one KV head, K and V

@@ -5,6 +5,8 @@ TPU kernel of the JAX package:
   paged_attention  - decode and chunked-prefill attention over paged KV,
                      decode with split-KV whose last block per tile merges
                      the splits (csrc/attn_merge.cuh, shared with flash);
+                     long bf16 chunks at D = 112, 128 and 160 on the wgmma body
+                     of csrc/attn_wgmma.cuh (shared with flash's forward);
                      bf16 MLA latent rows (D = 576) on the wgmma tiles of
                      csrc/attn_latent.cuh
   selective_scan   - the Mamba-1 recurrence (falcon-mamba prefill and decode)
@@ -26,7 +28,8 @@ through: ``*_split`` counts the split calls among them, each of which
 merges its splits in its own last blocks, ``*_merge`` the merge kernel
 launched alone (to check it), ``*_latent`` the latent-row kernels, and
 ``flash_attention_wgmma`` the flash calls that ran the bf16 forward's
-``wgmma`` body.
+``wgmma`` body, ``paged_prefill_attention_wgmma`` the chunked-prefill
+calls that ran its paged counterpart.
 """
 from __future__ import annotations
 
@@ -38,7 +41,8 @@ import torch
 
 launches = {"cache_write": 0, "paged_attention": 0,
             "paged_attention_split": 0, "paged_attention_merge": 0,
-            "paged_prefill_attention": 0, "paged_attention_latent": 0,
+            "paged_prefill_attention": 0,
+            "paged_prefill_attention_wgmma": 0, "paged_attention_latent": 0,
             "paged_prefill_attention_latent": 0, "selective_scan": 0,
             "selective_scan_heads": 0, "selective_scan_bwd": 0,
             "selective_scan_heads_bwd": 0, "flash_attention": 0,

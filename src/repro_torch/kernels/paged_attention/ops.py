@@ -19,8 +19,17 @@ rope; 80 in DeepSeek-V2's reduced test model), read as 1-KV-head MQA with
 all the query heads of a request over the same rows; 160 is stablelm-12b's
 head dim (112 also zamba2-7b's).  Every served config's head dim is in
 both sets (tests/test_torch_model.py).  bf16 chunked prefill
-(head dims in ``PREFILL_BF16_HEAD_DIMS``) runs on the tensor-core tile of
-``csrc/attn_mma.cuh``; f32 prefill on CUDA-core f32 products, any D.
+(head dims in ``PREFILL_BF16_HEAD_DIMS``) runs on one of two bodies, as
+:func:`prefill_plan` says: chunks at the head dims of
+``PREFILL_WGMMA_DIMS`` (zamba2-7b's 112, LLaVA's 128, stablelm-12b's 160)
+over pages of ``PREFILL_WGMMA_PAGES`` rows on
+``paged_prefill_wgmma_kernel``, the wgmma + TMA body of
+``csrc/attn_wgmma.cuh`` that flash attention's wide forward runs too, its
+producer reading K/V a page at a time by TMA (``launches`` counts these
+calls as ``paged_prefill_attention_wgmma`` too); the rest on the
+tensor-core tile of ``csrc/attn_mma.cuh``.  :func:`prefill_walk` is the
+host's copy of the key tiles and pages a block of the body walks.  f32
+prefill runs on CUDA-core f32 products, any D.
 
 bf16 at D = 576, DeepSeek-V2's full latent rows, runs on the wgmma tiles
 of ``csrc/attn_latent.cuh`` (``launches``: ``paged_attention_latent`` and
@@ -43,6 +52,7 @@ import torch
 
 from repro_torch import kernels as K
 from repro_torch.kernels import _build
+from repro_torch.kernels.flash_attention.ops import key_tiles, tile_kind
 from repro_torch.kernels.paged_attention.ref import (
     paged_attention_ref, paged_prefill_attention_ref)
 
@@ -55,7 +65,18 @@ _PREFILL_ARGS = [_P] * 6 + [_I] * 9 + [_P]    # ... dtype B C H Kh D page P wind
 # stream; prefill: ... out, B C H page P pool_rows, stream
 _LATENT_DECODE_ARGS = [_P] * 5 + [_I] * 7 + [_P]
 _LATENT_PREFILL_ARGS = [_P] * 5 + [_I] * 6 + [_P]
+# wgmma prefill: q k v tables ctx out, B C H Kh D page P window pool_rows,
+# stream
+_PREFILL_WGMMA_ARGS = [_P] * 6 + [_I] * 9 + [_P]
 PREFILL_BF16_HEAD_DIMS = (64, 80, 112, 128, 160, 256, 576)  # bf16 prefill D
+# bf16 prefill D the plan sends to the wgmma body, chunks of any length:
+# at each the body was faster than the tile, or level with it, at every
+# served chunk of 16 to 1,024 rows on an H100 (PERF.md, tools/kernel_ab.py
+# --widths, rows paged_prefill_threshold)
+PREFILL_WGMMA_DIMS = (112, 128, 160)    # also the D it is built for
+PREFILL_WGMMA_ROWS = 128          # its chunk rows a block: two warpgroups
+PREFILL_WGMMA_KEYS = 64           # keys of a tile it streams
+PREFILL_WGMMA_PAGES = (8, 16, 32)   # page sizes its TMA boxes take
 DECODE_HEAD_DIMS = (32, 64, 80, 112, 128, 160, 256, 576)    # decode D
 LATENT_D = 576            # bf16 at this D runs on csrc/attn_latent.cuh
 LATENT_ROWS = 64          # query rows of a latent block (wgmma's M)
@@ -93,6 +114,40 @@ def decode_plan(B: int, H: int, Kh: int, D: int, max_pages: int, page: int,
     n_split = min(most, -(-target // blocks))
     per = -(-max_pages // n_split)
     return -(-max_pages // per)
+
+
+def prefill_plan(D: int, page: int) -> str:
+    """Which body a bf16 chunked prefill at head dim D over pages of
+    ``page`` rows runs, from the shapes alone: "wgmma"
+    (``paged_prefill_wgmma_kernel``) when D is in ``PREFILL_WGMMA_DIMS``
+    and its TMA boxes take the page (``PREFILL_WGMMA_PAGES``), else "tile"
+    (the mma.sync tile, which reads any page)."""
+    return "wgmma" if D in PREFILL_WGMMA_DIMS and \
+        page in PREFILL_WGMMA_PAGES else "tile"
+
+
+def prefill_walk(q0: int, C: int, ctx: int, table, page: int, window: int,
+                 pool_rows: int) -> list:
+    """The ``PREFILL_WGMMA_KEYS``-key tiles that the wgmma prefill's block
+    of chunk rows [q0, q0 + ``PREFILL_WGMMA_ROWS``) of a lane walks (its
+    rows at positions ctx + c, its table row ``table``, of max_pages =
+    len(table) columns), in order, each as (k0, (kind of warpgroup 0's 64
+    rows, kind of warpgroup 1's), the pool row each of the tile's pages is
+    read from): flash's :func:`key_tiles` and :func:`tile_kind` over the
+    chunk as Sq = C causal rows at offset ctx against max_pages * page
+    keys, and page i of a tile read from pool row table[j] * page, j its
+    table column, or from ``pool_rows`` (past the pool: zeros) when j is
+    past the table, as ``csrc/paged_attention.cu``'s kernel walks them."""
+    bk, half = PREFILL_WGMMA_KEYS, PREFILL_WGMMA_ROWS // 2
+    n_keys = len(table) * page
+    begin, end = key_tiles(q0, min(PREFILL_WGMMA_ROWS, C - q0), n_keys, bk,
+                           True, window, ctx)
+    return [(kt * bk,
+             tuple(tile_kind(q0 + w * half, half, kt * bk, bk, C, n_keys,
+                             True, window, ctx) for w in (0, 1)),
+             tuple(int(table[j]) * page if j < len(table) else pool_rows
+                   for j in range(kt * bk // page, (kt + 1) * bk // page)))
+            for kt in range(begin, end)]
 
 
 def latent_decode_plan(B: int, H: int, max_pages: int, page: int,
@@ -249,6 +304,10 @@ def paged_prefill_attention(q, k_pages, v_pages, block_tables, ctx_lens, *,
               f"{PREFILL_BF16_HEAD_DIMS}, got {D}")
     K.require(k_pages.shape[0] * page < 2 ** 31,
               "paged prefill attention indexes pool rows with 32 bits")
+    if q.dtype == torch.bfloat16 and \
+            prefill_plan(D, page) == "wgmma":
+        return _prefill_wgmma(q, k_pages, v_pages, block_tables, ctx_lens,
+                              window, B, H, Kh, D, page, P)
     out = torch.empty_like(q)
     fn = _build.function("paged_attention", "paged_prefill_attention",
                          _PREFILL_ARGS)
@@ -258,6 +317,31 @@ def paged_prefill_attention(q, k_pages, v_pages, block_tables, ctx_lens, *,
              K.stream_ptr(q))
     K.check_launch(err, "paged_prefill_attention")
     K.launches["paged_prefill_attention"] += 1
+    return out
+
+
+def _prefill_wgmma(q, k_pages, v_pages, block_tables, ctx_lens, window,
+                   B, H, Kh, D, page, P):
+    """bf16 chunked prefill on ``paged_prefill_wgmma_kernel``, where
+    :func:`prefill_plan` sends it (inputs checked by :func:`_check`):
+    16-byte aligned q and pages, or it raises; launched, never sent
+    elsewhere."""
+    why = "bf16 paged prefill on the wgmma body needs "
+    K.require((q.data_ptr() | k_pages.data_ptr() | v_pages.data_ptr()) % 16
+              == 0, why + "16-byte aligned q and pages")
+    pool_rows = k_pages.shape[0] * page
+    K.require(0 < pool_rows < 2 ** 31,
+              why + f"1 to 2^31 - 1 pool rows, got {pool_rows}")
+    out = torch.empty_like(q)
+    fn = _build.function("paged_attention", "paged_prefill_attention_wgmma",
+                         _PREFILL_WGMMA_ARGS)
+    err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+             block_tables.data_ptr(), ctx_lens.data_ptr(), out.data_ptr(),
+             B, q.shape[1], H, Kh, D, page, P, int(window), pool_rows,
+             K.stream_ptr(q))
+    K.check_launch(err, "paged_prefill_attention_wgmma")
+    K.launches["paged_prefill_attention"] += 1
+    K.launches["paged_prefill_attention_wgmma"] += 1
     return out
 
 

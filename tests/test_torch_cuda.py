@@ -451,9 +451,13 @@ def test_flash_attention_kernel_rows_without_keys_are_zero(cuda):
     (8, 2, 256, 9, [3, 40, 61], 0, 8),       # G = 4 at D = 256, 8-row pages
     (4, 4, 64, 50, [100, 130, 7], 40, 16),   # a window that starts mid-tile
     (4, 2, 128, 70, [33, 0, 250], 100, 32),  # chunks crossing pages and tiles
+    (32, 32, 112, 16, [0, 88, 300], 0, 64),  # zamba2-7b's widths, 64-row pages
 ])
 def test_prefill_mma_edges_match_plain(cuda, dtype, H, Kh, D, C, ctx, window,
                                        page):
+    """Against the plain version on the body the plan names: bf16 at D =
+    112 and 128 over pages of 8, 16 or 32 rows runs the wgmma body, the
+    rest the tile (f32 the CUDA-core kernel)."""
     gen = torch.Generator().manual_seed(H * 1000 + D + C + window + page)
     n = max(ctx) + C
     kp, vp, tables = _pages(gen, cuda, lens=[c + C for c in ctx], Kh=Kh, D=D,
@@ -461,12 +465,16 @@ def test_prefill_mma_edges_match_plain(cuda, dtype, H, Kh, D, C, ctx, window,
                             max_pages=-(-n // page) + 1, dtype=dtype)
     q = torch.randn((len(ctx), C, H, D), generator=gen).to(cuda, dtype)
     ctx_t = torch.tensor(ctx, dtype=torch.int32, device=cuda)
-    before = K.launches["paged_prefill_attention"]
+    before = dict(K.launches)
     got = tpa.paged_prefill_attention(q, kp, vp, tables, ctx_t, window=window)
     want = paged_prefill_attention_ref(*_f32(q, kp, vp), tables, ctx_t,
                                        window=window)
     torch.cuda.synchronize()
-    assert K.launches["paged_prefill_attention"] == before + 1
+    assert K.launches["paged_prefill_attention"] == \
+        before["paged_prefill_attention"] + 1
+    assert K.launches["paged_prefill_attention_wgmma"] - \
+        before["paged_prefill_attention_wgmma"] == \
+        (dtype == torch.bfloat16 and tpa.prefill_plan(D, page) == "wgmma")
     assert torch.isfinite(got.float()).all()
     assert (got.float() - want).abs().max().item() <= TOL[dtype]
 
@@ -479,6 +487,93 @@ def test_prefill_bf16_rejects_other_head_dims(cuda):
     ctx = torch.zeros(1, dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="head dims"):
         tpa.paged_prefill_attention(q, kp, vp, tables, ctx)
+
+
+# ---------------------------------------------------------------------------
+# bf16 chunked prefill on the wgmma body (paged_prefill_wgmma_kernel): chunks
+# at the widths of PREFILL_WGMMA_DIMS; the bf16 bar
+# against the plain version's f32 output on the rows that see a key, rows
+# that see none exactly 0
+# ---------------------------------------------------------------------------
+# (H, Kh, C, ctx per lane, window, page, max_pages, padded lanes):
+# zamba2-7b's chunk shape (a first 512-row chunk and a later one), G = 4
+# with a padded lane, a window over 8-row pages, 32-row pages with keys
+# past the table, a lane whose window lies past its table, a ragged block,
+# later chunks of 32 and 64 rows (G = 4 with a window and a padded lane),
+# of 5 rows (a window over 8-row pages) and of one row (32-row pages)
+WGMMA_PREFILL_CASES = [
+    (32, 32, 512, [0, 512], 0, 16, 38, ()),
+    (8, 2, 200, [0, 70, 5], 0, 16, 18, (2,)),
+    (4, 4, 300, [30, 7], 40, 8, 42, ()),
+    (4, 1, 129, [0, 96], 0, 32, 4, ()),
+    (4, 4, 150, [10, 300], 25, 16, 10, ()),
+    (6, 3, 131, [61, 0, 17], 0, 16, 13, ()),
+    (32, 32, 32, [300, 17, 600], 0, 16, 40, ()),
+    (8, 2, 64, [0, 500, 90], 30, 8, 72, (1,)),
+    (6, 3, 5, [0, 17, 100], 9, 8, 16, ()),
+    (4, 4, 1, [0, 63], 0, 32, 3, ())]
+
+
+@pytest.mark.parametrize("D", tpa.PREFILL_WGMMA_DIMS)
+@pytest.mark.parametrize("H,Kh,C,ctx,window,page,max_pages,padded",
+                         WGMMA_PREFILL_CASES,
+                         ids=["zamba2-c512", "gqa-padded", "window-page8",
+                              "page32-past-table", "window-past-table",
+                              "ragged", "short-c32", "gqa-window-c64",
+                              "c5-window-page8", "c1-page32"])
+def test_prefill_wgmma_matches_plain(cuda, D, H, Kh, C, ctx, window, page,
+                                     max_pages, padded):
+    """The wrapper runs the wgmma body (two wgmma launches counted) at
+    every width the plan routes to it; against the plain version's f32
+    output, the same bits on a second call."""
+    gen = torch.Generator().manual_seed(D + C + page + window)
+    lens = [0 if b in padded else min(c + C, max_pages * page)
+            for b, c in enumerate(ctx)]
+    kp, vp, tables = _pages(gen, cuda, lens=lens, Kh=Kh, D=D, page=page,
+                            n_pages=len(ctx) * max_pages + 1,
+                            max_pages=max_pages, dtype=torch.bfloat16)
+    q = torch.randn((len(ctx), C, H, D), generator=gen).to(cuda,
+                                                             torch.bfloat16)
+    ctx_t = torch.tensor(ctx, dtype=torch.int32, device=cuda)
+    assert tpa.prefill_plan(D, page) == "wgmma"
+    before = dict(K.launches)
+    got = tpa.paged_prefill_attention(q, kp, vp, tables, ctx_t, window=window)
+    again = tpa.paged_prefill_attention(q, kp, vp, tables, ctx_t,
+                                        window=window)
+    want = paged_prefill_attention_ref(*_f32(q, kp, vp), tables, ctx_t,
+                                       window=window)
+    torch.cuda.synchronize()
+    assert K.launches["paged_prefill_attention_wgmma"] == \
+        before["paged_prefill_attention_wgmma"] + 2
+    assert torch.equal(got, again)
+    qpos = ctx_t.long()[:, None] + torch.arange(C, device=cuda)
+    key = torch.arange(max_pages * page, device=cuda)
+    vis = key[None, None] <= qpos[:, :, None]
+    if window:
+        vis &= key[None, None] > qpos[:, :, None] - window
+    seen = vis.any(-1)
+    assert torch.isfinite(got.float()).all() and not got[~seen].any()
+    assert (got[seen].float() - want[seen]).abs().max().item() <= \
+        TOL[torch.bfloat16]
+
+
+def test_prefill_wgmma_leaves_other_pages_to_the_tile(cuda):
+    """A long bf16 chunk at a built width over pages the body's TMA boxes
+    do not take (64 rows) runs on the tile, against the plain version."""
+    gen = torch.Generator().manual_seed(64)
+    kp, vp, tables = _pages(gen, cuda, lens=[256], Kh=2, D=112, page=64,
+                            n_pages=6, max_pages=4, dtype=torch.bfloat16)
+    q = torch.randn((1, 256, 4, 112), generator=gen).to(cuda, torch.bfloat16)
+    ctx = torch.zeros(1, dtype=torch.int32, device=cuda)
+    before = dict(K.launches)
+    got = tpa.paged_prefill_attention(q, kp, vp, tables, ctx)
+    want = paged_prefill_attention_ref(*_f32(q, kp, vp), tables, ctx)
+    torch.cuda.synchronize()
+    assert K.launches["paged_prefill_attention"] == \
+        before["paged_prefill_attention"] + 1
+    assert K.launches["paged_prefill_attention_wgmma"] == \
+        before["paged_prefill_attention_wgmma"]
+    assert (got.float() - want).abs().max().item() <= TOL[torch.bfloat16]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],

@@ -126,10 +126,10 @@ def test_engine_seeded_sampling_is_batch_invariant(rng, llava):
     assert outs[0] == outs[1] and len(outs[0]) == 6
 
 
-def test_server_refuses_dense_host_caches(llava):
-    """Once refused, the dense host-cache fallback is served now: every
-    pool of ``device_cache=False`` is a host numpy ``PagedCache`` of f32
-    rows, and its greedy streams equal the device-cache engine's."""
+def test_server_serves_dense_host_caches(llava):
+    """The dense host-cache fallback is served: every pool of
+    ``device_cache=False`` is a host numpy ``PagedCache`` of f32 rows, and
+    its greedy streams equal the device-cache engine's."""
     cfg, _, tparams = llava
     reqs = _trace(np.random.default_rng(1), cfg, n=2)
     outs = []

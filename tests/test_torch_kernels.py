@@ -177,6 +177,7 @@ def test_cpu_calls_take_plain_versions_and_count_no_launch(rng):
                           "paged_attention_split": 0,
                           "paged_attention_merge": 0,
                           "paged_prefill_attention": 0,
+                          "paged_prefill_attention_wgmma": 0,
                           "paged_attention_latent": 0,
                           "paged_prefill_attention_latent": 0,
                           "selective_scan": 0, "selective_scan_heads": 0,

@@ -73,12 +73,19 @@ zamba2-7b's D = 112, stablelm-12b's 160, gemma3-4b's 256 global and with
 window 1,024, DeepSeek-V2's (192, 128)), each tree at its own plan (the
 parent's ``plan`` loaded from its tree): device times parent, change,
 change, parent, each tree's largest error against the plain version's f32
-output and whether each tree repeats its own bits.  These rows do not
-count toward ``all_bits_equal``: the trees' bodies there may differ by
-design.  The backward rows feed both trees one ``(out, lse)``, this
+output, whether each tree repeats its own bits and whether the two trees'
+outputs are the same bits.  These rows do not count toward
+``all_bits_equal``: the trees' bodies there may differ by design.  The backward rows feed both trees one ``(out, lse)``, this
 tree's.  Last, at each wide pair's shortest causal sequence whose 64-row
 grid needs no split (B = 1), this tree's wgmma body against its mma.sync
-tile unsplit (rows ``flash_fwd_threshold``).
+tile unsplit (rows ``flash_fwd_threshold``).  Then bf16 chunked prefill
+at the served shapes (zamba2-7b's and stablelm-12b's 512-token chunks,
+LLaVA's image and text chunks, stablelm-12b's CLI 16-row chunks, and
+later chunks of 16, 32 and 64 rows at each of the three widths), each
+tree at its own ``prefill_plan`` (rows ``paged_prefill``, outside
+``all_bits_equal``), and this tree's wgmma prefill body against its tile
+at each of those shapes whose width the body is built for (rows
+``paged_prefill_threshold``).
 
     python3 tools/kernel_ab.py --scan-bwd --parent DIR
 
@@ -99,6 +106,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import functools
+import inspect
 import json
 import statistics
 import subprocess
@@ -991,8 +999,10 @@ def wide_fwd_ab(libs, gen, srcs, parent_plan):
     for tag, B, H, Kh, S, D, Dv, window in WIDE_TRAIN:
         q, k, v, want, strides = wide_fwd_inputs(gen, B, H, Kh, S, D, Dv,
                                                  window)
-        plans = {"parent_fa": parent_plan(B, H, S, S, sms, blocks_per_sm(
-                     tile_rows(S), D, Dv)),
+        per_sm = blocks_per_sm(tile_rows(S), D, Dv)
+        widths = (D, Dv) if "Dv" in inspect.signature(parent_plan).parameters \
+            else ()
+        plans = {"parent_fa": parent_plan(B, H, S, S, sms, per_sm, *widths),
                  "fa": split_plan(B, H, S, S, D, 0, Dv)}
         parts = torch.empty(max(p[1] for p in plans.values()) * B * H * S
                             * (Dv + 2), device="cuda")
@@ -1020,6 +1030,8 @@ def wide_fwd_ab(libs, gen, srcs, parent_plan):
             / (t[0] + t[3]),
             "max_abs_err_vs_plain": {"parent": errs["parent_fa"],
                                      "change": errs["fa"]},
+            "bits_equal": all(torch.equal(a, b) for a, b in zip(
+                first["parent_fa"], first["fa"])),
             "repeats_own_bits": {
                 "parent": all(torch.equal(a, b) for a, b in zip(
                     first["parent_fa"], outs["parent_fa"])),
@@ -1072,6 +1084,134 @@ def threshold_fwd_ab(f, gen, counters, sms):
             / (t[0] + t[3]),
             "max_abs_err_vs_plain": errs}), flush=True)
         del q, k, v, want, outs
+        torch.cuda.empty_cache()
+
+
+# bf16 chunked prefill at the served shapes: (tag, H, Kh, D, ctx per lane
+# (None: a padded lane, its table all scratch), C, valid rows per lane):
+# zamba2-7b's and stablelm-12b's 512-token chunks (a first one and a later
+# one), LLaVA's image chunk and 32-token text chunks, stablelm-12b's CLI
+# 16-row chunks; then the later chunks of 16, 32 and 64 rows each width
+# also gets (a prompt's tail)
+PREFILL_SERVED = [("zamba2-c512", 32, 32, 112, [0, 512], 512, [512, 88]),
+                  ("stablelm-c512", 32, 8, 160, [0, 512], 512, [512, 88]),
+                  ("llava-media-c1024", 32, 32, 128, [0], 1024, [576]),
+                  ("llava-text-c32", 32, 32, 128, [600, 620, 650, None], 32,
+                   [32, 32, 32, 0]),
+                  ("stablelm-cli-c16", 32, 8, 160, [0, 0, 0, 0], 16,
+                   [16, 16, 16, 16]),
+                  *((f"{tag}-tail-c{C}", H, Kh, D, [300, 500], C,
+                     [C, C // 2 + 1])
+                    for tag, H, Kh, D in (("zamba2", 32, 32, 112),
+                                          ("llava", 32, 32, 128),
+                                          ("stablelm", 32, 8, 160))
+                    for C in (16, 32, 64))]
+
+
+def prefill_inputs(gen, H, Kh, D, ctx, C, n_valid):
+    """q, pages (the last one scratch), tables and ctx of a served chunk:
+    lane b owns distinct pages for its ctx + n_valid keys, the rest of
+    its row (and a padded lane's whole row) names scratch; and the plain
+    version's f32 output."""
+    import torch
+    from repro_torch.kernels.paged_attention.ref import \
+        paged_prefill_attention_ref
+    B = len(ctx)
+    max_pages = max(-(-((c or 0) + C) // PAGE) for c in ctx)
+    n_pages = B * max_pages + 1
+    kp, vp = (torch.randn((n_pages, PAGE, Kh, D), generator=gen,
+                          device="cuda").bfloat16() for _ in range(2))
+    tables = torch.full((B, max_pages), n_pages - 1, dtype=torch.int32)
+    nxt = 0
+    for b, (c, n) in enumerate(zip(ctx, n_valid)):
+        if c is not None:
+            k = -(-(c + n) // PAGE)
+            tables[b, :k] = torch.arange(nxt, nxt + k, dtype=torch.int32)
+            nxt += k
+    tables = tables.cuda()
+    q = torch.randn((B, C, H, D), generator=gen, device="cuda").bfloat16()
+    ctx_t = torch.tensor([c or 0 for c in ctx], dtype=torch.int32,
+                         device="cuda")
+    want = paged_prefill_attention_ref(q.float(), kp.float(), vp.float(),
+                                       tables, ctx_t)
+    return q, kp, vp, tables, ctx_t, want
+
+
+def prefill_call(lib, body, q, kp, vp, tables, ctx, out):
+    """A closure of one bf16 chunked prefill through a tree's C entry:
+    ``paged_prefill_attention`` (the tile) or, for body "wgmma",
+    ``paged_prefill_attention_wgmma``."""
+    import torch
+    B, C, H, D = q.shape
+    n_pages, page, Kh, _ = kp.shape
+    ptrs = [t.data_ptr() for t in (q, kp, vp, tables, ctx, out)]
+    if body == "wgmma":
+        f = lib.paged_prefill_attention_wgmma
+        f.argtypes = [_P] * 6 + [_I] * 9 + [_P]
+        return lambda: f(*ptrs, B, C, H, Kh, D, page, tables.shape[1], 0,
+                         n_pages * page,
+                         torch.cuda.current_stream().cuda_stream)
+    f = lib.paged_prefill_attention
+    f.argtypes = [_P] * 6 + [_I] * 9 + [_P]
+    return lambda: f(*ptrs, 1, B, C, H, Kh, D, page, tables.shape[1], 0,
+                     torch.cuda.current_stream().cuda_stream)
+
+
+def prefill_plan_ab(libs, gen, parent_plan):
+    """bf16 chunked prefill at the served shapes, each tree at its own
+    plan (the parent's ``prefill_plan`` loaded from its tree; a tree
+    without one runs every chunk on the tile): device times parent,
+    change, change, parent, each tree's largest error against the plain
+    version's f32 output on the rows that see a key and whether it repeats
+    its own bits (rows ``paged_prefill``, outside ``all_bits_equal``);
+    then this tree's wgmma body against its tile at each shape of a width
+    the body is built for, tile, wgmma, wgmma, tile (rows
+    ``paged_prefill_threshold``: they decide ``PREFILL_WGMMA_DIMS``)."""
+    import torch
+    from repro_torch.kernels.paged_attention.ops import (
+        PREFILL_WGMMA_DIMS, prefill_plan)
+    for tag, H, Kh, D, ctx, C, n_valid in PREFILL_SERVED:
+        q, kp, vp, tables, ctx_t, want = prefill_inputs(gen, H, Kh, D, ctx,
+                                                        C, n_valid)
+        B = len(ctx)
+        seen = torch.tensor([[c is not None and i < n for i in range(C)]
+                             for c, n in zip(ctx, n_valid)], device="cuda")
+        plans = {"parent": parent_plan(D, PAGE) if parent_plan else "tile",
+                 "change": prefill_plan(D, PAGE)}
+        rows = [("paged_prefill", {"parent": ("parent_pa", plans["parent"]),
+                                   "change": ("pa", plans["change"])})]
+        if D in PREFILL_WGMMA_DIMS:
+            rows.append(("paged_prefill_threshold",
+                         {"tile": ("pa", "tile"), "wgmma": ("pa", "wgmma")}))
+        for kind, who in rows:
+            outs = {n: torch.empty_like(q) for n in who}
+            calls = {n: prefill_call(libs[lib], body, q, kp, vp, tables,
+                                     ctx_t, outs[n])
+                     for n, (lib, body) in who.items()}
+            for n, c in calls.items():
+                if c() != 0:
+                    raise RuntimeError(f"{tag} {n}: prefill launch failed")
+            torch.cuda.synchronize()
+            first = {n: o.clone() for n, o in outs.items()}
+            errs = {n: (o[seen].float() - want[seen]).abs().max().item()
+                    for n, o in outs.items()}
+            a, b = list(calls)
+            t = alternate(calls[a], calls[b], graph_ms)
+            torch.cuda.synchronize()
+            print(json.dumps({
+                kind: f"{tag}: B={B} C={C} H={H} Kh={Kh} D={D} ctx {ctx} "
+                      f"valid {n_valid} page {PAGE} bf16",
+                "bodies": {n: body for n, (_, body) in who.items()},
+                "device_ms": t, "order": f"{a}, {b}, {b}, {a}",
+                "change_pct": 100 * ((t[1] + t[2]) - (t[0] + t[3]))
+                / (t[0] + t[3]),
+                "max_abs_err_vs_plain": errs,
+                "bits_equal": torch.equal(first[a], first[b]),
+                "repeats_own_bits": {n: torch.equal(first[n], outs[n])
+                                     for n in outs},
+                "counts_toward_all_bits_equal": False}), flush=True)
+            del outs, first
+        del q, kp, vp, tables, want
         torch.cuda.empty_cache()
 
 
@@ -1136,6 +1276,12 @@ def main() -> int:
         ok = shared_ab(libs, gen, srcs)
         wide_fwd_ab(libs, gen, srcs, parent_function(
             args.parent, "kernels/flash_attention/ops.py", "plan"))
+        try:
+            parent_plan = parent_function(
+                args.parent, "kernels/paged_attention/ops.py", "prefill_plan")
+        except AttributeError:              # a tree with the tile alone
+            parent_plan = None
+        prefill_plan_ab(libs, gen, parent_plan)
         return 0 if ok else 1
     if args.scan_bwd:
         libs = build({"ss": (csrc / "selective_scan.cu", csrc),
