@@ -910,7 +910,7 @@ def prefill_cases(gen, dev, results):
                            q, kp, vp, tables, ctx_t)),
                        "device_ms": time_ms_graph(lambda: paged_prefill_attention(
                            q, kp, vp, tables, ctx_t)), "body": body}
-                if tag == "granite-c512":  # bound and SDPA beside it
+                if tag != "text-c32":  # the D = 64 tile: bound, SDPA
                     # as for the image chunk: every row of the padded
                     # chunk is computed, over the keys its table holds
                     S = tables.shape[1] * PAGE
@@ -1262,25 +1262,108 @@ def scan_bound(B, S, isz, rate, d=D_INNER, N=N_STATE) -> tuple:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+SCAN_CASES = (("prefill-b1-s512", 1, 512), ("prefill-b4-s512", 4, 512),
+              ("decode-b4", 4, 1), ("decode-b8", 8, 1))
+# the per-head mode also at B = 2 and at zamba2-7b's training shape
+HEADS_CASES = SCAN_CASES[:1] + (("prefill-b2-s512", 2, 512),) + \
+    SCAN_CASES[1:] + (("train-b2-s2048", 2, 2048),)
+# Past 512 steps the f32 rounding of any evaluation order against the plain
+# version's grows with the magnitudes it sums, not with |y|: y_t = h_t . C_t
+# adds 64 products that cancel, and h carries its rounding over the memory
+# of the slowest-decaying heads.  At 2,048 steps the per-head kernel misses
+# 1e-4 absolute with f32 inputs (1.64e-4 and 2.48e-4 on two draws;
+# tools/kernel_ab.py --scan-heads and this script, PERF.md).  So a row longer than LONG_SCAN_STEPS is held
+# element-wise to 1e-4 plus LONG_SCAN_RTOL of the magnitude scale
+# (scan_scale: the plain version on |x|, |B|, |C|, |h0|), a bar set between
+# the sound kernels' largest reading and that of the plain version on
+# TF32-rounded operands (tf32), which the f32 row must fail
+LONG_SCAN_STEPS = 512
+LONG_SCAN_RTOL = 2.0 ** -16
+
+
+def tf32(t):
+    """``t`` (f32) with its mantissa cut to TF32's 10 bits; other types as
+    they are."""
+    import torch
+    if t.dtype != torch.float32:
+        return t
+    return (t.contiguous().view(torch.int32) & -(1 << 13)).view(torch.float32)
+
+
+def scan_scale(ref, ins):
+    """(y, h) of the plain version ``ref`` on |x|, |B|, |C| and |h0|:
+    with dt >= 0 and A <= 0 each step's decay is in (0, 1], so these bound
+    |y| and |h| element-wise and, for y, the sum of |h_n C_n| it cancels."""
+    dt, x, A, Bm, Cm, h0 = ins
+    return ref(dt, x.abs(), A, Bm.abs(), Cm.abs(),
+               None if h0 is None else h0.abs())
+
+
+def long_scan_reading(got, want, scale) -> dict:
+    """The largest error of ``got`` against ``want``, absolute and over
+    ``scale``, and how far the worst element lies past the long-scan bar
+    (1e-4 + LONG_SCAN_RTOL scale; > 0 fails)."""
+    err = (got.float() - want.float()).abs()
+    sc = scale.float()
+    return {"max_abs_err": err.max().item(),
+            "max_err_over_scale": (err / sc.clamp_min(1e-30)).max().item(),
+            "over_bar": (err - 1e-4 - LONG_SCAN_RTOL * sc).max().item()}
+
+
+def long_scan_check(name, dtype, got, want, scale, control=None) -> float:
+    """A scan output longer than LONG_SCAN_STEPS steps against the plain
+    version's: fails unless every element is within 1e-4 +
+    LONG_SCAN_RTOL ``scale``; and, given the plain version's output on
+    TF32-rounded operands (``control``), unless that fails the bar.
+    Returns the largest absolute error."""
+    import torch
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: non-finite kernel output")
+    read = long_scan_reading(got, want, scale)
+    ctrl = None if control is None else long_scan_reading(control, want,
+                                                          scale)
+    log({"check": name, "dtype": dname(dtype), **read, "tol": 1e-4,
+         "rtol_of_scale": LONG_SCAN_RTOL,
+         **({"tf32_control": ctrl} if ctrl else {})})
+    if not read["over_bar"] <= 0:
+        raise AssertionError(f"{name} {dname(dtype)}: max abs err "
+                             f"{read['max_abs_err']} past 1e-4 + "
+                             f"{LONG_SCAN_RTOL} scale")
+    if ctrl is not None and not ctrl["over_bar"] > 0:
+        raise AssertionError(f"{name}: the bar does not catch TF32 operands")
+    return read["max_abs_err"]
+
+
 def scan_cases(gen, dev, results, name, fn, ref, inputs, bound, widths,
-               tail_dtype):
-    """One mode of the selective scan against its plain version: prefill
-    B = 1 and 4 at S = 512 from a nonzero state, decode B = 4 and 8, f32
-    and bf16, timed beside ``bound(B, S, itemsize)``; then a tail of dt =
-    0 (what the prefill mask makes of padded positions) that must leave
-    the state exactly as the valid head left it.  ``inputs(gen, dev, B,
-    S, dtype)`` makes (dt, x, A, B, C, h0); the B = 1 bf16 prefill is the
-    kernels line's row."""
+               tail_dtype, cases=SCAN_CASES):
+    """One mode of the selective scan against its plain version at each
+    (tag, B, S) of ``cases`` (prefill from a nonzero state, decode; the
+    per-head mode also its training shape), f32 and bf16, timed beside
+    ``bound(B, S, itemsize)``; then a tail of dt = 0 (what the prefill
+    mask makes of padded positions) that must leave the state exactly as
+    the valid head left it.  ``inputs(gen, dev, B, S, dtype)`` makes (dt,
+    x, A, B, C, h0); the B = 1 bf16 prefill is the kernels line's row."""
     import torch
     errs = []
-    for tag, B, S in (("prefill-b1-s512", 1, 512), ("prefill-b4-s512", 4, 512),
-                      ("decode-b4", 4, 1), ("decode-b8", 8, 1)):
+    for tag, B, S in cases:
         for dtype in (torch.float32, torch.bfloat16):
             ins = inputs(gen, dev, B, S, dtype)
             y, h = fn(*ins)
             y_ref, h_ref = ref(*ins)
-            errs += [check(f"{name}/{tag}/y", dtype, y, y_ref),
-                     check(f"{name}/{tag}/h", dtype, h, h_ref)]
+            if S > LONG_SCAN_STEPS:
+                scale = scan_scale(ref, ins)
+                dt, x, A, Bm, Cm, h0 = ins
+                ctrl = ref(dt, tf32(x), A, tf32(Bm), tf32(Cm), h0) \
+                    if dtype == torch.float32 else (None, None)
+                errs += [long_scan_check(f"{name}/{tag}/{part}", dtype, g, w,
+                                         sc, c)
+                         for part, g, w, sc, c in
+                         (("y", y, y_ref, scale[0], ctrl[0]),
+                          ("h", h, h_ref, scale[1], None))]
+                del scale, ctrl
+            else:
+                errs += [check(f"{name}/{tag}/y", dtype, y, y_ref),
+                         check(f"{name}/{tag}/h", dtype, h, h_ref)]
             b_ms, b_by = bound(B, S, ins[0].element_size())
             row = {"shape": f"B={B} S={S} {widths} {dname(dtype)} inputs, "
                             f"f32 state",
@@ -4437,7 +4520,7 @@ def main() -> int:
           "selective_scan_heads", scan_ops.selective_scan_heads,
           scan_ref.selective_scan_heads_ref, heads_inputs,
           lambda B, S, isz: heads_bound(B, S, isz, fma, rate),
-          f"H={ZH} P={ZP} N={ZN}", torch.bfloat16)
+          f"H={ZH} P={ZP} N={ZN}", torch.bfloat16, HEADS_CASES)
     torch.cuda.empty_cache()
     timed("width_attention_zamba2", width_attention_cases, gen, dev, results,
           "zamba2", ZAH, ZAH, ZD)

@@ -324,6 +324,11 @@ cudaError_t dispatch_n(const void* dt, const void* x, const void* A,
 // its share of the next chunk into registers while this one runs from
 // shared memory, as in the Mamba-1 kernel; steps run HU at a time,
 // straight-line, so one step's shuffles overlap the next one's FMAs.
+// The bf16 instance stores the final state 16 bytes a channel (hout
+// starts on 16 bytes): at decode the state is most of the bytes, and that
+// runs 6-8% faster on the H100.  16-byte loads of h0 were faster still at
+// decode but slowed prefill by up to 1.9%, and any 16-byte state access
+// spills the f32 instance, which ptxas holds at 168 registers.
 // On the H100, 8 steps at a time ran faster than 4; chunks of 64 steps
 // and blocks of 16 channels did not help at zamba2's shapes.  The
 // exponential is the accurate expf (at
@@ -481,11 +486,17 @@ selective_scan_heads_kernel(const T* __restrict__ dt, const T* __restrict__ x,
     for (; tu + HU <= nt; tu += HU) steps(t0, tu, std::integral_constant<int, HU>());
     for (; tu < nt; ++tu) steps(t0, tu, std::integral_constant<int, 1>());
   }
+  // the final state: 16 bytes a channel, 4 in the f32 instance (above)
 #pragma unroll
-  for (int c = 0; c < HC; ++c)
+  for (int c = 0; c < HC; ++c) {
+    float* const hc = hout + (b * d + c0 + cl + c) * HN + n0;
+    if constexpr (sizeof(T) == 2) {
+      *reinterpret_cast<float4*>(hc) = make_float4(h[c][0], h[c][1], h[c][2], h[c][3]);
+    } else {
 #pragma unroll
-    for (int n = 0; n < HS; ++n)
-      hout[(b * d + c0 + cl + c) * HN + n0 + n] = h[c][n];
+      for (int n = 0; n < HS; ++n) hc[n] = h[c][n];
+    }
+  }
 }
 
 template <typename T>
@@ -497,6 +508,8 @@ cudaError_t launch_heads(const void* dt, const void* x, const void* A,
   // x, B and C 16 bytes at a time (dt is read one element at a time)
   const uintptr_t bases = (uintptr_t)x | (uintptr_t)Bm | (uintptr_t)Cm;
   const int vec = bases % 16 == 0 && P % VEC == 0;
+  // the final state 16 bytes at a time
+  if ((uintptr_t)hout % 16 != 0) return cudaErrorInvalidValue;
   dim3 grid(H * P / HBLOCK_C, B);
   selective_scan_heads_kernel<T><<<grid, HNT, 0, stream>>>(
       static_cast<const T*>(dt), static_cast<const T*>(x),
@@ -1468,8 +1481,8 @@ extern "C" int selective_scan(const void* dt, const void* x, const void* A,
 
 // The per-head mode: dt [B, S, H], x [B, S, H * P], A [H], B/C [B, S, N],
 // h0 / hout [B, H, P, N]; dtype as above.  P must be a multiple of
-// HBLOCK_C (a block's channels in one head) and N 64.  Returns the
-// launch's cudaError_t; nothing synchronises.
+// HBLOCK_C (a block's channels in one head) and N 64; hout starts on 16
+// bytes.  Returns the launch's cudaError_t; nothing synchronises.
 extern "C" int selective_scan_heads(const void* dt, const void* x,
                                     const void* A, const void* Bm,
                                     const void* Cm, const void* h0, void* y,

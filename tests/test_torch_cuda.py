@@ -246,11 +246,23 @@ def _heads_inputs(gen, dev, B, S, Hh, P, N, dtype):
             rnd(B, Hh, P, N).to(dev))
 
 
+# lengths at and around the edges of the 32-step pieces the per-head
+# forward stages (127-129, 389, 1,025, 1,300) and up to zamba2-7b's
+# training length (2,048), at B = 1, 2, 4 and 8, with and without h0
+HEAD_LENGTH_CASES = [
+    (1, 127, 3, 64, True), (2, 128, 3, 64, False), (4, 129, 2, 64, True),
+    (8, 129, 2, 32, False), (1, 389, 5, 64, False), (2, 389, 3, 96, True),
+    (4, 389, 2, 64, False), (8, 128, 2, 64, True), (1, 1025, 2, 64, True),
+    (2, 1300, 3, 64, False), (1, 2048, 2, 64, False), (2, 2048, 3, 64, True),
+    (4, 2048, 2, 32, False), (8, 2048, 1, 64, True)]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["f32", "bf16"])
 @pytest.mark.parametrize("B,S,Hh,P,with_h0", [
     (1, 37, 3, 64, True), (2, 1, 4, 32, True), (3, 70, 2, 96, False),
-    (1, 512, 5, 64, True), (4, 33, 112, 64, True), (8, 1, 112, 64, True)])
+    (1, 512, 5, 64, True), (4, 33, 112, 64, True), (8, 1, 112, 64, True)]
+    + HEAD_LENGTH_CASES)
 def test_selective_scan_heads_kernel_matches_plain(cuda, dtype, B, S, Hh, P,
                                                    with_h0):
     gen = torch.Generator().manual_seed(B * 1000 + S + Hh + P)
@@ -268,17 +280,64 @@ def test_selective_scan_heads_kernel_matches_plain(cuda, dtype, B, S, Hh, P,
     assert (h - h_ref).abs().max().item() <= 1e-4
 
 
-def test_selective_scan_heads_zero_dt_freezes_state(cuda):
+# (S, valid head): tails that start inside a staged piece of 32 steps,
+# on a piece's edge (256, 1,024), past 1,024 steps, and after one step
+@pytest.mark.parametrize("S,n", [(80, 45), (300, 200), (300, 256),
+                                 (1200, 1100), (1280, 1024), (130, 1)])
+def test_selective_scan_heads_zero_dt_freezes_state(cuda, S, n):
     gen = torch.Generator().manual_seed(6)
-    dt, x, A, Bm, Cm, h0 = _heads_inputs(gen, cuda, 2, 80, 4, 64, 64,
+    dt, x, A, Bm, Cm, h0 = _heads_inputs(gen, cuda, 2, S, 4, 64, 64,
                                          torch.bfloat16)
     _, h_head = tss.selective_scan_heads(
-        dt[:, :45].contiguous(), x[:, :45].contiguous(), A,
-        Bm[:, :45].contiguous(), Cm[:, :45].contiguous(), h0)
-    dt[:, 45:] = 0
+        dt[:, :n].contiguous(), x[:, :n].contiguous(), A,
+        Bm[:, :n].contiguous(), Cm[:, :n].contiguous(), h0)
+    dt[:, n:] = 0
     _, h = tss.selective_scan_heads(dt, x, A, Bm, Cm, h0)
     torch.cuda.synchronize()
     assert torch.equal(h, h_head)
+
+
+@pytest.mark.parametrize("B,S,Hh", [(1, 512, 112), (2, 2048, 112),
+                                    (4, 1, 112), (3, 197, 5)])
+def test_selective_scan_heads_repeats_its_bits(cuda, B, S, Hh):
+    """The same inputs give the same bits on every call."""
+    gen = torch.Generator().manual_seed(B + S + Hh)
+    ins = _heads_inputs(gen, cuda, B, S, Hh, 64, 64, torch.bfloat16)
+    y1, h1 = tss.selective_scan_heads(*ins)
+    y2, h2 = tss.selective_scan_heads(*ins)
+    torch.cuda.synchronize()
+    assert torch.equal(y1, y2) and torch.equal(h1, h2)
+
+
+# zamba2-7b's training shape (B = 2, S = 2,048, H = 112), held as
+# chip_smoke.py's long_scan_check holds rows past 512 steps: element-wise
+# within 1e-4 plus 2^-16 (LONG_SCAN_RTOL) of the plain version on |x|,
+# |B|, |C|, |h0|, which bounds the magnitudes y's f32 sums cancel; with f32
+# inputs the plain version on TF32-rounded x, B and C must fail that bar
+LONG_SCAN_RTOL = 2.0 ** -16
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+def test_selective_scan_heads_training_shape_matches_plain(cuda, dtype):
+    gen = torch.Generator().manual_seed(2048)
+    dt, x, A, Bm, Cm, h0 = _heads_inputs(gen, cuda, 2, 2048, 112, 64, 64,
+                                         dtype)
+    y, h = tss.selective_scan_heads(dt, x, A, Bm, Cm, h0)
+    want = selective_scan_heads_ref(dt, x, A, Bm, Cm, h0)
+    scale = selective_scan_heads_ref(dt, x.abs(), A, Bm.abs(), Cm.abs(),
+                                     h0.abs())
+    torch.cuda.synchronize()
+    for got, w, sc in zip((y, h), want, scale):
+        assert torch.isfinite(got).all()
+        assert ((got - w).abs() - LONG_SCAN_RTOL * sc).max().item() <= 1e-4
+    if dtype == torch.float32:
+        def tf32(t):
+            return (t.view(torch.int32) & -(1 << 13)).view(torch.float32)
+        ctrl, _ = selective_scan_heads_ref(dt, tf32(x), A, tf32(Bm),
+                                           tf32(Cm), h0)
+        assert ((ctrl - want[0]).abs()
+                - LONG_SCAN_RTOL * scale[0]).max().item() > 1e-4
 
 
 @pytest.mark.parametrize("N,P", [(16, 64), (64, 48)])

@@ -100,6 +100,22 @@ replays of 5 calls, medians of 7, and eager calls, beside each shape's
 bound (``chip_smoke.py::scan_bwd_bound``), with each tree's largest error
 against the plain backward's f32 gradients on the same inputs and each
 backward instance's registers and resident blocks an SM.
+
+    python3 tools/kernel_ab.py --scan-heads --parent DIR
+
+times only the per-head scan's forward (``selective_scan_heads``, bf16
+inputs, f32 state) of both trees through their C entries at zamba2-7b's
+widths (H = 112, P = 64, N = 64): B = 1, 2 and 4 at S = 512, the training
+shape B = 2 at S = 2,048, and decode at B = 1, 4 and 8; parent, change,
+change, parent (CUDA-graph replays, medians of 7), each tree's largest
+error against the plain version, whether the trees' bits are equal and
+each tree repeats its own, beside the bound
+(``chip_smoke.py::heads_bound``).  Last, at B = 1, S = 512 and at the
+training shape, f32 and bf16 inputs on three draws each: each tree's
+largest error, absolute and over the magnitude scale that
+``chip_smoke.py::long_scan_check`` holds rows past 512 steps to, beside
+the same reading of the plain version on TF32-rounded x, B and C (the
+control that bar must catch).
 """
 from __future__ import annotations
 
@@ -775,6 +791,132 @@ def scan_ab(libs, gen):
                           "tol": 1e-4}), flush=True)
 
 
+# the per-head forward's rows: (tag, B, S)
+SCAN_HEADS_CASES = (("prefill-b1-s512", 1, 512), ("prefill-b2-s512", 2, 512),
+                    ("prefill-b4-s512", 4, 512), ("train-b2-s2048", 2, 2048),
+                    ("decode-b1", 1, 1), ("decode-b4", 4, 1),
+                    ("decode-b8", 8, 1))
+# the error readings' rows (not timed)
+SCAN_HEADS_ERR = (("prefill-b1-s512", 1, 512), ("train-b2-s2048", 2, 2048))
+
+
+def run_heads(fn, ins, y, h):
+    import torch
+    dt, x, A, Bm, Cm, h0 = ins
+    B, S, Hh = dt.shape
+    err = fn(*[t.data_ptr() for t in ins], y.data_ptr(), h.data_ptr(),
+             0 if dt.dtype == torch.float32 else 1, B, S, Hh,
+             x.shape[2] // Hh, Bm.shape[2],
+             torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"per-head scan launch failed: {err}")
+
+
+def scan_heads_ab(libs, gen):
+    """The per-head forward (``selective_scan_heads``, bf16 inputs, f32
+    state from a nonzero h0) of both trees through their C entries at
+    zamba2-7b's widths (H = 112, P = 64, N = 64): S = 512 at B = 1, 2, 4,
+    the training shape B = 2 at S = 2,048, decode at B = 1, 4, 8.  Device
+    ms parent, change, change, parent (CUDA-graph replays), each tree's
+    largest error against the plain version, whether the two trees give
+    the same bits (y and h) and whether each repeats its own; beside the
+    bound (``chip_smoke.py::heads_bound``).  Last, the error readings of
+    ``SCAN_HEADS_ERR``'s rows (see ``heads_err_rows``)."""
+    import torch
+    from repro_torch.kernels.selective_scan.ref import selective_scan_heads_ref
+    sys.path.insert(0, str(ROOT))
+    from chip_smoke import (ZH, ZN, ZP, exp_rate, fma_rate, heads_bound,
+                            heads_inputs)
+    fns = {}
+    for n in ("parent_ss", "ss"):
+        fns[n] = libs[n].selective_scan_heads
+        fns[n].argtypes = [_P] * 8 + [_I] * 6 + [_P]
+    fma, rate = fma_rate(), exp_rate()
+    for tag, B, S in SCAN_HEADS_CASES:
+        ins = heads_inputs(gen, "cuda", B, S, torch.bfloat16)
+        y_ref, h_ref = selective_scan_heads_ref(*ins)
+        outs = {}
+        for n in fns:
+            y = torch.empty((B, S, ZH * ZP), device="cuda")
+            h = torch.empty((B, ZH, ZP, ZN), device="cuda")
+            run_heads(fns[n], ins, y, h)
+            torch.cuda.synchronize()
+            y2, h2 = torch.empty_like(y), torch.empty_like(h)
+            run_heads(fns[n], ins, y2, h2)
+            torch.cuda.synchronize()
+            outs[n] = (y, h, torch.equal(y, y2) and torch.equal(h, h2))
+        err = {n: max((o[0] - y_ref).abs().max().item(),
+                      (o[1] - h_ref).abs().max().item())
+               for n, o in outs.items()}
+        b_ms, b_by = heads_bound(B, S, 2, fma, rate)
+
+        def timer(n):
+            y, h = outs[n][0], outs[n][1]
+            return graph_ms(lambda: run_heads(fns[n], ins, y, h))
+        dev = alternate("parent_ss", "ss", timer)
+        print(json.dumps({
+            "scan_heads": f"{tag}: B={B} S={S} H={ZH} P={ZP} N={ZN} bf16 "
+                          f"inputs, f32 state",
+            "device_ms": dev, "order": "parent, change, change, parent",
+            "change_pct": 100 * (statistics.median(dev[1:3])
+                                 / statistics.median(dev[::3]) - 1),
+            "max_abs_err": {"parent": err["parent_ss"], "change": err["ss"]},
+            "tol": 1e-4,
+            "bits_equal": {"y": torch.equal(outs["parent_ss"][0],
+                                            outs["ss"][0]),
+                           "h": torch.equal(outs["parent_ss"][1],
+                                            outs["ss"][1])},
+            "repeatable": {"parent": outs["parent_ss"][2],
+                           "change": outs["ss"][2]},
+            "bound_ms": b_ms, "bound_by": b_by,
+            "bound_share": b_ms / statistics.median(dev[1:3])}), flush=True)
+        del ins, outs, y_ref, h_ref
+        torch.cuda.empty_cache()
+    heads_err_rows(fns)
+
+
+def heads_err_rows(fns):
+    """For each (tag, B, S) of ``SCAN_HEADS_ERR``, f32 and bf16 inputs,
+    three draws (seeds 0-2, ``chip_smoke.heads_inputs``): each tree's
+    largest error against the plain version (y and h), absolute and over
+    the magnitude scale (``chip_smoke.long_scan_reading``), and the plain
+    version's own on TF32-rounded x, B and C (``chip_smoke.tf32``; inputs
+    already bf16 are left as they are, so that row reads 0)."""
+    import torch
+    from repro_torch.kernels.selective_scan.ref import selective_scan_heads_ref
+    from chip_smoke import (LONG_SCAN_RTOL, ZH, ZN, ZP, heads_inputs,
+                            long_scan_reading, scan_scale, tf32)
+    for tag, B, S in SCAN_HEADS_ERR:
+        for dtype in (torch.float32, torch.bfloat16):
+            for seed in range(3):
+                g = torch.Generator(device="cuda").manual_seed(seed)
+                ins = heads_inputs(g, "cuda", B, S, dtype)
+                want = selective_scan_heads_ref(*ins)
+                scale = scan_scale(selective_scan_heads_ref, ins)
+                dt, x, A, Bm, Cm, h0 = ins
+                ctrl = selective_scan_heads_ref(dt, tf32(x), A, tf32(Bm),
+                                                tf32(Cm), h0)
+                read = {}
+                for n in fns:
+                    y = torch.empty((B, S, ZH * ZP), device="cuda")
+                    h = torch.empty((B, ZH, ZP, ZN), device="cuda")
+                    run_heads(fns[n], ins, y, h)
+                    torch.cuda.synchronize()
+                    read[n] = (y, h)
+                read["tf32_control"] = ctrl
+                print(json.dumps({
+                    "scan_heads_err": f"{tag}: B={B} S={S} H={ZH} P={ZP} "
+                                      f"N={ZN} {str(dtype)[6:]} inputs",
+                    "seed": seed, "rtol_of_scale": LONG_SCAN_RTOL,
+                    **{("parent" if n == "parent_ss" else
+                        "change" if n == "ss" else n): {
+                        part: long_scan_reading(o[i], want[i], scale[i])
+                        for i, part in enumerate(("y", "h"))}
+                       for n, o in read.items()}}), flush=True)
+                del ins, want, scale, ctrl, read
+                torch.cuda.empty_cache()
+
+
 def takes_dv(src: Path) -> bool:
     """Whether a tree's flash_attention.cu entries take the value width
     (``int D, int DV``) after the head dim."""
@@ -1235,6 +1377,9 @@ def main() -> int:
                     help="only flash attention's backward (bf16)")
     ap.add_argument("--scan-bwd", action="store_true",
                     help="only the selective scan's backward (bf16)")
+    ap.add_argument("--scan-heads", action="store_true",
+                    help="only the per-head scan's forward (bf16) of both "
+                         "trees, then their error readings")
     ap.add_argument("--widths", action="store_true",
                     help="only the flash and chunked-prefill instances both "
                          "trees have: bits and device times; and the wide "
@@ -1283,6 +1428,12 @@ def main() -> int:
             parent_plan = None
         prefill_plan_ab(libs, gen, parent_plan)
         return 0 if ok else 1
+    if args.scan_heads:
+        libs = build({"ss": (csrc / "selective_scan.cu", csrc),
+                      "parent_ss": (pcsrc / "selective_scan.cu", pcsrc)})
+        print(json.dumps({"card": card}), flush=True)
+        scan_heads_ab(libs, gen)
+        return 0
     if args.scan_bwd:
         libs = build({"ss": (csrc / "selective_scan.cu", csrc),
                       "parent_ss": (pcsrc / "selective_scan.cu", pcsrc)})
