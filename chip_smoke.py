@@ -80,7 +80,8 @@ on failure:
             prefill (a 512-token chunk, f32 and bf16) at zamba2-7b's
             shared attention (H = Kh = 32, D = 112) against their plain
             versions and SDPA, and the same at stablelm-12b's attention
-            (H = 32, Kh = 8, D = 160);
+            (H = 32, Kh = 8, D = 160) and at gemma3-4b's (H = 8, Kh = 4, D
+            = 256; its chunks on the tile, logged, on no main path);
             flash attention's backward (csrc/flash_attention.cu,
             flash_attention_bwd) and the forward's new log-sum-exp against
             their plain versions at LLaVA-1.5-7B's training shape (B = 2,
@@ -213,6 +214,22 @@ on failure:
             then reduced f32 dense runners on the card against the CPU
             (LLaVA, gemma3-4b, whisper-small, falcon-mamba-7b, zamba2-7b,
             granite-moe-1b-a400m, DeepSeek-V2 at (192, 128)), 2e-4;
+   sharded- (last) the sharded serving steps (``models/sharding.py``) on
+            two ranks spawned on the one card, a (data, model) = (1, 2)
+            mesh over gloo: full-width LLaVA-1.5-7B (one 576 x 4096
+            image + 32 tokens, B = 2), granite-moe-1b-a400m (16 experts a
+            rank) and falcon-mamba-7b, each rank drawing the full bf16
+            weights from the seeded generator and keeping its cut;
+            ``prefill`` and 8 ``decode_step``s fed the unsharded run's
+            greedy tokens, against this process's unsharded run of the
+            same weights on the card: in f32 (the weights upcast) within
+            2e-4 of the largest logit with the same greedy tokens, in
+            bf16 no farther from the f32 run than twice the unsharded
+            bf16 run is; each rank must launch flash, decode and the cache
+            write (the scan for falcon-mamba); each rank's weight bytes
+            beside the whole tree's; then reduced f32 LLaVA, granite-moe
+            and falcon-mamba at (1, 2) and (2, 1) on the card against
+            their unsharded run on the CPU, 2e-4;
 6. report - one JSON line of kernels (each split-KV merge keeps its own
             row: fused into its split kernel, its launches are the split
             calls, ``ms`` and ``standalone_*`` time the merge kernel alone,
@@ -232,7 +249,10 @@ on failure:
             step's, gemma3-4b's and DeepSeek-V2's; ``launches_dense`` on
             the rows of the kernels the dense phase runs: its Engine
             run's, the scans' its reduced falcon-mamba and zamba2
-            checks'), then the final status line.
+            checks'; ``launches_sharded`` on the rows of flash, decode,
+            the cache write and the scan: each rank's over the sharded
+            phase's three full-width bf16 runs), then the final status
+            line.
 
 Exits non-zero (and prints no status line) without a card or outside the
 repository.
@@ -306,6 +326,8 @@ WH, WD, WT = 12, 64, 1500                             # whisper-small heads,
 #                                                       head dim, frames
 GH, GKH, GD, GL = 16, 8, 64, 24                       # granite-moe-1b-a400m
 #                                  heads, KV heads, head dim, layers
+GMH, GMKH, GMD = 8, 4, 256                            # gemma3-4b heads, KV
+#                                                       heads, head dim
 MLA_H = 128                                           # deepseek-v2 heads
 LATENT_DIMS = (80, 112, 576)                          # MLA latent rows R +
 #                                          rope: reduced, 112, full width
@@ -4458,6 +4480,300 @@ def serve_sim(card: str):
 
 
 # ---------------------------------------------------------------------------
+# ---------------------------------------------------------------------------
+# sharded serving steps: two ranks on the card over gloo
+# ---------------------------------------------------------------------------
+SHARD_ARCHS = ("llava-1.5-7b", "granite-moe-1b-a400m", "falcon-mamba-7b")
+# Full width, a step's logits: in f32 (the bf16-drawn weights upcast) the
+# sharded run within SHARD_F32_REL of the unsharded one's largest logit, the
+# same greedy tokens; in bf16 no farther from that f32 run than
+# SHARD_BF16_FACTOR times the unsharded bf16 run's own distance from it.
+# bf16 rounding alone moves these random-weight models' logits by 2-7% of
+# the largest (the unsharded bf16 run against its own f32 run, which this
+# phase logs as ``bf16_unsharded_vs_f32``), so two bf16 runs that round in
+# another order cannot be held to a fixed bar or to equal greedy tokens;
+# the bf16 run is what checks the bf16-only f32-output product of the
+# partial sums (``sharding.row_parallel``).
+SHARD_F32_REL = 2e-4   # also reduced f32: sharded on the card vs the CPU
+SHARD_BF16_FACTOR = 2.0
+SHARD_STEPS = 8        # teacher-forced decode steps after the prefill
+SHARD_MESHES = ((1, 2), (2, 1))      # the reduced checks' (data, model)
+SHARD_TIMEOUT_S = 600
+SHARD_KERNELS = ("flash_attention", "paged_attention", "cache_write",
+                 "selective_scan")
+
+
+def shard_inputs(cfg, seed: int):
+    """B = 2 prompts of 32 tokens and, for a vision model, one 576 x 4096
+    image pseudo-embedding each (numpy, from ``seed``)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    tokens = rng.integers(0, cfg.vocab_size, (2, 32)).astype(np.int32)
+    media = None
+    if cfg.frontend == "vision":
+        media = (rng.standard_normal((2, cfg.media_tokens, cfg.d_model))
+                 * 0.1).astype(np.float32)
+    return tokens, media
+
+
+def shard_steps(cfg, params, tokens, media, fed=None, rows=slice(None)):
+    """The dense serving steps (``prefill``, ``build_cache_from_prefill``,
+    then ``SHARD_STEPS`` ``decode_step``s) on rows ``rows`` of the batch,
+    fed the tokens ``fed`` ([B, 1] a step, the unsharded run's) or their
+    own greedy tokens.  Returns (each step's logits, f32 on the host; the
+    tokens fed)."""
+    import torch
+    from repro_torch.models import model as M
+    dev = params.device
+    t = torch.from_numpy(tokens[rows]).to(dev)
+    m = None if media is None else torch.from_numpy(media[rows]).to(dev)
+    n_in = t.shape[1] + (0 if m is None else m.shape[1])
+    with torch.no_grad():
+        last, cache = M.prefill(cfg, params, t, media=m)
+        cache = M.build_cache_from_prefill(cfg, cache,
+                                           n_in + SHARD_STEPS + 1)
+        steps, given = [last.float().cpu()], []
+        for i in range(SHARD_STEPS):
+            tok = steps[-1].argmax(-1, keepdim=True).to(torch.int32) \
+                if fed is None else fed[i][rows]
+            given.append(tok)
+            out, cache = M.decode_step(cfg, params, cache, n_in + i,
+                                       tok.to(dev))
+            steps.append(out.float().cpu())
+    return steps, given
+
+
+def param_bytes(params) -> int:
+    return sum(t.numel() * t.element_size() for t in params.parameters())
+
+
+def sharded_rank(rank: int, world: int, port: int, seed: int, tmp: str):
+    """One rank of the ``sharded`` phase (spawned): joins the gloo group,
+    draws each model's full bf16 weights from the seeded generator, keeps
+    its cut (``shard_params``) and runs the dense steps under a (1, 2) mesh
+    fed the unsharded run's tokens, its kernel launches counted from 0,
+    then the same in f32 (its cut upcast); then the reduced f32 models at
+    each of ``SHARD_MESHES``.  Writes its results to ``tmp``."""
+    import datetime
+    import torch
+    import torch.distributed as dist
+    from repro_torch import kernels as K
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models import model as M
+    from repro_torch.models import sharding as SH
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                            world_size=world, rank=rank,
+                            timeout=datetime.timedelta(
+                                seconds=SHARD_TIMEOUT_S))
+    try:
+        fed = torch.load(Path(tmp) / "fed.pt", weights_only=False)
+        out = {}
+        mesh = make_host_mesh(model=world)
+        for arch in SHARD_ARCHS:
+            t0 = time.perf_counter()
+            cfg = get_config(arch)
+            full = M.init_params(cfg, torch.Generator(device="cuda")
+                                 .manual_seed(seed), dtype=torch.bfloat16)
+            local = SH.shard_params(full, cfg, mesh)
+            del full
+            gc.collect()
+            torch.cuda.empty_cache()
+            inputs = shard_inputs(cfg, seed)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            K.reset_launches()
+            with SH.use_mesh(mesh):
+                steps, _ = shard_steps(cfg, local, *inputs, fed[arch])
+            torch.cuda.synchronize()
+            res = {"steps": steps, "bytes": param_bytes(local),
+                   "launches": {n: c for n, c in K.launches.items() if c},
+                   "setup_s": t1 - t0, "steps_s": time.perf_counter() - t1}
+            with SH.use_mesh(mesh):
+                res["steps_f32"], _ = shard_steps(cfg, local.float(),
+                                                  *inputs, fed[arch])
+            out[arch] = res
+            del local
+            gc.collect()
+            torch.cuda.empty_cache()
+        for shape in SHARD_MESHES:
+            m = make_host_mesh(model=shape[1])
+            for arch in SHARD_ARCHS:
+                cfg = get_config(arch).reduced()
+                full = M.init_params(cfg, torch.Generator().manual_seed(
+                    seed)).to("cuda")
+                with SH.use_mesh(m):
+                    local = SH.shard_params(full, cfg)
+                    n, r = SH.dp_size(), SH.dp_rank()
+                    rows = slice(r * 2 // n, (r + 1) * 2 // n)
+                    K.reset_launches()
+                    steps, _ = shard_steps(cfg, local, *shard_inputs(
+                        cfg, seed), fed[f"{arch} reduced"], rows)
+                out[(arch, shape)] = {
+                    "steps": steps, "rows": (rows.start, rows.stop),
+                    "launches": {n: c for n, c in K.launches.items() if c}}
+        torch.save(out, Path(tmp) / f"rank{rank}.pt")
+    finally:
+        dist.destroy_process_group()
+
+
+def max_rel(got: list, want: list, rows=slice(None)) -> list:
+    """Each step's largest error over the reference's largest logit."""
+    return [float((g - w[rows]).abs().max() / w[rows].abs().max())
+            for g, w in zip(got, want)]
+
+
+def same_greedy(got: list, want: list) -> bool:
+    """The same greedy token at every step and lane."""
+    return all(bool((g.argmax(-1) == w.argmax(-1)).all())
+               for g, w in zip(got, want))
+
+
+def spawn_ranks(fn, world: int, args: tuple, timeout_s: float):
+    """Run ``fn(rank, world, *args)`` in ``world`` spawned processes; a
+    rank that fails fails the call (its traceback raised here), and ranks
+    still running after ``timeout_s`` are stopped."""
+    import torch.multiprocessing as mp
+    ctx = mp.start_processes(fn, args=(world,) + args, nprocs=world,
+                             start_method="spawn", join=False)
+    deadline = time.monotonic() + timeout_s
+    try:
+        while not ctx.join(timeout=1):          # raises if a rank failed
+            if time.monotonic() > deadline:
+                raise TimeoutError(f"ranks still running after "
+                                   f"{timeout_s} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.terminate()
+            p.join(5)
+
+
+def sharded(seed: int, card: str) -> dict:
+    """The sharded serving steps (``models/sharding.py``) on two ranks of
+    one card over gloo, mesh (data, model) = (1, 2): full-width
+    LLaVA-1.5-7B (one image + 32 tokens, B = 2), granite-moe-1b-a400m (16
+    experts a rank) and falcon-mamba-7b, bf16 weights drawn from the
+    seeded generator; prefill and ``SHARD_STEPS`` decode steps fed the
+    unsharded bf16 run's greedy tokens, against this process's unsharded
+    run of the same weights and inputs on the card, in f32 (the weights
+    upcast; ``SHARD_F32_REL``, the same greedy tokens) and in bf16
+    (``SHARD_BF16_FACTOR``); each rank's launches of flash, decode and the
+    cache write, or of the scan; then the reduced f32 models at (1, 2) and
+    (2, 1) against their unsharded run on the CPU (``SHARD_F32_REL``).
+    Returns each rank's launches of ``SHARD_KERNELS`` over the three
+    full-width bf16 runs."""
+    import socket
+    import tempfile
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import model as M
+    t0 = time.perf_counter()
+    want = {}
+    for arch in SHARD_ARCHS:             # the unsharded runs, on the card
+        cfg = get_config(arch)
+        params = M.init_params(cfg, torch.Generator(device="cuda")
+                               .manual_seed(seed), dtype=torch.bfloat16)
+        inputs = shard_inputs(cfg, seed)
+        steps, fed = shard_steps(cfg, params, *inputs)
+        want[arch] = {"steps": steps, "fed": fed,
+                      "bytes": param_bytes(params)}
+        want[arch]["steps_f32"], _ = shard_steps(cfg, params.float(),
+                                                 *inputs, fed)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+    for arch in SHARD_ARCHS:             # reduced f32, on the CPU
+        cfg = get_config(arch).reduced()
+        params = M.init_params(cfg, torch.Generator().manual_seed(seed))
+        steps, fed = shard_steps(cfg, params, *shard_inputs(cfg, seed))
+        want[f"{arch} reduced"] = {"steps": steps, "fed": fed}
+    t_spawn = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save({a: w["fed"] for a, w in want.items()},
+                   Path(tmp) / "fed.pt")
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+        spawn_ranks(sharded_rank, 2, (port, seed, tmp), SHARD_TIMEOUT_S)
+        ranks = [torch.load(Path(tmp) / f"rank{r}.pt", weights_only=False)
+                 for r in range(2)]
+    launches = {n: [0, 0] for n in SHARD_KERNELS}
+    for arch in SHARD_ARCHS:
+        cfg = get_config(arch)
+        w = want[arch]
+        got = [r[arch] for r in ranks]
+        need = ("selective_scan",) if arch == "falcon-mamba-7b" else \
+            ("flash_attention", "paged_attention", "cache_write")
+        for i, g in enumerate(got):
+            missing = [n for n in need if not g["launches"].get(n)]
+            if missing:
+                raise AssertionError(f"sharded {arch}: rank {i} never "
+                                     f"launched {missing}")
+            for n in SHARD_KERNELS:
+                launches[n][i] += g["launches"].get(n, 0)
+        reading = {
+            "f32": max(max(max_rel(g["steps_f32"], w["steps_f32"]))
+                       for g in got),
+            "bf16": max(max(max_rel(g["steps"], w["steps"])) for g in got),
+            "bf16_sharded_vs_f32": max(max(max_rel(g["steps"],
+                                                   w["steps_f32"]))
+                                       for g in got),
+            "bf16_unsharded_vs_f32": max(max_rel(w["steps"],
+                                                 w["steps_f32"]))}
+        greedy = {"f32": all(same_greedy(g["steps_f32"], w["steps_f32"])
+                             for g in got),
+                  "bf16": all(same_greedy(g["steps"], w["steps"])
+                              for g in got)}
+        log({"sharded": f"{arch} full width ({cfg.num_layers} layers), "
+                        f"mesh (data, model) = (1, 2): two ranks on one "
+                        f"card over gloo, prefill + {SHARD_STEPS} decode "
+                        f"steps fed the unsharded bf16 run's tokens, bf16 "
+                        f"and f32",
+             "card": card,
+             "rel_logit_err_by_step": {
+                 "f32": max_rel(got[0]["steps_f32"], w["steps_f32"]),
+                 "bf16": max_rel(got[0]["steps"], w["steps"])},
+             "max_rel_logit_err": reading, "bar_f32": SHARD_F32_REL,
+             "bar_bf16_sharded_vs_f32": SHARD_BF16_FACTOR
+             * reading["bf16_unsharded_vs_f32"],
+             "greedy_equal": greedy,
+             "weight_bytes_by_rank": [g["bytes"] for g in got],
+             "weight_bytes_unsharded": w["bytes"],
+             "launches_by_rank": [g["launches"] for g in got],
+             "setup_s_by_rank": [g["setup_s"] for g in got],
+             "steps_s_by_rank": [g["steps_s"] for g in got]})
+        if not reading["f32"] <= SHARD_F32_REL or not greedy["f32"]:
+            raise AssertionError(f"sharded {arch}, f32: logits off by "
+                                 f"{reading['f32']} (rel), bar "
+                                 f"{SHARD_F32_REL}; greedy tokens equal: "
+                                 f"{greedy['f32']}")
+        if not reading["bf16_sharded_vs_f32"] <= \
+                SHARD_BF16_FACTOR * reading["bf16_unsharded_vs_f32"]:
+            raise AssertionError(f"sharded {arch}, bf16: {reading}")
+    for shape in SHARD_MESHES:
+        for arch in SHARD_ARCHS:
+            w = want[f"{arch} reduced"]["steps"]
+            worst = max(max(max_rel(r[(arch, shape)]["steps"], w,
+                                    slice(*r[(arch, shape)]["rows"])))
+                        for r in ranks)
+            log({"sharded_check": f"reduced {arch} f32, mesh (data, model) "
+                                  f"= {shape} on the card vs unsharded on "
+                                  f"the cpu, prefill + {SHARD_STEPS} "
+                                  f"decode steps",
+                 "max_rel_logit_err": worst, "tol": SHARD_F32_REL,
+                 "launches_by_rank": [r[(arch, shape)]["launches"]
+                                      for r in ranks]})
+            if not worst < SHARD_F32_REL:
+                raise AssertionError(f"sharded {arch} {shape} check: "
+                                     f"logits off by {worst} (rel)")
+    log({"phase_s": "sharded parts", "unsharded_runs_s": t_spawn - t0,
+         "ranks_s": time.perf_counter() - t_spawn})
+    return launches
+
+
 def timed(label: str, fn, *args):
     """fn(*args), its wall seconds logged under ``label``."""
     t = time.perf_counter()
@@ -4527,6 +4843,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     timed("width_attention_d160", width_attention_cases, gen, dev, results,
           "d160", SH, SKH, SD, True)
+    torch.cuda.empty_cache()
+    # gemma3-4b's attention (H = 8 over Kh = 4, D = 256): its chunks stay
+    # on the tile; logged as kernel lines, not on a main path
+    timed("width_attention_d256", width_attention_cases, gen, dev, results,
+          "d256", GMH, GMKH, GMD)
     torch.cuda.empty_cache()
     timed("flash_cases", flash_cases, gen, dev, results, rate)
     torch.cuda.empty_cache()
@@ -4654,6 +4975,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     timed("serve_sim", serve_sim, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    sharded_launches = timed("sharded", sharded, args.seed, card)
     # a merge row's launches: the split calls, each merging in its last
     # blocks (the merge kernel alone never runs on the main paths)
     for name in ("paged_attention", "flash_attention"):
@@ -4769,6 +5093,8 @@ def main() -> int:
                         "library_ms": r["library_ms"], "shape": r["shape"],
                         **({"launches_dense": dense_rows[name]}
                            if name in dense_rows else {}),
+                        **({"launches_sharded": sharded_launches[name]}
+                           if name in sharded_launches else {}),
                         **{key: r[key] for key in (
                             "device_ms", "device_ms_cold_l2",
                             "library_device_ms", "bound_share",

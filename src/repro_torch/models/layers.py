@@ -9,7 +9,10 @@ flattened as ``[..., kv_heads*head_dim]`` like the JAX package.
 hand-written CUDA kernel on the card, its plain version on the CPU); the
 dense serving path's ``decode_attention`` and ``cache_write`` /
 ``ring_write`` through the paged-decode and cache-write kernels, over a
-dense ``[B, S, kv_dim]`` cache seen as pages.
+dense ``[B, S, kv_dim]`` cache seen as pages.  Under a mesh the MLPs'
+weights are the rank's span of the FFN width (gate and up columns, down
+rows) and the down product's partials are summed over ``model``
+(``sharding.row_parallel``).
 """
 from __future__ import annotations
 
@@ -22,6 +25,7 @@ import torch.nn.functional as F
 from repro_torch.kernels.cache_write.ops import paged_chunk_write
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.paged_attention.ops import paged_attention
+from repro_torch.models import sharding as SH
 
 
 # ---------------------------------------------------------------------------
@@ -179,12 +183,12 @@ def ring_write(cache, new, index):
 # ---------------------------------------------------------------------------
 def gated_mlp(p, x, act: str):
     a = act_fn(act)
-    return (a(x @ p.w_gate) * (x @ p.w_up)) @ p.w_down
+    return SH.row_parallel(a(x @ p.w_gate) * (x @ p.w_up), p.w_down)
 
 
 def plain_mlp(p, x, act: str):
     a = act_fn(act)
-    return a(x @ p.w_up) @ p.w_down
+    return SH.row_parallel(a(x @ p.w_up), p.w_down)
 
 
 def mlp(p, x, act: str):

@@ -13,6 +13,11 @@ Both blocks are differentiable end to end (training): everything around
 the scan is PyTorch under autograd, and with grad on the scan runs the
 wrappers' autograd Functions, whose backward is the scan's backward
 kernel; serving (no grad) launches only the forward kernel.
+Under a mesh a Mamba-1 layer runs on the rank's span of ``d_inner``
+channels (its x and z columns of ``in_proj``, conv, ``dt_proj``, the
+scan, ``out_proj``'s rows); ``x_proj``'s and ``out_proj``'s partial
+products are summed over ``model`` (``sharding.row_parallel``).  Mamba-2
+is not sharded yet.
 """
 from __future__ import annotations
 
@@ -22,6 +27,7 @@ import torch.nn.functional as F
 from repro_torch.kernels.selective_scan.ops import (selective_scan,
                                                    selective_scan_heads)
 from repro_torch.models import layers
+from repro_torch.models import sharding as SH
 
 
 # ---------------------------------------------------------------------------
@@ -99,14 +105,14 @@ def mamba1_seq(p, x, cfg, state=None, conv_prefix=None, mask=None):
     The state is f32 whatever the weights' type.
     """
     B, S, _ = x.shape
-    di, N, R = cfg.d_inner, cfg.ssm_state, cfg.dt_rank
+    di, N, R = p.A_log.shape[0], cfg.ssm_state, cfg.dt_rank   # the rank's
     n_valid = None if mask is None else mask.sum(dim=1).to(torch.int32)
     xz = x @ p.in_proj
     xin, z = xz.chunk(2, dim=-1)
     xc, conv_prefix = causal_conv(xin, p.conv_w, p.conv_b, conv_prefix,
                                   n_valid)
 
-    proj = xc @ p.x_proj                                   # [B, S, R+2N]
+    proj = SH.row_parallel(xc, p.x_proj)                   # [B, S, R+2N]
     dt_raw, Bt, Ct = torch.split(proj, [R, N, N], dim=-1)
     dt = F.softplus(dt_raw @ p.dt_proj + p.dt_bias.to(dt_raw.dtype))
     if mask is not None:
@@ -120,7 +126,7 @@ def mamba1_seq(p, x, cfg, state=None, conv_prefix=None, mask=None):
                               state.contiguous())
     y = y + p.D * xc.float()
     y = (y * F.silu(z.float())).to(x.dtype)
-    return y @ p.out_proj, (state, conv_prefix)
+    return SH.row_parallel(y, p.out_proj), (state, conv_prefix)
 
 
 def mamba1_decode(p, x, cfg, state, conv_prefix):

@@ -44,6 +44,19 @@ chunk attends over concat(prefix, chunk) through the flash kernel with
 An MLA layer's dense cache is one ``{"lat": [B, S, R + rope]}`` tensor,
 the latent pool's row layout, where the JAX package keeps ``ckv`` and
 ``krope`` apart.
+Under a mesh (``models/sharding.py``) :func:`forward`, :func:`prefill`,
+:func:`init_cache`, :func:`build_cache_from_prefill` and
+:func:`decode_step` run on each rank's cut of the weights
+(``sharding.shard_params``) and its rows of the batch: attention on the
+rank's query heads and the KV heads they read (the flash, decode and
+cache-write kernels at the local head counts), the MLP on its span of
+the FFN width, the MoE FFN on its experts, Mamba-1 on its channels, the
+embedding and the logits on its span of the vocabulary, each followed by
+an ``all_reduce`` over ``model`` (``sharding.row_parallel``,
+``vocab_embed``, ``vocab_logits``); activations between layers are
+replicated.  Attention + MLP or MoE layers and Mamba-1 layers, with or
+without the vision projector, run under a mesh; other families, the
+chunked and paged steps raise there (ROADMAP queue 1 item 16).
 """
 from __future__ import annotations
 
@@ -58,6 +71,7 @@ from repro_torch.kernels.cache_write.ops import (paged_chunk_write,
 from repro_torch.kernels.paged_attention.ops import (paged_attention,
                                                      paged_prefill_attention)
 from repro_torch.models import layers, mamba, mla, moe
+from repro_torch.models import sharding as SH
 from repro_torch.models.layers import rmsnorm
 from repro_torch.params import ParamTree
 
@@ -156,6 +170,18 @@ def init_params(cfg: ModelConfig, gen: torch.Generator,
     return ParamTree(tree, trainable)
 
 
+class _MetaDraws(torch.Generator):
+    """A generator whose draws land on the meta device: shapes and types,
+    no data."""
+    device = torch.device("meta")
+
+
+def param_specs(cfg: ModelConfig, dtype=torch.bfloat16) -> ParamTree:
+    """The param tree's shapes and types, as :func:`init_params` makes
+    them, on the meta device (no memory at any size)."""
+    return init_params(cfg, _MetaDraws(), dtype)
+
+
 # ---------------------------------------------------------------------------
 # encode stage / logits
 # ---------------------------------------------------------------------------
@@ -166,8 +192,8 @@ def _attn_full(p, x, cfg, positions, window, causal=True):
     B, S, _ = x.shape
     q, k, v = _qkv(p, x, cfg, positions)
     o = layers.blockwise_attention(q, k, v, causal=causal, window=window)
-    return o.reshape(B, S, -1) @ p.wo, (k.reshape(B, S, -1),
-                                        v.reshape(B, S, -1))
+    return SH.row_parallel(o.reshape(B, S, -1), p.wo), \
+        (k.reshape(B, S, -1), v.reshape(B, S, -1))
 
 
 def encode_media(cfg, params, media):
@@ -178,7 +204,7 @@ def encode_media(cfg, params, media):
         w1 = params.media_proj_w1
         h = torch.nn.functional.gelu(media.to(w1.dtype) @ w1,
                                      approximate="tanh")
-        return h @ params.media_proj_w2
+        return SH.row_parallel(h, params.media_proj_w2)
     if cfg.frontend == "audio":
         enc = params.encoder
         dtype = params.embed.dtype          # the weights' type
@@ -199,7 +225,7 @@ def encode_media(cfg, params, media):
 def _logits(cfg, params, h):
     h = rmsnorm(h, params.final_norm, cfg.norm_eps)
     w = params.embed.T if cfg.tie_embeddings else params.lm_head
-    return h @ w
+    return SH.vocab_logits(h, w, cfg.vocab_size)
 
 
 # ---------------------------------------------------------------------------
@@ -208,7 +234,7 @@ def _logits(cfg, params, h):
 def _embed(cfg, params, tokens, media_emb, positions):
     """Token embeddings [B, S, d], after the media embeddings when given,
     plus sinusoidal positions for models without RoPE (whisper)."""
-    h = params.embed[tokens.long()]
+    h = SH.vocab_embed(params.embed, tokens, cfg.vocab_size)
     if media_emb is not None:
         h = torch.cat([media_emb.to(h.dtype), h], dim=1)
     if not cfg.rope_theta:
@@ -277,8 +303,11 @@ def forward(cfg: ModelConfig, params, tokens, media=None, frames=None, *,
     recomputes each block in the backward (``torch.utils.checkpoint``,
     non-reentrant), which changes no number.  Takes every layer kind:
     attention or MLA + MLP or MoE, Mamba-1 and Mamba-2 layers and shared
-    attention."""
+    attention.  Under a mesh: the rank's rows of the batch, on its cut of
+    the weights (see the module's docstring); logits and aux loss are the
+    rank's rows of the unsharded ones."""
     check_supported(cfg)
+    SH.check_model(cfg, params, media, frames)
     enc_out = encode_media(cfg, params, frames) if frames is not None \
         else None
     media_emb = encode_media(cfg, params, media) if media is not None \
@@ -338,7 +367,10 @@ def _layer_cache_shape(cfg, kind, i, batch, max_len):
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.float32, device="cpu") -> dict:
-    """Zero dense caches {"layers": [...]} (Mamba states in f32)."""
+    """Zero dense caches {"layers": [...]} (Mamba states in f32); under a
+    mesh this rank's: its KV heads' columns, its Mamba channels."""
+    SH.check_model(cfg)
+    cfg = SH.local_cfg(cfg)
     out = []
     for i, kind in enumerate(cfg.layer_kinds()):
         out.append({name: torch.zeros(
@@ -347,6 +379,37 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
             for name, shape in _layer_cache_shape(cfg, kind, i, batch,
                                                   max_len).items()})
     return {"layers": out}
+
+
+def cache_specs(cfg: ModelConfig, batch: int, max_len: int,
+                dtype=torch.bfloat16) -> dict:
+    """:func:`init_cache`'s shapes and types on the meta device."""
+    return init_cache(cfg, batch, max_len, dtype, device="meta")
+
+
+def cache_pspecs(cfg: ModelConfig, layout: str = "kvdim") -> dict:
+    """Partition specs of the dense cache tree, as the JAX package's
+    ``cache_pspecs``: tuples of mesh axes a dim, ``"dp"`` the data axes.
+    ``"kvdim"`` shards the flattened KV width over ``model`` (the rank's
+    KV heads, the layout the sharded steps run); ``"seq"`` shards the
+    sequence of K, V and latent rows over ``model``, specs only in this
+    slice.  An MLA layer's ``lat`` takes the spec of the JAX package's
+    ``ckv`` and ``krope``."""
+    def leaf_spec(name, ndim):
+        if name in ("k", "v", "xk", "xv", "conv"):
+            if layout == "seq" and name in ("k", "v"):
+                return ("dp", "model", None)
+            return ("dp", None, "model")
+        if name == "lat" and layout == "seq":
+            return ("dp", "model", None)
+        if name == "state":
+            return ("dp", "model") + (None,) * (ndim - 2)
+        return ("dp",) + (None,) * (ndim - 1)
+
+    return {"layers": [
+        {name: leaf_spec(name, len(s)) for name, s in
+         _layer_cache_shape(cfg, kind, i, batch=1, max_len=2).items()}
+        for i, kind in enumerate(cfg.layer_kinds())]}
 
 
 def build_cache_from_prefill(cfg: ModelConfig, prefill_cache, max_len: int):
@@ -390,25 +453,26 @@ def _attn_decode(p, x, cfg, ent, cache_len, window):
     kernel, then decode attention over the cache.  Returns out [B, 1, d];
     the cache is updated in place."""
     B = x.shape[0]
-    Kh, Dh = cfg.num_kv_heads, cfg.head_dim
-    pos = layers.lengths_vector(cache_len, B, x.device)[:, None]
-    q, k, v = _qkv(p, x, cfg, pos)
+    q, k, v = _qkv(p, x, cfg, layers.lengths_vector(cache_len, B,
+                                                    x.device)[:, None])
+    Kh, Dh = k.shape[2], cfg.head_dim       # the rank's KV heads
     ring = bool(window) and ent["k"].shape[1] <= window
     write = layers.ring_write if ring else layers.cache_write
     write(ent["k"], k.reshape(B, 1, Kh * Dh), cache_len)
     write(ent["v"], v.reshape(B, 1, Kh * Dh), cache_len)
     o = layers.decode_attention(q, ent["k"], ent["v"], cache_len,
                                 n_kv_heads=Kh, ring=ring, window=window)
-    return o @ p.wo
+    return SH.row_parallel(o, p.wo)
 
 
 def decode_step(cfg: ModelConfig, params, cache, cache_len, token):
     """One decode step over dense caches (see :func:`init_cache`).  token:
     [B, 1]; cache_len: scalar or [B] tokens already cached.  Returns
     (logits [B, V], cache), the caches written in place (the JAX package
-    returns new ones)."""
+    returns new ones).  Under a mesh: the rank's lanes and caches."""
+    SH.check_model(cfg, params)
     B = token.shape[0]
-    h = _positions(cfg, params.embed[token.long()],
+    h = _positions(cfg, SH.vocab_embed(params.embed, token, cfg.vocab_size),
                    layers.lengths_vector(cache_len, B, token.device)[:, None])
     for i, kind in enumerate(cfg.layer_kinds()):
         p = params.layers[i]
@@ -470,6 +534,7 @@ def prefill_chunk(cfg: ModelConfig, params, tokens, prior, offset, *,
     Returns (last-token logits [B, V], {"layers": the chunk's entries to
     append, new Mamba states, and on the first chunk the cross K/V made
     from ``enc_out``})."""
+    SH.refuse("prefill_chunk")
     if media_emb is not None:
         h = media_emb.to(params.embed.dtype)
         if tokens is not None:
@@ -622,10 +687,10 @@ def _qkv(p, x, cfg, pos):
     """Projected q [B, S, H, Dh] and k/v [B, S, Kh, Dh], rotated when the
     model uses RoPE (whisper adds sinusoidal positions to h instead)."""
     B, S, _ = x.shape
-    H, Kh, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = (x @ p.wq).view(B, S, H, Dh)
-    k = (x @ p.wk).view(B, S, Kh, Dh)
-    v = (x @ p.wv).view(B, S, Kh, Dh)
+    Dh = cfg.head_dim           # head counts from the (rank's) weights
+    q = (x @ p.wq).view(B, S, -1, Dh)
+    k = (x @ p.wk).view(B, S, -1, Dh)
+    v = (x @ p.wv).view(B, S, -1, Dh)
     if cfg.rope_theta:
         q = layers.rope(q, pos, cfg.rope_theta)
         k = layers.rope(k, pos, cfg.rope_theta)
@@ -712,6 +777,7 @@ def decode_step_paged(cfg: ModelConfig, params, data, ctl, state, lens,
     the pools present in ``data``, {"layers": new per-layer state}; cross
     K/V do not change in decode, so their entries come back empty).
     """
+    SH.refuse("decode_step_paged")
     h = _positions(cfg, params.embed[token.long()], lens)
     kv, pool = ctl.get("kv"), data.get("kv")
     lat, lat_pool = ctl.get("mla"), data.get("mla")
@@ -831,6 +897,7 @@ def prefill_chunk_paged(cfg: ModelConfig, params, data, ctl, state, ctx_lens,
     recurrence (``mask``), so each lane's new state is that of its valid
     tokens alone.
     """
+    SH.refuse("prefill_chunk_paged")
     B, C = tokens.shape
     h = params.embed[tokens.long()]
     img = ctl.get("img")

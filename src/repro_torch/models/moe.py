@@ -26,14 +26,26 @@ written back to their pairs and gate-weighted.  Kept pairs have unique
 (expert, slot) indices, so each scatter writes each kept row once,
 whatever the order; only the discarded overflow row and the row of
 empty slots take several writes.
-The shard-map dispatch and the data-sharded dispatch are not ported
-(ROADMAP queue 1 item 16).
+
+Under a mesh (``models/sharding.py``) the experts are cut over ``model``
+(a rank holds a span of them) and the tokens are replicated over it: every
+model rank routes all of its tokens alike and runs only the (token,
+expert) pairs of its own experts, in both paths; the gate-weighted
+outputs are summed in f32 over ``model``.  With data ranks the capacity
+path ranks each pair in its expert's queue over the whole batch, as the
+unsharded model does: the expert ids of every data rank are gathered (by
+``all_reduce``), and the aux loss takes the batch's means.  The JAX
+package's shard-map and data-sharded dispatch switches (layouts for
+GSPMD) have no counterpart: every collective here is explicit.  The
+``all_to_all`` dispatch of its ``moe_ffn_shardmap`` comes with training
+under a mesh (ROADMAP queue 1 item 16).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.models import layers
+from repro_torch.models import sharding as SH
 
 
 def init_moe(gen: torch.Generator, cfg, dtype) -> dict:
@@ -74,8 +86,13 @@ def aux_loss(probs, counts, cfg):
     of the reference: me the mean router probability of each expert, ce
     the share of (token, slot) pairs routed to it (``counts`` [E])."""
     E, k = cfg.num_experts, cfg.experts_per_token
-    me = probs.mean(0)
-    ce = counts.float() / (probs.shape[0] * k)
+    T, n = probs.shape[0], SH.dp_size()
+    if n > 1:               # the whole batch's means, over the data ranks
+        me = SH.reduce_dp(probs.sum(0)) / (T * n)
+        counts, T = SH.reduce_dp(counts.float()), T * n
+    else:
+        me = probs.mean(0)
+    ce = counts.float() / (T * k)
     return E * (me * ce.detach() + me.detach() * ce).sum() * 0.5
 
 
@@ -86,7 +103,8 @@ def capacity(cfg, T: int) -> int:
 
 
 def _shared(p, xt, act):
-    return (act(xt @ p.sh_w_gate) * (xt @ p.sh_w_up)) @ p.sh_w_down
+    return SH.row_parallel(act(xt @ p.sh_w_gate) * (xt @ p.sh_w_up),
+                           p.sh_w_down)
 
 
 def moe_ffn(p, x, cfg, *, lossless: bool = False):
@@ -111,39 +129,72 @@ def moe_ffn(p, x, cfg, *, lossless: bool = False):
     return out.reshape(B, S, d), aux
 
 
+def _combine(y, gates, k):
+    """Each token's k pair outputs y [T * k, d] weighted by their gates
+    and summed; under a mesh, where each model rank holds its experts'
+    pairs (zeros elsewhere), summed in f32 over ``model``."""
+    y = y.view(-1, k, y.shape[-1]) * gates[..., None].to(y.dtype)
+    if SH.axis_size("model") == 1:
+        return y.sum(1)
+    return SH.reduce_model(y.float().sum(1)).to(y.dtype)
+
+
 def _routed(p, xt, gates, flat, counts, cfg, act):
-    """Every routed pair through its expert (the serving path)."""
+    """Every routed pair of the rank's experts through its expert (the
+    serving path)."""
     k, d = cfg.experts_per_token, xt.shape[1]
+    lo, hi = SH.model_span(cfg.num_experts)
+    n = counts.tolist()
     order = torch.argsort(flat, stable=True)     # pairs grouped by expert
-    xs = xt[order // k]                          # each pair's token row
+    first = sum(n[:lo])
+    mine = order[first:first + sum(n[lo:hi])]    # those of experts lo..hi-1
+    xs = xt[mine // k]                           # each pair's token row
     ys = torch.empty_like(xs)
     start = 0
-    for e, n in enumerate(counts.tolist()):
-        if n:
-            xe = xs[start:start + n]
-            h = act(xe @ p.moe_w_gate[e]) * (xe @ p.moe_w_up[e])
-            ys[start:start + n] = h @ p.moe_w_down[e]
-            start += n
-    y = torch.empty_like(ys)
-    y[order] = ys                                # back to (token, slot)
-    return (y.view(-1, k, d) * gates[..., None].to(y.dtype)).sum(1)
+    for e in range(lo, hi):
+        if n[e]:
+            xe = xs[start:start + n[e]]
+            h = act(xe @ p.moe_w_gate[e - lo]) * (xe @ p.moe_w_up[e - lo])
+            ys[start:start + n[e]] = h @ p.moe_w_down[e - lo]
+            start += n[e]
+    y = ys.new_zeros((flat.numel(), d))
+    y[mine] = ys                                 # back to (token, slot)
+    return _combine(y, gates, k)
+
+
+def _queue_pos(flat, counts):
+    """Each pair's place in its expert's queue, in arrival order: its place
+    in the stable sort less the expert's first place."""
+    order = torch.argsort(flat, stable=True)
+    starts = torch.cumsum(counts, 0) - counts
+    ranks = torch.arange(flat.numel(), device=flat.device) \
+        - starts[flat[order]]
+    return torch.empty_like(flat).scatter_(0, order, ranks)
 
 
 def _capacity_dropping(p, xt, gates, flat, counts, cfg, act):
-    """The reference's capacity path, every shape fixed by T."""
+    """The reference's capacity path, every shape fixed by T (the whole
+    batch's T under data ranks); under a mesh, over the rank's experts."""
     T, d = xt.shape
     E, k = cfg.num_experts, cfg.experts_per_token
-    C = capacity(cfg, T)
-    # each pair's rank in its expert: its place in the stable sort less
-    # the expert's first place
-    order = torch.argsort(flat, stable=True)
-    starts = torch.cumsum(counts, 0) - counts
-    ranks = torch.arange(T * k, device=xt.device) - starts[flat[order]]
-    pos = torch.empty_like(flat).scatter_(0, order, ranks)
-    slot = torch.where(pos < C, pos, torch.full_like(pos, C))  # C: overflow
+    n = SH.dp_size()
+    C = capacity(cfg, T * n)
+    if n > 1:       # queue places among the whole batch's pairs, in order
+        every = SH.gather_dp(flat).reshape(-1).long()
+        off = SH.dp_rank() * T * k
+        pos = _queue_pos(every, torch.bincount(every, minlength=E))[
+            off:off + T * k]
+    else:
+        pos = _queue_pos(flat, counts)
+    lo, hi = SH.model_span(E)
+    e = flat - lo                                  # the rank's expert index
+    mine = (e >= 0) & (e < hi - lo)
+    slot = torch.where(mine & (pos < C), pos,
+                       torch.full_like(pos, C))    # C: overflow / elsewhere
+    e = e.clamp(0, hi - lo - 1)
     xrep = xt.repeat_interleave(k, dim=0)                      # [T*k, d]
-    buf = xt.new_zeros((E, C + 1, d)).index_put((flat, slot), xrep)
-    xe = buf[:, :C]                                            # [E, C, d]
+    buf = xt.new_zeros((hi - lo, C + 1, d)).index_put((e, slot), xrep)
+    xe = buf[:, :C]                                   # [E on this rank, C, d]
     h = act(torch.bmm(xe, p.moe_w_gate)) * torch.bmm(xe, p.moe_w_up)
     ye = torch.bmm(h, p.moe_w_down)                            # [E, C, d]
     # combine: each kept slot's output written back to its pair (the pair
@@ -152,9 +203,9 @@ def _capacity_dropping(p, xt, gates, flat, counts, cfg, act):
     # instead; this is the same sum, and its gradient is a gather rather
     # than the scatter-add of an index whose overflow rows repeat
     # thousands of times
-    pair = torch.full((E, C + 1), T * k, dtype=flat.dtype, device=xt.device)
-    pair = pair.index_put((flat, slot), torch.arange(T * k, device=xt.device))
+    pair = torch.full((hi - lo, C + 1), T * k, dtype=flat.dtype,
+                      device=xt.device)
+    pair = pair.index_put((e, slot), torch.arange(T * k, device=xt.device))
     y = ye.new_zeros((T * k + 1, d)).index_put(
-        (pair[:, :C].reshape(-1),), ye.reshape(E * C, d))
-    y = y[:T * k].view(T, k, d)
-    return (y * gates[..., None].to(y.dtype)).sum(1)
+        (pair[:, :C].reshape(-1),), ye.reshape(-1, d))
+    return _combine(y[:T * k], gates, k)

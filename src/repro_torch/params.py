@@ -76,7 +76,10 @@ def params_from_numpy(tree: dict, device="cuda", dtype=None,
     the weights; the leaves in ``F32_LEAVES`` (norm scales, the Mamba
     ``dt_bias``/``A_log``/``D`` and their Mamba-2 counterparts, and the
     MoE router) stay f32, as the JAX package keeps them.  ``trainable``
-    makes every leaf require grad (training); serving keeps them frozen."""
+    makes every leaf require grad (training); serving keeps them frozen.
+    A sharded run takes the full tree this returns and keeps its rank's
+    cut: ``models.sharding.shard_params(params_from_numpy(...), cfg,
+    mesh)``."""
     dev = resolve_device(device)
 
     def conv(x, name=None):
